@@ -1,0 +1,195 @@
+"""Var-major RHS of the dry explicit Held-Suarez step (port of
+``climatemachine_tpu/dg/fast_rhs.py`` ``VarMajorRHS`` :141-682 for a dry
+model without hyperdiffusion and without a fused remainder).
+
+State and aux stay var-major ``[E, nvar, Np]`` throughout.  Per call:
+
+- thermo once: T, p and the sound speed, reused by the volume flux, the
+  face fluxes (faces are nodal subsets, so face thermo is extracted, not
+  recomputed) and the sources;
+- volume: the fused volume-tendency kernel (dg/volume_kernel.py);
+- surface: face bundle by one extraction matmul against the 0/1 lift
+  matrix, neighbour rows by gathers over elements, wall ghosts,
+  Rusanov flux, and one lift matmul;
+- sources: the model's ``contributions_vm`` hooks.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from climatemachine_tpu_torch.atmos.model import AtmosModel
+from climatemachine_tpu_torch.dg import fast_surface
+from climatemachine_tpu_torch.dg.volume_kernel import fused_volume_tendency_vm
+from climatemachine_tpu_torch.physics import thermodynamics as td
+
+
+@dataclass
+class VMContext:
+    """What the var-major source hooks see: ``[E, Np]`` scalars,
+    ``[E, 3, Np]`` vectors; ``aux(name)`` reads var-major aux lanes."""
+    rho: torch.Tensor
+    rhou: torch.Tensor
+    T: torch.Tensor
+    p: torch.Tensor
+    grad_Phi: torch.Tensor
+    coords: torch.Tensor
+    aux: Callable
+
+
+def _check_supported(dg):
+    bl, g = dg.balance_law, dg.grid
+    if not isinstance(bl, AtmosModel):
+        raise ValueError("VarMajorRHS needs an AtmosModel")
+    if bl.physics.hyperdiffusion is not None or dg.remainder is not None:
+        raise NotImplementedError("next slice")
+    if not g.face_perm_identity:
+        raise ValueError("VarMajorRHS needs identity face orientations")
+    for bc in bl.problem.boundary_conditions:
+        if not bc.is_free_slip_wall():
+            raise ValueError("VarMajorRHS implements the impenetrable "
+                             "free-slip, insulating wall only")
+    for src in bl.sources:
+        if not hasattr(src, "contributions_vm"):
+            raise ValueError(f"source {src!r} has no contributions_vm")
+
+
+class VarMajorRHS:
+    """``(qv, auxv, t) -> (dqv, auxv')`` with qv ``[E, 5, Np]`` and auxv
+    ``[E, 13, Np]``.
+
+    ``write_aux``: refresh the aux lanes θ_v and T from the state on every
+    call.  Nothing inside a step reads them, so a time integrator can
+    build the RHS with ``write_aux=False`` and call :meth:`export_aux`
+    when aux leaves the loop.  ``volume`` is the volume-tendency function;
+    it defaults to the kernel wrapper, and chip_smoke.py passes the plain
+    version to hold one step against the kernel's."""
+
+    def __init__(self, dg, write_aux: bool = True,
+                 volume: Callable = fused_volume_tendency_vm):
+        _check_supported(dg)
+        self.bl, self.grid = dg.balance_law, dg.grid
+        self.write_aux = write_aux
+        self.volume = volume
+        g, bl = self.grid, self.bl
+        E, X = g.nelem, g.nface * g.Nfp_max
+        sp = bl.aux_spec
+        self.nq = bl.prog_spec.num
+        self.i_phi = sp.index("orientation.Phi").start
+        self.i_gphi = sp.index("orientation.grad_Phi")
+        self.i_coord = sp.index("coord")
+        self.i_pref = sp.index("ref_state.p").start
+        # var-major geometry, built once
+        self.xiv = g.xi_x.permute(0, 2, 3, 1).reshape(E, 9, g.Np).contiguous()
+        self.nrm = g.normals.permute(0, 3, 1, 2).reshape(E, 3, X).contiguous()
+        self.sM = g.sM.reshape(E, 1, X)
+        self.liftT = g.lift.T.contiguous()
+        self.tab = fast_surface._tables(g)
+
+    def _thermo_update(self, qv, auxv, write_aux: bool):
+        """T, p, c_s and, with ``write_aux``, a copy of aux with the θ_v
+        and T lanes refreshed."""
+        ps = self.bl.param_set
+        rho, ru, rhoe = qv[:, 0], qv[:, 1:4], qv[:, 4]
+        Phi = auxv[:, self.i_phi]
+        e_int = (rhoe - 0.5 * torch.sum(ru * ru, dim=1) / rho) / rho - Phi
+        T = td.air_temperature(ps, e_int)
+        p = td.air_pressure(ps, T, rho)
+        c_s = td.soundspeed_air(ps, T)
+        if write_aux:
+            sp = self.bl.aux_spec
+            auxv = auxv.clone()
+            auxv[:, sp.index("moisture.air_T").start] = T
+            auxv[:, sp.index("moisture.theta_v").start] = \
+                T * (ps.MSLP / p) ** ps.kappa_d
+        return T, p, c_s, auxv
+
+    def export_aux(self, qv, auxv):
+        """Aux with the θ_v and T lanes brought up to date with ``qv``."""
+        return self._thermo_update(qv, auxv, write_aux=True)[3]
+
+    # --- surface -------------------------------------------------------------
+    def _gather_faces(self, Bf):
+        """Neighbour side of the face bundle ``[E, nvb, X]``."""
+        Nfp, tab = self.grid.Nfp_max, self.tab
+        blocks = []
+        for f in range(self.grid.nface):
+            o = int(tab["opp"][f])
+            blk = Bf[:, :, o * Nfp:(o + 1) * Nfp][tab["nbr_e"][f]]
+            for fsrc, rows, src_e in tab["fix"][f]:
+                blk[rows] = Bf[src_e][:, :, fsrc * Nfp:(fsrc + 1) * Nfp]
+            blocks.append(blk)
+        return torch.cat(blocks, dim=2)
+
+    def _surface(self, qv, auxv, p, c_s):
+        """Rusanov surface term −M⁻¹ L (sM · f*), ``[E, nq, Np]``."""
+        g, nq, nrm = self.grid, self.nq, self.nrm
+        E, Np = g.nelem, g.Np
+        X = g.nface * g.Nfp_max
+        # bundle lanes: q (nq), p, c_s, p_ref -> [E, nvb, Np]
+        B = torch.cat([qv, p[:, None], c_s[:, None],
+                       auxv[:, self.i_pref, None]], dim=1)
+        nvb = B.shape[1]
+        Bf = torch.matmul(B.reshape(E * nvb, Np), g.lift).reshape(E, nvb, X)
+        BP = self._gather_faces(Bf)
+
+        # wall ghost: reflect the normal momentum, copy the rest
+        run = (BP[:, 1] * nrm[:, 0] + BP[:, 2] * nrm[:, 1]
+               + BP[:, 3] * nrm[:, 2])
+        ghost = torch.cat(
+            [BP[:, :1]]
+            + [(BP[:, 1 + c] - 2 * run * nrm[:, c])[:, None] for c in range(3)]
+            + [BP[:, 4:]], dim=1)
+        BP = torch.where(self.tab["bnd_lane"][:, None, :], ghost, BP)
+
+        def flux_n(Bs):
+            rho = Bs[:, 0]
+            inv = 1.0 / rho
+            un = (Bs[:, 1] * inv * nrm[:, 0] + Bs[:, 2] * inv * nrm[:, 1]
+                  + Bs[:, 3] * inv * nrm[:, 2])
+            pv = Bs[:, nq]
+            p_eff = pv - Bs[:, nq + 2]
+            Fn = [rho * un]
+            for c in range(3):
+                Fn.append(Bs[:, 1 + c] * un + p_eff * nrm[:, c])
+            Fn.append((Bs[:, 4] + pv) * un)
+            return Fn, torch.abs(un) + Bs[:, nq + 1]
+
+        FnM, cM = flux_n(Bf)
+        FnP, cP = flux_n(BP)
+        c = torch.maximum(cM, cP)
+        fstar = torch.stack([0.5 * (FnM[v] + FnP[v])
+                             - 0.5 * c * (BP[:, v] - Bf[:, v])
+                             for v in range(nq)], dim=1)
+        lifted = torch.matmul((self.sM * fstar).reshape(E * nq, X),
+                              self.liftT).reshape(E, nq, Np)
+        return -(g.MI[:, None, :] * lifted)
+
+    # --- sources -------------------------------------------------------------
+    def _sources(self, qv, auxv, T, p, t):
+        bl = self.bl
+        ctx = VMContext(rho=qv[:, 0], rhou=qv[:, 1:4], T=T, p=p,
+                        grad_Phi=auxv[:, self.i_gphi],
+                        coords=auxv[:, self.i_coord],
+                        aux=lambda name: bl.aux_spec.get(auxv, name))
+        out = torch.zeros_like(qv)
+        for src in bl.sources:
+            for name, val in src.contributions_vm(bl, ctx, t).items():
+                sl = bl.prog_spec.index(name)
+                out[:, sl] += val if val.dim() == 3 else val[:, None]
+        return out
+
+    # --- full RHS ------------------------------------------------------------
+    def __call__(self, qv, auxv, t):
+        g, ps = self.grid, self.bl.param_set
+        T, p, c_s, auxv = self._thermo_update(qv, auxv, self.write_aux)
+        tend = self.volume(qv, p, auxv[:, self.i_phi],
+                           auxv[:, self.i_pref].contiguous(), None, None,
+                           None, self.xiv, g.M, g.MI, g.Wdiv, nq=self.nq,
+                           ngl=1, R_d=ps.R_d, cv_d=ps.cv_d, T_0=ps.T_0,
+                           subtract_ref=True)
+        tend = tend + self._surface(qv, auxv, p, c_s)
+        return tend + self._sources(qv, auxv, T, p, t), auxv

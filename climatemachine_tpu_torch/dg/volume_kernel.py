@@ -1,0 +1,228 @@
+"""Fused var-major volume tendency: a hand-written CUDA kernel for Hopper
+and its plain PyTorch version (port of
+``climatemachine_tpu/dg/pallas_volume.py`` ``fused_volume_tendency_vm``
+:264, body ``_kernel_vm`` :153-256).
+
+    out[e, v, :] = MI · Wdiv · concat_a(M · Σ_i ξ[a, i] · F_i[v])
+
+F is the Euler flux from the state and the precomputed pressure (with
+the reference pressure taken out of the momentum flux), optionally plus
+the hyperdiffusive flux F₂ and minus the linear acoustic(-gravity) flux
+on ``lin_dims``.
+
+Dispatch is by device: a CPU tensor takes :func:`volume_tendency_plain`;
+any other tensor takes the kernel (csrc/volume_vm.cu) or raises.  The
+kernel covers what the dry Held-Suarez step runs: float32, ``nq=5``,
+``subtract_ref=True``, no F₂, no linear flux.  The plain version covers
+the whole signature.
+
+The kernel is compiled with nvcc for ``sm_90a`` into a shared library
+with a plain C interface at first use (into ``_build/`` of the package,
+named by the source's hash) and called through ctypes on PyTorch's
+current stream.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+SOURCE = PACKAGE_DIR / "csrc" / "volume_vm.cu"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+MAX_NP = 256          # one thread per node, at most 256 threads a block
+
+
+def volume_tendency_plain(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
+                          Wdiv, nq: int, ngl: int, R_d: float, cv_d: float,
+                          T_0: float, subtract_ref: bool = True,
+                          has_f2: bool = False, lin_dims: tuple = (),
+                          lin_gravity: bool = True):
+    """Plain PyTorch version, same arguments and arithmetic order as the
+    JAX kernel body.  ``ref3`` is read only with ``lin_dims``, ``gl2``
+    and ``nu`` only with ``has_f2``."""
+    E, _, Np = qv.shape
+    rho = qv[:, 0]
+    ru = (qv[:, 1], qv[:, 2], qv[:, 3])
+    rhoe = qv[:, 4]
+    inv_rho = 1.0 / rho
+    u = (ru[0] * inv_rho, ru[1] * inv_rho, ru[2] * inv_rho)
+    p_eff = p - p_ref if subtract_ref else p
+    h = rhoe + p
+
+    def F(i, v):
+        if v == 0:
+            return ru[i]
+        if v in (1, 2, 3):
+            f = ru[v - 1] * u[i]
+            return f + p_eff if v - 1 == i else f
+        if v == 4:
+            return h * u[i]
+        return qv[:, v] * u[i]                   # advected scalars
+
+    def F2(i, v):
+        """Hyperdiffusive flux from gl2 = ∇Δ(u_h, h_tot[, q_tot])."""
+        nu4 = nu[:, 0]
+        rnu = rho * nu4
+        g = lambda j: gl2[:, i * ngl + j]
+        if v in (1, 2, 3):
+            return rnu * g(v - 1)
+        if v == 4:
+            return nu4 * (ru[0] * g(0) + ru[1] * g(1)
+                          + ru[2] * g(2)) + rnu * g(3)
+        if v == 5 and ngl >= 5:
+            return rho * nu[:, 1] * g(4)
+        return None
+
+    def Flin(i, v):
+        """Linear acoustic(-gravity) flux."""
+        pL = rho * R_d * T_0 + (R_d / cv_d) * (rhoe - rho * phi)
+        if v == 0:
+            return ru[i]
+        if v in (1, 2, 3):
+            return pL if v - 1 == i else None
+        if v == 4:
+            coeff = (ref3[:, 0] + ref3[:, 2]) / ref3[:, 1]
+            if not lin_gravity:
+                coeff = coeff - phi
+            return coeff * ru[i]
+        return None
+
+    parts = []
+    for v in range(nq):
+        for a in range(3):
+            acc = xiv[:, 3 * a] * F(0, v)
+            acc = acc + xiv[:, 3 * a + 1] * F(1, v)
+            acc = acc + xiv[:, 3 * a + 2] * F(2, v)
+            if a in lin_dims:
+                for i in range(3):
+                    if not (v in (1, 2, 3) and i != v - 1):
+                        fl = Flin(i, v)
+                        if fl is not None:
+                            acc = acc - xiv[:, 3 * a + i] * fl
+            if has_f2:
+                for i in range(3):
+                    f2 = F2(i, v)
+                    if f2 is not None:
+                        acc = acc + xiv[:, 3 * a + i] * f2
+            parts.append(M * acc)
+    mf = torch.stack(parts, dim=1).reshape(E, nq, 3 * Np)
+    return MI[:, None, :] * torch.matmul(mf, Wdiv.T)
+
+
+def _nvcc() -> str:
+    return shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
+def build() -> dict:
+    """Compile csrc/volume_vm.cu unless the library for this source is
+    already built.  Returns ``{"path", "built", "seconds", "log"}``; the
+    log holds ptxas's register and shared-memory report."""
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
+    lib = BUILD_DIR / f"libvolume_vm_{digest}.so"
+    if lib.exists():
+        return {"path": str(lib), "built": False, "seconds": 0.0, "log": ""}
+    nvcc = _nvcc()
+    if not os.path.isfile(nvcc):
+        raise RuntimeError(f"nvcc not found on PATH or at {nvcc}: the CUDA "
+                           "kernels build where the CUDA toolkit is")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{lib.stem}.{os.getpid()}.so"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}): "
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    os.replace(tmp, lib)
+    return {"path": str(lib), "built": True, "seconds": seconds,
+            "log": res.stdout + res.stderr}
+
+
+@functools.cache
+def _library():
+    lib = ctypes.CDLL(build()["path"])
+    lib.volume_vm_f32.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.volume_vm_f32.restype = ctypes.c_int
+    lib.volume_vm_error_string.argtypes = [ctypes.c_int]
+    lib.volume_vm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_kernel_args(qv, p, p_ref, xiv, M, MI, Wdiv, nq, subtract_ref,
+                       has_f2, lin_dims):
+    if nq != 5 or has_f2 or tuple(lin_dims) or not subtract_ref:
+        raise NotImplementedError(
+            "the CUDA volume kernel covers nq=5, subtract_ref=True, "
+            f"has_f2=False, lin_dims=() (got nq={nq}, subtract_ref="
+            f"{subtract_ref}, has_f2={has_f2}, lin_dims={lin_dims})")
+    if qv.device.type != "cuda":
+        raise ValueError(f"the volume kernel runs on CUDA tensors, got "
+                         f"{qv.device}")
+    E, _, Np = qv.shape
+    if not 0 < Np <= MAX_NP:
+        raise ValueError(f"the volume kernel takes Np <= {MAX_NP}, got {Np}")
+    shapes = {"qv": (qv, (E, 5, Np)), "p": (p, (E, Np)),
+              "p_ref": (p_ref, (E, Np)), "xiv": (xiv, (E, 9, Np)),
+              "M": (M, (E, Np)), "MI": (MI, (E, Np)),
+              "Wdiv": (Wdiv, (Np, 3 * Np))}
+    for name, (t, shape) in shapes.items():
+        if t.device != qv.device or t.dtype != torch.float32 \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: need a contiguous float32 {shape} tensor on "
+                f"{qv.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def fused_volume_tendency_vm(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
+                             Wdiv, nq: int, ngl: int, R_d: float,
+                             cv_d: float, T_0: float,
+                             subtract_ref: bool = True,
+                             has_f2: bool = False, lin_dims: tuple = (),
+                             lin_gravity: bool = True):
+    """Var-major volume tendency ``[E, nq, Np]``: qv ``[E, nq, Np]``,
+    p/phi/p_ref/M/MI ``[E, Np]``, ref3 ``[E, 3, Np]`` (ref ρe, ρ, p),
+    gl2 ``[E, 3·ngl, Np]`` with nu ``[E, 2, Np]`` (ν₄, ν₄_q), xiv
+    ``[E, 9, Np]`` (ξ_a,ᵢ at 3a+i), Wdiv ``[Np, 3Np]``.
+
+    CPU tensors take the plain version; otherwise the CUDA kernel runs
+    and ``fused_volume_tendency_vm.launches`` counts it."""
+    if qv.device.type == "cpu":
+        return volume_tendency_plain(
+            qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI, Wdiv, nq=nq,
+            ngl=ngl, R_d=R_d, cv_d=cv_d, T_0=T_0, subtract_ref=subtract_ref,
+            has_f2=has_f2, lin_dims=lin_dims, lin_gravity=lin_gravity)
+    _check_kernel_args(qv, p, p_ref, xiv, M, MI, Wdiv, nq, subtract_ref,
+                       has_f2, lin_dims)
+    E, _, Np = qv.shape
+    lib = _library()
+    out = torch.empty_like(qv)
+    kp = (3 * Np + 3) // 4 * 4
+    wt = torch.empty((kp, Np), dtype=torch.float32, device=qv.device)
+    with torch.cuda.device(qv.device):
+        stream = torch.cuda.current_stream(qv.device).cuda_stream
+        code = lib.volume_vm_f32(
+            qv.data_ptr(), p.data_ptr(), p_ref.data_ptr(), xiv.data_ptr(),
+            M.data_ptr(), MI.data_ptr(), Wdiv.data_ptr(), wt.data_ptr(),
+            out.data_ptr(), E, Np, stream)
+    if code != 0:
+        raise RuntimeError("volume_vm kernel launch failed: "
+                           + lib.volume_vm_error_string(code).decode())
+    fused_volume_tendency_vm.launches += 1
+    return out
+
+
+fused_volume_tendency_vm.launches = 0

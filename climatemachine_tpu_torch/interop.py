@@ -1,0 +1,48 @@
+"""Carry grids and state over from numpy arrays, so one geometry and one
+state can be fed to this package and to another implementation of it.
+
+``grid_from_numpy`` takes the arrays of a node-major grid (the
+``climatemachine_tpu`` ``Grid`` fields, as numpy); ``state_from_numpy``
+turns node-major ``[E, Np, n]`` state and aux into var-major tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from climatemachine_tpu_torch.device import resolve_device
+from climatemachine_tpu_torch.mesh.grid import Grid
+
+#: grid fields uploaded in the run dtype
+FLOAT_FIELDS = ("coords", "M", "MI", "J", "xi_x", "normals", "sM", "lift",
+                "Wdiv")
+#: grid fields uploaded as int64
+INDEX_FIELDS = ("face_bctag", "face_nbr_row")
+
+
+def grid_from_numpy(fields: dict, device=None,
+                    dtype: torch.dtype = torch.float32) -> Grid:
+    """A :class:`Grid` from a dict holding the arrays named in
+    ``FLOAT_FIELDS`` and ``INDEX_FIELDS``, the 1-D node tuple ``xi`` and
+    ``face_perm_identity``."""
+    device = resolve_device(device)
+    up = {k: torch.tensor(np.asarray(fields[k]), dtype=dtype, device=device)
+          for k in FLOAT_FIELDS}
+    up.update({k: torch.tensor(np.asarray(fields[k]), dtype=torch.int64,
+                               device=device) for k in INDEX_FIELDS})
+    xi = tuple(np.asarray(x, dtype=np.float64) for x in fields["xi"])
+    Nq = tuple(len(x) for x in xi)
+    Nfp = (Nq[1] * Nq[2],) * 2 + (Nq[0] * Nq[2],) * 2 + (Nq[0] * Nq[1],) * 2
+    return Grid(Nq=Nq, Np=int(np.prod(Nq)), Nfp=Nfp,
+                Nfp_max=max(Nfp), xi=xi,
+                face_perm_identity=bool(fields["face_perm_identity"]), **up)
+
+
+def state_from_numpy(q, aux, device=None, dtype=None):
+    """Node-major ``[E, Np, n]`` q and aux → var-major ``[E, n, Np]``
+    contiguous tensors; ``dtype=None`` keeps the arrays' dtype."""
+    device = resolve_device(device)
+    conv = lambda a: torch.tensor(np.asarray(a), dtype=dtype,
+                                  device=device).transpose(1, 2).contiguous()
+    return conv(q), conv(aux)

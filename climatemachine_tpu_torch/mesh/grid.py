@@ -1,0 +1,148 @@
+"""Discontinuous spectral-element grid on the device (port of
+``climatemachine_tpu/mesh/grid.py``: make_grid :144, min_node_distance
+:333).
+
+The geometry is built once in numpy float64 on the host and uploaded in
+the run dtype, as the JAX package does.  The grid carries what the
+var-major explicit step reads: nodal coordinates, metrics, mass, face
+normals and weights, the 0/1 lift matrix, the fused weak-divergence
+operator ``Wdiv`` and the face-row neighbour tables.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import ClassVar, Tuple
+
+import numpy as np
+import torch
+
+from climatemachine_tpu_torch.device import resolve_device
+from climatemachine_tpu_torch.mesh import elements, metrics
+from climatemachine_tpu_torch.mesh.topology import Topology
+
+
+def _fmask(Nq: Tuple[int, ...]):
+    """Per-face volume-node indices in tangential order (first tangent
+    fastest), node n = i + Nq1*(j + Nq2*k)."""
+    ids = np.arange(np.prod(Nq)).reshape(Nq[2], Nq[1], Nq[0])   # [k, j, i]
+    faces = [ids[:, :, 0], ids[:, :, -1], ids[:, 0, :], ids[:, -1, :],
+             ids[0, :, :], ids[-1, :, :]]
+    return [np.ascontiguousarray(f.reshape(-1)) for f in faces]
+
+
+def _apply_orient_quad(code: int, Na: int, Nb: int):
+    """My face node p → the neighbour's face node for orientation
+    ``code`` (bit0 flip-a, bit1 flip-b, bit2 swap-ab)."""
+    ta, tb = np.meshgrid(np.arange(Na), np.arange(Nb), indexing="xy")
+    ta, tb = ta.reshape(-1), tb.reshape(-1)
+    if code & 4:
+        u, v, Nap, Nbp = tb, ta, Nb, Na
+    else:
+        u, v, Nap, Nbp = ta, tb, Na, Nb
+    ap = (Nap - 1 - u) if code & 1 else u
+    bp = (Nbp - 1 - v) if code & 2 else v
+    return ap + Nap * bp
+
+
+@dataclass
+class Grid:
+    """Static per-grid data: device tensors plus host metadata."""
+    Nq: Tuple[int, ...]            # nodes per reference dim
+    Np: int
+    Nfp: Tuple[int, ...]           # face nodes per face
+    Nfp_max: int
+    xi: Tuple[np.ndarray, ...]     # host: 1-D LGL nodes in [-1, 1]
+    coords: torch.Tensor           # [E, Np, 3]
+    M: torch.Tensor                # [E, Np]  w⊗J
+    MI: torch.Tensor               # [E, Np]
+    J: torch.Tensor                # [E, Np]
+    xi_x: torch.Tensor             # [E, Np, 3, 3]  d xi_a / d x_i at [a, i]
+    normals: torch.Tensor          # [E, 6, Nfp_max, 3]
+    sM: torch.Tensor               # [E, 6, Nfp_max]
+    face_bctag: torch.Tensor       # [E, 6] int64, 0 = interior
+    lift: torch.Tensor             # [Np, 6*Nfp_max] 0/1
+    face_nbr_row: torch.Tensor     # [E, 6] int64 = neighbour e * 6 + face
+    face_perm_identity: bool       # every face orientation is identity
+    Wdiv: torch.Tensor             # [Np, 3*Np]  Σ_a D_aᵀ-Kronecker
+    dim: ClassVar[int] = 3
+    nface: ClassVar[int] = 6
+
+    @property
+    def nelem(self) -> int:
+        return self.coords.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.coords.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.coords.device
+
+
+def make_grid(topology: Topology, polyorder: int,
+              dtype: torch.dtype = torch.float32, device=None) -> Grid:
+    """Build a :class:`Grid` of polynomial order ``polyorder`` on a 3-D
+    topology; ``device=None`` means CUDA."""
+    device = resolve_device(device)
+    xi, w, D = [], [], []
+    for _ in range(3):
+        x_d, w_d = elements.lgl_points(polyorder)
+        xi.append(x_d)
+        w.append(w_d)
+        D.append(elements.derivative_matrix(x_d))
+    Nq = (polyorder + 1,) * 3
+    Np = int(np.prod(Nq))
+
+    coords = metrics.nodal_coordinates(topology.elem_to_coord, xi, 3)
+    x1, x2, x3 = topology.meshwarp(coords[..., 0], coords[..., 1],
+                                   coords[..., 2])
+    geo = metrics.geometry_3d(np.stack([x1, x2, x3], axis=-1), D, w)
+
+    Nfp = geo["Nfp"]
+    Nfp_max = max(Nfp)
+    nface = 6
+    fmask = _fmask(Nq)
+    lift = np.zeros((Np, nface * Nfp_max))
+    for f in range(nface):
+        lift[fmask[f], f * Nfp_max + np.arange(Nfp[f])] = 1.0
+
+    face_nbr_row = topology.face_neighbor * nface + topology.face_neighbor_face
+    perm_identity = True
+    for f in range(nface):
+        Na, Nb = (Nq[t] for t in range(3) if t != f // 2)
+        for code in np.unique(topology.face_orient[:, f]):
+            pmap = _apply_orient_quad(int(code), Na, Nb)
+            perm_identity &= bool((pmap == np.arange(Nfp[f])).all())
+
+    def kron_op(a):                         # D_aᵀ on axis a, k slowest
+        out = np.ones((1, 1))
+        for d in range(2, -1, -1):
+            out = np.kron(out, D[a].T if d == a else np.eye(Nq[d]))
+        return out
+    Wdiv = np.concatenate([kron_op(a) for a in range(3)], axis=1)
+
+    dev = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    idx = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64,
+                                    device=device)
+    return Grid(
+        Nq=Nq, Np=Np, Nfp=tuple(Nfp), Nfp_max=Nfp_max,
+        xi=tuple(xi), coords=dev(geo["coords"]), M=dev(geo["M"]),
+        MI=dev(geo["MI"]), J=dev(geo["J"]), xi_x=dev(geo["xi_x"]),
+        normals=dev(geo["normals"]), sM=dev(geo["sM"]),
+        face_bctag=idx(topology.face_bctag), lift=dev(lift),
+        face_nbr_row=idx(face_nbr_row), face_perm_identity=perm_identity,
+        Wdiv=dev(Wdiv))
+
+
+def min_node_distance(grid: Grid) -> float:
+    """Minimum distance between adjacent nodes along every reference
+    direction, from the run-dtype coordinates (for CFL dt estimates)."""
+    coords = grid.coords.detach().cpu().numpy().astype(np.float64)
+    c = coords.reshape((coords.shape[0],) + tuple(grid.Nq[::-1]) + (3,))
+    md = np.inf
+    for d in range(3):
+        diff = np.diff(c, axis=3 - d)
+        md = min(md, np.sqrt(np.sum(diff ** 2, axis=-1)).min())
+    return float(md)

@@ -1,0 +1,139 @@
+"""Where the explicit Held-Suarez step spends its time on the card.
+
+    python -m climatemachine_tpu_torch.profile_step [--steps N] [--out DIR]
+
+Builds the ``chip_smoke.py`` main path (dry Held-Suarez p4, n_horz=16,
+n_vert=8, float32, LSRK54 with the every-step filter), warms up, times
+``--steps`` steps with tracing off, then traces the same number of steps
+with ``torch.profiler``.  The RHS's parts are wrapped in
+``record_function`` spans from here, around the calls into each layer,
+so the program itself carries no instrumentation.
+
+Prints one JSON line: ms/step untraced and traced, the card's busy time
+(union of kernel intervals) and idle share of the traced window, kernels
+launched per step, per span its host time and the length of its range
+on the device timeline, and the kernels with the most device time.  Writes the
+Chrome trace to ``DIR/profile_step_trace.json`` (default profile_out/).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
+from climatemachine_tpu_torch.dg.spatial import DGModel, init_ode_state
+from climatemachine_tpu_torch.experiments.held_suarez import (
+    HeldSuarezStepFilter, held_suarez_config)
+from climatemachine_tpu_torch.mesh.grid import min_node_distance
+from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
+
+SPANS = ("thermo", "volume", "surface", "sources", "filter")
+
+
+def _span(name, fn):
+    def wrapped(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--out", default="profile_out")
+    args = ap.parse_args(argv)
+    power = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+    cfg = held_suarez_config(16, 8, 4, dtype=torch.float32,
+                             hyperdiffusion_tau=None, device="cuda")
+    dg = DGModel(cfg.model, cfg.grid)
+    q, aux = init_ode_state(dg)
+    rhs = VarMajorRHS(dg, write_aux=False)
+    hsf = HeldSuarezStepFilter(cfg.grid, cfg.model)
+    rhs._thermo_update = _span("thermo", rhs._thermo_update)
+    rhs.volume = _span("volume", rhs.volume)
+    rhs._surface = _span("surface", rhs._surface)
+    rhs._sources = _span("sources", rhs._sources)
+    dt = 0.3 * min_node_distance(cfg.grid) / 350.0
+    solver = LSRK54CarpenterKennedy(rhs, dt,
+                                    post_step=_span("filter", hsf.apply_vm))
+
+    def run(n, q, aux):
+        for i in range(n):
+            q, aux = solver.step(q, aux, i * dt)
+        torch.cuda.synchronize()
+        return q, aux
+
+    q, aux = run(3, q, aux)
+    t0 = time.perf_counter()
+    q, aux = run(args.steps, q, aux)
+    untraced = (time.perf_counter() - t0) / args.steps
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        q, aux = run(args.steps, q, aux)
+        traced = (time.perf_counter() - t0) / args.steps
+    assert torch.isfinite(q).all()
+
+    # device-side events are kernels, memcpys and the device ranges of
+    # the record_function spans; the spans are counted apart
+    events = prof.events()
+    on_dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in on_dev if e.name not in SPANS]
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((k.time_range.start, k.time_range.end)
+                       for k in kernels):
+        if cur_e is not None and s <= cur_e:
+            cur_e = max(cur_e, e)
+            continue
+        busy += 0.0 if cur_e is None else cur_e - cur_s
+        cur_s, cur_e = s, e
+    busy += 0.0 if cur_e is None else cur_e - cur_s
+    window_us = traced * args.steps * 1e6
+
+    def per_step(evs):
+        return {"calls_per_step": len(evs) / args.steps,
+                "ms_per_step": sum(e.time_range.end - e.time_range.start
+                                   for e in evs) / 1e3 / args.steps}
+
+    spans = {name: {"host": per_step([e for e in events if e.name == name
+                                      and e.device_type == DeviceType.CPU]),
+                    "device_range": per_step([e for e in on_dev
+                                              if e.name == name])}
+             for name in SPANS}
+    by_kernel = defaultdict(list)
+    for e in kernels:
+        by_kernel[e.name].append(e)
+    top = sorted(((name, per_step(evs)) for name, evs in by_kernel.items()),
+                 key=lambda kv: -kv[1]["ms_per_step"])[:12]
+
+    os.makedirs(args.out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(args.out,
+                                          "profile_step_trace.json"))
+    print(json.dumps({
+        "card": power, "steps": args.steps,
+        "ms_per_step_untraced": 1e3 * untraced,
+        "ms_per_step_traced": 1e3 * traced,
+        "device_busy_ms_per_step": busy / 1e3 / args.steps,
+        "device_idle_share": 1.0 - busy / window_us,
+        "kernels_per_step": len(kernels) / args.steps,
+        "spans": spans,
+        "top_kernels": [{"name": name[:80], **t} for name, t in top]}),
+        flush=True)
+
+
+if __name__ == "__main__":
+    main()
