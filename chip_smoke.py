@@ -2,34 +2,44 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the CUDA kernels from csrc/, holds each against its plain PyTorch
-version at the shapes the main path gives it, then drives the main path
-through its public entry points: dry Held-Suarez p4 on a stacked cubed
+Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel),
+holds each kernel against its plain PyTorch version on the main path's
+own inputs, then drives the main path through its public entry points:
+Held-Suarez p4 with DryBiharmonic(8 h) hyperdiffusion on a stacked cubed
 sphere at n_horz=16, n_vert=8 (12,288 elements, 1.536 M nodes), float32,
-LSRK54 with the every-step exponential filter.  One JSON line per phase;
-then the card's name and power limit as nvidia-smi reports them, a
+LSRK54 with the every-step exponential filter; then, at fewer steps, the
+same step with hyperdiffusion off.  One JSON line per phase; then the
+card's name and power limit as nvidia-smi reports them, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without the last line.  Without a
 CUDA device it exits 1 at once.
 
 Tolerances:
-- kernel vs plain, same inputs: max|Δ| <= 1e-5 · max|plain| — float32
-  sums of 375 products in another order (the float32 precedent of
-  tests/test_pallas_volume.py);
-- one LSRK54 step with the kernel vs one with the plain version, from
+- kernel vs plain, same inputs (the chain intermediates and the volume
+  inputs of a perturbed initial state): per output, max|Δ| <= 1e-5 ·
+  max|plain| — the kernels round as the plain versions do and sum their
+  products in a GEMM's order; float32 round-off alone reaches 7.3e-6 of
+  max|plain| in the first derivative of h_tot and 1.0e-5 in the volume
+  tendency's ρe with F₂ (f32 against f64 on the CPU at n_horz=2, p4), so
+  a different summation order would show at about this bound;
+- the whole kernel chain vs the per-pass plain chain (dg/ldg_varmajor.py):
+  max|Δ| <= 1e-4 · max|plain| — 14× the 7.1e-6 of float32 against
+  float64 for the whole chain on the CPU at n_horz=2, p4, since the two
+  chains order their sums differently;
+- one LSRK54 step with the kernels vs one with the plain versions, from
   the same state: per variable, max|Δq| <= 1e-3 · max|q1 − q0|
-  + 4 · eps32 · max|q1| — the step's increment carries the kernel's
-  1e-5, and where the two increments differ in their last bits the
+  + 4 · eps32 · max|q1| — the step's increment carries the kernels'
+  round-off, and where the two increments differ in their last bits the
   float32 updates q + dt·dq round a few ulp apart;
-- three steps of a small grid (n_horz=2, n_vert=2, p4) in float32 on the
-  card vs float64 on the CPU (the plain path the CPU tests hold against
-  the JAX package) from the same float32 geometry and state: per
-  variable, max|Δq| <= 1e-4 · max|q| — float32 round-off of the
-  cancellations p − p_ref and ρe/ρ − Φ, amplified by the spectral
-  derivative (1.1e-5 for ρu in float32 on a CPU);
+- three steps of a small grid (n_horz=2, n_vert=2, p4, hyperdiffusion on)
+  in float32 on the card vs float64 on the CPU (the plain path the CPU
+  tests hold against the JAX package) from the same float32 geometry and
+  state: per variable, max|Δq| <= 1e-4 · max|q| — 10× the 9.7e-6 (ρu)
+  that the same comparison gives in float32 on the CPU: round-off of the
+  cancellations p − p_ref, ρe/ρ − Φ and the derivative of h_tot;
 - mass Σ M ρ, summed in float64: relative drift <= 1e-5 over the run
-  (float32 round-off; the filter keeps each element's mode 0 but is not
-  exactly conservative on curved elements).
+  (float32 round-off; F₂ carries no mass flux, and the filter keeps each
+  element's mode 0 but is not exactly conservative on curved elements).
 """
 
 from __future__ import annotations
@@ -42,25 +52,37 @@ import time
 
 import torch
 
-from climatemachine_tpu_torch import resolve_device
-from climatemachine_tpu_torch.dg import volume_kernel
+from climatemachine_tpu_torch import cuda_build, resolve_device
+from climatemachine_tpu_torch.dg import ldg_kernel, ldg_varmajor, volume_kernel
 from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
 from climatemachine_tpu_torch.dg.spatial import DGModel, init_ode_state
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
-from climatemachine_tpu_torch.interop import (FLOAT_FIELDS, INDEX_FIELDS,
-                                              grid_from_numpy)
+from climatemachine_tpu_torch.interop import grid_from_numpy, grid_to_numpy
 from climatemachine_tpu_torch.mesh.grid import min_node_distance
 from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
 
 N_HORZ, N_VERT, POLY = 16, 8, 4
-N_WARM, N_STEPS = 3, 20
+N_WARM, N_STEPS = 3, 20            # the main path, hyperdiffusion on
+N_WARM_OFF, N_STEPS_OFF = 1, 4     # hyperdiffusion off
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 KERNEL_TOL = 1e-5
+CHAIN_TOL = 1e-4
 STEP_TOL = 1e-3
 SMALL_TOL = 1e-4
 MASS_TOL = 1e-5
+SOURCES = ("volume_vm", "ldg_chain")
+CHAIN = ("ldg_first", "ldg_grad_to_div", "ldg_div_to_grad", "ldg_last")
+#: kernel name -> (wrapper, plain version, source, TPU kernel it replaces)
+KERNELS = {
+    "fused_volume_tendency_vm": (
+        volume_kernel.fused_volume_tendency_vm,
+        volume_kernel.volume_tendency_plain, "volume_vm.cu",
+        "climatemachine_tpu/dg/pallas_volume.py:264"),
+    **{name: (getattr(ldg_kernel, name), getattr(ldg_kernel, name + "_plain"),
+              "ldg_chain.cu", f"climatemachine_tpu/dg/pallas_ldg.py:{line}")
+       for name, line in zip(CHAIN, (197, 214, 232, 249))}}
 
 
 def emit(phase: str, **fields):
@@ -95,13 +117,44 @@ def cuda_ms(fn, n: int, warm: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
-def volume_cost(E: int, Np: int):
-    """(bytes, flops) the fused volume tendency needs: each input read
-    once, the output written once; per node 2·5·3Np for the contraction,
-    111 for flux, metric and mass, 5 for the MI scaling."""
-    nbytes = 4 * (E * Np * (5 + 1 + 1 + 9 + 1 + 1 + 5) + Np * 3 * Np)
-    flops = E * Np * (2 * 5 * 3 * Np + 111 + 5)
-    return nbytes, flops
+def launch_counts() -> dict:
+    return {name: k[0].launches for name, k in KERNELS.items()}
+
+
+def reset_launch_counts():
+    for wrapper, *_ in KERNELS.values():
+        wrapper.launches = 0
+
+
+def costs(name: str, E: int, Np: int, n: int, nd: int, F: int):
+    """(bytes, flops) of one call: each input read once, each output
+    written once (float32; the int32 face tables and the operator
+    matrices once); derivative products counted dense, the 0/1 face
+    selection and lift as data movement.  Per node, the volume tendency
+    does 2·5·3Np for the contraction, 111 for flux, metric and mass, 106
+    for F₂ and 5 for the MI scaling."""
+    R, X = 3 * n, nd * 3
+    deriv = lambda rows: 2 * E * rows * nd * Np * Np
+    wd, sel, lift = 4 * nd * Np * Np, 4 * F, 4 * 2 * Np
+    if name == "fused_volume_tendency_vm":
+        nbytes = 4 * (E * Np * (5 + 1 + 1 + 9 + 1 + 1 + 12 + 2 + 5)
+                      + Np * 3 * Np)
+        return nbytes, E * Np * (2 * 5 * 3 * Np + 111 + 106 + 5)
+    if name == "ldg_first":
+        nbytes = 4 * E * (n * Np + X * Np + R * Np + n * F) + wd + sel
+        return nbytes, deriv(n) + E * R * Np * (2 * nd - 1)
+    if name == "ldg_grad_to_div":
+        nbytes = 4 * E * (R * Np + n * F + 6 * F + Np + X * Np + n * Np
+                          + n * F) + wd + sel + lift
+        return nbytes, (deriv(R) + E * R * (F + 2 * Np)
+                        + E * n * Np * 2 * X + E * n * F * 5)
+    if name == "ldg_div_to_grad":
+        nbytes = 4 * E * (n * Np + n * F + F + Np + X * Np + R * Np
+                          + n * F) + wd + sel + lift
+        return nbytes, (deriv(n) + E * n * (F + 2 * Np)
+                        + E * R * Np * (2 * nd - 1))
+    nbytes = 4 * E * (R * Np + n * F + 3 * F + Np + R * Np) + lift
+    return nbytes, E * R * (F + 2 * Np)
 
 
 def phase_device():
@@ -117,77 +170,127 @@ def phase_device():
 
 
 def phase_build():
-    info = volume_kernel.build()
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", kernel="volume_vm", built=info["built"],
-         seconds=info["seconds"], ptxas=ptxas)
+    t0 = time.perf_counter()
+    built = cuda_build.build(*SOURCES)
+    wall = time.perf_counter() - t0
+    for name, info in built.items():
+        ptxas = [ln.strip() for ln in info["log"].splitlines()
+                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
+        emit("build", library=name, built=info["built"],
+             seconds=info["seconds"], parallel_wall_s=wall, ptxas=ptxas)
 
 
-def kernel_inputs(rhs, seed: int):
-    """Physically scaled random state on the main path's geometry:
-    ρ ≈ 1, |u| <= 50 m/s, p ≈ 1e5 Pa, p_ref within 0.1 % of p."""
+def chain_inputs(rhs, q, aux):
+    """Each kernel's inputs on the main path from state (q, aux), the
+    chain's stages run in their plain versions: {kernel name: args}, and
+    the chain input."""
+    ops, g = rhs.chain, rhs.grid
+    _, p, _, _ = rhs._thermo_update(q, aux, False)
+    glv = rhs.chain_input(q, aux, p)
+    vol1, rows1 = ldg_kernel.ldg_first_plain(glv, ops.xi, ops.Wd, ops.fo)
+    args2 = (vol1, ldg_kernel.face_jump(rows1, ops), ops.w3, ops.nrm,
+             ops.MI, ops.xi, ops.Wd, ops.fo)
+    div, s = ldg_kernel.ldg_grad_to_div_plain(*args2)
+    args3 = (div, ldg_kernel.face_jump(s, ops, signed=True), ops.sM, ops.MI,
+             ops.xi, ops.Wd, ops.fo)
+    vol3, rows3 = ldg_kernel.ldg_div_to_grad_plain(*args3)
+    args4 = (vol3, ldg_kernel.face_jump(rows3, ops), ops.w3, ops.MI, ops.fo)
+    gl2 = ldg_kernel.ldg_last_plain(*args4).reshape(g.nelem, 12, g.Np)
+    volume_args = (q, p, aux[:, rhs.i_phi], aux[:, rhs.i_pref].contiguous(),
+                   None, gl2, rhs.hyper_coefficients(aux), rhs.xiv, g.M,
+                   g.MI, g.Wdiv)
+    return glv, {"fused_volume_tendency_vm": volume_args,
+                 "ldg_first": (glv, ops.xi, ops.Wd, ops.fo),
+                 "ldg_grad_to_div": args2, "ldg_div_to_grad": args3,
+                 "ldg_last": args4}
+
+
+def yardstick(name, args, rhs):
+    """A bare float32 torch.matmul of the kernel's largest product (not
+    the same function): the derivative rows against all nd directions,
+    the lift of K4, the volume's weak divergence."""
     g = rhs.grid
     E, Np = g.nelem, g.Np
-    gen = torch.Generator(device=g.device).manual_seed(seed)
-    randn = lambda *s: torch.randn(s, generator=gen, device=g.device)
-    rand = lambda *s: torch.rand(s, generator=gen, device=g.device)
-    rho = 1.0 + 0.1 * randn(E, Np)
-    u = 50.0 * (2 * rand(E, 3, Np) - 1)
-    rhoe = rho * (2.5e5 + 1e4 * randn(E, Np))
-    qv = torch.cat([rho[:, None], rho[:, None] * u, rhoe[:, None]], 1)
-    p = 1e5 * (1 + 0.05 * randn(E, Np))
-    p_ref = p * (1 + 1e-3 * randn(E, Np))
-    phi = torch.zeros_like(p)
-    return (qv.contiguous(), p, phi, p_ref, None, None, None, rhs.xiv,
-            g.M, g.MI, g.Wdiv)
+    if name == "fused_volume_tendency_vm":
+        a, b = torch.randn((E * 5, 3 * Np), device=g.device), g.Wdiv.T
+    elif name == "ldg_last":
+        a, b = args[1].new_empty((E * 12, args[1].shape[2])).normal_(), \
+            args[4].LT
+    else:
+        rows = 12 if name == "ldg_grad_to_div" else 4
+        a = torch.randn((E * rows, Np), device=g.device)
+        b = rhs.chain.Wd.transpose(0, 1).reshape(Np, -1)
+    b = b.contiguous()
+    return cuda_ms(lambda: torch.matmul(a, b), 50)
 
 
-def phase_kernel(rhs, seed: int) -> dict:
+def phase_kernels(rhs, q, aux) -> dict:
+    """Each kernel against its plain version on the main path's inputs,
+    with its time, the plain version's, a matmul yardstick and its
+    bound; then the whole kernel chain against the per-pass chain."""
     ps = rhs.bl.param_set
-    args = kernel_inputs(rhs, seed)
-    kw = dict(nq=5, ngl=1, R_d=ps.R_d, cv_d=ps.cv_d, T_0=ps.T_0,
-              subtract_ref=True)
-    out = volume_kernel.fused_volume_tendency_vm(*args, **kw)
-    ref = volume_kernel.volume_tendency_plain(*args, **kw)
+    vkw = dict(nq=5, ngl=4, R_d=ps.R_d, cv_d=ps.cv_d, T_0=ps.T_0,
+               subtract_ref=True, has_f2=True)
+    glv, inputs = chain_inputs(rhs, q, aux)
+    E, Np = rhs.grid.nelem, rhs.grid.Np
+    results = {}
+    for name, (wrapper, plain, _, _) in KERNELS.items():
+        args = inputs[name]
+        kw = vkw if name == "fused_volume_tendency_vm" else {}
+        out, ref = wrapper(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        out = out if isinstance(out, tuple) else (out,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        errs = [(o - r).abs().max().item() for o, r in zip(out, ref)]
+        scales = [r.abs().max().item() for r in ref]
+        nbytes, flops = costs(name, E, Np, n=glv.shape[1],
+                              nd=rhs.chain.Wd.shape[0], F=rhs.chain.fo.F)
+        t_bytes = 1e3 * nbytes / PEAK_BYTES
+        t_ops = 1e3 * flops / PEAK_FP32_FLOPS
+        res = dict(max_abs_err=max(errs), max_abs_err_per_output=errs,
+                   max_abs_plain_per_output=scales, tol=KERNEL_TOL,
+                   ms=cuda_ms(lambda: wrapper(*args, **kw), 50),
+                   plain_ms=cuda_ms(lambda: plain(*args, **kw), 10),
+                   matmul_yardstick_ms=yardstick(name, args, rhs),
+                   bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes > t_ops else "operations",
+                   shapes=[list(a.shape) for a in args
+                           if isinstance(a, torch.Tensor)])
+        emit("kernel_vs_plain", name=name, **res)
+        check(all(bool(torch.isfinite(o).all()) for o in out),
+              (name, "kernel output not finite"))
+        check(all(e <= KERNEL_TOL * sc for e, sc in zip(errs, scales)),
+              (name, "kernel vs plain", errs, scales))
+        results[name] = res
+
+    # the whole kernel chain against the per-pass plain chain
+    ops = rhs.chain
+    tab, dims = ops.tab, ops.dims
+    geom = ldg_varmajor._geom(rhs.grid, ops.faces, dims)
+    grad = ldg_varmajor.grad_vm(rhs.grid, glv, tab, geom, dims)
+    lap = ldg_varmajor.div_vm(rhs.grid, grad, tab, geom, dims)
+    ref = ldg_varmajor.grad_vm(rhs.grid, lap, tab, geom, dims)
+    got = ldg_kernel.chain_vm(glv, ops)
     torch.cuda.synchronize()
-    diff = (out - ref).abs().amax(dim=(0, 2))
+    err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
-    max_err = diff.max().item()
-    ms = cuda_ms(lambda: volume_kernel.fused_volume_tendency_vm(*args, **kw),
-                 50)
-    plain_ms = cuda_ms(lambda: volume_kernel.volume_tendency_plain(*args,
-                                                                   **kw), 10)
-    g = rhs.grid
-    E, Np = g.nelem, g.Np
-    mf = torch.randn((E * 5, 3 * Np), device=g.device)
-    wT = g.Wdiv.T.contiguous()
-    matmul_ms = cuda_ms(lambda: torch.matmul(mf, wT), 50)
-    nbytes, flops = volume_cost(E, Np)
-    t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_FP32_FLOPS
-    res = dict(max_abs_err=max_err, max_abs_plain=scale,
-               max_abs_err_per_var=diff.tolist(), tol=KERNEL_TOL,
-               ms=ms, plain_ms=plain_ms, contraction_matmul_ms=matmul_ms,
-               bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes > t_ops else "operations",
-               E=E, Np=Np)
-    emit("kernel_vs_plain", name="fused_volume_tendency_vm", **res)
-    check(bool(torch.isfinite(out).all()), "kernel output not finite")
-    check(max_err <= KERNEL_TOL * scale, ("kernel vs plain", max_err, scale))
-    return res
+    per_var = ((got - ref).abs().amax(dim=(0, 1, 3))
+               / ref.abs().amax(dim=(0, 1, 3))).tolist()
+    emit("chain_vs_plain", max_abs_err=err, max_abs_plain=scale,
+         rel_err_per_variable=per_var, tol=CHAIN_TOL)
+    check(err <= CHAIN_TOL * scale, ("chain vs plain", err, scale))
+    return results
 
 
 def small_reference_check():
-    """A few float32 steps of a small grid on the card against float64
-    steps on the CPU from the same float32 geometry and initial state
-    (upcast), so the two differ by arithmetic precision only."""
-    cfg = held_suarez_config(2, 2, POLY, dtype=torch.float32,
-                             hyperdiffusion_tau=None, device="cuda")
+    """A few float32 steps of a small grid with hyperdiffusion on the
+    card against float64 steps on the CPU from the same float32 geometry
+    and initial state (upcast), so the two differ by arithmetic precision
+    only."""
+    cfg = held_suarez_config(2, 2, POLY, dtype=torch.float32, device="cuda")
     g = cfg.grid
-    fields = {k: getattr(g, k).cpu().numpy()
-              for k in FLOAT_FIELDS + INDEX_FIELDS}
-    fields.update(xi=g.xi, face_perm_identity=g.face_perm_identity)
-    grid64 = grid_from_numpy(fields, device="cpu", dtype=torch.float64)
+    grid64 = grid_from_numpy(grid_to_numpy(g), device="cpu",
+                             dtype=torch.float64)
     q, aux = init_ode_state(DGModel(cfg.model, g))
     runs = {"card_f32": (g, q, aux),
             "cpu_f64": (grid64, q.double().cpu(), aux.double().cpu())}
@@ -204,78 +307,119 @@ def small_reference_check():
     err = ((final["card_f32"] - ref).abs().amax(dim=(0, 2))
            / ref.abs().amax(dim=(0, 2))).tolist()
     emit("small_reference", n_horz=2, n_vert=2, poly=POLY, steps=3,
+         hyperdiffusion_tau=cfg.model.physics.hyperdiffusion.tau_timescale,
          rel_err_per_var=err, tol=SMALL_TOL)
     check(max(err) <= SMALL_TOL, ("small reference", err))
 
 
-def phase_main_path(seed: int) -> dict:
+def build_path(tau) -> dict:
+    """The configuration at full width, its initial state and the LSRK54
+    solver with the every-step filter, as a user builds them."""
     t0 = time.perf_counter()
     cfg = held_suarez_config(n_horz=N_HORZ, n_vert=N_VERT, poly_order=POLY,
-                             dtype=torch.float32, hyperdiffusion_tau=None,
+                             dtype=torch.float32, hyperdiffusion_tau=tau,
                              device="cuda")
     dg = DGModel(cfg.model, cfg.grid)
     q0, aux0 = init_ode_state(dg)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    g = cfg.grid
-    E, Np = g.nelem, g.Np
-    dt = 0.3 * min_node_distance(g) / 350.0
-    hsf = HeldSuarezStepFilter(g, cfg.model)
+    dt = 0.3 * min_node_distance(cfg.grid) / 350.0
+    hsf = HeldSuarezStepFilter(cfg.grid, cfg.model)
     rhs = VarMajorRHS(dg, write_aux=False)
     solver = LSRK54CarpenterKennedy(rhs, dt, post_step=hsf.apply_vm)
+    torch.cuda.synchronize()
+    return dict(tau=tau, cfg=cfg, dg=dg, q0=q0, aux0=aux0, dt=dt, hsf=hsf,
+                rhs=rhs, solver=solver, setup_s=time.perf_counter() - t0)
 
-    kernel = phase_kernel(rhs, seed)
 
-    # one step with the kernel against one with the plain version
+def run_path(path: dict, n_warm: int, n_steps: int):
+    """Set every launch count to 0, take ``n_warm`` + ``n_steps`` steps
+    from the initial state (timing the last ``n_steps``) and read the
+    counts.  Returns (summary, counts)."""
+    g, solver, dt = path["cfg"].grid, path["solver"], path["dt"]
+    E, Np = g.nelem, g.Np
+    mass = lambda q: torch.sum(g.M.double() * q[:, 0].double()).item()
+    m0 = mass(path["q0"])
+    reset_launch_counts()
+    q, aux, t = path["q0"], path["aux0"], 0.0
+    for _ in range(n_warm):
+        q, aux = solver.step(q, aux, t)
+        t += dt
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n_steps):
+        q, aux = solver.step(q, aux, t)
+        t += dt
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = launch_counts()
+    aux = path["rhs"].export_aux(q, aux)
+    drift = abs(mass(q) - m0) / m0
+    finite = bool(torch.isfinite(q).all() and torch.isfinite(aux).all())
+    res = dict(card=nvidia_smi(), hyperdiffusion_tau=path["tau"],
+               n_horz=N_HORZ, n_vert=N_VERT, poly=POLY, elements=E,
+               gridpoints=E * Np, dtype="float32", dt_s=dt,
+               warm_steps=n_warm, steps=n_steps, setup_s=path["setup_s"],
+               ms_per_step=1e3 * wall / n_steps,
+               gridpoints_per_s=E * Np * n_steps / wall, launches=counts,
+               mass_drift_rel=drift, mass_tol=MASS_TOL, finite=finite,
+               shape=list(q.shape))
+    check(list(q.shape) == [E, 5, Np], ("state shape", list(q.shape)))
+    check(finite, "state not finite")
+    check(drift <= MASS_TOL, ("mass drift", drift))
+    return res, counts
+
+
+def phase_main_path(seed: int) -> dict:
+    """Kernels against plain versions on the main path's inputs, one
+    step against the plain step, the small reference, then the main path
+    with hyperdiffusion."""
+    path = build_path(8 * 3600.0)
+    q0, aux0, rhs = path["q0"], path["aux0"], path["rhs"]
+    gen = torch.Generator(device=q0.device).manual_seed(seed)
+    qp = q0 * (1 + 1e-3 * torch.randn(q0.shape, generator=gen,
+                                       device=q0.device))
+    kernels = phase_kernels(rhs, qp, aux0)
+
+    # one step with the kernels against one with the plain versions
     plain = LSRK54CarpenterKennedy(
-        VarMajorRHS(dg, write_aux=False,
-                    volume=volume_kernel.volume_tendency_plain),
-        dt, post_step=hsf.apply_vm)
-    q1, _ = solver.step(q0, aux0, 0.0)
+        VarMajorRHS(path["dg"], write_aux=False,
+                    volume=volume_kernel.volume_tendency_plain,
+                    chain_stages=ldg_kernel.PLAIN),
+        path["dt"], post_step=path["hsf"].apply_vm)
+    q1, _ = path["solver"].step(q0, aux0, 0.0)
     q1p, _ = plain.step(q0, aux0, 0.0)
     eps32 = torch.finfo(torch.float32).eps
     bound = (STEP_TOL * (q1p - q0).abs().amax(dim=(0, 2))
              + 4 * eps32 * q1p.abs().amax(dim=(0, 2)))
     step_err = ((q1 - q1p).abs().amax(dim=(0, 2)) / bound).tolist()
-    emit("step_vs_plain", err_over_bound_per_var=step_err, tol=STEP_TOL)
+    emit("step_vs_plain", hyperdiffusion_tau=path["tau"],
+         err_over_bound_per_var=step_err,
+         max_abs_diff_per_var=(q1 - q1p).abs().amax(dim=(0, 2)).tolist(),
+         tol=STEP_TOL)
     check(max(step_err) <= 1.0, ("step vs plain", step_err))
+    del plain, qp, q1, q1p
 
     small_reference_check()
 
-    # the main path: counts from 0, warm-up plus timed steps
-    mass = lambda q: torch.sum(g.M.double() * q[:, 0].double()).item()
-    m0 = mass(q0)
-    volume_kernel.fused_volume_tendency_vm.launches = 0
-    q, aux, t = q0, aux0, 0.0
-    for _ in range(N_WARM):
-        q, aux = solver.step(q, aux, t)
-        t += dt
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for _ in range(N_STEPS):
-        q, aux = solver.step(q, aux, t)
-        t += dt
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    launches = volume_kernel.fused_volume_tendency_vm.launches
-    aux = rhs.export_aux(q, aux)
-    drift = abs(mass(q) - m0) / m0
-    finite = bool(torch.isfinite(q).all() and torch.isfinite(aux).all())
-    res = dict(card=nvidia_smi(), n_horz=N_HORZ, n_vert=N_VERT, poly=POLY,
-               elements=E, gridpoints=E * Np, dtype="float32", dt_s=dt,
-               warm_steps=N_WARM, steps=N_STEPS, setup_s=setup_s,
-               ms_per_step=1e3 * wall / N_STEPS,
-               gridpoints_per_s=E * Np * N_STEPS / wall,
-               volume_launches=launches,
-               expected_launches=5 * (N_WARM + N_STEPS),
-               mass_drift_rel=drift, mass_tol=MASS_TOL, finite=finite,
-               shape=list(q.shape))
+    res, counts = run_path(path, N_WARM, N_STEPS)
+    expected = 5 * (N_WARM + N_STEPS)
+    res["expected_launches"] = expected
     emit("main_path", **res)
-    check(list(q.shape) == [E, 5, Np], ("state shape", list(q.shape)))
-    check(finite, "state not finite")
-    check(launches == 5 * (N_WARM + N_STEPS), ("volume launches", launches))
-    check(drift <= MASS_TOL, ("mass drift", drift))
-    return dict(kernel=kernel, launches=launches)
+    for name, n in counts.items():
+        check(n == expected, (name, "launches", n, expected))
+    return dict(kernels=kernels, launches=counts)
+
+
+def phase_no_hyperdiffusion():
+    """The step with hyperdiffusion off (the configuration of the first
+    slice), at fewer steps: only the volume kernel runs."""
+    res, counts = run_path(build_path(None), N_WARM_OFF, N_STEPS_OFF)
+    expected = 5 * (N_WARM_OFF + N_STEPS_OFF)
+    res["expected_volume_launches"] = expected
+    emit("no_hyperdiffusion_path", **res)
+    check(counts["fused_volume_tendency_vm"] == expected,
+          ("volume launches", counts))
+    check(all(counts[name] == 0 for name in CHAIN), ("chain launches",
+                                                     counts))
 
 
 def main(argv=None) -> int:
@@ -288,15 +432,17 @@ def main(argv=None) -> int:
     phase_device()
     phase_build()
     res = phase_main_path(args.seed)
-    k = res["kernel"]
+    phase_no_hyperdiffusion()
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
-        "name": "fused_volume_tendency_vm", "route": "cuda",
-        "source": "climatemachine_tpu_torch/csrc/volume_vm.cu",
-        "replaces": "climatemachine_tpu/dg/pallas_volume.py:264",
-        "launches": res["launches"], "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}]}), flush=True)
+        "name": name, "route": "cuda",
+        "source": f"climatemachine_tpu_torch/csrc/{source}",
+        "replaces": replaces, "launches": res["launches"][name],
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": None}
+        for name, (_, _, source, replaces) in KERNELS.items()
+        for k in [res["kernels"][name]]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

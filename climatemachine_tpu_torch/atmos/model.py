@@ -1,11 +1,12 @@
 """The dry atmosphere balance law (port of the parts of
 ``climatemachine_tpu/atmos/model.py`` the Held-Suarez step uses: the
-prognostic/aux schemas :146-195, ``nodal_init_state_auxiliary`` :334 and
+prognostic/aux schemas :146-203, ``nodal_init_state_auxiliary`` :334 and
 the dry thermo refresh of the aux lanes).
 
 Prognostic: ρ, ρu(3), ρe.  Auxiliary: coord(3), orientation (Φ, ∇Φ),
 reference state (ρ, p, T, ρe), moisture (θ_v, T) — 13 lanes in the JAX
-package's order.  State and aux are var-major ``[E, n, Np]``.
+package's order — then, with hyperdiffusion, ``hyperdiffusion.delta``.
+State and aux are var-major ``[E, n, Np]``.
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ from climatemachine_tpu_torch.utils.variables import VarSpec
 
 @dataclass(frozen=True)
 class AtmosPhysics:
-    """Physics bundle.  ``hyperdiffusion`` is carried so the RHS can
-    refuse it: the hyperdiffusion chain is the next slice of the port."""
+    """Physics bundle.  ``hyperdiffusion`` is None or a
+    :class:`~climatemachine_tpu_torch.atmos.hyperdiffusion.DryBiharmonic`
+    (the var-major RHS refuses any other kind)."""
     param_set: PlanetParameterSet = EARTH
     orientation: SphericalOrientation = field(
         default_factory=SphericalOrientation)
@@ -59,10 +61,18 @@ class AtmosModel:
         self.problem = problem
         self.sources = tuple(sources)
         self.prog_spec = VarSpec(rho=1, rhou=3, rhoe=1)
-        self.aux_spec = VarSpec(coord=3,
-                                orientation=physics.orientation.vars_aux(),
-                                ref_state=physics.ref_state.vars_aux(),
-                                moisture=VarSpec(theta_v=1, air_T=1))
+        aux_fields = dict(coord=3,
+                          orientation=physics.orientation.vars_aux(),
+                          ref_state=physics.ref_state.vars_aux(),
+                          moisture=VarSpec(theta_v=1, air_T=1))
+        hyper = physics.hyperdiffusion
+        if hyper is not None:
+            aux_fields["hyperdiffusion"] = hyper.vars_aux()
+        self.aux_spec = VarSpec(**aux_fields)
+        self.gradlap_spec = (hyper.vars_gradient_laplacian()
+                             if hyper is not None else VarSpec())
+        self.hyperdiffusion_direction = (hyper.direction
+                                         if hyper is not None else None)
 
     @property
     def param_set(self) -> PlanetParameterSet:
@@ -72,8 +82,9 @@ class AtmosModel:
     def ref_state(self) -> HydrostaticState:
         return self.physics.ref_state
 
-    def nodal_init_state_auxiliary(self, coords, aux):
-        """Fill Φ, ∇Φ and the reference state from coords ``[E, 3, Np]``."""
+    def nodal_init_state_auxiliary(self, coords, aux, grid):
+        """Fill Φ, ∇Φ and the reference state from coords ``[E, 3, Np]``,
+        and the hyperdiffusion lengthscale from the grid's metrics."""
         ps, sp = self.param_set, self.aux_spec
         ori = self.physics.orientation
         Phi = ori.geopotential(ps, coords)
@@ -83,6 +94,8 @@ class AtmosModel:
         for name, val in self.ref_state.fields(ps, Phi / ps.grav,
                                                Phi).items():
             aux = _set(aux, sp.index(f"ref_state.{name}"), val)
+        if self.physics.hyperdiffusion is not None:
+            aux = self.physics.hyperdiffusion.init_aux(self, grid, aux)
         return aux
 
     def init_state_prognostic(self, coords, aux, t):

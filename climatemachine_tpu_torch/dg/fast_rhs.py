@@ -1,16 +1,22 @@
 """Var-major RHS of the dry explicit Held-Suarez step (port of
 ``climatemachine_tpu/dg/fast_rhs.py`` ``VarMajorRHS`` :141-682 for a dry
-model without hyperdiffusion and without a fused remainder).
+model, with or without DryBiharmonic hyperdiffusion, without a fused
+remainder).
 
 State and aux stay var-major ``[E, nvar, Np]`` throughout.  Per call:
 
 - thermo once: T, p and the sound speed, reused by the volume flux, the
   face fluxes (faces are nodal subsets, so face thermo is extracted, not
   recomputed) and the sources;
-- volume: the fused volume-tendency kernel (dg/volume_kernel.py);
+- with hyperdiffusion, the LDG chain ∇→Δ→∇ of (u_h, h_tot) through the
+  four chain kernels (dg/ldg_kernel.py) and ν₄ = (Δ/2)⁴/2τ;
+- volume: the fused volume-tendency kernel (dg/volume_kernel.py), which
+  builds the hyperdiffusive flux F₂ from ∇Δ and ν₄ itself;
 - surface: face bundle by one extraction matmul against the 0/1 lift
-  matrix, neighbour rows by gathers over elements, wall ghosts,
-  Rusanov flux, and one lift matmul;
+  matrix (with hyperdiffusion, ∇Δ and ν ride it and the n·F₂ trace is
+  built on the faces), neighbour rows by gathers over elements, wall
+  ghosts, Rusanov flux plus the interior hyperdiffusive correction, and
+  one lift matmul;
 - sources: the model's ``contributions_vm`` hooks.
 """
 
@@ -21,8 +27,11 @@ from typing import Callable
 
 import torch
 
+from climatemachine_tpu_torch.atmos.hyperdiffusion import DryBiharmonic
 from climatemachine_tpu_torch.atmos.model import AtmosModel
-from climatemachine_tpu_torch.dg import fast_surface
+from climatemachine_tpu_torch.dg import fast_surface, ldg_kernel
+from climatemachine_tpu_torch.dg.spatial import (direction_dims,
+                                                 direction_faces)
 from climatemachine_tpu_torch.dg.volume_kernel import fused_volume_tendency_vm
 from climatemachine_tpu_torch.physics import thermodynamics as td
 
@@ -44,7 +53,9 @@ def _check_supported(dg):
     bl, g = dg.balance_law, dg.grid
     if not isinstance(bl, AtmosModel):
         raise ValueError("VarMajorRHS needs an AtmosModel")
-    if bl.physics.hyperdiffusion is not None or dg.remainder is not None:
+    hd = bl.physics.hyperdiffusion
+    if dg.remainder is not None or not (hd is None
+                                        or type(hd) is DryBiharmonic):
         raise NotImplementedError("next slice")
     if not g.face_perm_identity:
         raise ValueError("VarMajorRHS needs identity face orientations")
@@ -59,21 +70,24 @@ def _check_supported(dg):
 
 class VarMajorRHS:
     """``(qv, auxv, t) -> (dqv, auxv')`` with qv ``[E, 5, Np]`` and auxv
-    ``[E, 13, Np]``.
+    ``[E, 13, Np]`` (``[E, 14, Np]`` with hyperdiffusion).
 
     ``write_aux``: refresh the aux lanes θ_v and T from the state on every
     call.  Nothing inside a step reads them, so a time integrator can
     build the RHS with ``write_aux=False`` and call :meth:`export_aux`
-    when aux leaves the loop.  ``volume`` is the volume-tendency function;
-    it defaults to the kernel wrapper, and chip_smoke.py passes the plain
-    version to hold one step against the kernel's."""
+    when aux leaves the loop.  ``volume`` is the volume-tendency function
+    and ``chain_stages`` the four chain stages; they default to the
+    kernel wrappers, and chip_smoke.py passes the plain versions to hold
+    one step against the kernels'."""
 
     def __init__(self, dg, write_aux: bool = True,
-                 volume: Callable = fused_volume_tendency_vm):
+                 volume: Callable = fused_volume_tendency_vm,
+                 chain_stages: tuple = ldg_kernel.KERNELS):
         _check_supported(dg)
         self.bl, self.grid = dg.balance_law, dg.grid
         self.write_aux = write_aux
         self.volume = volume
+        self.chain_stages = chain_stages
         g, bl = self.grid, self.bl
         E, X = g.nelem, g.nface * g.Nfp_max
         sp = bl.aux_spec
@@ -88,6 +102,12 @@ class VarMajorRHS:
         self.sM = g.sM.reshape(E, 1, X)
         self.liftT = g.lift.T.contiguous()
         self.tab = fast_surface._tables(g)
+        self.hd = bl.physics.hyperdiffusion
+        if self.hd is not None:
+            d = bl.hyperdiffusion_direction
+            self.chain = ldg_kernel.chain_operators(
+                g, direction_dims(d, g.dim), direction_faces(d, g.dim))
+            self.i_delta = sp.index("hyperdiffusion.delta").start
 
     def _thermo_update(self, qv, auxv, write_aux: bool):
         """T, p, c_s and, with ``write_aux``, a copy of aux with the θ_v
@@ -111,6 +131,33 @@ class VarMajorRHS:
         """Aux with the θ_v and T lanes brought up to date with ``qv``."""
         return self._thermo_update(qv, auxv, write_aux=True)[3]
 
+    # --- hyperdiffusion chain -------------------------------------------------
+    def chain_input(self, qv, auxv, p):
+        """(u_h, h_tot) ``[E, 4, Np]``: the horizontal velocity and the
+        total specific enthalpy (ρe + p)/ρ."""
+        ps = self.bl.param_set
+        rho, ru, rhoe = qv[:, 0], qv[:, 1:4], qv[:, 4]
+        u = ru / rho[:, None]
+        k = auxv[:, self.i_gphi] / ps.grav
+        u_h = u - torch.sum(u * k, dim=1, keepdim=True) * k
+        return torch.cat([u_h, ((rhoe + p) / rho)[:, None]], dim=1)
+
+    def hyper_coefficients(self, auxv):
+        """(ν₄, ν₄_q = 0) ``[E, 2, Np]`` with ν₄ = (Δ/2)⁴ / 2τ."""
+        delta = auxv[:, self.i_delta]
+        nu4 = (delta / 2) ** 4 / (2 * self.hd.tau_timescale)
+        return torch.stack([nu4, torch.zeros_like(nu4)], dim=1)
+
+    def _chain(self, qv, auxv, p):
+        """(gl2 ``[E, 12, Np]``, nu ``[E, 2, Np]``): ∇Δ of (u_h, h_tot) at
+        lane 4·i + j (direction i, variable j) and the coefficients.  The
+        hyperdiffusive flux itself is never stored: the volume kernel
+        and the surface pass build it from these."""
+        glv = self.chain_input(qv, auxv, p)
+        gl2 = ldg_kernel.chain_vm(glv, self.chain, self.chain_stages)
+        E, n, Np = glv.shape
+        return gl2.reshape(E, 3 * n, Np), self.hyper_coefficients(auxv)
+
     # --- surface -------------------------------------------------------------
     def _gather_faces(self, Bf):
         """Neighbour side of the face bundle ``[E, nvb, X]``."""
@@ -124,16 +171,41 @@ class VarMajorRHS:
             blocks.append(blk)
         return torch.cat(blocks, dim=2)
 
-    def _surface(self, qv, auxv, p, c_s):
-        """Rusanov surface term −M⁻¹ L (sM · f*), ``[E, nq, Np]``."""
+    def _bundle(self, qv, auxv, p, c_s, hyper):
+        """Minus-side face bundle ``[E, nvb, X]``: lanes q (nq), p, c_s,
+        p_ref, and with ``hyper = (gl2, nu)`` the nq n·F₂ trace lanes,
+        built on the faces from ∇Δ and ν extracted by the same matmul
+        (each side contracts its own volume F₂ with its own normal)."""
         g, nq, nrm = self.grid, self.nq, self.nrm
         E, Np = g.nelem, g.Np
         X = g.nface * g.Nfp_max
-        # bundle lanes: q (nq), p, c_s, p_ref -> [E, nvb, Np]
-        B = torch.cat([qv, p[:, None], c_s[:, None],
-                       auxv[:, self.i_pref, None]], dim=1)
-        nvb = B.shape[1]
-        Bf = torch.matmul(B.reshape(E * nvb, Np), g.lift).reshape(E, nvb, X)
+        lanes = [qv, p[:, None], c_s[:, None], auxv[:, self.i_pref, None]]
+        if hyper is not None:
+            lanes += list(hyper)
+        B = torch.cat(lanes, dim=1)
+        Bx = torch.matmul(B.reshape(-1, Np), g.lift).reshape(E, -1, X)
+        if hyper is None:
+            return Bx
+        nvb = nq + 3
+        ngl = hyper[0].shape[1] // 3
+        gl2f = Bx[:, nvb:nvb + 3 * ngl].reshape(E, 3, ngl, X)
+        nu4f = Bx[:, nvb + 3 * ngl]
+        G = torch.sum(nrm[:, :, None, :] * gl2f, dim=1)   # [E, ngl, X]
+        rhoF = Bx[:, 0]
+        rnu = rhoF * nu4f
+        trace = ([torch.zeros_like(rhoF)] + [rnu * G[:, j] for j in range(3)]
+                 + [nu4f * (Bx[:, 1] * G[:, 0] + Bx[:, 2] * G[:, 1]
+                            + Bx[:, 3] * G[:, 2]) + rnu * G[:, 3]])
+        return torch.cat([Bx[:, :nvb], torch.stack(trace, dim=1)], dim=1)
+
+    def _surface(self, qv, auxv, p, c_s, hyper=None):
+        """Rusanov surface term −M⁻¹ L (sM · f*), ``[E, nq, Np]``; with
+        ``hyper`` the interior hyperdiffusive correction ½(s⁻ − s⁺) of the
+        n·F₂ traces joins f* (wall faces carry none)."""
+        g, nq, nrm = self.grid, self.nq, self.nrm
+        E, Np = g.nelem, g.Np
+        X = g.nface * g.Nfp_max
+        Bf = self._bundle(qv, auxv, p, c_s, hyper)
         BP = self._gather_faces(Bf)
 
         # wall ghost: reflect the normal momentum, copy the rest
@@ -164,6 +236,11 @@ class VarMajorRHS:
         fstar = torch.stack([0.5 * (FnM[v] + FnP[v])
                              - 0.5 * c * (BP[:, v] - Bf[:, v])
                              for v in range(nq)], dim=1)
+        if hyper is not None:
+            sl_h = slice(nq + 3, 2 * nq + 3)
+            fstar = fstar + torch.where(
+                self.tab["bnd_lane"][:, None, :], 0.0,
+                0.5 * (Bf[:, sl_h] - BP[:, sl_h]))
         lifted = torch.matmul((self.sM * fstar).reshape(E * nq, X),
                               self.liftT).reshape(E, nq, Np)
         return -(g.MI[:, None, :] * lifted)
@@ -186,10 +263,13 @@ class VarMajorRHS:
     def __call__(self, qv, auxv, t):
         g, ps = self.grid, self.bl.param_set
         T, p, c_s, auxv = self._thermo_update(qv, auxv, self.write_aux)
+        hyper = self._chain(qv, auxv, p) if self.hd is not None else None
+        gl2, nu = hyper if hyper is not None else (None, None)
         tend = self.volume(qv, p, auxv[:, self.i_phi],
-                           auxv[:, self.i_pref].contiguous(), None, None,
-                           None, self.xiv, g.M, g.MI, g.Wdiv, nq=self.nq,
-                           ngl=1, R_d=ps.R_d, cv_d=ps.cv_d, T_0=ps.T_0,
-                           subtract_ref=True)
-        tend = tend + self._surface(qv, auxv, p, c_s)
+                           auxv[:, self.i_pref].contiguous(), None, gl2, nu,
+                           self.xiv, g.M, g.MI, g.Wdiv, nq=self.nq,
+                           ngl=self.bl.gradlap_spec.num, R_d=ps.R_d,
+                           cv_d=ps.cv_d, T_0=ps.T_0, subtract_ref=True,
+                           has_f2=hyper is not None)
+        tend = tend + self._surface(qv, auxv, p, c_s, hyper)
         return tend + self._sources(qv, auxv, T, p, t), auxv

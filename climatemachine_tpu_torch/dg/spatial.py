@@ -1,5 +1,6 @@
-"""The (balance law, grid) holder and state initialization (port of
-``climatemachine_tpu/dg/spatial.py`` init_state_auxiliary :895,
+"""The (balance law, grid) holder, the direction helpers and state
+initialization (port of ``climatemachine_tpu/dg/spatial.py``
+direction_dims/direction_faces :46-58, init_state_auxiliary :895,
 init_ode_state :909).
 
 The generic node-major ``DGModel.__call__`` is not ported: the explicit
@@ -9,9 +10,30 @@ step runs the var-major RHS (dg/fast_rhs.py).  State is var-major.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+
+EVERY = "every"
+HORIZONTAL = "horizontal"
+VERTICAL = "vertical"
+
+
+def direction_dims(direction: str, dim: int) -> Tuple[int, ...]:
+    """Reference directions a derivative in ``direction`` acts along."""
+    if direction == EVERY:
+        return tuple(range(dim))
+    if direction == HORIZONTAL:
+        return tuple(range(dim - 1))
+    if direction == VERTICAL:
+        return (dim - 1,)
+    raise ValueError(direction)
+
+
+def direction_faces(direction: str, dim: int) -> Tuple[int, ...]:
+    """Faces normal to the reference directions of ``direction``."""
+    return tuple(f for d in direction_dims(direction, dim)
+                 for f in (2 * d, 2 * d + 1))
 
 
 @dataclass
@@ -26,12 +48,12 @@ class DGModel:
 
 def init_state_auxiliary(balance_law, grid):
     """Aux ``[E, naux, Np]`` with the coordinates filled, then the
-    model's nodal initialization."""
+    model's nodal initialization (which reads the grid's metrics)."""
     coords = grid.coords.transpose(1, 2)                 # [E, 3, Np]
     aux = torch.zeros((grid.nelem, balance_law.aux_spec.num, grid.Np),
                       dtype=grid.dtype, device=grid.device)
     aux[:, balance_law.aux_spec.index("coord")] = coords
-    return balance_law.nodal_init_state_auxiliary(coords, aux)
+    return balance_law.nodal_init_state_auxiliary(coords, aux, grid)
 
 
 def init_ode_state(dg: DGModel, t0: float = 0.0):

@@ -13,33 +13,22 @@ on ``lin_dims``.
 Dispatch is by device: a CPU tensor takes :func:`volume_tendency_plain`;
 any other tensor takes the kernel (csrc/volume_vm.cu) or raises.  The
 kernel covers what the dry Held-Suarez step runs: float32, ``nq=5``,
-``subtract_ref=True``, no F₂, no linear flux.  The plain version covers
-the whole signature.
+``subtract_ref=True``, no linear flux, with or without the F₂ of
+DryBiharmonic (``ngl=4``).  The plain version covers the whole signature.
 
-The kernel is compiled with nvcc for ``sm_90a`` into a shared library
-with a plain C interface at first use (into ``_build/`` of the package,
-named by the source's hash) and called through ctypes on PyTorch's
-current stream.
+The kernel is compiled at first use (cuda_build.py) and called through
+ctypes on PyTorch's current stream.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-PACKAGE_DIR = Path(__file__).resolve().parents[1]
-SOURCE = PACKAGE_DIR / "csrc" / "volume_vm.cu"
-BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from climatemachine_tpu_torch import cuda_build
+
 MAX_NP = 256          # one thread per node, at most 256 threads a block
 
 
@@ -120,55 +109,26 @@ def volume_tendency_plain(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
     return MI[:, None, :] * torch.matmul(mf, Wdiv.T)
 
 
-def _nvcc() -> str:
-    return shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-
-
-def build() -> dict:
-    """Compile csrc/volume_vm.cu unless the library for this source is
-    already built.  Returns ``{"path", "built", "seconds", "log"}``; the
-    log holds ptxas's register and shared-memory report."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libvolume_vm_{digest}.so"
-    if lib.exists():
-        return {"path": str(lib), "built": False, "seconds": 0.0, "log": ""}
-    nvcc = _nvcc()
-    if not os.path.isfile(nvcc):
-        raise RuntimeError(f"nvcc not found on PATH or at {nvcc}: the CUDA "
-                           "kernels build where the CUDA toolkit is")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{lib.stem}.{os.getpid()}.so"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): "
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, lib)
-    return {"path": str(lib), "built": True, "seconds": seconds,
-            "log": res.stdout + res.stderr}
-
-
 @functools.cache
 def _library():
-    lib = ctypes.CDLL(build()["path"])
-    lib.volume_vm_f32.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib = cuda_build.load("volume_vm")
+    lib.volume_vm_f32.argtypes = [ctypes.c_void_p] * 11 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.volume_vm_f32.restype = ctypes.c_int
     lib.volume_vm_error_string.argtypes = [ctypes.c_int]
     lib.volume_vm_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_kernel_args(qv, p, p_ref, xiv, M, MI, Wdiv, nq, subtract_ref,
-                       has_f2, lin_dims):
-    if nq != 5 or has_f2 or tuple(lin_dims) or not subtract_ref:
+def _check_kernel_args(qv, p, p_ref, gl2, nu, xiv, M, MI, Wdiv, nq, ngl,
+                       subtract_ref, has_f2, lin_dims):
+    if nq != 5 or (has_f2 and ngl != 4) or tuple(lin_dims) \
+            or not subtract_ref:
         raise NotImplementedError(
             "the CUDA volume kernel covers nq=5, subtract_ref=True, "
-            f"has_f2=False, lin_dims=() (got nq={nq}, subtract_ref="
-            f"{subtract_ref}, has_f2={has_f2}, lin_dims={lin_dims})")
+            "lin_dims=() and has_f2 with ngl=4 (got nq="
+            f"{nq}, subtract_ref={subtract_ref}, has_f2={has_f2}, "
+            f"ngl={ngl}, lin_dims={lin_dims})")
     if qv.device.type != "cuda":
         raise ValueError(f"the volume kernel runs on CUDA tensors, got "
                          f"{qv.device}")
@@ -179,6 +139,8 @@ def _check_kernel_args(qv, p, p_ref, xiv, M, MI, Wdiv, nq, subtract_ref,
               "p_ref": (p_ref, (E, Np)), "xiv": (xiv, (E, 9, Np)),
               "M": (M, (E, Np)), "MI": (MI, (E, Np)),
               "Wdiv": (Wdiv, (Np, 3 * Np))}
+    if has_f2:
+        shapes.update(gl2=(gl2, (E, 12, Np)), nu=(nu, (E, 2, Np)))
     for name, (t, shape) in shapes.items():
         if t.device != qv.device or t.dtype != torch.float32 \
                 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -205,8 +167,8 @@ def fused_volume_tendency_vm(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
             qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI, Wdiv, nq=nq,
             ngl=ngl, R_d=R_d, cv_d=cv_d, T_0=T_0, subtract_ref=subtract_ref,
             has_f2=has_f2, lin_dims=lin_dims, lin_gravity=lin_gravity)
-    _check_kernel_args(qv, p, p_ref, xiv, M, MI, Wdiv, nq, subtract_ref,
-                       has_f2, lin_dims)
+    _check_kernel_args(qv, p, p_ref, gl2, nu, xiv, M, MI, Wdiv, nq, ngl,
+                       subtract_ref, has_f2, lin_dims)
     E, _, Np = qv.shape
     lib = _library()
     out = torch.empty_like(qv)
@@ -216,8 +178,10 @@ def fused_volume_tendency_vm(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
         stream = torch.cuda.current_stream(qv.device).cuda_stream
         code = lib.volume_vm_f32(
             qv.data_ptr(), p.data_ptr(), p_ref.data_ptr(), xiv.data_ptr(),
-            M.data_ptr(), MI.data_ptr(), Wdiv.data_ptr(), wt.data_ptr(),
-            out.data_ptr(), E, Np, stream)
+            M.data_ptr(), MI.data_ptr(),
+            gl2.data_ptr() if has_f2 else None,
+            nu.data_ptr() if has_f2 else None, Wdiv.data_ptr(),
+            wt.data_ptr(), out.data_ptr(), E, Np, int(has_f2), stream)
     if code != 0:
         raise RuntimeError("volume_vm kernel launch failed: "
                            + lib.volume_vm_error_string(code).decode())

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from climatemachine_tpu_torch.atmos.boundaryconditions import AtmosBC
+from climatemachine_tpu_torch.atmos.hyperdiffusion import DryBiharmonic
 from climatemachine_tpu_torch.atmos.model import (AtmosModel, AtmosPhysics,
                                                   AtmosProblem)
 from climatemachine_tpu_torch.atmos.ref_state import HydrostaticState
@@ -117,15 +118,11 @@ def held_suarez_config(n_horz: int = 8, n_vert: int = 4, poly_order: int = 5,
                        hyperdiffusion_tau: float = 8 * 3600.0,
                        device=None) -> HeldSuarezConfig:
     """(model, grid) for Held-Suarez on a stacked cubed sphere with a
-    DecayingTemperatureProfile(290, 220, 8e3) reference state and the
-    Gravity, Coriolis and Held-Suarez sources.  ``dtype=None`` means
-    float32, ``device=None`` CUDA.
-
-    Hyperdiffusion is not ported yet: pass ``hyperdiffusion_tau=None``."""
-    if hyperdiffusion_tau:
-        raise NotImplementedError(
-            "next slice: Held-Suarez with hyperdiffusion; pass "
-            "hyperdiffusion_tau=None")
+    DecayingTemperatureProfile(290, 220, 8e3) reference state, the
+    Gravity, Coriolis and Held-Suarez sources and, unless
+    ``hyperdiffusion_tau`` is None or 0, ``DryBiharmonic`` horizontal
+    hyperdiffusion with that timescale.  ``dtype=None`` means float32,
+    ``device=None`` CUDA."""
     a = param_set.planet_radius
     vert_range = a + np.linspace(0.0, domain_height, n_vert + 1)
     topo = stacked_cubed_sphere_topology(n_horz, vert_range)
@@ -134,7 +131,9 @@ def held_suarez_config(n_horz: int = 8, n_vert: int = 4, poly_order: int = 5,
     physics = AtmosPhysics(
         param_set=param_set, orientation=SphericalOrientation(),
         ref_state=HydrostaticState(
-            DecayingTemperatureProfile(290.0, 220.0, 8e3)))
+            DecayingTemperatureProfile(290.0, 220.0, 8e3)),
+        hyperdiffusion=(DryBiharmonic(hyperdiffusion_tau)
+                        if hyperdiffusion_tau else None))
     problem = AtmosProblem(init_state=held_suarez_init,
                            boundary_conditions=(AtmosBC(), AtmosBC()))
     model = AtmosModel(physics, problem,

@@ -16,16 +16,19 @@ from climatemachine_tpu_torch.mesh.grid import Grid
 
 #: grid fields uploaded in the run dtype
 FLOAT_FIELDS = ("coords", "M", "MI", "J", "xi_x", "normals", "sM", "lift",
-                "Wdiv")
+                "Wdiv", "Wgrad")
 #: grid fields uploaded as int64
 INDEX_FIELDS = ("face_bctag", "face_nbr_row")
+#: grid fields kept on the host
+HOST_FIELDS = ("xi", "face_perm_identity", "fmask_padded")
 
 
 def grid_from_numpy(fields: dict, device=None,
                     dtype: torch.dtype = torch.float32) -> Grid:
     """A :class:`Grid` from a dict holding the arrays named in
-    ``FLOAT_FIELDS`` and ``INDEX_FIELDS``, the 1-D node tuple ``xi`` and
-    ``face_perm_identity``."""
+    ``FLOAT_FIELDS`` and ``INDEX_FIELDS`` and the host fields
+    ``HOST_FIELDS``: the 1-D node tuple ``xi``, ``face_perm_identity`` and
+    ``fmask_padded``."""
     device = resolve_device(device)
     up = {k: torch.tensor(np.asarray(fields[k]), dtype=dtype, device=device)
           for k in FLOAT_FIELDS}
@@ -36,7 +39,19 @@ def grid_from_numpy(fields: dict, device=None,
     Nfp = (Nq[1] * Nq[2],) * 2 + (Nq[0] * Nq[2],) * 2 + (Nq[0] * Nq[1],) * 2
     return Grid(Nq=Nq, Np=int(np.prod(Nq)), Nfp=Nfp,
                 Nfp_max=max(Nfp), xi=xi,
-                face_perm_identity=bool(fields["face_perm_identity"]), **up)
+                face_perm_identity=bool(fields["face_perm_identity"]),
+                fmask_padded=np.array(fields["fmask_padded"], dtype=np.int64),
+                **up)
+
+
+def grid_to_numpy(grid) -> dict:
+    """The fields :func:`grid_from_numpy` takes, as numpy arrays, from a
+    grid of either package."""
+    host = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                      else np.asarray(a))
+    out = {k: host(getattr(grid, k)) for k in FLOAT_FIELDS + INDEX_FIELDS}
+    out.update({k: getattr(grid, k) for k in HOST_FIELDS})
+    return out
 
 
 def state_from_numpy(q, aux, device=None, dtype=None):

@@ -6,7 +6,8 @@ The geometry is built once in numpy float64 on the host and uploaded in
 the run dtype, as the JAX package does.  The grid carries what the
 var-major explicit step reads: nodal coordinates, metrics, mass, face
 normals and weights, the 0/1 lift matrix, the fused weak-divergence
-operator ``Wdiv`` and the face-row neighbour tables.
+operator ``Wdiv``, the stacked derivative operator ``Wgrad`` and the
+face-row neighbour tables.
 """
 
 from __future__ import annotations
@@ -65,6 +66,8 @@ class Grid:
     face_nbr_row: torch.Tensor     # [E, 6] int64 = neighbour e * 6 + face
     face_perm_identity: bool       # every face orientation is identity
     Wdiv: torch.Tensor             # [Np, 3*Np]  Σ_a D_aᵀ-Kronecker
+    Wgrad: torch.Tensor            # [3*Np, Np]  D_a-Kronecker stacked
+    fmask_padded: np.ndarray       # host [6, Nfp_max] face node ids
     dim: ClassVar[int] = 3
     nface: ClassVar[int] = 6
 
@@ -104,8 +107,10 @@ def make_grid(topology: Topology, polyorder: int,
     Nfp_max = max(Nfp)
     nface = 6
     fmask = _fmask(Nq)
+    fmask_padded = np.zeros((nface, Nfp_max), dtype=np.int64)
     lift = np.zeros((Np, nface * Nfp_max))
     for f in range(nface):
+        fmask_padded[f, :Nfp[f]] = fmask[f]
         lift[fmask[f], f * Nfp_max + np.arange(Nfp[f])] = 1.0
 
     face_nbr_row = topology.face_neighbor * nface + topology.face_neighbor_face
@@ -116,12 +121,14 @@ def make_grid(topology: Topology, polyorder: int,
             pmap = _apply_orient_quad(int(code), Na, Nb)
             perm_identity &= bool((pmap == np.arange(Nfp[f])).all())
 
-    def kron_op(a):                         # D_aᵀ on axis a, k slowest
+    def kron_op(a, transpose):              # D_a(ᵀ) on axis a, k slowest
         out = np.ones((1, 1))
         for d in range(2, -1, -1):
-            out = np.kron(out, D[a].T if d == a else np.eye(Nq[d]))
+            Da = D[a].T if transpose else D[a]
+            out = np.kron(out, Da if d == a else np.eye(Nq[d]))
         return out
-    Wdiv = np.concatenate([kron_op(a) for a in range(3)], axis=1)
+    Wdiv = np.concatenate([kron_op(a, True) for a in range(3)], axis=1)
+    Wgrad = np.concatenate([kron_op(a, False) for a in range(3)], axis=0)
 
     dev = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
     idx = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64,
@@ -133,7 +140,7 @@ def make_grid(topology: Topology, polyorder: int,
         normals=dev(geo["normals"]), sM=dev(geo["sM"]),
         face_bctag=idx(topology.face_bctag), lift=dev(lift),
         face_nbr_row=idx(face_nbr_row), face_perm_identity=perm_identity,
-        Wdiv=dev(Wdiv))
+        Wdiv=dev(Wdiv), Wgrad=dev(Wgrad), fmask_padded=fmask_padded)
 
 
 def min_node_distance(grid: Grid) -> float:

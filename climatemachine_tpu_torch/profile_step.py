@@ -2,8 +2,10 @@
 
     python -m climatemachine_tpu_torch.profile_step [--steps N] [--out DIR]
 
-Builds the ``chip_smoke.py`` main path (dry Held-Suarez p4, n_horz=16,
-n_vert=8, float32, LSRK54 with the every-step filter), warms up, times
+Builds the ``chip_smoke.py`` main path (dry Held-Suarez p4 with
+DryBiharmonic(8 h) hyperdiffusion, n_horz=16, n_vert=8, float32, LSRK54
+with the every-step filter; ``--no-hyperdiffusion`` for the step without
+it), warms up, times
 ``--steps`` steps with tracing off, then traces the same number of steps
 with ``torch.profiler``.  The RHS's parts are wrapped in
 ``record_function`` spans from here, around the calls into each layer,
@@ -36,7 +38,7 @@ from climatemachine_tpu_torch.experiments.held_suarez import (
 from climatemachine_tpu_torch.mesh.grid import min_node_distance
 from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
 
-SPANS = ("thermo", "volume", "surface", "sources", "filter")
+SPANS = ("thermo", "chain", "volume", "surface", "sources", "filter")
 
 
 def _span(name, fn):
@@ -50,19 +52,22 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="profile_out")
+    ap.add_argument("--no-hyperdiffusion", action="store_true")
     args = ap.parse_args(argv)
     power = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
-    cfg = held_suarez_config(16, 8, 4, dtype=torch.float32,
-                             hyperdiffusion_tau=None, device="cuda")
+    cfg = held_suarez_config(
+        16, 8, 4, dtype=torch.float32, device="cuda",
+        hyperdiffusion_tau=None if args.no_hyperdiffusion else 8 * 3600.0)
     dg = DGModel(cfg.model, cfg.grid)
     q, aux = init_ode_state(dg)
     rhs = VarMajorRHS(dg, write_aux=False)
     hsf = HeldSuarezStepFilter(cfg.grid, cfg.model)
     rhs._thermo_update = _span("thermo", rhs._thermo_update)
+    rhs._chain = _span("chain", rhs._chain)
     rhs.volume = _span("volume", rhs.volume)
     rhs._surface = _span("surface", rhs._surface)
     rhs._sources = _span("sources", rhs._sources)
@@ -125,6 +130,8 @@ def main(argv=None):
                                           "profile_step_trace.json"))
     print(json.dumps({
         "card": power, "steps": args.steps,
+        "hyperdiffusion_tau": (cfg.model.physics.hyperdiffusion.tau_timescale
+                               if cfg.model.physics.hyperdiffusion else None),
         "ms_per_step_untraced": 1e3 * untraced,
         "ms_per_step_traced": 1e3 * traced,
         "device_busy_ms_per_step": busy / 1e3 / args.steps,

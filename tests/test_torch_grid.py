@@ -1,7 +1,8 @@
 """The PyTorch port's grid build (climatemachine_tpu_torch.mesh) against
 the JAX package's, in float64 on the CPU: metrics, mass, normals, face
-weights, lift, the weak-divergence operator and the filter's nodal
-matrix within 1e-12 relative; neighbour and boundary tables exactly."""
+weights, lift, the weak-divergence and gradient operators and the
+filter's nodal matrix within 1e-12 relative; neighbour and boundary
+tables and the face node masks exactly."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ from climatemachine_tpu_torch.mesh.filters import ExponentialFilter
 from climatemachine_tpu_torch.mesh.grid import min_node_distance
 
 FLOAT_FIELDS = ("coords", "J", "M", "MI", "xi_x", "normals", "sM", "lift",
-                "Wdiv")
+                "Wdiv", "Wgrad")
 SIZES = [(2, 2, 3), (3, 2, 4)]       # (n_horz, n_vert, poly_order)
 
 
@@ -60,6 +61,13 @@ def test_grid_tables_match_jax(grids):
                                   np.asarray(g_jax.face_bctag))
     assert g_torch.face_perm_identity is bool(g_jax.face_perm_identity)
     assert g_torch.face_perm_identity
+
+
+def test_fmask_padded_matches_jax(grids):
+    g_jax, g_torch = grids
+    assert isinstance(g_torch.fmask_padded, np.ndarray)
+    np.testing.assert_array_equal(g_torch.fmask_padded,
+                                  np.asarray(g_jax.fmask_padded))
 
 
 def test_min_node_distance_matches_jax(grids):

@@ -1,11 +1,17 @@
 """The port's dry Held-Suarez slice against the JAX package, in float64 on
-the CPU at n_horz=2, n_vert=2, p3 (hyperdiffusion off in both):
+the CPU at n_horz=2, n_vert=2, p3, each case twice: with hyperdiffusion
+off and with the default DryBiharmonic(8 h) in both:
 
-- the initial state and aux against JAX ``init_ode_state``;
-- the var-major RHS on a perturbed state against JAX ``VarMajorRHS``
-  (whose Pallas volume kernel runs in interpret mode), 1e-11 relative
-  per variable, the tests/test_fast_rhs.py precedent;
-- one LSRK54 step with the every-step filter, 1e-12 relative.
+- the aux and prognostic lane names;
+- the initial state and aux (``hyperdiffusion.delta`` included) against
+  JAX ``init_ode_state``, 1e-12 relative;
+- the var-major RHS on a perturbed state against JAX
+  ``VarMajorRHS(dg, chain_kernel="pallas")`` (its Pallas volume and chain
+  kernels run in interpret mode), 1e-11 relative per variable, the
+  tests/test_fast_rhs.py precedent;
+- one LSRK54 step with the every-step filter, 1e-12 relative (the JAX
+  step runs its default chain, which tests/test_fast_rhs.py holds to
+  the Pallas chain at round-off).
 
 The RHS and step tests feed both packages the JAX grid's arrays
 (interop.grid_from_numpy) so they hold the RHS apart from the grid
@@ -32,33 +38,33 @@ from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
 from climatemachine_tpu_torch.dg.spatial import DGModel, init_ode_state
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
-from climatemachine_tpu_torch.interop import (FLOAT_FIELDS, INDEX_FIELDS,
-                                              grid_from_numpy,
+from climatemachine_tpu_torch.interop import (grid_from_numpy,
+                                              grid_to_numpy,
                                               state_from_numpy)
 from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
 
 SIZE = dict(n_horz=2, n_vert=2, poly_order=3)
+TAUS = [None, 8 * 3600.0]
 
 
-@pytest.fixture(scope="module")
-def setup():
+@pytest.fixture(scope="module", params=TAUS, ids=["hd_off", "hd_on"])
+def setup(request):
     """JAX config, its initial state perturbed from a seeded numpy
-    generator, and the port's model on the JAX grid's arrays."""
-    cfg_j = jax_held_suarez_config(dtype=np.float64, hyperdiffusion_tau=None,
+    generator, and the port's model on the JAX grid's arrays, with the
+    hyperdiffusion timescale of the parameter."""
+    tau = request.param
+    cfg_j = jax_held_suarez_config(dtype=np.float64, hyperdiffusion_tau=tau,
                                    **SIZE)
     dg_j = JaxDGModel(cfg_j.model, cfg_j.grid)
     q0, aux0 = jax_init_ode_state(dg_j)
     rng = np.random.default_rng(7)
     q = np.asarray(q0) * (1 + 1e-3 * rng.standard_normal(q0.shape))
 
-    cfg_t = held_suarez_config(dtype=torch.float64, hyperdiffusion_tau=None,
+    cfg_t = held_suarez_config(dtype=torch.float64, hyperdiffusion_tau=tau,
                                device="cpu", **SIZE)
-    g = cfg_j.grid
-    fields = {k: np.asarray(getattr(g, k))
-              for k in FLOAT_FIELDS + INDEX_FIELDS}
-    fields.update(xi=g.xi, face_perm_identity=g.face_perm_identity)
-    grid_t = grid_from_numpy(fields, device="cpu", dtype=torch.float64)
-    return dict(cfg_j=cfg_j, dg_j=dg_j, q0=q0, aux0=aux0, q=q,
+    grid_t = grid_from_numpy(grid_to_numpy(cfg_j.grid), device="cpu",
+                             dtype=torch.float64)
+    return dict(tau=tau, cfg_j=cfg_j, dg_j=dg_j, q0=q0, aux0=aux0, q=q,
                 cfg_t=cfg_t, dg_t=DGModel(cfg_t.model, grid_t))
 
 
@@ -71,6 +77,8 @@ def _rel_err_per_var(got_vm, ref_vm):
 
 
 def test_aux_lanes_match_jax(setup):
+    names = setup["cfg_t"].model.aux_spec.flattened_names()
+    assert ("hyperdiffusion.delta" in names) == (setup["tau"] is not None)
     assert list(setup["cfg_t"].model.aux_spec.flattened_names()) == \
         list(setup["cfg_j"].model.aux_spec.flattened_names())
     assert list(setup["cfg_t"].model.prog_spec.flattened_names()) == \
@@ -88,7 +96,7 @@ def test_init_state_matches_jax(setup):
 
 
 def test_rhs_matches_jax(setup):
-    vm_j = JaxVarMajorRHS(setup["dg_j"])
+    vm_j = JaxVarMajorRHS(setup["dg_j"], chain_kernel="pallas")
     dq_ref, aux_ref = vm_j(vm_j.to_vm(jnp.asarray(setup["q"])),
                            vm_j.aux_to_vm(setup["aux0"]), 0.0)
     qv, auxv = state_from_numpy(setup["q"], setup["aux0"], device="cpu")
@@ -98,17 +106,26 @@ def test_rhs_matches_jax(setup):
     assert _rel_err_per_var(aux, aux_ref).max() < 1e-11
 
 
+def _jax_step(setup):
+    """One JAX LSRK54 step with the filter from the perturbed state (dt,
+    RHS, q1, aux1), computed once per fixture."""
+    if "jax_step" not in setup:
+        cfg_j, dg_j = setup["cfg_j"], setup["dg_j"]
+        dt = 0.3 * jax_min_node_distance(cfg_j.grid) / 350.0
+        vm_j = JaxVarMajorRHS(dg_j)
+        sol_j = JaxLSRK54CarpenterKennedy(vm_j, dt)
+        sol_j.post_step = JaxHeldSuarezStepFilter(cfg_j.grid,
+                                                  cfg_j.model).apply_vm
+        q_ref, aux_ref = sol_j.step(vm_j.to_vm(jnp.asarray(setup["q"])),
+                                    vm_j.aux_to_vm(setup["aux0"]), 0.0)
+        setup["jax_step"] = (dt, vm_j, q_ref, aux_ref)
+    return setup["jax_step"]
+
+
 @pytest.mark.parametrize("write_aux", [True, False],
                          ids=["write_aux", "deferred_aux"])
 def test_lsrk54_step_with_filter_matches_jax(setup, write_aux):
-    cfg_j, dg_j = setup["cfg_j"], setup["dg_j"]
-    dt = 0.3 * jax_min_node_distance(cfg_j.grid) / 350.0
-    vm_j = JaxVarMajorRHS(dg_j)
-    sol_j = JaxLSRK54CarpenterKennedy(vm_j, dt)
-    sol_j.post_step = JaxHeldSuarezStepFilter(cfg_j.grid,
-                                              cfg_j.model).apply_vm
-    q_ref, aux_ref = sol_j.step(vm_j.to_vm(jnp.asarray(setup["q"])),
-                                vm_j.aux_to_vm(setup["aux0"]), 0.0)
+    dt, vm_j, q_ref, aux_ref = _jax_step(setup)
 
     dg_t = setup["dg_t"]
     rhs = VarMajorRHS(dg_t, write_aux=write_aux)

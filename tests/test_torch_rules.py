@@ -1,7 +1,7 @@
 """Rules of the PyTorch port that hold without a card: it imports no JAX,
-entry points refuse to fall back to the CPU, and the volume kernel's
-wrapper refuses what its kernel does not cover instead of quietly
-running the plain version."""
+entry points refuse to fall back to the CPU, and the kernel wrappers
+refuse what their kernels do not cover instead of quietly running the
+plain version."""
 
 import ast
 import pathlib
@@ -10,9 +10,10 @@ from dataclasses import replace
 import pytest
 import torch
 
-from climatemachine_tpu_torch import resolve_device
+from climatemachine_tpu_torch import cuda_build, resolve_device
+from climatemachine_tpu_torch.atmos.hyperdiffusion import DryBiharmonic
 from climatemachine_tpu_torch.atmos.model import AtmosModel
-from climatemachine_tpu_torch.dg import volume_kernel
+from climatemachine_tpu_torch.dg import ldg_kernel, volume_kernel
 from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
 from climatemachine_tpu_torch.dg.spatial import DGModel
 from climatemachine_tpu_torch.experiments.held_suarez import \
@@ -58,7 +59,7 @@ def _meta_args(nq=5, E=8, Np=64):
 
 
 @pytest.mark.parametrize("flags", [
-    dict(nq=6), dict(has_f2=True), dict(lin_dims=(2,)),
+    dict(nq=6), dict(has_f2=True, ngl=5), dict(lin_dims=(2,)),
     dict(subtract_ref=False)], ids=["nq6", "has_f2", "lin_dims", "no_subtract"])
 def test_kernel_wrapper_refuses_unsupported_flags(flags):
     kw = dict(nq=5, ngl=4, R_d=EARTH.R_d, cv_d=EARTH.cv_d, T_0=EARTH.T_0)
@@ -77,24 +78,57 @@ def test_kernel_wrapper_never_falls_back_off_cpu():
     assert volume_kernel.fused_volume_tendency_vm.launches == before
 
 
-def test_build_without_nvcc_raises(monkeypatch, tmp_path):
-    monkeypatch.setattr(volume_kernel, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(volume_kernel.shutil, "which", lambda name: None)
+def _chain_meta_args(stage, E=8, n=4, nd=2, Np=64, F=64):
+    t = lambda *s: torch.empty(s, dtype=torch.float32, device="meta")
+    i = lambda *s: torch.empty(s, dtype=torch.int32, device="meta")
+    fo = ldg_kernel.FaceOps(Sel=t(Np, F), LT=t(F, Np), sel_idx=i(F),
+                            lift_idx=i(Np, 2))
+    xi, Wd, MI = t(E, nd * 3, Np), t(nd, Np, Np), t(E, Np)
+    return {"ldg_first": (t(E, n, Np), xi, Wd, fo),
+            "ldg_grad_to_div": (t(E, 3, n, Np), t(E, n, F), t(E, 3, F),
+                                t(E, 3, F), MI, xi, Wd, fo),
+            "ldg_div_to_grad": (t(E, n, Np), t(E, n, F), t(E, F), MI, xi,
+                                Wd, fo),
+            "ldg_last": (t(E, 3, n, Np), t(E, n, F), t(E, 3, F), MI,
+                         fo)}[stage]
+
+
+@pytest.mark.parametrize("stage", ["ldg_first", "ldg_grad_to_div",
+                                   "ldg_div_to_grad", "ldg_last"])
+def test_chain_wrapper_never_falls_back_off_cpu(stage):
+    """A chain tensor that is not on the CPU goes to the kernel path,
+    which refuses a non-CUDA device and counts no launch."""
+    wrapper = getattr(ldg_kernel, stage)
+    before = wrapper.launches
+    with pytest.raises(ValueError):
+        wrapper(*_chain_meta_args(stage))
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("source", ["volume_vm", "ldg_chain"])
+def test_build_without_nvcc_raises(monkeypatch, tmp_path, source):
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     with pytest.raises(RuntimeError, match="nvcc"):
-        volume_kernel.build()
+        cuda_build.build(source)
+
+
+class _OtherBiharmonic(DryBiharmonic):
+    """A hyperdiffusion that is not DryBiharmonic itself (the moist one
+    waits for moisture)."""
 
 
 def test_next_slice_configurations_raise():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        held_suarez_config(2, 2, 3, dtype=torch.float64, device="cpu")
-    cfg = held_suarez_config(2, 2, 3, dtype=torch.float64,
-                             hyperdiffusion_tau=None, device="cpu")
+    cfg = held_suarez_config(2, 2, 3, dtype=torch.float64, device="cpu")
+    assert type(cfg.model.physics.hyperdiffusion) is DryBiharmonic
+    VarMajorRHS(DGModel(cfg.model, cfg.grid))      # the default now builds
     with pytest.raises(NotImplementedError, match="next slice"):
         VarMajorRHS(DGModel(cfg.model, cfg.grid, remainder=("linear",
                                                             "vertical")))
     m = cfg.model
-    hyper = AtmosModel(replace(m.physics, hyperdiffusion="biharmonic"),
+    hyper = AtmosModel(replace(m.physics,
+                               hyperdiffusion=_OtherBiharmonic(3600.0)),
                        m.problem, m.sources)
     with pytest.raises(NotImplementedError, match="next slice"):
         VarMajorRHS(DGModel(hyper, cfg.grid))
