@@ -8,11 +8,18 @@ own inputs, then drives the main path through its public entry points:
 Held-Suarez p4 with DryBiharmonic(8 h) hyperdiffusion on a stacked cubed
 sphere at n_horz=16, n_vert=8 (12,288 elements, 1.536 M nodes), float32,
 LSRK54 with the every-step exponential filter; then, at fewer steps, the
-same step with hyperdiffusion off.  One JSON line per phase; then the
-card's name and power limit as nvidia-smi reports them, a
-``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
-Any failure raises and exits non-zero without the last line.  Without a
-CUDA device it exits 1 at once.
+same step with hyperdiffusion off, whose volume kernel (without F₂), one
+step and small reference are checked as the main path's are.  One JSON
+line per phase; then the card's name and power limit as nvidia-smi
+reports them, a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
+"device": ...}``.  Any failure raises and exits non-zero without the
+last line.  Without a CUDA device it exits 1 at once.
+
+Each kernel reports two bounds: ``bound_ms`` with the derivative
+products counted dense (Np terms per node and direction, as the kernels
+compute them) and ``bound_sumfact_ms`` with them sum-factorised (Nq
+terms: Wd and Wdiv are Kronecker operators), which leaves every kernel
+bound by bytes.
 
 Tolerances:
 - kernel vs plain, same inputs (the chain intermediates and the volume
@@ -31,12 +38,13 @@ Tolerances:
   + 4 · eps32 · max|q1| — the step's increment carries the kernels'
   round-off, and where the two increments differ in their last bits the
   float32 updates q + dt·dq round a few ulp apart;
-- three steps of a small grid (n_horz=2, n_vert=2, p4, hyperdiffusion on)
-  in float32 on the card vs float64 on the CPU (the plain path the CPU
-  tests hold against the JAX package) from the same float32 geometry and
-  state: per variable, max|Δq| <= 1e-4 · max|q| — 10× the 9.7e-6 (ρu)
-  that the same comparison gives in float32 on the CPU: round-off of the
-  cancellations p − p_ref, ρe/ρ − Φ and the derivative of h_tot;
+- three steps of a small grid (n_horz=2, n_vert=2, p4, hyperdiffusion on
+  and off) in float32 on the card vs float64 on the CPU (the plain path
+  the CPU tests hold against the JAX package) from the same float32
+  geometry and state: per variable, max|Δq| <= 1e-4 · max|q| — 10× the
+  9.7e-6 (ρu, hyperdiffusion on) that the same comparison gives in
+  float32 on the CPU: round-off of the cancellations p − p_ref,
+  ρe/ρ − Φ and the derivative of h_tot;
 - mass Σ M ρ, summed in float64: relative drift <= 1e-5 over the run
   (float32 round-off; F₂ carries no mass flux, and the filter keeps each
   element's mode 0 but is not exactly conservative on curved elements).
@@ -53,7 +61,8 @@ import time
 import torch
 
 from climatemachine_tpu_torch import cuda_build, resolve_device
-from climatemachine_tpu_torch.dg import ldg_kernel, ldg_varmajor, volume_kernel
+from climatemachine_tpu_torch.dg import (ldg_kernel, ldg_tables, ldg_varmajor,
+                                        volume_kernel)
 from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
 from climatemachine_tpu_torch.dg.spatial import DGModel, init_ode_state
 from climatemachine_tpu_torch.experiments.held_suarez import (
@@ -126,20 +135,27 @@ def reset_launch_counts():
         wrapper.launches = 0
 
 
-def costs(name: str, E: int, Np: int, n: int, nd: int, F: int):
+def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
+          has_f2: bool = True, dense: bool = True):
     """(bytes, flops) of one call: each input read once, each output
     written once (float32; the int32 face tables and the operator
-    matrices once); derivative products counted dense, the 0/1 face
-    selection and lift as data movement.  Per node, the volume tendency
-    does 2·5·3Np for the contraction, 111 for flux, metric and mass, 106
-    for F₂ and 5 for the MI scaling."""
+    matrices once); the 0/1 face selection and lift as data movement.
+    The derivative products are counted ``dense`` (Np terms per node and
+    direction, as the kernels and the TPU kernels compute them) or sum-
+    factorised (Wd and Wdiv are Kronecker operators with Nq nonzeros a
+    row).  Per node, the volume tendency does 2·5·3 terms for the
+    contraction, 111 for flux, metric and mass, 106 for F₂ and 5 for the
+    MI scaling."""
     R, X = 3 * n, nd * 3
-    deriv = lambda rows: 2 * E * rows * nd * Np * Np
+    K = Np if dense else Nq
+    deriv = lambda rows: 2 * E * rows * nd * Np * K
     wd, sel, lift = 4 * nd * Np * Np, 4 * F, 4 * 2 * Np
     if name == "fused_volume_tendency_vm":
-        nbytes = 4 * (E * Np * (5 + 1 + 1 + 9 + 1 + 1 + 12 + 2 + 5)
+        nbytes = 4 * (E * Np * (5 + 1 + 1 + 9 + 1 + 1 + 5
+                                + (12 + 2 if has_f2 else 0))
                       + Np * 3 * Np)
-        return nbytes, E * Np * (2 * 5 * 3 * Np + 111 + 106 + 5)
+        return nbytes, E * Np * (2 * 5 * 3 * K + 111 + 5
+                                 + (106 if has_f2 else 0))
     if name == "ldg_first":
         nbytes = 4 * E * (n * Np + X * Np + R * Np + n * F) + wd + sel
         return nbytes, deriv(n) + E * R * Np * (2 * nd - 1)
@@ -155,6 +171,27 @@ def costs(name: str, E: int, Np: int, n: int, nd: int, F: int):
                         + E * R * Np * (2 * nd - 1))
     nbytes = 4 * E * (R * Np + n * F + 3 * F + Np + R * Np) + lift
     return nbytes, E * R * (F + 2 * Np)
+
+
+def bounds(name: str, rhs, n: int, has_f2: bool = True) -> dict:
+    """The kernel's bound with the products counted dense (``bound_ms``,
+    the kernels line's) and sum-factorised (``bound_sumfact_ms``), each
+    the larger of bytes over the memory rate and flops over the fp32
+    rate."""
+    g = rhs.grid
+    nd, F = (rhs.chain.Wd.shape[0], rhs.chain.fo.F) if rhs.hd else (0, 0)
+    out = {}
+    for key, dense in (("", True), ("_sumfact", False)):
+        nbytes, flops = costs(name, g.nelem, g.Np, g.Nq[0], n, nd, F,
+                              has_f2, dense)
+        t_bytes = 1e3 * nbytes / PEAK_BYTES
+        t_ops = 1e3 * flops / PEAK_FP32_FLOPS
+        out.update({"bytes": nbytes, "bytes_ms": t_bytes,
+                    f"flops{key}": flops, f"ops{key}_ms": t_ops,
+                    f"bound{key}_ms": max(t_bytes, t_ops),
+                    f"bound{key}_by": ("bytes" if t_bytes > t_ops
+                                       else "operations")})
+    return out
 
 
 def phase_device():
@@ -197,8 +234,7 @@ def chain_inputs(rhs, q, aux):
     args4 = (vol3, ldg_kernel.face_jump(rows3, ops), ops.w3, ops.MI, ops.fo)
     gl2 = ldg_kernel.ldg_last_plain(*args4).reshape(g.nelem, 12, g.Np)
     volume_args = (q, p, aux[:, rhs.i_phi], aux[:, rhs.i_pref].contiguous(),
-                   None, gl2, rhs.hyper_coefficients(aux), rhs.xiv, g.M,
-                   g.MI, g.Wdiv)
+                   None, gl2, rhs.nu, rhs.xiv, g.M, g.MI, g.Wdiv)
     return glv, {"fused_volume_tendency_vm": volume_args,
                  "ldg_first": (glv, ops.xi, ops.Wd, ops.fo),
                  "ldg_grad_to_div": args2, "ldg_div_to_grad": args3,
@@ -224,49 +260,55 @@ def yardstick(name, args, rhs):
     return cuda_ms(lambda: torch.matmul(a, b), 50)
 
 
-def phase_kernels(rhs, q, aux) -> dict:
-    """Each kernel against its plain version on the main path's inputs,
-    with its time, the plain version's, a matmul yardstick and its
-    bound; then the whole kernel chain against the per-pass chain."""
+def kernel_vs_plain(name, args, rhs, n, **kw) -> dict:
+    """One kernel against its plain version on the same inputs, with its
+    time, the plain version's, a matmul yardstick and its bounds."""
+    wrapper, plain, _, _ = KERNELS[name]
+    out, ref = wrapper(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    out = out if isinstance(out, tuple) else (out,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    errs = [(o - r).abs().max().item() for o, r in zip(out, ref)]
+    scales = [r.abs().max().item() for r in ref]
+    res = dict(max_abs_err=max(errs), max_abs_err_per_output=errs,
+               max_abs_plain_per_output=scales, tol=KERNEL_TOL,
+               ms=cuda_ms(lambda: wrapper(*args, **kw), 50),
+               plain_ms=cuda_ms(lambda: plain(*args, **kw), 10),
+               matmul_yardstick_ms=yardstick(name, args, rhs),
+               **bounds(name, rhs, n, kw.get("has_f2", True)),
+               shapes=[list(a.shape) for a in args
+                       if isinstance(a, torch.Tensor)])
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    res["share_of_bound_sumfact"] = res["bound_sumfact_ms"] / res["ms"]
+    emit("kernel_vs_plain", name=name, has_f2=kw.get("has_f2"), **res)
+    check(all(bool(torch.isfinite(o).all()) for o in out),
+          (name, "kernel output not finite"))
+    check(all(e <= KERNEL_TOL * sc for e, sc in zip(errs, scales)),
+          (name, "kernel vs plain", errs, scales))
+    return res
+
+
+def volume_kwargs(rhs, has_f2: bool) -> dict:
     ps = rhs.bl.param_set
-    vkw = dict(nq=5, ngl=4, R_d=ps.R_d, cv_d=ps.cv_d, T_0=ps.T_0,
-               subtract_ref=True, has_f2=True)
+    return dict(nq=5, ngl=rhs.bl.gradlap_spec.num, R_d=ps.R_d, cv_d=ps.cv_d,
+                T_0=ps.T_0, subtract_ref=True, has_f2=has_f2)
+
+
+def phase_kernels(rhs, q, aux) -> dict:
+    """Each kernel against its plain version on the main path's inputs;
+    then the whole kernel chain against the per-pass chain."""
     glv, inputs = chain_inputs(rhs, q, aux)
-    E, Np = rhs.grid.nelem, rhs.grid.Np
     results = {}
-    for name, (wrapper, plain, _, _) in KERNELS.items():
-        args = inputs[name]
-        kw = vkw if name == "fused_volume_tendency_vm" else {}
-        out, ref = wrapper(*args, **kw), plain(*args, **kw)
-        torch.cuda.synchronize()
-        out = out if isinstance(out, tuple) else (out,)
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        errs = [(o - r).abs().max().item() for o, r in zip(out, ref)]
-        scales = [r.abs().max().item() for r in ref]
-        nbytes, flops = costs(name, E, Np, n=glv.shape[1],
-                              nd=rhs.chain.Wd.shape[0], F=rhs.chain.fo.F)
-        t_bytes = 1e3 * nbytes / PEAK_BYTES
-        t_ops = 1e3 * flops / PEAK_FP32_FLOPS
-        res = dict(max_abs_err=max(errs), max_abs_err_per_output=errs,
-                   max_abs_plain_per_output=scales, tol=KERNEL_TOL,
-                   ms=cuda_ms(lambda: wrapper(*args, **kw), 50),
-                   plain_ms=cuda_ms(lambda: plain(*args, **kw), 10),
-                   matmul_yardstick_ms=yardstick(name, args, rhs),
-                   bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes > t_ops else "operations",
-                   shapes=[list(a.shape) for a in args
-                           if isinstance(a, torch.Tensor)])
-        emit("kernel_vs_plain", name=name, **res)
-        check(all(bool(torch.isfinite(o).all()) for o in out),
-              (name, "kernel output not finite"))
-        check(all(e <= KERNEL_TOL * sc for e, sc in zip(errs, scales)),
-              (name, "kernel vs plain", errs, scales))
-        results[name] = res
+    for name in KERNELS:
+        kw = (volume_kwargs(rhs, True)
+              if name == "fused_volume_tendency_vm" else {})
+        results[name] = kernel_vs_plain(name, inputs[name], rhs,
+                                        n=glv.shape[1], **kw)
 
     # the whole kernel chain against the per-pass plain chain
     ops = rhs.chain
     tab, dims = ops.tab, ops.dims
-    geom = ldg_varmajor._geom(rhs.grid, ops.faces, dims)
+    geom = ldg_tables.geom(rhs.grid, ops.faces, dims)
     grad = ldg_varmajor.grad_vm(rhs.grid, glv, tab, geom, dims)
     lap = ldg_varmajor.div_vm(rhs.grid, grad, tab, geom, dims)
     ref = ldg_varmajor.grad_vm(rhs.grid, lap, tab, geom, dims)
@@ -282,12 +324,12 @@ def phase_kernels(rhs, q, aux) -> dict:
     return results
 
 
-def small_reference_check():
-    """A few float32 steps of a small grid with hyperdiffusion on the
-    card against float64 steps on the CPU from the same float32 geometry
-    and initial state (upcast), so the two differ by arithmetic precision
-    only."""
-    cfg = held_suarez_config(2, 2, POLY, dtype=torch.float32, device="cuda")
+def small_reference_check(tau):
+    """A few float32 steps of a small grid on the card against float64
+    steps on the CPU from the same float32 geometry and initial state
+    (upcast), so the two differ by arithmetic precision only."""
+    cfg = held_suarez_config(2, 2, POLY, dtype=torch.float32,
+                             hyperdiffusion_tau=tau, device="cuda")
     g = cfg.grid
     grid64 = grid_from_numpy(grid_to_numpy(g), device="cpu",
                              dtype=torch.float64)
@@ -307,8 +349,7 @@ def small_reference_check():
     err = ((final["card_f32"] - ref).abs().amax(dim=(0, 2))
            / ref.abs().amax(dim=(0, 2))).tolist()
     emit("small_reference", n_horz=2, n_vert=2, poly=POLY, steps=3,
-         hyperdiffusion_tau=cfg.model.physics.hyperdiffusion.tau_timescale,
-         rel_err_per_var=err, tol=SMALL_TOL)
+         hyperdiffusion_tau=tau, rel_err_per_var=err, tol=SMALL_TOL)
     check(max(err) <= SMALL_TOL, ("small reference", err))
 
 
@@ -368,23 +409,22 @@ def run_path(path: dict, n_warm: int, n_steps: int):
     return res, counts
 
 
-def phase_main_path(seed: int) -> dict:
-    """Kernels against plain versions on the main path's inputs, one
-    step against the plain step, the small reference, then the main path
-    with hyperdiffusion."""
-    path = build_path(8 * 3600.0)
-    q0, aux0, rhs = path["q0"], path["aux0"], path["rhs"]
+def perturbed(q0, seed: int):
+    """The initial state times 1 + 1e-3 · N(0, 1), from ``seed``."""
     gen = torch.Generator(device=q0.device).manual_seed(seed)
-    qp = q0 * (1 + 1e-3 * torch.randn(q0.shape, generator=gen,
-                                       device=q0.device))
-    kernels = phase_kernels(rhs, qp, aux0)
+    return q0 * (1 + 1e-3 * torch.randn(q0.shape, generator=gen,
+                                         device=q0.device))
 
-    # one step with the kernels against one with the plain versions
+
+def step_vs_plain(path):
+    """One step with the kernels against one with the plain versions,
+    from the path's initial state."""
     plain = LSRK54CarpenterKennedy(
         VarMajorRHS(path["dg"], write_aux=False,
                     volume=volume_kernel.volume_tendency_plain,
                     chain_stages=ldg_kernel.PLAIN),
         path["dt"], post_step=path["hsf"].apply_vm)
+    q0, aux0 = path["q0"], path["aux0"]
     q1, _ = path["solver"].step(q0, aux0, 0.0)
     q1p, _ = plain.step(q0, aux0, 0.0)
     eps32 = torch.finfo(torch.float32).eps
@@ -396,9 +436,17 @@ def phase_main_path(seed: int) -> dict:
          max_abs_diff_per_var=(q1 - q1p).abs().amax(dim=(0, 2)).tolist(),
          tol=STEP_TOL)
     check(max(step_err) <= 1.0, ("step vs plain", step_err))
-    del plain, qp, q1, q1p
 
-    small_reference_check()
+
+def phase_main_path(seed: int) -> dict:
+    """Kernels against plain versions on the main path's inputs, one
+    step against the plain step, the small reference, then the main path
+    with hyperdiffusion."""
+    path = build_path(8 * 3600.0)
+    kernels = phase_kernels(path["rhs"], perturbed(path["q0"], seed),
+                            path["aux0"])
+    step_vs_plain(path)
+    small_reference_check(path["tau"])
 
     res, counts = run_path(path, N_WARM, N_STEPS)
     expected = 5 * (N_WARM + N_STEPS)
@@ -409,10 +457,25 @@ def phase_main_path(seed: int) -> dict:
     return dict(kernels=kernels, launches=counts)
 
 
-def phase_no_hyperdiffusion():
+def phase_no_hyperdiffusion(seed: int):
     """The step with hyperdiffusion off (the configuration of the first
-    slice), at fewer steps: only the volume kernel runs."""
-    res, counts = run_path(build_path(None), N_WARM_OFF, N_STEPS_OFF)
+    slice), at fewer steps: the volume kernel without F₂ against its
+    plain version on this path's inputs, one step against the plain
+    step, the small reference, then the path, where only the volume
+    kernel runs."""
+    path = build_path(None)
+    rhs, aux0, g = path["rhs"], path["aux0"], path["cfg"].grid
+    qp = perturbed(path["q0"], seed)
+    _, p, _, _ = rhs._thermo_update(qp, aux0, False)
+    args = (qp, p, aux0[:, rhs.i_phi], aux0[:, rhs.i_pref].contiguous(),
+            None, None, None, rhs.xiv, g.M, g.MI, g.Wdiv)
+    kernel_vs_plain("fused_volume_tendency_vm", args, rhs, n=0,
+                    **volume_kwargs(rhs, False))
+    del qp, p, args
+    step_vs_plain(path)
+    small_reference_check(None)
+
+    res, counts = run_path(path, N_WARM_OFF, N_STEPS_OFF)
     expected = 5 * (N_WARM_OFF + N_STEPS_OFF)
     res["expected_volume_launches"] = expected
     emit("no_hyperdiffusion_path", **res)
@@ -432,7 +495,7 @@ def main(argv=None) -> int:
     phase_device()
     phase_build()
     res = phase_main_path(args.seed)
-    phase_no_hyperdiffusion()
+    phase_no_hyperdiffusion(args.seed)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

@@ -32,15 +32,20 @@ class DryBiharmonic:
     def vars_gradient_laplacian(self) -> VarSpec:
         return VarSpec(u_h=3, h_tot=1)
 
-    def init_aux(self, model, grid, aux):
-        """Fill ``hyperdiffusion.delta``: the mean of the two horizontal
-        node spacings, from the columns of ∂x/∂ξ = (∂ξ/∂x)⁻¹ (inverted
-        on the host in float64)."""
+    def lengthscale(self, grid) -> torch.Tensor:
+        """Δ_h ``[E, Np]``: the mean of the two horizontal node spacings,
+        from the columns of ∂x/∂ξ = (∂ξ/∂x)⁻¹ (inverted on the host in
+        float64), in the grid's dtype and on its device."""
         Jm = np.linalg.inv(grid.xi_x.detach().cpu().double().numpy())
         Nq = grid.Nq
         d1 = np.linalg.norm(Jm[..., :, 0], axis=-1) * 2 / max(Nq[0] - 1, 1)
         d2 = np.linalg.norm(Jm[..., :, 1], axis=-1) * 2 / max(Nq[1] - 1, 1)
+        return torch.as_tensor(0.5 * (d1 + d2), dtype=grid.dtype,
+                               device=grid.device)
+
+    def init_aux(self, model, grid, aux):
+        """Fill ``hyperdiffusion.delta`` with :meth:`lengthscale`."""
         out = aux.clone()
-        out[:, model.aux_spec.index("hyperdiffusion.delta")] = torch.as_tensor(
-            0.5 * (d1 + d2), dtype=aux.dtype, device=aux.device)[:, None]
+        out[:, model.aux_spec.index("hyperdiffusion.delta")] = \
+            self.lengthscale(grid).to(aux.dtype)[:, None]
         return out

@@ -25,11 +25,15 @@
 // order, so the sums run in the order of the dense product.
 //
 // What bounds them (E = 12288, Np = 125, N = 4, ND = 2, F = 100, float32,
-// derivative products counted dense, Sel/LT counted as data movement; the
-// H100's 67 TFLOP/s fp32 and 3.35 TB/s): K1 3.15 GFLOP vs 155 MB, 0.047 ms
-// on operations (bytes 0.046 ms); K2 9.35 GFLOP vs 210 MB, 0.140 ms on
-// operations; K3 3.15 GFLOP vs 186 MB, 0.055 ms on bytes; K4 188 MB, 0.056 ms
-// on bytes.
+// Sel/LT counted as data movement; the H100's 67 TFLOP/s fp32 and
+// 3.35 TB/s).  With the derivative products counted dense, as these
+// kernels compute them: K1 3.13 GFLOP vs 155 MB, 0.047 ms on operations
+// (bytes 0.046 ms); K2 9.37 GFLOP vs 210 MB, 0.140 ms on operations; K3
+// 3.14 GFLOP vs 186 MB, 0.055 ms on bytes; K4 188 MB, 0.056 ms on bytes.
+// Wd is a Kronecker operator with Nq = 5 nonzeros a row, so sum-factorised
+// the products cost ~25x fewer flops (K2 0.52 GFLOP) and every kernel is
+// bound by bytes alone: K1 0.046, K2 0.063, K3 0.055, K4 0.056 ms.  The
+// dense loop over k is the headroom a sum-factorised kernel would take.
 //
 // Design (the volume kernel's pattern, csrc/volume_vm.cu):
 //   - a block of TE elements, one thread per node (Np = 125: 128 threads,

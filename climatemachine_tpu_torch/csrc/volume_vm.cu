@@ -16,10 +16,14 @@
 // with gl2[i][j] = d_i Laplacian(u_h, h_tot)_j (lane 4i+j of [E][12][Np])
 // and nu4 lane 0 of [E][2][Np].
 //
-// What bounds it: at p4 (Np = 125) the contraction is 2*5*375 = 3750
-// flops per node against 23 floats read or written per node (37 with F2),
-// ~41 (~25) flops per byte, above the H100's fp32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20), so the fp32 FMA pipes bound it, not device memory.
+// What bounds it: at p4 (Np = 125) the dense contraction, as this kernel
+// computes it, is 2*5*375 = 3750 flops per node against 23 floats read or
+// written per node (37 with F2), ~41 (~25) flops per byte, above the
+// H100's fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20), so the fp32 FMA
+// pipes bound it: 0.089 ms (0.091 with F2) at E = 12288.  Wdiv is a
+// Kronecker operator with Nq = 5 nonzeros a row per direction, so sum-
+// factorised the contraction is 2*5*15 = 150 flops per node and bytes
+// alone bound it: 0.042 ms (0.068 with F2).
 //
 // Design: one block of TE elements, one thread per node (the last warp
 // masked: Np = 125 is not a multiple of 32).

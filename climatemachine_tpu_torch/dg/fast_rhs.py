@@ -9,11 +9,11 @@ State and aux stay var-major ``[E, nvar, Np]`` throughout.  Per call:
   face fluxes (faces are nodal subsets, so face thermo is extracted, not
   recomputed) and the sources;
 - with hyperdiffusion, the LDG chain ∇→Δ→∇ of (u_h, h_tot) through the
-  four chain kernels (dg/ldg_kernel.py) and ν₄ = (Δ/2)⁴/2τ;
+  four chain kernels (dg/ldg_kernel.py); ν₄ = (Δ/2)⁴/2τ is built once;
 - volume: the fused volume-tendency kernel (dg/volume_kernel.py), which
   builds the hyperdiffusive flux F₂ from ∇Δ and ν₄ itself;
 - surface: face bundle by one extraction matmul against the 0/1 lift
-  matrix (with hyperdiffusion, ∇Δ and ν ride it and the n·F₂ trace is
+  matrix (with hyperdiffusion, ∇Δ rides it and the n·F₂ trace is
   built on the faces), neighbour rows by gathers over elements, wall
   ghosts, Rusanov flux plus the interior hyperdiffusive correction, and
   one lift matmul;
@@ -107,7 +107,13 @@ class VarMajorRHS:
             d = bl.hyperdiffusion_direction
             self.chain = ldg_kernel.chain_operators(
                 g, direction_dims(d, g.dim), direction_faces(d, g.dim))
-            self.i_delta = sp.index("hyperdiffusion.delta").start
+            # ν₄ = (Δ/2)⁴ / 2τ is static (Δ, the aux lane
+            # hyperdiffusion.delta, depends on the grid alone): the volume
+            # kernel's (ν₄, ν₄_q = 0) [E, 2, Np] and ν₄ on the faces [E, X]
+            nu4 = ((self.hd.lengthscale(g) / 2) ** 4
+                   / (2 * self.hd.tau_timescale))
+            self.nu = torch.stack([nu4, torch.zeros_like(nu4)], dim=1)
+            self.nu4_faces = torch.matmul(nu4, g.lift)
 
     def _thermo_update(self, qv, auxv, write_aux: bool):
         """T, p, c_s and, with ``write_aux``, a copy of aux with the θ_v
@@ -142,21 +148,15 @@ class VarMajorRHS:
         u_h = u - torch.sum(u * k, dim=1, keepdim=True) * k
         return torch.cat([u_h, ((rhoe + p) / rho)[:, None]], dim=1)
 
-    def hyper_coefficients(self, auxv):
-        """(ν₄, ν₄_q = 0) ``[E, 2, Np]`` with ν₄ = (Δ/2)⁴ / 2τ."""
-        delta = auxv[:, self.i_delta]
-        nu4 = (delta / 2) ** 4 / (2 * self.hd.tau_timescale)
-        return torch.stack([nu4, torch.zeros_like(nu4)], dim=1)
-
     def _chain(self, qv, auxv, p):
-        """(gl2 ``[E, 12, Np]``, nu ``[E, 2, Np]``): ∇Δ of (u_h, h_tot) at
-        lane 4·i + j (direction i, variable j) and the coefficients.  The
-        hyperdiffusive flux itself is never stored: the volume kernel
-        and the surface pass build it from these."""
+        """gl2 ``[E, 12, Np]``: ∇Δ of (u_h, h_tot) at lane 4·i + j
+        (direction i, variable j).  The hyperdiffusive flux itself is
+        never stored: the volume kernel and the surface pass build it
+        from gl2 and ν₄."""
         glv = self.chain_input(qv, auxv, p)
         gl2 = ldg_kernel.chain_vm(glv, self.chain, self.chain_stages)
         E, n, Np = glv.shape
-        return gl2.reshape(E, 3 * n, Np), self.hyper_coefficients(auxv)
+        return gl2.reshape(E, 3 * n, Np)
 
     # --- surface -------------------------------------------------------------
     def _gather_faces(self, Bf):
@@ -171,25 +171,25 @@ class VarMajorRHS:
             blocks.append(blk)
         return torch.cat(blocks, dim=2)
 
-    def _bundle(self, qv, auxv, p, c_s, hyper):
+    def _bundle(self, qv, auxv, p, c_s, gl2):
         """Minus-side face bundle ``[E, nvb, X]``: lanes q (nq), p, c_s,
-        p_ref, and with ``hyper = (gl2, nu)`` the nq n·F₂ trace lanes,
-        built on the faces from ∇Δ and ν extracted by the same matmul
-        (each side contracts its own volume F₂ with its own normal)."""
+        p_ref, and with ``gl2`` the nq n·F₂ trace lanes, built on the
+        faces from ∇Δ extracted by the same matmul and the static face
+        ν₄ (each side contracts its own volume F₂ with its own normal)."""
         g, nq, nrm = self.grid, self.nq, self.nrm
         E, Np = g.nelem, g.Np
         X = g.nface * g.Nfp_max
         lanes = [qv, p[:, None], c_s[:, None], auxv[:, self.i_pref, None]]
-        if hyper is not None:
-            lanes += list(hyper)
+        if gl2 is not None:
+            lanes.append(gl2)
         B = torch.cat(lanes, dim=1)
         Bx = torch.matmul(B.reshape(-1, Np), g.lift).reshape(E, -1, X)
-        if hyper is None:
+        if gl2 is None:
             return Bx
         nvb = nq + 3
-        ngl = hyper[0].shape[1] // 3
-        gl2f = Bx[:, nvb:nvb + 3 * ngl].reshape(E, 3, ngl, X)
-        nu4f = Bx[:, nvb + 3 * ngl]
+        ngl = gl2.shape[1] // 3
+        gl2f = Bx[:, nvb:].reshape(E, 3, ngl, X)
+        nu4f = self.nu4_faces
         G = torch.sum(nrm[:, :, None, :] * gl2f, dim=1)   # [E, ngl, X]
         rhoF = Bx[:, 0]
         rnu = rhoF * nu4f
@@ -198,14 +198,14 @@ class VarMajorRHS:
                             + Bx[:, 3] * G[:, 2]) + rnu * G[:, 3]])
         return torch.cat([Bx[:, :nvb], torch.stack(trace, dim=1)], dim=1)
 
-    def _surface(self, qv, auxv, p, c_s, hyper=None):
+    def _surface(self, qv, auxv, p, c_s, gl2=None):
         """Rusanov surface term −M⁻¹ L (sM · f*), ``[E, nq, Np]``; with
-        ``hyper`` the interior hyperdiffusive correction ½(s⁻ − s⁺) of the
+        ``gl2`` the interior hyperdiffusive correction ½(s⁻ − s⁺) of the
         n·F₂ traces joins f* (wall faces carry none)."""
         g, nq, nrm = self.grid, self.nq, self.nrm
         E, Np = g.nelem, g.Np
         X = g.nface * g.Nfp_max
-        Bf = self._bundle(qv, auxv, p, c_s, hyper)
+        Bf = self._bundle(qv, auxv, p, c_s, gl2)
         BP = self._gather_faces(Bf)
 
         # wall ghost: reflect the normal momentum, copy the rest
@@ -236,7 +236,7 @@ class VarMajorRHS:
         fstar = torch.stack([0.5 * (FnM[v] + FnP[v])
                              - 0.5 * c * (BP[:, v] - Bf[:, v])
                              for v in range(nq)], dim=1)
-        if hyper is not None:
+        if gl2 is not None:
             sl_h = slice(nq + 3, 2 * nq + 3)
             fstar = fstar + torch.where(
                 self.tab["bnd_lane"][:, None, :], 0.0,
@@ -263,13 +263,13 @@ class VarMajorRHS:
     def __call__(self, qv, auxv, t):
         g, ps = self.grid, self.bl.param_set
         T, p, c_s, auxv = self._thermo_update(qv, auxv, self.write_aux)
-        hyper = self._chain(qv, auxv, p) if self.hd is not None else None
-        gl2, nu = hyper if hyper is not None else (None, None)
+        hyper = self.hd is not None
+        gl2 = self._chain(qv, auxv, p) if hyper else None
         tend = self.volume(qv, p, auxv[:, self.i_phi],
-                           auxv[:, self.i_pref].contiguous(), None, gl2, nu,
-                           self.xiv, g.M, g.MI, g.Wdiv, nq=self.nq,
-                           ngl=self.bl.gradlap_spec.num, R_d=ps.R_d,
-                           cv_d=ps.cv_d, T_0=ps.T_0, subtract_ref=True,
-                           has_f2=hyper is not None)
-        tend = tend + self._surface(qv, auxv, p, c_s, hyper)
+                           auxv[:, self.i_pref].contiguous(), None, gl2,
+                           self.nu if hyper else None, self.xiv, g.M, g.MI,
+                           g.Wdiv, nq=self.nq, ngl=self.bl.gradlap_spec.num,
+                           R_d=ps.R_d, cv_d=ps.cv_d, T_0=ps.T_0,
+                           subtract_ref=True, has_f2=hyper)
+        tend = tend + self._surface(qv, auxv, p, c_s, gl2)
         return tend + self._sources(qv, auxv, T, p, t), auxv

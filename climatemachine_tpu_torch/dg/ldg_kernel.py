@@ -12,13 +12,14 @@ written CUDA for Hopper and their plain PyTorch versions (port of
 - K4 :func:`ldg_last`: pass-3 lift → ∇Δ ``[E, 3, n, Np]``.
 
 Between them plain PyTorch does the three face-row exchanges
-(ldg_varmajor._exchange) and the jump arithmetic, as the JAX package
+(ldg_tables.exchange) and the jump arithmetic, as the JAX package
 leaves them to XLA.
 
 Dispatch is by device: a CPU tensor takes the plain version (the JAX
 bodies' arithmetic, with the dense 0/1 ``Sel`` and ``LT``); any other
 tensor takes the kernel (csrc/ldg_chain.cu) or raises.  The kernels
-apply ``Sel`` and ``LT`` as index gathers from :class:`FaceOps` and cover
+apply ``Sel`` and ``LT`` as index gathers from
+:class:`~climatemachine_tpu_torch.dg.ldg_tables.FaceOps` and cover
 float32, n = 4 rows (u_h, h_tot) and nd = 2 directions (horizontal);
 each wrapper counts its launches in ``.launches``.
 """
@@ -30,62 +31,25 @@ import functools
 from dataclasses import dataclass
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from climatemachine_tpu_torch import cuda_build
-from climatemachine_tpu_torch.dg.ldg_varmajor import (_exchange, _geom,
-                                                      _tables, _W_for)
+from climatemachine_tpu_torch.dg.ldg_tables import (FaceOps, W_for, exchange,
+                                                    geom, tables)
 
 MAX_NP = 256          # one thread per node, at most 256 threads a block
 
 
 @dataclass
-class FaceOps:
-    """The face selection ``Sel [Np, F]`` and lift ``LT [F, Np]`` (0/1),
-    dense for the plain versions and as index tables for the kernels:
-    ``sel_idx [F]`` the volume node of each face column, ``lift_idx
-    [Np, L]`` the face columns landing on each node (ascending, −1
-    padded), both int32."""
-    Sel: torch.Tensor
-    LT: torch.Tensor
-    sel_idx: torch.Tensor
-    lift_idx: torch.Tensor
-
-    @property
-    def F(self) -> int:
-        return self.Sel.shape[1]
-
-
-def face_ops(Sel, LT) -> FaceOps:
-    """:class:`FaceOps` from 0/1 matrices with one 1 in each face column
-    (``Sel``'s columns, ``LT``'s rows); anything else raises."""
-    S, L = Sel.cpu().numpy(), LT.cpu().numpy()
-    for name, a in (("Sel", S), ("LT^T", L.T)):
-        if not (np.isin(a, (0.0, 1.0)).all() and (a.sum(0) == 1).all()):
-            raise ValueError(f"{name} must be 0/1 with one 1 per face column")
-    sel_idx = S.argmax(0)
-    per_node = [np.flatnonzero(L[:, m]) for m in range(L.shape[1])]
-    width = max(1, max(len(c) for c in per_node))
-    lift_idx = -np.ones((L.shape[1], width), dtype=np.int32)
-    for m, cols in enumerate(per_node):
-        lift_idx[m, :len(cols)] = cols
-    idx = lambda a: torch.as_tensor(a, dtype=torch.int32, device=Sel.device)
-    return FaceOps(Sel=Sel, LT=LT, sel_idx=idx(sel_idx),
-                   lift_idx=idx(lift_idx))
-
-
-@dataclass
 class ChainOperators:
     """Static operands of the chain on one grid, built once: the
-    exchange tables, face operators, ``Wd [nd, Np, Np]`` (Wd[a][k][m] =
-    ∂_a weight of node k at node m), ξ ``[E, nd·3, Np]`` (slot 3·ai + c),
-    sM ``[E, F]``, w3 = sM·n and the normals ``[E, 3, F]``, MI ``[E, Np]``
-    and the wall sign ``[E, 1, F]``."""
+    exchange tables (with the face operators, :attr:`fo`), ``Wd [nd, Np,
+    Np]`` (Wd[a][k][m] = ∂_a weight of node k at node m), ξ ``[E, nd·3,
+    Np]`` (slot 3·ai + c), sM ``[E, F]``, w3 = sM·n and the normals
+    ``[E, 3, F]``, MI ``[E, Np]`` and the wall sign ``[E, 1, F]``."""
     dims: Tuple[int, ...]
     faces: Tuple[int, ...]
     tab: dict
-    fo: FaceOps
     Wd: torch.Tensor
     xi: torch.Tensor
     sM: torch.Tensor
@@ -94,15 +58,18 @@ class ChainOperators:
     MI: torch.Tensor
     sign: torch.Tensor
 
+    @property
+    def fo(self) -> FaceOps:
+        return self.tab["fo"]
+
 
 def chain_operators(grid, dims, faces) -> ChainOperators:
-    tab = _tables(grid, faces)
-    sM, nrm, xi, _ = _geom(grid, faces, dims)
+    tab = tables(grid, faces)
+    sM, nrm, xi, _ = geom(grid, faces, dims)
     E, Np, nd = grid.nelem, grid.Np, len(dims)
-    Wd = _W_for(grid, dims).reshape(nd, Np, Np).transpose(1, 2).contiguous()
+    Wd = W_for(grid, dims).reshape(nd, Np, Np).transpose(1, 2).contiguous()
     return ChainOperators(
-        dims=tuple(dims), faces=tuple(faces), tab=tab,
-        fo=face_ops(tab["SelT"], tab["LT"]), Wd=Wd,
+        dims=tuple(dims), faces=tuple(faces), tab=tab, Wd=Wd,
         xi=xi.reshape(E, nd * 3, Np), sM=sM.reshape(E, -1),
         w3=(sM * nrm).contiguous(), nrm=nrm, MI=grid.MI,
         sign=tab["sign"][:, None, :])
@@ -313,7 +280,7 @@ PLAIN = (ldg_first_plain, ldg_grad_to_div_plain, ldg_div_to_grad_plain,
 def face_jump(rows, ops: ChainOperators, signed: bool = False):
     """½(neighbour − own) face values ``[E, n, F]``; ``signed`` flips the
     neighbour on wall faces (the n·v scalars of the divergence pass)."""
-    nbr = _exchange(rows, ops.tab)
+    nbr = exchange(rows, ops.tab)
     return 0.5 * ((ops.sign * nbr if signed else nbr) - rows)
 
 

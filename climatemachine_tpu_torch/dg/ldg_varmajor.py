@@ -1,106 +1,24 @@
 """Var-major hyperdiffusion LDG chain, one pass at a time (port of
-``climatemachine_tpu/dg/ldg_varmajor.py``: _tables :53, _geom :114,
-_W_for :140, _exchange :157 with _rows_to_R2/_R2_to_rows :129, grad_vm
-:169, div_vm :201).
+``climatemachine_tpu/dg/ldg_varmajor.py`` grad_vm :169, div_vm :201).
 
 States ride var-major ``[E, n, Np]``, face traces ``[E, n, F]`` rows over
-the active faces (F = nfa·Nfp), and every structural operator
-(derivative, face extraction, lift) is one matmul against a static
-matrix.  This is the plain chain: the tables here also feed the kernel
-chain (dg/ldg_kernel.py), and the tests and chip_smoke.py hold that
-chain against this one.
-
-The neighbour map is in active-face row space: row (e, j) of face
-``faces[j]`` reads row ``nbr_active[e·nfa + j] = ne·nfa + pos[nf]`` of
-its neighbour, which handles panel edges (where the neighbour presents
-another face) without fix-ups.  Single device, identity face
-orientations and uniform Nfp only.
+the active faces, and every structural operator (derivative, face
+extraction, lift) is one matmul against a static matrix from
+dg/ldg_tables.py.  This is the plain chain: the tests and chip_smoke.py
+hold the kernel chain (dg/ldg_kernel.py) against it.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-
-def _tables(grid, faces):
-    """Static tables for the active ``faces``, built in host numpy and
-    uploaded once: ``SelT [Np, F]`` (face-node selection), ``LT [F, Np]``
-    (lift, a 0/1 scatter), ``nbr_active [E·nfa]``, ``sign [E, F]`` (+1 on
-    wall faces, −1 inside), ``F`` and ``nfa``."""
-    Np, Nfp, nface, E = grid.Np, grid.Nfp_max, grid.nface, grid.nelem
-    if len(set(grid.Nfp)) != 1:
-        raise ValueError("the var-major chain needs a uniform Nfp")
-    nfa = len(faces)
-    F = nfa * Nfp
-    fmask = grid.fmask_padded
-    SelT = np.zeros((Np, F))
-    for j, f in enumerate(faces):
-        SelT[fmask[f], j * Nfp + np.arange(Nfp)] = 1.0
-    lift = grid.lift.cpu().numpy()
-    cols = np.concatenate([np.arange(f * Nfp, (f + 1) * Nfp) for f in faces])
-    LT = lift[:, cols].T
-
-    nbr_row = grid.face_nbr_row.cpu().numpy().reshape(E, nface)
-    pos = -np.ones(nface, dtype=np.int64)
-    pos[list(faces)] = np.arange(nfa)
-    ne = nbr_row[:, list(faces)] // nface
-    nf = nbr_row[:, list(faces)] % nface
-    if (pos[nf] < 0).any():
-        raise ValueError("an active face has a neighbour across an "
-                         "inactive face")
-    nbr_active = (ne * nfa + pos[nf]).reshape(-1)
-
-    bctag = grid.face_bctag.cpu().numpy()[:, list(faces)]
-    sign = np.repeat(np.where(bctag != 0, 1.0, -1.0), Nfp, axis=1)
-    dev = lambda a: torch.as_tensor(a, dtype=grid.dtype, device=grid.device)
-    return dict(SelT=dev(SelT), LT=dev(LT),
-                nbr_active=torch.as_tensor(nbr_active, device=grid.device),
-                sign=dev(sign), F=F, nfa=nfa, Nfp=Nfp, _gather={})
-
-
-def _geom(grid, faces, dims):
-    """Var-major geometry: sM ``[E, 1, F]``, normals ``[E, 3, F]``,
-    ξ ``[E, nd, 3, Np]`` (∂ξ_dims[ai]/∂x_c at [ai, c]), MI ``[E, 1, Np]``."""
-    E = grid.nelem
-    fl = list(faces)
-    sM = grid.sM[:, fl, :].reshape(E, 1, -1)
-    nrm = grid.normals[:, fl].permute(0, 3, 1, 2).reshape(E, 3, -1)
-    xi = grid.xi_x[:, :, list(dims), :].permute(0, 2, 3, 1)
-    return sM.contiguous(), nrm.contiguous(), xi.contiguous(), \
-        grid.MI[:, None, :]
-
-
-def _W_for(grid, dims):
-    """Stacked derivative operator ``[nd·Np, Np]`` for ``dims``."""
-    if len(dims) == grid.dim:
-        return grid.Wgrad
-    Np = grid.Np
-    return torch.cat([grid.Wgrad[a * Np:(a + 1) * Np] for a in dims], dim=0)
+from climatemachine_tpu_torch.dg.ldg_tables import W_for, exchange
 
 
 def _Wcat_for(grid, tab, dims):
     """Fused ``[Np, nd·Np + F]`` operator: derivative and face
     extraction in one matmul."""
-    return torch.cat([_W_for(grid, dims).T, tab["SelT"]], dim=1)
-
-
-def _exchange(rows, tab):
-    """Neighbour face values ``[E, n, F] -> [E, n, F]``: one gather of
-    ``Nfp``-long rows, where the JAX package transposes to
-    ``[E·nfa, n·Nfp]``, gathers and transposes back.  Row (e, v, j)
-    reads row (ne, v, jn) with ne·nfa + jn = nbr_active[e·nfa + j]; the
-    flat row ids are built once per n."""
-    E, n, F = rows.shape
-    nfa, Nfp = tab["nfa"], tab["Nfp"]
-    idx = tab["_gather"].get(n)
-    if idx is None:
-        nbr = tab["nbr_active"].reshape(E, 1, nfa)
-        ne, jn = nbr // nfa, nbr % nfa
-        v = torch.arange(n, device=nbr.device).reshape(1, n, 1)
-        idx = tab["_gather"][n] = ((ne * n + v) * nfa + jn).reshape(-1)
-    return torch.index_select(rows.reshape(E * n * nfa, Nfp), 0,
-                              idx).reshape(E, n, F)
+    return torch.cat([W_for(grid, dims).T, tab["fo"].Sel], dim=1)
 
 
 def grad_vm(grid, xv, tab, geom, dims):
@@ -111,11 +29,11 @@ def grad_vm(grid, xv, tab, geom, dims):
     cat = torch.matmul(xv.reshape(E * n, Np), _Wcat_for(grid, tab, dims))
     d = cat[:, :nd * Np].reshape(E, n, nd, Np)
     rowsM = cat[:, nd * Np:].reshape(E, n, F)
-    dj = 0.5 * (_exchange(rowsM, tab) - rowsM)
+    dj = 0.5 * (exchange(rowsM, tab) - rowsM)
     w3 = sM * nrm                                          # [E, 3, F]
     prod = w3[:, :, None, :] * dj[:, None, :, :]           # [E, 3, n, F]
     corr = torch.matmul(prod.reshape(E * 3 * n, F),
-                        tab["LT"]).reshape(E, 3, n, Np)
+                        tab["fo"].LT).reshape(E, 3, n, Np)
     out = []
     for c in range(3):
         vol = 0.0
@@ -139,7 +57,7 @@ def div_vm(grid, vv, tab, geom, dims):
             div = div + xi[:, ai, c][:, None, :] * dv[:, c, :, ai, :]
     rows3 = cat[:, nd * Np:].reshape(E, 3, n, F)
     s = torch.sum(nrm[:, :, None, :] * rows3, dim=1)       # [E, n, F]
-    dj = 0.5 * (tab["sign"][:, None, :] * _exchange(s, tab) - s)
+    dj = 0.5 * (tab["sign"][:, None, :] * exchange(s, tab) - s)
     corr = torch.matmul((sM * dj).reshape(E * n, F),
-                        tab["LT"]).reshape(E, n, Np)
+                        tab["fo"].LT).reshape(E, n, Np)
     return div + MI * corr

@@ -14,20 +14,13 @@ from typing import Optional, Tuple
 
 import torch
 
-EVERY = "every"
-HORIZONTAL = "horizontal"
-VERTICAL = "vertical"
-
-
 def direction_dims(direction: str, dim: int) -> Tuple[int, ...]:
-    """Reference directions a derivative in ``direction`` acts along."""
-    if direction == EVERY:
-        return tuple(range(dim))
-    if direction == HORIZONTAL:
-        return tuple(range(dim - 1))
-    if direction == VERTICAL:
-        return (dim - 1,)
-    raise ValueError(direction)
+    """Reference directions a derivative in ``direction`` acts along.
+    Only ``"horizontal"`` (DryBiharmonic's) has a caller yet; the JAX
+    package's ``"every"`` and ``"vertical"`` raise."""
+    if direction != "horizontal":
+        raise NotImplementedError(f"direction {direction!r}: next slice")
+    return tuple(range(dim - 1))
 
 
 def direction_faces(direction: str, dim: int) -> Tuple[int, ...]:

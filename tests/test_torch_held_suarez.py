@@ -106,6 +106,25 @@ def test_rhs_matches_jax(setup):
     assert _rel_err_per_var(aux, aux_ref).max() < 1e-11
 
 
+def test_static_hyper_coefficients_match_aux_lane(setup):
+    """ν₄, built once from the grid, equals (Δ/2)⁴/2τ on the aux lane
+    hyperdiffusion.delta that init_ode_state fills."""
+    cfg_t = setup["cfg_t"]
+    dg = DGModel(cfg_t.model, cfg_t.grid)
+    rhs = VarMajorRHS(dg)
+    if setup["tau"] is None:
+        assert rhs.hd is None and not hasattr(rhs, "nu")
+        return
+    _, aux = init_ode_state(dg)
+    delta = cfg_t.model.aux_spec.get(aux, "hyperdiffusion.delta")
+    nu4 = (delta / 2) ** 4 / (2 * setup["tau"])
+    torch.testing.assert_close(rhs.nu[:, 0], nu4.reshape(rhs.nu[:, 0].shape),
+                               rtol=0, atol=0)
+    assert not rhs.nu[:, 1].any()
+    torch.testing.assert_close(rhs.nu4_faces, nu4 @ cfg_t.grid.lift, rtol=0,
+                               atol=0)
+
+
 def _jax_step(setup):
     """One JAX LSRK54 step with the filter from the perturbed state (dt,
     RHS, q1, aux1), computed once per fixture."""

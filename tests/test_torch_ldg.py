@@ -33,7 +33,7 @@ from climatemachine_tpu.dg import pallas_ldg
 from climatemachine_tpu.dg.spatial import DGModel as JaxDGModel
 from climatemachine_tpu.experiments.held_suarez import \
     held_suarez_config as jax_held_suarez_config
-from climatemachine_tpu_torch.dg import ldg_kernel, ldg_varmajor
+from climatemachine_tpu_torch.dg import ldg_kernel, ldg_tables, ldg_varmajor
 from climatemachine_tpu_torch.dg.spatial import (direction_dims,
                                                  direction_faces)
 from climatemachine_tpu_torch.interop import grid_from_numpy, grid_to_numpy
@@ -163,7 +163,7 @@ def test_face_ops_index_tables(setup):
     np.testing.assert_allclose((y @ fo.LT).numpy(), lifted.numpy(),
                                rtol=1e-15, atol=0)
     with pytest.raises(ValueError):
-        ldg_kernel.face_ops(2 * fo.Sel, fo.LT)
+        ldg_tables.face_ops(2 * fo.Sel, fo.LT)
 
 
 def test_chain_matches_jax_pallas_chain(setup):
@@ -175,8 +175,8 @@ def test_chain_matches_jax_pallas_chain(setup):
 
 def _per_pass_chain(setup):
     g = setup["grid_t"]
-    tab = ldg_varmajor._tables(g, FACES)
-    geom = ldg_varmajor._geom(g, FACES, DIMS)
+    tab = ldg_tables.tables(g, FACES)
+    geom = ldg_tables.geom(g, FACES, DIMS)
     x = torch.as_tensor(setup["xv"])
     grad = ldg_varmajor.grad_vm(g, x, tab, geom, DIMS)
     lap = ldg_varmajor.div_vm(g, grad, tab, geom, DIMS)

@@ -13,9 +13,10 @@ import torch
 from climatemachine_tpu_torch import cuda_build, resolve_device
 from climatemachine_tpu_torch.atmos.hyperdiffusion import DryBiharmonic
 from climatemachine_tpu_torch.atmos.model import AtmosModel
-from climatemachine_tpu_torch.dg import ldg_kernel, volume_kernel
+from climatemachine_tpu_torch.dg import ldg_kernel, ldg_tables, volume_kernel
 from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
-from climatemachine_tpu_torch.dg.spatial import DGModel
+from climatemachine_tpu_torch.dg.spatial import (DGModel, direction_dims,
+                                                 direction_faces)
 from climatemachine_tpu_torch.experiments.held_suarez import \
     held_suarez_config
 from climatemachine_tpu_torch.physics.parameters import EARTH
@@ -81,7 +82,7 @@ def test_kernel_wrapper_never_falls_back_off_cpu():
 def _chain_meta_args(stage, E=8, n=4, nd=2, Np=64, F=64):
     t = lambda *s: torch.empty(s, dtype=torch.float32, device="meta")
     i = lambda *s: torch.empty(s, dtype=torch.int32, device="meta")
-    fo = ldg_kernel.FaceOps(Sel=t(Np, F), LT=t(F, Np), sel_idx=i(F),
+    fo = ldg_tables.FaceOps(Sel=t(Np, F), LT=t(F, Np), sel_idx=i(F),
                             lift_idx=i(Np, 2))
     xi, Wd, MI = t(E, nd * 3, Np), t(nd, Np, Np), t(E, Np)
     return {"ldg_first": (t(E, n, Np), xi, Wd, fo),
@@ -132,3 +133,12 @@ def test_next_slice_configurations_raise():
                        m.problem, m.sources)
     with pytest.raises(NotImplementedError, match="next slice"):
         VarMajorRHS(DGModel(hyper, cfg.grid))
+
+
+@pytest.mark.parametrize("direction", ["every", "vertical"])
+def test_unported_directions_raise(direction):
+    """Only DryBiharmonic's horizontal direction has a caller yet."""
+    assert direction_dims("horizontal", 3) == (0, 1)
+    assert direction_faces("horizontal", 3) == (0, 1, 2, 3)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        direction_dims(direction, 3)
