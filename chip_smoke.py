@@ -3,23 +3,36 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel),
-holds each kernel against its plain PyTorch version on the main path's
-own inputs, then drives the main path through its public entry points:
-Held-Suarez p4 with DryBiharmonic(8 h) hyperdiffusion on a stacked cubed
-sphere at n_horz=16, n_vert=8 (12,288 elements, 1.536 M nodes), float32,
-LSRK54 with the every-step exponential filter; then, at fewer steps, the
-same step with hyperdiffusion off, whose volume kernel (without F₂), one
-step and small reference are checked as the main path's are.  One JSON
-line per phase; then the card's name and power limit as nvidia-smi
-reports them, a ``{"kernels": [...]}`` line and, last, ``{"ok": true,
-"device": ...}``.  Any failure raises and exits non-zero without the
-last line.  Without a CUDA device it exits 1 at once.
+holds each kernel against its plain PyTorch version on its path's own
+inputs, then drives three paths through their public entry points, all
+Held-Suarez p4 on a stacked cubed sphere at n_horz=16, n_vert=8 (12,288
+elements, 1.536 M nodes), float32, with the every-step exponential
+filter:
+- the explicit step (LSRK54) with DryBiharmonic(8 h) hyperdiffusion:
+  the volume kernel with F₂ and the four chain kernels;
+- at fewer steps, the same step with hyperdiffusion off, whose volume
+  kernel (without F₂), one step and small reference are checked as the
+  first path's are;
+- the IMEX step of bench.py, this slice's path: ``IMEXSolverType().make``
+  (ARK2GiraldoKellyConstantinescu, the block-tridiagonal column solver
+  over the vertical acoustic-gravity operator, dt from the horizontal
+  acoustic CFL snapped to the f64 table's) with hyperdiffusion; the two
+  layout kernels against their plain versions, one step against the
+  plain step, a small reference, then the table's 35 steps with exact
+  launch counts and the f64-table gate.
+Each path sets every launch count to 0 just before it runs and reads the
+counts just after.  One JSON line per phase; then the card's name and
+power limit as nvidia-smi reports them, a ``{"kernels": [...]}`` line
+(launches from the IMEX path, which runs all seven kernels) and, last,
+``{"ok": true, "device": ...}``.  Any failure raises and exits non-zero
+without the last line.  Without a CUDA device it exits 1 at once.
 
-Each kernel reports two bounds: ``bound_ms`` with the derivative
-products counted dense (Np terms per node and direction, as the kernels
-compute them) and ``bound_sumfact_ms`` with them sum-factorised (Nq
-terms: Wd and Wdiv are Kronecker operators), which leaves every kernel
-bound by bytes.
+Each volume and chain kernel reports two bounds: ``bound_ms`` with the
+derivative products counted dense (Np terms per node and direction, as
+the kernels compute them) and ``bound_sumfact_ms`` with them sum-
+factorised (Nq terms: Wd and Wdiv are Kronecker operators), which leaves
+every kernel bound by bytes.  The layout kernels move bytes only: each
+input read once, each output written once.
 
 Tolerances:
 - kernel vs plain, same inputs (the chain intermediates and the volume
@@ -29,23 +42,41 @@ Tolerances:
   max|plain| in the first derivative of h_tot and 1.0e-5 in the volume
   tendency's ρe with F₂ (f32 against f64 on the CPU at n_horz=2, p4), so
   a different summation order would show at about this bound;
+- the layout kernels vs their plain versions and vs one
+  ``permute(...).contiguous()``, on a perturbed state and its blocks:
+  equal bit for bit (a permutation), and the round trip exact;
 - the whole kernel chain vs the per-pass plain chain (dg/ldg_varmajor.py):
   max|Δ| <= 1e-4 · max|plain| — 14× the 7.1e-6 of float32 against
   float64 for the whole chain on the CPU at n_horz=2, p4, since the two
   chains order their sums differently;
-- one LSRK54 step with the kernels vs one with the plain versions, from
-  the same state: per variable, max|Δq| <= 1e-3 · max|q1 − q0|
-  + 4 · eps32 · max|q1| — the step's increment carries the kernels'
-  round-off, and where the two increments differ in their last bits the
-  float32 updates q + dt·dq round a few ulp apart;
-- three steps of a small grid (n_horz=2, n_vert=2, p4, hyperdiffusion on
-  and off) in float32 on the card vs float64 on the CPU (the plain path
-  the CPU tests hold against the JAX package) from the same float32
-  geometry and state: per variable, max|Δq| <= 1e-4 · max|q| — 10× the
-  9.7e-6 (ρu, hyperdiffusion on) that the same comparison gives in
-  float32 on the CPU: round-off of the cancellations p − p_ref,
-  ρe/ρ − Φ and the derivative of h_tot;
-- mass Σ M ρ, summed in float64: relative drift <= 1e-5 over the run
+- one LSRK54 step, and one IMEX step, with the kernels vs one with the
+  plain versions, from the same state: per variable, max|Δq| <= 1e-3 ·
+  max|q1 − q0| + 4 · eps32 · max|q1| — the step's increment carries the
+  kernels' round-off, and where the two increments differ in their last
+  bits the float32 updates q + dt·dq round a few ulp apart;
+- three LSRK54 steps of a small grid (n_horz=2, n_vert=2, p4,
+  hyperdiffusion on and off) in float32 on the card vs float64 on the
+  CPU (the plain path the CPU tests hold against the JAX package) from
+  the same float32 geometry and state: per variable, max|Δq| <= 1e-4 ·
+  max|q| — 10× the 9.7e-6 (ρu, hyperdiffusion on) that the same
+  comparison gives in float32 on the CPU: round-off of the
+  cancellations p − p_ref, ρe/ρ − Φ and the derivative of h_tot;
+- three IMEX steps of a small grid (n_horz=2, n_vert=3, p4,
+  hyperdiffusion on, dt = 175 s from the horizontal CFL) in float32 on
+  the card vs float64 on the CPU, the same way: per variable (ρ, ρu,
+  ρe), max|Δq| <= (2e-3, 3e-1, 5e-2, 1e-1, 3e-3) · max|q| — 10× what the
+  same comparison gives in float32 on the CPU, (1.9e-4, 2.9e-2, 4.7e-3,
+  9.8e-3, 3.1e-4) (the JAX package in float32 gives 2.5e-4, 1.6e-2,
+  8.0e-3, 9.9e-3, 5.5e-4): the column solve at α·dt = 51 s mixes ρe
+  (~3e4) into ρu (~1e1) and amplifies its round-off by the systems'
+  condition number;
+- the f64-table gate on the IMEX path's 35-step state: per variable
+  min, max, mean and std (ddof=1) over all nodes, |f32 − table| relative
+  to the table field's max magnitude, within bench.py's budgets
+  (bench.py:105-107); the fraction of the CPU anchor budgets
+  (tests/test_precision_gate.py:73-75, calibrated for 200 steps of a
+  4×3 grid) is reported, not checked;
+- mass Σ M ρ, summed in float64: relative drift <= 1e-5 over each path
   (float32 round-off; F₂ carries no mass flux, and the filter keeps each
   element's mode 0 but is not exactly conservative on curved elements).
 """
@@ -53,7 +84,10 @@ Tolerances:
 from __future__ import annotations
 
 import argparse
+import copy
+import importlib.util
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -65,24 +99,46 @@ from climatemachine_tpu_torch.dg import (ldg_kernel, ldg_tables, ldg_varmajor,
                                         volume_kernel)
 from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
 from climatemachine_tpu_torch.dg.spatial import DGModel, init_ode_state
+from climatemachine_tpu_torch.driver.solver_types import IMEXSolverType
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
 from climatemachine_tpu_torch.interop import grid_from_numpy, grid_to_numpy
 from climatemachine_tpu_torch.mesh.grid import min_node_distance
+from climatemachine_tpu_torch.ode.ark import ARK2GiraldoKellyConstantinescu
 from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
+from climatemachine_tpu_torch.solvers import layout_kernel
+from climatemachine_tpu_torch.solvers.columnwise import ColumnLayout
 
 N_HORZ, N_VERT, POLY = 16, 8, 4
-N_WARM, N_STEPS = 3, 20            # the main path, hyperdiffusion on
+N_WARM, N_STEPS = 3, 20            # the explicit path, hyperdiffusion on
 N_WARM_OFF, N_STEPS_OFF = 1, 4     # hyperdiffusion off
+N_WARM_IMEX, N_STEPS_IMEX = 10, 25  # the IMEX path: the table's 35 steps
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 KERNEL_TOL = 1e-5
 CHAIN_TOL = 1e-4
 STEP_TOL = 1e-3
 SMALL_TOL = 1e-4
+#: per variable (ρ, ρu, ρe): 10× what float32 against float64 gives on
+#: the CPU for the same three steps (module docstring)
+IMEX_SMALL_TOL = (2e-3, 3e-1, 5e-2, 1e-1, 3e-3)
 MASS_TOL = 1e-5
-SOURCES = ("volume_vm", "ldg_chain")
+#: the f64 table of the IMEX trajectory (data only, read by path)
+REFSTATS = (pathlib.Path(__file__).resolve().parent / "tests" / "refvals"
+            / "bench_heldsuarez_p4.py")
+#: per-statistic (min, max, mean, std) drift budgets relative to the
+#: field's max magnitude: bench.py:105-107 (checked) and the CPU anchor
+#: of tests/test_precision_gate.py:73-75 (reported)
+BENCH_BUDGETS = {"rho": (8e-3, 8e-3, 5e-6, 1e-5),
+                 "rhou": (1e-1, 1e-1, 1e-5, 2e-3),
+                 "rhoe": (1e-3, 1e-3, 1e-5, 5e-5)}
+ANCHOR_BUDGETS = {"rho": (1e-4, 1e-4, 1e-5, 1e-4),
+                  "rhou": (3e-2, 3e-2, 1e-5, 1e-3),
+                  "rhoe": (1e-4, 1e-4, 2e-5, 1e-4)}
+SOURCES = ("volume_vm", "ldg_chain", "column_layout")
 CHAIN = ("ldg_first", "ldg_grad_to_div", "ldg_div_to_grad", "ldg_last")
+EXPLICIT = ("fused_volume_tendency_vm",) + CHAIN
+LAYOUT = ("to_blocks_vm", "from_blocks_vm")
 #: kernel name -> (wrapper, plain version, source, TPU kernel it replaces)
 KERNELS = {
     "fused_volume_tendency_vm": (
@@ -91,7 +147,11 @@ KERNELS = {
         "climatemachine_tpu/dg/pallas_volume.py:264"),
     **{name: (getattr(ldg_kernel, name), getattr(ldg_kernel, name + "_plain"),
               "ldg_chain.cu", f"climatemachine_tpu/dg/pallas_ldg.py:{line}")
-       for name, line in zip(CHAIN, (197, 214, 232, 249))}}
+       for name, line in zip(CHAIN, (197, 214, 232, 249))},
+    **{name: (getattr(layout_kernel, name),
+              getattr(layout_kernel, name + "_plain"), "column_layout.cu",
+              f"climatemachine_tpu/solvers/pallas_layout.py:{line}")
+       for name, line in zip(LAYOUT, (43, 70))}}
 
 
 def emit(phase: str, **fields):
@@ -199,6 +259,8 @@ def phase_device():
     check(dev.type == "cuda", dev)
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmul on")
     check(torch.backends.cudnn.allow_tf32 is False, "TF32 cuDNN on")
+    check(torch.get_float32_matmul_precision() == "highest",
+          ("float32 matmul precision", torch.get_float32_matmul_precision()))
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=nvidia_smi(),
          torch=torch.__version__, cuda=torch.version.cuda,
@@ -299,7 +361,7 @@ def phase_kernels(rhs, q, aux) -> dict:
     then the whole kernel chain against the per-pass chain."""
     glv, inputs = chain_inputs(rhs, q, aux)
     results = {}
-    for name in KERNELS:
+    for name in EXPLICIT:
         kw = (volume_kwargs(rhs, True)
               if name == "fused_volume_tendency_vm" else {})
         results[name] = kernel_vs_plain(name, inputs[name], rhs,
@@ -374,7 +436,7 @@ def build_path(tau) -> dict:
 def run_path(path: dict, n_warm: int, n_steps: int):
     """Set every launch count to 0, take ``n_warm`` + ``n_steps`` steps
     from the initial state (timing the last ``n_steps``) and read the
-    counts.  Returns (summary, counts)."""
+    counts.  Returns (summary, counts, final state)."""
     g, solver, dt = path["cfg"].grid, path["solver"], path["dt"]
     E, Np = g.nelem, g.Np
     mass = lambda q: torch.sum(g.M.double() * q[:, 0].double()).item()
@@ -400,13 +462,14 @@ def run_path(path: dict, n_warm: int, n_steps: int):
                gridpoints=E * Np, dtype="float32", dt_s=dt,
                warm_steps=n_warm, steps=n_steps, setup_s=path["setup_s"],
                ms_per_step=1e3 * wall / n_steps,
-               gridpoints_per_s=E * Np * n_steps / wall, launches=counts,
+               gridpoints_per_s=E * Np * n_steps / wall,
+               sim_s_per_wall_s=dt * n_steps / wall, launches=counts,
                mass_drift_rel=drift, mass_tol=MASS_TOL, finite=finite,
                shape=list(q.shape))
     check(list(q.shape) == [E, 5, Np], ("state shape", list(q.shape)))
     check(finite, "state not finite")
     check(drift <= MASS_TOL, ("mass drift", drift))
-    return res, counts
+    return res, counts, q
 
 
 def perturbed(q0, seed: int):
@@ -448,13 +511,16 @@ def phase_main_path(seed: int) -> dict:
     step_vs_plain(path)
     small_reference_check(path["tau"])
 
-    res, counts = run_path(path, N_WARM, N_STEPS)
+    res, counts, _ = run_path(path, N_WARM, N_STEPS)
     expected = 5 * (N_WARM + N_STEPS)
     res["expected_launches"] = expected
     emit("main_path", **res)
     for name, n in counts.items():
-        check(n == expected, (name, "launches", n, expected))
-    return dict(kernels=kernels, launches=counts)
+        want = expected if name in EXPLICIT else 0
+        check(n == want, (name, "launches", n, want))
+    return dict(kernels=kernels, launches=counts,
+                sim_s_per_wall_s=res["sim_s_per_wall_s"],
+                ms_per_step=res["ms_per_step"])
 
 
 def phase_no_hyperdiffusion(seed: int):
@@ -475,14 +541,250 @@ def phase_no_hyperdiffusion(seed: int):
     step_vs_plain(path)
     small_reference_check(None)
 
-    res, counts = run_path(path, N_WARM_OFF, N_STEPS_OFF)
+    res, counts, _ = run_path(path, N_WARM_OFF, N_STEPS_OFF)
     expected = 5 * (N_WARM_OFF + N_STEPS_OFF)
     res["expected_volume_launches"] = expected
     emit("no_hyperdiffusion_path", **res)
     check(counts["fused_volume_tendency_vm"] == expected,
           ("volume launches", counts))
-    check(all(counts[name] == 0 for name in CHAIN), ("chain launches",
-                                                     counts))
+    check(all(counts[name] == 0 for name in CHAIN + LAYOUT),
+          ("chain and layout launches", counts))
+
+
+def layout_vs_plain(name, src, dims) -> dict:
+    """A layout kernel against its plain version and against one
+    ``permute(...).contiguous()`` (the library call) on the same input:
+    all three equal bit for bit.  With times and the bytes bound."""
+    wrapper, plain, _, _ = KERNELS[name]
+    Eh, nv, nvars, Nq3, ji = dims
+    to = name == "to_blocks_vm"
+    view = (Eh, nv, nvars, Nq3, ji) if to else (nv, Nq3, nvars, Eh, ji)
+    perm = (1, 3, 2, 0, 4) if to else (3, 0, 2, 1, 4)
+    library = lambda: src.view(view).permute(perm).contiguous()
+    out, ref = wrapper(src, dims), plain(src, dims)
+    torch.cuda.synchronize()
+    nbytes = 2 * src.numel() * src.element_size()
+    res = dict(max_abs_err=(out - ref).abs().max().item(),
+               exact=torch.equal(out, ref),
+               library_exact=torch.equal(library().reshape(out.shape), out),
+               tol=0.0, ms=cuda_ms(lambda: wrapper(src, dims), 50),
+               plain_ms=cuda_ms(lambda: plain(src, dims), 50),
+               library_ms=cuda_ms(library, 50), bytes=nbytes,
+               bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
+               shape=list(src.shape), out_shape=list(out.shape))
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    emit("kernel_vs_plain", name=name, **res)
+    check(res["exact"] and res["library_exact"], (name, "kernel vs plain"))
+    return res
+
+
+def phase_layout_kernels(layout, q) -> dict:
+    """Both layout kernels on a state and its blocks, and the round
+    trip."""
+    dims = layout.layout_dims
+    res = {"to_blocks_vm": layout_vs_plain("to_blocks_vm", q, dims)}
+    yb = layout.to_blocks(q)
+    res["from_blocks_vm"] = layout_vs_plain("from_blocks_vm", yb, dims)
+    back = layout.from_blocks(yb)
+    torch.cuda.synchronize()
+    emit("layout_round_trip", exact=torch.equal(back, q))
+    check(torch.equal(back, q), "from_blocks(to_blocks(x)) != x")
+    return res
+
+
+def build_imex_path(tau, n_horz=N_HORZ, n_vert=N_VERT, dtype=torch.float32,
+                    device="cuda", table=None) -> dict:
+    """The IMEX configuration, its initial state and the solver as a user
+    builds them (``IMEXSolverType().make`` with the filter as
+    ``post_step``); dt = 0.1 · min_node_distance(horizontal) / 350,
+    snapped to ``table.dt`` within 1e-5 relative, as bench.py:182-189
+    does.  ``setup_s`` is the time of ``make``: the operator's probing,
+    the stencil check and the factorization."""
+    t0 = time.perf_counter()
+    cfg = held_suarez_config(n_horz=n_horz, n_vert=n_vert, poly_order=POLY,
+                             dtype=dtype, hyperdiffusion_tau=tau,
+                             device=device)
+    dg = DGModel(cfg.model, cfg.grid)
+    q0, aux0 = init_ode_state(dg)
+    dt = 0.1 * min_node_distance(cfg.grid, "horizontal") / 350.0
+    snapped = table is not None and abs(table.dt - dt) < 1e-5 * dt
+    if snapped:
+        dt = table.dt
+    hsf = HeldSuarezStepFilter(cfg.grid, cfg.model)
+    sync = torch.cuda.synchronize if device == "cuda" else lambda: None
+    sync()
+    t1 = time.perf_counter()
+    solver = IMEXSolverType().make(dg, q0, aux0, dt)
+    sync()
+    setup_s = time.perf_counter() - t1
+    solver.post_step = hsf.apply_vm
+    return dict(tau=tau, cfg=cfg, dg=dg, q0=q0, aux0=aux0, dt=dt, hsf=hsf,
+                rhs=solver.rhs_full, solver=solver, setup_s=setup_s,
+                build_s=time.perf_counter() - t0, dt_snapped=snapped)
+
+
+def imex_step_vs_plain(path):
+    """One IMEX step with every kernel against one where the layouts,
+    the volume and the chain take their plain versions, from the path's
+    initial state (the same assembled operator and factors)."""
+    imex = path["solver"]
+    plain_sv = copy.copy(imex.solver)
+    plain_sv.layout = ColumnLayout(
+        path["cfg"].grid, imex.solver.layout.nvars,
+        to_blocks=layout_kernel.to_blocks_vm_plain,
+        from_blocks=layout_kernel.from_blocks_vm_plain)
+    plain = ARK2GiraldoKellyConstantinescu(
+        None, None, plain_sv, path["dt"],
+        rhs_full=VarMajorRHS(path["dg"], write_aux=False,
+                             volume=volume_kernel.volume_tendency_plain,
+                             chain_stages=ldg_kernel.PLAIN),
+        post_step=imex.post_step)
+    q0, aux0 = path["q0"], path["aux0"]
+    q1, _ = imex.step(q0, aux0, 0.0)
+    q1p, _ = plain.step(q0, aux0, 0.0)
+    eps32 = torch.finfo(torch.float32).eps
+    bound = (STEP_TOL * (q1p - q0).abs().amax(dim=(0, 2))
+             + 4 * eps32 * q1p.abs().amax(dim=(0, 2)))
+    diff = (q1 - q1p).abs().amax(dim=(0, 2))
+    step_err = (diff / bound).tolist()
+    emit("imex_step_vs_plain", err_over_bound_per_var=step_err,
+         max_abs_diff_per_var=diff.tolist(), tol=STEP_TOL)
+    check(max(step_err) <= 1.0, ("IMEX step vs plain", step_err))
+
+
+def imex_small_reference(device="cuda") -> list:
+    """Three IMEX steps of a small grid (n_horz=2, n_vert=3, p4,
+    DryBiharmonic(8 h), the filter) in float32 on ``device`` against
+    float64 on the CPU from the same float32 geometry and initial state
+    (upcast), each through ``IMEXSolverType().make``.  Returns the
+    per-variable error relative to max|q| of the float64 run."""
+    small = build_imex_path(8 * 3600.0, n_horz=2, n_vert=3, device=device)
+    g, model, dt = small["cfg"].grid, small["cfg"].model, small["dt"]
+    grid64 = grid_from_numpy(grid_to_numpy(g), device="cpu",
+                             dtype=torch.float64)
+    q, aux = small["q0"], small["aux0"]
+    runs = {"f32": (small["solver"], q, aux)}
+    q64, aux64 = q.double().cpu(), aux.double().cpu()
+    imex64 = IMEXSolverType().make(DGModel(model, grid64), q64, aux64, dt)
+    imex64.post_step = HeldSuarezStepFilter(grid64, model).apply_vm
+    runs["f64"] = (imex64, q64, aux64)
+    final = {}
+    for name, (imex, q, aux) in runs.items():
+        for i in range(3):
+            q, aux = imex.step(q, aux, i * dt)
+        final[name] = q.double().cpu()
+    ref = final["f64"]
+    return ((final["f32"] - ref).abs().amax(dim=(0, 2))
+            / ref.abs().amax(dim=(0, 2))).tolist()
+
+
+def load_refstats():
+    """The f64 statistics table of the IMEX trajectory, read from its
+    path (it is data: it only assigns numbers)."""
+    spec = importlib.util.spec_from_file_location("bench_refstats", REFSTATS)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def table_gate(q, model, table) -> dict:
+    """Per variable min, max, mean and std (ddof=1) of ``q`` over all
+    nodes in float64, each as |got − table| relative to the table
+    field's max magnitude (bench.py:108-125); the worst fraction of each
+    budget set and the bench budgets' failures."""
+    qn = q.double().cpu()
+    rel = {}
+    for i, name in enumerate(model.prog_spec.flattened_names()):
+        a = qn[:, i].reshape(-1)
+        got = (a.min().item(), a.max().item(), a.mean().item(),
+               a.std().item())
+        ref = table.stats[name]
+        scale = max(abs(ref[0]), abs(ref[1]), 1e-300)
+        rel[name] = [abs(g - r) / scale for g, r in zip(got, ref)]
+
+    def against(budgets):
+        worst, failures = 0.0, []
+        for name, drifts in rel.items():
+            budget = budgets[name.split("[")[0]]
+            for stat, r, b in zip(("min", "max", "mean", "std"), drifts,
+                                  budget):
+                worst = max(worst, r / b)
+                if r > b:
+                    failures.append((name, stat, r, b))
+        return worst, failures
+
+    worst, failures = against(BENCH_BUDGETS)
+    anchor_worst, anchor_failures = against(ANCHOR_BUDGETS)
+    return dict(rel_drift=rel, worst_fraction_of_budget=worst,
+                failures=failures, anchor_worst_fraction=anchor_worst,
+                anchor_failures=anchor_failures)
+
+
+def phase_imex(seed: int, explicit: dict) -> dict:
+    """The IMEX path, this slice's: build it at full width (dt snapped to
+    the f64 table's), hold the layout kernels against their plain
+    versions on a perturbed state and its blocks, one step against the
+    plain step, the small reference; then 10 + 25 steps with the launch
+    counts, and the f64-table gate on the 35-step state."""
+    table = load_refstats()
+    torch.cuda.reset_peak_memory_stats()
+    path = build_imex_path(8 * 3600.0, table=table)
+    setup_peak = torch.cuda.max_memory_allocated()
+    dt = path["dt"]
+    # bench.py:87-88: no gate unless this is the table's trajectory
+    check(path["dt_snapped"] and abs(table.dt - dt) <= 1e-9 * dt,
+          ("dt off the table's", dt, table.dt))
+    sv = path["solver"].solver
+    g = path["cfg"].grid
+
+    kernels = phase_layout_kernels(sv.layout, perturbed(path["q0"], seed))
+    imex_step_vs_plain(path)
+    err = imex_small_reference()
+    emit("imex_small_reference", n_horz=2, n_vert=3, poly=POLY, steps=3,
+         hyperdiffusion_tau=8 * 3600.0, rel_err_per_var=err,
+         tol=IMEX_SMALL_TOL)
+    check(all(e <= t for e, t in zip(err, IMEX_SMALL_TOL)),
+          ("IMEX small reference", err))
+
+    # the column algebra alone, on the path's own operator (plain torch),
+    # and the diagonal blocks' product in the solver's form against the
+    # JAX package's form and einsum, both on its [nv, j, i, ncol] layout
+    xb = sv.layout.to_blocks(perturbed(path["q0"], seed))
+    gamma_dt = next(iter(sv._cached))            # ARK2GKC's one γ·dt
+    D_jax = sv.Dc.permute(0, 3, 2, 1).contiguous()
+    algebra = dict(
+        apply_op_blocks_ms=cuda_ms(lambda: sv.apply_op_blocks(xb), 5, warm=1),
+        solve_blocks_ms=cuda_ms(lambda: sv.solve_blocks(xb, gamma_dt), 5,
+                                warm=1),
+        bmv_ms=cuda_ms(lambda: sv._bmv(sv.Dc, xb), 10, warm=2),
+        bmv_jax_form_ms=cuda_ms(lambda: (D_jax * xb[:, :, None, :]).sum(1),
+                                10, warm=2),
+        bmv_einsum_ms=cuda_ms(lambda: torch.einsum("vjic,vjc->vic", D_jax,
+                                                   xb), 10, warm=2))
+    del xb, D_jax
+
+    torch.cuda.reset_peak_memory_stats()
+    res, counts, q = run_path(path, N_WARM_IMEX, N_STEPS_IMEX)
+    n = N_WARM_IMEX + N_STEPS_IMEX
+    expected = {name: 3 * n for name in EXPLICIT}
+    expected.update(to_blocks_vm=3 * n, from_blocks_vm=2 * n)
+    gate = table_gate(q, path["cfg"].model, table)
+    res.update(
+        solver="ARK2GiraldoKellyConstantinescu+BlockTridiag",
+        setup_s=path["setup_s"], build_s=path["build_s"],
+        active_unknowns=sv.active_count, block_size=sv.nb,
+        peak_memory_setup_bytes=setup_peak,
+        peak_memory_steps_bytes=torch.cuda.max_memory_allocated(),
+        expected_launches=expected, dt_snapped_to_table=path["dt_snapped"],
+        explicit_ms_per_step=explicit["ms_per_step"],
+        explicit_sim_s_per_wall_s=explicit["sim_s_per_wall_s"],
+        **algebra)
+    emit("imex_path", **res)
+    emit("table_gate", steps=n, dt_s=dt, table_dt_s=table.dt, **gate)
+    for name, want in expected.items():
+        check(counts[name] == want, (name, "launches", counts[name], want))
+    check(not gate["failures"], ("f64-table gate", gate["failures"]))
+    return dict(kernels=kernels, launches=counts)
 
 
 def main(argv=None) -> int:
@@ -494,18 +796,20 @@ def main(argv=None) -> int:
         return 1
     phase_device()
     phase_build()
-    res = phase_main_path(args.seed)
+    explicit = phase_main_path(args.seed)
     phase_no_hyperdiffusion(args.seed)
+    imex = phase_imex(args.seed, explicit)
+    results = {**explicit["kernels"], **imex["kernels"]}
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"climatemachine_tpu_torch/csrc/{source}",
-        "replaces": replaces, "launches": res["launches"][name],
+        "replaces": replaces, "launches": imex["launches"][name],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}
+        "bound_by": k["bound_by"], "library_ms": k.get("library_ms")}
         for name, (_, _, source, replaces) in KERNELS.items()
-        for k in [res["kernels"][name]]]}), flush=True)
+        for k in [results[name]]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,11 +4,14 @@ The JAX package ``climatemachine_tpu`` is the reference this package is
 held against (tests/test_torch_*.py).  This package imports torch and
 numpy only, never JAX or the JAX package.
 
-It covers the explicit dry Held-Suarez step, with or without DryBiharmonic
+It covers the dry Held-Suarez step, with or without DryBiharmonic
 hyperdiffusion: grid build, model and initial state, the var-major RHS
 (dg/fast_rhs.py) whose volume tendency (csrc/volume_vm.cu) and
 hyperdiffusion chain (csrc/ldg_chain.cu) are hand-written CUDA kernels,
-the every-step exponential filter and LSRK54.  Entry points take
+the every-step exponential filter, LSRK54, and the IMEX step
+(driver/solver_types.py ``IMEXSolverType``: ARK2GKC with the
+block-tridiagonal column solver of the vertical linear operator, whose
+grid↔column-block conversions are CUDA kernels, csrc/column_layout.cu).  Entry points take
 ``device=None``, meaning ``"cuda"``; tests pass ``device="cpu"``, where
 every kernel wrapper runs its plain PyTorch version.
 """

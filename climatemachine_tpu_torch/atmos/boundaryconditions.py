@@ -1,15 +1,20 @@
 """Atmosphere boundary-condition tags (port of
 ``climatemachine_tpu/atmos/boundaryconditions.py``).
 
-The var-major RHS implements one wall: impenetrable free slip for
-momentum (reflect the normal component), insulating for energy and
-impermeable for moisture.  These classes only name that choice;
-dg/fast_rhs.py checks for them and builds the ghost state itself.
+One wall is implemented: impenetrable free slip for momentum (reflect
+the normal component), insulating for energy and impermeable for
+moisture.  The var-major RHS (dg/fast_rhs.py) checks for it and builds
+the ghost state in its surface pass; the generic DG operator
+(dg/spatial.py) asks :meth:`AtmosBC.ghost_state` for it (port of
+``AtmosBC.ghost_state`` :146 with ``FreeSlip.ghost_rhou`` :34 and the
+copying ``EnergyBC.ghost_rhoe`` :68).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+import torch
 
 
 class FreeSlip:
@@ -41,3 +46,16 @@ class AtmosBC:
             mom = mom.bc
         return (type(mom) is FreeSlip and type(self.energy) is Insulating
                 and type(self.moisture) is Impermeable)
+
+    def ghost_state(self, model, nrm, q, aux, t):
+        """(q_ghost, aux) on var-major face lanes: q ``[E, n, X]``,
+        normals ``[E, 3, X]``; ρu loses twice its normal component, the
+        rest is copied."""
+        if not self.is_free_slip_wall():
+            raise NotImplementedError(f"next slice: wall {self!r}")
+        sl = model.prog_spec.index("rhou")
+        rhou = q[:, sl]
+        un = torch.sum(rhou * nrm, dim=1, keepdim=True)
+        qg = q.clone()
+        qg[:, sl] = rhou - 2 * un * nrm
+        return qg, aux

@@ -1,7 +1,8 @@
 """The dry atmosphere balance law (port of the parts of
 ``climatemachine_tpu/atmos/model.py`` the Held-Suarez step uses: the
-prognostic/aux schemas :146-203, ``nodal_init_state_auxiliary`` :334 and
-the dry thermo refresh of the aux lanes).
+prognostic/aux schemas :146-203, ``nodal_init_state_auxiliary`` :334,
+the dry thermo refresh of the aux lanes and the wall ghost
+``boundary_state`` :608-618).
 
 Prognostic: ρ, ρu(3), ρe.  Auxiliary: coord(3), orientation (Φ, ∇Φ),
 reference state (ρ, p, T, ρe), moisture (θ_v, T) — 13 lanes in the JAX
@@ -112,3 +113,9 @@ class AtmosModel:
         theta_v = T * (ps.MSLP / p) ** ps.kappa_d
         aux = _set(aux, sp.index("moisture.air_T"), T)
         return _set(aux, sp.index("moisture.theta_v"), theta_v)
+
+    def boundary_state(self, tag: int, nrm, q_minus, aux_minus, t):
+        """Ghost (q⁺, aux⁺) on wall face lanes of boundary ``tag``:
+        q ``[E, 5, X]``, normals ``[E, 3, X]``."""
+        bc = self.problem.boundary_conditions[tag - 1]
+        return bc.ghost_state(self, nrm, q_minus, aux_minus, t)

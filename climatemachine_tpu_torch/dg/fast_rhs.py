@@ -53,6 +53,9 @@ def _check_supported(dg):
     bl, g = dg.balance_law, dg.grid
     if not isinstance(bl, AtmosModel):
         raise ValueError("VarMajorRHS needs an AtmosModel")
+    if dg.direction != "every":
+        raise ValueError("VarMajorRHS discretizes in every direction, got "
+                         f"{dg.direction!r}")
     hd = bl.physics.hyperdiffusion
     if dg.remainder is not None or not (hd is None
                                         or type(hd) is DryBiharmonic):
@@ -161,15 +164,9 @@ class VarMajorRHS:
     # --- surface -------------------------------------------------------------
     def _gather_faces(self, Bf):
         """Neighbour side of the face bundle ``[E, nvb, X]``."""
-        Nfp, tab = self.grid.Nfp_max, self.tab
-        blocks = []
-        for f in range(self.grid.nface):
-            o = int(tab["opp"][f])
-            blk = Bf[:, :, o * Nfp:(o + 1) * Nfp][tab["nbr_e"][f]]
-            for fsrc, rows, src_e in tab["fix"][f]:
-                blk[rows] = Bf[src_e][:, :, fsrc * Nfp:(fsrc + 1) * Nfp]
-            blocks.append(blk)
-        return torch.cat(blocks, dim=2)
+        return fast_surface.gather_faces(self.tab, Bf,
+                                         tuple(range(self.grid.nface)),
+                                         self.grid.Nfp_max)
 
     def _bundle(self, qv, auxv, p, c_s, gl2):
         """Minus-side face bundle ``[E, nvb, X]``: lanes q (nq), p, c_s,

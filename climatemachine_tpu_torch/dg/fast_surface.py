@@ -1,5 +1,6 @@
-"""Static face-neighbour tables for the var-major surface pass (port of
-``climatemachine_tpu/dg/fast_surface.py`` ``_tables`` :99-132).
+"""Static face-neighbour tables and the neighbour gather of the var-major
+surface passes (port of ``climatemachine_tpu/dg/fast_surface.py``
+``_tables`` :99-132).
 
 Face data is var-major ``[E, nvb, nface·Nfp]``.  The neighbour side of
 face f is, for most elements, the opposite face ``f ^ 1`` of the
@@ -36,3 +37,19 @@ def _tables(grid):
     tab["bnd_lane"] = torch.as_tensor(np.repeat(bnd, grid.Nfp_max, axis=1),
                                       device=dev)
     return tab
+
+
+def gather_faces(tab, Bf, faces, Nfp: int):
+    """Neighbour side of a minus-side face bundle ``[E, nvb, len(faces)·
+    Nfp]`` that holds ``faces`` in that order.  The set must hold each
+    face's opposite and its fix-up sources, as the faces of a direction
+    do (at a wall the neighbour is the element's own face)."""
+    pos = {f: i for i, f in enumerate(faces)}
+    lanes = lambda f: slice(pos[f] * Nfp, (pos[f] + 1) * Nfp)
+    blocks = []
+    for f in faces:
+        blk = Bf[:, :, lanes(int(tab["opp"][f]))][tab["nbr_e"][f]]
+        for fsrc, rows, src_e in tab["fix"][f]:
+            blk[rows] = Bf[src_e][:, :, lanes(fsrc)]
+        blocks.append(blk)
+    return torch.cat(blocks, dim=2)

@@ -20,15 +20,17 @@ FLOAT_FIELDS = ("coords", "M", "MI", "J", "xi_x", "normals", "sM", "lift",
 #: grid fields uploaded as int64
 INDEX_FIELDS = ("face_bctag", "face_nbr_row")
 #: grid fields kept on the host
-HOST_FIELDS = ("xi", "face_perm_identity", "fmask_padded")
+HOST_FIELDS = ("xi", "face_perm_identity", "fmask_padded", "n_horz",
+               "n_vert")
 
 
 def grid_from_numpy(fields: dict, device=None,
                     dtype: torch.dtype = torch.float32) -> Grid:
     """A :class:`Grid` from a dict holding the arrays named in
     ``FLOAT_FIELDS`` and ``INDEX_FIELDS`` and the host fields
-    ``HOST_FIELDS``: the 1-D node tuple ``xi``, ``face_perm_identity`` and
-    ``fmask_padded``."""
+    ``HOST_FIELDS``: the 1-D node tuple ``xi``, ``face_perm_identity``,
+    ``fmask_padded`` and the stack's ``n_horz`` and ``n_vert`` (None for
+    a grid that is not stacked)."""
     device = resolve_device(device)
     up = {k: torch.tensor(np.asarray(fields[k]), dtype=dtype, device=device)
           for k in FLOAT_FIELDS}
@@ -41,7 +43,7 @@ def grid_from_numpy(fields: dict, device=None,
                 Nfp_max=max(Nfp), xi=xi,
                 face_perm_identity=bool(fields["face_perm_identity"]),
                 fmask_padded=np.array(fields["fmask_padded"], dtype=np.int64),
-                **up)
+                n_horz=fields["n_horz"], n_vert=fields["n_vert"], **up)
 
 
 def grid_to_numpy(grid) -> dict:

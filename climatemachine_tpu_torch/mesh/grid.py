@@ -1,24 +1,26 @@
 """Discontinuous spectral-element grid on the device (port of
 ``climatemachine_tpu/mesh/grid.py``: make_grid :144, min_node_distance
-:333).
+:333, the stack metadata n_horz/n_vert :132-133).
 
 The geometry is built once in numpy float64 on the host and uploaded in
 the run dtype, as the JAX package does.  The grid carries what the
 var-major explicit step reads: nodal coordinates, metrics, mass, face
 normals and weights, the 0/1 lift matrix, the fused weak-divergence
-operator ``Wdiv``, the stacked derivative operator ``Wgrad`` and the
-face-row neighbour tables.
+operator ``Wdiv``, the stacked derivative operator ``Wgrad``, the
+face-row neighbour tables and the stack's ``n_horz``/``n_vert`` (element
+``e = eh * n_vert + ev``), which the column solvers read.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import ClassVar, Tuple
+from typing import ClassVar, Optional, Tuple
 
 import numpy as np
 import torch
 
 from climatemachine_tpu_torch.device import resolve_device
+from climatemachine_tpu_torch.dg.spatial import direction_dims
 from climatemachine_tpu_torch.mesh import elements, metrics
 from climatemachine_tpu_torch.mesh.topology import Topology
 
@@ -68,6 +70,8 @@ class Grid:
     Wdiv: torch.Tensor             # [Np, 3*Np]  Σ_a D_aᵀ-Kronecker
     Wgrad: torch.Tensor            # [3*Np, Np]  D_a-Kronecker stacked
     fmask_padded: np.ndarray       # host [6, Nfp_max] face node ids
+    n_horz: Optional[int] = None   # horizontal elements of the stack
+    n_vert: Optional[int] = None   # vertical elements of the stack
     dim: ClassVar[int] = 3
     nface: ClassVar[int] = 6
 
@@ -140,16 +144,18 @@ def make_grid(topology: Topology, polyorder: int,
         normals=dev(geo["normals"]), sM=dev(geo["sM"]),
         face_bctag=idx(topology.face_bctag), lift=dev(lift),
         face_nbr_row=idx(face_nbr_row), face_perm_identity=perm_identity,
-        Wdiv=dev(Wdiv), Wgrad=dev(Wgrad), fmask_padded=fmask_padded)
+        Wdiv=dev(Wdiv), Wgrad=dev(Wgrad), fmask_padded=fmask_padded,
+        n_horz=topology.n_horz, n_vert=topology.n_vert)
 
 
-def min_node_distance(grid: Grid) -> float:
-    """Minimum distance between adjacent nodes along every reference
-    direction, from the run-dtype coordinates (for CFL dt estimates)."""
+def min_node_distance(grid: Grid, direction: str = "every") -> float:
+    """Minimum distance between adjacent nodes along the reference
+    directions of ``direction`` ("every", "horizontal" or "vertical"),
+    from the run-dtype coordinates (for CFL dt estimates)."""
     coords = grid.coords.detach().cpu().numpy().astype(np.float64)
     c = coords.reshape((coords.shape[0],) + tuple(grid.Nq[::-1]) + (3,))
     md = np.inf
-    for d in range(3):
+    for d in direction_dims(direction, grid.dim):
         diff = np.diff(c, axis=3 - d)
         md = min(md, np.sqrt(np.sum(diff ** 2, axis=-1)).min())
     return float(md)

@@ -4,9 +4,11 @@
 face matcher of connect_from_vertices :110-161).
 
 Host-side numpy.  Elements are ordered column-major,
-``e = eh * n_vert + ev``.  Face ``f = 2*d + s`` is the reference face
-with ``xi_d = -1`` (s=0) or ``+1`` (s=1); xi3 is radial, so faces 4/5
-are bottom/top, with boundary tags 1 and 2.
+``e = eh * n_vert + ev``, and the topology carries the stack's
+``n_horz`` (horizontal elements, 6·n²) and ``n_vert``.  Face
+``f = 2*d + s`` is the reference face with ``xi_d = -1`` (s=0) or
+``+1`` (s=1); xi3 is radial, so faces 4/5 are bottom/top, with boundary
+tags 1 and 2.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ class Topology:
     face_orient: np.ndarray         # [E, 6] orientation code
     face_bctag: np.ndarray          # [E, 6] 0 = interior, >= 1 = boundary tag
     meshwarp: Callable              # nodal warp (x1, x2, x3) -> (x1, x2, x3)
+    n_horz: int                     # horizontal elements of the stack
+    n_vert: int                     # vertical elements of the stack
 
 
 def _orient_code_edge(my_corners, nb_corners) -> int:
@@ -177,4 +181,5 @@ def stacked_cubed_sphere_topology(n_horz: int,
     neighbor_face[:, 5] = np.where(top, 5, 4)
     bctag[:, 5] = np.where(top, 2, 0)
     return Topology(elem_to_coord, neighbor, neighbor_face, orient, bctag,
-                    meshwarp=equiangular_cubed_sphere_warp)
+                    meshwarp=equiangular_cubed_sphere_warp, n_horz=Eh,
+                    n_vert=n_vert)

@@ -1,0 +1,142 @@
+"""Additive (IMEX) Runge-Kutta (port of ``climatemachine_tpu/ode/ark.py``:
+AdditiveRungeKutta :27-88 with ``_factors`` and ``_step_blocks``
+:162-230, and the tableau ARK2GiraldoKellyConstantinescu :251-266).
+
+dQ/dt = f_ex(Q) + f_im(Q) with f_im linear (the HEVI vertical
+operator); the implicit tableau is an ESDIRK with one diagonal γ, so one
+columnwise factorization serves every implicit stage.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import numpy as np
+
+
+class AdditiveRungeKutta:
+    """Split explicit-implicit ARK.  ``rhs_explicit(q, aux, t) -> (dq,
+    aux)`` is f_ex; ``solver`` is a column solver with an exact linear
+    solve in block layout (``solve_blocks``, ``apply_op_blocks``,
+    ``prefactorize``, ``layout``), whose assembled operator gives the
+    implicit tendency.  ``rhs_implicit`` is f_im itself, kept for
+    callers; the block step never evaluates it.
+
+    ``rhs_full`` (the full RHS, F' = f_ex + f_im), when set, takes the
+    place of ``rhs_explicit``: the stage algebra absorbs the split,
+
+        rhs_i = q + dt Σ a_ex[i,j]·F'_j + dt Σ (a_im[i,j] − a_ex[i,j])·G_j
+        out   = q + dt Σ B_i·F'_i              (G cancels: B_ex = B_im).
+
+    ``post_step(q, aux) -> q`` runs once after the last stage."""
+
+    def __init__(self, rhs_explicit, rhs_implicit, solver, dt, A_ex, A_im,
+                 B, C, rhs_full: Optional[Callable] = None,
+                 post_step: Optional[Callable] = None):
+        self.rhs_ex = rhs_explicit
+        self.rhs_im = rhs_implicit
+        self.solver = solver
+        self.dt = float(dt)
+        self.A_ex = np.asarray(A_ex, dtype=np.float64)
+        self.A_im = np.asarray(A_im, dtype=np.float64)
+        self.B = np.asarray(B, dtype=np.float64)
+        self.C = np.asarray(C, dtype=np.float64)
+        self.nstages = len(self.B)
+        self.rhs_full = rhs_full
+        self.post_step = post_step
+
+    def _factors(self):
+        """{γ: the solver's factorization of (I − γ·dt·L)}."""
+        out = {}
+        for i in range(self.nstages):
+            g = float(self.A_im[i, i])
+            if g and g not in out:
+                out[g] = self.solver.prefactorize(g * self.dt)
+        return out
+
+    def step(self, q, aux, t: float):
+        """One step from (q, aux) at time t; returns (q', aux')."""
+        sv = self.solver
+        if not (getattr(sv, "exact_linear_solve", False)
+                and hasattr(sv, "solve_blocks")):
+            raise NotImplementedError(
+                "next slice: the ARK step without a block-layout exact "
+                "column solve (JAX ode/ark.py _step_impl)")
+        return self._step_blocks(q, aux, t, self.dt, self._factors(),
+                                 sv.op_args())
+
+    def _step_blocks(self, q, aux, t, dt, factors, op_args):
+        """Stage loop with the implicit tendencies G kept in the solver's
+        block layout ``[nv, nb, ncol]``."""
+        sv = self.solver
+        lay = sv.layout
+        rhs_full = self.rhs_full
+        # the tableaus as Python floats: a numpy scalar on the left of a
+        # tensor product would not stay a tensor
+        A_ex, A_im = self.A_ex.tolist(), self.A_im.tolist()
+        B, C = self.B.tolist(), self.C.tolist()
+        Fs, Gbs = [], []
+        Qi = q
+        for i in range(self.nstages):
+            ti = t + C[i] * dt
+            Gb = None
+            if i > 0:
+                rhs_g = q
+                for j in range(i):
+                    if A_ex[i][j]:
+                        rhs_g = rhs_g + (dt * A_ex[i][j]) * Fs[j]
+                rhs_b = lay.to_blocks(rhs_g)
+                for j in range(i):
+                    cg = (A_im[i][j] - A_ex[i][j]
+                          if rhs_full is not None else A_im[i][j])
+                    if cg:
+                        rhs_b = rhs_b + (dt * cg) * Gbs[j]
+                gamma = A_im[i][i]
+                if gamma:
+                    Qib = sv.solve_blocks(rhs_b, gamma * dt,
+                                          factors=factors[float(gamma)])
+                    Gb = sv.apply_op_blocks(Qib, op_args)
+                    Qi = lay.from_blocks(Qib)
+                else:
+                    Qi = lay.from_blocks(rhs_b)
+            if rhs_full is not None:
+                F, aux = rhs_full(Qi, aux, ti)
+            else:
+                F, aux = self.rhs_ex(Qi, aux, ti)
+            if Gb is None:
+                Gb = sv.apply_op_blocks(lay.to_blocks(Qi), op_args)
+            Fs.append(F)
+            Gbs.append(Gb)
+        out = q
+        Gacc = None
+        for i in range(self.nstages):
+            if B[i]:
+                out = out + (dt * B[i]) * Fs[i]
+                if rhs_full is None:
+                    g = (dt * B[i]) * Gbs[i]
+                    Gacc = g if Gacc is None else Gacc + g
+        if Gacc is not None:
+            out = out + lay.from_blocks(Gacc)
+        if self.post_step is not None:
+            out = self.post_step(out, aux)
+        return out, aux
+
+
+def ARK2GiraldoKellyConstantinescu(rhs_ex, rhs_im, solver, dt,
+                                   paperversion: bool = False, **kw):
+    """2nd-order 3-stage ARK2 (Giraldo, Kelly & Constantinescu 2013);
+    ``kw`` goes to :class:`AdditiveRungeKutta`."""
+    s2 = math.sqrt(2.0)
+    a32 = (3 + 2 * s2) / 6 if paperversion else 0.5
+    A_ex = [[0.0, 0.0, 0.0],
+            [2 - s2, 0.0, 0.0],
+            [1 - a32, a32, 0.0]]
+    g = 1 - 1 / s2
+    A_im = [[0.0, 0.0, 0.0],
+            [g, g, 0.0],
+            [1 / (2 * s2), 1 / (2 * s2), g]]
+    B = [1 / (2 * s2), 1 / (2 * s2), g]
+    C = [0.0, 2 - s2, 1.0]
+    return AdditiveRungeKutta(rhs_ex, rhs_im, solver, dt, A_ex, A_im, B, C,
+                              **kw)

@@ -1,13 +1,17 @@
-"""Where the explicit Held-Suarez step spends its time on the card.
+"""Where the Held-Suarez step spends its time on the card.
 
     python -m climatemachine_tpu_torch.profile_step [--steps N] [--out DIR]
+        [--no-hyperdiffusion] [--imex]
 
-Builds the ``chip_smoke.py`` main path (dry Held-Suarez p4 with
-DryBiharmonic(8 h) hyperdiffusion, n_horz=16, n_vert=8, float32, LSRK54
-with the every-step filter; ``--no-hyperdiffusion`` for the step without
-it), warms up, times
-``--steps`` steps with tracing off, then traces the same number of steps
-with ``torch.profiler``.  The RHS's parts are wrapped in
+Builds a ``chip_smoke.py`` path (dry Held-Suarez p4 with DryBiharmonic(8
+h) hyperdiffusion, n_horz=16, n_vert=8, float32, with the every-step
+filter): the explicit LSRK54 step, or with ``--imex`` the IMEX step
+(``IMEXSolverType().make``, ARK2GKC with the block-tridiagonal column
+solver, dt from the horizontal acoustic CFL); ``--no-hyperdiffusion``
+drops the chain.  It warms up, times ``--steps`` steps with tracing off,
+then traces the same number of steps with ``torch.profiler``.  The
+RHS's parts, and on the IMEX step the column solve, the operator
+application and the two layout conversions, are wrapped in
 ``record_function`` spans from here, around the calls into each layer,
 so the program itself carries no instrumentation.
 
@@ -33,12 +37,14 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
 from climatemachine_tpu_torch.dg.spatial import DGModel, init_ode_state
+from climatemachine_tpu_torch.driver.solver_types import IMEXSolverType
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
 from climatemachine_tpu_torch.mesh.grid import min_node_distance
 from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
 
-SPANS = ("thermo", "chain", "volume", "surface", "sources", "filter")
+SPANS = ("thermo", "chain", "volume", "surface", "sources", "filter",
+         "solve", "apply", "to_blocks", "from_blocks")
 
 
 def _span(name, fn):
@@ -53,6 +59,7 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--no-hyperdiffusion", action="store_true")
+    ap.add_argument("--imex", action="store_true")
     args = ap.parse_args(argv)
     power = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -64,16 +71,25 @@ def main(argv=None):
         hyperdiffusion_tau=None if args.no_hyperdiffusion else 8 * 3600.0)
     dg = DGModel(cfg.model, cfg.grid)
     q, aux = init_ode_state(dg)
-    rhs = VarMajorRHS(dg, write_aux=False)
     hsf = HeldSuarezStepFilter(cfg.grid, cfg.model)
+    if args.imex:
+        dt = 0.1 * min_node_distance(cfg.grid, "horizontal") / 350.0
+        solver = IMEXSolverType().make(dg, q, aux, dt)
+        rhs, sv = solver.rhs_full, solver.solver
+        sv.solve_blocks = _span("solve", sv.solve_blocks)
+        sv.apply_op_blocks = _span("apply", sv.apply_op_blocks)
+        sv.layout.to_blocks = _span("to_blocks", sv.layout.to_blocks)
+        sv.layout.from_blocks = _span("from_blocks", sv.layout.from_blocks)
+    else:
+        dt = 0.3 * min_node_distance(cfg.grid) / 350.0
+        rhs = VarMajorRHS(dg, write_aux=False)
+        solver = LSRK54CarpenterKennedy(rhs, dt)
+    solver.post_step = _span("filter", hsf.apply_vm)
     rhs._thermo_update = _span("thermo", rhs._thermo_update)
     rhs._chain = _span("chain", rhs._chain)
     rhs.volume = _span("volume", rhs.volume)
     rhs._surface = _span("surface", rhs._surface)
     rhs._sources = _span("sources", rhs._sources)
-    dt = 0.3 * min_node_distance(cfg.grid) / 350.0
-    solver = LSRK54CarpenterKennedy(rhs, dt,
-                                    post_step=_span("filter", hsf.apply_vm))
 
     def run(n, q, aux):
         for i in range(n):
@@ -130,6 +146,7 @@ def main(argv=None):
                                           "profile_step_trace.json"))
     print(json.dumps({
         "card": power, "steps": args.steps,
+        "step": "imex" if args.imex else "explicit", "dt_s": dt,
         "hyperdiffusion_tau": (cfg.model.physics.hyperdiffusion.tau_timescale
                                if cfg.model.physics.hyperdiffusion else None),
         "ms_per_step_untraced": 1e3 * untraced,

@@ -1,8 +1,9 @@
 """The PyTorch port's grid build (climatemachine_tpu_torch.mesh) against
 the JAX package's, in float64 on the CPU: metrics, mass, normals, face
-weights, lift, the weak-divergence and gradient operators and the
-filter's nodal matrix within 1e-12 relative; neighbour and boundary
-tables and the face node masks exactly."""
+weights, lift, the weak-divergence and gradient operators, the
+filter's nodal matrix and the minimum node distance in each direction
+within 1e-12 relative; neighbour and boundary tables, the face node
+masks and the stack dims exactly."""
 
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ from climatemachine_tpu.mesh.grid import \
     min_node_distance as jax_min_node_distance
 from climatemachine_tpu_torch.experiments.held_suarez import (
     held_suarez_config)
+from climatemachine_tpu_torch.interop import grid_from_numpy, grid_to_numpy
 from climatemachine_tpu_torch.mesh.filters import ExponentialFilter
 from climatemachine_tpu_torch.mesh.grid import min_node_distance
 
@@ -70,10 +72,24 @@ def test_fmask_padded_matches_jax(grids):
                                   np.asarray(g_jax.fmask_padded))
 
 
-def test_min_node_distance_matches_jax(grids):
+@pytest.mark.parametrize("direction", [None, "every", "horizontal",
+                                       "vertical"])
+def test_min_node_distance_matches_jax(grids, direction):
     g_jax, g_torch = grids
-    ref = jax_min_node_distance(g_jax)
-    assert abs(min_node_distance(g_torch) - ref) <= 1e-12 * ref
+    args = () if direction is None else (direction,)
+    ref = jax_min_node_distance(g_jax, *args)
+    assert abs(min_node_distance(g_torch, *args) - ref) <= 1e-12 * ref
+
+
+def test_stack_dims_match_jax(grids):
+    """n_horz (horizontal elements) and n_vert, from the topology and
+    through interop."""
+    g_jax, g_torch = grids
+    assert (g_torch.n_horz, g_torch.n_vert) == (g_jax.n_horz, g_jax.n_vert)
+    assert g_torch.n_horz * g_torch.n_vert == g_torch.nelem
+    back = grid_from_numpy(grid_to_numpy(g_jax), device="cpu",
+                           dtype=torch.float64)
+    assert (back.n_horz, back.n_vert) == (g_jax.n_horz, g_jax.n_vert)
 
 
 def test_filter_nodal_matrix_matches_jax(grids):

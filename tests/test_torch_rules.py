@@ -10,16 +10,28 @@ from dataclasses import replace
 import pytest
 import torch
 
+from climatemachine_tpu.dg.spatial import \
+    direction_dims as jax_direction_dims
+from climatemachine_tpu.dg.spatial import \
+    direction_faces as jax_direction_faces
 from climatemachine_tpu_torch import cuda_build, resolve_device
 from climatemachine_tpu_torch.atmos.hyperdiffusion import DryBiharmonic
+from climatemachine_tpu_torch.atmos.linear import \
+    AtmosAcousticGravityLinearModel
 from climatemachine_tpu_torch.atmos.model import AtmosModel
 from climatemachine_tpu_torch.dg import ldg_kernel, ldg_tables, volume_kernel
 from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
 from climatemachine_tpu_torch.dg.spatial import (DGModel, direction_dims,
-                                                 direction_faces)
+                                                 direction_faces,
+                                                 init_ode_state)
+from climatemachine_tpu_torch.driver.solver_types import IMEXSolverType
 from climatemachine_tpu_torch.experiments.held_suarez import \
     held_suarez_config
+from climatemachine_tpu_torch.ode.ark import ARK2GiraldoKellyConstantinescu
 from climatemachine_tpu_torch.physics.parameters import EARTH
+from climatemachine_tpu_torch.solvers import layout_kernel
+from climatemachine_tpu_torch.solvers.columnwise import (ColumnLayout,
+                                                         ManyColumnSolver)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "climatemachine_tpu_torch").rglob("*.py")) + [
@@ -106,7 +118,21 @@ def test_chain_wrapper_never_falls_back_off_cpu(stage):
     assert wrapper.launches == before
 
 
-@pytest.mark.parametrize("source", ["volume_vm", "ldg_chain"])
+@pytest.mark.parametrize("name", ["to_blocks_vm", "from_blocks_vm"])
+def test_layout_wrapper_never_falls_back_off_cpu(name):
+    """A layout tensor that is not on the CPU goes to the kernel path,
+    which refuses a non-CUDA device and counts no launch."""
+    wrapper = getattr(layout_kernel, name)
+    dims = (4, 2, 5, 3, 9)
+    shape = (8, 5, 27) if name == "to_blocks_vm" else (2, 15, 36)
+    before = wrapper.launches
+    with pytest.raises(ValueError):
+        wrapper(torch.empty(shape, dtype=torch.float32, device="meta"), dims)
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("source", ["volume_vm", "ldg_chain",
+                                    "column_layout"])
 def test_build_without_nvcc_raises(monkeypatch, tmp_path, source):
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
@@ -134,11 +160,47 @@ def test_next_slice_configurations_raise():
     with pytest.raises(NotImplementedError, match="next slice"):
         VarMajorRHS(DGModel(hyper, cfg.grid))
 
-
-@pytest.mark.parametrize("direction", ["every", "vertical"])
-def test_unported_directions_raise(direction):
-    """Only DryBiharmonic's horizontal direction has a caller yet."""
-    assert direction_dims("horizontal", 3) == (0, 1)
-    assert direction_faces("horizontal", 3) == (0, 1, 2, 3)
+    # the generic DG operator: gradient (hyperdiffusive) state, the full
+    # AtmosModel, a remainder
+    dg = DGModel(cfg.model, cfg.grid)
+    q, aux = init_ode_state(dg)
     with pytest.raises(NotImplementedError, match="next slice"):
-        direction_dims(direction, 3)
+        dg(q, aux, 0.0)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        DGModel(AtmosAcousticGravityLinearModel(m), cfg.grid,
+                remainder=("linear", "vertical"))(q, aux, 0.0)
+
+    # IMEX: the grid layout, the dense solver, a sharded model, the ARK
+    # step without a block-layout exact solve (JAX ark.py _step_impl), a
+    # reduced-precision operator
+    dt = 10.0
+    for kw in (dict(state_layout="grid"), dict(columnwise_solver="dense")):
+        with pytest.raises(NotImplementedError, match="next slice"):
+            IMEXSolverType(**kw).make(dg, q, aux, dt)
+
+    class _Sharded(DGModel):
+        inner, mesh = None, None
+
+    with pytest.raises(NotImplementedError, match="next slice"):
+        IMEXSolverType().make(_Sharded(m, cfg.grid), q, aux, dt)
+    lin = DGModel(AtmosAcousticGravityLinearModel(m), cfg.grid,
+                  direction="vertical", update_aux=False)
+    op = lambda x: lin(x, aux, 0.0)[0]
+    dense = ManyColumnSolver(op, ColumnLayout(cfg.grid, 5), q)
+    ark = ARK2GiraldoKellyConstantinescu(None, None, dense, dt)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        ark.step(q, aux, 0.0)
+    imex = IMEXSolverType().make(dg, q, aux, dt)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        imex.solver.op_args(torch.bfloat16)
+
+
+@pytest.mark.parametrize("direction", ["every", "horizontal", "vertical"])
+def test_directions_match_jax(direction):
+    """Reference dims and faces of each direction, as the JAX package
+    gives them."""
+    assert direction_dims(direction, 3) == jax_direction_dims(direction, 3)
+    assert direction_faces(direction, 3) == \
+        jax_direction_faces(direction, 3)
+    with pytest.raises(ValueError):
+        direction_dims("diagonal", 3)
