@@ -8,31 +8,42 @@ inputs, then drives three paths through their public entry points, all
 Held-Suarez p4 on a stacked cubed sphere at n_horz=16, n_vert=8 (12,288
 elements, 1.536 M nodes), float32, with the every-step exponential
 filter:
-- the explicit step (LSRK54) with DryBiharmonic(8 h) hyperdiffusion:
-  the volume kernel with F₂ and the four chain kernels;
+- the explicit step (LSRK54, ``ExplicitSolverType().make``) with
+  DryBiharmonic(8 h) hyperdiffusion: the volume kernel with F₂ and the
+  four chain kernels; its steps run once with each surface pass of
+  ``VarMajorRHS.surface_kernel``: "xla" (plain PyTorch, the default),
+  "pallas" (the extraction and the flux + lift kernels) and "hybrid"
+  (the extraction kernel only);
 - at fewer steps, the same step with hyperdiffusion off, whose volume
   kernel (without F₂), one step and small reference are checked as the
-  first path's are;
-- the IMEX step of bench.py, this slice's path: ``IMEXSolverType().make``
+  first path's are, its steps run with "xla" and with "pallas";
+- the IMEX step of bench.py: ``IMEXSolverType().make``
   (ARK2GiraldoKellyConstantinescu, the block-tridiagonal column solver
   over the vertical acoustic-gravity operator, dt from the horizontal
   acoustic CFL snapped to the f64 table's) with hyperdiffusion; the two
-  layout kernels against their plain versions, one step against the
-  plain step, a small reference, then the table's 35 steps with exact
-  launch counts and the f64-table gate.
-Each path sets every launch count to 0 just before it runs and reads the
-counts just after.  One JSON line per phase; then the card's name and
-power limit as nvidia-smi reports them, a ``{"kernels": [...]}`` line
-(launches from the IMEX path, which runs all seven kernels) and, last,
-``{"ok": true, "device": ...}``.  Any failure raises and exits non-zero
-without the last line.  Without a CUDA device it exits 1 at once.
+  layout kernels and the two surface kernels (on the path's own state,
+  hyperdiffusion on and off) against their plain versions, one step with
+  "xla" and one with "pallas" against the all-plain step, a small
+  reference, then the table's 35 steps with exact launch counts and the
+  f64-table gate, once with each surface pass on the same solver.
+Each run sets every launch count to 0 just before it starts and reads
+the counts just after.  One JSON line per phase and ``surface_modes``
+with the ms per step of each surface pass on both steps; then the card's
+name and power limit as nvidia-smi reports them, a ``{"kernels": [...]}``
+line (launches from the IMEX path with "pallas", which runs all nine
+kernels) and, last, ``{"ok": true, "device": ...}``.  Any failure raises
+and exits non-zero without the last line.  Without a CUDA device it exits
+1 at once.
 
 Each volume and chain kernel reports two bounds: ``bound_ms`` with the
 derivative products counted dense (Np terms per node and direction, as
 the kernels compute them) and ``bound_sumfact_ms`` with them sum-
 factorised (Nq terms: Wd and Wdiv are Kronecker operators), which leaves
 every kernel bound by bytes.  The layout kernels move bytes only: each
-input read once, each output written once.
+input read once, each output written once.  The surface kernels' work is
+a gather and at most ~130 flops a face lane, so bytes bound them
+(``bound_ms``); ``bound_dense_ms`` counts the extraction and the lift as
+the dense products the TPU kernels compute.
 
 Tolerances:
 - kernel vs plain, same inputs (the chain intermediates and the volume
@@ -42,6 +53,12 @@ Tolerances:
   max|plain| in the first derivative of h_tot and 1.0e-5 in the volume
   tendency's ρe with F₂ (f32 against f64 on the CPU at n_horz=2, p4), so
   a different summation order would show at about this bound;
+- the surface kernels vs their plain versions, on the IMEX path's
+  perturbed state, its thermo and ∇Δ, the bundle and its gathered
+  neighbour side: the same 1e-5 · max|plain| per output lane (each
+  bundle lane, each variable; they round as the plain versions do, the
+  extraction is a gather and each node's lift sums its face lanes in
+  ascending order, as a GEMM does);
 - the layout kernels vs their plain versions and vs one
   ``permute(...).contiguous()``, on a perturbed state and its blocks:
   equal bit for bit (a permutation), and the round trip exact;
@@ -50,7 +67,8 @@ Tolerances:
   float64 for the whole chain on the CPU at n_horz=2, p4, since the two
   chains order their sums differently;
 - one LSRK54 step, and one IMEX step, with the kernels vs one with the
-  plain versions, from the same state: per variable, max|Δq| <= 1e-3 ·
+  plain versions (the surface pass "xla" in both, and "pallas" in both),
+  from the same state: per variable, max|Δq| <= 1e-3 ·
   max|q1 − q0| + 4 · eps32 · max|q1| — the step's increment carries the
   kernels' round-off, and where the two increments differ in their last
   bits the float32 updates q + dt·dq round a few ulp apart;
@@ -96,10 +114,11 @@ import torch
 
 from climatemachine_tpu_torch import cuda_build, resolve_device
 from climatemachine_tpu_torch.dg import (ldg_kernel, ldg_tables, ldg_varmajor,
-                                        volume_kernel)
-from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
+                                        surface_kernel, volume_kernel)
+from climatemachine_tpu_torch.dg.fast_rhs import SURFACE_KERNELS, VarMajorRHS
 from climatemachine_tpu_torch.dg.spatial import DGModel, init_ode_state
-from climatemachine_tpu_torch.driver.solver_types import IMEXSolverType
+from climatemachine_tpu_torch.driver.solver_types import (ExplicitSolverType,
+                                                          IMEXSolverType)
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
 from climatemachine_tpu_torch.interop import grid_from_numpy, grid_to_numpy
@@ -135,10 +154,14 @@ BENCH_BUDGETS = {"rho": (8e-3, 8e-3, 5e-6, 1e-5),
 ANCHOR_BUDGETS = {"rho": (1e-4, 1e-4, 1e-5, 1e-4),
                   "rhou": (3e-2, 3e-2, 1e-5, 1e-3),
                   "rhoe": (1e-4, 1e-4, 2e-5, 1e-4)}
-SOURCES = ("volume_vm", "ldg_chain", "column_layout")
+SOURCES = ("volume_vm", "ldg_chain", "column_layout", "surface_vm")
 CHAIN = ("ldg_first", "ldg_grad_to_div", "ldg_div_to_grad", "ldg_last")
 EXPLICIT = ("fused_volume_tendency_vm",) + CHAIN
 LAYOUT = ("to_blocks_vm", "from_blocks_vm")
+SURFACE = ("extract_trace_vm", "fused_surface_lift_vm")
+#: the surface kernels each surface pass launches, once per RHS
+SURFACE_LAUNCHES = {"xla": (), "hybrid": ("extract_trace_vm",),
+                    "pallas": SURFACE}
 #: kernel name -> (wrapper, plain version, source, TPU kernel it replaces)
 KERNELS = {
     "fused_volume_tendency_vm": (
@@ -151,7 +174,14 @@ KERNELS = {
     **{name: (getattr(layout_kernel, name),
               getattr(layout_kernel, name + "_plain"), "column_layout.cu",
               f"climatemachine_tpu/solvers/pallas_layout.py:{line}")
-       for name, line in zip(LAYOUT, (43, 70))}}
+       for name, line in zip(LAYOUT, (43, 70))},
+    "extract_trace_vm": (
+        surface_kernel.extract_trace_vm, surface_kernel.extract_trace_plain,
+        "surface_vm.cu", "climatemachine_tpu/dg/pallas_surface.py:77"),
+    "fused_surface_lift_vm": (
+        surface_kernel.fused_surface_lift_vm,
+        surface_kernel.surface_lift_plain, "surface_vm.cu",
+        "climatemachine_tpu/dg/pallas_surface.py:216")}
 
 
 def emit(phase: str, **fields):
@@ -233,17 +263,59 @@ def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
     return nbytes, E * R * (F + 2 * Np)
 
 
-def bounds(name: str, rhs, n: int, has_f2: bool = True) -> dict:
+def surface_costs(name: str, args, has_hyper: bool, dense: bool):
+    """(bytes, flops) of one surface-kernel call, from its arguments: each
+    input the kernel needs read once (the extraction needs ∇Δ, ν₄ and the
+    normals only with hyperdiffusion, and of ν only its first row, ν₄:
+    the second, ν₄_q, enters only with a sixth variable), the int32 face
+    tables in place of the 0/1 matrix, each output written once
+    (float32).  Flops: a face lane's trace (32 with hyperdiffusion), its
+    ghost, two fluxes, Rusanov flux and sM scaling (98, +20 for the
+    hyperdiffusive correction), the lift's sum of each lane onto its node
+    and the MI scaling; ``dense`` counts the extraction and the lift
+    instead as the products with the 0/1 matrix that the TPU kernels
+    compute, over the rows the function needs."""
+    if name == "extract_trace_vm":
+        qv, lift = args[0], args[6]
+        E, _, Np = qv.shape
+        X = lift.shape[1]
+        sel_idx, _ = surface_kernel.face_tables(lift, transposed=False)
+        read = list(args[:4]) + [sel_idx] + (
+            [args[4], args[5][:, :1], args[7]] if has_hyper else [])
+        rows = 8 + 13 * has_hyper                    # extracted volume rows
+        nvb = 8 + 5 * has_hyper                      # bundle lanes written
+        nbytes = 4 * (sum(t.numel() for t in read) + E * nvb * X)
+        flops = 32 * E * X * has_hyper + (2 * E * rows * Np * X if dense
+                                          else 0)
+        return nbytes, flops
+    E, _, X = args[0].shape
+    Np = args[5].shape[1]
+    _, lift_idx = surface_kernel.face_tables(args[5], transposed=True)
+    read = list(args[:5]) + [lift_idx, args[6]]
+    nbytes = 4 * (sum(t.numel() for t in read) + E * 5 * Np)
+    lift = 2 * E * 5 * X * Np if dense else E * 5 * X
+    return nbytes, E * X * (98 + 20 * has_hyper) + lift + E * 5 * Np
+
+
+def bounds(name: str, rhs, n: int, has_f2: bool = True, args=None,
+           has_hyper: bool = True) -> dict:
     """The kernel's bound with the products counted dense (``bound_ms``,
     the kernels line's) and sum-factorised (``bound_sumfact_ms``), each
     the larger of bytes over the memory rate and flops over the fp32
-    rate."""
+    rate.  A surface kernel (``args`` given) reports ``bound_ms`` with
+    its extraction and lift as a gather and a sum (its least time) and
+    ``bound_dense_ms`` with them as dense products."""
     g = rhs.grid
     nd, F = (rhs.chain.Wd.shape[0], rhs.chain.fo.F) if rhs.hd else (0, 0)
     out = {}
-    for key, dense in (("", True), ("_sumfact", False)):
-        nbytes, flops = costs(name, g.nelem, g.Np, g.Nq[0], n, nd, F,
-                              has_f2, dense)
+    keys = ((("", False), ("_dense", True)) if name in SURFACE
+            else (("", True), ("_sumfact", False)))
+    for key, dense in keys:
+        if name in SURFACE:
+            nbytes, flops = surface_costs(name, args, has_hyper, dense)
+        else:
+            nbytes, flops = costs(name, g.nelem, g.Np, g.Nq[0], n, nd, F,
+                                  has_f2, dense)
         t_bytes = 1e3 * nbytes / PEAK_BYTES
         t_ops = 1e3 * flops / PEAK_FP32_FLOPS
         out.update({"bytes": nbytes, "bytes_ms": t_bytes,
@@ -303,13 +375,20 @@ def chain_inputs(rhs, q, aux):
                  "ldg_last": args4}
 
 
-def yardstick(name, args, rhs):
+def yardstick(name, args, rhs, has_hyper: bool = True):
     """A bare float32 torch.matmul of the kernel's largest product (not
     the same function): the derivative rows against all nd directions,
-    the lift of K4, the volume's weak divergence."""
+    the lift of K4, the volume's weak divergence, the surface's extraction
+    of all its volume rows and its lift of the nq flux rows."""
     g = rhs.grid
     E, Np = g.nelem, g.Np
-    if name == "fused_volume_tendency_vm":
+    if name == "extract_trace_vm":
+        a = torch.randn((E * (8 + 14 * has_hyper), Np), device=g.device)
+        b = g.lift
+    elif name == "fused_surface_lift_vm":
+        a, b = torch.randn((E * 5, rhs.liftT.shape[0]), device=g.device), \
+            rhs.liftT
+    elif name == "fused_volume_tendency_vm":
         a, b = torch.randn((E * 5, 3 * Np), device=g.device), g.Wdiv.T
     elif name == "ldg_last":
         a, b = args[1].new_empty((E * 12, args[1].shape[2])).normal_(), \
@@ -324,25 +403,34 @@ def yardstick(name, args, rhs):
 
 def kernel_vs_plain(name, args, rhs, n, **kw) -> dict:
     """One kernel against its plain version on the same inputs, with its
-    time, the plain version's, a matmul yardstick and its bounds."""
+    time, the plain version's, a matmul yardstick and its bounds.  A
+    surface kernel is held per lane of its output (each bundle lane and
+    each variable against its own max|plain|)."""
     wrapper, plain, _, _ = KERNELS[name]
     out, ref = wrapper(*args, **kw), plain(*args, **kw)
     torch.cuda.synchronize()
     out = out if isinstance(out, tuple) else (out,)
     ref = ref if isinstance(ref, tuple) else (ref,)
-    errs = [(o - r).abs().max().item() for o, r in zip(out, ref)]
-    scales = [r.abs().max().item() for r in ref]
+    if name in SURFACE:
+        errs = (out[0] - ref[0]).abs().amax(dim=(0, 2)).tolist()
+        scales = ref[0].abs().amax(dim=(0, 2)).tolist()
+    else:
+        errs = [(o - r).abs().max().item() for o, r in zip(out, ref)]
+        scales = [r.abs().max().item() for r in ref]
+    hyper = kw.get("has_hyper", True)
     res = dict(max_abs_err=max(errs), max_abs_err_per_output=errs,
                max_abs_plain_per_output=scales, tol=KERNEL_TOL,
                ms=cuda_ms(lambda: wrapper(*args, **kw), 50),
                plain_ms=cuda_ms(lambda: plain(*args, **kw), 10),
-               matmul_yardstick_ms=yardstick(name, args, rhs),
-               **bounds(name, rhs, n, kw.get("has_f2", True)),
+               matmul_yardstick_ms=yardstick(name, args, rhs, hyper),
+               **bounds(name, rhs, n, kw.get("has_f2", True), args, hyper),
                shapes=[list(a.shape) for a in args
                        if isinstance(a, torch.Tensor)])
     res["share_of_bound"] = res["bound_ms"] / res["ms"]
-    res["share_of_bound_sumfact"] = res["bound_sumfact_ms"] / res["ms"]
-    emit("kernel_vs_plain", name=name, has_f2=kw.get("has_f2"), **res)
+    second = "dense" if name in SURFACE else "sumfact"
+    res[f"share_of_bound_{second}"] = res[f"bound_{second}_ms"] / res["ms"]
+    emit("kernel_vs_plain", name=name,
+         **{k: kw[k] for k in ("has_f2", "has_hyper") if k in kw}, **res)
     check(all(bool(torch.isfinite(o).all()) for o in out),
           (name, "kernel output not finite"))
     check(all(e <= KERNEL_TOL * sc for e, sc in zip(errs, scales)),
@@ -401,9 +489,8 @@ def small_reference_check(tau):
     dt = 0.3 * min_node_distance(g) / 350.0
     final = {}
     for name, (grid, q, aux) in runs.items():
-        sol = LSRK54CarpenterKennedy(
-            VarMajorRHS(DGModel(cfg.model, grid), write_aux=False), dt,
-            post_step=HeldSuarezStepFilter(grid, cfg.model).apply_vm)
+        sol = ExplicitSolverType().make(DGModel(cfg.model, grid), q, aux, dt)
+        sol.post_step = HeldSuarezStepFilter(grid, cfg.model).apply_vm
         for i in range(3):
             q, aux = sol.step(q, aux, i * dt)
         final[name] = q.double().cpu()
@@ -417,7 +504,8 @@ def small_reference_check(tau):
 
 def build_path(tau) -> dict:
     """The configuration at full width, its initial state and the LSRK54
-    solver with the every-step filter, as a user builds them."""
+    solver with the every-step filter, as a user builds them
+    (``ExplicitSolverType().make``, the filter as ``post_step``)."""
     t0 = time.perf_counter()
     cfg = held_suarez_config(n_horz=N_HORZ, n_vert=N_VERT, poly_order=POLY,
                              dtype=torch.float32, hyperdiffusion_tau=tau,
@@ -426,21 +514,35 @@ def build_path(tau) -> dict:
     q0, aux0 = init_ode_state(dg)
     dt = 0.3 * min_node_distance(cfg.grid) / 350.0
     hsf = HeldSuarezStepFilter(cfg.grid, cfg.model)
-    rhs = VarMajorRHS(dg, write_aux=False)
-    solver = LSRK54CarpenterKennedy(rhs, dt, post_step=hsf.apply_vm)
+    solver = ExplicitSolverType().make(dg, q0, aux0, dt)
+    solver.post_step = hsf.apply_vm
     torch.cuda.synchronize()
     return dict(tau=tau, cfg=cfg, dg=dg, q0=q0, aux0=aux0, dt=dt, hsf=hsf,
-                rhs=rhs, solver=solver, setup_s=time.perf_counter() - t0)
+                rhs=solver.vm, solver=solver,
+                setup_s=time.perf_counter() - t0)
 
 
-def run_path(path: dict, n_warm: int, n_steps: int):
-    """Set every launch count to 0, take ``n_warm`` + ``n_steps`` steps
-    from the initial state (timing the last ``n_steps``) and read the
-    counts.  Returns (summary, counts, final state)."""
+def expected_launches(per_step: dict, steps: int) -> dict:
+    """Each kernel's launches in ``steps`` steps: ``per_step`` of the
+    kernels it names, 0 of every other."""
+    return {name: per_step.get(name, 0) * steps for name in KERNELS}
+
+
+def check_launches(counts: dict, expected: dict):
+    for name, want in expected.items():
+        check(counts[name] == want, (name, "launches", counts[name], want))
+
+
+def run_path(path: dict, n_warm: int, n_steps: int, mode: str = "xla"):
+    """With the surface pass ``mode``, set every launch count to 0, take
+    ``n_warm`` + ``n_steps`` steps from the initial state (timing the last
+    ``n_steps``) and read the counts.  Returns (summary, counts, final
+    state)."""
     g, solver, dt = path["cfg"].grid, path["solver"], path["dt"]
     E, Np = g.nelem, g.Np
     mass = lambda q: torch.sum(g.M.double() * q[:, 0].double()).item()
     m0 = mass(path["q0"])
+    path["rhs"].surface_kernel = mode
     reset_launch_counts()
     q, aux, t = path["q0"], path["aux0"], 0.0
     for _ in range(n_warm):
@@ -458,7 +560,7 @@ def run_path(path: dict, n_warm: int, n_steps: int):
     drift = abs(mass(q) - m0) / m0
     finite = bool(torch.isfinite(q).all() and torch.isfinite(aux).all())
     res = dict(card=nvidia_smi(), hyperdiffusion_tau=path["tau"],
-               n_horz=N_HORZ, n_vert=N_VERT, poly=POLY, elements=E,
+               surface_kernel=mode, n_horz=N_HORZ, n_vert=N_VERT, poly=POLY, elements=E,
                gridpoints=E * Np, dtype="float32", dt_s=dt,
                warm_steps=n_warm, steps=n_steps, setup_s=path["setup_s"],
                ms_per_step=1e3 * wall / n_steps,
@@ -479,15 +581,23 @@ def perturbed(q0, seed: int):
                                          device=q0.device))
 
 
-def step_vs_plain(path):
+def plain_rhs(dg, mode: str):
+    """The RHS with every kernel's plain version, surface pass ``mode``."""
+    rhs = VarMajorRHS(dg, write_aux=False,
+                      volume=volume_kernel.volume_tendency_plain,
+                      chain_stages=ldg_kernel.PLAIN,
+                      surface_stages=surface_kernel.PLAIN)
+    rhs.surface_kernel = mode
+    return rhs
+
+
+def step_vs_plain(path, mode: str):
     """One step with the kernels against one with the plain versions,
-    from the path's initial state."""
-    plain = LSRK54CarpenterKennedy(
-        VarMajorRHS(path["dg"], write_aux=False,
-                    volume=volume_kernel.volume_tendency_plain,
-                    chain_stages=ldg_kernel.PLAIN),
-        path["dt"], post_step=path["hsf"].apply_vm)
+    both with the surface pass ``mode``, from the path's initial state."""
+    plain = LSRK54CarpenterKennedy(plain_rhs(path["dg"], mode), path["dt"],
+                                   post_step=path["hsf"].apply_vm)
     q0, aux0 = path["q0"], path["aux0"]
+    path["rhs"].surface_kernel = mode
     q1, _ = path["solver"].step(q0, aux0, 0.0)
     q1p, _ = plain.step(q0, aux0, 0.0)
     eps32 = torch.finfo(torch.float32).eps
@@ -495,7 +605,7 @@ def step_vs_plain(path):
              + 4 * eps32 * q1p.abs().amax(dim=(0, 2)))
     step_err = ((q1 - q1p).abs().amax(dim=(0, 2)) / bound).tolist()
     emit("step_vs_plain", hyperdiffusion_tau=path["tau"],
-         err_over_bound_per_var=step_err,
+         surface_kernel=mode, err_over_bound_per_var=step_err,
          max_abs_diff_per_var=(q1 - q1p).abs().amax(dim=(0, 2)).tolist(),
          tol=STEP_TOL)
     check(max(step_err) <= 1.0, ("step vs plain", step_err))
@@ -503,24 +613,26 @@ def step_vs_plain(path):
 
 def phase_main_path(seed: int) -> dict:
     """Kernels against plain versions on the main path's inputs, one
-    step against the plain step, the small reference, then the main path
-    with hyperdiffusion."""
+    step against the plain step with the surface passes "xla" and
+    "pallas", the small reference, then the explicit path with
+    hyperdiffusion, once with each surface pass."""
     path = build_path(8 * 3600.0)
     kernels = phase_kernels(path["rhs"], perturbed(path["q0"], seed),
                             path["aux0"])
-    step_vs_plain(path)
+    for mode in ("xla", "pallas"):
+        step_vs_plain(path, mode)
     small_reference_check(path["tau"])
 
-    res, counts, _ = run_path(path, N_WARM, N_STEPS)
-    expected = 5 * (N_WARM + N_STEPS)
-    res["expected_launches"] = expected
-    emit("main_path", **res)
-    for name, n in counts.items():
-        want = expected if name in EXPLICIT else 0
-        check(n == want, (name, "launches", n, want))
-    return dict(kernels=kernels, launches=counts,
-                sim_s_per_wall_s=res["sim_s_per_wall_s"],
-                ms_per_step=res["ms_per_step"])
+    ms, rate = {}, {}
+    for mode in SURFACE_KERNELS:
+        res, counts, _ = run_path(path, N_WARM, N_STEPS, mode)
+        expected = expected_launches(
+            {name: 5 for name in EXPLICIT + SURFACE_LAUNCHES[mode]},
+            N_WARM + N_STEPS)
+        emit("main_path", expected_launches=expected, **res)
+        check_launches(counts, expected)
+        ms[mode], rate[mode] = res["ms_per_step"], res["sim_s_per_wall_s"]
+    return dict(kernels=kernels, sim_s_per_wall_s=rate, ms_per_step=ms)
 
 
 def phase_no_hyperdiffusion(seed: int):
@@ -538,17 +650,16 @@ def phase_no_hyperdiffusion(seed: int):
     kernel_vs_plain("fused_volume_tendency_vm", args, rhs, n=0,
                     **volume_kwargs(rhs, False))
     del qp, p, args
-    step_vs_plain(path)
+    step_vs_plain(path, "xla")
     small_reference_check(None)
 
-    res, counts, _ = run_path(path, N_WARM_OFF, N_STEPS_OFF)
-    expected = 5 * (N_WARM_OFF + N_STEPS_OFF)
-    res["expected_volume_launches"] = expected
-    emit("no_hyperdiffusion_path", **res)
-    check(counts["fused_volume_tendency_vm"] == expected,
-          ("volume launches", counts))
-    check(all(counts[name] == 0 for name in CHAIN + LAYOUT),
-          ("chain and layout launches", counts))
+    for mode in ("xla", "pallas"):
+        res, counts, _ = run_path(path, N_WARM_OFF, N_STEPS_OFF, mode)
+        expected = expected_launches(
+            {name: 5 for name in ("fused_volume_tendency_vm",)
+             + SURFACE_LAUNCHES[mode]}, N_WARM_OFF + N_STEPS_OFF)
+        emit("no_hyperdiffusion_path", expected_launches=expected, **res)
+        check_launches(counts, expected)
 
 
 def layout_vs_plain(name, src, dims) -> dict:
@@ -592,6 +703,37 @@ def phase_layout_kernels(layout, q) -> dict:
     return res
 
 
+def phase_surface_kernels(rhs, q, aux) -> dict:
+    """Both surface kernels against their plain versions on a path's own
+    inputs: the state's thermo and ∇Δ (through the chain kernels), then
+    the bundle of the plain extraction and its gathered neighbour side,
+    with hyperdiffusion on and off.  Returns the results with
+    hyperdiffusion, the path's."""
+    g, ps = rhs.grid, rhs.bl.param_set
+    _, p, c_s, _ = rhs._thermo_update(q, aux, False)
+    gl2 = rhs._chain(q, aux, p)
+    p_ref = aux[:, rhs.i_pref].contiguous()
+    results = {}
+    for hyper in (True, False):
+        ext_args = (q, p, c_s, p_ref[:, None], gl2 if hyper else None,
+                    rhs.nu if hyper else None, g.lift, rhs.nrm)
+        ext_kw = dict(nq=5, na=1, ngl=4, has_hyper=hyper)
+        ext = kernel_vs_plain("extract_trace_vm", ext_args, rhs, n=0,
+                              **ext_kw)
+        Bf = surface_kernel.extract_trace_plain(*ext_args, **ext_kw)
+        lift_args = (Bf, rhs._gather_faces(Bf), rhs.nrm, rhs.sM, rhs.bmask,
+                     rhs.liftT, g.MI)
+        lift = kernel_vs_plain(
+            "fused_surface_lift_vm", lift_args, rhs, n=0, nq=5,
+            nvb=Bf.shape[1], subtract=True, i_pref=7, has_hyper=hyper,
+            rem_lanes=(), sl_lo=0, sl_hi=0, R_d_T0=ps.R_d * ps.T_0,
+            R_over_cv=ps.R_d / ps.cv_d)
+        if hyper:
+            results = {"extract_trace_vm": ext, "fused_surface_lift_vm": lift}
+        del Bf, lift_args
+    return results
+
+
 def build_imex_path(tau, n_horz=N_HORZ, n_vert=N_VERT, dtype=torch.float32,
                     device="cuda", table=None) -> dict:
     """The IMEX configuration, its initial state and the solver as a user
@@ -623,9 +765,10 @@ def build_imex_path(tau, n_horz=N_HORZ, n_vert=N_VERT, dtype=torch.float32,
                 build_s=time.perf_counter() - t0, dt_snapped=snapped)
 
 
-def imex_step_vs_plain(path):
+def imex_step_vs_plain(path, mode: str):
     """One IMEX step with every kernel against one where the layouts,
-    the volume and the chain take their plain versions, from the path's
+    the volume, the chain and the surface stages take their plain
+    versions, both with the surface pass ``mode``, from the path's
     initial state (the same assembled operator and factors)."""
     imex = path["solver"]
     plain_sv = copy.copy(imex.solver)
@@ -635,11 +778,9 @@ def imex_step_vs_plain(path):
         from_blocks=layout_kernel.from_blocks_vm_plain)
     plain = ARK2GiraldoKellyConstantinescu(
         None, None, plain_sv, path["dt"],
-        rhs_full=VarMajorRHS(path["dg"], write_aux=False,
-                             volume=volume_kernel.volume_tendency_plain,
-                             chain_stages=ldg_kernel.PLAIN),
-        post_step=imex.post_step)
+        rhs_full=plain_rhs(path["dg"], mode), post_step=imex.post_step)
     q0, aux0 = path["q0"], path["aux0"]
+    path["rhs"].surface_kernel = mode
     q1, _ = imex.step(q0, aux0, 0.0)
     q1p, _ = plain.step(q0, aux0, 0.0)
     eps32 = torch.finfo(torch.float32).eps
@@ -647,7 +788,8 @@ def imex_step_vs_plain(path):
              + 4 * eps32 * q1p.abs().amax(dim=(0, 2)))
     diff = (q1 - q1p).abs().amax(dim=(0, 2))
     step_err = (diff / bound).tolist()
-    emit("imex_step_vs_plain", err_over_bound_per_var=step_err,
+    emit("imex_step_vs_plain", surface_kernel=mode,
+         err_over_bound_per_var=step_err,
          max_abs_diff_per_var=diff.tolist(), tol=STEP_TOL)
     check(max(step_err) <= 1.0, ("IMEX step vs plain", step_err))
 
@@ -721,11 +863,13 @@ def table_gate(q, model, table) -> dict:
 
 
 def phase_imex(seed: int, explicit: dict) -> dict:
-    """The IMEX path, this slice's: build it at full width (dt snapped to
-    the f64 table's), hold the layout kernels against their plain
-    versions on a perturbed state and its blocks, one step against the
-    plain step, the small reference; then 10 + 25 steps with the launch
-    counts, and the f64-table gate on the 35-step state."""
+    """The IMEX path: build it at full width (dt snapped to the f64
+    table's), hold the layout kernels against their plain versions on a
+    perturbed state and its blocks and the surface kernels on that state,
+    one step with the surface passes "xla" and "pallas" against the
+    all-plain step, the small reference; then, with each surface pass,
+    10 + 25 steps with the launch counts and the f64-table gate on the
+    35-step state."""
     table = load_refstats()
     torch.cuda.reset_peak_memory_stats()
     path = build_imex_path(8 * 3600.0, table=table)
@@ -738,7 +882,11 @@ def phase_imex(seed: int, explicit: dict) -> dict:
     g = path["cfg"].grid
 
     kernels = phase_layout_kernels(sv.layout, perturbed(path["q0"], seed))
-    imex_step_vs_plain(path)
+    kernels.update(phase_surface_kernels(path["rhs"],
+                                         perturbed(path["q0"], seed),
+                                         path["aux0"]))
+    for mode in ("xla", "pallas"):
+        imex_step_vs_plain(path, mode)
     err = imex_small_reference()
     emit("imex_small_reference", n_horz=2, n_vert=3, poly=POLY, steps=3,
          hyperdiffusion_tau=8 * 3600.0, rel_err_per_var=err,
@@ -763,28 +911,39 @@ def phase_imex(seed: int, explicit: dict) -> dict:
                                                    xb), 10, warm=2))
     del xb, D_jax
 
-    torch.cuda.reset_peak_memory_stats()
-    res, counts, q = run_path(path, N_WARM_IMEX, N_STEPS_IMEX)
+    # the table's 35 steps once with each surface pass, on the same
+    # solver: its rhs_full switches passes, nothing is set up again
     n = N_WARM_IMEX + N_STEPS_IMEX
-    expected = {name: 3 * n for name in EXPLICIT}
-    expected.update(to_blocks_vm=3 * n, from_blocks_vm=2 * n)
-    gate = table_gate(q, path["cfg"].model, table)
-    res.update(
-        solver="ARK2GiraldoKellyConstantinescu+BlockTridiag",
-        setup_s=path["setup_s"], build_s=path["build_s"],
-        active_unknowns=sv.active_count, block_size=sv.nb,
-        peak_memory_setup_bytes=setup_peak,
-        peak_memory_steps_bytes=torch.cuda.max_memory_allocated(),
-        expected_launches=expected, dt_snapped_to_table=path["dt_snapped"],
-        explicit_ms_per_step=explicit["ms_per_step"],
-        explicit_sim_s_per_wall_s=explicit["sim_s_per_wall_s"],
-        **algebra)
-    emit("imex_path", **res)
-    emit("table_gate", steps=n, dt_s=dt, table_dt_s=table.dt, **gate)
-    for name, want in expected.items():
-        check(counts[name] == want, (name, "launches", counts[name], want))
-    check(not gate["failures"], ("f64-table gate", gate["failures"]))
-    return dict(kernels=kernels, launches=counts)
+    ms, launches = {}, {}
+    for mode in SURFACE_KERNELS:
+        torch.cuda.reset_peak_memory_stats()
+        res, counts, q = run_path(path, N_WARM_IMEX, N_STEPS_IMEX, mode)
+        expected = expected_launches(
+            {**{name: 3 for name in EXPLICIT + SURFACE_LAUNCHES[mode]},
+             "to_blocks_vm": 3, "from_blocks_vm": 2}, n)
+        gate = table_gate(q, path["cfg"].model, table)
+        res.update(
+            solver="ARK2GiraldoKellyConstantinescu+BlockTridiag",
+            setup_s=path["setup_s"], build_s=path["build_s"],
+            active_unknowns=sv.active_count, block_size=sv.nb,
+            peak_memory_setup_bytes=setup_peak,
+            peak_memory_steps_bytes=torch.cuda.max_memory_allocated(),
+            expected_launches=expected,
+            dt_snapped_to_table=path["dt_snapped"],
+            explicit_ms_per_step=explicit["ms_per_step"][mode],
+            explicit_sim_s_per_wall_s=explicit["sim_s_per_wall_s"][mode],
+            **algebra)
+        emit("imex_path", **res)
+        emit("table_gate", surface_kernel=mode, steps=n, dt_s=dt,
+             table_dt_s=table.dt, **gate)
+        check_launches(counts, expected)
+        check(not gate["failures"], ("f64-table gate", mode,
+                                     gate["failures"]))
+        ms[mode], launches[mode] = res["ms_per_step"], counts
+        del q
+    path["rhs"].surface_kernel = "xla"
+    return dict(kernels=kernels, launches=launches["pallas"],
+                ms_per_step=ms)
 
 
 def main(argv=None) -> int:
@@ -799,6 +958,9 @@ def main(argv=None) -> int:
     explicit = phase_main_path(args.seed)
     phase_no_hyperdiffusion(args.seed)
     imex = phase_imex(args.seed, explicit)
+    emit("surface_modes", card=nvidia_smi(),
+         explicit_ms_per_step=explicit["ms_per_step"],
+         imex_ms_per_step=imex["ms_per_step"])
     results = {**explicit["kernels"], **imex["kernels"]}
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{

@@ -12,11 +12,15 @@ State and aux stay var-major ``[E, nvar, Np]`` throughout.  Per call:
   four chain kernels (dg/ldg_kernel.py); ν₄ = (Δ/2)⁴/2τ is built once;
 - volume: the fused volume-tendency kernel (dg/volume_kernel.py), which
   builds the hyperdiffusive flux F₂ from ∇Δ and ν₄ itself;
-- surface: face bundle by one extraction matmul against the 0/1 lift
-  matrix (with hyperdiffusion, ∇Δ rides it and the n·F₂ trace is
-  built on the faces), neighbour rows by gathers over elements, wall
-  ghosts, Rusanov flux plus the interior hyperdiffusive correction, and
-  one lift matmul;
+- surface: the face bundle (q, p, c, p_ref and, with hyperdiffusion,
+  the n·F₂ trace built on the faces from the extracted ∇Δ), neighbour
+  rows by gathers over elements, wall ghosts, Rusanov flux plus the
+  interior hyperdiffusive correction, and the lift.  ``surface_kernel``
+  picks how, with the JAX package's names: ``"xla"`` (the default) is
+  plain PyTorch, one extraction matmul against the 0/1 lift matrix and
+  one lift matmul; ``"hybrid"`` builds the bundle with the extraction
+  kernel (dg/surface_kernel.py); ``"pallas"`` also runs the flux and
+  lift kernel after the gather;
 - sources: the model's ``contributions_vm`` hooks.
 """
 
@@ -29,11 +33,16 @@ import torch
 
 from climatemachine_tpu_torch.atmos.hyperdiffusion import DryBiharmonic
 from climatemachine_tpu_torch.atmos.model import AtmosModel
-from climatemachine_tpu_torch.dg import fast_surface, ldg_kernel
+from climatemachine_tpu_torch.dg import (fast_surface, ldg_kernel,
+                                        surface_kernel)
 from climatemachine_tpu_torch.dg.spatial import (direction_dims,
                                                  direction_faces)
 from climatemachine_tpu_torch.dg.volume_kernel import fused_volume_tendency_vm
 from climatemachine_tpu_torch.physics import thermodynamics as td
+
+
+#: the surface passes, by the JAX package's names (module docstring)
+SURFACE_KERNELS = ("xla", "hybrid", "pallas")
 
 
 @dataclass
@@ -78,19 +87,26 @@ class VarMajorRHS:
     ``write_aux``: refresh the aux lanes θ_v and T from the state on every
     call.  Nothing inside a step reads them, so a time integrator can
     build the RHS with ``write_aux=False`` and call :meth:`export_aux`
-    when aux leaves the loop.  ``volume`` is the volume-tendency function
-    and ``chain_stages`` the four chain stages; they default to the
-    kernel wrappers, and chip_smoke.py passes the plain versions to hold
-    one step against the kernels'."""
+    when aux leaves the loop.  ``volume`` is the volume-tendency function,
+    ``chain_stages`` the four chain stages and ``surface_stages`` the
+    extraction and the flux + lift of the ``"hybrid"`` and ``"pallas"``
+    surface passes; they default to the kernel wrappers, and chip_smoke.py
+    passes the plain versions to hold one step against the kernels'.
+
+    ``surface_kernel`` (attribute, ``"xla"`` by default): the surface
+    pass, one of :data:`SURFACE_KERNELS` (module docstring)."""
 
     def __init__(self, dg, write_aux: bool = True,
                  volume: Callable = fused_volume_tendency_vm,
-                 chain_stages: tuple = ldg_kernel.KERNELS):
+                 chain_stages: tuple = ldg_kernel.KERNELS,
+                 surface_stages: tuple = surface_kernel.KERNELS):
         _check_supported(dg)
         self.bl, self.grid = dg.balance_law, dg.grid
         self.write_aux = write_aux
         self.volume = volume
         self.chain_stages = chain_stages
+        self.surface_stages = surface_stages
+        self.surface_kernel = "xla"
         g, bl = self.grid, self.bl
         E, X = g.nelem, g.nface * g.Nfp_max
         sp = bl.aux_spec
@@ -105,6 +121,7 @@ class VarMajorRHS:
         self.sM = g.sM.reshape(E, 1, X)
         self.liftT = g.lift.T.contiguous()
         self.tab = fast_surface._tables(g)
+        self.bmask = self.tab["bnd_lane"][:, None, :].to(g.M.dtype)
         self.hd = bl.physics.hyperdiffusion
         if self.hd is not None:
             d = bl.hyperdiffusion_direction
@@ -168,7 +185,7 @@ class VarMajorRHS:
                                          tuple(range(self.grid.nface)),
                                          self.grid.Nfp_max)
 
-    def _bundle(self, qv, auxv, p, c_s, gl2):
+    def _bundle(self, qv, p, c_s, p_ref, gl2):
         """Minus-side face bundle ``[E, nvb, X]``: lanes q (nq), p, c_s,
         p_ref, and with ``gl2`` the nq n·F₂ trace lanes, built on the
         faces from ∇Δ extracted by the same matmul and the static face
@@ -176,7 +193,7 @@ class VarMajorRHS:
         g, nq, nrm = self.grid, self.nq, self.nrm
         E, Np = g.nelem, g.Np
         X = g.nface * g.Nfp_max
-        lanes = [qv, p[:, None], c_s[:, None], auxv[:, self.i_pref, None]]
+        lanes = [qv, p[:, None], c_s[:, None], p_ref[:, None]]
         if gl2 is not None:
             lanes.append(gl2)
         B = torch.cat(lanes, dim=1)
@@ -195,15 +212,42 @@ class VarMajorRHS:
                             + Bx[:, 3] * G[:, 2]) + rnu * G[:, 3]])
         return torch.cat([Bx[:, :nvb], torch.stack(trace, dim=1)], dim=1)
 
-    def _surface(self, qv, auxv, p, c_s, gl2=None):
+    def _extract(self, qv, p, c_s, p_ref, gl2):
+        """The face bundle of :meth:`_bundle` from the extraction stage."""
+        hyper = gl2 is not None
+        return self.surface_stages[0](
+            qv, p, c_s, p_ref[:, None], gl2, self.nu if hyper else None,
+            self.grid.lift, self.nrm, nq=self.nq, na=1,
+            ngl=self.bl.gradlap_spec.num, has_hyper=hyper)
+
+    def _flux_lift(self, Bf, BP, hyper: bool):
+        """The surface term from the bundle and its neighbour side by the
+        flux + lift stage."""
+        ps = self.bl.param_set
+        return self.surface_stages[1](
+            Bf, BP, self.nrm, self.sM, self.bmask, self.liftT, self.grid.MI,
+            nq=self.nq, nvb=Bf.shape[1], subtract=True, i_pref=self.nq + 2,
+            has_hyper=hyper, rem_lanes=(), sl_lo=0, sl_hi=0,
+            R_d_T0=ps.R_d * ps.T_0, R_over_cv=ps.R_d / ps.cv_d)
+
+    def _surface(self, qv, p, c_s, p_ref, gl2=None):
         """Rusanov surface term −M⁻¹ L (sM · f*), ``[E, nq, Np]``; with
         ``gl2`` the interior hyperdiffusive correction ½(s⁻ − s⁺) of the
         n·F₂ traces joins f* (wall faces carry none)."""
+        mode = self.surface_kernel
+        if mode not in SURFACE_KERNELS:
+            raise ValueError(f"surface_kernel must be one of "
+                             f"{SURFACE_KERNELS}, got {mode!r}")
         g, nq, nrm = self.grid, self.nq, self.nrm
         E, Np = g.nelem, g.Np
         X = g.nface * g.Nfp_max
-        Bf = self._bundle(qv, auxv, p, c_s, gl2)
+        if mode == "xla":
+            Bf = self._bundle(qv, p, c_s, p_ref, gl2)
+        else:
+            Bf = self._extract(qv, p, c_s, p_ref, gl2)
         BP = self._gather_faces(Bf)
+        if mode == "pallas":
+            return self._flux_lift(Bf, BP, gl2 is not None)
 
         # wall ghost: reflect the normal momentum, copy the rest
         run = (BP[:, 1] * nrm[:, 0] + BP[:, 2] * nrm[:, 1]
@@ -262,11 +306,11 @@ class VarMajorRHS:
         T, p, c_s, auxv = self._thermo_update(qv, auxv, self.write_aux)
         hyper = self.hd is not None
         gl2 = self._chain(qv, auxv, p) if hyper else None
-        tend = self.volume(qv, p, auxv[:, self.i_phi],
-                           auxv[:, self.i_pref].contiguous(), None, gl2,
+        p_ref = auxv[:, self.i_pref].contiguous()
+        tend = self.volume(qv, p, auxv[:, self.i_phi], p_ref, None, gl2,
                            self.nu if hyper else None, self.xiv, g.M, g.MI,
                            g.Wdiv, nq=self.nq, ngl=self.bl.gradlap_spec.num,
                            R_d=ps.R_d, cv_d=ps.cv_d, T_0=ps.T_0,
                            subtract_ref=True, has_f2=hyper)
-        tend = tend + self._surface(qv, auxv, p, c_s, gl2)
+        tend = tend + self._surface(qv, p, c_s, p_ref, gl2)
         return tend + self._sources(qv, auxv, T, p, t), auxv

@@ -1,13 +1,14 @@
 """Solver-type strategy objects (port of
-``climatemachine_tpu/driver/solver_types.py`` ``IMEXSolverType``
-:66-178, its var-major banded path).
+``climatemachine_tpu/driver/solver_types.py`` ``ExplicitSolverType``
+:24-63 and ``IMEXSolverType`` :66-178, their var-major paths).
 
-``IMEXSolverType().make(dg, q0, aux0, dt)`` builds the HEVI IMEX step:
-ARK2GiraldoKellyConstantinescu whose implicit part is a
-``BlockTridiagColumnSolver`` over the vertical
-``AtmosAcousticGravityLinearModel``, with the full var-major RHS
-(dg/fast_rhs.py) as ``rhs_full``.  State and aux are var-major
-``[E, n, Np]``.
+``ExplicitSolverType().make(dg, q0, aux0, dt)`` builds LSRK54 on the
+var-major RHS (dg/fast_rhs.py); ``IMEXSolverType().make(dg, q0, aux0,
+dt)`` builds the HEVI IMEX step: ARK2GiraldoKellyConstantinescu whose
+implicit part is a ``BlockTridiagColumnSolver`` over the vertical
+``AtmosAcousticGravityLinearModel``, with the full var-major RHS as
+``rhs_full``.  State and aux are var-major ``[E, n, Np]``; the caller
+sets ``post_step`` (the Held-Suarez filter) on the solver made.
 """
 
 from __future__ import annotations
@@ -22,8 +23,37 @@ from climatemachine_tpu_torch.atmos.linear import \
 from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
 from climatemachine_tpu_torch.dg.spatial import DGModel
 from climatemachine_tpu_torch.ode.ark import ARK2GiraldoKellyConstantinescu
+from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
 from climatemachine_tpu_torch.solvers.columnwise import (
     BlockTridiagColumnSolver, ColumnLayout)
+
+
+def _refuse_unported(dg, state_layout: str):
+    if state_layout not in ("auto", "vm"):
+        raise NotImplementedError(
+            f"next slice: state_layout={state_layout!r} (the node-major "
+            "step on the generic DG operator)")
+    if hasattr(dg, "inner") and hasattr(dg, "mesh"):
+        raise NotImplementedError("next slice: a sharded DGModel")
+
+
+@dataclass
+class ExplicitSolverType:
+    """Explicit time stepping on the full var-major RHS.  ``solver.vm``
+    is that RHS (:class:`VarMajorRHS`, built with ``write_aux=False``:
+    call ``solver.vm.export_aux`` when aux leaves the loop).  In the JAX
+    package ``"auto"`` falls back to the generic DG operator for a
+    configuration the var-major RHS does not take; here VarMajorRHS
+    raises for it.  ``state_layout="grid"`` is not ported and raises."""
+    solver_method: Callable = LSRK54CarpenterKennedy
+    state_layout: str = "auto"
+
+    def make(self, dg: DGModel, q0, aux0, dt: float):
+        _refuse_unported(dg, self.state_layout)
+        vm = VarMajorRHS(dg, write_aux=False)
+        solver = self.solver_method(vm, dt)
+        solver.vm = vm
+        return solver
 
 
 @dataclass
@@ -44,15 +74,10 @@ class IMEXSolverType:
     state_layout: str = "auto"
 
     def make(self, dg: DGModel, q0, aux0, dt: float):
-        if self.state_layout not in ("auto", "vm"):
-            raise NotImplementedError(
-                f"next slice: state_layout={self.state_layout!r} (the "
-                "node-major step with the fused remainder)")
+        _refuse_unported(dg, self.state_layout)
         if self.columnwise_solver != "banded":
             raise NotImplementedError(
                 f"next slice: columnwise_solver={self.columnwise_solver!r}")
-        if hasattr(dg, "inner") and hasattr(dg, "mesh"):
-            raise NotImplementedError("next slice: a sharded DGModel")
         atmos, grid = dg.balance_law, dg.grid
         rhs_full = VarMajorRHS(dg, write_aux=False)
         dg_lin = DGModel(self.implicit_model(atmos), grid,

@@ -1,16 +1,19 @@
 """Where the Held-Suarez step spends its time on the card.
 
     python -m climatemachine_tpu_torch.profile_step [--steps N] [--out DIR]
-        [--no-hyperdiffusion] [--imex]
+        [--no-hyperdiffusion] [--imex] [--surface-kernel {xla,hybrid,pallas}]
 
 Builds a ``chip_smoke.py`` path (dry Held-Suarez p4 with DryBiharmonic(8
 h) hyperdiffusion, n_horz=16, n_vert=8, float32, with the every-step
-filter): the explicit LSRK54 step, or with ``--imex`` the IMEX step
-(``IMEXSolverType().make``, ARK2GKC with the block-tridiagonal column
-solver, dt from the horizontal acoustic CFL); ``--no-hyperdiffusion``
-drops the chain.  It warms up, times ``--steps`` steps with tracing off,
-then traces the same number of steps with ``torch.profiler``.  The
-RHS's parts, and on the IMEX step the column solve, the operator
+filter): the explicit LSRK54 step (``ExplicitSolverType().make``), or
+with ``--imex`` the IMEX step (``IMEXSolverType().make``, ARK2GKC with
+the block-tridiagonal column solver, dt from the horizontal acoustic
+CFL); ``--no-hyperdiffusion`` drops the chain; ``--surface-kernel`` sets
+the RHS's surface pass (``VarMajorRHS.surface_kernel``, "xla" by
+default).  It warms up, times ``--steps`` steps with tracing off, then
+traces the same number of steps with ``torch.profiler``.  The RHS's
+parts (the surface kernels' stages as ``extract`` and ``lift`` inside
+``surface``), and on the IMEX step the column solve, the operator
 application and the two layout conversions, are wrapped in
 ``record_function`` spans from here, around the calls into each layer,
 so the program itself carries no instrumentation.
@@ -35,16 +38,16 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
+from climatemachine_tpu_torch.dg.fast_rhs import SURFACE_KERNELS
 from climatemachine_tpu_torch.dg.spatial import DGModel, init_ode_state
-from climatemachine_tpu_torch.driver.solver_types import IMEXSolverType
+from climatemachine_tpu_torch.driver.solver_types import (ExplicitSolverType,
+                                                          IMEXSolverType)
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
 from climatemachine_tpu_torch.mesh.grid import min_node_distance
-from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
 
-SPANS = ("thermo", "chain", "volume", "surface", "sources", "filter",
-         "solve", "apply", "to_blocks", "from_blocks")
+SPANS = ("thermo", "chain", "volume", "surface", "extract", "lift",
+         "sources", "filter", "solve", "apply", "to_blocks", "from_blocks")
 
 
 def _span(name, fn):
@@ -60,6 +63,8 @@ def main(argv=None):
     ap.add_argument("--out", default="profile_out")
     ap.add_argument("--no-hyperdiffusion", action="store_true")
     ap.add_argument("--imex", action="store_true")
+    ap.add_argument("--surface-kernel", choices=SURFACE_KERNELS,
+                    default="xla")
     args = ap.parse_args(argv)
     power = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -82,9 +87,12 @@ def main(argv=None):
         sv.layout.from_blocks = _span("from_blocks", sv.layout.from_blocks)
     else:
         dt = 0.3 * min_node_distance(cfg.grid) / 350.0
-        rhs = VarMajorRHS(dg, write_aux=False)
-        solver = LSRK54CarpenterKennedy(rhs, dt)
+        solver = ExplicitSolverType().make(dg, q, aux, dt)
+        rhs = solver.vm
     solver.post_step = _span("filter", hsf.apply_vm)
+    rhs.surface_kernel = args.surface_kernel
+    rhs.surface_stages = tuple(_span(name, stage) for name, stage in
+                               zip(("extract", "lift"), rhs.surface_stages))
     rhs._thermo_update = _span("thermo", rhs._thermo_update)
     rhs._chain = _span("chain", rhs._chain)
     rhs.volume = _span("volume", rhs.volume)
@@ -147,6 +155,7 @@ def main(argv=None):
     print(json.dumps({
         "card": power, "steps": args.steps,
         "step": "imex" if args.imex else "explicit", "dt_s": dt,
+        "surface_kernel": args.surface_kernel,
         "hyperdiffusion_tau": (cfg.model.physics.hyperdiffusion.tau_timescale
                                if cfg.model.physics.hyperdiffusion else None),
         "ms_per_step_untraced": 1e3 * untraced,

@@ -11,7 +11,8 @@ off and with the default DryBiharmonic(8 h) in both:
   tests/test_fast_rhs.py precedent;
 - one LSRK54 step with the every-step filter, 1e-12 relative (the JAX
   step runs its default chain, which tests/test_fast_rhs.py holds to
-  the Pallas chain at round-off).
+  the Pallas chain at round-off), built by hand and through the explicit
+  entry point ``ExplicitSolverType().make`` of both packages.
 
 The RHS and step tests feed both packages the JAX grid's arrays
 (interop.grid_from_numpy) so they hold the RHS apart from the grid
@@ -26,6 +27,8 @@ import torch
 from climatemachine_tpu.dg.fast_rhs import VarMajorRHS as JaxVarMajorRHS
 from climatemachine_tpu.dg.spatial import DGModel as JaxDGModel
 from climatemachine_tpu.dg.spatial import init_ode_state as jax_init_ode_state
+from climatemachine_tpu.driver.solver_types import \
+    ExplicitSolverType as JaxExplicitSolverType
 from climatemachine_tpu.experiments.held_suarez import \
     HeldSuarezStepFilter as JaxHeldSuarezStepFilter
 from climatemachine_tpu.experiments.held_suarez import \
@@ -36,6 +39,7 @@ from climatemachine_tpu.ode.lsrk import \
     LSRK54CarpenterKennedy as JaxLSRK54CarpenterKennedy
 from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
 from climatemachine_tpu_torch.dg.spatial import DGModel, init_ode_state
+from climatemachine_tpu_torch.driver.solver_types import ExplicitSolverType
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
 from climatemachine_tpu_torch.interop import (grid_from_numpy,
@@ -160,3 +164,25 @@ def test_lsrk54_step_with_filter_matches_jax(setup, write_aux):
         # filter: refresh it from the filtered state as well
         _, _, _, aux_ref = vm_j._thermo_update(q_ref, aux_ref, 0.0)
     assert _rel_err_per_var(aux1, aux_ref).max() < 1e-12
+
+
+def test_explicit_solver_type_step_matches_jax(setup):
+    """One step through the explicit entry point of each package,
+    ``ExplicitSolverType().make`` with the filter as ``post_step`` set by
+    the caller (bench.py:170-171), from the perturbed state."""
+    cfg_j, dg_j, dg_t = setup["cfg_j"], setup["dg_j"], setup["dg_t"]
+    dt = 0.3 * jax_min_node_distance(cfg_j.grid) / 350.0
+    ex_j = JaxExplicitSolverType().make(dg_j, setup["q0"], setup["aux0"], dt)
+    assert ex_j.vm is not None
+    ex_j.post_step = JaxHeldSuarezStepFilter(cfg_j.grid, cfg_j.model).apply_vm
+    q_ref, aux_ref = ex_j.step(ex_j.vm.to_vm(jnp.asarray(setup["q"])),
+                               ex_j.vm.aux_to_vm(setup["aux0"]), 0.0)
+
+    qv, auxv = state_from_numpy(setup["q"], setup["aux0"], device="cpu")
+    ex = ExplicitSolverType().make(dg_t, qv, auxv, dt)
+    ex.post_step = HeldSuarezStepFilter(dg_t.grid, dg_t.balance_law).apply_vm
+    q1, aux1 = ex.step(qv, auxv, 0.0)
+    err = _rel_err_per_var(q1, q_ref)
+    assert err.max() < 1e-12, err
+    assert _rel_err_per_var(ex.vm.export_aux(q1, aux1),
+                            ex_j.vm.export_aux(q_ref, aux_ref)).max() < 1e-12

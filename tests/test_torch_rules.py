@@ -132,7 +132,7 @@ def test_layout_wrapper_never_falls_back_off_cpu(name):
 
 
 @pytest.mark.parametrize("source", ["volume_vm", "ldg_chain",
-                                    "column_layout"])
+                                    "column_layout", "surface_vm"])
 def test_build_without_nvcc_raises(monkeypatch, tmp_path, source):
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
