@@ -25,15 +25,30 @@ filter:
   hyperdiffusion on and off) against their plain versions, one step with
   "xla" and one with "pallas" against the all-plain step, a small
   reference, then the table's 35 steps with exact launch counts and the
-  f64-table gate, once with each surface pass on the same solver.
+  f64-table gate, once with each surface pass on the same solver;
+- the generic DG operator ``DGModel(model, grid)`` (the JAX package's
+  "grid" layout, state var-major here) with hyperdiffusion: the dry
+  volume kernel against its plain version on the inputs of its RHS and
+  of the fused IMEX remainder, the RHS against the RHS with every
+  stage's plain version, the all-plain RHS (the contraction and the
+  per-pass chain) and the var-major RHS, the remainder against dg −
+  dg_lin; then three paths on it, each with exact launch counts:
+  ``ExplicitSolverType(state_layout="grid")`` (23 LSRK54 steps),
+  ``IMEXSolverType(state_layout="grid")`` (the table's 35 ARK2GKC steps,
+  banded solver, the generic operator as ``rhs_full``) and
+  ``IMEXSolverType(columnwise_solver="dense")`` (35 steps, the dense
+  column solver, the fused remainder), the f64-table gate on both IMEX
+  paths.
 Each run sets every launch count to 0 just before it starts and reads
 the counts just after.  One JSON line per phase and ``surface_modes``
-with the ms per step of each surface pass on both steps; then the card's
-name and power limit as nvidia-smi reports them, a ``{"kernels": [...]}``
-line (launches from the IMEX path with "pallas", which runs all nine
-kernels) and, last, ``{"ok": true, "device": ...}``.  Any failure raises
-and exits non-zero without the last line.  Without a CUDA device it exits
-1 at once.
+with the ms per step of each surface pass on both steps and of the
+three generic paths; then the card's name and power limit as nvidia-smi
+reports them, a ``{"kernels": [...]}`` line (eleven entries: the nine
+earlier kernels with launches from the IMEX path with "pallas", the dry
+volume kernel with launches from the grid-layout IMEX path and its
+remainder branch from the dense one) and, last, ``{"ok": true,
+"device": ...}``.  Any failure raises and exits non-zero without the
+last line.  Without a CUDA device it exits 1 at once.
 
 Each volume and chain kernel reports two bounds: ``bound_ms`` with the
 derivative products counted dense (Np terms per node and direction, as
@@ -96,7 +111,17 @@ Tolerances:
   4×3 grid) is reported, not checked;
 - mass Σ M ρ, summed in float64: relative drift <= 1e-5 over each path
   (float32 round-off; F₂ carries no mass flux, and the filter keeps each
-  element's mode 0 but is not exactly conservative on curved elements).
+  element's mode 0 but is not exactly conservative on curved elements);
+- the generic RHS on the card against the RHS with every stage's plain
+  version, the all-plain RHS and the var-major RHS, from the same
+  perturbed state: per variable, max|Δ| <= 1e-3 · max|other| — float32
+  round-off of the flux terms, which cancel to ~1e-5 of their size,
+  gives up to 6.4e-5 (ρu, against float64), 4.4e-5 (the kernel path
+  against the contraction) and 7.4e-5 (against the var-major RHS, whose
+  surface pass extracts its thermo) on the CPU at n_horz=3, n_vert=3,
+  p4; the remainder against dg − dg_lin: 1e-2 · max|dg − dg_lin| per
+  variable, 7.7× the 1.3e-3 the same comparison gives on the CPU (the
+  remainder is the small difference of two large tendencies).
 """
 
 from __future__ import annotations
@@ -109,14 +134,19 @@ import pathlib
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import torch
 
 from climatemachine_tpu_torch import cuda_build, resolve_device
-from climatemachine_tpu_torch.dg import (ldg_kernel, ldg_tables, ldg_varmajor,
+from climatemachine_tpu_torch.atmos.linear import \
+    AtmosAcousticGravityLinearModel
+from climatemachine_tpu_torch.dg import (dry_volume_kernel, ldg_kernel,
+                                        ldg_tables, ldg_varmajor,
                                         surface_kernel, volume_kernel)
 from climatemachine_tpu_torch.dg.fast_rhs import SURFACE_KERNELS, VarMajorRHS
-from climatemachine_tpu_torch.dg.spatial import DGModel, init_ode_state
+from climatemachine_tpu_torch.dg.spatial import (DGModel, init_ode_state,
+                                                 remainder_DGModel)
 from climatemachine_tpu_torch.driver.solver_types import (ExplicitSolverType,
                                                           IMEXSolverType)
 from climatemachine_tpu_torch.experiments.held_suarez import (
@@ -154,7 +184,13 @@ BENCH_BUDGETS = {"rho": (8e-3, 8e-3, 5e-6, 1e-5),
 ANCHOR_BUDGETS = {"rho": (1e-4, 1e-4, 1e-5, 1e-4),
                   "rhou": (3e-2, 3e-2, 1e-5, 1e-3),
                   "rhoe": (1e-4, 1e-4, 2e-5, 1e-4)}
+#: the generic RHS on the card against other RHS of the same state, per
+#: variable relative to max|reference|: ~13× what float32 gives on the
+#: CPU at n_horz=3, n_vert=3, p4 (module docstring)
+GENERIC_RHS_TOL = 1e-3
+REMAINDER_TOL = 1e-2
 SOURCES = ("volume_vm", "ldg_chain", "column_layout", "surface_vm")
+DRY = "dry_volume_tendency"
 CHAIN = ("ldg_first", "ldg_grad_to_div", "ldg_div_to_grad", "ldg_last")
 EXPLICIT = ("fused_volume_tendency_vm",) + CHAIN
 LAYOUT = ("to_blocks_vm", "from_blocks_vm")
@@ -175,6 +211,10 @@ KERNELS = {
               getattr(layout_kernel, name + "_plain"), "column_layout.cu",
               f"climatemachine_tpu/solvers/pallas_layout.py:{line}")
        for name, line in zip(LAYOUT, (43, 70))},
+    DRY: (
+        dry_volume_kernel.dry_volume_tendency,
+        dry_volume_kernel.dry_volume_tendency_plain, "volume_vm.cu",
+        "climatemachine_tpu/dg/pallas_volume.py:101"),
     "extract_trace_vm": (
         surface_kernel.extract_trace_vm, surface_kernel.extract_trace_plain,
         "surface_vm.cu", "climatemachine_tpu/dg/pallas_surface.py:77"),
@@ -226,7 +266,7 @@ def reset_launch_counts():
 
 
 def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
-          has_f2: bool = True, dense: bool = True):
+          has_f2: bool = True, dense: bool = True, remainder: bool = False):
     """(bytes, flops) of one call: each input read once, each output
     written once (float32; the int32 face tables and the operator
     matrices once); the 0/1 face selection and lift as data movement.
@@ -235,7 +275,9 @@ def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
     factorised (Wd and Wdiv are Kronecker operators with Nq nonzeros a
     row).  Per node, the volume tendency does 2·5·3 terms for the
     contraction, 111 for flux, metric and mass, 106 for F₂ and 5 for the
-    MI scaling."""
+    MI scaling; the dry volume tendency 13 more for its thermo (e_int, T,
+    p from q and φ in place of p) and, with the remainder, 29 for the
+    linear flux, reading ref3."""
     R, X = 3 * n, nd * 3
     K = Np if dense else Nq
     deriv = lambda rows: 2 * E * rows * nd * Np * K
@@ -246,6 +288,12 @@ def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
                       + Np * 3 * Np)
         return nbytes, E * Np * (2 * 5 * 3 * K + 111 + 5
                                  + (106 if has_f2 else 0))
+    if name == DRY:
+        nbytes = 4 * (E * Np * (5 + 1 + 1 + 9 + 1 + 1 + 5
+                                + (3 if remainder else 0))
+                      + Np * 3 * Np)
+        return nbytes, E * Np * (2 * 5 * 3 * K + 111 + 5 + 13
+                                 + (29 if remainder else 0))
     if name == "ldg_first":
         nbytes = 4 * E * (n * Np + X * Np + R * Np + n * F) + wd + sel
         return nbytes, deriv(n) + E * R * Np * (2 * nd - 1)
@@ -298,7 +346,7 @@ def surface_costs(name: str, args, has_hyper: bool, dense: bool):
 
 
 def bounds(name: str, rhs, n: int, has_f2: bool = True, args=None,
-           has_hyper: bool = True) -> dict:
+           has_hyper: bool = True, remainder: bool = False) -> dict:
     """The kernel's bound with the products counted dense (``bound_ms``,
     the kernels line's) and sum-factorised (``bound_sumfact_ms``), each
     the larger of bytes over the memory rate and flops over the fp32
@@ -315,7 +363,7 @@ def bounds(name: str, rhs, n: int, has_f2: bool = True, args=None,
             nbytes, flops = surface_costs(name, args, has_hyper, dense)
         else:
             nbytes, flops = costs(name, g.nelem, g.Np, g.Nq[0], n, nd, F,
-                                  has_f2, dense)
+                                  has_f2, dense, remainder)
         t_bytes = 1e3 * nbytes / PEAK_BYTES
         t_ops = 1e3 * flops / PEAK_FP32_FLOPS
         out.update({"bytes": nbytes, "bytes_ms": t_bytes,
@@ -388,7 +436,7 @@ def yardstick(name, args, rhs, has_hyper: bool = True):
     elif name == "fused_surface_lift_vm":
         a, b = torch.randn((E * 5, rhs.liftT.shape[0]), device=g.device), \
             rhs.liftT
-    elif name == "fused_volume_tendency_vm":
+    elif name in ("fused_volume_tendency_vm", DRY):
         a, b = torch.randn((E * 5, 3 * Np), device=g.device), g.Wdiv.T
     elif name == "ldg_last":
         a, b = args[1].new_empty((E * 12, args[1].shape[2])).normal_(), \
@@ -423,14 +471,16 @@ def kernel_vs_plain(name, args, rhs, n, **kw) -> dict:
                ms=cuda_ms(lambda: wrapper(*args, **kw), 50),
                plain_ms=cuda_ms(lambda: plain(*args, **kw), 10),
                matmul_yardstick_ms=yardstick(name, args, rhs, hyper),
-               **bounds(name, rhs, n, kw.get("has_f2", True), args, hyper),
+               **bounds(name, rhs, n, kw.get("has_f2", True), args, hyper,
+                        bool(kw.get("lin_dims"))),
                shapes=[list(a.shape) for a in args
                        if isinstance(a, torch.Tensor)])
     res["share_of_bound"] = res["bound_ms"] / res["ms"]
     second = "dense" if name in SURFACE else "sumfact"
     res[f"share_of_bound_{second}"] = res[f"bound_{second}_ms"] / res["ms"]
     emit("kernel_vs_plain", name=name,
-         **{k: kw[k] for k in ("has_f2", "has_hyper") if k in kw}, **res)
+         **{k: kw[k] for k in ("has_f2", "has_hyper", "lin_dims")
+            if k in kw}, **res)
     check(all(bool(torch.isfinite(o).all()) for o in out),
           (name, "kernel output not finite"))
     check(all(e <= KERNEL_TOL * sc for e, sc in zip(errs, scales)),
@@ -533,16 +583,18 @@ def check_launches(counts: dict, expected: dict):
         check(counts[name] == want, (name, "launches", counts[name], want))
 
 
-def run_path(path: dict, n_warm: int, n_steps: int, mode: str = "xla"):
-    """With the surface pass ``mode``, set every launch count to 0, take
-    ``n_warm`` + ``n_steps`` steps from the initial state (timing the last
+def run_path(path: dict, n_warm: int, n_steps: int, mode=None):
+    """With the var-major RHS's surface pass ``mode`` (None on the
+    generic DG operator), set every launch count to 0, take ``n_warm`` +
+    ``n_steps`` steps from the initial state (timing the last
     ``n_steps``) and read the counts.  Returns (summary, counts, final
     state)."""
     g, solver, dt = path["cfg"].grid, path["solver"], path["dt"]
     E, Np = g.nelem, g.Np
     mass = lambda q: torch.sum(g.M.double() * q[:, 0].double()).item()
     m0 = mass(path["q0"])
-    path["rhs"].surface_kernel = mode
+    if mode is not None:
+        path["rhs"].surface_kernel = mode
     reset_launch_counts()
     q, aux, t = path["q0"], path["aux0"], 0.0
     for _ in range(n_warm):
@@ -556,7 +608,8 @@ def run_path(path: dict, n_warm: int, n_steps: int, mode: str = "xla"):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     counts = launch_counts()
-    aux = path["rhs"].export_aux(q, aux)
+    if hasattr(path["rhs"], "export_aux"):
+        aux = path["rhs"].export_aux(q, aux)
     drift = abs(mass(q) - m0) / m0
     finite = bool(torch.isfinite(q).all() and torch.isfinite(aux).all())
     res = dict(card=nvidia_smi(), hyperdiffusion_tau=path["tau"],
@@ -946,6 +999,179 @@ def phase_imex(seed: int, explicit: dict) -> dict:
                 ms_per_step=ms)
 
 
+# --- the generic DG operator: state_layout="grid" and the dense solver -------
+
+def dry_volume_args(dg, q, aux):
+    """The dry volume kernel's (args, kwargs) on ``dg``'s path at state q
+    and aux, as its RHS hands them over."""
+    return dry_volume_kernel.volume_tendency_from_grid(
+        dg, q, aux, volume=lambda *args, **kw: (args, kw))
+
+
+def per_var_err(got, ref) -> list:
+    """max |got − ref| per variable, relative to max |ref| of that
+    variable; both var-major ``[E, n, Np]``."""
+    return ((got - ref).abs().amax(dim=(0, 2))
+            / ref.abs().amax(dim=(0, 2))).tolist()
+
+
+def build_generic_base():
+    """The configuration at full width with DryBiharmonic(8 h), its
+    initial state and the generic DG operator ``DGModel(model, grid)``
+    with its defaults (the dry volume kernel, the chain kernels, the
+    var-major surface pass), shared by the three paths."""
+    t0 = time.perf_counter()
+    cfg = held_suarez_config(n_horz=N_HORZ, n_vert=N_VERT, poly_order=POLY,
+                             dtype=torch.float32, hyperdiffusion_tau=8 * 3600.0,
+                             device="cuda")
+    dg = DGModel(cfg.model, cfg.grid)
+    q0, aux0 = init_ode_state(dg)
+    torch.cuda.synchronize()
+    return dict(tau=8 * 3600.0, cfg=cfg, dg=dg, q0=q0, aux0=aux0,
+                hsf=HeldSuarezStepFilter(cfg.grid, cfg.model),
+                build_s=time.perf_counter() - t0)
+
+
+def phase_generic_checks(base, seed: int) -> dict:
+    """On a perturbed initial state: the dry volume kernel against its
+    plain version on the inputs of the generic RHS and of the fused
+    remainder; the generic RHS against the one with every stage's plain
+    version, the all-plain one (contraction and per-pass chain), the
+    var-major RHS, and the remainder against dg − dg_lin; each RHS's time.
+    Returns the kernel results by entry of the kernels line."""
+    dg, model, g = base["dg"], base["cfg"].model, base["cfg"].grid
+    q = perturbed(base["q0"], seed)
+    aux = model.update_auxiliary_state(q, base["aux0"])
+    dg_lin = DGModel(AtmosAcousticGravityLinearModel(model), g,
+                     direction="vertical", update_aux=False)
+    dg_rem = remainder_DGModel(dg, dg_lin)
+    grid_only = SimpleNamespace(grid=g, hd=None)
+    kernels = {}
+    for entry, d in ((DRY, dg), (DRY + "_remainder", dg_rem)):
+        args, kw = dry_volume_args(d, q, aux)
+        kernels[entry] = kernel_vs_plain(DRY, args, grid_only, n=0, **kw)
+
+    def rhs(d):
+        return d(q, base["aux0"], 0.0)[0]
+
+    ref = rhs(dg)
+    plain_stages = DGModel(model, g, volume=KERNELS[DRY][1],
+                           chain_stages=ldg_kernel.PLAIN)
+    all_plain = DGModel(model, g, volume_kernel="xla",
+                        ldg_kernel="varmajor")
+    vm = VarMajorRHS(dg)
+    others = {"plain_stages": rhs(plain_stages), "all_plain": rhs(all_plain),
+              "var_major": vm(q, base["aux0"], 0.0)[0]}
+    lin, _ = dg_lin(q, aux, 0.0)
+    rem = rhs(dg_rem)
+    torch.cuda.synchronize()
+    errs = {name: per_var_err(ref, other) for name, other in others.items()}
+    errs["remainder_vs_difference"] = per_var_err(rem, ref - lin)
+    times = {name: cuda_ms(fn, 10, warm=2) for name, fn in (
+        ("generic_rhs_ms", lambda: rhs(dg)),
+        ("generic_all_plain_rhs_ms", lambda: rhs(all_plain)),
+        ("remainder_rhs_ms", lambda: rhs(dg_rem)),
+        ("linear_rhs_ms", lambda: dg_lin(q, aux, 0.0)),
+        ("var_major_rhs_ms", lambda: vm(q, base["aux0"], 0.0)))}
+    emit("generic_rhs", card=nvidia_smi(), rel_err_per_var=errs,
+         tol=GENERIC_RHS_TOL, remainder_tol=REMAINDER_TOL,
+         max_abs_per_var=ref.abs().amax(dim=(0, 2)).tolist(), **times)
+    for name, err in errs.items():
+        tol = REMAINDER_TOL if name.startswith("remainder") \
+            else GENERIC_RHS_TOL
+        check(all(torch.isfinite(torch.tensor(err))) and max(err) <= tol,
+              ("generic RHS", name, err))
+    return kernels
+
+
+def generic_path(base, kind: str, table=None) -> dict:
+    """One of the three generic paths on ``base``, built as a user builds
+    it: "explicit" (``ExplicitSolverType(state_layout="grid")``, dt at the
+    every-direction acoustic limit), "imex" (``IMEXSolverType(
+    state_layout="grid")``) or "dense" (``IMEXSolverType(
+    columnwise_solver="dense")``), dt from the horizontal acoustic CFL
+    snapped to the f64 table's; the filter as ``post_step``.
+    ``setup_s`` is the time of ``make``."""
+    g, dg = base["cfg"].grid, base["dg"]
+    q0, aux0 = base["q0"], base["aux0"]
+    snapped = False
+    if kind == "explicit":
+        dt = 0.3 * min_node_distance(g) / 350.0
+    else:
+        dt = 0.1 * min_node_distance(g, "horizontal") / 350.0
+        snapped = table is not None and abs(table.dt - dt) < 1e-5 * dt
+        if snapped:
+            dt = table.dt
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if kind == "explicit":
+        solver = ExplicitSolverType(state_layout="grid").make(dg, q0, aux0,
+                                                              dt)
+    elif kind == "imex":
+        solver = IMEXSolverType(state_layout="grid").make(dg, q0, aux0, dt)
+    else:
+        solver = IMEXSolverType(columnwise_solver="dense").make(dg, q0, aux0,
+                                                                dt)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    solver.post_step = base["hsf"].apply_vm
+    return dict(base, dt=dt, rhs=dg, solver=solver, setup_s=setup_s,
+                dt_snapped=snapped,
+                peak_memory_setup_bytes=torch.cuda.max_memory_allocated())
+
+
+def phase_generic(seed: int) -> dict:
+    """The generic DG operator at full width: its checks, then the three
+    paths with exact launch counts (the dry kernel and the four chain
+    kernels in each RHS; the layout kernels on the banded IMEX step), the
+    f64-table gate on both IMEX paths and the mass drift on all three."""
+    table = load_refstats()
+    base = build_generic_base()
+    kernels = phase_generic_checks(base, seed)
+    per_rhs = {DRY: 1, **{name: 1 for name in CHAIN}}
+    runs = {"explicit": (N_WARM, N_STEPS, 5, {}),
+            "imex": (N_WARM_IMEX, N_STEPS_IMEX, 3,
+                     {"to_blocks_vm": 3, "from_blocks_vm": 2}),
+            "dense": (N_WARM_IMEX, N_STEPS_IMEX, 3, {})}
+    launches, ms = {}, {}
+    for kind, (n_warm, n_steps, n_rhs, layout) in runs.items():
+        path = generic_path(base, kind, table)
+        torch.cuda.reset_peak_memory_stats()
+        res, counts, q = run_path(path, n_warm, n_steps)
+        expected = expected_launches(
+            {**{k: n_rhs * v for k, v in per_rhs.items()}, **layout},
+            n_warm + n_steps)
+        res.update(path=kind, state_layout="grid" if kind != "dense"
+                   else "grid (dense solver)",
+                   build_s=base["build_s"],
+                   peak_memory_setup_bytes=path["peak_memory_setup_bytes"],
+                   peak_memory_steps_bytes=torch.cuda.max_memory_allocated(),
+                   expected_launches=expected,
+                   dt_snapped_to_table=path["dt_snapped"])
+        sv = path["solver"].solver if kind != "explicit" else None
+        if kind == "dense":
+            gamma_dt = next(iter(sv._cached))
+            res.update(
+                dense_apply_op_ms=cuda_ms(lambda: sv.apply_op(q), 5, warm=1),
+                dense_solve_ms=cuda_ms(lambda: sv.solve(q, gamma_dt), 5,
+                                       warm=1),
+                dense_matrix_bytes=sv.A.numel() * sv.A.element_size())
+        emit("generic_path", **res)
+        check_launches(counts, expected)
+        if kind != "explicit":
+            check(path["dt_snapped"], ("dt off the table's", path["dt"]))
+            gate = table_gate(q, base["cfg"].model, table)
+            emit("table_gate", path=kind, steps=n_warm + n_steps,
+                 dt_s=path["dt"], table_dt_s=table.dt, **gate)
+            check(not gate["failures"], ("f64-table gate", kind,
+                                         gate["failures"]))
+        launches[kind], ms[kind] = counts, res["ms_per_step"]
+        del path, sv, q
+        torch.cuda.empty_cache()
+    return dict(kernels=kernels, launches=launches, ms_per_step=ms)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -958,20 +1184,31 @@ def main(argv=None) -> int:
     explicit = phase_main_path(args.seed)
     phase_no_hyperdiffusion(args.seed)
     imex = phase_imex(args.seed, explicit)
+    generic = phase_generic(args.seed)
     emit("surface_modes", card=nvidia_smi(),
          explicit_ms_per_step=explicit["ms_per_step"],
-         imex_ms_per_step=imex["ms_per_step"])
-    results = {**explicit["kernels"], **imex["kernels"]}
+         imex_ms_per_step=imex["ms_per_step"],
+         generic_ms_per_step=generic["ms_per_step"])
+    # each kernel's launches from the run of its path: the var-major IMEX
+    # step with "pallas" (all nine earlier kernels), the dry kernel from
+    # the grid-layout IMEX step and its remainder branch from the dense one
+    results = {**explicit["kernels"], **imex["kernels"],
+               **generic["kernels"]}
+    entries = [(name, name, imex["launches"][name])
+               for name in KERNELS if name != DRY]
+    entries += [(DRY, DRY, generic["launches"]["imex"][DRY]),
+                (DRY + "_remainder", DRY,
+                 generic["launches"]["dense"][DRY])]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda",
-        "source": f"climatemachine_tpu_torch/csrc/{source}",
-        "replaces": replaces, "launches": imex["launches"][name],
+        "name": entry, "route": "cuda",
+        "source": f"climatemachine_tpu_torch/csrc/{KERNELS[name][2]}",
+        "replaces": KERNELS[name][3], "launches": launches,
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k.get("library_ms")}
-        for name, (_, _, source, replaces) in KERNELS.items()
-        for k in [results[name]]]}), flush=True)
+        for entry, name, launches in entries
+        for k in [results[entry]]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,7 +11,11 @@ hyperdiffusion chain (csrc/ldg_chain.cu) are hand-written CUDA kernels,
 the every-step exponential filter, LSRK54, and the IMEX step
 (driver/solver_types.py ``IMEXSolverType``: ARK2GKC with the
 block-tridiagonal column solver of the vertical linear operator, whose
-grid↔column-block conversions are CUDA kernels, csrc/column_layout.cu).  Entry points take
+grid↔column-block conversions are CUDA kernels, csrc/column_layout.cu);
+both steps also on the generic DG operator (dg/spatial.py ``DGModel``,
+the JAX package's "grid" layout, and the dense column solver on the
+fused IMEX remainder), whose volume tendency is the dry kernel
+(dg/dry_volume_kernel.py, a branch of csrc/volume_vm.cu).  Entry points take
 ``device=None``, meaning ``"cuda"``; tests pass ``device="cpu"``, where
 every kernel wrapper runs its plain PyTorch version.
 """

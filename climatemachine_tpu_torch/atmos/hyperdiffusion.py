@@ -1,11 +1,15 @@
 """Horizontal biharmonic hyperdiffusion (port of
-``climatemachine_tpu/atmos/hyperdiffusion.py`` ``DryBiharmonic`` :22-86).
+``climatemachine_tpu/atmos/hyperdiffusion.py`` ``DryBiharmonic`` :22-86:
+``gradient_laplacian_argument`` :50, ``transform`` :64, ``flux`` :76).
 
 ν₄ = (Δ_h/2)⁴ / 2τ with Δ_h the horizontal grid lengthscale, an aux lane
-filled once at set-up.  The var-major RHS (dg/fast_rhs.py) runs the LDG
-chain ∇→Δ→∇ on (u_h, h_tot) and builds the hyperdiffusive flux
-F₂[ρu] = ρν₄∇Δu_h, F₂[ρe] = ν₄∇Δu_h·ρu + ρν₄∇Δh_tot inside the volume
-kernel and on the faces.
+filled once at set-up.  The LDG chain ∇→Δ→∇ runs on (u_h, h_tot); the
+hyperdiffusive flux is F₂[ρu] = ρν₄∇Δu_h, F₂[ρe] = ν₄∇Δu_h·ρu +
+ρν₄∇Δh_tot.  The var-major RHS (dg/fast_rhs.py) builds it inside the
+volume kernel and on the faces; the generic DG operator (dg/spatial.py)
+through :meth:`DryBiharmonic.transform` and :meth:`DryBiharmonic.flux`,
+with the hyper state ν₄∇Δ(u_h, h_tot) held ``[E, 3, 4, Np]`` (direction
+i, then variable).
 """
 
 from __future__ import annotations
@@ -49,3 +53,32 @@ class DryBiharmonic:
         out[:, model.aux_spec.index("hyperdiffusion.delta")] = \
             self.lengthscale(grid).to(aux.dtype)[:, None]
         return out
+
+    def gradient_laplacian_argument(self, model, q, aux, t, p=None):
+        """(u_h, h_tot) ``[E, 4, Np]``: the horizontal velocity and the
+        total specific enthalpy (ρe + p)/ρ; ``p`` from the model's thermo
+        unless given."""
+        rho, ru, rhoe = q[:, 0], q[:, 1:4], q[:, 4]
+        if p is None:
+            _, p = model.thermo(q, aux)
+        u = ru / rho[:, None]
+        k = model.aux_spec.get(aux, "orientation.grad_Phi") \
+            / model.param_set.grav
+        u_h = u - torch.sum(u * k, dim=1, keepdim=True) * k
+        return torch.cat([u_h, ((rhoe + p) / rho)[:, None]], dim=1)
+
+    def transform(self, model, grad_lap, q, aux, t):
+        """∇Δ ``[E, 3, 4, Np]`` → the hyper state ν₄∇Δ, ν₄ from the aux
+        lane ``hyperdiffusion.delta``."""
+        delta = model.aux_spec.get(aux, "hyperdiffusion.delta")
+        nu4 = (delta / 2) ** 4 / (2 * self.tau_timescale)
+        return nu4[:, None, None] * grad_lap
+
+    def flux(self, model, q, hyper, aux, F):
+        """Adds ρ ν₄∇Δu_h to F[ρu] and ν₄∇Δu_h·ρu + ρ ν₄∇Δh_tot to F[ρe]
+        (F ``[E, 3, n, Np]``, in place) and returns F."""
+        rho, ru = q[:, 0], q[:, 1:4]
+        F[:, :, 1:4] += rho[:, None, None] * hyper[:, :, :3]
+        F[:, :, 4] += (torch.sum(hyper[:, :, :3] * ru[:, None], dim=2)
+                       + rho[:, None] * hyper[:, :, 3])
+        return F

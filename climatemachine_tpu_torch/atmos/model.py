@@ -1,13 +1,17 @@
 """The dry atmosphere balance law (port of the parts of
 ``climatemachine_tpu/atmos/model.py`` the Held-Suarez step uses: the
 prognostic/aux schemas :146-203, ``nodal_init_state_auxiliary`` :334,
-the dry thermo refresh of the aux lanes and the wall ghost
-``boundary_state`` :608-618).
+the dry thermo refresh of the aux lanes, and the hooks of the generic DG
+operator for the dry, total-energy, compressible model:
+``flux_first_order`` :372, ``wavespeed`` :449, the gradient-Laplacian
+hooks :539-550, ``flux_second_order`` :552 (hyperdiffusion only),
+``source`` :583 and the wall ghost ``boundary_state`` :608-618).
 
 Prognostic: ρ, ρu(3), ρe.  Auxiliary: coord(3), orientation (Φ, ∇Φ),
 reference state (ρ, p, T, ρe), moisture (θ_v, T) — 13 lanes in the JAX
 package's order — then, with hyperdiffusion, ``hyperdiffusion.delta``.
-State and aux are var-major ``[E, n, Np]``.
+State and aux are var-major ``[E, n, L]`` over L nodes (volume or face
+lanes); fluxes ``[E, 3, n, L]`` (direction i, then variable).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 
 from climatemachine_tpu_torch.atmos.boundaryconditions import AtmosBC
 from climatemachine_tpu_torch.atmos.ref_state import HydrostaticState
+from climatemachine_tpu_torch.atmos.sources import VMContext
 from climatemachine_tpu_torch.common.orientations import SphericalOrientation
 from climatemachine_tpu_torch.physics import thermodynamics as td
 from climatemachine_tpu_torch.physics.parameters import (EARTH,
@@ -102,17 +107,93 @@ class AtmosModel:
     def init_state_prognostic(self, coords, aux, t):
         return self.problem.init_state(self, coords, aux, t)
 
+    def thermo(self, q, aux):
+        """(T, p) of the dry state from e_int = ρe/ρ − |ρu|²/2ρ² − Φ."""
+        ps = self.param_set
+        rho, rhou, rhoe = q[:, 0], q[:, 1:4], q[:, 4]
+        Phi = self.aux_spec.get(aux, "orientation.Phi")
+        ke = 0.5 * torch.sum(rhou * rhou, dim=1) / (rho * rho)
+        T = td.air_temperature(ps, rhoe / rho - ke - Phi)
+        return T, td.air_pressure(ps, T, rho)
+
     def update_auxiliary_state(self, q, aux):
         """Refresh the dry thermo lanes θ_v and T from the state."""
         ps, sp = self.param_set, self.aux_spec
-        rho, rhou, rhoe = q[:, 0], q[:, 1:4], q[:, 4]
-        Phi = sp.get(aux, "orientation.Phi")
-        ke = 0.5 * torch.sum(rhou * rhou, dim=1) / (rho * rho)
-        T = td.air_temperature(ps, rhoe / rho - ke - Phi)
-        p = td.air_pressure(ps, T, rho)
+        T, p = self.thermo(q, aux)
         theta_v = T * (ps.MSLP / p) ** ps.kappa_d
         aux = _set(aux, sp.index("moisture.air_T"), T)
         return _set(aux, sp.index("moisture.theta_v"), theta_v)
+
+    def preprocess_state(self, dg, q, aux, t):
+        """The state projection before each stage: none for this model."""
+        return q
+
+    # --- the generic DG operator's hooks ---------------------------------------
+    def flux_first_order(self, q, aux, t):
+        """Advection, the pressure gradient with the reference pressure
+        taken out, and the pressure work: F_i[ρ] = ρu_i, F_i[ρu_j] =
+        ρu_i u_j + (p − p_ref) δ_ij, F_i[ρe] = (ρe + p) u_i."""
+        rho, rhou, rhoe = q[:, 0], q[:, 1:4], q[:, 4]
+        _, p = self.thermo(q, aux)
+        u = rhou / rho[:, None]
+        p_eff = p - self.aux_spec.get(aux, "ref_state.p")
+        E, n, L = q.shape
+        F = torch.empty((E, 3, n, L), dtype=q.dtype, device=q.device)
+        F[:, :, 0] = rhou
+        F[:, :, 1:4] = rhou[:, :, None] * u[:, None, :]
+        for i in range(3):
+            F[:, i, 1 + i] += p_eff
+        F[:, :, 4] = (rhoe + p)[:, None] * u
+        return F
+
+    def wavespeed(self, nrm, q, aux, t):
+        """|u·n| + the sound speed, ``[E, L]``."""
+        T, _ = self.thermo(q, aux)
+        u = q[:, 1:4] / q[:, :1]
+        return torch.abs(torch.sum(u * nrm, dim=1)) + td.soundspeed_air(
+            self.param_set, T)
+
+    def compute_gradient_laplacian_argument(self, q, aux, t):
+        return self.physics.hyperdiffusion.gradient_laplacian_argument(
+            self, q, aux, t)
+
+    def transform_post_gradient_laplacian(self, grad_lap, q, aux, t):
+        return self.physics.hyperdiffusion.transform(self, grad_lap, q, aux, t)
+
+    def flux_second_order(self, q, gf, hyper, aux, t):
+        """The hyperdiffusive flux ``[E, 3, n, Np]`` from the hyper state;
+        a gradient flux (a turbulence closure) is not ported."""
+        if gf is not None:
+            raise NotImplementedError("next slice: a gradient-flux state")
+        F = torch.zeros((q.shape[0], 3) + q.shape[1:], dtype=q.dtype,
+                        device=q.device)
+        if hyper is not None:
+            F = self.physics.hyperdiffusion.flux(self, q, hyper, aux, F)
+        return F
+
+    def source_context(self, q, aux, thermo=None) -> VMContext:
+        """The sources' view of state q and aux; ``thermo`` is (T, p) when
+        the caller has computed it, else this model's thermo is."""
+        T, p = thermo if thermo is not None else self.thermo(q, aux)
+        sp = self.aux_spec
+        return VMContext(rho=q[:, 0], rhou=q[:, 1:4], T=T, p=p,
+                         grad_Phi=sp.get(aux, "orientation.grad_Phi"),
+                         coords=sp.get(aux, "coord"),
+                         aux=lambda name: sp.get(aux, name))
+
+    def sum_sources(self, ctx: VMContext, t):
+        """Σ of the sources' ``contributions_vm``, ``[E, n, Np]``."""
+        out = torch.zeros((ctx.rho.shape[0], self.prog_spec.num,
+                           ctx.rho.shape[1]), dtype=ctx.rho.dtype,
+                          device=ctx.rho.device)
+        for src in self.sources:
+            for name, val in src.contributions_vm(self, ctx, t).items():
+                sl = self.prog_spec.index(name)
+                out[:, sl] += val if val.dim() == 3 else val[:, None]
+        return out
+
+    def source(self, q, aux, t):
+        return self.sum_sources(self.source_context(q, aux), t)
 
     def boundary_state(self, tag: int, nrm, q_minus, aux_minus, t):
         """Ghost (q⁺, aux⁺) on wall face lanes of boundary ``tag``:

@@ -1,16 +1,49 @@
 """Gravity and Coriolis sources (port of
-``climatemachine_tpu/atmos/sources.py``, ``contributions_vm`` :38,:59).
+``climatemachine_tpu/atmos/sources.py``: Gravity :26, Coriolis :46, their
+``contributions`` :30,:50 and ``contributions_vm`` :38,:59).
 
-``contributions_vm(model, ctx, t)`` maps prognostic names to additive
-var-major tendencies (``[E, Np]`` scalars, ``[E, 3, Np]`` vectors).
+A source maps prognostic names to additive var-major tendencies
+(``[E, Np]`` scalars, ``[E, 3, Np]`` vectors) in
+``contributions_vm(model, ctx, t)``, from a :class:`VMContext` whose
+thermo the caller computed once: the var-major RHS its own, the generic
+DG operator the model's.  ``contributions(model, q, gf, aux, t)`` is the
+JAX package's signature on state and aux.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Callable
+
 import torch
 
 
-class Gravity:
+@dataclass
+class VMContext:
+    """What the var-major source hooks see: ``[E, Np]`` scalars,
+    ``[E, 3, Np]`` vectors; ``aux(name)`` reads var-major aux lanes."""
+    rho: torch.Tensor
+    rhou: torch.Tensor
+    T: torch.Tensor
+    p: torch.Tensor
+    grad_Phi: torch.Tensor
+    coords: torch.Tensor
+    aux: Callable
+
+
+class Source:
+    """Base of the atmosphere sources."""
+
+    def contributions_vm(self, model, ctx: VMContext, t):
+        raise NotImplementedError
+
+    def contributions(self, model, q, gf, aux, t):
+        """The contributions at state q and aux, T and p from the model's
+        thermo; ``gf`` (gradient flux) is unused by these sources."""
+        return self.contributions_vm(model, model.source_context(q, aux), t)
+
+
+class Gravity(Source):
     """−(ρ − ρ_ref) ∇Φ."""
 
     def contributions_vm(self, model, ctx, t):
@@ -18,7 +51,7 @@ class Gravity:
         return {"rhou": -rho[:, None, :] * ctx.grad_Phi}
 
 
-class Coriolis:
+class Coriolis(Source):
     """−2Ω ẑ × ρu with Ω along the x3 axis (spherical orientation)."""
 
     def contributions_vm(self, model, ctx, t):

@@ -22,3 +22,14 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def require_full_fp32(what: str):
+    """Raise RuntimeError if float32 matmuls may run in TF32 (``what``
+    names the caller that needs them in full float32)."""
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            f"{what} needs full float32 matmuls: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.set_float32_matmul_precision('highest')")

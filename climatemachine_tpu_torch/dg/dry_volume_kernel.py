@@ -1,0 +1,142 @@
+"""Dry-Euler volume tendency of the generic DG operator: a hand-written
+CUDA kernel for Hopper and its plain PyTorch version (port of
+``climatemachine_tpu/dg/pallas_volume.py`` ``dry_volume_tendency`` :101,
+body ``_kernel`` :34-94, with ``supports`` :318 and
+``volume_tendency_from_grid`` :345).
+
+    out[e, v, :] = MI · Wdiv · concat_a(M · Σ_i ξ[a, i] · (F_i[v] − F_lin,i[v]))
+
+F is the dry Euler flux with e_int, T and p computed from the state and
+the geopotential φ (and the reference pressure taken out of the momentum
+flux); the linear acoustic(-gravity) flux F_lin of a fused IMEX remainder
+is subtracted on the direction slots ``lin_dims``, reading the reference
+ρe, ρ and p from ``ref3``.  Unlike ``fused_volume_tendency_vm``
+(dg/volume_kernel.py), which the var-major RHS hands its precomputed
+pressure, this is the function the generic DG operator calls.
+
+The JAX kernel is node-major; the port keeps state var-major at every
+module boundary, so here q is ``[E, 5, Np]`` and so is the tendency.
+
+Dispatch is by device: a CPU tensor takes
+:func:`dry_volume_tendency_plain`; any other tensor takes the kernel
+(the ``dry_volume_f32`` entry of csrc/volume_vm.cu, which shares the
+contraction of ``fused_volume_tendency_vm``) or raises.  The kernel covers
+float32, ``subtract_ref=True`` (the port's reference state always
+subtracts), ``lin_dims=()`` and ``lin_dims=(2,)`` with ``lin_gravity``;
+the plain version covers the whole JAX signature.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from climatemachine_tpu_torch.atmos.linear import (
+    AtmosAcousticGravityLinearModel, AtmosAcousticLinearModel)
+from climatemachine_tpu_torch.atmos.model import AtmosModel
+from climatemachine_tpu_torch.dg.directions import direction_dims
+from climatemachine_tpu_torch.dg.volume_kernel import (check_tensors, launch,
+                                                       volume_tendency_plain,
+                                                       wdiv_transposed)
+
+
+def dry_volume_tendency_plain(qv, phi, p_ref, ref3, xiv, M, MI, Wdiv,
+                              R_d: float, cv_d: float, T_0: float,
+                              subtract_ref: bool = True,
+                              lin_dims: tuple = (),
+                              lin_gravity: bool = True):
+    """Plain PyTorch version: the JAX kernel body's thermo, in its order,
+    then the flux, metric and contraction of
+    :func:`~climatemachine_tpu_torch.dg.volume_kernel.volume_tendency_plain`.
+    T = T_0 + e_int · (1/cv_d): a product with the reciprocal, as PyTorch
+    computes a tensor divided by a scalar on the card, so the kernel can
+    round as this does (the JAX kernel divides; in float64 the two differ
+    in the last bit)."""
+    rho, ru, rhoe = qv[:, 0], qv[:, 1:4], qv[:, 4]
+    inv_rho = 1.0 / rho
+    u = ru * inv_rho[:, None]
+    e_int = ((rhoe - 0.5 * (ru[:, 0] * u[:, 0] + ru[:, 1] * u[:, 1]
+                            + ru[:, 2] * u[:, 2])) * inv_rho - phi)
+    T = T_0 + e_int * (1.0 / cv_d)
+    p = rho * R_d * T
+    return volume_tendency_plain(
+        qv, p, phi, p_ref, ref3, None, None, xiv, M, MI, Wdiv, nq=5, ngl=0,
+        R_d=R_d, cv_d=cv_d, T_0=T_0, subtract_ref=subtract_ref,
+        has_f2=False, lin_dims=lin_dims, lin_gravity=lin_gravity)
+
+
+def dry_volume_tendency(qv, phi, p_ref, ref3, xiv, M, MI, Wdiv, R_d: float,
+                        cv_d: float, T_0: float, subtract_ref: bool = True,
+                        lin_dims: tuple = (), lin_gravity: bool = True):
+    """Dry volume tendency ``[E, 5, Np]``: qv ``[E, 5, Np]``,
+    phi/p_ref/M/MI ``[E, Np]``, ref3 ``[E, 3, Np]`` (reference ρe, ρ, p;
+    read only with ``lin_dims``), xiv ``[E, 9, Np]`` (ξ_a,ᵢ at 3a+i), Wdiv
+    ``[Np, 3Np]``.
+
+    CPU tensors take the plain version; otherwise the CUDA kernel runs
+    and ``dry_volume_tendency.launches`` counts it."""
+    if qv.device.type == "cpu":
+        return dry_volume_tendency_plain(
+            qv, phi, p_ref, ref3, xiv, M, MI, Wdiv, R_d=R_d, cv_d=cv_d,
+            T_0=T_0, subtract_ref=subtract_ref, lin_dims=lin_dims,
+            lin_gravity=lin_gravity)
+    lin_dims = tuple(lin_dims)
+    if not subtract_ref or lin_dims not in ((), (2,)) \
+            or (lin_dims and not lin_gravity):
+        raise NotImplementedError(
+            "the CUDA dry volume kernel covers subtract_ref=True with "
+            "lin_dims=() or lin_dims=(2,) and lin_gravity=True (got "
+            f"subtract_ref={subtract_ref}, lin_dims={lin_dims}, "
+            f"lin_gravity={lin_gravity})")
+    E, _, Np = qv.shape
+    more = {"phi": (phi, (E, Np)), "p_ref": (p_ref, (E, Np))}
+    if lin_dims:
+        more["ref3"] = (ref3, (E, 3, Np))
+    check_tensors(qv, xiv, M, MI, Wdiv, **more)
+    out = torch.empty_like(qv)
+    launch("dry_volume_f32", qv, qv.data_ptr(), phi.data_ptr(),
+           p_ref.data_ptr(), ref3.data_ptr() if lin_dims else None,
+           xiv.data_ptr(), M.data_ptr(), MI.data_ptr(),
+           wdiv_transposed(Wdiv).data_ptr(), out.data_ptr(), E, Np,
+           int(bool(lin_dims)), R_d, 1.0 / cv_d, T_0, R_d / cv_d)
+    dry_volume_tendency.launches += 1
+    return out
+
+
+dry_volume_tendency.launches = 0
+
+
+def supports(balance_law, grid, direction, remainder=None) -> bool:
+    """True when the kernel covers this configuration: the (dry,
+    total-energy, compressible) AtmosModel in every direction, and a
+    remainder, if any, of an acoustic(-gravity) linear model."""
+    if not isinstance(balance_law, AtmosModel):
+        return False
+    if remainder is not None:
+        lin, ldir = remainder
+        if type(lin) not in (AtmosAcousticGravityLinearModel,
+                             AtmosAcousticLinearModel):
+            return False
+        if ldir not in ("vertical", "every", "horizontal"):
+            return False
+    return (grid.dim == 3 and direction == "every"
+            and balance_law.prog_spec.num == 5 and grid.Wdiv is not None)
+
+
+def volume_tendency_from_grid(dg, q, aux, volume=dry_volume_tendency):
+    """The kernel's arguments from a DGModel (its grid's metric and
+    operators, the model's constants, the remainder's ``lin_dims``) and
+    the call, through ``volume`` (the wrapper, or its plain version)."""
+    bl, g = dg.balance_law, dg.grid
+    ps, sp = bl.param_set, bl.aux_spec
+    phi = sp.get(aux, "orientation.Phi").contiguous()
+    p_ref = sp.get(aux, "ref_state.p").contiguous()
+    lin_dims, lin_gravity, ref3 = (), True, None
+    if dg.remainder is not None:
+        lin, ldir = dg.remainder
+        lin_dims = direction_dims(ldir, g.dim)
+        lin_gravity = isinstance(lin, AtmosAcousticGravityLinearModel)
+        ref3 = torch.stack([sp.get(aux, "ref_state.rhoe"),
+                            sp.get(aux, "ref_state.rho"), p_ref], dim=1)
+    return volume(q.contiguous(), phi, p_ref, ref3, dg.xiv, g.M, g.MI, g.Wdiv,
+                  R_d=ps.R_d, cv_d=ps.cv_d, T_0=ps.T_0, subtract_ref=True,
+                  lin_dims=lin_dims, lin_gravity=lin_gravity)

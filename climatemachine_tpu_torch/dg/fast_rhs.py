@@ -26,7 +26,6 @@ State and aux stay var-major ``[E, nvar, Np]`` throughout.  Per call:
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Callable
 
 import torch
@@ -35,27 +34,14 @@ from climatemachine_tpu_torch.atmos.hyperdiffusion import DryBiharmonic
 from climatemachine_tpu_torch.atmos.model import AtmosModel
 from climatemachine_tpu_torch.dg import (fast_surface, ldg_kernel,
                                         surface_kernel)
-from climatemachine_tpu_torch.dg.spatial import (direction_dims,
-                                                 direction_faces)
+from climatemachine_tpu_torch.dg.directions import (direction_dims,
+                                                    direction_faces)
 from climatemachine_tpu_torch.dg.volume_kernel import fused_volume_tendency_vm
 from climatemachine_tpu_torch.physics import thermodynamics as td
 
 
 #: the surface passes, by the JAX package's names (module docstring)
 SURFACE_KERNELS = ("xla", "hybrid", "pallas")
-
-
-@dataclass
-class VMContext:
-    """What the var-major source hooks see: ``[E, Np]`` scalars,
-    ``[E, 3, Np]`` vectors; ``aux(name)`` reads var-major aux lanes."""
-    rho: torch.Tensor
-    rhou: torch.Tensor
-    T: torch.Tensor
-    p: torch.Tensor
-    grad_Phi: torch.Tensor
-    coords: torch.Tensor
-    aux: Callable
 
 
 def _check_supported(dg):
@@ -112,8 +98,6 @@ class VarMajorRHS:
         sp = bl.aux_spec
         self.nq = bl.prog_spec.num
         self.i_phi = sp.index("orientation.Phi").start
-        self.i_gphi = sp.index("orientation.grad_Phi")
-        self.i_coord = sp.index("coord")
         self.i_pref = sp.index("ref_state.p").start
         # var-major geometry, built once
         self.xiv = g.xi_x.permute(0, 2, 3, 1).reshape(E, 9, g.Np).contiguous()
@@ -161,12 +145,7 @@ class VarMajorRHS:
     def chain_input(self, qv, auxv, p):
         """(u_h, h_tot) ``[E, 4, Np]``: the horizontal velocity and the
         total specific enthalpy (ρe + p)/ρ."""
-        ps = self.bl.param_set
-        rho, ru, rhoe = qv[:, 0], qv[:, 1:4], qv[:, 4]
-        u = ru / rho[:, None]
-        k = auxv[:, self.i_gphi] / ps.grav
-        u_h = u - torch.sum(u * k, dim=1, keepdim=True) * k
-        return torch.cat([u_h, ((rhoe + p) / rho)[:, None]], dim=1)
+        return self.hd.gradient_laplacian_argument(self.bl, qv, auxv, 0.0, p)
 
     def _chain(self, qv, auxv, p):
         """gl2 ``[E, 12, Np]``: ∇Δ of (u_h, h_tot) at lane 4·i + j
@@ -239,8 +218,6 @@ class VarMajorRHS:
             raise ValueError(f"surface_kernel must be one of "
                              f"{SURFACE_KERNELS}, got {mode!r}")
         g, nq, nrm = self.grid, self.nq, self.nrm
-        E, Np = g.nelem, g.Np
-        X = g.nface * g.Nfp_max
         if mode == "xla":
             Bf = self._bundle(qv, p, c_s, p_ref, gl2)
         else:
@@ -249,56 +226,19 @@ class VarMajorRHS:
         if mode == "pallas":
             return self._flux_lift(Bf, BP, gl2 is not None)
 
-        # wall ghost: reflect the normal momentum, copy the rest
-        run = (BP[:, 1] * nrm[:, 0] + BP[:, 2] * nrm[:, 1]
-               + BP[:, 3] * nrm[:, 2])
-        ghost = torch.cat(
-            [BP[:, :1]]
-            + [(BP[:, 1 + c] - 2 * run * nrm[:, c])[:, None] for c in range(3)]
-            + [BP[:, 4:]], dim=1)
-        BP = torch.where(self.tab["bnd_lane"][:, None, :], ghost, BP)
-
-        def flux_n(Bs):
-            rho = Bs[:, 0]
-            inv = 1.0 / rho
-            un = (Bs[:, 1] * inv * nrm[:, 0] + Bs[:, 2] * inv * nrm[:, 1]
-                  + Bs[:, 3] * inv * nrm[:, 2])
-            pv = Bs[:, nq]
-            p_eff = pv - Bs[:, nq + 2]
-            Fn = [rho * un]
-            for c in range(3):
-                Fn.append(Bs[:, 1 + c] * un + p_eff * nrm[:, c])
-            Fn.append((Bs[:, 4] + pv) * un)
-            return Fn, torch.abs(un) + Bs[:, nq + 1]
-
-        FnM, cM = flux_n(Bf)
-        FnP, cP = flux_n(BP)
-        c = torch.maximum(cM, cP)
-        fstar = torch.stack([0.5 * (FnM[v] + FnP[v])
-                             - 0.5 * c * (BP[:, v] - Bf[:, v])
-                             for v in range(nq)], dim=1)
+        BP = fast_surface.wall_ghost(BP, nrm, self.tab["bnd_lane"])
+        fstar = fast_surface.rusanov(Bf, BP, nrm, nq)
         if gl2 is not None:
             sl_h = slice(nq + 3, 2 * nq + 3)
             fstar = fstar + torch.where(
                 self.tab["bnd_lane"][:, None, :], 0.0,
                 0.5 * (Bf[:, sl_h] - BP[:, sl_h]))
-        lifted = torch.matmul((self.sM * fstar).reshape(E * nq, X),
-                              self.liftT).reshape(E, nq, Np)
-        return -(g.MI[:, None, :] * lifted)
+        return fast_surface.lift(fstar, self.sM, self.liftT, g.MI)
 
     # --- sources -------------------------------------------------------------
     def _sources(self, qv, auxv, T, p, t):
-        bl = self.bl
-        ctx = VMContext(rho=qv[:, 0], rhou=qv[:, 1:4], T=T, p=p,
-                        grad_Phi=auxv[:, self.i_gphi],
-                        coords=auxv[:, self.i_coord],
-                        aux=lambda name: bl.aux_spec.get(auxv, name))
-        out = torch.zeros_like(qv)
-        for src in bl.sources:
-            for name, val in src.contributions_vm(bl, ctx, t).items():
-                sl = bl.prog_spec.index(name)
-                out[:, sl] += val if val.dim() == 3 else val[:, None]
-        return out
+        return self.bl.sum_sources(self.bl.source_context(qv, auxv, (T, p)),
+                                   t)
 
     # --- full RHS ------------------------------------------------------------
     def __call__(self, qv, auxv, t):

@@ -1,18 +1,32 @@
-"""Static face-neighbour tables and the neighbour gather of the var-major
-surface passes (port of ``climatemachine_tpu/dg/fast_surface.py``
-``_tables`` :99-132).
+"""Var-major surface pass of the dry Euler model (port of
+``climatemachine_tpu/dg/fast_surface.py``: ``_tables`` :99-132 and
+``surface_tendency`` :135-263, with its fused-remainder subtraction).
 
 Face data is var-major ``[E, nvb, nface·Nfp]``.  The neighbour side of
 face f is, for most elements, the opposite face ``f ^ 1`` of the
 neighbour element: one row gather over elements of a contiguous lane
 slice.  Panel-edge elements whose neighbour presents another face get
-small row fix-ups.  Orientations must be identity (checked by the RHS).
+small row fix-ups.  Orientations must be identity (checked by the
+callers).
+
+The pass is shared: :func:`surface_tendency` is the generic DG
+operator's (dg/spatial.py; face thermo from the extracted state and φ,
+as the JAX package computes it), and the var-major RHS's plain pass
+(dg/fast_rhs.py, surface pass "xla") extracts its own thermo lanes; both
+then take the wall ghost, the Rusanov flux and the lift from here.  The
+JAX package runs this pass in XLA, not in a Pallas kernel: it is plain
+PyTorch.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from climatemachine_tpu_torch.atmos.linear import \
+    AtmosAcousticGravityLinearModel
+from climatemachine_tpu_torch.dg.directions import direction_faces
+from climatemachine_tpu_torch.physics import thermodynamics as td
 
 
 def _tables(grid):
@@ -53,3 +67,124 @@ def gather_faces(tab, Bf, faces, Nfp: int):
             blk[rows] = Bf[src_e][:, :, lanes(fsrc)]
         blocks.append(blk)
     return torch.cat(blocks, dim=2)
+
+
+def wall_ghost(BP, nrm, bnd_lane):
+    """The neighbour bundle with the impenetrable free-slip, insulating
+    wall's ghost on wall lanes (where the gathered neighbour is the minus
+    side): the normal momentum reflected, every other lane copied."""
+    run = BP[:, 1] * nrm[:, 0] + BP[:, 2] * nrm[:, 1] + BP[:, 3] * nrm[:, 2]
+    ghost = torch.cat(
+        [BP[:, :1]]
+        + [(BP[:, 1 + c] - 2 * run * nrm[:, c])[:, None] for c in range(3)]
+        + [BP[:, 4:]], dim=1)
+    return torch.where(bnd_lane[:, None, :], ghost, BP)
+
+
+def rusanov(Bf, BP, nrm, nq: int):
+    """Rusanov flux ``[E, nq, X]`` of the dry Euler model from the two
+    sides' bundles, lanes q (nq), p, the sound speed, p_ref: the central
+    flux with p − p_ref in the momentum flux, minus ½ max(|u·n| + c)
+    times the jump."""
+    def flux_n(Bs):
+        rho = Bs[:, 0]
+        inv = 1.0 / rho
+        un = (Bs[:, 1] * inv * nrm[:, 0] + Bs[:, 2] * inv * nrm[:, 1]
+              + Bs[:, 3] * inv * nrm[:, 2])
+        pv = Bs[:, nq]
+        p_eff = pv - Bs[:, nq + 2]
+        Fn = [rho * un]
+        for c in range(3):
+            Fn.append(Bs[:, 1 + c] * un + p_eff * nrm[:, c])
+        Fn.append((Bs[:, 4] + pv) * un)
+        return Fn, torch.abs(un) + Bs[:, nq + 1]
+
+    FnM, cM = flux_n(Bf)
+    FnP, cP = flux_n(BP)
+    c = torch.maximum(cM, cP)
+    return torch.stack([0.5 * (FnM[v] + FnP[v])
+                        - 0.5 * c * (BP[:, v] - Bf[:, v])
+                        for v in range(nq)], dim=1)
+
+
+def lift(fstar, sM, liftT, MI):
+    """The surface tendency −M⁻¹ L (sM · f*) ``[E, n, Np]`` of face
+    fluxes ``[E, n, X]``."""
+    E, n, X = fstar.shape
+    lifted = torch.matmul((sM * fstar).reshape(E * n, X),
+                          liftT).reshape(E, n, liftT.shape[1])
+    return -(MI[:, None, :] * lifted)
+
+
+def surface_tendency(dg, q, aux, t):
+    """−M⁻¹ L (sM · f*) ``[E, 5, Np]`` of the dry AtmosModel on every face
+    of ``dg``'s grid: the bundle (q, φ, p_ref and, with a fused remainder,
+    the reference ρe, ρ and T) extracted by one matmul against the 0/1
+    lift matrix, its neighbour side gathered, the wall ghost, the face
+    thermo of each side, the Rusanov flux and, with a remainder, the
+    linear acoustic(-gravity) Rusanov flux taken out on the linear model's
+    faces."""
+    bl, g = dg.balance_law, dg.grid
+    ps, sp = bl.param_set, bl.aux_spec
+    ops = dg.operators()
+    E, Np, Nfp = g.nelem, g.Np, g.Nfp_max
+    X = g.nface * Nfp
+    rem = dg.remainder
+    lanes = [q, aux[:, sp.index("orientation.Phi")],
+             aux[:, sp.index("ref_state.p")]]
+    if rem is not None:
+        lanes += [aux[:, sp.index(f"ref_state.{name}")]
+                  for name in ("rhoe", "rho", "T")]
+    B = torch.cat(lanes, dim=1)
+    nvb = B.shape[1]
+    Bf = torch.matmul(B.reshape(E * nvb, Np), g.lift).reshape(E, nvb, X)
+    nrm = ops["nrm"]
+    BP = wall_ghost(gather_faces(ops["tab"], Bf, tuple(range(g.nface)), Nfp),
+                    nrm, ops["tab"]["bnd_lane"])
+
+    def with_thermo(Bs):
+        """q, p, c_s, p_ref lanes from q, φ, p_ref."""
+        rho, ru, rhoe, phi = Bs[:, 0], Bs[:, 1:4], Bs[:, 4], Bs[:, 5]
+        inv = 1.0 / rho
+        e_int = (rhoe - 0.5 * (ru[:, 0] * (ru[:, 0] * inv)
+                               + ru[:, 1] * (ru[:, 1] * inv)
+                               + ru[:, 2] * (ru[:, 2] * inv))) * inv - phi
+        T = td.air_temperature(ps, e_int)
+        return torch.cat([Bs[:, :5], td.air_pressure(ps, T, rho)[:, None],
+                          td.soundspeed_air(ps, T)[:, None], Bs[:, 6:7]],
+                         dim=1)
+
+    fstar = rusanov(with_thermo(Bf), with_thermo(BP), nrm, 5)
+    if rem is not None:
+        lin, ldir = rem
+        lf = direction_faces(ldir, g.dim)
+        sl = slice(lf[0] * Nfp, (lf[-1] + 1) * Nfp)
+        fstar[:, :, sl] -= _linear_rusanov(Bf[:, :, sl], BP[:, :, sl],
+                                           nrm[:, :, sl], lin, ps)
+    return lift(fstar, ops["sM"], ops["liftT"], g.MI)
+
+
+def _linear_rusanov(Bf, BP, nrm, lin, ps):
+    """Rusanov flux of the linear acoustic(-gravity) model from the
+    remainder's bundle lanes (q, φ, p_ref, ρe_ref, ρ_ref, T_ref): p_L =
+    ρ R_d T_0 + R_d/cv_d (ρe − ρφ), the reference enthalpy (less φ without
+    gravity), the reference sound speed."""
+    gravity = isinstance(lin, AtmosAcousticGravityLinearModel)
+
+    def flux_lin(Bs):
+        rho, rhoe, phi = Bs[:, 0], Bs[:, 4], Bs[:, 5]
+        p_r, rhoe_r, rho_r, T_r = Bs[:, 6], Bs[:, 7], Bs[:, 8], Bs[:, 9]
+        pL = rho * ps.R_d * ps.T_0 + ps.R_d / ps.cv_d * (rhoe - rho * phi)
+        coeff = (rhoe_r + p_r) / rho_r
+        if not gravity:
+            coeff = coeff - phi
+        un = Bs[:, 1] * nrm[:, 0] + Bs[:, 2] * nrm[:, 1] + Bs[:, 3] * nrm[:, 2]
+        Fn = (un, pL * nrm[:, 0], pL * nrm[:, 1], pL * nrm[:, 2], coeff * un)
+        return Fn, td.soundspeed_air(ps, T_r)
+
+    FnM, cM = flux_lin(Bf)
+    FnP, cP = flux_lin(BP)
+    c = torch.maximum(cM, cP)
+    return torch.stack([0.5 * (FnM[v] + FnP[v])
+                        - 0.5 * c * (BP[:, v] - Bf[:, v])
+                        for v in range(5)], dim=1)

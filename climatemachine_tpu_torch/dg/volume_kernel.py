@@ -17,7 +17,10 @@ kernel covers what the dry Held-Suarez step runs: float32, ``nq=5``,
 DryBiharmonic (``ngl=4``).  The plain version covers the whole signature.
 
 The kernel is compiled at first use (cuda_build.py) and called through
-ctypes on PyTorch's current stream.
+ctypes on PyTorch's current stream.  It reads Wdiv transposed and padded
+(:func:`wdiv_transposed`, built once per Wdiv tensor), as the generic
+operator's dry kernel (dg/dry_volume_kernel.py, the same CUDA source)
+does.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from climatemachine_tpu_torch import cuda_build
 
@@ -109,15 +113,49 @@ def volume_tendency_plain(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
     return MI[:, None, :] * torch.matmul(mf, Wdiv.T)
 
 
+_WT = WeakIdKeyDictionary()
+
+
+def wdiv_transposed(Wdiv):
+    """The volume kernels' copy of ``Wdiv [Np, 3Np]``: transposed and
+    zero-padded to ``[KP, Np]``, KP = 3Np rounded up to a multiple of 4.
+    Built once per Wdiv tensor, kept while it lives and rebuilt if it is
+    written in place."""
+    hit = _WT.get(Wdiv)
+    if hit is None or hit[0] != Wdiv._version:
+        Np = Wdiv.shape[0]
+        wt = torch.zeros(((3 * Np + 3) // 4 * 4, Np), dtype=Wdiv.dtype,
+                         device=Wdiv.device)
+        wt[:3 * Np] = Wdiv.T
+        hit = _WT[Wdiv] = (Wdiv._version, wt)
+    return hit[1]
+
+
 @functools.cache
 def _library():
     lib = cuda_build.load("volume_vm")
-    lib.volume_vm_f32.argtypes = [ctypes.c_void_p] * 11 + [
+    lib.volume_vm_f32.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.volume_vm_f32.restype = ctypes.c_int
+    lib.dry_volume_f32.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 4 + [
+        ctypes.c_void_p]
+    lib.dry_volume_f32.restype = ctypes.c_int
     lib.volume_vm_error_string.argtypes = [ctypes.c_int]
     lib.volume_vm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch(fn_name: str, ref, *args):
+    """Call ``fn_name`` of the library on ``ref``'s device and current
+    stream with ``args`` and the stream; raise if the launch failed."""
+    lib = _library()
+    with torch.cuda.device(ref.device):
+        stream = torch.cuda.current_stream(ref.device).cuda_stream
+        code = getattr(lib, fn_name)(*args, stream)
+    if code != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: "
+                           + lib.volume_vm_error_string(code).decode())
 
 
 def _check_kernel_args(qv, p, p_ref, gl2, nu, xiv, M, MI, Wdiv, nq, ngl,
@@ -129,18 +167,27 @@ def _check_kernel_args(qv, p, p_ref, gl2, nu, xiv, M, MI, Wdiv, nq, ngl,
             "lin_dims=() and has_f2 with ngl=4 (got nq="
             f"{nq}, subtract_ref={subtract_ref}, has_f2={has_f2}, "
             f"ngl={ngl}, lin_dims={lin_dims})")
+    E, _, Np = qv.shape
+    shapes = {"p": (p, (E, Np)), "p_ref": (p_ref, (E, Np))}
+    if has_f2:
+        shapes.update(gl2=(gl2, (E, 12, Np)), nu=(nu, (E, 2, Np)))
+    check_tensors(qv, xiv, M, MI, Wdiv, **shapes)
+
+
+def check_tensors(qv, xiv, M, MI, Wdiv, **more):
+    """Raise ValueError unless qv ``[E, 5, Np]`` is a CUDA tensor with Np
+    ≤ MAX_NP and it, the common operands and ``more`` (name → (tensor,
+    shape)) are contiguous float32 tensors of their shapes on its
+    device."""
     if qv.device.type != "cuda":
-        raise ValueError(f"the volume kernel runs on CUDA tensors, got "
+        raise ValueError(f"the volume kernels run on CUDA tensors, got "
                          f"{qv.device}")
     E, _, Np = qv.shape
     if not 0 < Np <= MAX_NP:
-        raise ValueError(f"the volume kernel takes Np <= {MAX_NP}, got {Np}")
-    shapes = {"qv": (qv, (E, 5, Np)), "p": (p, (E, Np)),
-              "p_ref": (p_ref, (E, Np)), "xiv": (xiv, (E, 9, Np)),
+        raise ValueError(f"the volume kernels take Np <= {MAX_NP}, got {Np}")
+    shapes = {"qv": (qv, (E, 5, Np)), "xiv": (xiv, (E, 9, Np)),
               "M": (M, (E, Np)), "MI": (MI, (E, Np)),
-              "Wdiv": (Wdiv, (Np, 3 * Np))}
-    if has_f2:
-        shapes.update(gl2=(gl2, (E, 12, Np)), nu=(nu, (E, 2, Np)))
+              "Wdiv": (Wdiv, (Np, 3 * Np)), **more}
     for name, (t, shape) in shapes.items():
         if t.device != qv.device or t.dtype != torch.float32 \
                 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -170,21 +217,13 @@ def fused_volume_tendency_vm(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
     _check_kernel_args(qv, p, p_ref, gl2, nu, xiv, M, MI, Wdiv, nq, ngl,
                        subtract_ref, has_f2, lin_dims)
     E, _, Np = qv.shape
-    lib = _library()
     out = torch.empty_like(qv)
-    kp = (3 * Np + 3) // 4 * 4
-    wt = torch.empty((kp, Np), dtype=torch.float32, device=qv.device)
-    with torch.cuda.device(qv.device):
-        stream = torch.cuda.current_stream(qv.device).cuda_stream
-        code = lib.volume_vm_f32(
-            qv.data_ptr(), p.data_ptr(), p_ref.data_ptr(), xiv.data_ptr(),
-            M.data_ptr(), MI.data_ptr(),
-            gl2.data_ptr() if has_f2 else None,
-            nu.data_ptr() if has_f2 else None, Wdiv.data_ptr(),
-            wt.data_ptr(), out.data_ptr(), E, Np, int(has_f2), stream)
-    if code != 0:
-        raise RuntimeError("volume_vm kernel launch failed: "
-                           + lib.volume_vm_error_string(code).decode())
+    launch("volume_vm_f32", qv, qv.data_ptr(), p.data_ptr(), p_ref.data_ptr(),
+           xiv.data_ptr(), M.data_ptr(), MI.data_ptr(),
+           gl2.data_ptr() if has_f2 else None,
+           nu.data_ptr() if has_f2 else None,
+           wdiv_transposed(Wdiv).data_ptr(), out.data_ptr(), E, Np,
+           int(has_f2))
     fused_volume_tendency_vm.launches += 1
     return out
 

@@ -1,14 +1,19 @@
 """Solver-type strategy objects (port of
 ``climatemachine_tpu/driver/solver_types.py`` ``ExplicitSolverType``
-:24-63 and ``IMEXSolverType`` :66-178, their var-major paths).
+:24-63 and ``IMEXSolverType`` :66-178).
 
-``ExplicitSolverType().make(dg, q0, aux0, dt)`` builds LSRK54 on the
-var-major RHS (dg/fast_rhs.py); ``IMEXSolverType().make(dg, q0, aux0,
-dt)`` builds the HEVI IMEX step: ARK2GiraldoKellyConstantinescu whose
-implicit part is a ``BlockTridiagColumnSolver`` over the vertical
-``AtmosAcousticGravityLinearModel``, with the full var-major RHS as
-``rhs_full``.  State and aux are var-major ``[E, n, Np]``; the caller
-sets ``post_step`` (the Held-Suarez filter) on the solver made.
+``ExplicitSolverType().make(dg, q0, aux0, dt)`` builds LSRK54;
+``IMEXSolverType().make(dg, q0, aux0, dt)`` builds the HEVI IMEX step:
+ARK2GiraldoKellyConstantinescu whose implicit part is a column solver
+over the vertical ``AtmosAcousticGravityLinearModel``.  ``state_layout``
+picks the right-hand side: "auto"/"vm" the var-major RHS
+(dg/fast_rhs.py ``VarMajorRHS``), "grid" the generic DG operator ``dg``
+itself (the JAX package's node-major layout; the port keeps its state
+var-major in both).  ``columnwise_solver="dense"`` takes the dense
+``ManyColumnSolver`` and the ARK step's grid-layout loop on the fused
+remainder ``remainder_DGModel(dg, dg_lin)``, whatever the layout.
+State and aux are var-major ``[E, n, Np]``; the caller sets
+``post_step`` (the Held-Suarez filter) on the solver made.
 """
 
 from __future__ import annotations
@@ -21,35 +26,41 @@ import torch
 from climatemachine_tpu_torch.atmos.linear import \
     AtmosAcousticGravityLinearModel
 from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
-from climatemachine_tpu_torch.dg.spatial import DGModel
+from climatemachine_tpu_torch.dg.spatial import DGModel, remainder_DGModel
 from climatemachine_tpu_torch.ode.ark import ARK2GiraldoKellyConstantinescu
 from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
 from climatemachine_tpu_torch.solvers.columnwise import (
-    BlockTridiagColumnSolver, ColumnLayout)
+    BlockTridiagColumnSolver, ColumnLayout, ManyColumnSolver)
+
+STATE_LAYOUTS = ("auto", "vm", "grid")
 
 
 def _refuse_unported(dg, state_layout: str):
-    if state_layout not in ("auto", "vm"):
-        raise NotImplementedError(
-            f"next slice: state_layout={state_layout!r} (the node-major "
-            "step on the generic DG operator)")
+    if state_layout not in STATE_LAYOUTS:
+        raise ValueError(f"state_layout must be one of {STATE_LAYOUTS}, "
+                         f"got {state_layout!r}")
     if hasattr(dg, "inner") and hasattr(dg, "mesh"):
         raise NotImplementedError("next slice: a sharded DGModel")
 
 
 @dataclass
 class ExplicitSolverType:
-    """Explicit time stepping on the full var-major RHS.  ``solver.vm``
-    is that RHS (:class:`VarMajorRHS`, built with ``write_aux=False``:
-    call ``solver.vm.export_aux`` when aux leaves the loop).  In the JAX
-    package ``"auto"`` falls back to the generic DG operator for a
-    configuration the var-major RHS does not take; here VarMajorRHS
-    raises for it.  ``state_layout="grid"`` is not ported and raises."""
+    """Explicit time stepping.  With ``state_layout`` "auto" or "vm",
+    on the var-major RHS: ``solver.vm`` is that RHS (:class:`VarMajorRHS`,
+    built with ``write_aux=False``: call ``solver.vm.export_aux`` when aux
+    leaves the loop).  With "grid", on ``dg`` itself, with ``dg.pre_stage``
+    before each stage; ``solver.vm`` is None.  In the JAX package "auto"
+    falls back to the generic DG operator for a configuration the
+    var-major RHS does not take; here VarMajorRHS raises for it."""
     solver_method: Callable = LSRK54CarpenterKennedy
     state_layout: str = "auto"
 
     def make(self, dg: DGModel, q0, aux0, dt: float):
         _refuse_unported(dg, self.state_layout)
+        if self.state_layout == "grid":
+            solver = self.solver_method(dg, dt, pre_stage=dg.pre_stage)
+            solver.vm = None
+            return solver
         vm = VarMajorRHS(dg, write_aux=False)
         solver = self.solver_method(vm, dt)
         solver.vm = vm
@@ -60,13 +71,13 @@ class ExplicitSolverType:
 class IMEXSolverType:
     """HEVI IMEX: implicit operator = the vertical-direction linear model
     ``implicit_model(atmos)``, solved columnwise; the explicit part is
-    the full RHS with the linear split absorbed into the stage algebra.
+    the full RHS with the linear split absorbed into the stage algebra
+    (the banded solver's block loop: ``rhs_full`` is the var-major RHS, or
+    ``dg`` with ``state_layout="grid"``), or the fused remainder
+    ``dg − dg_lin`` (the dense solver's grid-layout loop).
 
     ``check_frozen_operator``: at set-up, refuse a linear operator that
-    changes with aux or t (the factorization freezes it at (aux0, 0)).
-    ``columnwise_solver="dense"`` and ``state_layout="grid"`` (the JAX
-    package's node-major path with its fused remainder) are not ported
-    and raise."""
+    changes with aux or t (the factorization freezes it at (aux0, 0))."""
     implicit_model: Callable = AtmosAcousticGravityLinearModel
     solver_method: Callable = ARK2GiraldoKellyConstantinescu
     columnwise_solver: str = "banded"
@@ -75,11 +86,12 @@ class IMEXSolverType:
 
     def make(self, dg: DGModel, q0, aux0, dt: float):
         _refuse_unported(dg, self.state_layout)
-        if self.columnwise_solver != "banded":
-            raise NotImplementedError(
-                f"next slice: columnwise_solver={self.columnwise_solver!r}")
+        solver_cls = {"banded": BlockTridiagColumnSolver,
+                      "dense": ManyColumnSolver}.get(self.columnwise_solver)
+        if solver_cls is None:
+            raise ValueError("columnwise_solver must be 'banded' or 'dense', "
+                             f"got {self.columnwise_solver!r}")
         atmos, grid = dg.balance_law, dg.grid
-        rhs_full = VarMajorRHS(dg, write_aux=False)
         dg_lin = DGModel(self.implicit_model(atmos), grid,
                          direction="vertical", update_aux=False)
 
@@ -96,15 +108,25 @@ class IMEXSolverType:
                     f"drift {err / scale:.3e}); the frozen columnwise "
                     "factorization would be stale")
 
-        col_solver = BlockTridiagColumnSolver(
-            lambda x: dg_lin(x, aux0, 0.0)[0],
-            ColumnLayout(grid, atmos.prog_spec.num), q0)
+        col_solver = solver_cls(lambda x: dg_lin(x, aux0, 0.0)[0],
+                                ColumnLayout(grid, atmos.prog_spec.num), q0)
 
         def rhs_im(q, aux, t):
             return dg_lin(q, aux, t)[0], aux
 
-        solver = self.solver_method(None, rhs_im, col_solver, dt,
-                                    rhs_full=rhs_full)
+        if self.columnwise_solver == "dense":
+            solver = self.solver_method(remainder_DGModel(dg, dg_lin),
+                                        rhs_im, col_solver, dt)
+            solver.vm = None
+        elif self.state_layout == "grid":
+            solver = self.solver_method(None, rhs_im, col_solver, dt,
+                                        rhs_full=dg)
+            solver.vm = None
+        else:
+            vm = VarMajorRHS(dg, write_aux=False)
+            solver = self.solver_method(None, rhs_im, col_solver, dt,
+                                        rhs_full=vm)
+            solver.vm = vm
         # eager factorization for every distinct implicit diagonal
         for g in sorted({float(solver.A_im[i, i])
                          for i in range(solver.nstages)} - {0.0}):

@@ -1,7 +1,7 @@
 """Dry Held-Suarez GCM (port of
 ``climatemachine_tpu/experiments/held_suarez.py``: held_suarez_config
-:153, HeldSuarezForcing.contributions_vm :76, held_suarez_init :105,
-HeldSuarezStepFilter.apply_vm :216).
+:153, HeldSuarezForcing.contributions :45 and contributions_vm :76,
+held_suarez_init :105, HeldSuarezStepFilter.apply_vm :216).
 
 Everything is var-major: coordinates ``[E, 3, Np]``, state and aux
 ``[E, n, Np]``.
@@ -20,7 +20,7 @@ from climatemachine_tpu_torch.atmos.hyperdiffusion import DryBiharmonic
 from climatemachine_tpu_torch.atmos.model import (AtmosModel, AtmosPhysics,
                                                   AtmosProblem)
 from climatemachine_tpu_torch.atmos.ref_state import HydrostaticState
-from climatemachine_tpu_torch.atmos.sources import Coriolis, Gravity
+from climatemachine_tpu_torch.atmos.sources import Coriolis, Gravity, Source
 from climatemachine_tpu_torch.common.orientations import (
     SphericalOrientation, latitude, longitude, sphr_to_cart_vec)
 from climatemachine_tpu_torch.mesh.filters import ExponentialFilter
@@ -33,7 +33,7 @@ from climatemachine_tpu_torch.physics.temperature_profiles import (
     DecayingTemperatureProfile)
 
 
-class HeldSuarezForcing:
+class HeldSuarezForcing(Source):
     """Held & Suarez (1994) relaxation of temperature to the equilibrium
     profile and Rayleigh damping of low-level winds."""
 

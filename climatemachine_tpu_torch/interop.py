@@ -2,8 +2,11 @@
 state can be fed to this package and to another implementation of it.
 
 ``grid_from_numpy`` takes the arrays of a node-major grid (the
-``climatemachine_tpu`` ``Grid`` fields, as numpy); ``state_from_numpy``
-turns node-major ``[E, Np, n]`` state and aux into var-major tensors.
+``climatemachine_tpu`` ``Grid`` fields, as numpy).  The JAX package's
+"grid" layout is node-major ``[E, Np, n]``; this package keeps state,
+aux and tendencies var-major ``[E, n, Np]``: ``to_var_major`` and
+``to_node_major`` turn one into the other, ``state_from_numpy`` and
+``state_to_numpy`` a (state, aux) pair.
 """
 
 from __future__ import annotations
@@ -56,10 +59,26 @@ def grid_to_numpy(grid) -> dict:
     return out
 
 
+def to_var_major(a, device=None, dtype=None) -> torch.Tensor:
+    """A node-major ``[E, Np, n]`` array → a var-major ``[E, n, Np]``
+    contiguous tensor; ``dtype=None`` keeps the array's dtype."""
+    return torch.tensor(np.asarray(a), dtype=dtype,
+                        device=resolve_device(device)).transpose(
+                            1, 2).contiguous()
+
+
+def to_node_major(t) -> np.ndarray:
+    """A var-major ``[E, n, Np]`` tensor → a node-major ``[E, Np, n]``
+    numpy array."""
+    return np.ascontiguousarray(t.detach().cpu().numpy().transpose(0, 2, 1))
+
+
 def state_from_numpy(q, aux, device=None, dtype=None):
     """Node-major ``[E, Np, n]`` q and aux → var-major ``[E, n, Np]``
     contiguous tensors; ``dtype=None`` keeps the arrays' dtype."""
-    device = resolve_device(device)
-    conv = lambda a: torch.tensor(np.asarray(a), dtype=dtype,
-                                  device=device).transpose(1, 2).contiguous()
-    return conv(q), conv(aux)
+    return (to_var_major(q, device, dtype), to_var_major(aux, device, dtype))
+
+
+def state_to_numpy(q, aux):
+    """Var-major q and aux → node-major ``[E, Np, n]`` numpy arrays."""
+    return to_node_major(q), to_node_major(aux)

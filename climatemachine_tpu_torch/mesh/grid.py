@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from climatemachine_tpu_torch.device import resolve_device
-from climatemachine_tpu_torch.dg.spatial import direction_dims
+from climatemachine_tpu_torch.dg.directions import direction_dims
 from climatemachine_tpu_torch.mesh import elements, metrics
 from climatemachine_tpu_torch.mesh.topology import Topology
 

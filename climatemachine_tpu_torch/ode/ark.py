@@ -1,6 +1,7 @@
 """Additive (IMEX) Runge-Kutta (port of ``climatemachine_tpu/ode/ark.py``:
-AdditiveRungeKutta :27-88 with ``_factors`` and ``_step_blocks``
-:162-230, and the tableau ARK2GiraldoKellyConstantinescu :251-266).
+AdditiveRungeKutta :27-88 with ``_factors``, ``_step_impl`` :90-160 and
+``_step_blocks`` :162-230, and the tableau ARK2GiraldoKellyConstantinescu
+:251-266).
 
 dQ/dt = f_ex(Q) + f_im(Q) with f_im linear (the HEVI vertical
 operator); the implicit tableau is an ESDIRK with one diagonal γ, so one
@@ -16,15 +17,25 @@ import numpy as np
 
 
 class AdditiveRungeKutta:
-    """Split explicit-implicit ARK.  ``rhs_explicit(q, aux, t) -> (dq,
-    aux)`` is f_ex; ``solver`` is a column solver with an exact linear
-    solve in block layout (``solve_blocks``, ``apply_op_blocks``,
-    ``prefactorize``, ``layout``), whose assembled operator gives the
-    implicit tendency.  ``rhs_implicit`` is f_im itself, kept for
-    callers; the block step never evaluates it.
+    """Split explicit-implicit ARK: f_ex = ``rhs_explicit(q, aux, t) ->
+    (dq, aux)`` (the fused full − linear remainder), f_im =
+    ``rhs_implicit`` (linear in q), and ``solver`` a column solver whose
+    ``solve(rhs, α·dt, factors)`` applies (I − α·dt·L)⁻¹
+    (``prefactorize`` and ``op_args`` as the column solvers have them).
+
+    :meth:`step` takes the block-layout stage loop (``_step_blocks``)
+    when the solver has an exact linear solve in block layout
+    (``solve_blocks``, ``apply_op_blocks``, ``layout``) and takes its
+    implicit tendencies from the assembled operator (``implied_g``
+    "op", the default); otherwise the grid-layout loop (``_step_impl``),
+    whose implicit tendency after a solve is, by the solver's
+    ``implied_g``: "op", the assembled operator ``apply_op``; "identity",
+    (Qi − rhs)/(γ·dt) (the JAX package keeps it to float64: in float32
+    it blew up within 50 steps at bench width); "dg", ``rhs_implicit``.
 
     ``rhs_full`` (the full RHS, F' = f_ex + f_im), when set, takes the
-    place of ``rhs_explicit``: the stage algebra absorbs the split,
+    place of ``rhs_explicit`` on the block loop: the stage algebra absorbs
+    the split,
 
         rhs_i = q + dt Σ a_ex[i,j]·F'_j + dt Σ (a_im[i,j] − a_ex[i,j])·G_j
         out   = q + dt Σ B_i·F'_i              (G cancels: B_ex = B_im).
@@ -58,13 +69,56 @@ class AdditiveRungeKutta:
     def step(self, q, aux, t: float):
         """One step from (q, aux) at time t; returns (q', aux')."""
         sv = self.solver
-        if not (getattr(sv, "exact_linear_solve", False)
+        exact = getattr(sv, "exact_linear_solve", False)
+        if (exact and getattr(sv, "implied_g", "op") == "op"
                 and hasattr(sv, "solve_blocks")):
-            raise NotImplementedError(
-                "next slice: the ARK step without a block-layout exact "
-                "column solve (JAX ode/ark.py _step_impl)")
-        return self._step_blocks(q, aux, t, self.dt, self._factors(),
-                                 sv.op_args())
+            return self._step_blocks(q, aux, t, self.dt, self._factors(),
+                                     sv.op_args())
+        return self._step_impl(q, aux, t, self.dt, self._factors(),
+                               sv.op_args() if exact else None)
+
+    def _step_impl(self, q, aux, t, dt, factors, op_args):
+        """Stage loop in the grid layout: each implicit stage solves for
+        Qi, then f_ex at Qi and the implicit tendency G (class
+        docstring)."""
+        sv = self.solver
+        mode = getattr(sv, "implied_g", "op")
+        exact = getattr(sv, "exact_linear_solve", False)
+        A_ex, A_im = self.A_ex.tolist(), self.A_im.tolist()
+        B, C = self.B.tolist(), self.C.tolist()
+        Fs, Gs = [], []
+        Qi = q
+        for i in range(self.nstages):
+            ti = t + C[i] * dt
+            G = None
+            if i > 0:
+                rhs = q
+                for j in range(i):
+                    if A_ex[i][j]:
+                        rhs = rhs + (dt * A_ex[i][j]) * Fs[j]
+                    if A_im[i][j]:
+                        rhs = rhs + (dt * A_im[i][j]) * Gs[j]
+                gamma = A_im[i][i]
+                if gamma:
+                    Qi = sv.solve(rhs, gamma * dt, factors=factors[gamma])
+                    if exact and mode == "op":
+                        G = sv.apply_op(Qi, op_args)
+                    elif exact and mode == "identity":
+                        G = (Qi - rhs) / (gamma * dt)
+                else:
+                    Qi = rhs
+            F, aux = self.rhs_ex(Qi, aux, ti)
+            if G is None:
+                G, _ = self.rhs_im(Qi, aux, ti)
+            Fs.append(F)
+            Gs.append(G)
+        out = q
+        for i in range(self.nstages):
+            if B[i]:
+                out = out + (dt * B[i]) * (Fs[i] + Gs[i])
+        if self.post_step is not None:
+            out = self.post_step(out, aux)
+        return out, aux
 
     def _step_blocks(self, q, aux, t, dt, factors, op_args):
         """Stage loop with the implicit tendencies G kept in the solver's

@@ -2,6 +2,7 @@
 
     python -m climatemachine_tpu_torch.profile_step [--steps N] [--out DIR]
         [--no-hyperdiffusion] [--imex] [--surface-kernel {xla,hybrid,pallas}]
+        [--grid] [--dense]
 
 Builds a ``chip_smoke.py`` path (dry Held-Suarez p4 with DryBiharmonic(8
 h) hyperdiffusion, n_horz=16, n_vert=8, float32, with the every-step
@@ -10,13 +11,18 @@ with ``--imex`` the IMEX step (``IMEXSolverType().make``, ARK2GKC with
 the block-tridiagonal column solver, dt from the horizontal acoustic
 CFL); ``--no-hyperdiffusion`` drops the chain; ``--surface-kernel`` sets
 the RHS's surface pass (``VarMajorRHS.surface_kernel``, "xla" by
-default).  It warms up, times ``--steps`` steps with tracing off, then
-traces the same number of steps with ``torch.profiler``.  The RHS's
-parts (the surface kernels' stages as ``extract`` and ``lift`` inside
-``surface``), and on the IMEX step the column solve, the operator
-application and the two layout conversions, are wrapped in
-``record_function`` spans from here, around the calls into each layer,
-so the program itself carries no instrumentation.
+default).  ``--grid`` takes the generic DG operator as the RHS
+(``state_layout="grid"``), ``--dense`` the IMEX step with the dense
+column solver on the fused remainder.  It warms up, times ``--steps``
+steps with tracing off, then traces the same number of steps with
+``torch.profiler``.  The RHS's parts (the surface kernels' stages as
+``extract`` and ``lift`` inside ``surface``), and on the IMEX step the
+column solve, the operator application and the two layout conversions,
+are wrapped in ``record_function`` spans from here, around the calls
+into each layer, so the program itself carries no instrumentation.  On
+the generic operator the spans are its chain, volume kernel, surface
+pass and sources; the rest of its call (aux refresh, F₂ and its
+contraction, F₂'s interface term) is outside them.
 
 Prints one JSON line: ms/step untraced and traced, the card's busy time
 (union of kernel intervals) and idle share of the traced window, kernels
@@ -65,7 +71,10 @@ def main(argv=None):
     ap.add_argument("--imex", action="store_true")
     ap.add_argument("--surface-kernel", choices=SURFACE_KERNELS,
                     default="xla")
+    ap.add_argument("--grid", action="store_true")
+    ap.add_argument("--dense", action="store_true")
     args = ap.parse_args(argv)
+    args.imex |= args.dense
     power = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -77,9 +86,17 @@ def main(argv=None):
     dg = DGModel(cfg.model, cfg.grid)
     q, aux = init_ode_state(dg)
     hsf = HeldSuarezStepFilter(cfg.grid, cfg.model)
-    if args.imex:
+    layout = "grid" if args.grid else "auto"
+    if args.dense:
         dt = 0.1 * min_node_distance(cfg.grid, "horizontal") / 350.0
-        solver = IMEXSolverType().make(dg, q, aux, dt)
+        solver = IMEXSolverType(columnwise_solver="dense").make(dg, q, aux,
+                                                                dt)
+        rhs, sv = solver.rhs_ex, solver.solver
+        sv.solve = _span("solve", sv.solve)
+        sv.apply_op = _span("apply", sv.apply_op)
+    elif args.imex:
+        dt = 0.1 * min_node_distance(cfg.grid, "horizontal") / 350.0
+        solver = IMEXSolverType(state_layout=layout).make(dg, q, aux, dt)
         rhs, sv = solver.rhs_full, solver.solver
         sv.solve_blocks = _span("solve", sv.solve_blocks)
         sv.apply_op_blocks = _span("apply", sv.apply_op_blocks)
@@ -87,17 +104,24 @@ def main(argv=None):
         sv.layout.from_blocks = _span("from_blocks", sv.layout.from_blocks)
     else:
         dt = 0.3 * min_node_distance(cfg.grid) / 350.0
-        solver = ExplicitSolverType().make(dg, q, aux, dt)
-        rhs = solver.vm
+        solver = ExplicitSolverType(state_layout=layout).make(dg, q, aux, dt)
+        rhs = solver.rhs
     solver.post_step = _span("filter", hsf.apply_vm)
-    rhs.surface_kernel = args.surface_kernel
-    rhs.surface_stages = tuple(_span(name, stage) for name, stage in
-                               zip(("extract", "lift"), rhs.surface_stages))
-    rhs._thermo_update = _span("thermo", rhs._thermo_update)
-    rhs._chain = _span("chain", rhs._chain)
-    rhs.volume = _span("volume", rhs.volume)
-    rhs._surface = _span("surface", rhs._surface)
-    rhs._sources = _span("sources", rhs._sources)
+    if isinstance(rhs, DGModel):
+        rhs.hyperdiffusive_state = _span("chain", rhs.hyperdiffusive_state)
+        rhs.volume = _span("volume", rhs.volume)
+        rhs.surface = _span("surface", rhs.surface)
+        rhs.balance_law.source = _span("sources", rhs.balance_law.source)
+    else:
+        rhs.surface_kernel = args.surface_kernel
+        rhs.surface_stages = tuple(
+            _span(name, stage) for name, stage in
+            zip(("extract", "lift"), rhs.surface_stages))
+        rhs._thermo_update = _span("thermo", rhs._thermo_update)
+        rhs._chain = _span("chain", rhs._chain)
+        rhs.volume = _span("volume", rhs.volume)
+        rhs._surface = _span("surface", rhs._surface)
+        rhs._sources = _span("sources", rhs._sources)
 
     def run(n, q, aux):
         for i in range(n):
@@ -154,8 +178,11 @@ def main(argv=None):
                                           "profile_step_trace.json"))
     print(json.dumps({
         "card": power, "steps": args.steps,
-        "step": "imex" if args.imex else "explicit", "dt_s": dt,
-        "surface_kernel": args.surface_kernel,
+        "step": ("dense imex" if args.dense else "imex" if args.imex
+                 else "explicit"), "dt_s": dt,
+        "rhs": type(rhs).__name__,
+        "surface_kernel": (args.surface_kernel if not isinstance(rhs, DGModel)
+                           else rhs.surface_kernel),
         "hyperdiffusion_tau": (cfg.model.physics.hyperdiffusion.tau_timescale
                                if cfg.model.physics.hyperdiffusion else None),
         "ms_per_step_untraced": 1e3 * untraced,

@@ -35,16 +35,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from climatemachine_tpu_torch.device import require_full_fp32
 from climatemachine_tpu_torch.solvers import layout_kernel
-
-
-def _require_full_fp32():
-    if (torch.backends.cuda.matmul.allow_tf32
-            or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError(
-            "the column solver needs full float32 matmuls: set "
-            "torch.backends.cuda.matmul.allow_tf32 = False and "
-            "torch.set_float32_matmul_precision('highest')")
 
 
 class ColumnLayout:
@@ -109,7 +101,7 @@ class BlockTridiagColumnSolver:
 
     def __init__(self, op: Callable, layout: ColumnLayout, example_q,
                  check: bool = True, seed: int = 0):
-        _require_full_fp32()
+        require_full_fp32("the column solver")
         self.layout, self.op = layout, op
         lay = layout
         nv, ncol = lay.n_vert, lay.ncol
@@ -297,42 +289,70 @@ class BlockTridiagColumnSolver:
 
 class ManyColumnSolver:
     """Dense per-column factor and apply of (I − α·dt·L): Nv basis probes
-    assemble A ``[ncol, Nv, Nv]``, inverted once per α·dt.  O(ncol·Nv²)
-    memory: the small-grid oracle of the block-tridiagonal solver."""
+    assemble A ``[ncol, Nv, Nv]``, inverted once per α·dt; each solve and
+    each application is one batched matrix-vector product.  O(ncol·Nv²)
+    memory (6.1 GB per matrix in float32 at n_horz=16, n_vert=8, p4):
+    the small-grid oracle of the block-tridiagonal solver, and the dense
+    ``columnwise_solver`` of the IMEX step, whose ARK step has no block
+    layout (``ode/ark.py`` ``_step_impl``).  The probes are written into
+    A in place, one column at a time; the batched products and the
+    inverse are library calls, as the JAX package leaves them to XLA."""
 
     exact_linear_solve = True
 
     def __init__(self, op: Callable, layout: ColumnLayout, example_q):
-        _require_full_fp32()
+        require_full_fp32("the column solver")
         self.layout, self.op = layout, op
         lay = layout
         self.b_cols = lay.to_columns(op(torch.zeros_like(example_q)))
-        cols = []
+        self.A = torch.empty((lay.ncol, lay.Nv, lay.Nv),
+                             dtype=example_q.dtype, device=example_q.device)
+        e = torch.zeros(lay.Nv, dtype=example_q.dtype,
+                        device=example_q.device)
         for k in range(lay.Nv):
-            e = torch.zeros(lay.Nv, dtype=example_q.dtype,
-                            device=example_q.device)
+            e.zero_()
             e[k] = 1.0
             qk = lay.from_columns(e.expand(lay.ncol, lay.Nv))
-            cols.append(lay.to_columns(op(qk)) - self.b_cols)
-        self.A = torch.stack(cols, dim=2)                # [ncol, out, in]
+            self.A[:, :, k] = lay.to_columns(op(qk)) - self.b_cols
         self._cached = {}
 
-    def apply_op(self, q):
+    def op_args(self, dtype=None):
+        """The operator for :meth:`apply_op`: (A, b).  A reduced-precision
+        copy (the JAX package's opt-in bf16 operator) is not ported."""
+        if dtype is not None:
+            raise NotImplementedError("next slice: a reduced-precision "
+                                      "operator")
+        return (self.A, self.b_cols)
+
+    def apply_op(self, q, args=None):
+        """L·q + b through the assembled operator."""
         lay = self.layout
-        yc = torch.einsum("cij,cj->ci", self.A, lay.to_columns(q)) \
-            + self.b_cols
-        return lay.from_columns(yc)
+        A, b = args if args is not None else self.op_args()
+        yc = torch.matmul(A, lay.to_columns(q).unsqueeze(-1)).squeeze(-1)
+        return lay.from_columns(yc + b)
+
+    def _factor(self, alpha_dt: float):
+        """(I − α·dt·A)⁻¹, with one temporary the size of A."""
+        m = self.A * -alpha_dt
+        m.diagonal(dim1=-2, dim2=-1).add_(1.0)
+        return torch.linalg.inv(m)
 
     def prefactorize(self, alpha_dt: float):
+        """Invert (I − α·dt·A) per column once per α·dt and keep it."""
         key = float(alpha_dt)
         if key not in self._cached:
-            eye = torch.eye(self.layout.Nv, dtype=self.A.dtype,
-                            device=self.A.device)
-            self._cached[key] = torch.linalg.inv(eye - alpha_dt * self.A)
+            self._cached[key] = self._factor(alpha_dt)
         return self._cached[key]
 
-    def solve(self, rhs, alpha_dt):
+    def solve(self, rhs, alpha_dt, factors=None):
+        """q with (I − α·dt·L) q = rhs: ``factors`` if given, else the
+        factorization kept for α·dt, else a new one (not kept)."""
         lay = self.layout
+        Minv = factors
+        if Minv is None:
+            Minv = self._cached.get(float(alpha_dt))
+        if Minv is None:
+            Minv = self._factor(alpha_dt)
         r = lay.to_columns(rhs) + alpha_dt * self.b_cols
-        return lay.from_columns(torch.einsum(
-            "cij,cj->ci", self.prefactorize(alpha_dt), r))
+        return lay.from_columns(
+            torch.matmul(Minv, r.unsqueeze(-1)).squeeze(-1))

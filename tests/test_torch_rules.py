@@ -19,19 +19,18 @@ from climatemachine_tpu_torch.atmos.hyperdiffusion import DryBiharmonic
 from climatemachine_tpu_torch.atmos.linear import \
     AtmosAcousticGravityLinearModel
 from climatemachine_tpu_torch.atmos.model import AtmosModel
-from climatemachine_tpu_torch.dg import ldg_kernel, ldg_tables, volume_kernel
+from climatemachine_tpu_torch.dg import (dry_volume_kernel, ldg_kernel,
+                                        ldg_tables, volume_kernel)
 from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
 from climatemachine_tpu_torch.dg.spatial import (DGModel, direction_dims,
                                                  direction_faces,
                                                  init_ode_state)
-from climatemachine_tpu_torch.driver.solver_types import IMEXSolverType
+from climatemachine_tpu_torch.driver.solver_types import (ExplicitSolverType,
+                                                          IMEXSolverType)
 from climatemachine_tpu_torch.experiments.held_suarez import \
     held_suarez_config
-from climatemachine_tpu_torch.ode.ark import ARK2GiraldoKellyConstantinescu
 from climatemachine_tpu_torch.physics.parameters import EARTH
 from climatemachine_tpu_torch.solvers import layout_kernel
-from climatemachine_tpu_torch.solvers.columnwise import (ColumnLayout,
-                                                         ManyColumnSolver)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "climatemachine_tpu_torch").rglob("*.py")) + [
@@ -71,11 +70,35 @@ def _meta_args(nq=5, E=8, Np=64):
             t(Np, 3 * Np))
 
 
-@pytest.mark.parametrize("flags", [
-    dict(nq=6), dict(has_f2=True, ngl=5), dict(lin_dims=(2,)),
-    dict(subtract_ref=False)], ids=["nq6", "has_f2", "lin_dims", "no_subtract"])
+def _dry_meta_args(E=8, Np=64):
+    t = lambda *s: torch.empty(s, dtype=torch.float32, device="meta")
+    return (t(E, 5, Np), t(E, Np), t(E, Np), t(E, 3, Np), t(E, 9, Np),
+            t(E, Np), t(E, Np), t(Np, 3 * Np))
+
+
+#: (kernel wrapper, flags it does not cover)
+UNSUPPORTED = {
+    "nq6": ("volume", dict(nq=6)),
+    "has_f2": ("volume", dict(has_f2=True, ngl=5)),
+    "lin_dims": ("volume", dict(lin_dims=(2,))),
+    "no_subtract": ("volume", dict(subtract_ref=False)),
+    "dry_lin_every": ("dry", dict(lin_dims=(0, 1, 2))),
+    "dry_lin_acoustic": ("dry", dict(lin_dims=(2,), lin_gravity=False)),
+    "dry_no_subtract": ("dry", dict(subtract_ref=False)),
+}
+
+
+@pytest.mark.parametrize("flags", list(UNSUPPORTED.values()),
+                         ids=list(UNSUPPORTED))
 def test_kernel_wrapper_refuses_unsupported_flags(flags):
-    kw = dict(nq=5, ngl=4, R_d=EARTH.R_d, cv_d=EARTH.cv_d, T_0=EARTH.T_0)
+    wrapper, flags = flags
+    kw = dict(R_d=EARTH.R_d, cv_d=EARTH.cv_d, T_0=EARTH.T_0)
+    if wrapper == "dry":
+        with pytest.raises(NotImplementedError):
+            dry_volume_kernel.dry_volume_tendency(*_dry_meta_args(),
+                                                  **kw, **flags)
+        return
+    kw.update(nq=5, ngl=4)
     kw.update(flags)
     with pytest.raises(NotImplementedError):
         volume_kernel.fused_volume_tendency_vm(*_meta_args(kw["nq"]), **kw)
@@ -89,6 +112,20 @@ def test_kernel_wrapper_never_falls_back_off_cpu():
     with pytest.raises(ValueError):
         volume_kernel.fused_volume_tendency_vm(*_meta_args(), **kw)
     assert volume_kernel.fused_volume_tendency_vm.launches == before
+
+
+@pytest.mark.parametrize("lin_dims", [(), (2,)],
+                         ids=["no_remainder", "remainder"])
+def test_dry_kernel_wrapper_never_falls_back_off_cpu(lin_dims):
+    """The dry volume kernel's wrapper: a tensor that is not on the CPU
+    goes to the kernel path, which refuses a non-CUDA device and counts
+    no launch."""
+    wrapper = dry_volume_kernel.dry_volume_tendency
+    before = wrapper.launches
+    with pytest.raises(ValueError):
+        wrapper(*_dry_meta_args(), R_d=EARTH.R_d, cv_d=EARTH.cv_d,
+                T_0=EARTH.T_0, lin_dims=lin_dims)
+    assert wrapper.launches == before
 
 
 def _chain_meta_args(stage, E=8, n=4, nd=2, Np=64, F=64):
@@ -147,52 +184,49 @@ class _OtherBiharmonic(DryBiharmonic):
 
 
 def test_next_slice_configurations_raise():
+    """What is not ported raises "next slice": the var-major RHS on a
+    remainder model, a hyperdiffusion other than DryBiharmonic (in the
+    var-major RHS and the generic DG operator), a sharded model and a
+    reduced-precision column operator (banded and dense).  The generic
+    DG operator on the full AtmosModel and with a remainder, the grid
+    layout, the dense solver and the ARK step without a block layout are
+    ported (tests/test_torch_generic_dg.py, test_torch_grid_steps.py,
+    test_torch_dense_imex.py)."""
     cfg = held_suarez_config(2, 2, 3, dtype=torch.float64, device="cpu")
     assert type(cfg.model.physics.hyperdiffusion) is DryBiharmonic
     VarMajorRHS(DGModel(cfg.model, cfg.grid))      # the default now builds
     with pytest.raises(NotImplementedError, match="next slice"):
-        VarMajorRHS(DGModel(cfg.model, cfg.grid, remainder=("linear",
-                                                            "vertical")))
+        VarMajorRHS(DGModel(cfg.model, cfg.grid, remainder=(
+            AtmosAcousticGravityLinearModel(cfg.model), "vertical")))
     m = cfg.model
     hyper = AtmosModel(replace(m.physics,
                                hyperdiffusion=_OtherBiharmonic(3600.0)),
                        m.problem, m.sources)
     with pytest.raises(NotImplementedError, match="next slice"):
-        VarMajorRHS(DGModel(hyper, cfg.grid))
+        DGModel(hyper, cfg.grid)
+    dg_hyper = DGModel(m, cfg.grid)
+    dg_hyper.balance_law = hyper
+    with pytest.raises(NotImplementedError, match="next slice"):
+        VarMajorRHS(dg_hyper)
 
-    # the generic DG operator: gradient (hyperdiffusive) state, the full
-    # AtmosModel, a remainder
     dg = DGModel(cfg.model, cfg.grid)
     q, aux = init_ode_state(dg)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        dg(q, aux, 0.0)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        DGModel(AtmosAcousticGravityLinearModel(m), cfg.grid,
-                remainder=("linear", "vertical"))(q, aux, 0.0)
-
-    # IMEX: the grid layout, the dense solver, a sharded model, the ARK
-    # step without a block-layout exact solve (JAX ark.py _step_impl), a
-    # reduced-precision operator
     dt = 10.0
-    for kw in (dict(state_layout="grid"), dict(columnwise_solver="dense")):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            IMEXSolverType(**kw).make(dg, q, aux, dt)
 
     class _Sharded(DGModel):
         inner, mesh = None, None
 
+    for kw in (dict(), dict(state_layout="grid"),
+               dict(columnwise_solver="dense")):
+        with pytest.raises(NotImplementedError, match="next slice"):
+            IMEXSolverType(**kw).make(_Sharded(m, cfg.grid), q, aux, dt)
     with pytest.raises(NotImplementedError, match="next slice"):
-        IMEXSolverType().make(_Sharded(m, cfg.grid), q, aux, dt)
-    lin = DGModel(AtmosAcousticGravityLinearModel(m), cfg.grid,
-                  direction="vertical", update_aux=False)
-    op = lambda x: lin(x, aux, 0.0)[0]
-    dense = ManyColumnSolver(op, ColumnLayout(cfg.grid, 5), q)
-    ark = ARK2GiraldoKellyConstantinescu(None, None, dense, dt)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ark.step(q, aux, 0.0)
-    imex = IMEXSolverType().make(dg, q, aux, dt)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        imex.solver.op_args(torch.bfloat16)
+        ExplicitSolverType(state_layout="grid").make(_Sharded(m, cfg.grid),
+                                                     q, aux, dt)
+    for kw in (dict(), dict(columnwise_solver="dense")):
+        imex = IMEXSolverType(**kw).make(dg, q, aux, dt)
+        with pytest.raises(NotImplementedError, match="next slice"):
+            imex.solver.op_args(torch.bfloat16)
 
 
 @pytest.mark.parametrize("direction", ["every", "horizontal", "vertical"])

@@ -348,8 +348,10 @@ def test_explicit_solver_type_refuses_unported():
     ex = ExplicitSolverType().make(dg, q, aux, 10.0)
     assert isinstance(ex.vm, VarMajorRHS) and ex.rhs is ex.vm
     assert not ex.vm.write_aux and ex.vm.surface_kernel == "xla"
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ExplicitSolverType(state_layout="grid").make(dg, q, aux, 10.0)
+    # the grid layout is ported: the generic DG operator is the RHS
+    # (tests/test_torch_grid_steps.py holds its step against JAX's)
+    grid = ExplicitSolverType(state_layout="grid").make(dg, q, aux, 10.0)
+    assert grid.vm is None and grid.rhs is dg
 
     class _Sharded(DGModel):
         inner, mesh = None, None
