@@ -21,11 +21,13 @@ filter:
   (ARK2GiraldoKellyConstantinescu, the block-tridiagonal column solver
   over the vertical acoustic-gravity operator, dt from the horizontal
   acoustic CFL snapped to the f64 table's) with hyperdiffusion; the two
-  layout kernels and the two surface kernels (on the path's own state,
-  hyperdiffusion on and off) against their plain versions, one step with
-  "xla" and one with "pallas" against the all-plain step, a small
-  reference, then the table's 35 steps with exact launch counts and the
-  f64-table gate, once with each surface pass on the same solver;
+  layout kernels (on the path's own state and at three edge shapes) and
+  the two surface kernels (on the path's own state, hyperdiffusion on
+  and off) against their plain versions, one step with "xla" and one
+  with "pallas" against the all-plain step, one step with only the
+  layouts plain, a small reference, then the table's 35 steps with exact
+  launch counts and the f64-table gate, once with each surface pass on
+  the same solver;
 - the generic DG operator ``DGModel(model, grid)`` (the JAX package's
   "grid" layout, state var-major here) with hyperdiffusion: the dry
   volume kernel against its plain version on the inputs of its RHS and
@@ -55,7 +57,13 @@ derivative products counted dense (Np terms per node and direction, as
 the kernels compute them) and ``bound_sumfact_ms`` with them sum-
 factorised (Nq terms: Wd and Wdiv are Kronecker operators), which leaves
 every kernel bound by bytes.  The layout kernels move bytes only: each
-input read once, each output written once.  The surface kernels' work is
+input read once, each output written once; they and ``permute(...)
+.contiguous()``, the one PyTorch call computing the same function, are
+timed in interleaved rounds of CUDA-graph replays over rotating inputs
+(cold L2; ``ms_warm`` on one input); every other kernel's ``ms`` is the
+mean of 50 eager launches on one input between two CUDA events.  Each
+entry of the kernels line names its method in ``timing``
+("graph_cold_median" or "eager_warm_mean").  The surface kernels' work is
 a gather and at most ~130 flops a face lane, so bytes bound them
 (``bound_ms``); ``bound_dense_ms`` counts the extraction and the lift as
 the dense products the TPU kernels compute.
@@ -75,8 +83,11 @@ Tolerances:
   extraction is a gather and each node's lift sums its face lanes in
   ascending order, as a GEMM does);
 - the layout kernels vs their plain versions and vs one
-  ``permute(...).contiguous()``, on a perturbed state and its blocks:
-  equal bit for bit (a permutation), and the round trip exact;
+  ``permute(...).contiguous()``, on a perturbed state and its blocks and
+  at the layout dims (24, 3, 5, 5, 25), (37, 2, 5, 5, 25) and (96, 4, 5,
+  4, 16): equal bit for bit (a permutation), and the round trip exact;
+  one IMEX step with the layout kernels vs the same step with only the
+  layouts plain: equal bit for bit;
 - the whole kernel chain vs the per-pass plain chain (dg/ldg_varmajor.py):
   max|Δ| <= 1e-4 · max|plain| — 14× the 7.1e-6 of float32 against
   float64 for the whole chain on the CPU at n_horz=2, p4, since the two
@@ -131,6 +142,7 @@ import copy
 import importlib.util
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -157,13 +169,13 @@ from climatemachine_tpu_torch.ode.ark import ARK2GiraldoKellyConstantinescu
 from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
 from climatemachine_tpu_torch.solvers import layout_kernel
 from climatemachine_tpu_torch.solvers.columnwise import ColumnLayout
+from climatemachine_tpu_torch.timing import (PEAK_BYTES, PEAK_FP32_FLOPS,
+                                             paired_rounds)
 
 N_HORZ, N_VERT, POLY = 16, 8, 4
 N_WARM, N_STEPS = 3, 20            # the explicit path, hyperdiffusion on
 N_WARM_OFF, N_STEPS_OFF = 1, 4     # hyperdiffusion off
 N_WARM_IMEX, N_STEPS_IMEX = 10, 25  # the IMEX path: the table's 35 steps
-PEAK_FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
-PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 KERNEL_TOL = 1e-5
 CHAIN_TOL = 1e-4
 STEP_TOL = 1e-3
@@ -194,6 +206,12 @@ DRY = "dry_volume_tendency"
 CHAIN = ("ldg_first", "ldg_grad_to_div", "ldg_div_to_grad", "ldg_last")
 EXPLICIT = ("fused_volume_tendency_vm",) + CHAIN
 LAYOUT = ("to_blocks_vm", "from_blocks_vm")
+#: layout dims (Eh, nv, nvars, Nq3, ji) the layout kernels are also held
+#: at: the small IMEX grid's, an odd Eh (a tail tile, scalar y side), p3
+LAYOUT_EDGE_DIMS = ((24, 3, 5, 5, 25), (37, 2, 5, 5, 25), (96, 4, 5, 4, 16))
+#: the layout kernels' timing: interleaved rounds of launches rotating
+#: through distinct inputs (4 × 30.72 MB > the 50 MB L2)
+LAYOUT_ROUNDS, LAYOUT_LAUNCHES, LAYOUT_INPUTS = 9, 20, 4
 SURFACE = ("extract_trace_vm", "fused_surface_lift_vm")
 #: the surface kernels each surface pass launches, once per RHS
 SURFACE_LAUNCHES = {"xla": (), "hybrid": ("extract_trace_vm",),
@@ -254,6 +272,22 @@ def cuda_ms(fn, n: int, warm: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def library_call(to_blocks: bool, dims):
+    """One ``permute(...).contiguous()`` computing a layout kernel's
+    function (to_blocks_vm or from_blocks_vm) at layout dims ``dims``."""
+    Eh, nv, nvars, Nq3, ji = dims
+    view = (Eh, nv, nvars, Nq3, ji) if to_blocks else (nv, Nq3, nvars, Eh, ji)
+    perm = (1, 3, 2, 0, 4) if to_blocks else (3, 0, 2, 1, 4)
+    return lambda x: x.view(view).permute(perm).contiguous()
+
+
+def layout_input_shape(to_blocks: bool, dims):
+    """The input shape of to_blocks_vm (x) or from_blocks_vm (y)."""
+    Eh, nv, nvars, Nq3, ji = dims
+    return ((Eh * nv, nvars, Nq3 * ji) if to_blocks
+            else (nv, Nq3 * nvars, Eh * ji))
 
 
 def launch_counts() -> dict:
@@ -468,6 +502,7 @@ def kernel_vs_plain(name, args, rhs, n, **kw) -> dict:
     hyper = kw.get("has_hyper", True)
     res = dict(max_abs_err=max(errs), max_abs_err_per_output=errs,
                max_abs_plain_per_output=scales, tol=KERNEL_TOL,
+               timing="eager_warm_mean",
                ms=cuda_ms(lambda: wrapper(*args, **kw), 50),
                plain_ms=cuda_ms(lambda: plain(*args, **kw), 10),
                matmul_yardstick_ms=yardstick(name, args, rhs, hyper),
@@ -718,22 +753,41 @@ def phase_no_hyperdiffusion(seed: int):
 def layout_vs_plain(name, src, dims) -> dict:
     """A layout kernel against its plain version and against one
     ``permute(...).contiguous()`` (the library call) on the same input:
-    all three equal bit for bit.  With times and the bytes bound."""
+    all three equal bit for bit.  Times: the kernel, the plain version
+    and the library call in LAYOUT_ROUNDS interleaved rounds of
+    LAYOUT_LAUNCHES launches each, replayed from CUDA graphs (device time
+    without the host's launch cost), rotating through LAYOUT_INPUTS
+    distinct inputs (cold L2; the ms fields, medians over the rounds, with
+    their min and max), and the same on ``src`` alone (warm, the *_warm
+    fields: inside the step a layout's input was often just written);
+    with the bytes bound."""
     wrapper, plain, _, _ = KERNELS[name]
-    Eh, nv, nvars, Nq3, ji = dims
-    to = name == "to_blocks_vm"
-    view = (Eh, nv, nvars, Nq3, ji) if to else (nv, Nq3, nvars, Eh, ji)
-    perm = (1, 3, 2, 0, 4) if to else (3, 0, 2, 1, 4)
-    library = lambda: src.view(view).permute(perm).contiguous()
+    library = library_call(name == "to_blocks_vm", dims)
     out, ref = wrapper(src, dims), plain(src, dims)
     torch.cuda.synchronize()
+    contenders = {"kernel": lambda x: wrapper(x, dims),
+                  "library": library, "plain": lambda x: plain(x, dims)}
+    inputs = [src] + [src + i for i in range(1, LAYOUT_INPUTS)]
+    cold = paired_rounds(contenders, inputs, LAYOUT_ROUNDS, LAYOUT_LAUNCHES)
+    warm = paired_rounds(contenders, [src], LAYOUT_ROUNDS, LAYOUT_LAUNCHES)
+    del inputs
+    med = {k: statistics.median(v) for k, v in cold.items()}
     nbytes = 2 * src.numel() * src.element_size()
     res = dict(max_abs_err=(out - ref).abs().max().item(),
                exact=torch.equal(out, ref),
-               library_exact=torch.equal(library().reshape(out.shape), out),
-               tol=0.0, ms=cuda_ms(lambda: wrapper(src, dims), 50),
-               plain_ms=cuda_ms(lambda: plain(src, dims), 50),
-               library_ms=cuda_ms(library, 50), bytes=nbytes,
+               library_exact=torch.equal(library(src).reshape(out.shape),
+                                         out),
+               tol=0.0, timing="graph_cold_median", ms=med["kernel"],
+               ms_min=min(cold["kernel"]),
+               ms_max=max(cold["kernel"]), plain_ms=med["plain"],
+               library_ms=med["library"],
+               library_ms_min=min(cold["library"]),
+               library_ms_max=max(cold["library"]),
+               over_library=med["kernel"] / med["library"],
+               ms_warm=statistics.median(warm["kernel"]),
+               library_ms_warm=statistics.median(warm["library"]),
+               rounds=LAYOUT_ROUNDS, launches_per_round=LAYOUT_LAUNCHES,
+               inputs=LAYOUT_INPUTS, bytes=nbytes,
                bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
                shape=list(src.shape), out_shape=list(out.shape))
     res["share_of_bound"] = res["bound_ms"] / res["ms"]
@@ -742,9 +796,33 @@ def layout_vs_plain(name, src, dims) -> dict:
     return res
 
 
-def phase_layout_kernels(layout, q) -> dict:
-    """Both layout kernels on a state and its blocks, and the round
-    trip."""
+def layout_edge_shapes(seed: int):
+    """Both layout kernels against their plain versions and the library
+    call, bit for bit, and the round trip at LAYOUT_EDGE_DIMS."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for dims in LAYOUT_EDGE_DIMS:
+        res = {}
+        for name, inverse in zip(LAYOUT, LAYOUT[::-1]):
+            to = name == "to_blocks_vm"
+            wrapper, plain, _, _ = KERNELS[name]
+            src = torch.randn(layout_input_shape(to, dims), generator=gen,
+                              device="cuda")
+            out, ref = wrapper(src, dims), plain(src, dims)
+            res[name] = dict(
+                exact=torch.equal(out, ref),
+                library_exact=torch.equal(
+                    library_call(to, dims)(src).reshape(out.shape), out),
+                max_abs_err=(out - ref).abs().max().item(),
+                round_trip_exact=torch.equal(
+                    KERNELS[inverse][0](out, dims), src))
+        emit("layout_edge_shape", dims=list(dims), **res)
+        check(all(r["exact"] and r["library_exact"] and r["round_trip_exact"]
+                  for r in res.values()), ("layout edge shape", dims, res))
+
+
+def phase_layout_kernels(layout, q, seed: int) -> dict:
+    """Both layout kernels on a state and its blocks, the round trip,
+    and both kernels at the edge shapes."""
     dims = layout.layout_dims
     res = {"to_blocks_vm": layout_vs_plain("to_blocks_vm", q, dims)}
     yb = layout.to_blocks(q)
@@ -753,6 +831,7 @@ def phase_layout_kernels(layout, q) -> dict:
     torch.cuda.synchronize()
     emit("layout_round_trip", exact=torch.equal(back, q))
     check(torch.equal(back, q), "from_blocks(to_blocks(x)) != x")
+    layout_edge_shapes(seed)
     return res
 
 
@@ -847,6 +926,34 @@ def imex_step_vs_plain(path, mode: str):
     check(max(step_err) <= 1.0, ("IMEX step vs plain", step_err))
 
 
+def imex_layout_step_vs_plain(path):
+    """One IMEX step (surface pass "pallas") with the layout kernels
+    against the same step with only the layouts swapped to their plain
+    versions (the same RHS, operator and factors), from the path's
+    initial state: equal bit for bit, a permutation changes no bit.
+    The step with the kernels is taken twice, to show it repeats bit
+    for bit."""
+    imex = path["solver"]
+    plain_sv = copy.copy(imex.solver)
+    plain_sv.layout = ColumnLayout(
+        path["cfg"].grid, imex.solver.layout.nvars,
+        to_blocks=layout_kernel.to_blocks_vm_plain,
+        from_blocks=layout_kernel.from_blocks_vm_plain)
+    plain = ARK2GiraldoKellyConstantinescu(
+        None, None, plain_sv, path["dt"], rhs_full=imex.rhs_full,
+        post_step=imex.post_step)
+    q0, aux0 = path["q0"], path["aux0"]
+    path["rhs"].surface_kernel = "pallas"
+    q1, _ = imex.step(q0, aux0, 0.0)
+    q1p, _ = plain.step(q0, aux0, 0.0)
+    q1r, _ = imex.step(q0, aux0, 0.0)
+    res = dict(surface_kernel="pallas", exact=torch.equal(q1, q1p),
+               repeats_exact=torch.equal(q1, q1r),
+               max_abs_diff=(q1 - q1p).abs().max().item())
+    emit("imex_layout_step_vs_plain", **res)
+    check(res["exact"], ("IMEX step: layout kernels vs plain layouts", res))
+
+
 def imex_small_reference(device="cuda") -> list:
     """Three IMEX steps of a small grid (n_horz=2, n_vert=3, p4,
     DryBiharmonic(8 h), the filter) in float32 on ``device`` against
@@ -934,12 +1041,14 @@ def phase_imex(seed: int, explicit: dict) -> dict:
     sv = path["solver"].solver
     g = path["cfg"].grid
 
-    kernels = phase_layout_kernels(sv.layout, perturbed(path["q0"], seed))
+    kernels = phase_layout_kernels(sv.layout, perturbed(path["q0"], seed),
+                                   seed)
     kernels.update(phase_surface_kernels(path["rhs"],
                                          perturbed(path["q0"], seed),
                                          path["aux0"]))
     for mode in ("xla", "pallas"):
         imex_step_vs_plain(path, mode)
+    imex_layout_step_vs_plain(path)
     err = imex_small_reference()
     emit("imex_small_reference", n_horz=2, n_vert=3, poly=POLY, steps=3,
          hyperdiffusion_tau=8 * 3600.0, rel_err_per_var=err,
@@ -1206,7 +1315,8 @@ def main(argv=None) -> int:
         "replaces": KERNELS[name][3], "launches": launches,
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": k.get("library_ms")}
+        "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
+        "timing": k["timing"]}
         for entry, name, launches in entries
         for k in [results[entry]]]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,8 @@ Dispatch is by device: a CPU tensor takes the plain version; any other
 tensor takes the kernel (csrc/column_layout.cu) or raises.  The kernels
 cover float32; each wrapper counts its launches in ``.launches``.  They
 are compiled at first use (cuda_build.py) and called through ctypes on
-PyTorch's current stream.
+PyTorch's current stream, inside the tensor's device; the launch makes
+no device query.
 """
 
 from __future__ import annotations
