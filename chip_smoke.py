@@ -40,7 +40,16 @@ filter:
   banded solver, the generic operator as ``rhs_full``) and
   ``IMEXSolverType(columnwise_solver="dense")`` (35 steps, the dense
   column solver, the fused remainder), the f64-table gate on both IMEX
-  paths.
+  paths;
+- the sum-factorised kernels (K2, the volume kernel with and without
+  F₂, both dry branches) at the other orders they are built for, p1,
+  p2, p3 and p5, on a 48-element grid: each against its plain version
+  on all elements and on the first 37, then the var-major and the
+  generic RHS with their defaults against the ones with every stage's
+  plain version (kernel_orders).
+Copied into a checkout of an earlier commit that has the same modules
+and run there, the script measures that commit's kernels by the same
+method, so two designs compare in one call.
 Each run sets every launch count to 0 just before it starts and reads
 the counts just after.  One JSON line per phase and ``surface_modes``
 with the ms per step of each surface pass on both steps and of the
@@ -52,17 +61,22 @@ remainder branch from the dense one) and, last, ``{"ok": true,
 "device": ...}``.  Any failure raises and exits non-zero without the
 last line.  Without a CUDA device it exits 1 at once.
 
-Each volume and chain kernel reports two bounds: ``bound_ms`` with the
-derivative products counted dense (Np terms per node and direction, as
-the kernels compute them) and ``bound_sumfact_ms`` with them sum-
-factorised (Nq terms: Wd and Wdiv are Kronecker operators), which leaves
-every kernel bound by bytes.  The layout kernels move bytes only: each
-input read once, each output written once; they and ``permute(...)
+Each volume and chain kernel reports two bounds, one with the
+derivative products counted dense (Np terms per node and direction) and
+one with them sum-factorised (Nq terms: Wd and Wdiv are Kronecker
+operators), which leaves every kernel bound by bytes.  ``bound_ms`` is
+the count of the work the kernel does: sum-factorised for K2 and the
+volume kernels (``bound_dense_ms`` beside it), dense for K1 and K3
+(``bound_sumfact_ms`` beside it).  The layout kernels move bytes only:
+each input read once, each output written once; they and ``permute(...)
 .contiguous()``, the one PyTorch call computing the same function, are
 timed in interleaved rounds of CUDA-graph replays over rotating inputs
-(cold L2; ``ms_warm`` on one input); every other kernel's ``ms`` is the
-mean of 50 eager launches on one input between two CUDA events.  Each
-entry of the kernels line names its method in ``timing``
+(cold L2; ``ms_warm`` on one input), and so are K2 and the volume
+kernels, with their plain versions in the same rounds; these are also
+held against their plain versions on the first 37 elements of their
+inputs (a partial last tile).  Every other kernel's ``ms`` is the mean
+of 50 eager launches on one input between two CUDA events.  Each entry
+of the kernels line names its method in ``timing``
 ("graph_cold_median" or "eager_warm_mean").  The surface kernels' work is
 a gather and at most ~130 flops a face lane, so bytes bound them
 (``bound_ms``); ``bound_dense_ms`` counts the extraction and the lift as
@@ -123,6 +137,10 @@ Tolerances:
 - mass Σ M ρ, summed in float64: relative drift <= 1e-5 over each path
   (float32 round-off; F₂ carries no mass flux, and the filter keeps each
   element's mode 0 but is not exactly conservative on curved elements);
+- kernel_orders: each kernel as above, on all elements and on the first
+  37; each RHS per variable within 1e-3 · max|plain-stage RHS|, the
+  generic RHS's tolerance below (the card gives at most 3.3e-7 at p1-p5
+  on an NVIDIA H100 80GB HBM3);
 - the generic RHS on the card against the RHS with every stage's plain
   version, the all-plain RHS and the var-major RHS, from the same
   perturbed state: per variable, max|Δ| <= 1e-3 · max|other| — float32
@@ -212,6 +230,19 @@ LAYOUT_EDGE_DIMS = ((24, 3, 5, 5, 25), (37, 2, 5, 5, 25), (96, 4, 5, 4, 16))
 #: the layout kernels' timing: interleaved rounds of launches rotating
 #: through distinct inputs (4 × 30.72 MB > the 50 MB L2)
 LAYOUT_ROUNDS, LAYOUT_LAUNCHES, LAYOUT_INPUTS = 9, 20, 4
+#: the sum-factorised kernels: timed as the layout kernels are (graph-
+#: cold rounds, the plain version in the same rounds), bound by their
+#: sum-factorised work, and held on a tail of TAIL_E elements as well
+SUMFACT = ("fused_volume_tendency_vm", "ldg_grad_to_div",
+           "dry_volume_tendency")
+KERNEL_ROUNDS, KERNEL_LAUNCHES, KERNEL_INPUTS = 9, 20, 4
+#: an element count that is no multiple of the kernels' 4-element tile
+TAIL_E = 37
+#: the other orders the sum-factorised kernels are built for (p1-p5,
+#: dg/line_ops.py:KERNEL_NQ), held on a small grid (EDGE_GRID: n_horz,
+#: n_vert; 48 elements)
+EDGE_ORDERS = (1, 2, 3, 5)
+EDGE_GRID = (2, 2)
 SURFACE = ("extract_trace_vm", "fused_surface_lift_vm")
 #: the surface kernels each surface pass launches, once per RHS
 SURFACE_LAUNCHES = {"xla": (), "hybrid": ("extract_trace_vm",),
@@ -302,30 +333,33 @@ def reset_launch_counts():
 def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
           has_f2: bool = True, dense: bool = True, remainder: bool = False):
     """(bytes, flops) of one call: each input read once, each output
-    written once (float32; the int32 face tables and the operator
-    matrices once); the 0/1 face selection and lift as data movement.
-    The derivative products are counted ``dense`` (Np terms per node and
-    direction, as the kernels and the TPU kernels compute them) or sum-
-    factorised (Wd and Wdiv are Kronecker operators with Nq nonzeros a
-    row).  Per node, the volume tendency does 2·5·3 terms for the
-    contraction, 111 for flux, metric and mass, 106 for F₂ and 5 for the
-    MI scaling; the dry volume tendency 13 more for its thermo (e_int, T,
-    p from q and φ in place of p) and, with the remainder, 29 for the
-    linear flux, reading ref3."""
+    written once (float32; the int32 face tables and the operator once:
+    its dense matrix, or sum-factorised the Nq × Nq weights of each
+    direction's lines; of ν only its first row, ν₄); the 0/1 face
+    selection and lift as data movement.  The derivative products are
+    counted ``dense`` (Np terms per node and direction, as K1, K3 and the
+    TPU kernels compute them) or sum-factorised (Wd and Wdiv are
+    Kronecker operators with Nq nonzeros a row, as K2 and the volume
+    kernels compute them).  Per node, the volume tendency does 2·5·3
+    terms for the contraction, 111 for flux, metric and mass, 106 for F₂
+    and 5 for the MI scaling; the dry volume tendency 13 more for its
+    thermo (e_int, T, p from q and φ in place of p) and, with the
+    remainder, 29 for the linear flux, reading ref3."""
     R, X = 3 * n, nd * 3
     K = Np if dense else Nq
     deriv = lambda rows: 2 * E * rows * nd * Np * K
-    wd, sel, lift = 4 * nd * Np * Np, 4 * F, 4 * 2 * Np
+    op = Np * Np if dense else Nq * Nq
+    wd, sel, lift = 4 * nd * op, 4 * F, 4 * 2 * Np
     if name == "fused_volume_tendency_vm":
         nbytes = 4 * (E * Np * (5 + 1 + 1 + 9 + 1 + 1 + 5
-                                + (12 + 2 if has_f2 else 0))
-                      + Np * 3 * Np)
+                                + (12 + 1 if has_f2 else 0))
+                      + 3 * op)
         return nbytes, E * Np * (2 * 5 * 3 * K + 111 + 5
                                  + (106 if has_f2 else 0))
     if name == DRY:
         nbytes = 4 * (E * Np * (5 + 1 + 1 + 9 + 1 + 1 + 5
                                 + (3 if remainder else 0))
-                      + Np * 3 * Np)
+                      + 3 * op)
         return nbytes, E * Np * (2 * 5 * 3 * K + 111 + 5 + 13
                                  + (29 if remainder else 0))
     if name == "ldg_first":
@@ -381,16 +415,16 @@ def surface_costs(name: str, args, has_hyper: bool, dense: bool):
 
 def bounds(name: str, rhs, n: int, has_f2: bool = True, args=None,
            has_hyper: bool = True, remainder: bool = False) -> dict:
-    """The kernel's bound with the products counted dense (``bound_ms``,
-    the kernels line's) and sum-factorised (``bound_sumfact_ms``), each
-    the larger of bytes over the memory rate and flops over the fp32
-    rate.  A surface kernel (``args`` given) reports ``bound_ms`` with
-    its extraction and lift as a gather and a sum (its least time) and
-    ``bound_dense_ms`` with them as dense products."""
+    """The kernel's bound, the larger of bytes over the memory rate and
+    flops over the fp32 rate, for the work it does (``bound_ms``, the
+    kernels line's) and the other count: K1, K3 and K4 (dense products)
+    report ``bound_sumfact_ms`` beside it, the sum-factorised kernels and
+    the surface kernels (extraction and lift as a gather and a sum)
+    ``bound_dense_ms``."""
     g = rhs.grid
     nd, F = (rhs.chain.Wd.shape[0], rhs.chain.fo.F) if rhs.hd else (0, 0)
     out = {}
-    keys = ((("", False), ("_dense", True)) if name in SURFACE
+    keys = ((("", False), ("_dense", True)) if name in SURFACE + SUMFACT
             else (("", True), ("_sumfact", False)))
     for key, dense in keys:
         if name in SURFACE:
@@ -483,11 +517,11 @@ def yardstick(name, args, rhs, has_hyper: bool = True):
     return cuda_ms(lambda: torch.matmul(a, b), 50)
 
 
-def kernel_vs_plain(name, args, rhs, n, **kw) -> dict:
-    """One kernel against its plain version on the same inputs, with its
-    time, the plain version's, a matmul yardstick and its bounds.  A
-    surface kernel is held per lane of its output (each bundle lane and
-    each variable against its own max|plain|)."""
+def compare(name, args, kw):
+    """The kernel's and the plain version's outputs on ``args``: (max|Δ|
+    per output, max|plain| per output, all outputs finite, the kernel's
+    outputs).  A surface kernel is held per lane of its output (each
+    bundle lane and each variable against its own max|plain|)."""
     wrapper, plain, _, _ = KERNELS[name]
     out, ref = wrapper(*args, **kw), plain(*args, **kw)
     torch.cuda.synchronize()
@@ -499,25 +533,91 @@ def kernel_vs_plain(name, args, rhs, n, **kw) -> dict:
     else:
         errs = [(o - r).abs().max().item() for o, r in zip(out, ref)]
         scales = [r.abs().max().item() for r in ref]
+    return errs, scales, all(bool(torch.isfinite(o).all()) for o in out), out
+
+
+def first_elements(args, n: int):
+    """``args`` with every tensor over the E elements of ``args[0]`` cut
+    to its first ``n`` elements (views; operators and tables kept)."""
+    E = args[0].shape[0]
+    return tuple(a[:n] if isinstance(a, torch.Tensor) and a.dim() > 1
+                 and a.shape[0] == E else a for a in args)
+
+
+def graph_rounds(name, args, kw) -> dict:
+    """The kernel and its plain version in KERNEL_ROUNDS interleaved
+    rounds of KERNEL_LAUNCHES CUDA-graph-replayed calls rotating through
+    KERNEL_INPUTS copies of the inputs (cold L2: every copy of a
+    sum-factorised kernel's inputs is over 100 MB), as the layout kernels
+    are timed: medians with the kernel's min and max; ``ms_warm`` the
+    kernel's median on ``args`` alone."""
+    wrapper, plain, _, _ = KERNELS[name]
+    E = args[0].shape[0]
+    copies = [args] + [tuple(
+        a.clone() if isinstance(a, torch.Tensor) and a.dim() > 1
+        and a.shape[0] == E else a for a in args)
+        for _ in range(KERNEL_INPUTS - 1)]
+    contenders = {"kernel": lambda x: wrapper(*x, **kw),
+                  "plain": lambda x: plain(*x, **kw)}
+    cold = paired_rounds(contenders, copies, KERNEL_ROUNDS, KERNEL_LAUNCHES)
+    del copies
+    warm = paired_rounds({"kernel": contenders["kernel"]}, [args],
+                         KERNEL_ROUNDS, KERNEL_LAUNCHES)
+    return dict(timing="graph_cold_median",
+                ms=statistics.median(cold["kernel"]),
+                ms_min=min(cold["kernel"]), ms_max=max(cold["kernel"]),
+                plain_ms=statistics.median(cold["plain"]),
+                ms_warm=statistics.median(warm["kernel"]),
+                rounds=KERNEL_ROUNDS, launches_per_round=KERNEL_LAUNCHES,
+                inputs=KERNEL_INPUTS)
+
+
+def kernel_vs_plain(name, args, rhs, n, **kw) -> dict:
+    """One kernel against its plain version on the same inputs, with its
+    time, the plain version's, a matmul yardstick and its bounds.  A
+    sum-factorised kernel is also run on the first TAIL_E elements of
+    the same inputs (a partial last tile): held against the plain version
+    there (whose product may round otherwise at that shape) and equal bit
+    for bit to its own full run's first TAIL_E elements; it is timed in
+    graph-cold rounds (:func:`graph_rounds`), every other kernel by the
+    mean of 50 eager launches on one input."""
+    wrapper, plain, _, _ = KERNELS[name]
+    errs, scales, finite, out = compare(name, args, kw)
     hyper = kw.get("has_hyper", True)
+    if name in SUMFACT:
+        timing = graph_rounds(name, args, kw)
+        tail_errs, tail_scales, tail_finite, tail = compare(
+            name, first_elements(args, TAIL_E), kw)
+        # each element's arithmetic is the same in a partial tile
+        same = all(torch.equal(a, b[:TAIL_E]) for a, b in zip(tail, out))
+        emit("kernel_tail", name=name, elements=TAIL_E,
+             **{k: kw[k] for k in ("has_f2", "lin_dims") if k in kw},
+             max_abs_err_per_output=tail_errs,
+             max_abs_plain_per_output=tail_scales, tol=KERNEL_TOL,
+             equals_full_run=same)
+        check(tail_finite, (name, "tail output not finite"))
+        check(same, (name, "kernel on the tail != its full run's elements"))
+        check(all(e <= KERNEL_TOL * sc for e, sc in
+                  zip(tail_errs, tail_scales)),
+              (name, "kernel vs plain on the tail", tail_errs, tail_scales))
+    else:
+        timing = dict(timing="eager_warm_mean",
+                      ms=cuda_ms(lambda: wrapper(*args, **kw), 50),
+                      plain_ms=cuda_ms(lambda: plain(*args, **kw), 10))
     res = dict(max_abs_err=max(errs), max_abs_err_per_output=errs,
-               max_abs_plain_per_output=scales, tol=KERNEL_TOL,
-               timing="eager_warm_mean",
-               ms=cuda_ms(lambda: wrapper(*args, **kw), 50),
-               plain_ms=cuda_ms(lambda: plain(*args, **kw), 10),
+               max_abs_plain_per_output=scales, tol=KERNEL_TOL, **timing,
                matmul_yardstick_ms=yardstick(name, args, rhs, hyper),
                **bounds(name, rhs, n, kw.get("has_f2", True), args, hyper,
                         bool(kw.get("lin_dims"))),
                shapes=[list(a.shape) for a in args
                        if isinstance(a, torch.Tensor)])
     res["share_of_bound"] = res["bound_ms"] / res["ms"]
-    second = "dense" if name in SURFACE else "sumfact"
+    second = "dense" if name in SURFACE + SUMFACT else "sumfact"
     res[f"share_of_bound_{second}"] = res[f"bound_{second}_ms"] / res["ms"]
     emit("kernel_vs_plain", name=name,
          **{k: kw[k] for k in ("has_f2", "has_hyper", "lin_dims")
             if k in kw}, **res)
-    check(all(bool(torch.isfinite(o).all()) for o in out),
-          (name, "kernel output not finite"))
+    check(finite, (name, "kernel output not finite"))
     check(all(e <= KERNEL_TOL * sc for e, sc in zip(errs, scales)),
           (name, "kernel vs plain", errs, scales))
     return res
@@ -1117,6 +1217,18 @@ def dry_volume_args(dg, q, aux):
         dg, q, aux, volume=lambda *args, **kw: (args, kw))
 
 
+def dry_inputs(dg, q, aux):
+    """The vertical linear operator of ``dg``'s model, the fused
+    remainder ``dg − dg_lin`` and the dry kernel's (args, kwargs) on the
+    RHS of each at q, aux: (dg_lin, dg_rem, {entry of the kernels line:
+    (args, kwargs)})."""
+    dg_lin = DGModel(AtmosAcousticGravityLinearModel(dg.balance_law),
+                     dg.grid, direction="vertical", update_aux=False)
+    dg_rem = remainder_DGModel(dg, dg_lin)
+    return dg_lin, dg_rem, {entry: dry_volume_args(d, q, aux) for entry, d
+                            in ((DRY, dg), (DRY + "_remainder", dg_rem))}
+
+
 def per_var_err(got, ref) -> list:
     """max |got − ref| per variable, relative to max |ref| of that
     variable; both var-major ``[E, n, Np]``."""
@@ -1151,14 +1263,10 @@ def phase_generic_checks(base, seed: int) -> dict:
     dg, model, g = base["dg"], base["cfg"].model, base["cfg"].grid
     q = perturbed(base["q0"], seed)
     aux = model.update_auxiliary_state(q, base["aux0"])
-    dg_lin = DGModel(AtmosAcousticGravityLinearModel(model), g,
-                     direction="vertical", update_aux=False)
-    dg_rem = remainder_DGModel(dg, dg_lin)
+    dg_lin, dg_rem, dry = dry_inputs(dg, q, aux)
     grid_only = SimpleNamespace(grid=g, hd=None)
-    kernels = {}
-    for entry, d in ((DRY, dg), (DRY + "_remainder", dg_rem)):
-        args, kw = dry_volume_args(d, q, aux)
-        kernels[entry] = kernel_vs_plain(DRY, args, grid_only, n=0, **kw)
+    kernels = {entry: kernel_vs_plain(DRY, args, grid_only, n=0, **kw)
+               for entry, (args, kw) in dry.items()}
 
     def rhs(d):
         return d(q, base["aux0"], 0.0)[0]
@@ -1281,6 +1389,71 @@ def phase_generic(seed: int) -> dict:
     return dict(kernels=kernels, launches=launches, ms_per_step=ms)
 
 
+# --- the sum-factorised kernels at the other orders --------------------------
+
+def hold(name, args, kw) -> dict:
+    """The kernel against its plain version on ``args`` and on their first
+    TAIL_E elements: max|Δ| and max|plain| per output; raises if one is
+    not finite or off by more than KERNEL_TOL · max|plain|."""
+    res = {}
+    for key, a in (("all", args), ("tail", first_elements(args, TAIL_E))):
+        errs, scales, finite, _ = compare(name, a, kw)
+        res[key] = dict(max_abs_err_per_output=errs,
+                        max_abs_plain_per_output=scales)
+        check(finite, (name, key, "output not finite"))
+        check(all(e <= KERNEL_TOL * sc for e, sc in zip(errs, scales)),
+              (name, key, "kernel vs plain", errs, scales))
+    return res
+
+
+def phase_kernel_orders(seed: int):
+    """The sum-factorised kernels at each of EDGE_ORDERS on a small grid's
+    perturbed state (48 elements: a partial last tile at 4 and at 2
+    elements a tile): K2 and the volume kernel with and without F₂ on the
+    var-major RHS's inputs, the dry kernel on the generic RHS's and the
+    fused remainder's, each held on all elements and on the first TAIL_E;
+    then the var-major RHS and the generic RHS with their defaults (the
+    kernels) against the ones with every stage's plain version."""
+    for poly in EDGE_ORDERS:
+        cfg = held_suarez_config(*EDGE_GRID, poly, dtype=torch.float32,
+                                 hyperdiffusion_tau=8 * 3600.0,
+                                 device="cuda")
+        dg = DGModel(cfg.model, cfg.grid)
+        q0, aux0 = init_ode_state(dg)
+        q = perturbed(q0, seed)
+        aux = cfg.model.update_auxiliary_state(q, aux0)
+        rhs = VarMajorRHS(dg)
+        glv, inputs = chain_inputs(rhs, q, aux0)
+        cases = {"ldg_grad_to_div": ("ldg_grad_to_div",
+                                     inputs["ldg_grad_to_div"], {})}
+        for f2 in (True, False):
+            cases["fused_volume_tendency_vm" + ("" if f2 else "_no_f2")] = (
+                "fused_volume_tendency_vm",
+                inputs["fused_volume_tendency_vm"], volume_kwargs(rhs, f2))
+        _, _, dry = dry_inputs(dg, q, aux)
+        cases.update({entry: (DRY, args, kw)
+                      for entry, (args, kw) in dry.items()})
+        held = {entry: hold(name, args, kw)
+                for entry, (name, args, kw) in cases.items()}
+        plain_generic = DGModel(cfg.model, cfg.grid,
+                                volume=KERNELS[DRY][1],
+                                chain_stages=ldg_kernel.PLAIN)
+        rhs_errs = {
+            "var_major": per_var_err(rhs(q, aux0, 0.0)[0],
+                                     plain_rhs(dg, "xla")(q, aux0, 0.0)[0]),
+            "generic": per_var_err(dg(q, aux0, 0.0)[0],
+                                   plain_generic(q, aux0, 0.0)[0])}
+        torch.cuda.synchronize()
+        emit("kernel_orders", poly=poly, Np=cfg.grid.Np,
+             elements=cfg.grid.nelem, tail_elements=TAIL_E, tol=KERNEL_TOL,
+             kernels=held, rhs_rel_err_per_var=rhs_errs,
+             rhs_tol=GENERIC_RHS_TOL)
+        for name, err in rhs_errs.items():
+            check(all(torch.isfinite(torch.tensor(err)))
+                  and max(err) <= GENERIC_RHS_TOL,
+                  ("RHS at order", poly, name, err))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1294,6 +1467,7 @@ def main(argv=None) -> int:
     phase_no_hyperdiffusion(args.seed)
     imex = phase_imex(args.seed, explicit)
     generic = phase_generic(args.seed)
+    phase_kernel_orders(args.seed)
     emit("surface_modes", card=nvidia_smi(),
          explicit_ms_per_step=explicit["ms_per_step"],
          imex_ms_per_step=imex["ms_per_step"],
@@ -1316,6 +1490,8 @@ def main(argv=None) -> int:
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
+        **({"bound_dense_ms": k["bound_dense_ms"]}
+           if "bound_dense_ms" in k else {}),
         "timing": k["timing"]}
         for entry, name, launches in entries
         for k in [results[entry]]]}), flush=True)

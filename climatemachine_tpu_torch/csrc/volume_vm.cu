@@ -34,67 +34,128 @@
 //   p_ref), subtracted where the JAX kernel subtracts it: every i for rho
 //   and rhoe, i = j for rhou_j.
 //
-// What bounds them: at p4 (Np = 125) the dense contraction, as this kernel
-// computes it, is 2*5*375 = 3750 flops per node against 23 floats read or
-// written per node (26 with the remainder's ref3, 37 with F2), ~41 flops
-// per byte, above the H100's fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20),
-// so the fp32 FMA pipes bound it: 0.089 ms (0.091 with F2) at E = 12288.
-// Wdiv is a Kronecker operator with Nq = 5 nonzeros a row per direction, so
-// sum-factorised the contraction is 2*5*15 = 150 flops per node and bytes
-// alone bound it: 0.042 ms (0.048 with ref3, 0.068 with F2).
+// What bounds them: at p4 (Np = 125), E = 12288, the fluxes are ~111
+// flops a node (217 with F2) and the weak divergence, sum-factorised
+// along the lines of the Kronecker operator Wdiv (dg/line_ops.py), 2*5*15
+// = 150 flops a node, against 23 floats read or written a node (26 with
+// the remainder's ref3, 36 with F2 and nu4): bytes alone bound every
+// branch, 0.042 ms (0.048 with ref3, 0.066 with F2; the H100's 3.35
+// TB/s).  Counted dense (the 3*Np terms a node of the kernel this design
+// replaced), the contraction was 3750 flops a node and bound by the fp32
+// pipes (0.089 ms, 0.091 with F2).
 //
-// Design: one block of TE elements, one thread per node (the last warp
-// masked: Np = 125 is not a multiple of 32).
-//   1. Each thread builds the flux of its node (node_flux<KIND>, the only
-//      part that differs between the branches) and writes M * xi . F for 5
-//      variables x 3 directions of TE elements into shared memory (TE * 5
-//      * KP floats; rows padded to KP = 3Np rounded up to 4 with zeros so
-//      they can be read as float4).
-//   2. Each thread accumulates its node's 5*TE outputs in registers over
-//      k: one read of Wdiv^T[k][n] (the caller's [KP][Np] copy, transposed
-//      and padded once per grid so that neighbouring threads read
-//      neighbouring addresses; 188 KB, served from L2/L1) feeds 5*TE FMAs,
-//      and the mf values are float4 broadcast reads from shared memory.
-//      TE = 8 keeps the FMA count per Wdiv load at 40, enough that the fp32
-//      pipes and not the L2 reads are the limit.
-//   3. Scale by MI and store.
-// Tensor cores (wgmma with split TF32) are not used.
+// Design (sum-factorised, bound by its bytes):
+//   - persistent blocks of 256 threads walk tiles of TE = 4 elements (2 at
+//     p5, Order<NQ>); each
+//     tile's inputs (qv, p or phi, p_ref, xiv, M, MI; gl2 with F2, ref3
+//     with the remainder) are contiguous runs, staged by TMA bulk copies
+//     into one of two stages of shared memory while the block computes on
+//     the other (tile_pipeline.cuh).  Of nu [E][2][Np] only lane 0 (nu4)
+//     is read: at p4 its rows start 1000 bytes apart, 8-byte aligned on
+//     odd elements, so each comes in a 512-byte copy from the 16-byte
+//     boundary below it, and the reader skips the shift;
+//   1. one thread per (element, node) builds the node's flux
+//      (node_flux<KIND, NQ>, the only part that differs between the branches)
+//      and writes M * xi . F for 5 variables x 3 directions into the mf
+//      tile in shared memory ([TE][5][3*Np]);
+//   2. one thread per (element, node) contracts mf along the node's three
+//      lines: for each direction the Nq weights of the node's line (the
+//      line table in shared memory, the node's line start and position
+//      precomputed) and Nq FMAs a variable, at node stride 1, Nq and
+//      Nq^2 (a warp's reads span fewer than 32 consecutive words of a row:
+//      no bank conflicts), 75 FMAs a node at p4;
+//   3. scale by MI and store (one warp, 32 consecutive nodes of a row).
+//   About 156 KB of shared memory a block with F2, 104 KB without at p4
+//   (136 and 91 KB at p5).  The line order NQ is a template parameter,
+//   built for NQ = 2..6 (p1-p5, tile::by_order); the bench shape is p4.
+// Tensor cores have nothing to do here: 150 flops a node.
 //
 // Rounding: the flux pass rounds each product, sum and quotient as the
 // plain PyTorch version does, in its order (__fmul_rn/__fadd_rn/__fsub_rn
 // keep nvcc from contracting them into FMAs; 1/rho and the reference
 // enthalpy are IEEE divisions; the constants are the float32 values of the
 // Python scalars the plain version multiplies by), and the contraction
-// accumulates k in ascending order with FMAs, as a GEMM does.  On a
-// near-hydrostatic state the divergence cancels to ~1e-5 of its terms, so
-// a rounding difference in mf would show at about the 1e-5 * max|plain|
-// the kernels are held to.
+// accumulates k in ascending order with FMAs, as a GEMM does: direction
+// a = 0's Nq entries, then a = 1's, then a = 2's, which is the float32
+// number of the dense loop over all 3*Np terms (an FMA with an exact zero
+// weight leaves the sum as it was).  On a near-hydrostatic state the
+// divergence cancels to ~1e-5 of its terms, so a rounding difference in
+// mf would show at about the 1e-5 * max|plain| the kernels are held to.
 
 #include <cuda_runtime.h>
 
+#include "tile_pipeline.cuh"
+
 namespace {
 
-constexpr int NQ = 5;
-constexpr int TE = 8;
-constexpr int MAX_THREADS = 256;
+constexpr int NVAR = 5;            // rho, rhou[3], rhoe
+constexpr int THREADS = 256;
+constexpr int MAX_SMEM = 227 * 1024;  // dynamic shared memory a block
+
+// The sizes at NQ nodes a line: NP nodes an element, mf's row of K (3
+// directions), TE elements a tile (4; 2 at NQ = 6, where four would not
+// fit in shared memory with F2 and every run is a multiple of 16 bytes
+// an element), NU_SLOT floats a staged nu4 row (its floats + a shift of
+// up to 3, rounded up to 4).
+template <int NQ>
+struct Order {
+  static constexpr int NP = NQ * NQ * NQ;
+  static constexpr int K = 3 * NP;
+  static constexpr int TE = NQ < 6 ? 4 : 2;
+  static constexpr int NU_SLOT = (NP + 3 + 3) / 4 * 4;
+  static_assert(TE * NP % 4 == 0, "a tile's runs are 16-byte multiples");
+};
 
 // the flux branches (node_flux)
 enum Kind { P_GIVEN = 0, P_GIVEN_F2 = 1, DRY = 2, DRY_REMAINDER = 3 };
 
 struct Inputs {
-  const float* qv;    // [E][5][Np]
-  const float* p;     // [E][Np]     P_GIVEN*
-  const float* phi;   // [E][Np]     DRY*
-  const float* pref;  // [E][Np]
-  const float* ref3;  // [E][3][Np]  DRY_REMAINDER: rhoe_ref, rho_ref, p_ref
-  const float* gl2;   // [E][12][Np] P_GIVEN_F2
-  const float* nu;    // [E][2][Np]  P_GIVEN_F2
-  const float* xiv;   // [E][9][Np]  xi_a,i at 3a+i
-  const float* M;     // [E][Np]
-  const float* MI;    // [E][Np]
-  const float* wt;    // [KP][Np]    Wdiv^T, rows >= 3Np zero
-  float* out;         // [E][5][Np]
+  const float* qv;     // [E][5][Np]
+  const float* p;      // [E][Np]     P_GIVEN*
+  const float* phi;    // [E][Np]     DRY*
+  const float* pref;   // [E][Np]
+  const float* ref3;   // [E][3][Np]  DRY_REMAINDER: rhoe_ref, rho_ref, p_ref
+  const float* gl2;    // [E][12][Np] P_GIVEN_F2
+  const float* nu;     // [E][2][Np]  P_GIVEN_F2 (lane 0)
+  const float* xiv;    // [E][9][Np]  xi_a,i at 3a+i
+  const float* M;      // [E][Np]
+  const float* MI;     // [E][Np]
+  const float* lines;  // [3][NQ][NQ] Wdiv's line weights
+  tile::Strides strides;  // node stride of each direction's lines
+  float* out;          // [E][5][Np]
   float R_d, inv_cv, T_0, R_over_cv;   // DRY*
+};
+
+// Shared memory of a branch, in 4-byte words: the two stage mbarriers,
+// the line weights, each node's line (start | position << 16) per
+// direction; two stages of TE elements, each the tile's contiguous runs
+// [qv | p or phi | p_ref | xiv | M | MI | gl2 or ref3 | nu4 slots]; the mf
+// tile.  Every offset is a multiple of 4 words (16 bytes).
+template <int KIND, int NQ>
+struct Layout {
+  using O = Order<NQ>;
+  static constexpr int NP = O::NP, K = O::K, TE = O::TE,
+                       NU_SLOT = O::NU_SLOT;
+  static constexpr bool F2 = KIND == P_GIVEN_F2;
+  static constexpr bool REM = KIND == DRY_REMAINDER;
+  static constexpr int NSEG = (F2 || REM) ? 7 : 6;
+  static constexpr int LINES = 4, INFO = LINES + 3 * NQ * NQ;
+  static constexpr int STAGE = (INFO + 3 * NP + 31) / 32 * 32;
+  static constexpr int QV = 0, P = QV + TE * NVAR * NP, PREF = P + TE * NP,
+                       XIV = PREF + TE * NP, M = XIV + TE * 9 * NP,
+                       MI = M + TE * NP, EXTRA = MI + TE * NP;
+  static constexpr int EXTRA_FLOATS = F2 ? 12 * NP : REM ? 3 * NP : 0;
+  static constexpr int NU = EXTRA + TE * EXTRA_FLOATS;
+  static constexpr int STAGE_WORDS =
+      (NU + (F2 ? TE * NU_SLOT : 0) + 31) / 32 * 32;
+  static constexpr int MF = STAGE + 2 * STAGE_WORDS;
+  static constexpr size_t BYTES = 4 * (size_t)(MF + TE * NVAR * K);
+  static_assert(BYTES <= MAX_SMEM, "the tile does not fit in shared memory");
+};
+
+// One element's staged inputs (pointers into a stage).
+struct Elem {
+  const float *qv, *p, *phi, *pref, *ref3, *gl2, *nu, *xiv, *M;
 };
 
 __device__ __forceinline__ float mul(float a, float b) {
@@ -107,38 +168,38 @@ __device__ __forceinline__ float sub(float a, float b) {
   return __fsub_rn(a, b);
 }
 
-// Stage 1 for node n of element e: mfe[v * KP + a * Np + n] for the 5
-// variables and 3 directions.
-template <int KIND>
-__device__ __forceinline__ void node_flux(const Inputs& in, int e, int n,
-                                          int Np, int KP, float* mfe) {
-  const size_t en = (size_t)e * Np + n;
-  const float* q = in.qv + (size_t)e * NQ * Np + n;
+// Stage 1 for node n of a staged element: mfe[v * K + a * NP + n] for the
+// 5 variables and 3 directions.
+template <int KIND, int NQ>
+__device__ __forceinline__ void node_flux(const Inputs& in, const Elem& s,
+                                          int n, float* mfe) {
+  constexpr int NP = Order<NQ>::NP, K = Order<NQ>::K;
+  const float* q = s.qv + n;
   const float rho = q[0];
-  const float ru[3] = {q[Np], q[2 * Np], q[3 * Np]};
-  const float rhoe = q[4 * Np];
+  const float ru[3] = {q[NP], q[2 * NP], q[3 * NP]};
+  const float rhoe = q[4 * NP];
   const float inv_rho = 1.0f / rho;
   const float u[3] = {mul(ru[0], inv_rho), mul(ru[1], inv_rho),
                       mul(ru[2], inv_rho)};
   float pv, phi = 0.0f;
   if (KIND == DRY || KIND == DRY_REMAINDER) {
-    phi = in.phi[en];
+    phi = s.phi[n];
     const float ruu = add(add(mul(ru[0], u[0]), mul(ru[1], u[1])),
                           mul(ru[2], u[2]));
     const float e_int = sub(mul(sub(rhoe, mul(0.5f, ruu)), inv_rho), phi);
     const float T = add(in.T_0, mul(e_int, in.inv_cv));
     pv = mul(mul(rho, in.R_d), T);
   } else {
-    pv = in.p[en];
+    pv = s.p[n];
   }
-  const float p_eff = sub(pv, in.pref[en]);
+  const float p_eff = sub(pv, s.pref[n]);
   const float h = add(rhoe, pv);
-  const float m = in.M[en];
-  const float* xi = in.xiv + (size_t)e * 9 * Np + n;
+  const float m = s.M[n];
+  const float* xi = s.xiv + n;
   float x[9];
 #pragma unroll
-  for (int j = 0; j < 9; ++j) x[j] = xi[j * Np];
-  float F[3][NQ];
+  for (int j = 0; j < 9; ++j) x[j] = xi[j * NP];
+  float F[3][NVAR];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     F[i][0] = ru[i];
@@ -148,16 +209,16 @@ __device__ __forceinline__ void node_flux(const Inputs& in, int e, int n,
                              : mul(ru[j], u[i]);
     F[i][4] = mul(h, u[i]);
   }
-  float F2[3][NQ];
+  float F2[3][NVAR];
   if (KIND == P_GIVEN_F2) {
-    const float nu4 = in.nu[(size_t)e * 2 * Np + n];
+    const float nu4 = s.nu[n];
     const float rnu = mul(rho, nu4);
-    const float* g = in.gl2 + (size_t)e * 12 * Np + n;
+    const float* g = s.gl2 + n;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       float gi[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) gi[j] = g[(4 * i + j) * Np];
+      for (int j = 0; j < 4; ++j) gi[j] = g[(4 * i + j) * NP];
       F2[i][0] = 0.0f;
 #pragma unroll
       for (int j = 0; j < 3; ++j) F2[i][1 + j] = mul(rnu, gi[j]);
@@ -170,11 +231,11 @@ __device__ __forceinline__ void node_flux(const Inputs& in, int e, int n,
   if (KIND == DRY_REMAINDER) {
     pL = add(mul(mul(rho, in.R_d), in.T_0),
              mul(in.R_over_cv, sub(rhoe, mul(rho, phi))));
-    const float* r3 = in.ref3 + (size_t)e * 3 * Np + n;
-    coeff = add(r3[0], r3[2 * Np]) / r3[Np];
+    const float* r3 = s.ref3 + n;
+    coeff = add(r3[0], r3[2 * NP]) / r3[NP];
   }
 #pragma unroll
-  for (int v = 0; v < NQ; ++v)
+  for (int v = 0; v < NVAR; ++v)
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       float acc = add(add(mul(x[3 * a], F[0][v]), mul(x[3 * a + 1], F[1][v])),
@@ -195,104 +256,168 @@ __device__ __forceinline__ void node_flux(const Inputs& in, int e, int n,
         for (int i = 0; i < 3; ++i)
           acc = add(acc, mul(x[3 * a + i], F2[i][v]));
       }
-      mfe[v * KP + a * Np + n] = mul(m, acc);
+      mfe[v * K + a * NP + n] = mul(m, acc);
     }
 }
 
-template <int KIND>
-__global__ void __launch_bounds__(MAX_THREADS)
-volume_kernel(const Inputs in, int E, int Np, int KP) {
+template <int KIND, int NQ>
+__global__ void __launch_bounds__(THREADS)
+volume_kernel(const Inputs in, int E) {
+  using L = Layout<KIND, NQ>;
+  constexpr int NP = L::NP, K = L::K, TE = L::TE;
   extern __shared__ float4 smem4[];
-  float* mf = reinterpret_cast<float*>(smem4);    // [TE][NQ][KP]
-  const int n = threadIdx.x;
-  const int e0 = blockIdx.x * TE;
-  const int K = 3 * Np;
+  float* sm = reinterpret_cast<float*>(smem4);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem4);
+  float* ln = sm + L::LINES;
+  int* info = reinterpret_cast<int*>(sm + L::INFO);
+  float* mf = sm + L::MF;
+  const int tid = threadIdx.x;
+  const int tiles = (E + TE - 1) / TE;
+  constexpr bool DRYK = KIND == DRY || KIND == DRY_REMAINDER;
+  tile::Segment seg[L::NSEG];
+  seg[0] = {in.qv, NVAR * NP, L::QV};
+  seg[1] = {DRYK ? in.phi : in.p, NP, L::P};
+  seg[2] = {in.pref, NP, L::PREF};
+  seg[3] = {in.xiv, 9 * NP, L::XIV};
+  seg[4] = {in.M, NP, L::M};
+  seg[5] = {in.MI, NP, L::MI};
+  if constexpr (L::NSEG == 7)
+    seg[L::NSEG - 1] = {L::F2 ? in.gl2 : in.ref3, L::EXTRA_FLOATS, L::EXTRA};
+  const tile::Rows nu{in.nu, 2 * NP, NP, L::NU, L::NU_SLOT};
+  const tile::Rows* rows = L::F2 ? &nu : nullptr;
+  auto stage = [&](int st) { return sm + L::STAGE + st * L::STAGE_WORDS; };
+  auto count = [&](int t) { return min(TE, E - t * TE); };
 
-  // 1. flux times metric and mass, into shared memory
-  for (int te = 0; te < TE; ++te) {
-    const int e = e0 + te;
-    float* mfe = mf + te * NQ * KP;
-    if (n < Np) {
-      if (e < E) {
-        node_flux<KIND>(in, e, n, Np, KP, mfe);
-      } else {
-        for (int v = 0; v < NQ; ++v)
-          for (int a = 0; a < 3; ++a) mfe[v * KP + a * Np + n] = 0.0f;
-      }
-    }
-    if (n < KP - K)
-      for (int v = 0; v < NQ; ++v) mfe[v * KP + K + n] = 0.0f;
+  if (tid == 0) {
+    tile::bar_init(&bar[0]);
+    tile::bar_init(&bar[1]);
+    tile::bar_init_fence();
   }
   __syncthreads();
-  if (n >= Np) return;   // masked tail of the last warp; no sync follows
-
-  // 2. weak divergence: acc[te][v] = sum_k mf[te][v][k] * wt[k][n]
-  float acc[TE][NQ];
-#pragma unroll
-  for (int te = 0; te < TE; ++te)
-#pragma unroll
-    for (int v = 0; v < NQ; ++v) acc[te][v] = 0.0f;
-  const float4* mf4 = reinterpret_cast<const float4*>(mf);
-  const int KP4 = KP / 4;
-  for (int k4 = 0; k4 < KP4; ++k4) {
-    const float* w = in.wt + (size_t)(4 * k4) * Np + n;
-    const float w0 = __ldg(w), w1 = __ldg(w + Np);
-    const float w2 = __ldg(w + 2 * Np), w3 = __ldg(w + 3 * Np);
-#pragma unroll
-    for (int te = 0; te < TE; ++te)
-#pragma unroll
-      for (int v = 0; v < NQ; ++v) {
-        const float4 a = mf4[(te * NQ + v) * KP4 + k4];
-        float s = acc[te][v];
-        s = fmaf(a.x, w0, s);
-        s = fmaf(a.y, w1, s);
-        s = fmaf(a.z, w2, s);
-        s = fmaf(a.w, w3, s);
-        acc[te][v] = s;
-      }
-  }
-
-  // 3. scale by the inverse mass and store
-#pragma unroll
-  for (int te = 0; te < TE; ++te) {
-    const int e = e0 + te;
-    if (e < E) {
-      const float mi = in.MI[(size_t)e * Np + n];
-#pragma unroll
-      for (int v = 0; v < NQ; ++v)
-        in.out[((size_t)e * NQ + v) * Np + n] = mul(mi, acc[te][v]);
+  if (tid == 0)
+    for (int st = 0; st < 2; ++st) {
+      const int t = blockIdx.x + st * gridDim.x;
+      if (t < tiles) tile::issue(stage(st), &bar[st], seg, rows, t * TE,
+                                 count(t));
     }
+  // the static tables, while the first tiles are in flight
+  for (int i = tid; i < 3 * NQ * NQ; i += blockDim.x) ln[i] = in.lines[i];
+  for (int i = tid; i < 3 * NP; i += blockDim.x) {
+    const int a = i / NP, m = i - a * NP, sa = in.strides.at(a);
+    const int q = (m / sa) % NQ;
+    info[i] = (m - q * sa) | (q << 16);
+  }
+  __syncthreads();
+
+  for (int it = 0, t = blockIdx.x; t < tiles; ++it, t += gridDim.x) {
+    const int st = it & 1;
+    float* S = stage(st);
+    const int e0 = t * TE, ne = count(t);
+    tile::bar_wait(&bar[st], (it >> 1) & 1);
+    tile::fill_tail(S, seg, e0, ne);
+    __syncthreads();
+
+    // 1. flux times metric and mass, into the mf tile
+    for (int i = tid; i < ne * NP; i += blockDim.x) {
+      const int te = i / NP, n = i - te * NP;
+      Elem el;
+      el.qv = S + L::QV + te * NVAR * NP;
+      el.p = el.phi = S + L::P + te * NP;
+      el.pref = S + L::PREF + te * NP;
+      el.xiv = S + L::XIV + te * 9 * NP;
+      el.M = S + L::M + te * NP;
+      el.gl2 = el.ref3 = S + L::EXTRA + te * L::EXTRA_FLOATS;
+      el.nu = L::F2 ? S + L::NU + te * L::NU_SLOT
+                          + tile::row_shift(nu, e0 + te)
+                    : nullptr;
+      node_flux<KIND, NQ>(in, el, n, mf + te * NVAR * K);
+    }
+    __syncthreads();
+
+    // 2.-3. weak divergence along the lines, scaled by MI
+    for (int i = tid; i < ne * NP; i += blockDim.x) {
+      const int te = i / NP, n = i - te * NP;
+      const float* mfe = mf + te * NVAR * K;
+      float acc[NVAR];
+#pragma unroll
+      for (int v = 0; v < NVAR; ++v) acc[v] = 0.0f;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const int inf = info[a * NP + n], sa = in.strides.at(a);
+        const float* V = ln + (a * NQ + (inf >> 16)) * NQ;
+        float w[NQ];
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) w[j] = V[j];
+        const float* row = mfe + a * NP + (inf & 0xffff);
+#pragma unroll
+        for (int v = 0; v < NVAR; ++v)
+#pragma unroll
+          for (int j = 0; j < NQ; ++j)
+            acc[v] = fmaf(row[v * K + j * sa], w[j], acc[v]);
+      }
+      const float mi = S[L::MI + te * NP + n];
+      float* o = in.out + (size_t)(e0 + te) * NVAR * NP + n;
+#pragma unroll
+      for (int v = 0; v < NVAR; ++v) o[v * NP] = mul(mi, acc[v]);
+    }
+    tile::fence_async_proxy();
+    __syncthreads();                       // the stage and mf are free
+    const int next = t + 2 * gridDim.x;
+    if (tid == 0 && next < tiles)
+      tile::issue(S, &bar[st], seg, rows, next * TE, count(next));
   }
 }
 
-template <int KIND>
-int launch(const Inputs& in, int E, int Np, cudaStream_t s) {
-  const int KP = (3 * Np + 3) / 4 * 4;
-  const int threads = (Np + 31) / 32 * 32;
-  if (E <= 0 || Np <= 0 || threads > MAX_THREADS)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)TE * NQ * KP * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      volume_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+bool aligned(const float* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int KIND, int NQ>
+int launch(const Inputs& in, int E, cudaStream_t s) {
+  using L = Layout<KIND, NQ>;
+  constexpr int TE = L::TE;
+  for (int a = 0; a < 3; ++a)
+    if (in.strides.at(a) <= 0 || in.strides.at(a) > L::NP)
+      return (int)cudaErrorInvalidValue;
+  constexpr bool DRYK = KIND == DRY || KIND == DRY_REMAINDER;
+  const float* runs[] = {in.qv, DRYK ? in.phi : in.p, in.pref, in.xiv, in.M,
+                         in.MI, L::F2 ? in.gl2 : L::REM ? in.ref3 : in.qv,
+                         L::F2 ? in.nu : in.qv};
+  for (const float* ptr : runs)
+    if (!aligned(ptr)) return (int)cudaErrorMisalignedAddress;
+  static int2 cache[16];
+  int grid = 0;
+  cudaError_t err = tile::persistent_grid(volume_kernel<KIND, NQ>, THREADS,
+                                          L::BYTES, (E + TE - 1) / TE, cache,
+                                          &grid);
   if (err != cudaSuccess) return (int)err;
-  volume_kernel<KIND><<<(E + TE - 1) / TE, threads, smem, s>>>(in, E, Np,
-                                                                 KP);
+  volume_kernel<KIND, NQ><<<grid, THREADS, L::BYTES, s>>>(in, E);
   return (int)cudaGetLastError();
+}
+
+// The branch KIND at the order of Np (tile::by_order).
+template <int KIND>
+int launch_order(const Inputs& in, int E, int Np, cudaStream_t s) {
+  if (E <= 0) return (int)cudaErrorInvalidValue;
+  return tile::by_order(Np, [&](auto nq) {
+    return launch<KIND, decltype(nq)::value>(in, E, s);
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// fused_volume_tendency_vm on `stream`: wt is Wdiv transposed and padded to
-// [KP][Np] (KP = 3*Np rounded up to a multiple of 4, rows >= 3Np zero).  gl2
-// and nu are read only with has_f2 != 0.  Returns the CUDA error code of the
-// launch (0 on success).
+// fused_volume_tendency_vm on `stream`: Wdiv as its line table (lines
+// [3][NQ][NQ] and the node strides s0, s1, s2 of the three directions'
+// lines; dg/line_ops.py), Np = NQ^3 with NQ = 2..6 (tile::by_order),
+// every input 16-byte aligned.  gl2 and nu are read only with has_f2 !=
+// 0.  Returns the CUDA error code of the launch (0 on success).
 int volume_vm_f32(const void* qv, const void* p, const void* pref,
                   const void* xiv, const void* M, const void* MI,
-                  const void* gl2, const void* nu, const void* wt, void* out,
-                  int E, int Np, int has_f2, void* stream) {
+                  const void* gl2, const void* nu, const void* lines,
+                  void* out, int E, int Np, int has_f2, int s0, int s1,
+                  int s2, void* stream) {
   Inputs in{};
   in.qv = static_cast<const float*>(qv);
   in.p = static_cast<const float*>(p);
@@ -302,22 +427,24 @@ int volume_vm_f32(const void* qv, const void* p, const void* pref,
   in.xiv = static_cast<const float*>(xiv);
   in.M = static_cast<const float*>(M);
   in.MI = static_cast<const float*>(MI);
-  in.wt = static_cast<const float*>(wt);
+  in.lines = static_cast<const float*>(lines);
+  in.strides = tile::Strides{{s0, s1, s2}};
   in.out = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return has_f2 ? launch<P_GIVEN_F2>(in, E, Np, s)
-                : launch<P_GIVEN>(in, E, Np, s);
+  return has_f2 ? launch_order<P_GIVEN_F2>(in, E, Np, s)
+                : launch_order<P_GIVEN>(in, E, Np, s);
 }
 
-// dry_volume_tendency on `stream`, wt as above.  ref3 is read only with
-// remainder != 0 (lin_dims = (2,), lin_gravity).  R_d, inv_cv = 1/cv_d,
-// T_0 and R_over_cv = R_d/cv_d are the float32 values of the constants.
-// Returns the CUDA error code of the launch (0 on success).
+// dry_volume_tendency on `stream`, lines and strides as above.  ref3 is
+// read only with remainder != 0 (lin_dims = (2,), lin_gravity).  R_d,
+// inv_cv = 1/cv_d, T_0 and R_over_cv = R_d/cv_d are the float32 values of
+// the constants.  Returns the CUDA error code of the launch (0 on
+// success).
 int dry_volume_f32(const void* qv, const void* phi, const void* pref,
                    const void* ref3, const void* xiv, const void* M,
-                   const void* MI, const void* wt, void* out, int E, int Np,
-                   int remainder, float R_d, float inv_cv, float T_0,
-                   float R_over_cv, void* stream) {
+                   const void* MI, const void* lines, void* out, int E,
+                   int Np, int remainder, int s0, int s1, int s2, float R_d,
+                   float inv_cv, float T_0, float R_over_cv, void* stream) {
   Inputs in{};
   in.qv = static_cast<const float*>(qv);
   in.phi = static_cast<const float*>(phi);
@@ -326,15 +453,16 @@ int dry_volume_f32(const void* qv, const void* phi, const void* pref,
   in.xiv = static_cast<const float*>(xiv);
   in.M = static_cast<const float*>(M);
   in.MI = static_cast<const float*>(MI);
-  in.wt = static_cast<const float*>(wt);
+  in.lines = static_cast<const float*>(lines);
+  in.strides = tile::Strides{{s0, s1, s2}};
   in.out = static_cast<float*>(out);
   in.R_d = R_d;
   in.inv_cv = inv_cv;
   in.T_0 = T_0;
   in.R_over_cv = R_over_cv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return remainder ? launch<DRY_REMAINDER>(in, E, Np, s)
-                   : launch<DRY>(in, E, Np, s);
+  return remainder ? launch_order<DRY_REMAINDER>(in, E, Np, s)
+                   : launch_order<DRY>(in, E, Np, s);
 }
 
 const char* volume_vm_error_string(int code) {

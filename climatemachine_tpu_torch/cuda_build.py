@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled with nvcc for ``sm_90a`` into a shared
 library with a plain C interface, ``_build/lib<name>_<hash>.so`` inside the
-package (named by the source's hash, so an edited source is rebuilt), and
+package (named by the hash of the source and of csrc/'s headers, so an
+edited source or header is rebuilt), and
 loaded with ctypes.  :func:`build` starts one nvcc per source, all at once,
 and waits for them together.
 """
@@ -31,9 +32,12 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    source = SOURCE_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by the hash of the source
+    and of the headers of csrc/ (which a source may include)."""
+    h = hashlib.sha256((SOURCE_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(*names: str) -> dict:
@@ -78,3 +82,13 @@ def build(*names: str) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` (built first if needed)."""
     return ctypes.CDLL(build(name)[name]["path"])
+
+
+def check_aligned(name: str, **tensors):
+    """Raise ValueError unless each tensor starts on a 16-byte boundary:
+    the kernels that stage their inputs with TMA bulk copies
+    (csrc/tile_pipeline.cuh) need it; a fresh allocation always does."""
+    for key, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} {key}: need a 16-byte aligned tensor, "
+                             f"got one at offset {t.data_ptr() % 16}")

@@ -20,7 +20,8 @@ module boundary, so here q is ``[E, 5, Np]`` and so is the tendency.
 Dispatch is by device: a CPU tensor takes
 :func:`dry_volume_tendency_plain`; any other tensor takes the kernel
 (the ``dry_volume_f32`` entry of csrc/volume_vm.cu, which shares the
-contraction of ``fused_volume_tendency_vm``) or raises.  The kernel covers
+sum-factorised contraction of ``fused_volume_tendency_vm`` and reads
+Wdiv through its line table) or raises.  The kernel covers p1-p5,
 float32, ``subtract_ref=True`` (the port's reference state always
 subtracts), ``lin_dims=()`` and ``lin_dims=(2,)`` with ``lin_gravity``;
 the plain version covers the whole JAX signature.
@@ -34,9 +35,9 @@ from climatemachine_tpu_torch.atmos.linear import (
     AtmosAcousticGravityLinearModel, AtmosAcousticLinearModel)
 from climatemachine_tpu_torch.atmos.model import AtmosModel
 from climatemachine_tpu_torch.dg.directions import direction_dims
+from climatemachine_tpu_torch.dg.line_ops import wdiv_lines
 from climatemachine_tpu_torch.dg.volume_kernel import (check_tensors, launch,
-                                                       volume_tendency_plain,
-                                                       wdiv_transposed)
+                                                       volume_tendency_plain)
 
 
 def dry_volume_tendency_plain(qv, phi, p_ref, ref3, xiv, M, MI, Wdiv,
@@ -92,12 +93,14 @@ def dry_volume_tendency(qv, phi, p_ref, ref3, xiv, M, MI, Wdiv, R_d: float,
     if lin_dims:
         more["ref3"] = (ref3, (E, 3, Np))
     check_tensors(qv, xiv, M, MI, Wdiv, **more)
+    lines = wdiv_lines(Wdiv)
     out = torch.empty_like(qv)
     launch("dry_volume_f32", qv, qv.data_ptr(), phi.data_ptr(),
            p_ref.data_ptr(), ref3.data_ptr() if lin_dims else None,
            xiv.data_ptr(), M.data_ptr(), MI.data_ptr(),
-           wdiv_transposed(Wdiv).data_ptr(), out.data_ptr(), E, Np,
-           int(bool(lin_dims)), R_d, 1.0 / cv_d, T_0, R_d / cv_d)
+           lines.values.data_ptr(), out.data_ptr(), E, Np,
+           int(bool(lin_dims)), *lines.strides, R_d, 1.0 / cv_d, T_0,
+           R_d / cv_d)
     dry_volume_tendency.launches += 1
     return out
 

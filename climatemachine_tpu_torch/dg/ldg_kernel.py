@@ -21,7 +21,11 @@ tensor takes the kernel (csrc/ldg_chain.cu) or raises.  The kernels
 apply ``Sel`` and ``LT`` as index gathers from
 :class:`~climatemachine_tpu_torch.dg.ldg_tables.FaceOps` and cover
 float32, n = 4 rows (u_h, h_tot) and nd = 2 directions (horizontal);
-each wrapper counts its launches in ``.launches``.
+K2 is sum-factorised: it reads ``Wd`` only through its line table
+(:func:`~climatemachine_tpu_torch.dg.line_ops.wd_lines`, which raises on
+an operator that is not a Kronecker line operator) and covers p1-p5
+(:data:`~climatemachine_tpu_torch.dg.line_ops.KERNEL_NQ`).  Each
+wrapper counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ import torch
 from climatemachine_tpu_torch import cuda_build
 from climatemachine_tpu_torch.dg.ldg_tables import (FaceOps, W_for, exchange,
                                                     geom, tables)
+from climatemachine_tpu_torch.dg.line_ops import (check_kernel_order,
+                                                  wd_lines)
 
 MAX_NP = 256          # one thread per node, at most 256 threads a block
 
@@ -142,7 +148,8 @@ def _library():
     lib = cuda_build.load("ldg_chain")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ldg_first_f32.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    lib.ldg_grad_to_div_f32.argtypes = ([ptr] * 6 + [i32] + [ptr] * 5
+    lib.ldg_grad_to_div_f32.argtypes = ([ptr] * 6 + [i32] + [ptr] * 2
+                                        + [i32] * 2 + [ptr] * 3
                                         + [i32] * 5 + [ptr])
     lib.ldg_div_to_grad_f32.argtypes = ([ptr] * 5 + [i32] + [ptr] * 5
                                         + [i32] * 5 + [ptr])
@@ -221,11 +228,15 @@ def ldg_grad_to_div(vol1, dj, w3, nrm, MI, xi, Wd, fo):
                        w3=(w3, (E, 3, F)), nrm=(nrm, (E, 3, F)),
                        MI=(MI, (E, Np)), xi=(xi, (E, nd * 3, Np)),
                        Wd=(Wd, (nd, Np, Np)))
+    check_kernel_order("ldg_grad_to_div", Np)
+    lines = wd_lines(Wd)
     div = torch.empty((E, n, Np), dtype=vol1.dtype, device=vol1.device)
     s = torch.empty((E, n, F), dtype=vol1.dtype, device=vol1.device)
+    cuda_build.check_aligned("ldg_grad_to_div", vol1=vol1, dj=dj, w3=w3,
+                             nrm=nrm, MI=MI, xi=xi)
     _launch("ldg_grad_to_div", "ldg_grad_to_div_f32", vol1, dj, w3, nrm, MI,
-            fo.lift_idx, fo.lift_idx.shape[1], xi, Wd, fo.sel_idx, div, s,
-            E, n, nd, Np, F)
+            fo.lift_idx, fo.lift_idx.shape[1], xi, lines.values,
+            *lines.strides, fo.sel_idx, div, s, E, n, nd, Np, F)
     ldg_grad_to_div.launches += 1
     return div, s
 

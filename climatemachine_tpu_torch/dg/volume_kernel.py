@@ -17,10 +17,13 @@ kernel covers what the dry Held-Suarez step runs: float32, ``nq=5``,
 DryBiharmonic (``ngl=4``).  The plain version covers the whole signature.
 
 The kernel is compiled at first use (cuda_build.py) and called through
-ctypes on PyTorch's current stream.  It reads Wdiv transposed and padded
-(:func:`wdiv_transposed`, built once per Wdiv tensor), as the generic
-operator's dry kernel (dg/dry_volume_kernel.py, the same CUDA source)
-does.
+ctypes on PyTorch's current stream.  It is sum-factorised: it reads
+Wdiv only through its line table
+(:func:`~climatemachine_tpu_torch.dg.line_ops.wdiv_lines`, built once per
+Wdiv tensor; it raises on an operator that is not a Kronecker line
+operator), as the generic operator's dry kernel
+(dg/dry_volume_kernel.py, the same CUDA source) does, and covers p1-p5
+(:data:`~climatemachine_tpu_torch.dg.line_ops.KERNEL_NQ`).
 """
 
 from __future__ import annotations
@@ -29,11 +32,10 @@ import ctypes
 import functools
 
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 from climatemachine_tpu_torch import cuda_build
-
-MAX_NP = 256          # one thread per node, at most 256 threads a block
+from climatemachine_tpu_torch.dg.line_ops import (check_kernel_order,
+                                                  wdiv_lines)
 
 
 def volume_tendency_plain(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
@@ -113,33 +115,14 @@ def volume_tendency_plain(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
     return MI[:, None, :] * torch.matmul(mf, Wdiv.T)
 
 
-_WT = WeakIdKeyDictionary()
-
-
-def wdiv_transposed(Wdiv):
-    """The volume kernels' copy of ``Wdiv [Np, 3Np]``: transposed and
-    zero-padded to ``[KP, Np]``, KP = 3Np rounded up to a multiple of 4.
-    Built once per Wdiv tensor, kept while it lives and rebuilt if it is
-    written in place."""
-    hit = _WT.get(Wdiv)
-    if hit is None or hit[0] != Wdiv._version:
-        Np = Wdiv.shape[0]
-        wt = torch.zeros(((3 * Np + 3) // 4 * 4, Np), dtype=Wdiv.dtype,
-                         device=Wdiv.device)
-        wt[:3 * Np] = Wdiv.T
-        hit = _WT[Wdiv] = (Wdiv._version, wt)
-    return hit[1]
-
-
 @functools.cache
 def _library():
     lib = cuda_build.load("volume_vm")
     lib.volume_vm_f32.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.volume_vm_f32.restype = ctypes.c_int
     lib.dry_volume_f32.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 4 + [
-        ctypes.c_void_p]
+        ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
     lib.dry_volume_f32.restype = ctypes.c_int
     lib.volume_vm_error_string.argtypes = [ctypes.c_int]
     lib.volume_vm_error_string.restype = ctypes.c_char_p
@@ -175,16 +158,15 @@ def _check_kernel_args(qv, p, p_ref, gl2, nu, xiv, M, MI, Wdiv, nq, ngl,
 
 
 def check_tensors(qv, xiv, M, MI, Wdiv, **more):
-    """Raise ValueError unless qv ``[E, 5, Np]`` is a CUDA tensor with Np
-    ≤ MAX_NP and it, the common operands and ``more`` (name → (tensor,
-    shape)) are contiguous float32 tensors of their shapes on its
-    device."""
+    """Raise ValueError unless qv ``[E, 5, Np]`` is a CUDA tensor of an
+    order the kernels are built for and it, the common operands and
+    ``more`` (name → (tensor, shape)) are contiguous, 16-byte aligned
+    float32 tensors of their shapes on its device."""
     if qv.device.type != "cuda":
         raise ValueError(f"the volume kernels run on CUDA tensors, got "
                          f"{qv.device}")
     E, _, Np = qv.shape
-    if not 0 < Np <= MAX_NP:
-        raise ValueError(f"the volume kernels take Np <= {MAX_NP}, got {Np}")
+    check_kernel_order("volume", Np)
     shapes = {"qv": (qv, (E, 5, Np)), "xiv": (xiv, (E, 9, Np)),
               "M": (M, (E, Np)), "MI": (MI, (E, Np)),
               "Wdiv": (Wdiv, (Np, 3 * Np)), **more}
@@ -194,6 +176,8 @@ def check_tensors(qv, xiv, M, MI, Wdiv, **more):
             raise ValueError(
                 f"{name}: need a contiguous float32 {shape} tensor on "
                 f"{qv.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    cuda_build.check_aligned("volume",
+                             **{name: t for name, (t, _) in shapes.items()})
 
 
 def fused_volume_tendency_vm(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
@@ -217,13 +201,14 @@ def fused_volume_tendency_vm(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
     _check_kernel_args(qv, p, p_ref, gl2, nu, xiv, M, MI, Wdiv, nq, ngl,
                        subtract_ref, has_f2, lin_dims)
     E, _, Np = qv.shape
+    lines = wdiv_lines(Wdiv)
     out = torch.empty_like(qv)
     launch("volume_vm_f32", qv, qv.data_ptr(), p.data_ptr(), p_ref.data_ptr(),
            xiv.data_ptr(), M.data_ptr(), MI.data_ptr(),
            gl2.data_ptr() if has_f2 else None,
            nu.data_ptr() if has_f2 else None,
-           wdiv_transposed(Wdiv).data_ptr(), out.data_ptr(), E, Np,
-           int(has_f2))
+           lines.values.data_ptr(), out.data_ptr(), E, Np, int(has_f2),
+           *lines.strides)
     fused_volume_tendency_vm.launches += 1
     return out
 

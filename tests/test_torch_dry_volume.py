@@ -28,7 +28,6 @@ import torch
 from climatemachine_tpu.dg import pallas_volume as jax_pallas_volume
 from climatemachine_tpu_torch.dg.dry_volume_kernel import (
     dry_volume_tendency, dry_volume_tendency_plain)
-from climatemachine_tpu_torch.dg.volume_kernel import wdiv_transposed
 from climatemachine_tpu_torch.physics.parameters import EARTH
 
 E, NP = 32, 64
@@ -119,21 +118,3 @@ def test_jax_kernel_rounds_its_contraction_to_float32(monkeypatch):
     assert err32.max() < 1e-6, err32
     err = _rel_err(got, _jax_kernel_full_precision(monkeypatch, args, **kw))
     assert err32.max() > 1e3 * err.max()
-
-
-def test_wdiv_transposed_built_once_per_matrix():
-    """The kernels' padded transpose of Wdiv is built once per tensor,
-    and again after the tensor is written in place."""
-    Wdiv = torch.as_tensor(np.random.default_rng(0).standard_normal(
-        (NP, 3 * NP)))
-    wt = wdiv_transposed(Wdiv)
-    assert wt.shape == (3 * NP, NP)            # 3·64 is a multiple of 4
-    torch.testing.assert_close(wt, Wdiv.T, rtol=0, atol=0)
-    assert wdiv_transposed(Wdiv) is wt
-    odd = torch.ones((5, 15), dtype=torch.float64)
-    wt5 = wdiv_transposed(odd)
-    assert wt5.shape == (16, 5) and not wt5[15:].any()
-    Wdiv.mul_(2.0)
-    wt2 = wdiv_transposed(Wdiv)
-    assert wt2 is not wt
-    torch.testing.assert_close(wt2, Wdiv.T, rtol=0, atol=0)
