@@ -41,8 +41,8 @@ filter:
   ``IMEXSolverType(columnwise_solver="dense")`` (35 steps, the dense
   column solver, the fused remainder), the f64-table gate on both IMEX
   paths;
-- the sum-factorised kernels (K2, the volume kernel with and without
-  F₂, both dry branches) at the other orders they are built for, p1,
+- the sum-factorised kernels (K1, K2, K3, the volume kernel with and
+  without F₂, both dry branches) at the other orders they are built for, p1,
   p2, p3 and p5, on a 48-element grid: each against its plain version
   on all elements and on the first 37, then the var-major and the
   generic RHS with their defaults against the ones with every stage's
@@ -65,13 +65,14 @@ Each volume and chain kernel reports two bounds, one with the
 derivative products counted dense (Np terms per node and direction) and
 one with them sum-factorised (Nq terms: Wd and Wdiv are Kronecker
 operators), which leaves every kernel bound by bytes.  ``bound_ms`` is
-the count of the work the kernel does: sum-factorised for K2 and the
-volume kernels (``bound_dense_ms`` beside it), dense for K1 and K3
-(``bound_sumfact_ms`` beside it).  The layout kernels move bytes only:
+the count of the work the kernel does: sum-factorised for K1-K3 and the
+volume kernels (``bound_dense_ms`` beside it); K4 has no derivative
+(``bound_sumfact_ms``, the same, beside it).  The layout kernels move
+bytes only:
 each input read once, each output written once; they and ``permute(...)
 .contiguous()``, the one PyTorch call computing the same function, are
 timed in interleaved rounds of CUDA-graph replays over rotating inputs
-(cold L2; ``ms_warm`` on one input), and so are K2 and the volume
+(cold L2; ``ms_warm`` on one input), and so are K1-K3 and the volume
 kernels, with their plain versions in the same rounds; these are also
 held against their plain versions on the first 37 elements of their
 inputs (a partial last tile).  Every other kernel's ``ms`` is the mean
@@ -137,10 +138,22 @@ Tolerances:
 - mass Σ M ρ, summed in float64: relative drift <= 1e-5 over each path
   (float32 round-off; F₂ carries no mass flux, and the filter keeps each
   element's mode 0 but is not exactly conservative on curved elements);
-- kernel_orders: each kernel as above, on all elements and on the first
-  37; each RHS per variable within 1e-3 · max|plain-stage RHS|, the
-  generic RHS's tolerance below (the card gives at most 3.3e-7 at p1-p5
-  on an NVIDIA H100 80GB HBM3);
+- kernel_orders: each kernel on all elements and on the first 37,
+  per output within KERNEL_TOL · max|reference| of its plain version on
+  the card (float32) or of its plain version in float64 (on the CPU,
+  from the same float32 inputs). Neither reference alone separates
+  right from wrong at 1e-5 (NVIDIA H100 80GB HBM3): at 48 elements the
+  card's cuBLAS sums the plain derivative product in another order than
+  the kernels (and cuBLAS at the bench shape) do, and at p5 the float32
+  round-off of K1's derivative of h_tot then puts the card's plain
+  version 1.8e-5 of max|plain| from float64 and 1.55e-5 from the
+  kernel, which is 6.3e-6 from float64; the dry kernel at p1 equals its
+  plain version on the card bit for bit, and both are 7.9e-5 from
+  float64 (the float32 function's own round-off).  Both errors, the
+  card's plain version against float64 and which reference held are
+  reported; each RHS per variable within 1e-3 · max|plain-stage RHS|,
+  the generic RHS's tolerance below (the card gives at most 3.3e-7 at
+  p1-p5 on an NVIDIA H100 80GB HBM3);
 - the generic RHS on the card against the RHS with every stage's plain
   version, the all-plain RHS and the var-major RHS, from the same
   perturbed state: per variable, max|Δ| <= 1e-3 · max|other| — float32
@@ -233,8 +246,8 @@ LAYOUT_ROUNDS, LAYOUT_LAUNCHES, LAYOUT_INPUTS = 9, 20, 4
 #: the sum-factorised kernels: timed as the layout kernels are (graph-
 #: cold rounds, the plain version in the same rounds), bound by their
 #: sum-factorised work, and held on a tail of TAIL_E elements as well
-SUMFACT = ("fused_volume_tendency_vm", "ldg_grad_to_div",
-           "dry_volume_tendency")
+SUMFACT = ("fused_volume_tendency_vm", "ldg_first", "ldg_grad_to_div",
+           "ldg_div_to_grad", "dry_volume_tendency")
 KERNEL_ROUNDS, KERNEL_LAUNCHES, KERNEL_INPUTS = 9, 20, 4
 #: an element count that is no multiple of the kernels' 4-element tile
 TAIL_E = 37
@@ -337,11 +350,11 @@ def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
     its dense matrix, or sum-factorised the Nq × Nq weights of each
     direction's lines; of ν only its first row, ν₄); the 0/1 face
     selection and lift as data movement.  The derivative products are
-    counted ``dense`` (Np terms per node and direction, as K1, K3 and the
-    TPU kernels compute them) or sum-factorised (Wd and Wdiv are
-    Kronecker operators with Nq nonzeros a row, as K2 and the volume
-    kernels compute them).  Per node, the volume tendency does 2·5·3
-    terms for the contraction, 111 for flux, metric and mass, 106 for F₂
+    counted ``dense`` (Np terms per node and direction, as the TPU
+    kernels compute them) or sum-factorised (Wd and Wdiv are Kronecker
+    operators with Nq nonzeros a row, as K1-K3 and the volume kernels
+    compute them).  Per node, the volume tendency does 2·5·3 terms for
+    the contraction, 111 for flux, metric and mass, 106 for F₂
     and 5 for the MI scaling; the dry volume tendency 13 more for its
     thermo (e_int, T, p from q and φ in place of p) and, with the
     remainder, 29 for the linear flux, reading ref3."""
@@ -417,10 +430,10 @@ def bounds(name: str, rhs, n: int, has_f2: bool = True, args=None,
            has_hyper: bool = True, remainder: bool = False) -> dict:
     """The kernel's bound, the larger of bytes over the memory rate and
     flops over the fp32 rate, for the work it does (``bound_ms``, the
-    kernels line's) and the other count: K1, K3 and K4 (dense products)
-    report ``bound_sumfact_ms`` beside it, the sum-factorised kernels and
-    the surface kernels (extraction and lift as a gather and a sum)
-    ``bound_dense_ms``."""
+    kernels line's) and the other count: K4 (no derivative: both counts
+    the same) reports ``bound_sumfact_ms`` beside it, the sum-factorised
+    kernels and the surface kernels (extraction and lift as a gather and
+    a sum) ``bound_dense_ms``."""
     g = rhs.grid
     nd, F = (rhs.chain.Wd.shape[0], rhs.chain.fo.F) if rhs.hd else (0, 0)
     out = {}
@@ -517,6 +530,24 @@ def yardstick(name, args, rhs, has_hyper: bool = True):
     return cuda_ms(lambda: torch.matmul(a, b), 50)
 
 
+def on_cpu_f64(args):
+    """``args`` with every tensor and the face tables on the CPU, the
+    floating ones in float64."""
+    def move(t):
+        return t.to("cpu", torch.float64) if t.is_floating_point() \
+            else t.cpu()
+    return tuple(
+        move(a) if isinstance(a, torch.Tensor)
+        else ldg_tables.FaceOps(*map(move, (a.Sel, a.LT, a.sel_idx,
+                                            a.lift_idx)))
+        if isinstance(a, ldg_tables.FaceOps) else a for a in args)
+
+
+def max_abs_diffs(got, ref) -> list:
+    return [(g.double().cpu() - r.double().cpu()).abs().max().item()
+            for g, r in zip(got, ref)]
+
+
 def compare(name, args, kw):
     """The kernel's and the plain version's outputs on ``args``: (max|Δ|
     per output, max|plain| per output, all outputs finite, the kernel's
@@ -548,9 +579,9 @@ def graph_rounds(name, args, kw) -> dict:
     """The kernel and its plain version in KERNEL_ROUNDS interleaved
     rounds of KERNEL_LAUNCHES CUDA-graph-replayed calls rotating through
     KERNEL_INPUTS copies of the inputs (cold L2: every copy of a
-    sum-factorised kernel's inputs is over 100 MB), as the layout kernels
-    are timed: medians with the kernel's min and max; ``ms_warm`` the
-    kernel's median on ``args`` alone."""
+    sum-factorised kernel's inputs is over 60 MB, the L2 50 MB), as the
+    layout kernels are timed: medians with the kernel's min and max;
+    ``ms_warm`` the kernel's median on ``args`` alone."""
     wrapper, plain, _, _ = KERNELS[name]
     E = args[0].shape[0]
     copies = [args] + [tuple(
@@ -1392,25 +1423,40 @@ def phase_generic(seed: int) -> dict:
 # --- the sum-factorised kernels at the other orders --------------------------
 
 def hold(name, args, kw) -> dict:
-    """The kernel against its plain version on ``args`` and on their first
-    TAIL_E elements: max|Δ| and max|plain| per output; raises if one is
-    not finite or off by more than KERNEL_TOL · max|plain|."""
+    """The kernel on ``args`` and on their first TAIL_E elements against
+    two references, its plain version on the card (float32) and in
+    float64 (on the CPU, from the same float32 inputs): per output max|Δ|
+    and max|reference| of each, and the card's plain version against
+    float64; raises if an output is not finite or off by more than
+    KERNEL_TOL · max|reference| from both references."""
+    wrapper, plain, _, _ = KERNELS[name]
     res = {}
     for key, a in (("all", args), ("tail", first_elements(args, TAIL_E))):
-        errs, scales, finite, _ = compare(name, a, kw)
-        res[key] = dict(max_abs_err_per_output=errs,
-                        max_abs_plain_per_output=scales)
-        check(finite, (name, key, "output not finite"))
-        check(all(e <= KERNEL_TOL * sc for e, sc in zip(errs, scales)),
-              (name, key, "kernel vs plain", errs, scales))
+        out, card = wrapper(*a, **kw), plain(*a, **kw)
+        f64 = plain(*on_cpu_f64(a), **kw)
+        out, card, f64 = (o if isinstance(o, tuple) else (o,)
+                          for o in (out, card, f64))
+        refs = {"card_plain": card, "float64": f64}
+        errs = {r: max_abs_diffs(out, ref) for r, ref in refs.items()}
+        scales = {r: [x.abs().max().item() for x in ref]
+                  for r, ref in refs.items()}
+        held_by = [[r for r in refs if errs[r][i] <= KERNEL_TOL
+                    * scales[r][i]] for i in range(len(out))]
+        res[key] = dict(
+            max_abs_err_per_output=errs, max_abs_ref_per_output=scales,
+            card_plain_err_f64_per_output=max_abs_diffs(card, f64),
+            held_by=held_by)
+        check(all(bool(torch.isfinite(o).all()) for o in out),
+              (name, key, "output not finite"))
+        check(all(held_by), (name, key, "kernel vs plain", errs, scales))
     return res
 
 
 def phase_kernel_orders(seed: int):
     """The sum-factorised kernels at each of EDGE_ORDERS on a small grid's
     perturbed state (48 elements: a partial last tile at 4 and at 2
-    elements a tile): K2 and the volume kernel with and without F₂ on the
-    var-major RHS's inputs, the dry kernel on the generic RHS's and the
+    elements a tile): K1-K3 and the volume kernel with and without F₂ on
+    the var-major RHS's inputs, the dry kernel on the generic RHS's and the
     fused remainder's, each held on all elements and on the first TAIL_E;
     then the var-major RHS and the generic RHS with their defaults (the
     kernels) against the ones with every stage's plain version."""
@@ -1424,8 +1470,7 @@ def phase_kernel_orders(seed: int):
         aux = cfg.model.update_auxiliary_state(q, aux0)
         rhs = VarMajorRHS(dg)
         glv, inputs = chain_inputs(rhs, q, aux0)
-        cases = {"ldg_grad_to_div": ("ldg_grad_to_div",
-                                     inputs["ldg_grad_to_div"], {})}
+        cases = {name: (name, inputs[name], {}) for name in CHAIN[:3]}
         for f2 in (True, False):
             cases["fused_volume_tendency_vm" + ("" if f2 else "_no_f2")] = (
                 "fused_volume_tendency_vm",

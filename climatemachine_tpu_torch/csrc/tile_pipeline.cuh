@@ -1,5 +1,5 @@
 // Double-buffered tile staging for the persistent, sum-factorised DG
-// kernels (ldg_chain.cu's K2, volume_vm.cu), on Hopper (sm_90a).
+// kernels (ldg_chain.cu's K1-K3, volume_vm.cu), on Hopper (sm_90a).
 //
 // A block walks tiles of TE consecutive elements.  Every per-element
 // input is contiguous over a tile, so one thread stages a tile with one
@@ -8,14 +8,16 @@
 // stage, the next tile's copies land in the other.  A bulk copy moves a
 // multiple of 16 bytes from and to 16-byte aligned addresses: with TE
 // times an element's floats a multiple of 4 every full tile's run is such
-// a multiple (TE = 4 at any order; at p4 chunks of 500, 1200, 1600, 3000
-// or 6000 bytes an element; at p5, Np = 216, every chunk is a multiple of
+// a multiple (TE = 4 at any order; at p4 chunks of 400, 500, 1200, 1600,
+// 2000, 3000 or 6000 bytes an element; at p5, Np = 216, every chunk is a multiple of
 // 16 bytes and TE = 2 also does), and the last, partial tile copies the
 // run's 16-byte floor and its threads load the <= 3 floats left over
 // (fill_tail).  Rows that sit at a stride whose start is only 8-byte
 // aligned (nu's first lane, 8 Np bytes apart: at odd Np) take one copy
 // per element from the 16-byte boundary below the row, into a slot of
-// their own; the reader adds the row's shift (row_shift).
+// their own; the reader adds the row's shift (row_shift).  An output tile
+// staged in shared memory can leave the same way, as one bulk copy to
+// global memory (bulk_store), which runs while the block goes on.
 
 #pragma once
 
@@ -95,6 +97,27 @@ __device__ __forceinline__ void bulk_load(float* dst, const float* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
       :: "r"(smem(dst)), "l"(src), "r"(bytes), "r"(smem(bar)) : "memory");
+}
+
+// One thread: a bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from shared to global memory, committed as its own group.
+// The writers of `src` run fence_async_proxy() and a barrier before it.
+__device__ __forceinline__ void bulk_store(float* dst, const float* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n"
+      :: "l"(dst), "r"(smem(src)), "r"(bytes) : "memory");
+}
+
+// Run by the thread that issued the bulk stores: waits until they have
+// read their shared memory (which may then be written again), or (at the
+// block's end) until they are done.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t floor16(uint32_t bytes) {

@@ -21,9 +21,9 @@ tensor takes the kernel (csrc/ldg_chain.cu) or raises.  The kernels
 apply ``Sel`` and ``LT`` as index gathers from
 :class:`~climatemachine_tpu_torch.dg.ldg_tables.FaceOps` and cover
 float32, n = 4 rows (u_h, h_tot) and nd = 2 directions (horizontal);
-K2 is sum-factorised: it reads ``Wd`` only through its line table
+K1-K3 are sum-factorised: they read ``Wd`` only through its line table
 (:func:`~climatemachine_tpu_torch.dg.line_ops.wd_lines`, which raises on
-an operator that is not a Kronecker line operator) and covers p1-p5
+an operator that is not a Kronecker line operator) and cover p1-p5
 (:data:`~climatemachine_tpu_torch.dg.line_ops.KERNEL_NQ`).  Each
 wrapper counts its launches in ``.launches``.
 """
@@ -42,8 +42,6 @@ from climatemachine_tpu_torch.dg.ldg_tables import (FaceOps, W_for, exchange,
                                                     geom, tables)
 from climatemachine_tpu_torch.dg.line_ops import (check_kernel_order,
                                                   wd_lines)
-
-MAX_NP = 256          # one thread per node, at most 256 threads a block
 
 
 @dataclass
@@ -147,11 +145,13 @@ def ldg_last_plain(vol3, dj3, w3, MI, fo):
 def _library():
     lib = cuda_build.load("ldg_chain")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ldg_first_f32.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.ldg_first_f32.argtypes = ([ptr] * 3 + [i32] * 2 + [ptr] * 3
+                                  + [i32] * 5 + [ptr])
     lib.ldg_grad_to_div_f32.argtypes = ([ptr] * 6 + [i32] + [ptr] * 2
                                         + [i32] * 2 + [ptr] * 3
                                         + [i32] * 5 + [ptr])
-    lib.ldg_div_to_grad_f32.argtypes = ([ptr] * 5 + [i32] + [ptr] * 5
+    lib.ldg_div_to_grad_f32.argtypes = ([ptr] * 5 + [i32] + [ptr] * 2
+                                        + [i32] * 2 + [ptr] * 3
                                         + [i32] * 5 + [ptr])
     lib.ldg_last_f32.argtypes = [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr]
     for fn in ("ldg_first_f32", "ldg_grad_to_div_f32",
@@ -173,9 +173,6 @@ def _check_kernel_args(name, ref, n, nd, fo, **tensors):
     if ref.device.type != "cuda":
         raise ValueError(f"the {name} kernel runs on CUDA tensors, got "
                          f"{ref.device}")
-    Np = ref.shape[-1]
-    if not 0 < Np <= MAX_NP:
-        raise ValueError(f"the {name} kernel takes Np <= {MAX_NP}, got {Np}")
     for key, (t, shape) in tensors.items():
         if t.device != ref.device or t.dtype != torch.float32 \
                 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -208,10 +205,13 @@ def ldg_first(x, xi, Wd, fo):
     nd, F = Wd.shape[0], fo.F
     _check_kernel_args("ldg_first", x, n, nd, fo, x=(x, (E, n, Np)),
                        xi=(xi, (E, nd * 3, Np)), Wd=(Wd, (nd, Np, Np)))
+    check_kernel_order("ldg_first", Np)
+    lines = wd_lines(Wd)
+    cuda_build.check_aligned("ldg_first", x=x, xi=xi)
     vol = torch.empty((E, 3, n, Np), dtype=x.dtype, device=x.device)
     rows = torch.empty((E, n, F), dtype=x.dtype, device=x.device)
-    _launch("ldg_first", "ldg_first_f32", x, xi, Wd, fo.sel_idx, vol, rows,
-            E, n, nd, Np, F)
+    _launch("ldg_first", "ldg_first_f32", x, xi, lines.values,
+            *lines.strides, fo.sel_idx, vol, rows, E, n, nd, Np, F)
     ldg_first.launches += 1
     return vol, rows
 
@@ -252,11 +252,15 @@ def ldg_div_to_grad(div, dj2, sM, MI, xi, Wd, fo):
                        div=(div, (E, n, Np)), dj2=(dj2, (E, n, F)),
                        sM=(sM, (E, F)), MI=(MI, (E, Np)),
                        xi=(xi, (E, nd * 3, Np)), Wd=(Wd, (nd, Np, Np)))
+    check_kernel_order("ldg_div_to_grad", Np)
+    lines = wd_lines(Wd)
+    cuda_build.check_aligned("ldg_div_to_grad", div=div, dj2=dj2, sM=sM,
+                             MI=MI, xi=xi)
     vol = torch.empty((E, 3, n, Np), dtype=div.dtype, device=div.device)
     rows = torch.empty((E, n, F), dtype=div.dtype, device=div.device)
     _launch("ldg_div_to_grad", "ldg_div_to_grad_f32", div, dj2, sM, MI,
-            fo.lift_idx, fo.lift_idx.shape[1], xi, Wd, fo.sel_idx, vol, rows,
-            E, n, nd, Np, F)
+            fo.lift_idx, fo.lift_idx.shape[1], xi, lines.values,
+            *lines.strides, fo.sel_idx, vol, rows, E, n, nd, Np, F)
     ldg_div_to_grad.launches += 1
     return vol, rows
 

@@ -13,7 +13,13 @@ kernels read in place of the dense ``Wd`` and ``Wdiv``, on the CPU:
 - a table is built once per operator tensor and rebuilt after the
   tensor is written in place;
 - a gather through the tables equals the dense ``torch.matmul`` in
-  float64 within 1e-13 of max|dense|;
+  float64 within 1e-13 of max|dense|, at p1-p5;
+- K1's and K3's contraction as the CUDA kernels compute it, through
+  the tables the kernels build (each node's line base and position, the
+  transposed lift table, sel) and their flat offsets, equals their plain
+  versions
+  (``ldg_first_plain``, ``ldg_div_to_grad_plain``) in float64 within
+  1e-13 of max|plain|, at p1-p5;
 - the wrappers' order check accepts exactly the orders that the CUDA
   sources dispatch on (csrc/tile_pipeline.cuh:by_order).
 """
@@ -25,11 +31,14 @@ import numpy as np
 import pytest
 import torch
 
+from climatemachine_tpu_torch.dg import ldg_kernel
 from climatemachine_tpu_torch.dg.ldg_tables import W_for
 from climatemachine_tpu_torch.dg.line_ops import (KERNEL_NQ,
                                                   check_kernel_order,
                                                   line_ops, wd_lines,
                                                   wdiv_lines)
+from climatemachine_tpu_torch.dg.spatial import (direction_dims,
+                                                 direction_faces)
 from climatemachine_tpu_torch.experiments.held_suarez import \
     held_suarez_config
 
@@ -142,7 +151,7 @@ def _gather(tab, x):
     return torch.stack(out, dim=-2)
 
 
-@pytest.mark.parametrize("poly", (3, 4))
+@pytest.mark.parametrize("poly", [nq - 1 for nq in KERNEL_NQ])
 def test_gather_through_tables_equals_dense_matmul(poly):
     Wd, Wdiv = _operators(poly, torch.float64)
     Np = Wdiv.shape[0]
@@ -158,6 +167,93 @@ def test_gather_through_tables_equals_dense_matmul(poly):
     parts = _gather(wdiv_lines(Wdiv), mf.reshape(6, 5, 3, Np))
     got = parts[..., 0, 0, :] + parts[..., 1, 1, :] + parts[..., 2, 2, :]
     assert (got - dense).abs().max() <= 1e-13 * dense.abs().max()
+
+
+def _kernel_tables(lines, lift_idx, sel_idx):
+    """K1's and K3's shared-memory tables as load_tables
+    (csrc/ldg_chain.cu) fills them, as flat int tables: ``info[a·Np + m]
+    = base | position << 16`` of node m's line along direction a, the
+    lift table transposed ``liftT[l·Np + k] = lift[k·L + l]`` and
+    ``sels``."""
+    nq, Np, L = lines.nq, lines.nq ** 3, lift_idx.shape[1]
+    i = torch.arange(len(lines.strides) * Np)
+    a, m = i // Np, i % Np
+    st = torch.tensor(lines.strides)[a]
+    q = (m // st) % nq
+    info = (m - q * st) | (q << 16)
+    i = torch.arange(L * Np)
+    l, k = i // Np, i % Np
+    liftT = lift_idx.long().reshape(-1)[k * L + l]
+    return info, liftT, sel_idx.long()
+
+
+def _kernel_lift(div, dj2, sM, MI, liftT):
+    """K3's prologue through the kernel's tables: lap[v][k] = div + MI[k]
+    · Σ_l sM[f]·dj2[v][f] over f = liftT[l·Np + k] ≥ 0 in ascending l."""
+    Np = div.shape[-1]
+    acc = torch.zeros_like(div)
+    for col in liftT.reshape(-1, Np):             # one slot l, all k
+        ok = col >= 0
+        f = col.clamp(min=0)
+        acc = acc + torch.where(ok, sM[:, None, f] * dj2[..., f], 0.0)
+    return div + MI[:, None, :] * acc
+
+
+def _kernel_grad(x, xi, lines, info, sels):
+    """K1 (and K3 after its prologue) through the kernel's tables and flat
+    offsets: rows[i] = x[r·Np + sels[f]] for i = r·F + f, r = e·N + v;
+    per direction a the weights ``lines[(a·Nq + (info >> 16))·Nq + j]``
+    times x at ``(info & 0xffff) + j·strides[a]`` in ascending j;
+    vol[c][v] = ξ[c]·d₀ + ξ[3+c]·d₁."""
+    E, N, Np = x.shape
+    nq, F = lines.nq, sels.shape[0]
+    flat = x.reshape(E * N, Np)
+    i = torch.arange(E * N * F)
+    r, f = i // F, i % F
+    rows = x.reshape(-1)[r * Np + sels[f]].reshape(E, N, F)
+    w = lines.values.reshape(-1)
+    d = []
+    for a, s in enumerate(lines.strides):
+        inf = info[a * Np:(a + 1) * Np]
+        base, row = inf & 0xFFFF, (a * nq + (inf >> 16)) * nq
+        acc = torch.zeros_like(flat)
+        for j in range(nq):
+            acc = acc + flat[:, base + j * s] * w[row + j]
+        d.append(acc.reshape(E, N, Np))
+    vol = torch.stack([xi[:, c, None] * d[0] + xi[:, 3 + c, None] * d[1]
+                       for c in range(3)], dim=1)
+    return vol, rows
+
+
+CHAIN_CASES = [(stage, nq - 1) for stage in ("ldg_first", "ldg_div_to_grad")
+               for nq in KERNEL_NQ]
+
+
+@pytest.mark.parametrize("stage,poly", CHAIN_CASES,
+                         ids=[f"{s}-p{p}" for s, p in CHAIN_CASES])
+def test_chain_grad_through_lines_equals_plain(stage, poly):
+    g = held_suarez_config(1, 1, poly, dtype=torch.float64,
+                           hyperdiffusion_tau=None, device="cpu").grid
+    ops = ldg_kernel.chain_operators(g, direction_dims("horizontal", 3),
+                                     direction_faces("horizontal", 3))
+    E, Np, F = g.nelem, g.Np, ops.fo.F
+    rng = np.random.default_rng(poly)
+    x = torch.as_tensor(rng.standard_normal((E, 4, Np)))
+    if stage == "ldg_first":
+        ref = ldg_kernel.ldg_first_plain(x, ops.xi, ops.Wd, ops.fo)
+    else:
+        dj2 = torch.as_tensor(rng.standard_normal((E, 4, F)))
+        ref = ldg_kernel.ldg_div_to_grad_plain(x, dj2, ops.sM, ops.MI,
+                                               ops.xi, ops.Wd, ops.fo)
+    lines = wd_lines(ops.Wd)
+    info, liftT, sels = _kernel_tables(lines, ops.fo.lift_idx,
+                                       ops.fo.sel_idx)
+    if stage == "ldg_div_to_grad":
+        x = _kernel_lift(x, dj2, ops.sM, ops.MI, liftT)
+    got = _kernel_grad(x, ops.xi, lines, info, sels)
+    for o, r in zip(got, ref):
+        assert o.shape == r.shape
+        assert (o - r).abs().max() <= 1e-13 * r.abs().max()
 
 
 def test_order_check_matches_the_cuda_dispatch():
