@@ -41,12 +41,12 @@ filter:
   ``IMEXSolverType(columnwise_solver="dense")`` (35 steps, the dense
   column solver, the fused remainder), the f64-table gate on both IMEX
   paths;
-- the sum-factorised kernels (K1, K2, K3, the volume kernel with and
-  without F₂, both dry branches) at the other orders they are built for, p1,
-  p2, p3 and p5, on a 48-element grid: each against its plain version
-  on all elements and on the first 37, then the var-major and the
-  generic RHS with their defaults against the ones with every stage's
-  plain version (kernel_orders).
+- the staged kernels (K1-K4, the volume kernel with and without F₂,
+  both dry branches) at the other orders they are built for, p1, p2, p3
+  and p5, on a 48-element grid: each against its plain version on all
+  elements and on the first 37, then the var-major and the generic RHS
+  with their defaults against the ones with every stage's plain version
+  (kernel_orders).
 Copied into a checkout of an earlier commit that has the same modules
 and run there, the script measures that commit's kernels by the same
 method, so two designs compare in one call.
@@ -61,27 +61,24 @@ remainder branch from the dense one) and, last, ``{"ok": true,
 "device": ...}``.  Any failure raises and exits non-zero without the
 last line.  Without a CUDA device it exits 1 at once.
 
-Each volume and chain kernel reports two bounds, one with the
-derivative products counted dense (Np terms per node and direction) and
-one with them sum-factorised (Nq terms: Wd and Wdiv are Kronecker
-operators), which leaves every kernel bound by bytes.  ``bound_ms`` is
-the count of the work the kernel does: sum-factorised for K1-K3 and the
-volume kernels (``bound_dense_ms`` beside it); K4 has no derivative
-(``bound_sumfact_ms``, the same, beside it).  The layout kernels move
-bytes only:
-each input read once, each output written once; they and ``permute(...)
-.contiguous()``, the one PyTorch call computing the same function, are
-timed in interleaved rounds of CUDA-graph replays over rotating inputs
-(cold L2; ``ms_warm`` on one input), and so are K1-K3 and the volume
-kernels, with their plain versions in the same rounds; these are also
-held against their plain versions on the first 37 elements of their
-inputs (a partial last tile).  Every other kernel's ``ms`` is the mean
-of 50 eager launches on one input between two CUDA events.  Each entry
-of the kernels line names its method in ``timing``
-("graph_cold_median" or "eager_warm_mean").  The surface kernels' work is
-a gather and at most ~130 flops a face lane, so bytes bound them
-(``bound_ms``); ``bound_dense_ms`` counts the extraction and the lift as
-the dense products the TPU kernels compute.
+Each volume and chain kernel reports two bounds: ``bound_ms`` counts
+the work the kernel does, the derivative products sum-factorised (Nq
+terms: Wd and Wdiv are Kronecker operators), which leaves every kernel
+bound by bytes; ``bound_dense_ms`` counts them dense (Np terms per node
+and direction, as the TPU kernels compute them; K4 has no derivative,
+so its two are the same).  The surface kernels' work is a gather and at
+most ~130 flops a face lane, so bytes bound them (``bound_ms``);
+``bound_dense_ms`` counts the extraction and the lift as the dense
+products the TPU kernels compute.  The layout kernels move bytes only:
+each input read once, each output written once.  Every kernel is timed
+in interleaved rounds of CUDA-graph replays over rotating inputs (cold
+L2; ``ms_warm`` on one input), with its plain version in the same
+rounds and, for the layout kernels, ``permute(...).contiguous()``, the
+one PyTorch call computing the same function; each entry of the
+kernels line names the method in ``timing`` ("graph_cold_median").
+The staged kernels (K1-K4, the volume kernels) are also held against
+their plain versions on the first 37 elements of their inputs (a
+partial last tile).
 
 Tolerances:
 - kernel vs plain, same inputs (the chain intermediates and the volume
@@ -243,15 +240,15 @@ LAYOUT_EDGE_DIMS = ((24, 3, 5, 5, 25), (37, 2, 5, 5, 25), (96, 4, 5, 4, 16))
 #: the layout kernels' timing: interleaved rounds of launches rotating
 #: through distinct inputs (4 × 30.72 MB > the 50 MB L2)
 LAYOUT_ROUNDS, LAYOUT_LAUNCHES, LAYOUT_INPUTS = 9, 20, 4
-#: the sum-factorised kernels: timed as the layout kernels are (graph-
-#: cold rounds, the plain version in the same rounds), bound by their
-#: sum-factorised work, and held on a tail of TAIL_E elements as well
-SUMFACT = ("fused_volume_tendency_vm", "ldg_first", "ldg_grad_to_div",
-           "ldg_div_to_grad", "dry_volume_tendency")
+#: the staged kernels (persistent blocks over tiles of 4 elements): held
+#: on a tail of TAIL_E elements as well, and at the other orders
+#: (kernel_orders)
+TILED = ("fused_volume_tendency_vm", "ldg_first", "ldg_grad_to_div",
+         "ldg_div_to_grad", "ldg_last", "dry_volume_tendency")
 KERNEL_ROUNDS, KERNEL_LAUNCHES, KERNEL_INPUTS = 9, 20, 4
 #: an element count that is no multiple of the kernels' 4-element tile
 TAIL_E = 37
-#: the other orders the sum-factorised kernels are built for (p1-p5,
+#: the other orders the staged kernels are built for (p1-p5,
 #: dg/line_ops.py:KERNEL_NQ), held on a small grid (EDGE_GRID: n_horz,
 #: n_vert; 48 elements)
 EDGE_ORDERS = (1, 2, 3, 5)
@@ -430,16 +427,13 @@ def bounds(name: str, rhs, n: int, has_f2: bool = True, args=None,
            has_hyper: bool = True, remainder: bool = False) -> dict:
     """The kernel's bound, the larger of bytes over the memory rate and
     flops over the fp32 rate, for the work it does (``bound_ms``, the
-    kernels line's) and the other count: K4 (no derivative: both counts
-    the same) reports ``bound_sumfact_ms`` beside it, the sum-factorised
-    kernels and the surface kernels (extraction and lift as a gather and
-    a sum) ``bound_dense_ms``."""
+    kernels line's: derivatives sum-factorised, the surface kernels'
+    extraction and lift as a gather and a sum) and for the dense count
+    of the TPU kernels (``bound_dense_ms``)."""
     g = rhs.grid
     nd, F = (rhs.chain.Wd.shape[0], rhs.chain.fo.F) if rhs.hd else (0, 0)
     out = {}
-    keys = ((("", False), ("_dense", True)) if name in SURFACE + SUMFACT
-            else (("", True), ("_sumfact", False)))
-    for key, dense in keys:
+    for key, dense in (("", False), ("_dense", True)):
         if name in SURFACE:
             nbytes, flops = surface_costs(name, args, has_hyper, dense)
         else:
@@ -578,10 +572,10 @@ def first_elements(args, n: int):
 def graph_rounds(name, args, kw) -> dict:
     """The kernel and its plain version in KERNEL_ROUNDS interleaved
     rounds of KERNEL_LAUNCHES CUDA-graph-replayed calls rotating through
-    KERNEL_INPUTS copies of the inputs (cold L2: every copy of a
-    sum-factorised kernel's inputs is over 60 MB, the L2 50 MB), as the
-    layout kernels are timed: medians with the kernel's min and max;
-    ``ms_warm`` the kernel's median on ``args`` alone."""
+    KERNEL_INPUTS copies of the inputs (cold L2: every copy of a kernel's
+    inputs is over 60 MB, the L2 50 MB), as the layout kernels are
+    timed: medians with the kernel's min and max; ``ms_warm`` the
+    kernel's median on ``args`` alone."""
     wrapper, plain, _, _ = KERNELS[name]
     E = args[0].shape[0]
     copies = [args] + [tuple(
@@ -604,19 +598,16 @@ def graph_rounds(name, args, kw) -> dict:
 
 
 def kernel_vs_plain(name, args, rhs, n, **kw) -> dict:
-    """One kernel against its plain version on the same inputs, with its
-    time, the plain version's, a matmul yardstick and its bounds.  A
-    sum-factorised kernel is also run on the first TAIL_E elements of
-    the same inputs (a partial last tile): held against the plain version
-    there (whose product may round otherwise at that shape) and equal bit
-    for bit to its own full run's first TAIL_E elements; it is timed in
-    graph-cold rounds (:func:`graph_rounds`), every other kernel by the
-    mean of 50 eager launches on one input."""
-    wrapper, plain, _, _ = KERNELS[name]
+    """One kernel against its plain version on the same inputs, with both
+    times in graph-cold rounds (:func:`graph_rounds`), a matmul yardstick
+    and its bounds.  A staged kernel is also run on the first TAIL_E
+    elements of the same inputs (a partial last tile): held against the
+    plain version there (whose product may round otherwise at that shape)
+    and equal bit for bit to its own full run's first TAIL_E elements."""
     errs, scales, finite, out = compare(name, args, kw)
     hyper = kw.get("has_hyper", True)
-    if name in SUMFACT:
-        timing = graph_rounds(name, args, kw)
+    timing = graph_rounds(name, args, kw)
+    if name in TILED:
         tail_errs, tail_scales, tail_finite, tail = compare(
             name, first_elements(args, TAIL_E), kw)
         # each element's arithmetic is the same in a partial tile
@@ -631,10 +622,6 @@ def kernel_vs_plain(name, args, rhs, n, **kw) -> dict:
         check(all(e <= KERNEL_TOL * sc for e, sc in
                   zip(tail_errs, tail_scales)),
               (name, "kernel vs plain on the tail", tail_errs, tail_scales))
-    else:
-        timing = dict(timing="eager_warm_mean",
-                      ms=cuda_ms(lambda: wrapper(*args, **kw), 50),
-                      plain_ms=cuda_ms(lambda: plain(*args, **kw), 10))
     res = dict(max_abs_err=max(errs), max_abs_err_per_output=errs,
                max_abs_plain_per_output=scales, tol=KERNEL_TOL, **timing,
                matmul_yardstick_ms=yardstick(name, args, rhs, hyper),
@@ -643,8 +630,7 @@ def kernel_vs_plain(name, args, rhs, n, **kw) -> dict:
                shapes=[list(a.shape) for a in args
                        if isinstance(a, torch.Tensor)])
     res["share_of_bound"] = res["bound_ms"] / res["ms"]
-    second = "dense" if name in SURFACE + SUMFACT else "sumfact"
-    res[f"share_of_bound_{second}"] = res[f"bound_{second}_ms"] / res["ms"]
+    res["share_of_bound_dense"] = res["bound_dense_ms"] / res["ms"]
     emit("kernel_vs_plain", name=name,
          **{k: kw[k] for k in ("has_f2", "has_hyper", "lin_dims")
             if k in kw}, **res)
@@ -1420,7 +1406,7 @@ def phase_generic(seed: int) -> dict:
     return dict(kernels=kernels, launches=launches, ms_per_step=ms)
 
 
-# --- the sum-factorised kernels at the other orders --------------------------
+# --- the staged kernels at the other orders ----------------------------------
 
 def hold(name, args, kw) -> dict:
     """The kernel on ``args`` and on their first TAIL_E elements against
@@ -1453,9 +1439,9 @@ def hold(name, args, kw) -> dict:
 
 
 def phase_kernel_orders(seed: int):
-    """The sum-factorised kernels at each of EDGE_ORDERS on a small grid's
+    """The staged kernels at each of EDGE_ORDERS on a small grid's
     perturbed state (48 elements: a partial last tile at 4 and at 2
-    elements a tile): K1-K3 and the volume kernel with and without F₂ on
+    elements a tile): K1-K4 and the volume kernel with and without F₂ on
     the var-major RHS's inputs, the dry kernel on the generic RHS's and the
     fused remainder's, each held on all elements and on the first TAIL_E;
     then the var-major RHS and the generic RHS with their defaults (the
@@ -1470,7 +1456,7 @@ def phase_kernel_orders(seed: int):
         aux = cfg.model.update_auxiliary_state(q, aux0)
         rhs = VarMajorRHS(dg)
         glv, inputs = chain_inputs(rhs, q, aux0)
-        cases = {name: (name, inputs[name], {}) for name in CHAIN[:3]}
+        cases = {name: (name, inputs[name], {}) for name in CHAIN}
         for f2 in (True, False):
             cases["fused_volume_tendency_vm" + ("" if f2 else "_no_f2")] = (
                 "fused_volume_tendency_vm",

@@ -34,25 +34,30 @@
 // every kernel: K1 155 MB, 0.046 ms; K2 210 MB, 0.063 ms; K3 186 MB,
 // 0.055 ms; K4 188 MB, 0.056 ms.  Counted dense (the Np terms a node that
 // the TPU kernels compute), K1-K3 were bound by the fp32 pipes (3.1-9.4
-// GFLOP).  Of K1's and K3's bytes the outputs are 60 and 50 %: vol 6000 B
-// and rows 1600 B an element.
+// GFLOP); K4 has no derivative (0.05 GFLOP of lift either way).  Of K1's
+// and K3's bytes the outputs are 60 and 50 %: vol 6000 B and rows 1600 B
+// an element; of K4's 39 %, out 6000 B.
 //
-// Design of K1-K3 (sum-factorised, staged, bound by their bytes; K1 and K3
-// are one template, ldg_grad_kernel, K3 with the lift as its prologue):
+// Design (staged, bound by their bytes; K1 and K3 are one template,
+// ldg_grad_kernel, K3 with the lift as its prologue; K1-K3 sum-factorised;
+// K4, ldg_last_kernel, is K2's lift alone):
 //   - persistent blocks of 512 threads (as many as fit on the SMs) walk
 //     tiles of TE = 4 elements; each tile's inputs are contiguous runs, at
 //     p4 an element's: K1 x 2000 B and xi 3000; K2 vol1 6000, xi 3000, dj
 //     1600, w3 and nrm 1200 each, MI 500; K3 div 2000, xi 3000, dj2 1600,
-//     sM 400, MI 500.  They are staged by TMA bulk copies into one of two
-//     stages of shared memory (tile_pipeline.cuh), so the next tile's
-//     bytes are in flight while the current tile computes.  The static
-//     tables (the line weights, each node's line start and position per
-//     direction, the lift table transposed [L][Np], sel) are loaded once
-//     a block while the first tiles are in flight;
-//   - the lift (K2's pass 1 onto vol1's 12 rows, K3's pass 2 onto div's
-//     4) reads the staged face values and the lift table, one thread per
-//     (element, node), and adds onto the staged rows in place; a barrier
-//     then completes the rows before any thread reads along a line;
+//     sM 400, MI 500; K4 vol3 6000, dj3 1600, w3 1200, MI 500.  They are
+//     staged by TMA bulk copies into one of two stages of shared memory
+//     (tile_pipeline.cuh), so the next tile's bytes are in flight while
+//     the current tile computes.  The static tables (the line weights,
+//     each node's line start and position per direction, the lift table
+//     transposed [L][Np], sel; K4 the lift table only) are loaded once a
+//     block while the first tiles are in flight;
+//   - the lift (K2's pass 1 onto vol1's 12 rows and K4's pass 3 onto
+//     vol3's, one function, lift_w3; K3's pass 2 onto div's 4) reads the
+//     staged face values and the lift table, one thread per (element,
+//     node) with one accumulator a row, and adds onto the staged rows in
+//     place; a barrier then completes the rows before any thread reads
+//     along a line;
 //   - face values: K2's n . grad, one thread per (element, face column),
 //     into dj's dead run; K1's and K3's rows, one thread per float of the
 //     tile's contiguous rows run, stored at once (a warp writes 128
@@ -64,21 +69,22 @@
 //     terms (K1, K3: 12 vol values a node; K2: the divergence of 4);
 //   - K2's div and s go to dead input runs and leave as 16-byte stores of
 //     the tile's contiguous runs.  K1's and K3's vol (6000 B an element at
-//     p4) goes to a vol tile in shared memory and leaves as one TMA bulk
-//     copy of the tile's contiguous run (cp.async.bulk, shared -> global),
-//     issued by one thread after the tile's last barrier: the store runs
-//     while the block waits for and works on the next tile, and that
-//     thread waits for it to have read the vol tile before the next
-//     tile's derivatives write it.  Stores straight from registers (a
-//     warp writes 128 consecutive bytes of a (c, v) row) were measured
+//     p4) goes to a vol tile in shared memory, and K4's out is its staged
+//     vol3 run after the lift; either leaves as one TMA bulk copy of the
+//     tile's contiguous run (cp.async.bulk, shared -> global), issued by
+//     one thread after the tile's last barrier.  The store runs while the
+//     block goes on; that thread waits for it to have read the shared
+//     memory before it is written again: K1 and K3 before the next tile's
+//     derivatives write the vol tile, K4 before the stage goes back to the
+//     copy engine for the tile after next.  Stores straight from registers
+//     (a warp writes 128 consecutive bytes of a (c, v) row) were measured
 //     slower on an NVIDIA H100 (PERF.md).
-//   Shared memory a block at p4: K1 64 KiB, K2 108, K3 85; at p5 K1 111,
-//   K2 178, K3 142.  ptxas gives K1 and K3 32 registers at every order
-//   (K2 59 at p4), no spills.  The line order NQ is a template parameter,
-//   built for NQ = 2..6 (p1-p5, tile::by_order); the bench shape is p4.
-//   Tensor cores have nothing to do here: 2 Nq flops per node, row and
-//   direction.
-// K4 has no derivative: one thread per output value.
+//   Shared memory a block at p4: K1 64 KiB, K2 108, K3 85, K4 74; at p5
+//   K1 111, K2 178, K3 142, K4 121.  ptxas gives K1 and K3 32 registers at
+//   every order (K2 59 at p4), no spills.  The line order NQ is a template
+//   parameter, built for NQ = 2..6 (p1-p5, tile::by_order); the bench
+//   shape is p4.  Tensor cores have nothing to do here: 2 Nq flops per
+//   node, row and direction.
 //
 // Rounding: outside the derivative products every product and sum is
 // rounded as the plain PyTorch version rounds it (__fmul_rn/__fadd_rn keep
@@ -99,28 +105,14 @@
 
 namespace {
 
-constexpr int MAX_THREADS = 256;   // K4
-constexpr int TILE_E = 4;          // K1-K3: elements a tile
-constexpr int TILE_THREADS = 512;  // K1-K3
+constexpr int TILE_E = 4;          // elements a tile
+constexpr int TILE_THREADS = 512;
 
 __device__ __forceinline__ float mul(float a, float b) {
   return __fmul_rn(a, b);
 }
 __device__ __forceinline__ float add(float a, float b) {
   return __fadd_rn(a, b);
-}
-
-// sum over the face columns f that lift onto node m of a[f] * b[f]
-__device__ __forceinline__ float lift_sum(const int* __restrict__ lift,
-                                          int L, int m,
-                                          const float* __restrict__ a,
-                                          const float* __restrict__ b) {
-  float acc = 0.0f;
-  for (int l = 0; l < L; ++l) {
-    const int f = __ldg(lift + m * L + l);
-    if (f >= 0) acc = add(acc, mul(__ldg(a + f), __ldg(b + f)));
-  }
-  return acc;
 }
 
 // sum_j x[j * stride] * w[j] in ascending j, with FMAs
@@ -175,6 +167,44 @@ __device__ __forceinline__ void load_tables(
     liftT[i] = lift[k * L + l];
   }
   for (int i = threadIdx.x; i < F; i += blockDim.x) sels[i] = sel[i];
+}
+
+// The lift of K2's pass 1 and K4's pass 3, in place on a staged tile of
+// ne elements, one thread per (element, node) with one accumulator a row:
+//   g[te][c][v][k] += MI[te][k] * sum_l w3[te][c][f] * dj[te][v][f]
+// over the face columns f = liftT[l * NP + k] >= 0, in ascending slot l.
+template <int N, int NP>
+__device__ __forceinline__ void lift_w3(float* g, const float* djs,
+                                        const float* w3s, const float* mis,
+                                        const int* liftT, int L, int F,
+                                        int ne) {
+  for (int i = threadIdx.x; i < ne * NP; i += blockDim.x) {
+    const int te = i / NP, k = i - te * NP;
+    float acc[3][N];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int v = 0; v < N; ++v) acc[c][v] = 0.0f;
+    for (int l = 0; l < L; ++l) {
+      const int f = liftT[l * NP + k];
+      if (f < 0) continue;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float w = w3s[(te * 3 + c) * F + f];
+#pragma unroll
+        for (int v = 0; v < N; ++v)
+          acc[c][v] = add(acc[c][v], mul(w, djs[(te * N + v) * F + f]));
+      }
+    }
+    const float mk = mis[te * NP + k];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+#pragma unroll
+      for (int v = 0; v < N; ++v) {
+        float* gp = g + ((te * 3 + c) * N + v) * NP + k;
+        *gp = add(*gp, mul(mk, acc[c][v]));
+      }
+  }
 }
 
 // K1's and K3's shared memory at NQ nodes a line: the tables; the vol
@@ -457,40 +487,11 @@ ldg_grad_to_div_kernel(const K2Args args) {
     tile::fill_tail(S, seg, e0, ne);
     __syncthreads();
     float* g = S + lay.vol1;              // vol1, then the gradient
-    const float* djs = S + lay.dj;
-    const float* w3s = S + lay.w3;
-    const float* mis = S + lay.mi;
     const float* nrms = S + lay.nrm;
     const float* xis = S + lay.xi;
 
     // 1. pass-1 lift, in place: grad = vol1 + MI * (w3 (x) dj) LT
-    for (int i = tid; i < ne * NP; i += blockDim.x) {
-      const int te = i / NP, k = i - te * NP;
-      float acc[3][N];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int v = 0; v < N; ++v) acc[c][v] = 0.0f;
-      for (int l = 0; l < L; ++l) {
-        const int f = liftT[l * NP + k];
-        if (f < 0) continue;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          const float w = w3s[(te * 3 + c) * F + f];
-#pragma unroll
-          for (int v = 0; v < N; ++v)
-            acc[c][v] = add(acc[c][v], mul(w, djs[(te * N + v) * F + f]));
-        }
-      }
-      const float mk = mis[te * NP + k];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int v = 0; v < N; ++v) {
-          float* gp = g + ((te * 3 + c) * N + v) * NP + k;
-          *gp = add(*gp, mul(mk, acc[c][v]));
-        }
-    }
+    lift_w3<N, NP>(g, S + lay.dj, S + lay.w3, S + lay.mi, liftT, L, F, ne);
     __syncthreads();
 
     // 2. n . grad on the face nodes, into dj's (dead) run
@@ -567,43 +568,126 @@ ldg_grad_to_div_kernel(const K2Args args) {
   }
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
-ldg_last_kernel(const float* __restrict__ vol3,  // [E][3][N][Np]
-                const float* __restrict__ dj3,   // [E][N][F]
-                const float* __restrict__ w3,    // [E][3][F]
-                const float* __restrict__ mi,    // [E][Np]
-                const int* __restrict__ lift, int L,
-                float* __restrict__ out, int E, int N, int Np, int F) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)E * 3 * N * Np) return;
-  const int m = (int)(i % Np);
-  const size_t r = i / Np;                       // (e * 3 + c) * N + v
-  const int v = (int)(r % N);
-  const size_t ec = r / N;                       // e * 3 + c
-  const size_t e = ec / 3;
-  out[i] = add(vol3[i], mul(mi[e * Np + m],
-                           lift_sum(lift, L, m, w3 + ec * F,
-                                    dj3 + (e * N + v) * F)));
+// K4's shared memory at NQ nodes a line, in 4-byte words: the lift table
+// (Tables with no line tables and no sel); then two stages of TE elements,
+// each [vol3 | dj3 | w3 | mi] as the tile's contiguous runs (every offset
+// a multiple of 4 words: 16-byte aligned).  vol3's run, lifted in place,
+// is the tile's out run.
+template <int NQ>
+struct LastLayout : Tables<NQ> {
+  static constexpr int NP = NQ * NQ * NQ;
+  int stage, stage_words;
+  int vol3, dj3, w3, mi;
+  __host__ __device__ LastLayout(int N, int F, int L) : Tables<NQ>(0, 0, L) {
+    stage = this->end;
+    vol3 = 0;
+    dj3 = vol3 + TILE_E * 3 * N * NP;
+    w3 = dj3 + TILE_E * N * F;
+    mi = w3 + TILE_E * 3 * F;
+    stage_words = (mi + TILE_E * NP + 31) / 32 * 32;
+  }
+  __host__ __device__ size_t bytes() const {
+    return 4 * (size_t)(stage + 2 * stage_words);
+  }
+};
+
+// K4's operands (NP = NQ^3 nodes an element).
+struct LastArgs {
+  const float* vol3;   // [E][3][N][NP]
+  const float* dj3;    // [E][N][F]
+  const float* w3;     // [E][3][F]
+  const float* mi;     // [E][NP]
+  const int* lift;     // [NP][L]
+  int L;
+  float* out;          // [E][3][N][NP]
+  int E, F;
+};
+
+// K4: out = vol3 + MI * (w3 (x) dj3) LT, K2's lift alone on staged tiles.
+template <int N, int NQ>
+__global__ void __launch_bounds__(TILE_THREADS)
+ldg_last_kernel(const LastArgs args) {
+  constexpr int NP = NQ * NQ * NQ;
+  const int E = args.E, F = args.F, L = args.L;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem4);
+  const LastLayout<NQ> lay(N, F, L);
+  const int* liftT = reinterpret_cast<const int*>(sm + lay.lift);
+  const int tid = threadIdx.x;
+  const int tiles = (E + TILE_E - 1) / TILE_E;
+  const tile::Segment seg[4] = {
+      {args.vol3, 3 * N * NP, lay.vol3}, {args.dj3, N * F, lay.dj3},
+      {args.w3, 3 * F, lay.w3},          {args.mi, NP, lay.mi}};
+  auto stage = [&](int st) { return sm + lay.stage + st * lay.stage_words; };
+  auto count = [&](int t) { return min(TILE_E, E - t * TILE_E); };
+
+  if (tid == 0) {
+    tile::bar_init(&bar[0]);
+    tile::bar_init(&bar[1]);
+    tile::bar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int st = 0; st < 2; ++st) {
+      const int t = blockIdx.x + st * gridDim.x;
+      if (t < tiles)
+        tile::issue(stage(st), &bar[st], seg, nullptr, t * TILE_E, count(t));
+    }
+  load_tables<NQ>(sm, lay, 0, nullptr, tile::Strides{{0, 0, 0}}, args.lift,
+                  L, nullptr, 0);
+  __syncthreads();
+
+  for (int it = 0, t = blockIdx.x; t < tiles; ++it, t += gridDim.x) {
+    const int st = it & 1;
+    float* S = stage(st);
+    const int e0 = t * TILE_E, ne = count(t);
+    tile::bar_wait(&bar[st], (it >> 1) & 1);
+    tile::fill_tail(S, seg, e0, ne);
+    __syncthreads();
+    lift_w3<N, NP>(S + lay.vol3, S + lay.dj3, S + lay.w3, S + lay.mi, liftT,
+                   L, F, ne);
+    tile::fence_async_proxy();
+    __syncthreads();                       // the tile's out run is done
+    if (tid == 0) {
+      // the out run (12 NP floats an element: a multiple of 16 bytes)
+      tile::bulk_store(args.out + (size_t)e0 * 3 * N * NP, S + lay.vol3,
+                       4u * ne * 3 * N * NP);
+      const int next = t + 2 * gridDim.x;
+      if (next < tiles) {
+        tile::bulk_wait_read();            // the store has read the stage
+        tile::issue(S, &bar[st], seg, nullptr, next * TILE_E, count(next));
+      }
+    }
+  }
+  if (tid == 0) tile::bulk_wait();
 }
 
-// K1 (LIFT false) or K3 at NQ nodes a line: one persistent block for each
-// that fits on the SMs with its shared memory.
-template <int NQ, bool LIFT>
-int launch_grad(const GradArgs& args, cudaStream_t stream) {
-  const GradLayout<NQ, LIFT> lay(4, 2, args.F, args.L);
-  auto kernel = ldg_grad_kernel<4, 2, NQ, LIFT>;
-  static int2 cache[16];
+// One persistent block of `kernel` (TILE_THREADS threads, `smem` bytes of
+// dynamic shared memory) for each that fits on the SMs, at most one a
+// tile; `cache` is the kernel's own (tile::persistent_grid).
+template <typename Kernel, typename Args>
+int launch_tiles(Kernel kernel, size_t smem, int2* cache, const Args& args,
+                 cudaStream_t stream) {
   int grid = 0;
-  cudaError_t err = tile::persistent_grid(kernel, TILE_THREADS, lay.bytes(),
+  cudaError_t err = tile::persistent_grid(kernel, TILE_THREADS, smem,
                                           (args.E + TILE_E - 1) / TILE_E,
                                           cache, &grid);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, TILE_THREADS, lay.bytes(), stream>>>(args);
+  kernel<<<grid, TILE_THREADS, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
-// K2 at NQ nodes a line: one persistent block for each that fits on the
-// SMs with its shared memory (two a SM at p4, one at p5).
+// K1 (LIFT false) or K3 at NQ nodes a line.
+template <int NQ, bool LIFT>
+int launch_grad(const GradArgs& args, cudaStream_t stream) {
+  static int2 cache[16];
+  return launch_tiles(ldg_grad_kernel<4, 2, NQ, LIFT>,
+                      GradLayout<NQ, LIFT>(4, 2, args.F, args.L).bytes(),
+                      cache, args, stream);
+}
+
+// K2 at NQ nodes a line (two blocks a SM at p4, one at p5).
 template <int NQ>
 int launch_grad_to_div(const K2Args& args, cudaStream_t stream) {
   const K2Layout<NQ> lay(4, 2, args.F, args.L);
@@ -611,15 +695,27 @@ int launch_grad_to_div(const K2Args& args, cudaStream_t stream) {
   // nodes: room up to NQ = 8)
   if (lay.xi - lay.w3 < TILE_E * 4 * K2Layout<NQ>::NP)
     return (int)cudaErrorInvalidValue;
-  auto kernel = ldg_grad_to_div_kernel<4, 2, NQ>;
   static int2 cache[16];
-  int grid = 0;
-  cudaError_t err = tile::persistent_grid(kernel, TILE_THREADS, lay.bytes(),
-                                          (args.E + TILE_E - 1) / TILE_E,
-                                          cache, &grid);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, TILE_THREADS, lay.bytes(), stream>>>(args);
-  return (int)cudaGetLastError();
+  return launch_tiles(ldg_grad_to_div_kernel<4, 2, NQ>, lay.bytes(), cache,
+                      args, stream);
+}
+
+// K4 at NQ nodes a line (73.75 KiB a block at p4: three fit in an SM's
+// 228 KB; one at p5).
+template <int NQ>
+int launch_last(const LastArgs& args, cudaStream_t stream) {
+  static int2 cache[16];
+  return launch_tiles(ldg_last_kernel<4, NQ>,
+                      LastLayout<NQ>(4, args.F, args.L).bytes(), cache, args,
+                      stream);
+}
+
+// What every kernel needs: 16-byte aligned runs.
+int check_runs(std::initializer_list<const void*> runs) {
+  for (const void* ptr : runs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16)
+      return (int)cudaErrorMisalignedAddress;
+  return (int)cudaSuccess;
 }
 
 // What K1-K3 share: N = 4 rows, ND = 2 directions, line strides within an
@@ -629,10 +725,7 @@ int check_lines(int E, int N, int ND, int Np, int F, int stride0,
   if (E <= 0 || F <= 0 || N != 4 || ND != 2 || stride0 <= 0 ||
       stride1 <= 0 || stride0 > Np || stride1 > Np)
     return (int)cudaErrorInvalidValue;
-  for (const void* ptr : runs)
-    if (reinterpret_cast<uintptr_t>(ptr) % 16)
-      return (int)cudaErrorMisalignedAddress;
-  return (int)cudaSuccess;
+  return check_runs(runs);
 }
 
 }  // namespace
@@ -642,9 +735,9 @@ extern "C" {
 // Each entry launches one kernel on `stream` and returns the CUDA error of
 // the launch (0 on success).  N is the number of rows (chain variables),
 // ND the number of reference directions; only N = 4, ND = 2 is built.
-// K1-K3 take Wd as its line table (lines [ND][NQ][NQ], the node strides of
-// the two directions' lines; dg/line_ops.py), Np = NQ^3 with NQ = 2..6
-// (tile::by_order), and 16-byte aligned runs.
+// Every kernel takes Np = NQ^3 with NQ = 2..6 (tile::by_order) and 16-byte
+// aligned runs; K1-K3 take Wd as its line table (lines [ND][NQ][NQ], the
+// node strides of the two directions' lines; dg/line_ops.py).
 
 int ldg_first_f32(const void* x, const void* xi, const void* lines,
                   int stride0, int stride1, const void* sel, void* vol,
@@ -711,16 +804,18 @@ int ldg_div_to_grad_f32(const void* div, const void* dj2, const void* sm,
 int ldg_last_f32(const void* vol3, const void* dj3, const void* w3,
                  const void* mi, const void* lift, int L, void* out, int E,
                  int N, int Np, int F, void* stream) {
-  if (E <= 0 || N <= 0 || Np <= 0 || F <= 0 || L <= 0)
+  if (E <= 0 || N != 4 || F <= 0 || L <= 0)
     return (int)cudaErrorInvalidValue;
-  const size_t total = (size_t)E * 3 * N * Np;
-  ldg_last_kernel<<<(unsigned)((total + MAX_THREADS - 1) / MAX_THREADS),
-                    MAX_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int err = check_runs({vol3, dj3, w3, mi, out});
+  if (err) return err;
+  const LastArgs args{
       static_cast<const float*>(vol3), static_cast<const float*>(dj3),
       static_cast<const float*>(w3), static_cast<const float*>(mi),
-      static_cast<const int*>(lift), L, static_cast<float*>(out), E, N, Np,
-      F);
-  return (int)cudaGetLastError();
+      static_cast<const int*>(lift), L, static_cast<float*>(out), E, F};
+  return tile::by_order(Np, [&](auto nq) {
+    return launch_last<decltype(nq)::value>(
+        args, static_cast<cudaStream_t>(stream));
+  });
 }
 
 const char* ldg_error_string(int code) {

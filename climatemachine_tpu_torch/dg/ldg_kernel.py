@@ -20,12 +20,13 @@ bodies' arithmetic, with the dense 0/1 ``Sel`` and ``LT``); any other
 tensor takes the kernel (csrc/ldg_chain.cu) or raises.  The kernels
 apply ``Sel`` and ``LT`` as index gathers from
 :class:`~climatemachine_tpu_torch.dg.ldg_tables.FaceOps` and cover
-float32, n = 4 rows (u_h, h_tot) and nd = 2 directions (horizontal);
-K1-K3 are sum-factorised: they read ``Wd`` only through its line table
+float32, n = 4 rows (u_h, h_tot), nd = 2 directions (horizontal) and
+p1-p5 (:data:`~climatemachine_tpu_torch.dg.line_ops.KERNEL_NQ`); they
+stage their inputs in persistent blocks and K1-K3 are sum-factorised:
+they read ``Wd`` only through its line table
 (:func:`~climatemachine_tpu_torch.dg.line_ops.wd_lines`, which raises on
-an operator that is not a Kronecker line operator) and cover p1-p5
-(:data:`~climatemachine_tpu_torch.dg.line_ops.KERNEL_NQ`).  Each
-wrapper counts its launches in ``.launches``.
+an operator that is not a Kronecker line operator).  Each wrapper counts
+its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -163,10 +164,10 @@ def _library():
 
 
 def _check_kernel_args(name, ref, n, nd, fo, **tensors):
-    """Refuse what the kernel does not cover: (n, nd) other than (4, 2)
-    where a derivative runs (nd is None for K4), a tensor off CUDA, not
-    float32, misshapen or not contiguous."""
-    if nd is not None and (n, nd) != (4, 2):
+    """Refuse what the kernel does not cover: n other than 4 rows, nd
+    other than 2 directions where a derivative runs (nd is None for K4),
+    a tensor off CUDA, not float32, misshapen or not contiguous."""
+    if n != 4 or nd not in (None, 2):
         raise NotImplementedError(
             f"the CUDA {name} kernel covers n=4 rows and nd=2 directions, "
             f"got n={n}, nd={nd}")
@@ -275,6 +276,8 @@ def ldg_last(vol3, dj3, w3, MI, fo):
     _check_kernel_args("ldg_last", vol3, n, None, fo,
                        vol3=(vol3, (E, 3, n, Np)), dj3=(dj3, (E, n, F)),
                        w3=(w3, (E, 3, F)), MI=(MI, (E, Np)))
+    check_kernel_order("ldg_last", Np)
+    cuda_build.check_aligned("ldg_last", vol3=vol3, dj3=dj3, w3=w3, MI=MI)
     out = torch.empty_like(vol3)
     _launch("ldg_last", "ldg_last_f32", vol3, dj3, w3, MI, fo.lift_idx,
             fo.lift_idx.shape[1], out, E, n, Np, F)

@@ -20,6 +20,11 @@ kernels read in place of the dense ``Wd`` and ``Wdiv``, on the CPU:
   versions
   (``ldg_first_plain``, ``ldg_div_to_grad_plain``) in float64 within
   1e-13 of max|plain|, at p1-p5;
+- K4's lift as the CUDA kernel computes it, tile by tile (4 elements a
+  tile, the last one partial) on the flat runs of each tile's stage,
+  through the transposed lift table with one accumulator a row in
+  ascending slot, equals ``ldg_last_plain`` in float64 within 1e-13 of
+  max|plain|, at p1-p5;
 - the wrappers' order check accepts exactly the orders that the CUDA
   sources dispatch on (csrc/tile_pipeline.cuh:by_order).
 """
@@ -254,6 +259,66 @@ def test_chain_grad_through_lines_equals_plain(stage, poly):
     for o, r in zip(got, ref):
         assert o.shape == r.shape
         assert (o - r).abs().max() <= 1e-13 * r.abs().max()
+
+
+TILE_E = 4        # csrc/ldg_chain.cu: elements a tile
+
+
+def _kernel_last(vol3, dj3, w3, MI, liftT):
+    """K4 (csrc/ldg_chain.cu:ldg_last_kernel, its lift lift_w3) as the
+    kernel runs it: per tile of TILE_E elements (the last one partial) the
+    stage's flat runs vol3 | dj3 | w3 | MI; one thread per (te, k) of the
+    tile with 12 accumulators acc[c][v] += w3[(te·3 + c)·F + f] ·
+    dj3[(te·N + v)·F + f] over f = liftT[l·Np + k] ≥ 0 in ascending slot
+    l; then vol3[((te·3 + c)·N + v)·Np + k] += MI[te·Np + k] · acc[c][v]
+    in place, and the tile's vol3 run is its out run."""
+    E, _, N, Np = vol3.shape
+    F = dj3.shape[-1]
+    out = []
+    for e0 in range(0, E, TILE_E):
+        ne = min(TILE_E, E - e0)
+        S_vol = vol3[e0:e0 + ne].reshape(-1).clone()
+        S_dj, S_w3, S_mi = (a[e0:e0 + ne].reshape(-1) for a in (dj3, w3, MI))
+        i = torch.arange(ne * Np)                 # the threads of the tile
+        te, k = i // Np, i % Np
+        acc = torch.zeros((3, N, ne * Np), dtype=vol3.dtype)
+        for col in liftT.reshape(-1, Np):         # slot l, ascending
+            f = col[k]
+            ok = f >= 0
+            f = f.clamp(min=0)
+            for c in range(3):
+                w = S_w3[(te * 3 + c) * F + f]
+                for v in range(N):
+                    acc[c, v] += torch.where(ok, w * S_dj[(te * N + v) * F + f],
+                                             0.0)
+        for c in range(3):
+            for v in range(N):
+                at = ((te * 3 + c) * N + v) * Np + k
+                S_vol[at] = S_vol[at] + S_mi[te * Np + k] * acc[c, v]
+        out.append(S_vol)
+    return torch.cat(out).reshape(vol3.shape)
+
+
+@pytest.mark.parametrize("poly", [nq - 1 for nq in KERNEL_NQ])
+def test_last_lift_through_tiles_equals_plain(poly):
+    g = held_suarez_config(1, 1, poly, dtype=torch.float64,
+                           hyperdiffusion_tau=None, device="cpu").grid
+    ops = ldg_kernel.chain_operators(g, direction_dims("horizontal", 3),
+                                     direction_faces("horizontal", 3))
+    E, Np, F = g.nelem, g.Np, ops.fo.F
+    assert E % TILE_E                             # a partial last tile
+    # every operand drawn per element, so that a wrong element offset shows
+    # (the geometry's MI is the same on each element of this grid)
+    rng = np.random.default_rng(poly)
+    vol3, dj3, w3 = (torch.as_tensor(rng.standard_normal(shape)) for shape
+                     in ((E, 3, 4, Np), (E, 4, F), (E, 3, F)))
+    MI = torch.as_tensor(rng.uniform(0.5, 2.0, (E, Np)))
+    ref = ldg_kernel.ldg_last_plain(vol3, dj3, w3, MI, ops.fo)
+    _, liftT, _ = _kernel_tables(wd_lines(ops.Wd), ops.fo.lift_idx,
+                                 ops.fo.sel_idx)
+    got = _kernel_last(vol3, dj3, w3, MI, liftT)
+    assert got.shape == ref.shape
+    assert (got - ref).abs().max() <= 1e-13 * ref.abs().max()
 
 
 def test_order_check_matches_the_cuda_dispatch():

@@ -155,6 +155,18 @@ def test_chain_wrapper_never_falls_back_off_cpu(stage):
     assert wrapper.launches == before
 
 
+@pytest.mark.parametrize("stage", ["ldg_first", "ldg_grad_to_div",
+                                   "ldg_div_to_grad", "ldg_last"])
+def test_chain_wrapper_refuses_rows_other_than_four(stage):
+    """Every chain kernel is built for n = 4 rows: the wrapper refuses
+    another n before it looks at the device, and counts no launch."""
+    wrapper = getattr(ldg_kernel, stage)
+    before = wrapper.launches
+    with pytest.raises(NotImplementedError, match="n=4 rows"):
+        wrapper(*_chain_meta_args(stage, n=5))
+    assert wrapper.launches == before
+
+
 @pytest.mark.parametrize("name", ["to_blocks_vm", "from_blocks_vm"])
 def test_layout_wrapper_never_falls_back_off_cpu(name):
     """A layout tensor that is not on the CPU goes to the kernel path,
