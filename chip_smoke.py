@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--skip-moist]
 
 Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch version on its path's own
@@ -41,12 +41,34 @@ filter:
   ``IMEXSolverType(columnwise_solver="dense")`` (35 steps, the dense
   column solver, the fused remainder), the f64-table gate on both IMEX
   paths;
+- the moist baroclinic wave (DCMIP2016: EquilMoist with its saturation
+  adjustment, EquilMoistBiharmonic(8 h), Gravity, Coriolis, no filter)
+  at the same width, state [12288, 6, 125]: on the explicit path
+  (``ExplicitSolverType().make``, LSRK54 at the dry dt) the moist branch
+  of every kernel against its plain version on the path's own perturbed
+  state (the volume kernel at nq = 6 with F₂ of ngl = 5, K1-K4 at n = 5
+  rows, both surface kernels at nq = 6 with hyperdiffusion on and off),
+  the whole chain, one step with "xla" and "pallas" against the
+  all-plain step, the small references of both steps, 23 steps under
+  each surface pass; then the IMEX path (``IMEXSolverType().make``, 30 ×
+  30 column blocks) at the largest of the dry dt and its halvings that
+  takes 35 steps without blowing up (moist_imex_dt_scan; the explicit
+  remainder carries the vertical acoustics of the wave's departure from
+  the reference state), both layout kernels at six variables against
+  their plain versions and ``permute(...).contiguous()``, one step with
+  "xla" and "pallas" against the all-plain step and one with only the
+  layouts plain, and 35 steps under each surface pass; every run with
+  exact launch counts and the JAX package's checks (finite, ρ and ρq_tot
+  mass drift, max|u| < 150 m/s; 0 <= q_tot < 0.02 at the start).
+  ``--skip-moist`` leaves this path out (for a checkout of a commit
+  without it; the default run never sets it);
 - the staged kernels (K1-K4, the volume kernel with and without F₂,
-  both dry branches) at the other orders they are built for, p1, p2, p3
-  and p5, on a 48-element grid: each against its plain version on all
-  elements and on the first 37, then the var-major and the generic RHS
-  with their defaults against the ones with every stage's plain version
-  (kernel_orders).
+  both dry branches; the moist branches of K1-K4 and the volume kernel)
+  at the other orders they are built for, p1, p2, p3 and p5, on a
+  48-element grid: each against its plain version on all elements and
+  on the first 37, then the var-major (dry and moist) and the generic
+  RHS with their defaults against the ones with every stage's plain
+  version (kernel_orders).
 Copied into a checkout of an earlier commit that has the same modules
 and run there, the script measures that commit's kernels by the same
 method, so two designs compare in one call.
@@ -54,10 +76,12 @@ Each run sets every launch count to 0 just before it starts and reads
 the counts just after.  One JSON line per phase and ``surface_modes``
 with the ms per step of each surface pass on both steps and of the
 three generic paths; then the card's name and power limit as nvidia-smi
-reports them, a ``{"kernels": [...]}`` line (eleven entries: the nine
+reports them, a ``{"kernels": [...]}`` line (twenty entries: the nine
 earlier kernels with launches from the IMEX path with "pallas", the dry
 volume kernel with launches from the grid-layout IMEX path and its
-remainder branch from the dense one) and, last, ``{"ok": true,
+remainder branch from the dense one, and the nine moist branches,
+"[moist]", with launches from the moist IMEX path with "pallas") and,
+last, ``{"ok": true,
 "device": ...}``.  Any failure raises and exits non-zero without the
 last line.  Without a CUDA device it exits 1 at once.
 
@@ -126,13 +150,25 @@ Tolerances:
   8.0e-3, 9.9e-3, 5.5e-4): the column solve at α·dt = 51 s mixes ρe
   (~3e4) into ρu (~1e1) and amplifies its round-off by the systems'
   condition number;
+- three moist LSRK54 steps (n_horz=2, n_vert=2, p4, dt = 0.3 · node
+  distance / 350) and three moist IMEX steps (n_horz=2, n_vert=3, p4, dt
+  = 0.01 · horizontal node distance / 350 = 17.5 s; the split blows up
+  at 0.1 on that grid) in float32 on the card vs float64 on the CPU, the
+  same way: per variable (ρ, ρu, ρe, ρq_tot) MOIST_SMALL_TOL and
+  MOIST_IMEX_SMALL_TOL, 10× the larger of what the same comparison gives
+  on the CPU in float32 in the JAX package and in the port
+  (tests/moist_precision_gap.py): LSRK54 (2.4e-7, 2.2e-6, 2.1e-6,
+  6.5e-5, 3.3e-7, 3.8e-7), IMEX (5.8e-5, 3.6e-4, 3.3e-4, 9.6e-3,
+  1.2e-4, 4.7e-5); the vertical momentum carries most, as in the dry
+  steps;
 - the f64-table gate on the IMEX path's 35-step state: per variable
   min, max, mean and std (ddof=1) over all nodes, |f32 − table| relative
   to the table field's max magnitude, within bench.py's budgets
   (bench.py:105-107); the fraction of the CPU anchor budgets
   (tests/test_precision_gate.py:73-75, calibrated for 200 steps of a
   4×3 grid) is reported, not checked;
-- mass Σ M ρ, summed in float64: relative drift <= 1e-5 over each path
+- mass Σ M ρ (and Σ M ρq_tot on the moist paths), summed in float64:
+  relative drift <= 1e-5 over each path
   (float32 round-off; F₂ carries no mass flux, and the filter keeps each
   element's mode 0 but is not exactly conservative on curved elements);
 - kernel_orders: each kernel on all elements and on the first 37,
@@ -212,6 +248,22 @@ SMALL_TOL = 1e-4
 #: the CPU for the same three steps (module docstring)
 IMEX_SMALL_TOL = (2e-3, 3e-1, 5e-2, 1e-1, 3e-3)
 MASS_TOL = 1e-5
+#: the bound on max|u| (m/s) of the moist baroclinic wave's runs
+MAX_ABS_U = 150.0
+#: the moist baroclinic wave's EquilMoistBiharmonic timescale (s)
+MOIST_TAU = 8 * 3600.0
+#: per variable (ρ, ρu, ρe, ρq_tot), three moist steps of a small grid in
+#: float32 on the card against float64 on the CPU: 10× the larger of what
+#: the same comparison gives in float32 on the CPU in the JAX package and
+#: in the port (module docstring; tests/moist_precision_gap.py), LSRK54
+#: and IMEX
+MOIST_SMALL_TOL = (3e-6, 3e-5, 3e-5, 7e-4, 4e-6, 4e-6)
+MOIST_IMEX_SMALL_TOL = (6e-4, 4e-3, 4e-3, 1e-1, 2e-3, 5e-4)
+#: the moist IMEX small reference's dt: this times the horizontal node
+#: distance over 350 m/s (17.5 s; 0.1 is unstable on that grid)
+MOIST_SMALL_IMEX_CFL = 0.01
+#: halvings of the IMEX dt tried for 35 stable moist steps at full width
+MOIST_DT_HALVINGS = 4
 #: the f64 table of the IMEX trajectory (data only, read by path)
 REFSTATS = (pathlib.Path(__file__).resolve().parent / "tests" / "refvals"
             / "bench_heldsuarez_p4.py")
@@ -254,6 +306,8 @@ TAIL_E = 37
 EDGE_ORDERS = (1, 2, 3, 5)
 EDGE_GRID = (2, 2)
 SURFACE = ("extract_trace_vm", "fused_surface_lift_vm")
+#: the suffix of the moist branches' entries in the kernels line
+MOIST = "[moist]"
 #: the surface kernels each surface pass launches, once per RHS
 SURFACE_LAUNCHES = {"xla": (), "hybrid": ("extract_trace_vm",),
                     "pallas": SURFACE}
@@ -341,7 +395,8 @@ def reset_launch_counts():
 
 
 def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
-          has_f2: bool = True, dense: bool = True, remainder: bool = False):
+          has_f2: bool = True, dense: bool = True, remainder: bool = False,
+          nq: int = 5):
     """(bytes, flops) of one call: each input read once, each output
     written once (float32; the int32 face tables and the operator once:
     its dense matrix, or sum-factorised the Nq × Nq weights of each
@@ -350,22 +405,25 @@ def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
     counted ``dense`` (Np terms per node and direction, as the TPU
     kernels compute them) or sum-factorised (Wd and Wdiv are Kronecker
     operators with Nq nonzeros a row, as K1-K3 and the volume kernels
-    compute them).  Per node, the volume tendency does 2·5·3 terms for
-    the contraction, 111 for flux, metric and mass, 106 for F₂
-    and 5 for the MI scaling; the dry volume tendency 13 more for its
-    thermo (e_int, T, p from q and φ in place of p) and, with the
-    remainder, 29 for the linear flux, reading ref3."""
+    compute them).  Per node, the volume tendency of nq variables does
+    2·nq·3 terms for the contraction, 111 for flux, metric and mass (21
+    more for the advected ρq_tot at nq = 6), 106 for F₂ (24 more for its
+    q_tot row, which reads ν₄_q too) and nq for the MI scaling; the dry
+    volume tendency 13 more for its thermo (e_int, T, p from q and φ in
+    place of p) and, with the remainder, 29 for the linear flux, reading
+    ref3."""
     R, X = 3 * n, nd * 3
     K = Np if dense else Nq
     deriv = lambda rows: 2 * E * rows * nd * Np * K
     op = Np * Np if dense else Nq * Nq
     wd, sel, lift = 4 * nd * op, 4 * F, 4 * 2 * Np
     if name == "fused_volume_tendency_vm":
-        nbytes = 4 * (E * Np * (5 + 1 + 1 + 9 + 1 + 1 + 5
-                                + (12 + 1 if has_f2 else 0))
+        f2_rows = 3 * (nq - 1) + (1 if nq == 5 else 2)     # gl2 and ν
+        nbytes = 4 * (E * Np * (nq + 1 + 1 + 9 + 1 + 1 + nq
+                                + (f2_rows if has_f2 else 0))
                       + 3 * op)
-        return nbytes, E * Np * (2 * 5 * 3 * K + 111 + 5
-                                 + (106 if has_f2 else 0))
+        return nbytes, E * Np * (2 * nq * 3 * K + 111 + 21 * (nq - 5) + nq
+                                 + (106 + 24 * (nq - 5) if has_f2 else 0))
     if name == DRY:
         nbytes = 4 * (E * Np * (5 + 1 + 1 + 9 + 1 + 1 + 5
                                 + (3 if remainder else 0))
@@ -389,38 +447,43 @@ def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
     return nbytes, E * R * (F + 2 * Np)
 
 
-def surface_costs(name: str, args, has_hyper: bool, dense: bool):
-    """(bytes, flops) of one surface-kernel call, from its arguments: each
-    input the kernel needs read once (the extraction needs ∇Δ, ν₄ and the
-    normals only with hyperdiffusion, and of ν only its first row, ν₄:
-    the second, ν₄_q, enters only with a sixth variable), the int32 face
-    tables in place of the 0/1 matrix, each output written once
-    (float32).  Flops: a face lane's trace (32 with hyperdiffusion), its
-    ghost, two fluxes, Rusanov flux and sM scaling (98, +20 for the
-    hyperdiffusive correction), the lift's sum of each lane onto its node
-    and the MI scaling; ``dense`` counts the extraction and the lift
-    instead as the products with the 0/1 matrix that the TPU kernels
-    compute, over the rows the function needs."""
+def surface_costs(name: str, args, has_hyper: bool, dense: bool,
+                  nq: int = 5):
+    """(bytes, flops) of one surface-kernel call of nq variables, from its
+    arguments: each input the kernel needs read once (the extraction
+    needs ∇Δ, ν and the normals only with hyperdiffusion, and of ν only
+    its first row, ν₄, at nq = 5: the second, ν₄_q, enters only with the
+    sixth variable), the int32 face tables in place of the 0/1 matrix,
+    each output written once (float32).  Flops: a face lane's trace (32
+    with hyperdiffusion, 7 more for the q_tot lane), its ghost, two
+    fluxes, Rusanov flux and sM scaling (98, +20 for the hyperdiffusive
+    correction, +10 for the sixth variable), the lift's sum of each lane
+    onto its node and the MI scaling; ``dense`` counts the extraction and
+    the lift instead as the products with the 0/1 matrix that the TPU
+    kernels compute, over the rows the function needs."""
+    nu_rows = 1 if nq == 5 else 2
     if name == "extract_trace_vm":
         qv, lift = args[0], args[6]
         E, _, Np = qv.shape
         X = lift.shape[1]
         sel_idx, _ = surface_kernel.face_tables(lift, transposed=False)
         read = list(args[:4]) + [sel_idx] + (
-            [args[4], args[5][:, :1], args[7]] if has_hyper else [])
-        rows = 8 + 13 * has_hyper                    # extracted volume rows
-        nvb = 8 + 5 * has_hyper                      # bundle lanes written
+            [args[4], args[5][:, :nu_rows], args[7]] if has_hyper else [])
+        # extracted volume rows and bundle lanes written
+        rows = nq + 3 + (3 * (nq - 1) + nu_rows) * has_hyper
+        nvb = nq + 3 + nq * has_hyper
         nbytes = 4 * (sum(t.numel() for t in read) + E * nvb * X)
-        flops = 32 * E * X * has_hyper + (2 * E * rows * Np * X if dense
-                                          else 0)
+        flops = (32 + 7 * (nq - 5)) * E * X * has_hyper + (
+            2 * E * rows * Np * X if dense else 0)
         return nbytes, flops
     E, _, X = args[0].shape
     Np = args[5].shape[1]
     _, lift_idx = surface_kernel.face_tables(args[5], transposed=True)
     read = list(args[:5]) + [lift_idx, args[6]]
-    nbytes = 4 * (sum(t.numel() for t in read) + E * 5 * Np)
-    lift = 2 * E * 5 * X * Np if dense else E * 5 * X
-    return nbytes, E * X * (98 + 20 * has_hyper) + lift + E * 5 * Np
+    nbytes = 4 * (sum(t.numel() for t in read) + E * nq * Np)
+    lift = 2 * E * nq * X * Np if dense else E * nq * X
+    return nbytes, (E * X * (98 + 20 * has_hyper + 10 * (nq - 5)) + lift
+                    + E * nq * Np)
 
 
 def bounds(name: str, rhs, n: int, has_f2: bool = True, args=None,
@@ -435,10 +498,11 @@ def bounds(name: str, rhs, n: int, has_f2: bool = True, args=None,
     out = {}
     for key, dense in (("", False), ("_dense", True)):
         if name in SURFACE:
-            nbytes, flops = surface_costs(name, args, has_hyper, dense)
+            nbytes, flops = surface_costs(name, args, has_hyper, dense,
+                                          rhs.nq)
         else:
             nbytes, flops = costs(name, g.nelem, g.Np, g.Nq[0], n, nd, F,
-                                  has_f2, dense, remainder)
+                                  has_f2, dense, remainder, rhs.nq)
         t_bytes = 1e3 * nbytes / PEAK_BYTES
         t_ops = 1e3 * flops / PEAK_FP32_FLOPS
         out.update({"bytes": nbytes, "bytes_ms": t_bytes,
@@ -489,7 +553,8 @@ def chain_inputs(rhs, q, aux):
              ops.xi, ops.Wd, ops.fo)
     vol3, rows3 = ldg_kernel.ldg_div_to_grad_plain(*args3)
     args4 = (vol3, ldg_kernel.face_jump(rows3, ops), ops.w3, ops.MI, ops.fo)
-    gl2 = ldg_kernel.ldg_last_plain(*args4).reshape(g.nelem, 12, g.Np)
+    gl2 = ldg_kernel.ldg_last_plain(*args4).reshape(
+        g.nelem, 3 * glv.shape[1], g.Np)
     volume_args = (q, p, aux[:, rhs.i_phi], aux[:, rhs.i_pref].contiguous(),
                    None, gl2, rhs.nu, rhs.xiv, g.M, g.MI, g.Wdiv)
     return glv, {"fused_volume_tendency_vm": volume_args,
@@ -503,21 +568,24 @@ def yardstick(name, args, rhs, has_hyper: bool = True):
     the same function): the derivative rows against all nd directions,
     the lift of K4, the volume's weak divergence, the surface's extraction
     of all its volume rows and its lift of the nq flux rows."""
-    g = rhs.grid
+    g, nq = rhs.grid, rhs.nq
     E, Np = g.nelem, g.Np
     if name == "extract_trace_vm":
-        a = torch.randn((E * (8 + 14 * has_hyper), Np), device=g.device)
+        rows = nq + 3 + (3 * (nq - 1) + 2) * has_hyper
+        a = torch.randn((E * rows, Np), device=g.device)
         b = g.lift
     elif name == "fused_surface_lift_vm":
-        a, b = torch.randn((E * 5, rhs.liftT.shape[0]), device=g.device), \
-            rhs.liftT
+        a, b = torch.randn((E * nq, rhs.liftT.shape[0]),
+                           device=g.device), rhs.liftT
     elif name in ("fused_volume_tendency_vm", DRY):
-        a, b = torch.randn((E * 5, 3 * Np), device=g.device), g.Wdiv.T
+        a, b = torch.randn((E * nq, 3 * Np), device=g.device), g.Wdiv.T
     elif name == "ldg_last":
-        a, b = args[1].new_empty((E * 12, args[1].shape[2])).normal_(), \
+        n = rhs.bl.gradlap_spec.num
+        a, b = args[1].new_empty((E * 3 * n, args[1].shape[2])).normal_(), \
             args[4].LT
     else:
-        rows = 12 if name == "ldg_grad_to_div" else 4
+        n = rhs.bl.gradlap_spec.num
+        rows = 3 * n if name == "ldg_grad_to_div" else n
         a = torch.randn((E * rows, Np), device=g.device)
         b = rhs.chain.Wd.transpose(0, 1).reshape(Np, -1)
     b = b.contiguous()
@@ -642,7 +710,8 @@ def kernel_vs_plain(name, args, rhs, n, **kw) -> dict:
 
 def volume_kwargs(rhs, has_f2: bool) -> dict:
     ps = rhs.bl.param_set
-    return dict(nq=5, ngl=rhs.bl.gradlap_spec.num, R_d=ps.R_d, cv_d=ps.cv_d,
+    return dict(nq=rhs.nq, ngl=rhs.bl.gradlap_spec.num, R_d=ps.R_d,
+                cv_d=ps.cv_d,
                 T_0=ps.T_0, subtract_ref=True, has_f2=has_f2)
 
 
@@ -676,40 +745,49 @@ def phase_kernels(rhs, q, aux) -> dict:
     return results
 
 
-def small_reference_check(tau):
-    """A few float32 steps of a small grid on the card against float64
-    steps on the CPU from the same float32 geometry and initial state
-    (upcast), so the two differ by arithmetic precision only."""
-    cfg = held_suarez_config(2, 2, POLY, dtype=torch.float32,
-                             hyperdiffusion_tau=tau, device="cuda")
-    g = cfg.grid
+def card_vs_cpu_f64(small: dict, kind) -> list:
+    """Three steps of a small path (``build_*path`` at a small grid) in
+    float32 on the card against float64 on the CPU from the same float32
+    geometry and initial state (upcast), so the two differ by arithmetic
+    precision only; the float64 twin is built by ``kind.make`` (the
+    solver type of the path), with the Held-Suarez filter where the path
+    has one.  Returns the per-variable error relative to max|q| of the
+    float64 run."""
+    g, model, dt = small["cfg"].grid, small["cfg"].model, small["dt"]
     grid64 = grid_from_numpy(grid_to_numpy(g), device="cpu",
                              dtype=torch.float64)
-    q, aux = init_ode_state(DGModel(cfg.model, g))
-    runs = {"card_f32": (g, q, aux),
-            "cpu_f64": (grid64, q.double().cpu(), aux.double().cpu())}
-    dt = 0.3 * min_node_distance(g) / 350.0
+    q64, aux64 = small["q0"].double().cpu(), small["aux0"].double().cpu()
+    twin = kind.make(DGModel(model, grid64), q64, aux64, dt)
+    if small["hsf"] is not None:
+        twin.post_step = HeldSuarezStepFilter(grid64, model).apply_vm
+    runs = {"f32": (small["solver"], small["q0"], small["aux0"]),
+            "f64": (twin, q64, aux64)}
     final = {}
-    for name, (grid, q, aux) in runs.items():
-        sol = ExplicitSolverType().make(DGModel(cfg.model, grid), q, aux, dt)
-        sol.post_step = HeldSuarezStepFilter(grid, cfg.model).apply_vm
+    for name, (solver, q, aux) in runs.items():
         for i in range(3):
-            q, aux = sol.step(q, aux, i * dt)
+            q, aux = solver.step(q, aux, i * dt)
         final[name] = q.double().cpu()
-    ref = final["cpu_f64"]
-    err = ((final["card_f32"] - ref).abs().amax(dim=(0, 2))
-           / ref.abs().amax(dim=(0, 2))).tolist()
+    ref = final["f64"]
+    return ((final["f32"] - ref).abs().amax(dim=(0, 2))
+            / ref.abs().amax(dim=(0, 2))).tolist()
+
+
+def small_reference_check(tau):
+    """Three LSRK54 steps of a small grid (n_horz=2, n_vert=2) on the card
+    against float64 steps on the CPU (:func:`card_vs_cpu_f64`)."""
+    err = card_vs_cpu_f64(build_path(tau, n_horz=2, n_vert=2),
+                          ExplicitSolverType())
     emit("small_reference", n_horz=2, n_vert=2, poly=POLY, steps=3,
          hyperdiffusion_tau=tau, rel_err_per_var=err, tol=SMALL_TOL)
     check(max(err) <= SMALL_TOL, ("small reference", err))
 
 
-def build_path(tau) -> dict:
-    """The configuration at full width, its initial state and the LSRK54
-    solver with the every-step filter, as a user builds them
-    (``ExplicitSolverType().make``, the filter as ``post_step``)."""
+def build_path(tau, n_horz=N_HORZ, n_vert=N_VERT) -> dict:
+    """The configuration (at full width unless given), its initial state
+    and the LSRK54 solver with the every-step filter, as a user builds
+    them (``ExplicitSolverType().make``, the filter as ``post_step``)."""
     t0 = time.perf_counter()
-    cfg = held_suarez_config(n_horz=N_HORZ, n_vert=N_VERT, poly_order=POLY,
+    cfg = held_suarez_config(n_horz=n_horz, n_vert=n_vert, poly_order=POLY,
                              dtype=torch.float32, hyperdiffusion_tau=tau,
                              device="cuda")
     dg = DGModel(cfg.model, cfg.grid)
@@ -742,8 +820,9 @@ def run_path(path: dict, n_warm: int, n_steps: int, mode=None):
     ``n_steps``) and read the counts.  Returns (summary, counts, final
     state)."""
     g, solver, dt = path["cfg"].grid, path["solver"], path["dt"]
-    E, Np = g.nelem, g.Np
-    mass = lambda q: torch.sum(g.M.double() * q[:, 0].double()).item()
+    model = path["cfg"].model
+    E, Np, nq = g.nelem, g.Np, model.prog_spec.num
+    mass = lambda q, v=0: torch.sum(g.M.double() * q[:, v].double()).item()
     m0 = mass(path["q0"])
     if mode is not None:
         path["rhs"].surface_kernel = mode
@@ -773,9 +852,20 @@ def run_path(path: dict, n_warm: int, n_steps: int, mode=None):
                sim_s_per_wall_s=dt * n_steps / wall, launches=counts,
                mass_drift_rel=drift, mass_tol=MASS_TOL, finite=finite,
                shape=list(q.shape))
-    check(list(q.shape) == [E, 5, Np], ("state shape", list(q.shape)))
+    check(list(q.shape) == [E, nq, Np], ("state shape", list(q.shape)))
     check(finite, "state not finite")
     check(drift <= MASS_TOL, ("mass drift", drift))
+    if getattr(model, "moist", False):
+        # the JAX package's checks (tests/test_baroclinic_wave.py:44-56)
+        mq0 = mass(path["q0"], 5)
+        q_tot = q[:, 5] / q[:, 0]
+        res.update(mass_drift_rel_rhoq_tot=abs(mass(q, 5) - mq0) / mq0,
+                   max_abs_u=(q[:, 1:4] / q[:, :1]).abs().max().item(),
+                   q_tot_min=q_tot.min().item(), q_tot_max=q_tot.max().item(),
+                   max_abs_u_bound=MAX_ABS_U)
+        check(res["mass_drift_rel_rhoq_tot"] <= MASS_TOL,
+              ("ρq_tot mass drift", res["mass_drift_rel_rhoq_tot"]))
+        check(res["max_abs_u"] < MAX_ABS_U, ("max |u|", res["max_abs_u"]))
     return res, counts, q
 
 
@@ -800,7 +890,7 @@ def step_vs_plain(path, mode: str):
     """One step with the kernels against one with the plain versions,
     both with the surface pass ``mode``, from the path's initial state."""
     plain = LSRK54CarpenterKennedy(plain_rhs(path["dg"], mode), path["dt"],
-                                   post_step=path["hsf"].apply_vm)
+                                   post_step=path["solver"].post_step)
     q0, aux0 = path["q0"], path["aux0"]
     path["rhs"].surface_kernel = mode
     q1, _ = path["solver"].step(q0, aux0, 0.0)
@@ -958,23 +1048,24 @@ def phase_surface_kernels(rhs, q, aux) -> dict:
     the bundle of the plain extraction and its gathered neighbour side,
     with hyperdiffusion on and off.  Returns the results with
     hyperdiffusion, the path's."""
-    g, ps = rhs.grid, rhs.bl.param_set
-    _, p, c_s, _ = rhs._thermo_update(q, aux, False)
+    g, ps, nq = rhs.grid, rhs.bl.param_set, rhs.nq
+    _, p, c_s, aux = rhs._thermo_update(q, aux, False)
     gl2 = rhs._chain(q, aux, p)
     p_ref = aux[:, rhs.i_pref].contiguous()
     results = {}
     for hyper in (True, False):
         ext_args = (q, p, c_s, p_ref[:, None], gl2 if hyper else None,
                     rhs.nu if hyper else None, g.lift, rhs.nrm)
-        ext_kw = dict(nq=5, na=1, ngl=4, has_hyper=hyper)
+        ext_kw = dict(nq=nq, na=1, ngl=rhs.bl.gradlap_spec.num,
+                      has_hyper=hyper)
         ext = kernel_vs_plain("extract_trace_vm", ext_args, rhs, n=0,
                               **ext_kw)
         Bf = surface_kernel.extract_trace_plain(*ext_args, **ext_kw)
         lift_args = (Bf, rhs._gather_faces(Bf), rhs.nrm, rhs.sM, rhs.bmask,
                      rhs.liftT, g.MI)
         lift = kernel_vs_plain(
-            "fused_surface_lift_vm", lift_args, rhs, n=0, nq=5,
-            nvb=Bf.shape[1], subtract=True, i_pref=7, has_hyper=hyper,
+            "fused_surface_lift_vm", lift_args, rhs, n=0, nq=nq,
+            nvb=Bf.shape[1], subtract=True, i_pref=nq + 2, has_hyper=hyper,
             rem_lanes=(), sl_lo=0, sl_hi=0, R_d_T0=ps.R_d * ps.T_0,
             R_over_cv=ps.R_d / ps.cv_d)
         if hyper:
@@ -1073,28 +1164,11 @@ def imex_layout_step_vs_plain(path):
 
 def imex_small_reference(device="cuda") -> list:
     """Three IMEX steps of a small grid (n_horz=2, n_vert=3, p4,
-    DryBiharmonic(8 h), the filter) in float32 on ``device`` against
-    float64 on the CPU from the same float32 geometry and initial state
-    (upcast), each through ``IMEXSolverType().make``.  Returns the
-    per-variable error relative to max|q| of the float64 run."""
-    small = build_imex_path(8 * 3600.0, n_horz=2, n_vert=3, device=device)
-    g, model, dt = small["cfg"].grid, small["cfg"].model, small["dt"]
-    grid64 = grid_from_numpy(grid_to_numpy(g), device="cpu",
-                             dtype=torch.float64)
-    q, aux = small["q0"], small["aux0"]
-    runs = {"f32": (small["solver"], q, aux)}
-    q64, aux64 = q.double().cpu(), aux.double().cpu()
-    imex64 = IMEXSolverType().make(DGModel(model, grid64), q64, aux64, dt)
-    imex64.post_step = HeldSuarezStepFilter(grid64, model).apply_vm
-    runs["f64"] = (imex64, q64, aux64)
-    final = {}
-    for name, (imex, q, aux) in runs.items():
-        for i in range(3):
-            q, aux = imex.step(q, aux, i * dt)
-        final[name] = q.double().cpu()
-    ref = final["f64"]
-    return ((final["f32"] - ref).abs().amax(dim=(0, 2))
-            / ref.abs().amax(dim=(0, 2))).tolist()
+    DryBiharmonic(8 h), the filter) on ``device`` against float64 on the
+    CPU (:func:`card_vs_cpu_f64`), each through ``IMEXSolverType().make``."""
+    return card_vs_cpu_f64(
+        build_imex_path(8 * 3600.0, n_horz=2, n_vert=3, device=device),
+        IMEXSolverType())
 
 
 def load_refstats():
@@ -1281,7 +1355,7 @@ def phase_generic_checks(base, seed: int) -> dict:
     q = perturbed(base["q0"], seed)
     aux = model.update_auxiliary_state(q, base["aux0"])
     dg_lin, dg_rem, dry = dry_inputs(dg, q, aux)
-    grid_only = SimpleNamespace(grid=g, hd=None)
+    grid_only = SimpleNamespace(grid=g, hd=None, nq=5)
     kernels = {entry: kernel_vs_plain(DRY, args, grid_only, n=0, **kw)
                for entry, (args, kw) in dry.items()}
 
@@ -1406,6 +1480,203 @@ def phase_generic(seed: int) -> dict:
     return dict(kernels=kernels, launches=launches, ms_per_step=ms)
 
 
+# --- the moist baroclinic wave -------------------------------------------------
+
+def build_moist_path(imex: bool, n_horz=N_HORZ, n_vert=N_VERT,
+                     device="cuda", dt=None, cfl=None) -> dict:
+    # imported here: a checkout of an earlier commit, run with
+    # --skip-moist, has no baroclinic wave
+    from climatemachine_tpu_torch.experiments.baroclinic_wave import \
+        baroclinic_wave_config
+    """The moist baroclinic wave (EquilMoist, EquilMoistBiharmonic(8 h),
+    Gravity, Coriolis; no filter), its initial state and the solver as a
+    user builds them: ``IMEXSolverType().make`` with ``imex``, else
+    ``ExplicitSolverType().make``.  dt, unless given, is ``cfl`` (0.1
+    IMEX, 0.3 explicit, as the dry paths) times the horizontal (IMEX) or
+    every-direction (explicit) node distance over 350 m/s.  ``setup_s``
+    is the time of ``make``."""
+    t0 = time.perf_counter()
+    cfg = baroclinic_wave_config(n_horz=n_horz, n_vert=n_vert,
+                                 poly_order=POLY, dtype=torch.float32,
+                                 hyperdiffusion_tau=MOIST_TAU, device=device)
+    dg = DGModel(cfg.model, cfg.grid)
+    q0, aux0 = init_ode_state(dg)
+    if dt is None:
+        dt = ((cfl or 0.1) * min_node_distance(cfg.grid, "horizontal")
+              if imex else (cfl or 0.3) * min_node_distance(cfg.grid)) / 350.0
+    sync = torch.cuda.synchronize if device == "cuda" else lambda: None
+    sync()
+    t1 = time.perf_counter()
+    solver = (IMEXSolverType() if imex else ExplicitSolverType()).make(
+        dg, q0, aux0, dt)
+    sync()
+    return dict(tau=MOIST_TAU, cfg=cfg, dg=dg, q0=q0, aux0=aux0, dt=dt,
+                hsf=None, rhs=solver.rhs_full if imex else solver.vm,
+                solver=solver, setup_s=time.perf_counter() - t1,
+                build_s=time.perf_counter() - t0)
+
+
+def moist_small_reference(imex: bool) -> list:
+    """Three steps of the moist wave on a small grid (n_horz=2, p4;
+    n_vert=2 explicit at dt = 0.3 · node distance / 350, n_vert=3 IMEX at
+    MOIST_SMALL_IMEX_CFL) on the card against float64 on the CPU
+    (:func:`card_vs_cpu_f64`), each through its solver type's ``make``."""
+    small = build_moist_path(imex, n_horz=2, n_vert=3 if imex else 2,
+                             cfl=MOIST_SMALL_IMEX_CFL if imex else None)
+    return card_vs_cpu_f64(
+        small, IMEXSolverType() if imex else ExplicitSolverType())
+
+
+def moist_imex_stable_path() -> dict:
+    """The full-width moist IMEX path at the largest dt of dt₀ / 2^k, k =
+    0..MOIST_DT_HALVINGS (dt₀ the dry IMEX path's, from the horizontal
+    CFL), whose 35 "pallas" steps from the initial state stay finite
+    with max|u| < MAX_ABS_U; each trial is reported, and none raises."""
+    dt0 = None
+    for k in range(MOIST_DT_HALVINGS + 1):
+        path = build_moist_path(True, dt=None if dt0 is None else dt0 / 2 ** k)
+        dt0 = dt0 or path["dt"]
+        path["rhs"].surface_kernel = "pallas"
+        q, aux, bad, umax = path["q0"], path["aux0"], None, 0.0
+        for i in range(N_WARM_IMEX + N_STEPS_IMEX):
+            q, aux = path["solver"].step(q, aux, i * path["dt"])
+            umax = (q[:, 1:4] / q[:, :1]).abs().max().item()
+            if not (bool(torch.isfinite(q).all()) and umax < MAX_ABS_U):
+                bad = i + 1
+                break
+        emit("moist_imex_dt_scan", card=nvidia_smi(), dt_s=path["dt"],
+             halvings=k, steps=N_WARM_IMEX + N_STEPS_IMEX,
+             stable=bad is None, first_bad_step=bad, max_abs_u=umax)
+        if bad is None:
+            path["dt_halvings"] = k
+            return path
+        del path, q, aux
+        torch.cuda.empty_cache()
+    raise RuntimeError("chip_smoke check failed: no stable moist IMEX dt")
+
+
+def phase_moist(seed: int) -> dict:
+    """The moist baroclinic wave at full width: the explicit path's
+    kernels against their plain versions on its perturbed state (the
+    volume kernel at nq = 6 with F₂, K1-K4 at n = 5, both surface kernels
+    at nq = 6 with hyperdiffusion on and off), the whole chain, one
+    LSRK54 step with "xla" and "pallas" against the all-plain step, the
+    small reference, 23 steps under each surface pass; then the IMEX path
+    at the largest stable dt (moist_imex_stable_path): both layout
+    kernels at six variables against their plain versions and the library
+    call, the round trip, one IMEX step with "xla" and "pallas" against
+    the all-plain step and one with only the layouts plain, the small
+    reference, and 35 steps under each surface pass; exact launch counts
+    and the JAX package's checks on every run."""
+    path = build_moist_path(False)
+    model, g = path["cfg"].model, path["cfg"].grid
+    q_tot0 = path["q0"][:, 5] / path["q0"][:, 0]
+    emit("moist_initial_state", q_tot_min=q_tot0.min().item(),
+         q_tot_max=q_tot0.max().item(), setup_s=path["setup_s"],
+         build_s=path["build_s"])
+    check(0.0 <= q_tot0.min().item() and q_tot0.max().item() < 0.02,
+          "initial q_tot outside [0, 0.02)")
+    rhs = path["rhs"]
+    check(rhs.moist and rhs.write_aux and rhs.nq == 6, "moist var-major RHS")
+    qp = perturbed(path["q0"], seed)
+    kernels = phase_kernels(rhs, qp, path["aux0"])
+    kernels.update(phase_surface_kernels(rhs, qp, path["aux0"]))
+    del qp
+    for mode in ("xla", "pallas"):
+        step_vs_plain(path, mode)
+    for imex, tol in ((False, MOIST_SMALL_TOL), (True, MOIST_IMEX_SMALL_TOL)):
+        err = moist_small_reference(imex)
+        emit("moist_small_reference", solver="IMEX" if imex else "LSRK54",
+             n_horz=2, n_vert=3 if imex else 2, poly=POLY, steps=3,
+             rel_err_per_var=err, tol=tol)
+        check(all(e <= t for e, t in zip(err, tol)),
+              ("moist small reference", imex, err))
+
+    explicit_ms = {}
+    for mode in SURFACE_KERNELS:
+        res, counts, _ = run_path(path, N_WARM, N_STEPS, mode)
+        expected = expected_launches(
+            {name: 5 for name in EXPLICIT + SURFACE_LAUNCHES[mode]},
+            N_WARM + N_STEPS)
+        emit("moist_path", solver="LSRK54", expected_launches=expected,
+             **res)
+        check_launches(counts, expected)
+        explicit_ms[mode] = res["ms_per_step"]
+    del path, rhs
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    path = moist_imex_stable_path()
+    setup_peak = torch.cuda.max_memory_allocated()
+    sv = path["solver"].solver
+    check(sv.layout.nvars == 6 and sv.nb == 30, ("moist blocks", sv.nb))
+    kernels.update(phase_layout_kernels(sv.layout,
+                                        perturbed(path["q0"], seed), seed))
+    for mode in ("xla", "pallas"):
+        imex_step_vs_plain(path, mode)
+    imex_layout_step_vs_plain(path)
+
+    n = N_WARM_IMEX + N_STEPS_IMEX
+    imex_ms, launches = {}, {}
+    for mode in SURFACE_KERNELS:
+        torch.cuda.reset_peak_memory_stats()
+        res, counts, q = run_path(path, N_WARM_IMEX, N_STEPS_IMEX, mode)
+        expected = expected_launches(
+            {**{name: 3 for name in EXPLICIT + SURFACE_LAUNCHES[mode]},
+             "to_blocks_vm": 3, "from_blocks_vm": 2}, n)
+        res.update(solver="ARK2GiraldoKellyConstantinescu+BlockTridiag",
+                   build_s=path["build_s"], block_size=sv.nb,
+                   active_unknowns=sv.active_count,
+                   dt_halvings=path["dt_halvings"],
+                   peak_memory_setup_bytes=setup_peak,
+                   peak_memory_steps_bytes=torch.cuda.max_memory_allocated(),
+                   expected_launches=expected)
+        emit("moist_path", **res)
+        check_launches(counts, expected)
+        imex_ms[mode], launches[mode] = res["ms_per_step"], counts
+        del q
+    path["rhs"].surface_kernel = "xla"
+    return dict(kernels=kernels, launches=launches["pallas"],
+                explicit_ms_per_step=explicit_ms, imex_ms_per_step=imex_ms,
+                imex_dt_s=path["dt"])
+
+
+def phase_moist_kernel_orders(seed: int):
+    """The moist branches at each of EDGE_ORDERS on the small moist grid
+    (48 elements): K1-K4 at n = 5 and the volume kernel at nq = 6 with
+    and without F₂ on the var-major RHS's inputs, each held on all
+    elements and on the first TAIL_E (:func:`hold`); then the moist
+    var-major RHS against the one with every stage's plain version."""
+    from climatemachine_tpu_torch.experiments.baroclinic_wave import \
+        baroclinic_wave_config
+    for poly in EDGE_ORDERS:
+        cfg = baroclinic_wave_config(*EDGE_GRID, poly, dtype=torch.float32,
+                                     hyperdiffusion_tau=MOIST_TAU,
+                                     device="cuda")
+        dg = DGModel(cfg.model, cfg.grid)
+        q0, aux0 = init_ode_state(dg)
+        q = perturbed(q0, seed)
+        rhs = VarMajorRHS(dg)
+        _, inputs = chain_inputs(rhs, q, aux0)
+        cases = {name: (name, inputs[name], {}) for name in CHAIN}
+        for f2 in (True, False):
+            cases["fused_volume_tendency_vm" + ("" if f2 else "_no_f2")] = (
+                "fused_volume_tendency_vm",
+                inputs["fused_volume_tendency_vm"], volume_kwargs(rhs, f2))
+        held = {entry: hold(name, args, kw)
+                for entry, (name, args, kw) in cases.items()}
+        err = per_var_err(rhs(q, aux0, 0.0)[0],
+                          plain_rhs(dg, "xla")(q, aux0, 0.0)[0])
+        torch.cuda.synchronize()
+        emit("kernel_orders", moist=True, poly=poly, Np=cfg.grid.Np,
+             elements=cfg.grid.nelem, tail_elements=TAIL_E, tol=KERNEL_TOL,
+             kernels=held, rhs_rel_err_per_var={"var_major": err},
+             rhs_tol=GENERIC_RHS_TOL)
+        check(all(torch.isfinite(torch.tensor(err)))
+              and max(err) <= GENERIC_RHS_TOL,
+              ("moist RHS at order", poly, err))
+
+
 # --- the staged kernels at the other orders ----------------------------------
 
 def hold(name, args, kw) -> dict:
@@ -1488,21 +1759,32 @@ def phase_kernel_orders(seed: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--skip-moist", action="store_true",
+                    help="leave out the moist baroclinic wave (to run this "
+                    "script in a checkout of a commit without it)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    emit("options", seed=args.seed, skip_moist=args.skip_moist)
     phase_device()
     phase_build()
     explicit = phase_main_path(args.seed)
     phase_no_hyperdiffusion(args.seed)
     imex = phase_imex(args.seed, explicit)
     generic = phase_generic(args.seed)
+    moist = None if args.skip_moist else phase_moist(args.seed)
     phase_kernel_orders(args.seed)
+    if moist:
+        phase_moist_kernel_orders(args.seed)
     emit("surface_modes", card=nvidia_smi(),
          explicit_ms_per_step=explicit["ms_per_step"],
          imex_ms_per_step=imex["ms_per_step"],
-         generic_ms_per_step=generic["ms_per_step"])
+         generic_ms_per_step=generic["ms_per_step"],
+         **({} if moist is None else dict(
+             moist_explicit_ms_per_step=moist["explicit_ms_per_step"],
+             moist_imex_ms_per_step=moist["imex_ms_per_step"],
+             moist_imex_dt_s=moist["imex_dt_s"])))
     # each kernel's launches from the run of its path: the var-major IMEX
     # step with "pallas" (all nine earlier kernels), the dry kernel from
     # the grid-layout IMEX step and its remainder branch from the dense one
@@ -1513,6 +1795,13 @@ def main(argv=None) -> int:
     entries += [(DRY, DRY, generic["launches"]["imex"][DRY]),
                 (DRY + "_remainder", DRY,
                  generic["launches"]["dense"][DRY])]
+    # the moist branches, with launches from the moist IMEX step with
+    # "pallas"
+    if moist:
+        results.update({name + MOIST: k
+                        for name, k in moist["kernels"].items()})
+        entries += [(name + MOIST, name, moist["launches"][name])
+                    for name in EXPLICIT + SURFACE + LAYOUT]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": entry, "route": "cuda",

@@ -1,11 +1,14 @@
 """Horizontal biharmonic hyperdiffusion (port of
 ``climatemachine_tpu/atmos/hyperdiffusion.py`` ``DryBiharmonic`` :22-86:
-``gradient_laplacian_argument`` :50, ``transform`` :64, ``flux`` :76).
+``gradient_laplacian_argument`` :50, ``transform`` :64, ``flux`` :76;
+and ``EquilMoistBiharmonic`` :90-123, its chain variable q_tot and ν₄_q,
+for the var-major RHS).
 
 ν₄ = (Δ_h/2)⁴ / 2τ with Δ_h the horizontal grid lengthscale, an aux lane
 filled once at set-up.  The LDG chain ∇→Δ→∇ runs on (u_h, h_tot); the
 hyperdiffusive flux is F₂[ρu] = ρν₄∇Δu_h, F₂[ρe] = ν₄∇Δu_h·ρu +
-ρν₄∇Δh_tot.  The var-major RHS (dg/fast_rhs.py) builds it inside the
+ρν₄∇Δh_tot and, with moisture, F₂[ρq_tot] = ρν₄_q∇Δq_tot, ν₄_q =
+(Δ_h/2)⁴ / 2τ_q.  The var-major RHS (dg/fast_rhs.py) builds it inside the
 volume kernel and on the faces; the generic DG operator (dg/spatial.py)
 through :meth:`DryBiharmonic.transform` and :meth:`DryBiharmonic.flux`,
 with the hyper state ν₄∇Δ(u_h, h_tot) held ``[E, 3, 4, Np]`` (direction
@@ -82,3 +85,26 @@ class DryBiharmonic:
         F[:, :, 4] += (torch.sum(hyper[:, :, :3] * ru[:, None], dim=2)
                        + rho[:, None] * hyper[:, :, 3])
         return F
+
+
+@dataclass
+class EquilMoistBiharmonic(DryBiharmonic):
+    """DryBiharmonic with q_tot as a fifth chain variable, diffused on
+    the timescale ``tau_timescale_q_tot`` (``tau_timescale`` unless
+    given).  Only the var-major RHS runs it: the generic DG operator
+    refuses a moist model."""
+    tau_timescale_q_tot: float = None
+
+    def __post_init__(self):
+        if self.tau_timescale_q_tot is None:
+            self.tau_timescale_q_tot = self.tau_timescale
+
+    def vars_gradient_laplacian(self) -> VarSpec:
+        return VarSpec(u_h=3, h_tot=1, q_tot=1)
+
+    def gradient_laplacian_argument(self, model, q, aux, t, p=None):
+        """(u_h, h_tot, q_tot) ``[E, 5, Np]``."""
+        out = super().gradient_laplacian_argument(model, q, aux, t, p)
+        sp = model.prog_spec
+        q_tot = sp.get(q, "moisture.rhoq_tot") / sp.get(q, "rho")
+        return torch.cat([out, q_tot[:, None]], dim=1)

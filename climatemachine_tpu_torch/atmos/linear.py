@@ -8,8 +8,10 @@ reference enthalpy.  Run by the generic DG operator with
 ``direction="vertical"`` they form the HEVI implicit operator, local to
 each column of a stacked grid.
 
-Var-major: state ``[E, 5, L]`` and aux ``[E, naux, L]`` over L nodes
-(volume or face lanes), flux ``[E, 3, 5, L]`` (direction i, variable).
+Var-major: state ``[E, n, L]`` and aux ``[E, naux, L]`` over L nodes
+(volume or face lanes), flux ``[E, 3, n, L]`` (direction i, variable);
+n = 5, or 6 with EquilMoist's ρq_tot, which has no linear flux (JAX
+``linear.py`` :55-66).
 """
 
 from __future__ import annotations

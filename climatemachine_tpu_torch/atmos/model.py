@@ -1,15 +1,18 @@
-"""The dry atmosphere balance law (port of the parts of
-``climatemachine_tpu/atmos/model.py`` the Held-Suarez step uses: the
-prognostic/aux schemas :146-203, ``nodal_init_state_auxiliary`` :334,
-the dry thermo refresh of the aux lanes, and the hooks of the generic DG
-operator for the dry, total-energy, compressible model:
-``flux_first_order`` :372, ``wavespeed`` :449, the gradient-Laplacian
-hooks :539-550, ``flux_second_order`` :552 (hyperdiffusion only),
-``source`` :583 and the wall ghost ``boundary_state`` :608-618).
+"""The atmosphere balance law (port of the parts of
+``climatemachine_tpu/atmos/model.py`` the Held-Suarez step and the
+moist baroclinic wave use: the prognostic/aux schemas :146-203,
+``nodal_init_state_auxiliary`` :334, the thermo refresh of the aux lanes
+through the moisture model (``nodal_update_auxiliary_state`` :493), and
+the hooks of the generic DG operator for the dry, total-energy,
+compressible model: ``flux_first_order`` :372, ``wavespeed`` :449, the
+gradient-Laplacian hooks :539-550, ``flux_second_order`` :552
+(hyperdiffusion only), ``source`` :583 and the wall ghost
+``boundary_state`` :608-618).
 
-Prognostic: ρ, ρu(3), ρe.  Auxiliary: coord(3), orientation (Φ, ∇Φ),
-reference state (ρ, p, T, ρe), moisture (θ_v, T) — 13 lanes in the JAX
-package's order — then, with hyperdiffusion, ``hyperdiffusion.delta``.
+Prognostic: ρ, ρu(3), ρe, then with ``EquilMoist`` ρq_tot.  Auxiliary:
+coord(3), orientation (Φ, ∇Φ), reference state (ρ, p, T, ρe), moisture
+(θ_v, T dry; T, θ_v, q_liq, q_ice with ``EquilMoist``), in the JAX
+package's order, then, with hyperdiffusion, ``hyperdiffusion.delta``.
 State and aux are var-major ``[E, n, L]`` over L nodes (volume or face
 lanes); fluxes ``[E, 3, n, L]`` (direction i, then variable).
 """
@@ -22,6 +25,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from climatemachine_tpu_torch.atmos.boundaryconditions import AtmosBC
+from climatemachine_tpu_torch.atmos.moisture import DryModel, EquilMoist
 from climatemachine_tpu_torch.atmos.ref_state import HydrostaticState
 from climatemachine_tpu_torch.atmos.sources import VMContext
 from climatemachine_tpu_torch.common.orientations import SphericalOrientation
@@ -33,14 +37,19 @@ from climatemachine_tpu_torch.utils.variables import VarSpec
 
 @dataclass(frozen=True)
 class AtmosPhysics:
-    """Physics bundle.  ``hyperdiffusion`` is None or a
+    """Physics bundle.  ``moisture`` is a
+    :class:`~climatemachine_tpu_torch.atmos.moisture.DryModel` or an
+    :class:`~climatemachine_tpu_torch.atmos.moisture.EquilMoist`;
+    ``hyperdiffusion`` is None, a
     :class:`~climatemachine_tpu_torch.atmos.hyperdiffusion.DryBiharmonic`
-    (the var-major RHS refuses any other kind)."""
+    or, with ``EquilMoist``, an ``EquilMoistBiharmonic`` (the var-major
+    RHS refuses any other kind)."""
     param_set: PlanetParameterSet = EARTH
     orientation: SphericalOrientation = field(
         default_factory=SphericalOrientation)
     ref_state: HydrostaticState = field(default_factory=HydrostaticState)
     hyperdiffusion: Optional[object] = None
+    moisture: object = field(default_factory=DryModel)
 
 
 @dataclass(frozen=True)
@@ -59,18 +68,23 @@ def _set(arr, sl: slice, val):
 
 
 class AtmosModel:
-    """Dry compressible atmosphere with total energy."""
+    """Compressible atmosphere with total energy, dry or in equilibrium
+    moisture."""
 
     def __init__(self, physics: AtmosPhysics, problem: AtmosProblem,
                  sources: Sequence = ()):
         self.physics = physics
         self.problem = problem
         self.sources = tuple(sources)
-        self.prog_spec = VarSpec(rho=1, rhou=3, rhoe=1)
+        moist = physics.moisture
+        prog_fields = dict(rho=1, rhou=3, rhoe=1)
+        if moist.vars_prognostic().num:
+            prog_fields["moisture"] = moist.vars_prognostic()
+        self.prog_spec = VarSpec(**prog_fields)
         aux_fields = dict(coord=3,
                           orientation=physics.orientation.vars_aux(),
                           ref_state=physics.ref_state.vars_aux(),
-                          moisture=VarSpec(theta_v=1, air_T=1))
+                          moisture=moist.vars_aux())
         hyper = physics.hyperdiffusion
         if hyper is not None:
             aux_fields["hyperdiffusion"] = hyper.vars_aux()
@@ -107,22 +121,22 @@ class AtmosModel:
     def init_state_prognostic(self, coords, aux, t):
         return self.problem.init_state(self, coords, aux, t)
 
+    @property
+    def moist(self) -> bool:
+        """True with equilibrium moisture (prognostic ρq_tot)."""
+        return isinstance(self.physics.moisture, EquilMoist)
+
     def thermo(self, q, aux):
-        """(T, p) of the dry state from e_int = ρe/ρ − |ρu|²/2ρ² − Φ."""
-        ps = self.param_set
-        rho, rhou, rhoe = q[:, 0], q[:, 1:4], q[:, 4]
-        Phi = self.aux_spec.get(aux, "orientation.Phi")
-        ke = 0.5 * torch.sum(rhou * rhou, dim=1) / (rho * rho)
-        T = td.air_temperature(ps, rhoe / rho - ke - Phi)
-        return T, td.air_pressure(ps, T, rho)
+        """(T, p) from the moisture model: the dry state's from e_int =
+        ρe/ρ − |ρu|²/2ρ² − Φ; ``EquilMoist``'s from the aux lane
+        ``moisture.temperature`` and its phase partition."""
+        return self.physics.moisture.thermo(self, q, aux)[:2]
 
     def update_auxiliary_state(self, q, aux):
-        """Refresh the dry thermo lanes θ_v and T from the state."""
-        ps, sp = self.param_set, self.aux_spec
-        T, p = self.thermo(q, aux)
-        theta_v = T * (ps.MSLP / p) ** ps.kappa_d
-        aux = _set(aux, sp.index("moisture.air_T"), T)
-        return _set(aux, sp.index("moisture.theta_v"), theta_v)
+        """Refresh the moisture model's thermo lanes from the state (θ_v
+        and T dry; T by saturation adjustment, θ_v, q_liq and q_ice with
+        ``EquilMoist``)."""
+        return self.physics.moisture.update_aux(self, q, aux)
 
     def preprocess_state(self, dg, q, aux, t):
         """The state projection before each stage: none for this model."""
@@ -132,7 +146,8 @@ class AtmosModel:
     def flux_first_order(self, q, aux, t):
         """Advection, the pressure gradient with the reference pressure
         taken out, and the pressure work: F_i[ρ] = ρu_i, F_i[ρu_j] =
-        ρu_i u_j + (p − p_ref) δ_ij, F_i[ρe] = (ρe + p) u_i."""
+        ρu_i u_j + (p − p_ref) δ_ij, F_i[ρe] = (ρe + p) u_i, and each
+        advected scalar (ρq_tot) F_i[ρχ] = ρχ u_i."""
         rho, rhou, rhoe = q[:, 0], q[:, 1:4], q[:, 4]
         _, p = self.thermo(q, aux)
         u = rhou / rho[:, None]
@@ -144,14 +159,16 @@ class AtmosModel:
         for i in range(3):
             F[:, i, 1 + i] += p_eff
         F[:, :, 4] = (rhoe + p)[:, None] * u
+        for v in range(5, n):
+            F[:, :, v] = q[:, v, None] * u
         return F
 
     def wavespeed(self, nrm, q, aux, t):
         """|u·n| + the sound speed, ``[E, L]``."""
-        T, _ = self.thermo(q, aux)
+        T, _, pp = self.physics.moisture.thermo(self, q, aux)
         u = q[:, 1:4] / q[:, :1]
         return torch.abs(torch.sum(u * nrm, dim=1)) + td.soundspeed_air(
-            self.param_set, T)
+            self.param_set, T, pp)
 
     def compute_gradient_laplacian_argument(self, q, aux, t):
         return self.physics.hyperdiffusion.gradient_laplacian_argument(

@@ -1,0 +1,104 @@
+"""Moisture models (port of ``climatemachine_tpu/atmos/moisture.py``
+:24-172: ``MoistureModel``, ``DryModel``, ``EquilMoist``).
+
+A moisture model names its prognostic and aux lanes, refreshes the aux
+lanes from the state (``update_aux``) and gives the model's thermo
+(``thermo``: T, p and the phase partition).  ``DryModel`` caches θ_v and
+T; ``EquilMoist`` adds ρq_tot and caches T, θ_v, q_liq and q_ice, with T
+from the saturation adjustment.  State and aux are var-major ``[E, n,
+L]``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from climatemachine_tpu_torch.physics import thermodynamics as td
+from climatemachine_tpu_torch.utils.variables import VarSpec
+
+
+def _internal_energy(model, q, aux):
+    """e_int = ρe/ρ − |ρu|²/2ρ² − Φ of the conserved state."""
+    sp = model.prog_spec
+    rho, rhou, rhoe = sp.get(q, "rho"), sp.get(q, "rhou"), sp.get(q, "rhoe")
+    ke = 0.5 * torch.sum(rhou * rhou, dim=1) / (rho * rho)
+    return rhoe / rho - ke - model.aux_spec.get(aux, "orientation.Phi")
+
+
+def _set(aux, spec, values: dict):
+    out = aux.clone()
+    for name, val in values.items():
+        out[:, spec.index(name)] = val[:, None]
+    return out
+
+
+class MoistureModel:
+    def vars_prognostic(self) -> VarSpec:
+        return VarSpec()
+
+    def vars_aux(self) -> VarSpec:
+        return VarSpec()
+
+    def update_aux(self, model, q, aux):
+        return aux
+
+    def thermo(self, model, q, aux):
+        """(T, p, phase partition or None) from the state and aux."""
+        raise NotImplementedError
+
+
+class DryModel(MoistureModel):
+    """Dry air; aux caches θ_v and T."""
+
+    def vars_aux(self) -> VarSpec:
+        return VarSpec(theta_v=1, air_T=1)
+
+    def thermo(self, model, q, aux):
+        ps = model.param_set
+        T = td.air_temperature(ps, _internal_energy(model, q, aux))
+        return T, td.air_pressure(ps, T, model.prog_spec.get(q, "rho")), None
+
+    def update_aux(self, model, q, aux):
+        ps = model.param_set
+        T, p, _ = self.thermo(model, q, aux)
+        return _set(aux, model.aux_spec, {
+            "moisture.air_T": T,
+            "moisture.theta_v": T * (ps.MSLP / p) ** ps.kappa_d})
+
+
+@dataclass
+class EquilMoist(MoistureModel):
+    """Equilibrium moisture by saturation adjustment (``maxiter`` Newton
+    steps): prognostic ρq_tot; aux caches T, θ_v, q_liq and q_ice."""
+    maxiter: int = 6
+
+    def vars_prognostic(self) -> VarSpec:
+        return VarSpec(rhoq_tot=1)
+
+    def vars_aux(self) -> VarSpec:
+        return VarSpec(temperature=1, theta_v=1, q_liq=1, q_ice=1)
+
+    def update_aux(self, model, q, aux):
+        ps, sp = model.param_set, model.prog_spec
+        rho = sp.get(q, "rho")
+        q_tot = sp.get(q, "moisture.rhoq_tot") / rho
+        T = td.saturation_adjustment(ps, _internal_energy(model, q, aux),
+                                     rho, q_tot, n_iter=self.maxiter)
+        pp = td.phase_partition_equil(ps, T, rho, q_tot)
+        p = td.air_pressure(ps, T, rho, pp)
+        theta_v = td.virtual_temperature(ps, T, pp) * \
+            (ps.MSLP / p) ** ps.kappa_d
+        return _set(aux, model.aux_spec, {
+            "moisture.temperature": T, "moisture.theta_v": theta_v,
+            "moisture.q_liq": pp.liq, "moisture.q_ice": pp.ice})
+
+    def thermo(self, model, q, aux):
+        """T from the aux lane the last ``update_aux`` wrote."""
+        ps, sp = model.param_set, model.prog_spec
+        rho = sp.get(q, "rho")
+        q_tot = sp.get(q, "moisture.rhoq_tot") / rho
+        T = model.aux_spec.get(aux, "moisture.temperature")
+        pp = td.phase_partition_equil(ps, T, rho, q_tot)
+        return T, td.air_pressure(ps, T, rho, pp), pp

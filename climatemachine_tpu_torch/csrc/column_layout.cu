@@ -14,9 +14,10 @@
 // and the plain PyTorch versions.
 //
 // What bounds them: a permutation does no arithmetic, so bytes alone.
-// At the IMEX step's shapes (E = 12288, NVARS = 5, Np = 125, JI = 25,
-// float32) each launch reads 30.72 MB and writes 30.72 MB: 0.0183 ms at
-// the H100's 3.35 TB/s.
+// At the dry IMEX step's shapes (E = 12288, NVARS = 5, Np = 125, JI =
+// 25, float32) each launch reads 30.72 MB and writes 30.72 MB: 0.0183 ms
+// at the H100's 3.35 TB/s; at the moist step's (NVARS = 6) 36.86 MB each
+// way, 0.0220 ms.
 //
 // Design: one block per (ev, tile of T consecutive eh), as the Pallas
 // kernels' grid (nv, Eh / B).  The tile passes through shared memory,
@@ -44,10 +45,10 @@
 //   A shape whose tile of 8 eh overflows the static 48 KB of shared
 //   memory takes the largest power-of-two tile that fits; a shape whose
 //   single chunk does not fit is refused.
-// - The dims (NVARS, NQ3, JI) and T are template constants for the one
-//   shape the port runs on the card, (5, 5, 25) with T = 8, so the splits
-//   are multiply-shift sequences; any other shape takes the same kernel
-//   with runtime dims.  The grid NV * ceil(Eh / T) is a function of the
+// - The dims (NVARS, NQ3, JI) and T are template constants for the two
+//   shapes the port runs on the card, (5, 5, 25) dry and (6, 5, 25)
+//   moist, with T = 8, so the splits are multiply-shift sequences; any
+//   other shape takes the same kernel with runtime dims.  The grid NV * ceil(Eh / T) is a function of the
 //   dims alone: no device query.  The offsets inside a tile run in 32
 //   bits when the state has fewer than 2^31 elements, in 64 otherwise;
 //   block bases in 64.
@@ -251,6 +252,10 @@ int launch(const void* src, void* dst, int Eh, int NV, int NVARS, int NQ3,
   if (NVARS == 5 && NQ3 == 5 && JI == 25 && tile == TILE)
     return (int)launch_dims<5, 5, 25, TILE, TO_BLOCKS>(
         s, d, Eh, NV, Dims<5, 5, 25, TILE>{5, 5, 25, TILE}, (unsigned)blocks,
+        smem, use_vec, wide, st);
+  if (NVARS == 6 && NQ3 == 5 && JI == 25 && tile == TILE)
+    return (int)launch_dims<6, 5, 25, TILE, TO_BLOCKS>(
+        s, d, Eh, NV, Dims<6, 5, 25, TILE>{6, 5, 25, TILE}, (unsigned)blocks,
         smem, use_vec, wide, st);
   return (int)launch_dims<0, 0, 0, 0, TO_BLOCKS>(
       s, d, Eh, NV, Dims<0, 0, 0, 0>{NVARS, NQ3, JI, tile}, (unsigned)blocks,

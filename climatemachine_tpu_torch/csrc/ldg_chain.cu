@@ -27,12 +27,16 @@
 // lattice, and K1-K3 read it only as its line table (dg/line_ops.py): the
 // Nq x Nq weights of each direction and the node stride of its lines.
 //
+// N is 4 rows (u_h[3], h_tot) for the dry chain, 5 with the q_tot of
+// EquilMoistBiharmonic; the kernels are built for both.
+//
 // What bounds them (E = 12288, Np = 125, Nq = 5, N = 4, ND = 2, F = 100,
 // float32, Sel/LT counted as data movement; the H100's 67 TFLOP/s fp32
 // and 3.35 TB/s).  Sum-factorised, a derivative is 2 Nq flops a node, row
 // and direction (K1 and K3 0.06 GFLOP, K2 0.52), so bytes alone bound
 // every kernel: K1 155 MB, 0.046 ms; K2 210 MB, 0.063 ms; K3 186 MB,
-// 0.055 ms; K4 188 MB, 0.056 ms.  Counted dense (the Np terms a node that
+// 0.055 ms; K4 188 MB, 0.056 ms (N = 5: 5/4 of each, about).  Counted
+// dense (the Np terms a node that
 // the TPU kernels compute), K1-K3 were bound by the fp32 pipes (3.1-9.4
 // GFLOP); K4 has no derivative (0.05 GFLOP of lift either way).  Of K1's
 // and K3's bytes the outputs are 60 and 50 %: vol 6000 B and rows 1600 B
@@ -80,7 +84,11 @@
 //     (a warp writes 128 consecutive bytes of a (c, v) row) were measured
 //     slower on an NVIDIA H100 (PERF.md).
 //   Shared memory a block at p4: K1 64 KiB, K2 108, K3 85, K4 74; at p5
-//   K1 111, K2 178, K3 142, K4 121.  ptxas gives K1 and K3 32 registers at
+//   K1 111, K2 178, K3 142, K4 121; at N = 5 about 5/4 of each (K2 126
+//   KiB at p4: one block an SM, where two fit at N = 4).  A run whose
+//   size is no multiple of 16 bytes (at N = 5 the last, partial tile's)
+//   leaves by its 16-byte floor in bulk and its <= 3 last floats by
+//   threads.  ptxas gives K1 and K3 32 registers at
 //   every order (K2 59 at p4), no spills.  The line order NQ is a template
 //   parameter, built for NQ = 2..6 (p1-p5, tile::by_order); the bench
 //   shape is p4.  Tensor cores have nothing to do here: 2 Nq flops per
@@ -100,6 +108,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "tile_pipeline.cuh"
 
@@ -249,6 +258,15 @@ struct GradArgs {
   int E, F;
 };
 
+// Run by every thread after the barrier that completes `src`: the floats
+// of a run of n past its 16-byte floor (none when n is a multiple of 4),
+// which its bulk store leaves out.
+__device__ __forceinline__ void store_tail(float* dst, const float* src,
+                                          int n) {
+  for (int j = (n & ~3) + threadIdx.x; j < n; j += blockDim.x)
+    dst[j] = src[j];
+}
+
 // K1 (LIFT false) and K3 (LIFT true).
 template <int N, int ND, int NQ, bool LIFT>
 __global__ void __launch_bounds__(TILE_THREADS)
@@ -386,10 +404,13 @@ ldg_grad_kernel(const GradArgs args) {
     const int next = t + 2 * gridDim.x;
     if (tid == 0 && next < tiles)
       tile::issue(S, &bar[st], seg, nullptr, next * TILE_E, count(next));
-    // the tile's vol run (12 NP floats an element: a multiple of 16 bytes)
-    if (tid == 0)
-      tile::bulk_store(args.vol + (size_t)e0 * 3 * N * NP, volt,
-                       4u * ne * 3 * N * NP);
+    // the tile's vol run (3 N NP floats an element), the next tile's
+    // derivatives write the vol tile after a barrier
+    float* vol = args.vol + (size_t)e0 * 3 * N * NP;
+    const int nvol = ne * 3 * N * NP;
+    if (tid == 0 && nvol >= 4)
+      tile::bulk_store(vol, volt, tile::floor16(4u * nvol));
+    store_tail(vol, volt, nvol);
   }
   if (tid == 0) tile::bulk_wait();
 }
@@ -440,7 +461,6 @@ struct K2Args {
 template <int N, int ND, int NQ>
 __global__ void __launch_bounds__(TILE_THREADS)
 ldg_grad_to_div_kernel(const K2Args args) {
-  static_assert(N % 4 == 0, "div and s rows go out as float4");
   constexpr int NP = NQ * NQ * NQ;
   constexpr int ITEMS = (TILE_E * NP + TILE_THREADS - 1) / TILE_THREADS;
   const int E = args.E, F = args.F, L = args.L;
@@ -551,14 +571,19 @@ ldg_grad_to_div_kernel(const K2Args args) {
     }
     __syncthreads();
 
-    // 4. the tile's div and s runs, 16 bytes a thread
+    // 4. the tile's div and s runs, 16 bytes a thread (the last <= 3
+    //    floats of a run that is no multiple of 4 one a thread)
     {
-      float4* out = reinterpret_cast<float4*>(args.s + (size_t)e0 * N * F);
+      float* s_out = args.s + (size_t)e0 * N * F;
+      float* div_out = args.div + (size_t)e0 * N * NP;
+      float4* out = reinterpret_cast<float4*>(s_out);
       const float4* in = reinterpret_cast<const float4*>(so);
       for (int i = tid; i < ne * N * F / 4; i += blockDim.x) out[i] = in[i];
-      out = reinterpret_cast<float4*>(args.div + (size_t)e0 * N * NP);
+      store_tail(s_out, so, ne * N * F);
+      out = reinterpret_cast<float4*>(div_out);
       in = reinterpret_cast<const float4*>(dvo);
       for (int i = tid; i < ne * N * NP / 4; i += blockDim.x) out[i] = in[i];
+      store_tail(div_out, dvo, ne * N * NP);
     }
     tile::fence_async_proxy();
     __syncthreads();                       // the stage is free
@@ -649,10 +674,14 @@ ldg_last_kernel(const LastArgs args) {
                    L, F, ne);
     tile::fence_async_proxy();
     __syncthreads();                       // the tile's out run is done
+    // the out run (3 N NP floats an element); a run that is no multiple of
+    // 4 floats is the last, partial tile's, whose stage is not refilled
+    float* out = args.out + (size_t)e0 * 3 * N * NP;
+    const int nout = ne * 3 * N * NP;
+    store_tail(out, S + lay.vol3, nout);
     if (tid == 0) {
-      // the out run (12 NP floats an element: a multiple of 16 bytes)
-      tile::bulk_store(args.out + (size_t)e0 * 3 * N * NP, S + lay.vol3,
-                       4u * ne * 3 * N * NP);
+      if (nout >= 4)
+        tile::bulk_store(out, S + lay.vol3, tile::floor16(4u * nout));
       const int next = t + 2 * gridDim.x;
       if (next < tiles) {
         tile::bulk_wait_read();            // the store has read the stage
@@ -678,36 +707,49 @@ int launch_tiles(Kernel kernel, size_t smem, int2* cache, const Args& args,
   return (int)cudaGetLastError();
 }
 
-// K1 (LIFT false) or K3 at NQ nodes a line.
-template <int NQ, bool LIFT>
+// K1 (LIFT false) or K3 with N rows at NQ nodes a line.
+template <int N, int NQ, bool LIFT>
 int launch_grad(const GradArgs& args, cudaStream_t stream) {
   static int2 cache[16];
-  return launch_tiles(ldg_grad_kernel<4, 2, NQ, LIFT>,
-                      GradLayout<NQ, LIFT>(4, 2, args.F, args.L).bytes(),
+  return launch_tiles(ldg_grad_kernel<N, 2, NQ, LIFT>,
+                      GradLayout<NQ, LIFT>(N, 2, args.F, args.L).bytes(),
                       cache, args, stream);
 }
 
-// K2 at NQ nodes a line (two blocks a SM at p4, one at p5).
-template <int NQ>
+// K2 with N rows at NQ nodes a line (N = 4: two blocks a SM at p4, one at
+// p5; N = 5: one).
+template <int N, int NQ>
 int launch_grad_to_div(const K2Args& args, cudaStream_t stream) {
-  const K2Layout<NQ> lay(4, 2, args.F, args.L);
+  const K2Layout<NQ> lay(N, 2, args.F, args.L);
   // div is staged over the dead runs w3 | mi | nrm (F = 4 NQ^2 faces
-  // nodes: room up to NQ = 8)
-  if (lay.xi - lay.w3 < TILE_E * 4 * K2Layout<NQ>::NP)
+  // nodes: room up to NQ = 6 at N = 5, 8 at N = 4)
+  if (lay.xi - lay.w3 < TILE_E * N * K2Layout<NQ>::NP)
     return (int)cudaErrorInvalidValue;
   static int2 cache[16];
-  return launch_tiles(ldg_grad_to_div_kernel<4, 2, NQ>, lay.bytes(), cache,
+  return launch_tiles(ldg_grad_to_div_kernel<N, 2, NQ>, lay.bytes(), cache,
                       args, stream);
 }
 
-// K4 at NQ nodes a line (73.75 KiB a block at p4: three fit in an SM's
-// 228 KB; one at p5).
-template <int NQ>
+// K4 with N rows at NQ nodes a line (N = 4: 73.75 KiB a block at p4, three
+// fit in an SM's 228 KB; one at p5).
+template <int N, int NQ>
 int launch_last(const LastArgs& args, cudaStream_t stream) {
   static int2 cache[16];
-  return launch_tiles(ldg_last_kernel<4, NQ>,
-                      LastLayout<NQ>(4, args.F, args.L).bytes(), cache, args,
+  return launch_tiles(ldg_last_kernel<N, NQ>,
+                      LastLayout<NQ>(N, args.F, args.L).bytes(), cache, args,
                       stream);
+}
+
+// The rows the kernels are built for: calls f(std::integral_constant<int,
+// N>) for N = 4 or 5 and returns its result; any other N gives
+// cudaErrorInvalidValue.
+template <typename F>
+int by_rows(int N, F&& f) {
+  switch (N) {
+    case 4: return f(std::integral_constant<int, 4>());
+    case 5: return f(std::integral_constant<int, 5>());
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // What every kernel needs: 16-byte aligned runs.
@@ -718,11 +760,11 @@ int check_runs(std::initializer_list<const void*> runs) {
   return (int)cudaSuccess;
 }
 
-// What K1-K3 share: N = 4 rows, ND = 2 directions, line strides within an
-// element, and 16-byte aligned runs.
-int check_lines(int E, int N, int ND, int Np, int F, int stride0,
-                int stride1, std::initializer_list<const void*> runs) {
-  if (E <= 0 || F <= 0 || N != 4 || ND != 2 || stride0 <= 0 ||
+// What K1-K3 share: ND = 2 directions, line strides within an element,
+// and 16-byte aligned runs (by_rows checks N).
+int check_lines(int E, int ND, int Np, int F, int stride0, int stride1,
+                std::initializer_list<const void*> runs) {
+  if (E <= 0 || F <= 0 || ND != 2 || stride0 <= 0 ||
       stride1 <= 0 || stride0 > Np || stride1 > Np)
     return (int)cudaErrorInvalidValue;
   return check_runs(runs);
@@ -734,7 +776,8 @@ extern "C" {
 
 // Each entry launches one kernel on `stream` and returns the CUDA error of
 // the launch (0 on success).  N is the number of rows (chain variables),
-// ND the number of reference directions; only N = 4, ND = 2 is built.
+// ND the number of reference directions; N = 4 or 5 and ND = 2 are
+// built.
 // Every kernel takes Np = NQ^3 with NQ = 2..6 (tile::by_order) and 16-byte
 // aligned runs; K1-K3 take Wd as its line table (lines [ND][NQ][NQ], the
 // node strides of the two directions' lines; dg/line_ops.py).
@@ -743,16 +786,18 @@ int ldg_first_f32(const void* x, const void* xi, const void* lines,
                   int stride0, int stride1, const void* sel, void* vol,
                   void* rows, int E, int N, int ND, int Np, int F,
                   void* stream) {
-  int err = check_lines(E, N, ND, Np, F, stride0, stride1, {x, xi, vol});
+  int err = check_lines(E, ND, Np, F, stride0, stride1, {x, xi, vol});
   if (err) return err;
   const GradArgs args{
       static_cast<const float*>(x), nullptr, nullptr, nullptr, nullptr, 0,
       static_cast<const float*>(xi), static_cast<const float*>(lines),
       tile::Strides{{stride0, stride1, 0}}, static_cast<const int*>(sel),
       static_cast<float*>(vol), static_cast<float*>(rows), E, F};
-  return tile::by_order(Np, [&](auto nq) {
-    return launch_grad<decltype(nq)::value, false>(
-        args, static_cast<cudaStream_t>(stream));
+  return by_rows(N, [&](auto n) {
+    return tile::by_order(Np, [&](auto nq) {
+      return launch_grad<decltype(n)::value, decltype(nq)::value, false>(
+          args, static_cast<cudaStream_t>(stream));
+    });
   });
 }
 
@@ -763,7 +808,7 @@ int ldg_grad_to_div_f32(const void* vol1, const void* dj, const void* w3,
                         void* s, int E, int N, int ND, int Np, int F,
                         void* stream) {
   if (L <= 0) return (int)cudaErrorInvalidValue;
-  int err = check_lines(E, N, ND, Np, F, stride0, stride1,
+  int err = check_lines(E, ND, Np, F, stride0, stride1,
                         {vol1, dj, w3, nrm, mi, xi, div, s});
   if (err) return err;
   const K2Args args{
@@ -773,9 +818,11 @@ int ldg_grad_to_div_f32(const void* vol1, const void* dj, const void* w3,
       static_cast<const float*>(xi), static_cast<const float*>(lines),
       tile::Strides{{stride0, stride1, 0}}, static_cast<const int*>(sel),
       static_cast<float*>(div), static_cast<float*>(s), E, F};
-  return tile::by_order(Np, [&](auto nq) {
-    return launch_grad_to_div<decltype(nq)::value>(
-        args, static_cast<cudaStream_t>(stream));
+  return by_rows(N, [&](auto n) {
+    return tile::by_order(Np, [&](auto nq) {
+      return launch_grad_to_div<decltype(n)::value, decltype(nq)::value>(
+          args, static_cast<cudaStream_t>(stream));
+    });
   });
 }
 
@@ -785,7 +832,7 @@ int ldg_div_to_grad_f32(const void* div, const void* dj2, const void* sm,
                         int stride1, const void* sel, void* vol, void* rows,
                         int E, int N, int ND, int Np, int F, void* stream) {
   if (L <= 0) return (int)cudaErrorInvalidValue;
-  int err = check_lines(E, N, ND, Np, F, stride0, stride1,
+  int err = check_lines(E, ND, Np, F, stride0, stride1,
                         {div, dj2, sm, mi, xi, vol});
   if (err) return err;
   const GradArgs args{
@@ -795,26 +842,29 @@ int ldg_div_to_grad_f32(const void* div, const void* dj2, const void* sm,
       static_cast<const float*>(lines), tile::Strides{{stride0, stride1, 0}},
       static_cast<const int*>(sel), static_cast<float*>(vol),
       static_cast<float*>(rows), E, F};
-  return tile::by_order(Np, [&](auto nq) {
-    return launch_grad<decltype(nq)::value, true>(
-        args, static_cast<cudaStream_t>(stream));
+  return by_rows(N, [&](auto n) {
+    return tile::by_order(Np, [&](auto nq) {
+      return launch_grad<decltype(n)::value, decltype(nq)::value, true>(
+          args, static_cast<cudaStream_t>(stream));
+    });
   });
 }
 
 int ldg_last_f32(const void* vol3, const void* dj3, const void* w3,
                  const void* mi, const void* lift, int L, void* out, int E,
                  int N, int Np, int F, void* stream) {
-  if (E <= 0 || N != 4 || F <= 0 || L <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (E <= 0 || F <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   const int err = check_runs({vol3, dj3, w3, mi, out});
   if (err) return err;
   const LastArgs args{
       static_cast<const float*>(vol3), static_cast<const float*>(dj3),
       static_cast<const float*>(w3), static_cast<const float*>(mi),
       static_cast<const int*>(lift), L, static_cast<float*>(out), E, F};
-  return tile::by_order(Np, [&](auto nq) {
-    return launch_last<decltype(nq)::value>(
-        args, static_cast<cudaStream_t>(stream));
+  return by_rows(N, [&](auto n) {
+    return tile::by_order(Np, [&](auto nq) {
+      return launch_last<decltype(n)::value, decltype(nq)::value>(
+          args, static_cast<cudaStream_t>(stream));
+    });
   });
 }
 

@@ -3,16 +3,19 @@
 //
 // Replaces climatemachine_tpu/dg/pallas_surface.py:extract_trace_vm (Pallas
 // body _k_extract) and :fused_surface_lift_vm (Pallas body _kernel) for what
-// the dry Held-Suarez step runs: float32, 5 prognostic variables, one aux
-// lane (p_ref), the reference pressure subtracted from the momentum flux, no
-// fused remainder, with (13 bundle lanes, 4 chain variables u_h[3], h_tot)
-// or without (8 bundle lanes) DryBiharmonic hyperdiffusion.
+// the Held-Suarez step and the moist baroclinic wave run: float32, NQ = 5
+// prognostic variables (dry) or 6 (with the advected rhoq_tot of
+// EquilMoist), one aux lane (p_ref), the reference pressure subtracted from
+// the momentum flux, no fused remainder, with (2 NQ + 3 bundle lanes, NQ - 1
+// chain variables u_h[3], h_tot[, q_tot]) or without (NQ + 3 bundle lanes)
+// DryBiharmonic or EquilMoistBiharmonic hyperdiffusion.
 //
 // extract_trace_vm_kernel, per element e and face lane x (X = 6 Nfp):
-//   B[v][x] = vol_v[node(x)]                 v = q[5], p, c, p_ref
+//   B[v][x] = vol_v[node(x)]                 v = q[NQ], p, c, p_ref
 //   G_j     = n0 g[0][j] + n1 g[1][j] + n2 g[2][j],   g = gl2 at node(x)
 //   s       = (0, rho nu G_0, rho nu G_1, rho nu G_2,
-//              nu (rhou . G) + rho nu G_3)     (the 5 trace lanes)
+//              nu (rhou . G) + rho nu G_3[, rho nu_q G_4])
+//             (the NQ trace lanes; nu = nu4, nu_q = nu4q)
 // surface_lift_vm_kernel, per element: for each face lane the wall ghost of
 // the neighbour side, both one-sided normal fluxes, the Rusanov flux with
 // the larger wavespeed, + (1 - bm) (s- - s+) / 2 with hyperdiffusion, times
@@ -33,7 +36,9 @@
 // is not needed) and 3 normal rows per element and writes 13 face rows,
 // about 0.25 GB: 0.074 ms at 3.35 TB/s, against ~32 flops per lane.  The
 // lift reads 2 x 13 bundle rows, 5 geometry rows and MI and writes 5 rows,
-// about 0.26 GB: 0.079 ms, against ~130 flops per lane.
+// about 0.26 GB: 0.079 ms, against ~130 flops per lane.  At NQ = 6 the
+// extraction reads 26 volume rows (nu's both) and writes 15 face rows, the
+// lift reads 2 x 15 and writes 6: about 0.29 and 0.30 GB.
 //
 // Design: a block of TE = 8 elements, one thread per face lane and, in the
 // lift's second pass, per node (160 threads at p4).  The extraction gathers
@@ -50,9 +55,6 @@
 
 namespace {
 
-constexpr int NQ = 5;
-constexpr int NGL = 4;
-constexpr int IPREF = NQ + 2;   // the p_ref lane of the bundle
 constexpr int TE = 8;
 constexpr int MAX_THREADS = 256;
 
@@ -70,18 +72,20 @@ __device__ __forceinline__ float maximum(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-template <bool HYPER>
+// NQ variables; NGL = NQ - 1 chain variables.
+template <int NQ, bool HYPER>
 __global__ void __launch_bounds__(MAX_THREADS)
-extract_trace_vm_kernel(const float* __restrict__ qv,    // [E][5][Np]
+extract_trace_vm_kernel(const float* __restrict__ qv,    // [E][NQ][Np]
                         const float* __restrict__ p,     // [E][Np]
                         const float* __restrict__ c,     // [E][Np]
                         const float* __restrict__ aux,   // [E][1][Np]
-                        const float* __restrict__ gl2,   // [E][12][Np]
+                        const float* __restrict__ gl2,   // [E][3 NGL][Np]
                         const float* __restrict__ nu,    // [E][2][Np]
                         const int* __restrict__ sel_idx, // [X]
                         const float* __restrict__ nrm,   // [E][3][X]
                         float* __restrict__ out,         // [E][NVB][X]
                         int E, int Np, int X) {
+  constexpr int NGL = NQ - 1;
   constexpr int NVB = HYPER ? 2 * NQ + 3 : NQ + 3;
   const int x = threadIdx.x;
   if (x >= X) return;              // no barrier in this kernel
@@ -122,6 +126,10 @@ extract_trace_vm_kernel(const float* __restrict__ qv,    // [E][5][Np]
       const float ruG =
           add(add(mul(q[1], G[0]), mul(q[2], G[1])), mul(q[3], G[2]));
       b[NQ + 7] = add(mul(nu4, ruG), mul(rnu, G[3]));
+      if constexpr (NQ == 6) {
+        const float nu4q = __ldg(nu + ((size_t)e * 2 + 1) * Np + node);
+        b[NQ + 8] = mul(mul(q[0], nu4q), G[NGL - 1]);
+      }
     }
     float* o = out + (size_t)e * NVB * X + x;
 #pragma unroll
@@ -129,7 +137,9 @@ extract_trace_vm_kernel(const float* __restrict__ qv,    // [E][5][Np]
   }
 }
 
-// The one-sided normal flux of the 5 variables and its wavespeed |u.n| + c.
+// The one-sided normal flux of the NQ variables and its wavespeed |u.n| +
+// c; a variable past rhoe (rhoq_tot) is carried by u.n.
+template <int NQ>
 __device__ __forceinline__ float flux_n(const float S[NQ], float pv, float cs,
                                         float pref, const float n[3],
                                         float Fn[NQ]) {
@@ -142,10 +152,12 @@ __device__ __forceinline__ float flux_n(const float S[NQ], float pv, float cs,
   for (int c = 0; c < 3; ++c)
     Fn[1 + c] = add(mul(S[1 + c], un), mul(p_eff, n[c]));
   Fn[4] = mul(add(S[4], pv), un);
+#pragma unroll
+  for (int v = 5; v < NQ; ++v) Fn[v] = mul(S[v], un);
   return add(fabsf(un), cs);
 }
 
-template <bool HYPER>
+template <int NQ, bool HYPER>
 __global__ void __launch_bounds__(MAX_THREADS)
 surface_lift_vm_kernel(const float* __restrict__ Bf,     // [E][NVB][X]
                        const float* __restrict__ BP,     // [E][NVB][X]
@@ -155,9 +167,10 @@ surface_lift_vm_kernel(const float* __restrict__ Bf,     // [E][NVB][X]
                        const int* __restrict__ lift_idx, // [Np][L]
                        int L,
                        const float* __restrict__ MI,     // [E][Np]
-                       float* __restrict__ out,          // [E][5][Np]
+                       float* __restrict__ out,          // [E][NQ][Np]
                        int E, int Np, int X) {
   constexpr int NVB = HYPER ? 2 * NQ + 3 : NQ + 3;
+  constexpr int IPREF = NQ + 2;   // the p_ref lane of the bundle
   extern __shared__ float smf[];                 // [TE][NQ][X]
   const int t = threadIdx.x;
   const int e0 = blockIdx.x * TE;
@@ -190,10 +203,12 @@ surface_lift_vm_kernel(const float* __restrict__ Bf,     // [E][NVB][X]
         P[1 + c] = add(mul(bm, ghost), mul(keep, P[1 + c]));
       }
       float FM[NQ], FP[NQ];
-      const float cM = flux_n(M, __ldg(Mr + NQ * X), __ldg(Mr + (NQ + 1) * X),
-                              __ldg(Mr + IPREF * X), n, FM);
-      const float cP = flux_n(P, __ldg(Pr + NQ * X), __ldg(Pr + (NQ + 1) * X),
-                              __ldg(Pr + IPREF * X), n, FP);
+      const float cM = flux_n<NQ>(M, __ldg(Mr + NQ * X),
+                                  __ldg(Mr + (NQ + 1) * X),
+                                  __ldg(Mr + IPREF * X), n, FM);
+      const float cP = flux_n<NQ>(P, __ldg(Pr + NQ * X),
+                                  __ldg(Pr + (NQ + 1) * X),
+                                  __ldg(Pr + IPREF * X), n, FP);
       const float half_c = mul(0.5f, maximum(cM, cP));
       float* s = smf + te * NQ * X + t;
 #pragma unroll
@@ -233,23 +248,36 @@ surface_lift_vm_kernel(const float* __restrict__ Bf,     // [E][NVB][X]
   }
 }
 
+template <int NQ>
+auto extract_kernel(bool hyper) {
+  return hyper ? extract_trace_vm_kernel<NQ, true>
+               : extract_trace_vm_kernel<NQ, false>;
+}
+
+template <int NQ>
+auto lift_kernel(bool hyper) {
+  return hyper ? surface_lift_vm_kernel<NQ, true>
+               : surface_lift_vm_kernel<NQ, false>;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches the extraction on `stream`; gl2, nu and nrm are read only with
-// has_hyper != 0.  Returns the CUDA error code of the launch (0 on
-// success).
+// Launches the extraction of nq = 5 or 6 variables on `stream`; gl2, nu and
+// nrm are read only with has_hyper != 0.  Returns the CUDA error code of
+// the launch (0 on success).
 int extract_trace_vm_f32(const void* qv, const void* p, const void* c,
                          const void* aux, const void* gl2, const void* nu,
                          const void* sel_idx, const void* nrm, void* out, int E,
-                         int Np, int X, int has_hyper, void* stream) {
+                         int Np, int X, int nq, int has_hyper, void* stream) {
   const int threads = (X + 31) / 32 * 32;
-  if (E <= 0 || Np <= 0 || X <= 0 || threads > MAX_THREADS)
+  if (E <= 0 || Np <= 0 || X <= 0 || threads > MAX_THREADS ||
+      (nq != 5 && nq != 6))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = has_hyper ? extract_trace_vm_kernel<true>
-                          : extract_trace_vm_kernel<false>;
+  auto kernel = nq == 5 ? extract_kernel<5>(has_hyper)
+                        : extract_kernel<6>(has_hyper);
   kernel<<<(E + TE - 1) / TE, threads, 0, s>>>(
       static_cast<const float*>(qv), static_cast<const float*>(p),
       static_cast<const float*>(c), static_cast<const float*>(aux),
@@ -259,22 +287,22 @@ int extract_trace_vm_f32(const void* qv, const void* p, const void* c,
   return (int)cudaGetLastError();
 }
 
-// Launches the flux + lift on `stream`.  Returns the CUDA error code of the
-// launch (0 on success).
+// Launches the flux + lift of nq = 5 or 6 variables on `stream`.  Returns
+// the CUDA error code of the launch (0 on success).
 int surface_lift_vm_f32(const void* Bf, const void* BP, const void* nrm,
                         const void* sM, const void* bmask,
                         const void* lift_idx, int L, const void* MI, void* out,
-                        int E, int Np, int X,
+                        int E, int Np, int X, int nq,
                         int has_hyper, void* stream) {
   const int width = X > Np ? X : Np;
   const int threads = (width + 31) / 32 * 32;
-  if (E <= 0 || Np <= 0 || X <= 0 || L <= 0 || threads > MAX_THREADS)
+  if (E <= 0 || Np <= 0 || X <= 0 || L <= 0 || threads > MAX_THREADS ||
+      (nq != 5 && nq != 6))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // at most 8 * 5 * 256 * 4 = 40 KB, inside the 48 KB default
-  const size_t smem = (size_t)TE * NQ * X * sizeof(float);
-  auto kernel = has_hyper ? surface_lift_vm_kernel<true>
-                          : surface_lift_vm_kernel<false>;
+  // at most 8 * 6 * 256 * 4 = 48 KB, the default limit
+  const size_t smem = (size_t)TE * nq * X * sizeof(float);
+  auto kernel = nq == 5 ? lift_kernel<5>(has_hyper) : lift_kernel<6>(has_hyper);
   kernel<<<(E + TE - 1) / TE, threads, smem, s>>>(
       static_cast<const float*>(Bf), static_cast<const float*>(BP),
       static_cast<const float*>(nrm), static_cast<const float*>(sM),

@@ -1,19 +1,23 @@
 // Fused var-major DG volume tendencies for Hopper (sm_90a).
 //
 // One kernel template, two functions of the JAX package, for the
-// configurations the dry Held-Suarez paths run (5 prognostic variables rho,
-// rhou[3], rhoe; the reference pressure subtracted from the momentum flux):
+// configurations the Held-Suarez paths and the moist baroclinic wave run
+// (NV = 5 prognostic variables rho, rhou[3], rhoe, or NV = 6 with the
+// advected rhoq_tot of EquilMoist; the reference pressure subtracted from
+// the momentum flux):
 //
 //   * climatemachine_tpu/dg/pallas_volume.py:fused_volume_tendency_vm
 //     (Pallas body _kernel_vm), the var-major RHS's: the pressure p is an
 //     input; with or without the hyperdiffusive flux F2 of DryBiharmonic
-//     (ngl = 4 chain variables u_h[3], h_tot); no linear-flux subtraction.
+//     (ngl = 4 chain variables u_h[3], h_tot) or, at NV = 6, of
+//     EquilMoistBiharmonic (ngl = 5: q_tot too); no linear-flux
+//     subtraction.
 //   * climatemachine_tpu/dg/pallas_volume.py:dry_volume_tendency (Pallas
 //     body _kernel), the generic DG operator's: e_int, T and p are computed
 //     from q and phi in the kernel; with lin_dims = () or, for the fused
 //     IMEX remainder, lin_dims = (2,) with lin_gravity: the linear
 //     acoustic-gravity flux of the vertical direction subtracted on
-//     direction slot 2.
+//     direction slot 2.  NV = 5 only.
 //
 // Per element e, variable v and node n:
 //
@@ -21,11 +25,12 @@
 //   out[e][v][n]    = MI[n] * sum_k Wdiv[n][k] * mf[v][k],  k < 3*Np
 //
 //   F_i[rho] = rhou_i,  F_i[rhou_j] = rhou_j u_i + (p - p_ref) d_ij,
-//   F_i[rhoe] = (rhoe + p) u_i
+//   F_i[rhoe] = (rhoe + p) u_i,  F_i[rhoq_tot] = rhoq_tot u_i (NV = 6)
 //   F2_i[rhou_j] = rho nu4 gl2[i][j],
 //   F2_i[rhoe]   = nu4 sum_j rhou_j gl2[i][j] + rho nu4 gl2[i][3]
-//   (gl2[i][j] = d_i Laplacian(u_h, h_tot)_j, lane 4i+j of [E][12][Np];
-//    nu4 lane 0 of [E][2][Np])
+//   F2_i[rhoq_tot] = rho nu4q gl2[i][4]  (NV = 6)
+//   (gl2[i][j] = d_i Laplacian(u_h, h_tot[, q_tot])_j, lane NG i + j of
+//    [E][3 NG][Np], NG = NV - 1; nu4 lane 0, nu4q lane 1 of [E][2][Np])
 //   dry thermo: e_int = (rhoe - (rhou . u) / 2) / rho - phi,
 //               T = T_0 + e_int * (1/cv_d), p = rho R_d T
 //   Flin_i[rho] = rhou_i, Flin_i[rhou_i] = pL, Flin_i[rhoe] = c rhou_i
@@ -40,7 +45,8 @@
 // = 150 flops a node, against 23 floats read or written a node (26 with
 // the remainder's ref3, 36 with F2 and nu4): bytes alone bound every
 // branch, 0.042 ms (0.048 with ref3, 0.066 with F2; the H100's 3.35
-// TB/s).  Counted dense (the 3*Np terms a node of the kernel this design
+// TB/s).  At NV = 6 with F2 (27 + 15 + 2 = 44 floats a node, ~250 flops)
+// the bound is 0.081 ms.  Counted dense (the 3*Np terms a node of the kernel this design
 // replaced), the contraction was 3750 flops a node and bound by the fp32
 // pipes (0.089 ms, 0.091 with F2).
 //
@@ -50,14 +56,15 @@
 //     tile's inputs (qv, p or phi, p_ref, xiv, M, MI; gl2 with F2, ref3
 //     with the remainder) are contiguous runs, staged by TMA bulk copies
 //     into one of two stages of shared memory while the block computes on
-//     the other (tile_pipeline.cuh).  Of nu [E][2][Np] only lane 0 (nu4)
-//     is read: at p4 its rows start 1000 bytes apart, 8-byte aligned on
-//     odd elements, so each comes in a 512-byte copy from the 16-byte
-//     boundary below it, and the reader skips the shift;
+//     the other (tile_pipeline.cuh).  At NV = 5 only lane 0 (nu4) of nu
+//     [E][2][Np] is read: at p4 its rows start 1000 bytes apart, 8-byte
+//     aligned on odd elements, so each comes in a 512-byte copy from the
+//     16-byte boundary below it, and the reader skips the shift; at NV =
+//     6 both lanes are read, an element's 2 Np floats as one more run;
 //   1. one thread per (element, node) builds the node's flux
-//      (node_flux<KIND, NQ>, the only part that differs between the branches)
-//      and writes M * xi . F for 5 variables x 3 directions into the mf
-//      tile in shared memory ([TE][5][3*Np]);
+//      (node_flux<KIND, NQ, NV>, the only part that differs between the
+//      branches) and writes M * xi . F for NV variables x 3 directions
+//      into the mf tile in shared memory ([TE][NV][3*Np]);
 //   2. one thread per (element, node) contracts mf along the node's three
 //      lines: for each direction the Nq weights of the node's line (the
 //      line table in shared memory, the node's line start and position
@@ -66,8 +73,10 @@
 //      no bank conflicts), 75 FMAs a node at p4;
 //   3. scale by MI and store (one warp, 32 consecutive nodes of a row).
 //   About 156 KB of shared memory a block with F2, 104 KB without at p4
-//   (136 and 91 KB at p5).  The line order NQ is a template parameter,
-//   built for NQ = 2..6 (p1-p5, tile::by_order); the bench shape is p4.
+//   (136 and 91 KB at p5); at NV = 6 with F2 182 KB at p4 (one block an
+//   SM, as at NV = 5) and 159 KB at p5.  The line order NQ is a template
+//   parameter, built for NQ = 2..6 (p1-p5, tile::by_order); the bench
+//   shape is p4.
 // Tensor cores have nothing to do here: 150 flops a node.
 //
 // Rounding: the flux pass rounds each product, sum and quotient as the
@@ -88,7 +97,6 @@
 
 namespace {
 
-constexpr int NVAR = 5;            // rho, rhou[3], rhoe
 constexpr int THREADS = 256;
 constexpr int MAX_SMEM = 227 * 1024;  // dynamic shared memory a block
 
@@ -126,30 +134,36 @@ struct Inputs {
   float R_d, inv_cv, T_0, R_over_cv;   // DRY*
 };
 
-// Shared memory of a branch, in 4-byte words: the two stage mbarriers,
-// the line weights, each node's line (start | position << 16) per
-// direction; two stages of TE elements, each the tile's contiguous runs
-// [qv | p or phi | p_ref | xiv | M | MI | gl2 or ref3 | nu4 slots]; the mf
-// tile.  Every offset is a multiple of 4 words (16 bytes).
-template <int KIND, int NQ>
+// Shared memory of a branch with NV variables, in 4-byte words: the two
+// stage mbarriers, the line weights, each node's line (start | position <<
+// 16) per direction; two stages of TE elements, each the tile's
+// contiguous runs [qv | p or phi | p_ref | xiv | M | MI | gl2 or ref3 |
+// nu4 slots (NV = 5) or nu (NV = 6)]; the mf tile.  Every offset is a
+// multiple of 4 words (16 bytes).
+template <int KIND, int NQ, int NV>
 struct Layout {
   using O = Order<NQ>;
   static constexpr int NP = O::NP, K = O::K, TE = O::TE,
                        NU_SLOT = O::NU_SLOT;
   static constexpr bool F2 = KIND == P_GIVEN_F2;
   static constexpr bool REM = KIND == DRY_REMAINDER;
-  static constexpr int NSEG = (F2 || REM) ? 7 : 6;
+  static_assert(NV == 5 || (NV == 6 && !REM && KIND != DRY),
+                "NV = 6 is a branch of fused_volume_tendency_vm only");
+  static constexpr int NG = NV - 1;           // chain variables of F2
+  static constexpr bool NU_ROWS = F2 && NV == 5;   // nu4 alone, by rows
+  static constexpr bool NU_RUN = F2 && NV == 6;    // nu4 and nu4q, a run
+  static constexpr int NSEG = 6 + ((F2 || REM) ? 1 : 0) + (NU_RUN ? 1 : 0);
   static constexpr int LINES = 4, INFO = LINES + 3 * NQ * NQ;
   static constexpr int STAGE = (INFO + 3 * NP + 31) / 32 * 32;
-  static constexpr int QV = 0, P = QV + TE * NVAR * NP, PREF = P + TE * NP,
+  static constexpr int QV = 0, P = QV + TE * NV * NP, PREF = P + TE * NP,
                        XIV = PREF + TE * NP, M = XIV + TE * 9 * NP,
                        MI = M + TE * NP, EXTRA = MI + TE * NP;
-  static constexpr int EXTRA_FLOATS = F2 ? 12 * NP : REM ? 3 * NP : 0;
+  static constexpr int EXTRA_FLOATS = F2 ? 3 * NG * NP : REM ? 3 * NP : 0;
   static constexpr int NU = EXTRA + TE * EXTRA_FLOATS;
-  static constexpr int STAGE_WORDS =
-      (NU + (F2 ? TE * NU_SLOT : 0) + 31) / 32 * 32;
+  static constexpr int NU_FLOATS = NU_ROWS ? NU_SLOT : NU_RUN ? 2 * NP : 0;
+  static constexpr int STAGE_WORDS = (NU + TE * NU_FLOATS + 31) / 32 * 32;
   static constexpr int MF = STAGE + 2 * STAGE_WORDS;
-  static constexpr size_t BYTES = 4 * (size_t)(MF + TE * NVAR * K);
+  static constexpr size_t BYTES = 4 * (size_t)(MF + TE * NV * K);
   static_assert(BYTES <= MAX_SMEM, "the tile does not fit in shared memory");
 };
 
@@ -169,11 +183,12 @@ __device__ __forceinline__ float sub(float a, float b) {
 }
 
 // Stage 1 for node n of a staged element: mfe[v * K + a * NP + n] for the
-// 5 variables and 3 directions.
-template <int KIND, int NQ>
+// NV variables and 3 directions.  s.nu is nu4's row; at NV = 6 nu4q's
+// follows it, NP floats on.
+template <int KIND, int NQ, int NV>
 __device__ __forceinline__ void node_flux(const Inputs& in, const Elem& s,
                                           int n, float* mfe) {
-  constexpr int NP = Order<NQ>::NP, K = Order<NQ>::K;
+  constexpr int NP = Order<NQ>::NP, K = Order<NQ>::K, NG = NV - 1;
   const float* q = s.qv + n;
   const float rho = q[0];
   const float ru[3] = {q[NP], q[2 * NP], q[3 * NP]};
@@ -199,7 +214,7 @@ __device__ __forceinline__ void node_flux(const Inputs& in, const Elem& s,
   float x[9];
 #pragma unroll
   for (int j = 0; j < 9; ++j) x[j] = xi[j * NP];
-  float F[3][NVAR];
+  float F[3][NV];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     F[i][0] = ru[i];
@@ -208,23 +223,25 @@ __device__ __forceinline__ void node_flux(const Inputs& in, const Elem& s,
       F[i][1 + j] = (i == j) ? add(mul(ru[j], u[i]), p_eff)
                              : mul(ru[j], u[i]);
     F[i][4] = mul(h, u[i]);
+    if (NV == 6) F[i][NV - 1] = mul(q[5 * NP], u[i]);  // advected rhoq_tot
   }
-  float F2[3][NVAR];
+  float F2[3][NV];
   if (KIND == P_GIVEN_F2) {
     const float nu4 = s.nu[n];
     const float rnu = mul(rho, nu4);
     const float* g = s.gl2 + n;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      float gi[4];
+      float gi[NG];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) gi[j] = g[(4 * i + j) * NP];
+      for (int j = 0; j < NG; ++j) gi[j] = g[(NG * i + j) * NP];
       F2[i][0] = 0.0f;
 #pragma unroll
       for (int j = 0; j < 3; ++j) F2[i][1 + j] = mul(rnu, gi[j]);
       const float rug = add(add(mul(ru[0], gi[0]), mul(ru[1], gi[1])),
                             mul(ru[2], gi[2]));
       F2[i][4] = add(mul(nu4, rug), mul(rnu, gi[3]));
+      if (NV == 6) F2[i][NV - 1] = mul(mul(rho, s.nu[NP + n]), gi[NG - 1]);
     }
   }
   float pL = 0.0f, coeff = 0.0f;
@@ -235,7 +252,7 @@ __device__ __forceinline__ void node_flux(const Inputs& in, const Elem& s,
     coeff = add(r3[0], r3[2 * NP]) / r3[NP];
   }
 #pragma unroll
-  for (int v = 0; v < NVAR; ++v)
+  for (int v = 0; v < NV; ++v)
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       float acc = add(add(mul(x[3 * a], F[0][v]), mul(x[3 * a + 1], F[1][v])),
@@ -260,10 +277,10 @@ __device__ __forceinline__ void node_flux(const Inputs& in, const Elem& s,
     }
 }
 
-template <int KIND, int NQ>
+template <int KIND, int NQ, int NV>
 __global__ void __launch_bounds__(THREADS)
 volume_kernel(const Inputs in, int E) {
-  using L = Layout<KIND, NQ>;
+  using L = Layout<KIND, NQ, NV>;
   constexpr int NP = L::NP, K = L::K, TE = L::TE;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -275,16 +292,17 @@ volume_kernel(const Inputs in, int E) {
   const int tiles = (E + TE - 1) / TE;
   constexpr bool DRYK = KIND == DRY || KIND == DRY_REMAINDER;
   tile::Segment seg[L::NSEG];
-  seg[0] = {in.qv, NVAR * NP, L::QV};
+  seg[0] = {in.qv, NV * NP, L::QV};
   seg[1] = {DRYK ? in.phi : in.p, NP, L::P};
   seg[2] = {in.pref, NP, L::PREF};
   seg[3] = {in.xiv, 9 * NP, L::XIV};
   seg[4] = {in.M, NP, L::M};
   seg[5] = {in.MI, NP, L::MI};
-  if constexpr (L::NSEG == 7)
-    seg[L::NSEG - 1] = {L::F2 ? in.gl2 : in.ref3, L::EXTRA_FLOATS, L::EXTRA};
+  if constexpr (L::F2 || L::REM)
+    seg[6] = {L::F2 ? in.gl2 : in.ref3, L::EXTRA_FLOATS, L::EXTRA};
+  if constexpr (L::NU_RUN) seg[7] = {in.nu, 2 * NP, L::NU};
   const tile::Rows nu{in.nu, 2 * NP, NP, L::NU, L::NU_SLOT};
-  const tile::Rows* rows = L::F2 ? &nu : nullptr;
+  const tile::Rows* rows = L::NU_ROWS ? &nu : nullptr;
   auto stage = [&](int st) { return sm + L::STAGE + st * L::STAGE_WORDS; };
   auto count = [&](int t) { return min(TE, E - t * TE); };
 
@@ -321,26 +339,27 @@ volume_kernel(const Inputs in, int E) {
     for (int i = tid; i < ne * NP; i += blockDim.x) {
       const int te = i / NP, n = i - te * NP;
       Elem el;
-      el.qv = S + L::QV + te * NVAR * NP;
+      el.qv = S + L::QV + te * NV * NP;
       el.p = el.phi = S + L::P + te * NP;
       el.pref = S + L::PREF + te * NP;
       el.xiv = S + L::XIV + te * 9 * NP;
       el.M = S + L::M + te * NP;
       el.gl2 = el.ref3 = S + L::EXTRA + te * L::EXTRA_FLOATS;
-      el.nu = L::F2 ? S + L::NU + te * L::NU_SLOT
-                          + tile::row_shift(nu, e0 + te)
-                    : nullptr;
-      node_flux<KIND, NQ>(in, el, n, mf + te * NVAR * K);
+      el.nu = L::NU_ROWS ? S + L::NU + te * L::NU_SLOT
+                               + tile::row_shift(nu, e0 + te)
+              : L::NU_RUN ? S + L::NU + te * 2 * NP
+                          : nullptr;
+      node_flux<KIND, NQ, NV>(in, el, n, mf + te * NV * K);
     }
     __syncthreads();
 
     // 2.-3. weak divergence along the lines, scaled by MI
     for (int i = tid; i < ne * NP; i += blockDim.x) {
       const int te = i / NP, n = i - te * NP;
-      const float* mfe = mf + te * NVAR * K;
-      float acc[NVAR];
+      const float* mfe = mf + te * NV * K;
+      float acc[NV];
 #pragma unroll
-      for (int v = 0; v < NVAR; ++v) acc[v] = 0.0f;
+      for (int v = 0; v < NV; ++v) acc[v] = 0.0f;
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         const int inf = info[a * NP + n], sa = in.strides.at(a);
@@ -350,15 +369,15 @@ volume_kernel(const Inputs in, int E) {
         for (int j = 0; j < NQ; ++j) w[j] = V[j];
         const float* row = mfe + a * NP + (inf & 0xffff);
 #pragma unroll
-        for (int v = 0; v < NVAR; ++v)
+        for (int v = 0; v < NV; ++v)
 #pragma unroll
           for (int j = 0; j < NQ; ++j)
             acc[v] = fmaf(row[v * K + j * sa], w[j], acc[v]);
       }
       const float mi = S[L::MI + te * NP + n];
-      float* o = in.out + (size_t)(e0 + te) * NVAR * NP + n;
+      float* o = in.out + (size_t)(e0 + te) * NV * NP + n;
 #pragma unroll
-      for (int v = 0; v < NVAR; ++v) o[v * NP] = mul(mi, acc[v]);
+      for (int v = 0; v < NV; ++v) o[v * NP] = mul(mi, acc[v]);
     }
     tile::fence_async_proxy();
     __syncthreads();                       // the stage and mf are free
@@ -372,9 +391,9 @@ bool aligned(const float* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <int KIND, int NQ>
+template <int KIND, int NQ, int NV>
 int launch(const Inputs& in, int E, cudaStream_t s) {
-  using L = Layout<KIND, NQ>;
+  using L = Layout<KIND, NQ, NV>;
   constexpr int TE = L::TE;
   for (int a = 0; a < 3; ++a)
     if (in.strides.at(a) <= 0 || in.strides.at(a) > L::NP)
@@ -387,20 +406,20 @@ int launch(const Inputs& in, int E, cudaStream_t s) {
     if (!aligned(ptr)) return (int)cudaErrorMisalignedAddress;
   static int2 cache[16];
   int grid = 0;
-  cudaError_t err = tile::persistent_grid(volume_kernel<KIND, NQ>, THREADS,
-                                          L::BYTES, (E + TE - 1) / TE, cache,
-                                          &grid);
+  cudaError_t err = tile::persistent_grid(volume_kernel<KIND, NQ, NV>,
+                                          THREADS, L::BYTES,
+                                          (E + TE - 1) / TE, cache, &grid);
   if (err != cudaSuccess) return (int)err;
-  volume_kernel<KIND, NQ><<<grid, THREADS, L::BYTES, s>>>(in, E);
+  volume_kernel<KIND, NQ, NV><<<grid, THREADS, L::BYTES, s>>>(in, E);
   return (int)cudaGetLastError();
 }
 
-// The branch KIND at the order of Np (tile::by_order).
-template <int KIND>
+// The branch KIND with NV variables at the order of Np (tile::by_order).
+template <int KIND, int NV = 5>
 int launch_order(const Inputs& in, int E, int Np, cudaStream_t s) {
   if (E <= 0) return (int)cudaErrorInvalidValue;
   return tile::by_order(Np, [&](auto nq) {
-    return launch<KIND, decltype(nq)::value>(in, E, s);
+    return launch<KIND, decltype(nq)::value, NV>(in, E, s);
   });
 }
 
@@ -408,7 +427,8 @@ int launch_order(const Inputs& in, int E, int Np, cudaStream_t s) {
 
 extern "C" {
 
-// fused_volume_tendency_vm on `stream`: Wdiv as its line table (lines
+// fused_volume_tendency_vm on `stream` with nq = 5 or 6 variables (gl2
+// then holds nq - 1 chain variables): Wdiv as its line table (lines
 // [3][NQ][NQ] and the node strides s0, s1, s2 of the three directions'
 // lines; dg/line_ops.py), Np = NQ^3 with NQ = 2..6 (tile::by_order),
 // every input 16-byte aligned.  gl2 and nu are read only with has_f2 !=
@@ -416,8 +436,8 @@ extern "C" {
 int volume_vm_f32(const void* qv, const void* p, const void* pref,
                   const void* xiv, const void* M, const void* MI,
                   const void* gl2, const void* nu, const void* lines,
-                  void* out, int E, int Np, int has_f2, int s0, int s1,
-                  int s2, void* stream) {
+                  void* out, int E, int Np, int nq, int has_f2, int s0,
+                  int s1, int s2, void* stream) {
   Inputs in{};
   in.qv = static_cast<const float*>(qv);
   in.p = static_cast<const float*>(p);
@@ -431,8 +451,13 @@ int volume_vm_f32(const void* qv, const void* p, const void* pref,
   in.strides = tile::Strides{{s0, s1, s2}};
   in.out = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return has_f2 ? launch_order<P_GIVEN_F2>(in, E, Np, s)
-                : launch_order<P_GIVEN>(in, E, Np, s);
+  if (nq == 5)
+    return has_f2 ? launch_order<P_GIVEN_F2>(in, E, Np, s)
+                  : launch_order<P_GIVEN>(in, E, Np, s);
+  if (nq == 6)
+    return has_f2 ? launch_order<P_GIVEN_F2, 6>(in, E, Np, s)
+                  : launch_order<P_GIVEN, 6>(in, E, Np, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // dry_volume_tendency on `stream`, lines and strides as above.  ref3 is

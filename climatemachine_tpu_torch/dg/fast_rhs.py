@@ -1,15 +1,17 @@
-"""Var-major RHS of the dry explicit Held-Suarez step (port of
-``climatemachine_tpu/dg/fast_rhs.py`` ``VarMajorRHS`` :141-682 for a dry
-model, with or without DryBiharmonic hyperdiffusion, without a fused
-remainder).
+"""Var-major RHS of the Held-Suarez step and the moist baroclinic wave
+(port of ``climatemachine_tpu/dg/fast_rhs.py`` ``VarMajorRHS`` :141-682
+for a dry model, with or without DryBiharmonic hyperdiffusion, and an
+EquilMoist model with EquilMoistBiharmonic, without a fused remainder).
 
 State and aux stay var-major ``[E, nvar, Np]`` throughout.  Per call:
 
 - thermo once: T, p and the sound speed, reused by the volume flux, the
   face fluxes (faces are nodal subsets, so face thermo is extracted, not
-  recomputed) and the sources;
-- with hyperdiffusion, the LDG chain ∇→Δ→∇ of (u_h, h_tot) through the
-  four chain kernels (dg/ldg_kernel.py); ν₄ = (Δ/2)⁴/2τ is built once;
+  recomputed) and the sources; with EquilMoist, T by the saturation
+  adjustment and the four moisture aux lanes written on every call;
+- with hyperdiffusion, the LDG chain ∇→Δ→∇ of (u_h, h_tot[, q_tot])
+  through the four chain kernels (dg/ldg_kernel.py); ν₄ = (Δ/2)⁴/2τ and
+  ν₄_q = (Δ/2)⁴/2τ_q (0 when dry) are built once;
 - volume: the fused volume-tendency kernel (dg/volume_kernel.py), which
   builds the hyperdiffusive flux F₂ from ∇Δ and ν₄ itself;
 - surface: the face bundle (q, p, c, p_ref and, with hyperdiffusion,
@@ -30,7 +32,8 @@ from typing import Callable
 
 import torch
 
-from climatemachine_tpu_torch.atmos.hyperdiffusion import DryBiharmonic
+from climatemachine_tpu_torch.atmos.hyperdiffusion import (
+    DryBiharmonic, EquilMoistBiharmonic)
 from climatemachine_tpu_torch.atmos.model import AtmosModel
 from climatemachine_tpu_torch.dg import (fast_surface, ldg_kernel,
                                         surface_kernel)
@@ -52,9 +55,13 @@ def _check_supported(dg):
         raise ValueError("VarMajorRHS discretizes in every direction, got "
                          f"{dg.direction!r}")
     hd = bl.physics.hyperdiffusion
-    if dg.remainder is not None or not (hd is None
-                                        or type(hd) is DryBiharmonic):
+    if dg.remainder is not None or not (
+            hd is None or type(hd) in (DryBiharmonic, EquilMoistBiharmonic)):
         raise NotImplementedError("next slice")
+    if hd is not None and bl.moist != (type(hd) is EquilMoistBiharmonic):
+        raise ValueError("VarMajorRHS takes EquilMoist with "
+                         "EquilMoistBiharmonic and a dry model with "
+                         f"DryBiharmonic, got {hd!r}")
     if not g.face_perm_identity:
         raise ValueError("VarMajorRHS needs identity face orientations")
     for bc in bl.problem.boundary_conditions:
@@ -68,12 +75,15 @@ def _check_supported(dg):
 
 class VarMajorRHS:
     """``(qv, auxv, t) -> (dqv, auxv')`` with qv ``[E, 5, Np]`` and auxv
-    ``[E, 13, Np]`` (``[E, 14, Np]`` with hyperdiffusion).
+    ``[E, 13, Np]`` (``[E, 14, Np]`` with hyperdiffusion); with EquilMoist
+    qv ``[E, 6, Np]`` and auxv ``[E, 15, Np]`` (16).
 
-    ``write_aux``: refresh the aux lanes θ_v and T from the state on every
-    call.  Nothing inside a step reads them, so a time integrator can
-    build the RHS with ``write_aux=False`` and call :meth:`export_aux`
-    when aux leaves the loop.  ``volume`` is the volume-tendency function,
+    ``write_aux``: refresh the dry aux lanes θ_v and T from the state on
+    every call.  Nothing inside a step reads them, so a time integrator
+    can build the RHS with ``write_aux=False`` and call
+    :meth:`export_aux` when aux leaves the loop.  A moist model writes
+    its four moisture lanes on every call whatever ``write_aux`` says,
+    as the JAX package does.  ``volume`` is the volume-tendency function,
     ``chain_stages`` the four chain stages and ``surface_stages`` the
     extraction and the flux + lift of the ``"hybrid"`` and ``"pallas"``
     surface passes; they default to the kernel wrappers, and chip_smoke.py
@@ -97,6 +107,7 @@ class VarMajorRHS:
         E, X = g.nelem, g.nface * g.Nfp_max
         sp = bl.aux_spec
         self.nq = bl.prog_spec.num
+        self.moist = bl.moist
         self.i_phi = sp.index("orientation.Phi").start
         self.i_pref = sp.index("ref_state.p").start
         # var-major geometry, built once
@@ -111,26 +122,46 @@ class VarMajorRHS:
             d = bl.hyperdiffusion_direction
             self.chain = ldg_kernel.chain_operators(
                 g, direction_dims(d, g.dim), direction_faces(d, g.dim))
-            # ν₄ = (Δ/2)⁴ / 2τ is static (Δ, the aux lane
-            # hyperdiffusion.delta, depends on the grid alone): the volume
-            # kernel's (ν₄, ν₄_q = 0) [E, 2, Np] and ν₄ on the faces [E, X]
-            nu4 = ((self.hd.lengthscale(g) / 2) ** 4
-                   / (2 * self.hd.tau_timescale))
-            self.nu = torch.stack([nu4, torch.zeros_like(nu4)], dim=1)
+            # ν₄ = (Δ/2)⁴ / 2τ and ν₄_q = (Δ/2)⁴ / 2τ_q are static (Δ,
+            # the aux lane hyperdiffusion.delta, depends on the grid
+            # alone): the kernels' (ν₄, ν₄_q) [E, 2, Np], ν₄_q = 0 when
+            # dry, and each on the faces [E, X]
+            delta4 = (self.hd.lengthscale(g) / 2) ** 4
+            nu4 = delta4 / (2 * self.hd.tau_timescale)
+            nu4q = (delta4 / (2 * self.hd.tau_timescale_q_tot)
+                    if self.moist else torch.zeros_like(nu4))
+            self.nu = torch.stack([nu4, nu4q], dim=1)
             self.nu4_faces = torch.matmul(nu4, g.lift)
+            self.nu4q_faces = torch.matmul(nu4q, g.lift)
 
     def _thermo_update(self, qv, auxv, write_aux: bool):
-        """T, p, c_s and, with ``write_aux``, a copy of aux with the θ_v
-        and T lanes refreshed."""
-        ps = self.bl.param_set
+        """T, p, c_s and, with ``write_aux`` or a moist model, a copy of
+        aux with the moisture lanes refreshed (θ_v and T dry; T from the
+        saturation adjustment, θ_v, q_liq and q_ice with EquilMoist)."""
+        ps, sp = self.bl.param_set, self.bl.aux_spec
         rho, ru, rhoe = qv[:, 0], qv[:, 1:4], qv[:, 4]
         Phi = auxv[:, self.i_phi]
         e_int = (rhoe - 0.5 * torch.sum(ru * ru, dim=1) / rho) / rho - Phi
+        if self.moist:
+            q_tot = qv[:, 5] / rho
+            T = td.saturation_adjustment(
+                ps, e_int, rho, q_tot,
+                n_iter=self.bl.physics.moisture.maxiter)
+            pp = td.phase_partition_equil(ps, T, rho, q_tot)
+            p = td.air_pressure(ps, T, rho, pp)
+            theta_v = td.virtual_temperature(ps, T, pp) * \
+                (ps.MSLP / p) ** ps.kappa_d
+            auxv = auxv.clone()
+            for name, val in (("moisture.temperature", T),
+                              ("moisture.theta_v", theta_v),
+                              ("moisture.q_liq", pp.liq),
+                              ("moisture.q_ice", pp.ice)):
+                auxv[:, sp.index(name).start] = val
+            return T, p, td.soundspeed_air(ps, T, pp), auxv
         T = td.air_temperature(ps, e_int)
         p = td.air_pressure(ps, T, rho)
         c_s = td.soundspeed_air(ps, T)
         if write_aux:
-            sp = self.bl.aux_spec
             auxv = auxv.clone()
             auxv[:, sp.index("moisture.air_T").start] = T
             auxv[:, sp.index("moisture.theta_v").start] = \
@@ -138,18 +169,19 @@ class VarMajorRHS:
         return T, p, c_s, auxv
 
     def export_aux(self, qv, auxv):
-        """Aux with the θ_v and T lanes brought up to date with ``qv``."""
+        """Aux with the moisture lanes brought up to date with ``qv``."""
         return self._thermo_update(qv, auxv, write_aux=True)[3]
 
     # --- hyperdiffusion chain -------------------------------------------------
     def chain_input(self, qv, auxv, p):
         """(u_h, h_tot) ``[E, 4, Np]``: the horizontal velocity and the
-        total specific enthalpy (ρe + p)/ρ."""
+        total specific enthalpy (ρe + p)/ρ; with EquilMoist also q_tot
+        (``[E, 5, Np]``)."""
         return self.hd.gradient_laplacian_argument(self.bl, qv, auxv, 0.0, p)
 
     def _chain(self, qv, auxv, p):
-        """gl2 ``[E, 12, Np]``: ∇Δ of (u_h, h_tot) at lane 4·i + j
-        (direction i, variable j).  The hyperdiffusive flux itself is
+        """gl2 ``[E, 3·n, Np]``: ∇Δ of the n chain variables at lane
+        n·i + j (direction i, variable j).  The hyperdiffusive flux itself is
         never stored: the volume kernel and the surface pass build it
         from gl2 and ν₄."""
         glv = self.chain_input(qv, auxv, p)
@@ -168,7 +200,8 @@ class VarMajorRHS:
         """Minus-side face bundle ``[E, nvb, X]``: lanes q (nq), p, c_s,
         p_ref, and with ``gl2`` the nq n·F₂ trace lanes, built on the
         faces from ∇Δ extracted by the same matmul and the static face
-        ν₄ (each side contracts its own volume F₂ with its own normal)."""
+        ν₄, ν₄_q (each side contracts its own volume F₂ with its own
+        normal)."""
         g, nq, nrm = self.grid, self.nq, self.nrm
         E, Np = g.nelem, g.Np
         X = g.nface * g.Nfp_max
@@ -182,13 +215,15 @@ class VarMajorRHS:
         nvb = nq + 3
         ngl = gl2.shape[1] // 3
         gl2f = Bx[:, nvb:].reshape(E, 3, ngl, X)
-        nu4f = self.nu4_faces
+        nu4f, nu4qf = self.nu4_faces, self.nu4q_faces
         G = torch.sum(nrm[:, :, None, :] * gl2f, dim=1)   # [E, ngl, X]
         rhoF = Bx[:, 0]
         rnu = rhoF * nu4f
         trace = ([torch.zeros_like(rhoF)] + [rnu * G[:, j] for j in range(3)]
                  + [nu4f * (Bx[:, 1] * G[:, 0] + Bx[:, 2] * G[:, 1]
                             + Bx[:, 3] * G[:, 2]) + rnu * G[:, 3]])
+        if nq > 5:
+            trace.append(rhoF * nu4qf * G[:, 4])
         return torch.cat([Bx[:, :nvb], torch.stack(trace, dim=1)], dim=1)
 
     def _extract(self, qv, p, c_s, p_ref, gl2):

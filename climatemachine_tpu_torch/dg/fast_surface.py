@@ -1,4 +1,4 @@
-"""Var-major surface pass of the dry Euler model (port of
+"""Var-major surface pass of the Euler model (port of
 ``climatemachine_tpu/dg/fast_surface.py``: ``_tables`` :99-132 and
 ``surface_tendency`` :135-263, with its fused-remainder subtraction).
 
@@ -82,10 +82,11 @@ def wall_ghost(BP, nrm, bnd_lane):
 
 
 def rusanov(Bf, BP, nrm, nq: int):
-    """Rusanov flux ``[E, nq, X]`` of the dry Euler model from the two
-    sides' bundles, lanes q (nq), p, the sound speed, p_ref: the central
-    flux with p − p_ref in the momentum flux, minus ½ max(|u·n| + c)
-    times the jump."""
+    """Rusanov flux ``[E, nq, X]`` of the Euler model from the two sides'
+    bundles, lanes q (nq), p, the sound speed, p_ref: the central flux
+    with p − p_ref in the momentum flux and each advected scalar past
+    ρe (ρq_tot) carried by u·n, minus ½ max(|u·n| + c) times the
+    jump."""
     def flux_n(Bs):
         rho = Bs[:, 0]
         inv = 1.0 / rho
@@ -97,6 +98,7 @@ def rusanov(Bf, BP, nrm, nq: int):
         for c in range(3):
             Fn.append(Bs[:, 1 + c] * un + p_eff * nrm[:, c])
         Fn.append((Bs[:, 4] + pv) * un)
+        Fn += [Bs[:, v] * un for v in range(5, nq)]
         return Fn, torch.abs(un) + Bs[:, nq + 1]
 
     FnM, cM = flux_n(Bf)
@@ -123,8 +125,11 @@ def surface_tendency(dg, q, aux, t):
     lift matrix, its neighbour side gathered, the wall ghost, the face
     thermo of each side, the Rusanov flux and, with a remainder, the
     linear acoustic(-gravity) Rusanov flux taken out on the linear model's
-    faces."""
+    faces.  Dry models only: a moist model raises."""
     bl, g = dg.balance_law, dg.grid
+    if bl.prog_spec.num != 5:
+        raise NotImplementedError(
+            "next slice: the generic surface pass on a moist model")
     ps, sp = bl.param_set, bl.aux_spec
     ops = dg.operators()
     E, Np, Nfp = g.nelem, g.Np, g.Nfp_max

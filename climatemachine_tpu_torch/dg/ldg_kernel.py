@@ -20,7 +20,8 @@ bodies' arithmetic, with the dense 0/1 ``Sel`` and ``LT``); any other
 tensor takes the kernel (csrc/ldg_chain.cu) or raises.  The kernels
 apply ``Sel`` and ``LT`` as index gathers from
 :class:`~climatemachine_tpu_torch.dg.ldg_tables.FaceOps` and cover
-float32, n = 4 rows (u_h, h_tot), nd = 2 directions (horizontal) and
+float32, n = 4 rows (u_h, h_tot) or n = 5 (with EquilMoistBiharmonic's
+q_tot), nd = 2 directions (horizontal) and
 p1-p5 (:data:`~climatemachine_tpu_torch.dg.line_ops.KERNEL_NQ`); they
 stage their inputs in persistent blocks and K1-K3 are sum-factorised:
 they read ``Wd`` only through its line table
@@ -164,13 +165,13 @@ def _library():
 
 
 def _check_kernel_args(name, ref, n, nd, fo, **tensors):
-    """Refuse what the kernel does not cover: n other than 4 rows, nd
-    other than 2 directions where a derivative runs (nd is None for K4),
-    a tensor off CUDA, not float32, misshapen or not contiguous."""
-    if n != 4 or nd not in (None, 2):
+    """Refuse what the kernel does not cover: n other than 4 or 5 rows,
+    nd other than 2 directions where a derivative runs (nd is None for
+    K4), a tensor off CUDA, not float32, misshapen or not contiguous."""
+    if n not in (4, 5) or nd not in (None, 2):
         raise NotImplementedError(
-            f"the CUDA {name} kernel covers n=4 rows and nd=2 directions, "
-            f"got n={n}, nd={nd}")
+            f"the CUDA {name} kernel covers n=4 or n=5 rows and nd=2 "
+            f"directions, got n={n}, nd={nd}")
     if ref.device.type != "cuda":
         raise ValueError(f"the {name} kernel runs on CUDA tensors, got "
                          f"{ref.device}")

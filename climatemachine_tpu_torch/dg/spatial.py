@@ -12,7 +12,9 @@ models of the IMEX step in the vertical direction, and of the fused IMEX
 remainder (full − linear).  Its kernels are the dry volume kernel
 (dg/dry_volume_kernel.py) and the hyperdiffusion chain
 (dg/ldg_kernel.py); everything else is plain PyTorch, as the JAX package
-leaves it to XLA.
+leaves it to XLA.  A moist AtmosModel (EquilMoist) builds a DGModel, the
+grid and model the var-major RHS reads, but calling it raises: the
+generic moist operator is not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from climatemachine_tpu_torch.atmos.hyperdiffusion import DryBiharmonic
+from climatemachine_tpu_torch.atmos.hyperdiffusion import (
+    DryBiharmonic, EquilMoistBiharmonic)
 from climatemachine_tpu_torch.atmos.model import AtmosModel
 from climatemachine_tpu_torch.device import require_full_fp32
 from climatemachine_tpu_torch.dg import (dry_volume_kernel, fast_surface,
@@ -117,7 +120,8 @@ class DGModel:
                 raise ValueError(f"{name} must be one of {allowed}, got "
                                  f"{getattr(self, name)!r}")
         hd = getattr(getattr(bl, "physics", None), "hyperdiffusion", None)
-        if hd is not None and type(hd) is not DryBiharmonic:
+        if hd is not None and type(hd) not in (DryBiharmonic,
+                                               EquilMoistBiharmonic):
             raise NotImplementedError(f"next slice: hyperdiffusion {hd!r}")
         self.dry_volume = (
             self.volume_kernel != "xla" and dry_volume_kernel.supports(
@@ -206,6 +210,10 @@ class DGModel:
         if not hasattr(bl, "flux_first_order"):
             raise NotImplementedError(
                 "next slice: a balance law without a first-order flux")
+        if getattr(bl, "moist", False):
+            raise NotImplementedError(
+                "next slice: the generic DG operator on a moist model (its "
+                "right-hand side is the var-major RHS, dg/fast_rhs.py)")
         if q.device.type == "cuda":
             require_full_fp32("the DG operator")
         ops = self.operators()

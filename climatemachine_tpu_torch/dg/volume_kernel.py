@@ -12,9 +12,12 @@ on ``lin_dims``.
 
 Dispatch is by device: a CPU tensor takes :func:`volume_tendency_plain`;
 any other tensor takes the kernel (csrc/volume_vm.cu) or raises.  The
-kernel covers what the dry Held-Suarez step runs: float32, ``nq=5``,
+kernel covers what the Held-Suarez step and the moist baroclinic wave
+run: float32, ``nq=5`` (dry) or ``nq=6`` (EquilMoist, ρq_tot advected),
 ``subtract_ref=True``, no linear flux, with or without the F₂ of
-DryBiharmonic (``ngl=4``).  The plain version covers the whole signature.
+DryBiharmonic (``ngl=4``) or EquilMoistBiharmonic (``ngl=5``, with
+ν₄_q): ``ngl = nq − 1``.  The plain version covers the whole
+signature.
 
 The kernel is compiled at first use (cuda_build.py) and called through
 ctypes on PyTorch's current stream.  It is sum-factorised: it reads
@@ -119,7 +122,7 @@ def volume_tendency_plain(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
 def _library():
     lib = cuda_build.load("volume_vm")
     lib.volume_vm_f32.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.volume_vm_f32.restype = ctypes.c_int
     lib.dry_volume_f32.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
@@ -143,22 +146,22 @@ def launch(fn_name: str, ref, *args):
 
 def _check_kernel_args(qv, p, p_ref, gl2, nu, xiv, M, MI, Wdiv, nq, ngl,
                        subtract_ref, has_f2, lin_dims):
-    if nq != 5 or (has_f2 and ngl != 4) or tuple(lin_dims) \
+    if nq not in (5, 6) or (has_f2 and ngl != nq - 1) or tuple(lin_dims) \
             or not subtract_ref:
         raise NotImplementedError(
-            "the CUDA volume kernel covers nq=5, subtract_ref=True, "
-            "lin_dims=() and has_f2 with ngl=4 (got nq="
+            "the CUDA volume kernel covers nq=5 or 6, subtract_ref=True, "
+            "lin_dims=() and has_f2 with ngl=nq-1 (got nq="
             f"{nq}, subtract_ref={subtract_ref}, has_f2={has_f2}, "
             f"ngl={ngl}, lin_dims={lin_dims})")
     E, _, Np = qv.shape
     shapes = {"p": (p, (E, Np)), "p_ref": (p_ref, (E, Np))}
     if has_f2:
-        shapes.update(gl2=(gl2, (E, 12, Np)), nu=(nu, (E, 2, Np)))
-    check_tensors(qv, xiv, M, MI, Wdiv, **shapes)
+        shapes.update(gl2=(gl2, (E, 3 * ngl, Np)), nu=(nu, (E, 2, Np)))
+    check_tensors(qv, xiv, M, MI, Wdiv, nq=nq, **shapes)
 
 
-def check_tensors(qv, xiv, M, MI, Wdiv, **more):
-    """Raise ValueError unless qv ``[E, 5, Np]`` is a CUDA tensor of an
+def check_tensors(qv, xiv, M, MI, Wdiv, nq: int = 5, **more):
+    """Raise ValueError unless qv ``[E, nq, Np]`` is a CUDA tensor of an
     order the kernels are built for and it, the common operands and
     ``more`` (name → (tensor, shape)) are contiguous, 16-byte aligned
     float32 tensors of their shapes on its device."""
@@ -167,7 +170,7 @@ def check_tensors(qv, xiv, M, MI, Wdiv, **more):
                          f"{qv.device}")
     E, _, Np = qv.shape
     check_kernel_order("volume", Np)
-    shapes = {"qv": (qv, (E, 5, Np)), "xiv": (xiv, (E, 9, Np)),
+    shapes = {"qv": (qv, (E, nq, Np)), "xiv": (xiv, (E, 9, Np)),
               "M": (M, (E, Np)), "MI": (MI, (E, Np)),
               "Wdiv": (Wdiv, (Np, 3 * Np)), **more}
     for name, (t, shape) in shapes.items():
@@ -207,7 +210,7 @@ def fused_volume_tendency_vm(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
            xiv.data_ptr(), M.data_ptr(), MI.data_ptr(),
            gl2.data_ptr() if has_f2 else None,
            nu.data_ptr() if has_f2 else None,
-           lines.values.data_ptr(), out.data_ptr(), E, Np, int(has_f2),
+           lines.values.data_ptr(), out.data_ptr(), E, Np, nq, int(has_f2),
            *lines.strides)
     fused_volume_tendency_vm.launches += 1
     return out

@@ -13,7 +13,10 @@ var-major in both).  ``columnwise_solver="dense"`` takes the dense
 ``ManyColumnSolver`` and the ARK step's grid-layout loop on the fused
 remainder ``remainder_DGModel(dg, dg_lin)``, whatever the layout.
 State and aux are var-major ``[E, n, Np]``; the caller sets
-``post_step`` (the Held-Suarez filter) on the solver made.
+``post_step`` (the Held-Suarez filter) on the solver made.  A moist
+model (EquilMoist) runs the var-major RHS with its aux lanes written on
+every call, as the JAX package's does; on the generic DG operator
+(``state_layout="grid"``, the dense solver) it raises.
 """
 
 from __future__ import annotations
@@ -35,12 +38,22 @@ from climatemachine_tpu_torch.solvers.columnwise import (
 STATE_LAYOUTS = ("auto", "vm", "grid")
 
 
-def _refuse_unported(dg, state_layout: str):
+def _refuse_unported(dg, state_layout: str, generic: bool):
+    """``generic``: the path runs the generic DG operator on ``dg``."""
     if state_layout not in STATE_LAYOUTS:
         raise ValueError(f"state_layout must be one of {STATE_LAYOUTS}, "
                          f"got {state_layout!r}")
     if hasattr(dg, "inner") and hasattr(dg, "mesh"):
         raise NotImplementedError("next slice: a sharded DGModel")
+    if generic and getattr(dg.balance_law, "moist", False):
+        raise NotImplementedError(
+            "next slice: the generic DG operator on a moist model")
+
+
+def _var_major_rhs(dg) -> VarMajorRHS:
+    """The var-major RHS, its dry aux lanes deferred to ``export_aux``
+    (a moist model writes its lanes on every call)."""
+    return VarMajorRHS(dg, write_aux=dg.balance_law.moist)
 
 
 @dataclass
@@ -48,7 +61,8 @@ class ExplicitSolverType:
     """Explicit time stepping.  With ``state_layout`` "auto" or "vm",
     on the var-major RHS: ``solver.vm`` is that RHS (:class:`VarMajorRHS`,
     built with ``write_aux=False``: call ``solver.vm.export_aux`` when aux
-    leaves the loop).  With "grid", on ``dg`` itself, with ``dg.pre_stage``
+    leaves the loop; with a moist model ``write_aux=True``).  With
+    "grid", on ``dg`` itself, with ``dg.pre_stage``
     before each stage; ``solver.vm`` is None.  In the JAX package "auto"
     falls back to the generic DG operator for a configuration the
     var-major RHS does not take; here VarMajorRHS raises for it."""
@@ -56,12 +70,13 @@ class ExplicitSolverType:
     state_layout: str = "auto"
 
     def make(self, dg: DGModel, q0, aux0, dt: float):
-        _refuse_unported(dg, self.state_layout)
+        _refuse_unported(dg, self.state_layout,
+                         generic=self.state_layout == "grid")
         if self.state_layout == "grid":
             solver = self.solver_method(dg, dt, pre_stage=dg.pre_stage)
             solver.vm = None
             return solver
-        vm = VarMajorRHS(dg, write_aux=False)
+        vm = _var_major_rhs(dg)
         solver = self.solver_method(vm, dt)
         solver.vm = vm
         return solver
@@ -85,7 +100,8 @@ class IMEXSolverType:
     state_layout: str = "auto"
 
     def make(self, dg: DGModel, q0, aux0, dt: float):
-        _refuse_unported(dg, self.state_layout)
+        _refuse_unported(dg, self.state_layout, generic=(
+            self.state_layout == "grid" or self.columnwise_solver == "dense"))
         solver_cls = {"banded": BlockTridiagColumnSolver,
                       "dense": ManyColumnSolver}.get(self.columnwise_solver)
         if solver_cls is None:
@@ -123,7 +139,7 @@ class IMEXSolverType:
                                         rhs_full=dg)
             solver.vm = None
         else:
-            vm = VarMajorRHS(dg, write_aux=False)
+            vm = _var_major_rhs(dg)
             solver = self.solver_method(None, rhs_im, col_solver, dt,
                                         rhs_full=vm)
             solver.vm = vm

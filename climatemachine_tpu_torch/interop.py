@@ -6,7 +6,9 @@ state can be fed to this package and to another implementation of it.
 "grid" layout is node-major ``[E, Np, n]``; this package keeps state,
 aux and tendencies var-major ``[E, n, Np]``: ``to_var_major`` and
 ``to_node_major`` turn one into the other, ``state_from_numpy`` and
-``state_to_numpy`` a (state, aux) pair.
+``state_to_numpy`` a (state, aux) pair: the dry model's 5 prognostic
+lanes or the moist model's 6 (ρq_tot last) and their aux lanes, in the
+lane order the two packages share.
 """
 
 from __future__ import annotations
@@ -73,12 +75,26 @@ def to_node_major(t) -> np.ndarray:
     return np.ascontiguousarray(t.detach().cpu().numpy().transpose(0, 2, 1))
 
 
-def state_from_numpy(q, aux, device=None, dtype=None):
+def _check_lanes(model, nq: int, naux: int):
+    """Raise ValueError unless ``model`` (if given) has nq prognostic and
+    naux aux lanes."""
+    if model is not None and (nq, naux) != (model.prog_spec.num,
+                                            model.aux_spec.num):
+        raise ValueError(
+            f"state with {nq} prognostic and {naux} aux lanes, the model "
+            f"has {model.prog_spec.num} and {model.aux_spec.num}")
+
+
+def state_from_numpy(q, aux, device=None, dtype=None, model=None):
     """Node-major ``[E, Np, n]`` q and aux → var-major ``[E, n, Np]``
-    contiguous tensors; ``dtype=None`` keeps the arrays' dtype."""
+    contiguous tensors; ``dtype=None`` keeps the arrays' dtype.  With
+    ``model``, the lane counts must be its prognostic and aux specs'."""
+    _check_lanes(model, np.shape(q)[-1], np.shape(aux)[-1])
     return (to_var_major(q, device, dtype), to_var_major(aux, device, dtype))
 
 
-def state_to_numpy(q, aux):
-    """Var-major q and aux → node-major ``[E, Np, n]`` numpy arrays."""
+def state_to_numpy(q, aux, model=None):
+    """Var-major q and aux → node-major ``[E, Np, n]`` numpy arrays; with
+    ``model``, checked as :func:`state_from_numpy` checks them."""
+    _check_lanes(model, q.shape[1], aux.shape[1])
     return to_node_major(q), to_node_major(aux)

@@ -1,8 +1,9 @@
-"""Where the Held-Suarez step spends its time on the card.
+"""Where the Held-Suarez step, or the moist baroclinic wave's, spends its
+time on the card.
 
     python -m climatemachine_tpu_torch.profile_step [--steps N] [--out DIR]
         [--no-hyperdiffusion] [--imex] [--surface-kernel {xla,hybrid,pallas}]
-        [--grid] [--dense]
+        [--grid] [--dense] [--moist] [--dt SECONDS]
 
 Builds a ``chip_smoke.py`` path (dry Held-Suarez p4 with DryBiharmonic(8
 h) hyperdiffusion, n_horz=16, n_vert=8, float32, with the every-step
@@ -13,7 +14,12 @@ CFL); ``--no-hyperdiffusion`` drops the chain; ``--surface-kernel`` sets
 the RHS's surface pass (``VarMajorRHS.surface_kernel``, "xla" by
 default).  ``--grid`` takes the generic DG operator as the RHS
 (``state_layout="grid"``), ``--dense`` the IMEX step with the dense
-column solver on the fused remainder.  It warms up, times ``--steps``
+column solver on the fused remainder.  ``--moist`` builds the moist
+baroclinic wave instead (EquilMoist, EquilMoistBiharmonic(8 h), no
+filter, at the same width), with a ``saturation`` span inside
+``thermo``; ``--dt`` overrides the step's dt (the moist IMEX step is
+stable only below the dry one's: chip_smoke.py's moist_imex_dt_scan
+finds the dt).  It warms up, times ``--steps``
 steps with tracing off, then traces the same number of steps with
 ``torch.profiler``.  The RHS's parts (the surface kernels' stages as
 ``extract`` and ``lift`` inside ``surface``), and on the IMEX step the
@@ -27,7 +33,10 @@ contraction, F₂'s interface term) is outside them.
 Prints one JSON line: ms/step untraced and traced, the card's busy time
 (union of kernel intervals) and idle share of the traced window, kernels
 launched per step, per span its host time and the length of its range
-on the device timeline, and the kernels with the most device time.  Writes the
+on the device timeline, and the kernels with the most device time; with
+``--moist`` also the saturation adjustment alone, traced over three
+calls on the last state: its kernels and busy time a call, and its share
+of the step's busy time.  Writes the
 Chrome trace to ``DIR/profile_step_trace.json`` (default profile_out/).
 """
 
@@ -48,12 +57,16 @@ from climatemachine_tpu_torch.dg.fast_rhs import SURFACE_KERNELS
 from climatemachine_tpu_torch.dg.spatial import DGModel, init_ode_state
 from climatemachine_tpu_torch.driver.solver_types import (ExplicitSolverType,
                                                           IMEXSolverType)
+from climatemachine_tpu_torch.experiments.baroclinic_wave import \
+    baroclinic_wave_config
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
 from climatemachine_tpu_torch.mesh.grid import min_node_distance
+from climatemachine_tpu_torch.physics import thermodynamics as td
 
-SPANS = ("thermo", "chain", "volume", "surface", "extract", "lift",
-         "sources", "filter", "solve", "apply", "to_blocks", "from_blocks")
+SPANS = ("thermo", "saturation", "chain", "volume", "surface", "extract",
+         "lift", "sources", "filter", "solve", "apply", "to_blocks",
+         "from_blocks")
 
 
 def _span(name, fn):
@@ -61,6 +74,36 @@ def _span(name, fn):
         with record_function(name):
             return fn(*args, **kwargs)
     return wrapped
+
+
+def _busy_us(kernels):
+    """The union of the kernels' intervals on the device timeline, µs."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((k.time_range.start, k.time_range.end)
+                       for k in kernels):
+        if cur_e is not None and s <= cur_e:
+            cur_e = max(cur_e, e)
+            continue
+        busy += 0.0 if cur_e is None else cur_e - cur_s
+        cur_s, cur_e = s, e
+    return busy + (0.0 if cur_e is None else cur_e - cur_s)
+
+
+def _saturation_alone(rhs, q, aux, calls=3):
+    """The saturation adjustment of ``rhs``'s thermo at state q and aux,
+    traced alone over ``calls`` calls: (kernels, busy ms) a call."""
+    rho, ru = q[:, 0], q[:, 1:4]
+    e_int = ((q[:, 4] - 0.5 * torch.sum(ru * ru, dim=1) / rho) / rho
+             - aux[:, rhs.i_phi])
+    args = (rhs.bl.param_set, e_int, rho, q[:, 5] / rho)
+    td.saturation_adjustment(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            td.saturation_adjustment(*args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(kernels) / calls, _busy_us(kernels) / 1e3 / calls
 
 
 def main(argv=None):
@@ -73,6 +116,8 @@ def main(argv=None):
                     default="xla")
     ap.add_argument("--grid", action="store_true")
     ap.add_argument("--dense", action="store_true")
+    ap.add_argument("--moist", action="store_true")
+    ap.add_argument("--dt", type=float, default=None)
     args = ap.parse_args(argv)
     args.imex |= args.dense
     power = subprocess.run(
@@ -80,22 +125,26 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
-    cfg = held_suarez_config(
-        16, 8, 4, dtype=torch.float32, device="cuda",
-        hyperdiffusion_tau=None if args.no_hyperdiffusion else 8 * 3600.0)
+    tau = None if args.no_hyperdiffusion else 8 * 3600.0
+    config = baroclinic_wave_config if args.moist else held_suarez_config
+    cfg = config(16, 8, 4, dtype=torch.float32, device="cuda",
+                 hyperdiffusion_tau=tau)
     dg = DGModel(cfg.model, cfg.grid)
     q, aux = init_ode_state(dg)
-    hsf = HeldSuarezStepFilter(cfg.grid, cfg.model)
     layout = "grid" if args.grid else "auto"
+    dt = args.dt or (
+        0.1 * min_node_distance(cfg.grid, "horizontal") if args.imex
+        else 0.3 * min_node_distance(cfg.grid)) / 350.0
+    if args.moist:
+        td.saturation_adjustment = _span("saturation",
+                                         td.saturation_adjustment)
     if args.dense:
-        dt = 0.1 * min_node_distance(cfg.grid, "horizontal") / 350.0
         solver = IMEXSolverType(columnwise_solver="dense").make(dg, q, aux,
                                                                 dt)
         rhs, sv = solver.rhs_ex, solver.solver
         sv.solve = _span("solve", sv.solve)
         sv.apply_op = _span("apply", sv.apply_op)
     elif args.imex:
-        dt = 0.1 * min_node_distance(cfg.grid, "horizontal") / 350.0
         solver = IMEXSolverType(state_layout=layout).make(dg, q, aux, dt)
         rhs, sv = solver.rhs_full, solver.solver
         sv.solve_blocks = _span("solve", sv.solve_blocks)
@@ -103,10 +152,11 @@ def main(argv=None):
         sv.layout.to_blocks = _span("to_blocks", sv.layout.to_blocks)
         sv.layout.from_blocks = _span("from_blocks", sv.layout.from_blocks)
     else:
-        dt = 0.3 * min_node_distance(cfg.grid) / 350.0
         solver = ExplicitSolverType(state_layout=layout).make(dg, q, aux, dt)
         rhs = solver.rhs
-    solver.post_step = _span("filter", hsf.apply_vm)
+    if not args.moist:
+        solver.post_step = _span("filter", HeldSuarezStepFilter(
+            cfg.grid, cfg.model).apply_vm)
     if isinstance(rhs, DGModel):
         rhs.hyperdiffusive_state = _span("chain", rhs.hyperdiffusive_state)
         rhs.volume = _span("volume", rhs.volume)
@@ -146,15 +196,7 @@ def main(argv=None):
     events = prof.events()
     on_dev = [e for e in events if e.device_type == DeviceType.CUDA]
     kernels = [e for e in on_dev if e.name not in SPANS]
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted((k.time_range.start, k.time_range.end)
-                       for k in kernels):
-        if cur_e is not None and s <= cur_e:
-            cur_e = max(cur_e, e)
-            continue
-        busy += 0.0 if cur_e is None else cur_e - cur_s
-        cur_s, cur_e = s, e
-    busy += 0.0 if cur_e is None else cur_e - cur_s
+    busy = _busy_us(kernels)
     window_us = traced * args.steps * 1e6
 
     def per_step(evs):
@@ -173,11 +215,21 @@ def main(argv=None):
     top = sorted(((name, per_step(evs)) for name, evs in by_kernel.items()),
                  key=lambda kv: -kv[1]["ms_per_step"])[:12]
 
+    saturation = {}
+    if args.moist:
+        n_kernels, busy_ms = _saturation_alone(rhs, q, aux)
+        calls = spans["saturation"]["host"]["calls_per_step"]
+        saturation = {"saturation_alone": {
+            "calls_per_step": calls, "kernels_per_call": n_kernels,
+            "busy_ms_per_call": busy_ms,
+            "share_of_step_busy": calls * busy_ms * 1e3 * args.steps / busy}}
+
     os.makedirs(args.out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(args.out,
                                           "profile_step_trace.json"))
     print(json.dumps({
         "card": power, "steps": args.steps,
+        "model": "moist baroclinic wave" if args.moist else "Held-Suarez",
         "step": ("dense imex" if args.dense else "imex" if args.imex
                  else "explicit"), "dt_s": dt,
         "rhs": type(rhs).__name__,
@@ -191,7 +243,8 @@ def main(argv=None):
         "device_idle_share": 1.0 - busy / window_us,
         "kernels_per_step": len(kernels) / args.steps,
         "spans": spans,
-        "top_kernels": [{"name": name[:80], **t} for name, t in top]}),
+        "top_kernels": [{"name": name[:80], **t} for name, t in top],
+        **saturation}),
         flush=True)
 
 

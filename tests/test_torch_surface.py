@@ -285,7 +285,7 @@ LIFT_KW = dict(nq=5, nvb=13, subtract=True, i_pref=7, has_hyper=True,
 
 
 @pytest.mark.parametrize("flags", [
-    dict(nq=6, ngl=5), dict(na=4), dict(ngl=5)], ids=["nq6", "na4", "ngl5"])
+    dict(nq=6, ngl=4), dict(na=4), dict(ngl=5)], ids=["nq6", "na4", "ngl5"])
 def test_extract_kernel_refuses_unsupported_flags(flags):
     kw = dict(nq=5, na=1, ngl=4, has_hyper=True)
     kw.update(flags)
@@ -296,7 +296,7 @@ def test_extract_kernel_refuses_unsupported_flags(flags):
 
 @pytest.mark.parametrize("flags", [
     dict(rem_lanes=(5, 6, 7), sl_lo=64, sl_hi=96, nvb=16),
-    dict(nq=6, nvb=15, i_pref=8), dict(subtract=False, i_pref=5)],
+    dict(nq=6, nvb=15, i_pref=7), dict(subtract=False, i_pref=5)],
     ids=["rem_lanes", "nq6", "no_subtract"])
 def test_lift_kernel_refuses_unsupported_flags(flags):
     kw = dict(LIFT_KW, **flags)
