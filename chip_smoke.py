@@ -62,13 +62,37 @@ filter:
   mass drift, max|u| < 150 m/s; 0 <= q_tot < 0.02 at the start).
   ``--skip-moist`` leaves this path out (for a checkout of a commit
   without it; the default run never sets it);
+- on the generic operator of the first path, two solver types whose
+  explicit or slow operator is a generic fused remainder:
+  ``IMEXSolverType(implicit_model=AtmosAcousticLinearModel,
+  columnwise_solver="dense", state_layout="grid")`` (the dry kernel's
+  vertical acoustic remainder branch; 35 steps with the filter at the
+  largest of the dense path's dt and its halvings that stays finite with
+  max|u| < 150 m/s, dense_acoustic_dt_scan) and
+  ``MultirateSolverType(timestep_ratio=4)`` (its every-direction
+  acoustic-gravity branch in the slow operator; slow dt 4 × the
+  explicit path's, 6 steps, finite with max|u| < 100 m/s, the checks of
+  tests/test_imex.py:206-229), each with exact launch counts;
+- the fused remainder of the var-major RHS (``VarMajorRHS(
+  remainder_DGModel(dg, dg_lin))``), dry Held-Suarez and the moist wave
+  at the same width, with and without hyperdiffusion: for each linear
+  model (acoustic-gravity, acoustic) and direction ("vertical",
+  "every") the volume kernel's remainder branch and, once per direction,
+  the surface kernels' (na = 4, rem_lanes) against their plain versions
+  bit for bit on the RHS's own inputs, the RHS under each surface pass
+  against the plain-stage RHS and (dry) against the generic remainder,
+  with exact launch counts; dry, the dry kernel's other remainder
+  branches ((2,) without gravity, (0, 1) and (0, 1, 2) with and without)
+  on the generic remainders' inputs, bit for bit, each generic remainder
+  against its plain-stage twin;
 - the staged kernels (K1-K4, the volume kernel with and without F₂,
   both dry branches; the moist branches of K1-K4 and the volume kernel)
-  at the other orders they are built for, p1, p2, p3 and p5, on a
-  48-element grid: each against its plain version on all elements and
-  on the first 37, then the var-major (dry and moist) and the generic
-  RHS with their defaults against the ones with every stage's plain
-  version (kernel_orders).
+  and every remainder branch above at the other orders the kernels are
+  built for, p1, p2, p3 and p5, on a 48-element grid: each against its
+  plain version on all elements and on the first 37, then the var-major
+  (dry and moist, full and each remainder under "pallas") and the
+  generic RHS with their defaults against the ones with every stage's
+  plain version (kernel_orders).
 Copied into a checkout of an earlier commit that has the same modules
 and run there, the script measures that commit's kernels by the same
 method, so two designs compare in one call.
@@ -76,12 +100,16 @@ Each run sets every launch count to 0 just before it starts and reads
 the counts just after.  One JSON line per phase and ``surface_modes``
 with the ms per step of each surface pass on both steps and of the
 three generic paths; then the card's name and power limit as nvidia-smi
-reports them, a ``{"kernels": [...]}`` line (twenty entries: the nine
-earlier kernels with launches from the IMEX path with "pallas", the dry
-volume kernel with launches from the grid-layout IMEX path and its
-remainder branch from the dense one, and the nine moist branches,
-"[moist]", with launches from the moist IMEX path with "pallas") and,
-last, ``{"ok": true,
+reports them, a ``{"kernels": [...]}`` line (the nine earlier kernels
+with launches from the IMEX path with "pallas", the dry volume kernel
+with launches from the grid-layout IMEX path and its vertical
+acoustic-gravity remainder branch from the dense one, the nine moist
+branches, "[moist]", with launches from the moist IMEX path with
+"pallas", and the remainder branches, "[rem:...]": the var-major
+kernels' with launches from the remainder RHS runs, the dry kernel's
+vertical acoustic branch from the dense acoustic IMEX path, its
+every-direction acoustic-gravity branch from the multirate path, its
+others from the generic remainder runs) and, last, ``{"ok": true,
 "device": ...}``.  Any failure raises and exits non-zero without the
 last line.  Without a CUDA device it exits 1 at once.
 
@@ -196,7 +224,15 @@ Tolerances:
   surface pass extracts its thermo) on the CPU at n_horz=3, n_vert=3,
   p4; the remainder against dg − dg_lin: 1e-2 · max|dg − dg_lin| per
   variable, 7.7× the 1.3e-3 the same comparison gives on the CPU (the
-  remainder is the small difference of two large tendencies).
+  remainder is the small difference of two large tendencies);
+- the remainder branches against their plain versions at the bench
+  shape: equal bit for bit (they round as the plain versions round);
+  the remainder RHS against its plain-stage twin: GENERIC_RHS_TOL (bit
+  for bit on an NVIDIA H100 80GB HBM3), and the dry var-major remainder
+  against the generic remainder: REMAINDER_TOL (3.8e-3 there, "every"
+  with gravity; the surface passes extract and recompute their face
+  thermo differently); at the other orders each remainder RHS against
+  its plain-stage twin within REMAINDER_TOL (:func:`order_rhs_tol`).
 """
 
 from __future__ import annotations
@@ -215,16 +251,16 @@ from types import SimpleNamespace
 import torch
 
 from climatemachine_tpu_torch import cuda_build, resolve_device
-from climatemachine_tpu_torch.atmos.linear import \
-    AtmosAcousticGravityLinearModel
+from climatemachine_tpu_torch.atmos.linear import (
+    AtmosAcousticGravityLinearModel, AtmosAcousticLinearModel)
 from climatemachine_tpu_torch.dg import (dry_volume_kernel, ldg_kernel,
                                         ldg_tables, ldg_varmajor,
                                         surface_kernel, volume_kernel)
 from climatemachine_tpu_torch.dg.fast_rhs import SURFACE_KERNELS, VarMajorRHS
 from climatemachine_tpu_torch.dg.spatial import (DGModel, init_ode_state,
                                                  remainder_DGModel)
-from climatemachine_tpu_torch.driver.solver_types import (ExplicitSolverType,
-                                                          IMEXSolverType)
+from climatemachine_tpu_torch.driver.solver_types import (
+    ExplicitSolverType, IMEXSolverType, MultirateSolverType)
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
 from climatemachine_tpu_torch.interop import grid_from_numpy, grid_to_numpy
@@ -311,6 +347,26 @@ MOIST = "[moist]"
 #: the surface kernels each surface pass launches, once per RHS
 SURFACE_LAUNCHES = {"xla": (), "hybrid": ("extract_trace_vm",),
                     "pallas": SURFACE}
+#: the linear models of a fused remainder, by the names of its entries
+LIN_MODELS = {"gravity": AtmosAcousticGravityLinearModel,
+              "acoustic": AtmosAcousticLinearModel}
+#: the remainders the var-major RHS takes: (direction, linear model)
+REM_CASES = tuple((ldir, lin) for ldir in ("vertical", "every")
+                  for lin in LIN_MODELS)
+#: the dry kernel's remainder branches beside the dense IMEX path's
+#: vertical acoustic-gravity one, by entry: (direction, linear model)
+DRY_REM = {f"{ldir}:{lin}": (ldir, lin) for ldir, lin in (
+    ("vertical", "acoustic"), ("horizontal", "gravity"),
+    ("horizontal", "acoustic"), ("every", "gravity"), ("every", "acoustic"))}
+#: the dense acoustic IMEX path's halvings of the dense path's dt tried
+#: for 35 steps with max|u| < MAX_ABS_U
+ACOUSTIC_DT_HALVINGS = 6
+#: the multirate path: its slow dt over the explicit path's, the fast
+#: solver's substep ratio (tests/test_imex.py:206-229), its steps, and
+#: the bound on max|u| (m/s) after them
+MULTIRATE_DT_RATIO, MULTIRATE_TIMESTEP_RATIO = 4, 4
+N_WARM_MR, N_STEPS_MR = 1, 5
+MULTIRATE_MAX_ABS_U = 100.0
 #: kernel name -> (wrapper, plain version, source, TPU kernel it replaces)
 KERNELS = {
     "fused_volume_tendency_vm": (
@@ -395,8 +451,8 @@ def reset_launch_counts():
 
 
 def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
-          has_f2: bool = True, dense: bool = True, remainder: bool = False,
-          nq: int = 5):
+          has_f2: bool = True, dense: bool = True, lin_dims: tuple = (),
+          lin_gravity: bool = True, nq: int = 5):
     """(bytes, flops) of one call: each input read once, each output
     written once (float32; the int32 face tables and the operator once:
     its dense matrix, or sum-factorised the Nq × Nq weights of each
@@ -410,26 +466,30 @@ def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
     more for the advected ρq_tot at nq = 6), 106 for F₂ (24 more for its
     q_tot row, which reads ν₄_q too) and nq for the MI scaling; the dry
     volume tendency 13 more for its thermo (e_int, T, p from q and φ in
-    place of p) and, with the remainder, 29 for the linear flux, reading
-    ref3."""
+    place of p); a remainder reads ref3 (and φ, in the var-major kernel)
+    and does 8 more for p_L and the energy coefficient (9 without
+    gravity) and 21 for the linear flux of each direction in
+    ``lin_dims`` (29 for the vertical remainder)."""
     R, X = 3 * n, nd * 3
     K = Np if dense else Nq
     deriv = lambda rows: 2 * E * rows * nd * Np * K
     op = Np * Np if dense else Nq * Nq
     wd, sel, lift = 4 * nd * op, 4 * F, 4 * 2 * Np
+    lin = (8 + (not lin_gravity) + 21 * len(lin_dims)) if lin_dims else 0
     if name == "fused_volume_tendency_vm":
         f2_rows = 3 * (nq - 1) + (1 if nq == 5 else 2)     # gl2 and ν
         nbytes = 4 * (E * Np * (nq + 1 + 1 + 9 + 1 + 1 + nq
-                                + (f2_rows if has_f2 else 0))
+                                + (f2_rows if has_f2 else 0)
+                                + (4 if lin_dims else 0))
                       + 3 * op)
         return nbytes, E * Np * (2 * nq * 3 * K + 111 + 21 * (nq - 5) + nq
-                                 + (106 + 24 * (nq - 5) if has_f2 else 0))
+                                 + (106 + 24 * (nq - 5) if has_f2 else 0)
+                                 + lin)
     if name == DRY:
         nbytes = 4 * (E * Np * (5 + 1 + 1 + 9 + 1 + 1 + 5
-                                + (3 if remainder else 0))
+                                + (3 if lin_dims else 0))
                       + 3 * op)
-        return nbytes, E * Np * (2 * 5 * 3 * K + 111 + 5 + 13
-                                 + (29 if remainder else 0))
+        return nbytes, E * Np * (2 * 5 * 3 * K + 111 + 5 + 13 + lin)
     if name == "ldg_first":
         nbytes = 4 * E * (n * Np + X * Np + R * Np + n * F) + wd + sel
         return nbytes, deriv(n) + E * R * Np * (2 * nd - 1)
@@ -448,7 +508,7 @@ def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
 
 
 def surface_costs(name: str, args, has_hyper: bool, dense: bool,
-                  nq: int = 5):
+                  nq: int = 5, na: int = 1, lin_lanes: int = 0):
     """(bytes, flops) of one surface-kernel call of nq variables, from its
     arguments: each input the kernel needs read once (the extraction
     needs ∇Δ, ν and the normals only with hyperdiffusion, and of ν only
@@ -457,10 +517,13 @@ def surface_costs(name: str, args, has_hyper: bool, dense: bool,
     each output written once (float32).  Flops: a face lane's trace (32
     with hyperdiffusion, 7 more for the q_tot lane), its ghost, two
     fluxes, Rusanov flux and sM scaling (98, +20 for the hyperdiffusive
-    correction, +10 for the sixth variable), the lift's sum of each lane
-    onto its node and the MI scaling; ``dense`` counts the extraction and
-    the lift instead as the products with the 0/1 matrix that the TPU
-    kernels compute, over the rows the function needs."""
+    correction, +10 for the sixth variable), on each of the remainder's
+    ``lin_lanes`` linear face lanes its two linear fluxes and their
+    Rusanov flux taken out (30 + 6 nq), the lift's sum of each lane onto
+    its node and the MI scaling; ``dense`` counts the extraction and the
+    lift instead as the products with the 0/1 matrix that the TPU kernels
+    compute, over the rows the function needs.  ``na`` aux lanes (1, or 4
+    for a remainder's bundle)."""
     nu_rows = 1 if nq == 5 else 2
     if name == "extract_trace_vm":
         qv, lift = args[0], args[6]
@@ -470,8 +533,8 @@ def surface_costs(name: str, args, has_hyper: bool, dense: bool,
         read = list(args[:4]) + [sel_idx] + (
             [args[4], args[5][:, :nu_rows], args[7]] if has_hyper else [])
         # extracted volume rows and bundle lanes written
-        rows = nq + 3 + (3 * (nq - 1) + nu_rows) * has_hyper
-        nvb = nq + 3 + nq * has_hyper
+        rows = nq + 2 + na + (3 * (nq - 1) + nu_rows) * has_hyper
+        nvb = nq + 2 + na + nq * has_hyper
         nbytes = 4 * (sum(t.numel() for t in read) + E * nvb * X)
         flops = (32 + 7 * (nq - 5)) * E * X * has_hyper + (
             2 * E * rows * Np * X if dense else 0)
@@ -483,26 +546,31 @@ def surface_costs(name: str, args, has_hyper: bool, dense: bool,
     nbytes = 4 * (sum(t.numel() for t in read) + E * nq * Np)
     lift = 2 * E * nq * X * Np if dense else E * nq * X
     return nbytes, (E * X * (98 + 20 * has_hyper + 10 * (nq - 5)) + lift
-                    + E * nq * Np)
+                    + E * lin_lanes * (30 + 6 * nq) + E * nq * Np)
 
 
 def bounds(name: str, rhs, n: int, has_f2: bool = True, args=None,
-           has_hyper: bool = True, remainder: bool = False) -> dict:
+           has_hyper: bool = True, kw=None) -> dict:
     """The kernel's bound, the larger of bytes over the memory rate and
     flops over the fp32 rate, for the work it does (``bound_ms``, the
     kernels line's: derivatives sum-factorised, the surface kernels'
     extraction and lift as a gather and a sum) and for the dense count
-    of the TPU kernels (``bound_dense_ms``)."""
-    g = rhs.grid
+    of the TPU kernels (``bound_dense_ms``); ``kw`` the kernel's keyword
+    arguments (a remainder's ``lin_dims``, ``lin_gravity``, ``na``,
+    ``rem_lanes`` and face lanes)."""
+    g, kw = rhs.grid, kw or {}
     nd, F = (rhs.chain.Wd.shape[0], rhs.chain.fo.F) if rhs.hd else (0, 0)
+    nq = kw.get("nq", rhs.nq)
+    lin_lanes = (kw["sl_hi"] - kw["sl_lo"]) if kw.get("rem_lanes") else 0
     out = {}
     for key, dense in (("", False), ("_dense", True)):
         if name in SURFACE:
-            nbytes, flops = surface_costs(name, args, has_hyper, dense,
-                                          rhs.nq)
+            nbytes, flops = surface_costs(name, args, has_hyper, dense, nq,
+                                          kw.get("na", 1), lin_lanes)
         else:
             nbytes, flops = costs(name, g.nelem, g.Np, g.Nq[0], n, nd, F,
-                                  has_f2, dense, remainder, rhs.nq)
+                                  has_f2, dense, tuple(kw.get("lin_dims", ())),
+                                  kw.get("lin_gravity", True), nq)
         t_bytes = 1e3 * nbytes / PEAK_BYTES
         t_ops = 1e3 * flops / PEAK_FP32_FLOPS
         out.update({"bytes": nbytes, "bytes_ms": t_bytes,
@@ -665,10 +733,11 @@ def graph_rounds(name, args, kw) -> dict:
                 inputs=KERNEL_INPUTS)
 
 
-def kernel_vs_plain(name, args, rhs, n, **kw) -> dict:
+def kernel_vs_plain(name, args, rhs, n, exact: bool = False, **kw) -> dict:
     """One kernel against its plain version on the same inputs, with both
     times in graph-cold rounds (:func:`graph_rounds`), a matmul yardstick
-    and its bounds.  A staged kernel is also run on the first TAIL_E
+    and its bounds; with ``exact`` (the remainder branches) equal to it
+    bit for bit.  A staged kernel is also run on the first TAIL_E
     elements of the same inputs (a partial last tile): held against the
     plain version there (whose product may round otherwise at that shape)
     and equal bit for bit to its own full run's first TAIL_E elements."""
@@ -681,7 +750,8 @@ def kernel_vs_plain(name, args, rhs, n, **kw) -> dict:
         # each element's arithmetic is the same in a partial tile
         same = all(torch.equal(a, b[:TAIL_E]) for a, b in zip(tail, out))
         emit("kernel_tail", name=name, elements=TAIL_E,
-             **{k: kw[k] for k in ("has_f2", "lin_dims") if k in kw},
+             **{k: kw[k] for k in ("has_f2", "lin_dims", "lin_gravity")
+                if k in kw},
              max_abs_err_per_output=tail_errs,
              max_abs_plain_per_output=tail_scales, tol=KERNEL_TOL,
              equals_full_run=same)
@@ -694,15 +764,19 @@ def kernel_vs_plain(name, args, rhs, n, **kw) -> dict:
                max_abs_plain_per_output=scales, tol=KERNEL_TOL, **timing,
                matmul_yardstick_ms=yardstick(name, args, rhs, hyper),
                **bounds(name, rhs, n, kw.get("has_f2", True), args, hyper,
-                        bool(kw.get("lin_dims"))),
+                        kw),
+               exact=max(errs) == 0.0,
                shapes=[list(a.shape) for a in args
                        if isinstance(a, torch.Tensor)])
     res["share_of_bound"] = res["bound_ms"] / res["ms"]
     res["share_of_bound_dense"] = res["bound_dense_ms"] / res["ms"]
     emit("kernel_vs_plain", name=name,
-         **{k: kw[k] for k in ("has_f2", "has_hyper", "lin_dims")
-            if k in kw}, **res)
+         **{k: kw[k] for k in ("has_f2", "has_hyper", "lin_dims",
+                               "lin_gravity", "na", "rem_lanes", "sl_lo",
+                               "sl_hi") if k in kw}, **res)
     check(finite, (name, "kernel output not finite"))
+    check(res["exact"] or not exact, (name, "kernel != plain bit for bit",
+                                      errs))
     check(all(e <= KERNEL_TOL * sc for e, sc in zip(errs, scales)),
           (name, "kernel vs plain", errs, scales))
     return res
@@ -1433,7 +1507,9 @@ def phase_generic(seed: int) -> dict:
     """The generic DG operator at full width: its checks, then the three
     paths with exact launch counts (the dry kernel and the four chain
     kernels in each RHS; the layout kernels on the banded IMEX step), the
-    f64-table gate on both IMEX paths and the mass drift on all three."""
+    f64-table gate on both IMEX paths and the mass drift on all three;
+    then the dense IMEX path on the acoustic linear model and the
+    multirate path (:func:`phase_solver_remainders`)."""
     table = load_refstats()
     base = build_generic_base()
     kernels = phase_generic_checks(base, seed)
@@ -1477,7 +1553,11 @@ def phase_generic(seed: int) -> dict:
         launches[kind], ms[kind] = counts, res["ms_per_step"]
         del path, sv, q
         torch.cuda.empty_cache()
-    return dict(kernels=kernels, launches=launches, ms_per_step=ms)
+    solvers = phase_solver_remainders(base, table)
+    for kind, res in solvers.items():
+        launches[kind], ms[kind] = res["launches"], res["ms_per_step"]
+    return dict(kernels=kernels, launches=launches, ms_per_step=ms,
+                dt_s={kind: res["dt_s"] for kind, res in solvers.items()})
 
 
 # --- the moist baroclinic wave -------------------------------------------------
@@ -1663,18 +1743,381 @@ def phase_moist_kernel_orders(seed: int):
             cases["fused_volume_tendency_vm" + ("" if f2 else "_no_f2")] = (
                 "fused_volume_tendency_vm",
                 inputs["fused_volume_tendency_vm"], volume_kwargs(rhs, f2))
+        rem_cases, rhs_errs = remainder_order_cases(dg, q, aux0, moist=True)
+        cases.update(rem_cases)
         held = {entry: hold(name, args, kw)
                 for entry, (name, args, kw) in cases.items()}
-        err = per_var_err(rhs(q, aux0, 0.0)[0],
-                          plain_rhs(dg, "xla")(q, aux0, 0.0)[0])
+        rhs_errs["var_major"] = per_var_err(
+            rhs(q, aux0, 0.0)[0], plain_rhs(dg, "xla")(q, aux0, 0.0)[0])
         torch.cuda.synchronize()
         emit("kernel_orders", moist=True, poly=poly, Np=cfg.grid.Np,
              elements=cfg.grid.nelem, tail_elements=TAIL_E, tol=KERNEL_TOL,
-             kernels=held, rhs_rel_err_per_var={"var_major": err},
-             rhs_tol=GENERIC_RHS_TOL)
+             kernels=held, rhs_rel_err_per_var=rhs_errs,
+             rhs_tol=GENERIC_RHS_TOL, remainder_rhs_tol=REMAINDER_TOL)
+        for name, err in rhs_errs.items():
+            check(all(torch.isfinite(torch.tensor(err)))
+                  and max(err) <= order_rhs_tol(name),
+                  ("moist RHS at order", poly, name, err))
+
+
+# --- the fused remainder -------------------------------------------------------
+
+def rem_entry(name, *parts, moist=False) -> str:
+    """The kernels line's entry of a remainder branch of kernel ``name``:
+    its direction, linear model and other parts, "[moist]" at nq = 6."""
+    return (name + (MOIST if moist else "") + "[rem"
+            + "".join(f":{part}" for part in parts if part) + "]")
+
+
+def linear_dg(dg, ldir: str, lin: str):
+    """The linear model ``lin`` of ``dg``'s model in direction ``ldir``, as
+    the solver types build it."""
+    return DGModel(LIN_MODELS[lin](dg.balance_law), dg.grid, direction=ldir,
+                   update_aux=False)
+
+
+def remainder_kernel_inputs(rhs, q, aux, hyper: bool = None) -> dict:
+    """The kernels' (args, kwargs) on the var-major remainder RHS ``rhs`` at
+    (q, aux), as it hands them over: the volume kernel with ``lin_dims``,
+    the extraction at na = 4 and the flux + lift with ``rem_lanes`` on the
+    plain extraction's bundle and its neighbour side; with ``hyper``
+    False the surface kernels without the n·F₂ trace lanes (on a model
+    with hyperdiffusion)."""
+    g, ps, nq, sp = rhs.grid, rhs.bl.param_set, rhs.nq, rhs.bl.aux_spec
+    hyper = rhs.hd is not None if hyper is None else hyper
+    _, p, c_s, aux = rhs._thermo_update(q, aux, False)
+    gl2 = rhs._chain(q, aux, p) if rhs.hd is not None else None
+    nu = rhs.nu if rhs.hd is not None else None
+    p_ref = aux[:, rhs.i_pref].contiguous()
+    ref3 = torch.stack([sp.get(aux, "ref_state.rhoe"),
+                        sp.get(aux, "ref_state.rho"), p_ref], dim=1)
+    vol = ((q, p, aux[:, rhs.i_phi].contiguous(), p_ref, ref3, gl2, nu,
+            rhs.xiv, g.M, g.MI, g.Wdiv),
+           dict(volume_kwargs(rhs, rhs.hd is not None),
+                lin_dims=rhs.lin_dims, lin_gravity=rhs.lin_gravity))
+    ext = ((q, p, c_s, rhs._aux_lanes(aux), gl2 if hyper else None,
+            nu if hyper else None, g.lift, rhs.nrm),
+           dict(nq=nq, na=4, ngl=rhs.bl.gradlap_spec.num, has_hyper=hyper))
+    Bf = surface_kernel.extract_trace_plain(*ext[0], **ext[1])
+    sl_lo, sl_hi = rhs.lin_lanes
+    lift = ((Bf, rhs._gather_faces(Bf), rhs.nrm, rhs.sM, rhs.bmask,
+             rhs.liftT, g.MI),
+            dict(nq=nq, nvb=Bf.shape[1], subtract=True, i_pref=nq + 2,
+                 has_hyper=hyper, rem_lanes=(nq + 3, nq + 4, nq + 5),
+                 sl_lo=sl_lo, sl_hi=sl_hi, R_d_T0=ps.R_d * ps.T_0,
+                 R_over_cv=ps.R_d / ps.cv_d))
+    return {"fused_volume_tendency_vm": vol, "extract_trace_vm": ext,
+            "fused_surface_lift_vm": lift}
+
+
+def remainder_config(moist: bool, tau, n_horz=N_HORZ, n_vert=N_VERT,
+                     poly=POLY):
+    """The model at ``tau`` (None: no hyperdiffusion), its DGModel and
+    initial state: dry Held-Suarez, or the moist baroclinic wave."""
+    if moist:
+        from climatemachine_tpu_torch.experiments.baroclinic_wave import \
+            baroclinic_wave_config
+        cfg = baroclinic_wave_config(n_horz, n_vert, poly,
+                                     dtype=torch.float32,
+                                     hyperdiffusion_tau=tau, device="cuda")
+    else:
+        cfg = held_suarez_config(n_horz=n_horz, n_vert=n_vert,
+                                 poly_order=poly, dtype=torch.float32,
+                                 hyperdiffusion_tau=tau, device="cuda")
+    dg = DGModel(cfg.model, cfg.grid)
+    return (cfg, dg) + tuple(init_ode_state(dg))
+
+
+def remainder_rhs_run(dg_rem, rhs, q, aux0, moist: bool) -> dict:
+    """The var-major remainder RHS ``rhs`` once under each surface pass,
+    its launches counted from 0, against the RHS with every stage's plain
+    version under the same pass and (dry) against the generic remainder
+    ``dg_rem``: per variable errors, whether each equals its plain-stage
+    twin bit for bit, the launches and each pass's ms per call."""
+    reset_launch_counts()
+    out = {}
+    for mode in SURFACE_KERNELS:
+        rhs.surface_kernel = mode
+        out[mode] = rhs(q, aux0, 0.0)[0]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    errs, exact, ms = {}, {}, {}
+    plain = plain_rhs(dg_rem, "xla")
+    for mode in SURFACE_KERNELS:
+        plain.surface_kernel = mode
+        ref = plain(q, aux0, 0.0)[0]
+        exact[mode] = torch.equal(out[mode], ref)
+        errs[mode] = per_var_err(out[mode], ref)
+        rhs.surface_kernel = mode
+        ms[mode] = cuda_ms(lambda: rhs(q, aux0, 0.0), 5, warm=1)
+    if not moist:
+        errs["generic_remainder"] = per_var_err(out["xla"],
+                                                dg_rem(q, aux0, 0.0)[0])
+    rhs.surface_kernel = "xla"
+    return dict(launches=counts, exact=exact, rel_err_per_var=errs,
+                rhs_ms=ms)
+
+
+def phase_remainder(seed: int, moist: bool) -> dict:
+    """The fused remainder of the var-major RHS at full width
+    (``VarMajorRHS(remainder_DGModel(dg, dg_lin))``), dry Held-Suarez or
+    the moist baroclinic wave, with hyperdiffusion (8 h) and without: for
+    each linear model (acoustic-gravity, acoustic) and direction
+    ("vertical", "every") the volume kernel's branch against its plain
+    version bit for bit (and on the tail), the surface kernels' (na = 4,
+    rem_lanes) likewise once per direction; the RHS under each surface
+    pass against the plain-stage RHS and (dry) the generic remainder,
+    with its launches.  Dry with hyperdiffusion, the dry kernel's new
+    branches on the generic remainder's inputs, bit for bit, and each
+    generic remainder against dg − dg_lin with its launches.  Returns
+    {"kernels": {entry: result}, "launches": {entry: launches}}."""
+    kernels, launches = {}, {}
+    for tau in (MOIST_TAU if moist else 8 * 3600.0, None):
+        hyper = tau is not None
+        cfg, dg, q0, aux0 = remainder_config(moist, tau)
+        q = perturbed(q0, seed)
+        no_hyper = None if hyper else "no_hyper"
+        for ldir, lin in REM_CASES:
+            dg_rem = remainder_DGModel(dg, linear_dg(dg, ldir, lin))
+            rhs = VarMajorRHS(dg_rem, write_aux=False)
+            inputs = remainder_kernel_inputs(rhs, q, aux0)
+            entries = {
+                "fused_volume_tendency_vm": rem_entry(
+                    "fused_volume_tendency_vm", ldir, lin,
+                    None if hyper else "no_f2", moist=moist),
+                "extract_trace_vm": rem_entry("extract_trace_vm", no_hyper,
+                                              moist=moist),
+                "fused_surface_lift_vm": rem_entry(
+                    "fused_surface_lift_vm", ldir, no_hyper, moist=moist)}
+            for name, entry in entries.items():
+                if entry in kernels:      # the surface kernels' once
+                    continue
+                args, kw = inputs[name]
+                kernels[entry] = kernel_vs_plain(name, args, rhs, n=0,
+                                                 exact=True, **kw)
+            del inputs
+            res = remainder_rhs_run(dg_rem, rhs, q, aux0, moist)
+            per_rhs = {name: 1 for name in ("fused_volume_tendency_vm",)
+                       + (CHAIN if hyper else ())}
+            expected = {name: 3 * per_rhs.get(name, 0) + {
+                "extract_trace_vm": 2, "fused_surface_lift_vm": 1}.get(
+                    name, 0) for name in KERNELS}
+            emit("remainder_rhs", card=nvidia_smi(), moist=moist,
+                 hyperdiffusion_tau=tau, direction=ldir, linear=lin,
+                 lin_dims=list(rhs.lin_dims), expected_launches=expected,
+                 tol=GENERIC_RHS_TOL, remainder_tol=REMAINDER_TOL, **res)
+            check_launches(res["launches"], expected)
+            for key, err in res["rel_err_per_var"].items():
+                tol = REMAINDER_TOL if key == "generic_remainder" \
+                    else GENERIC_RHS_TOL
+                check(all(torch.isfinite(torch.tensor(err)))
+                      and max(err) <= tol, ("remainder RHS", moist, tau,
+                                            ldir, lin, key, err))
+            for name, entry in entries.items():
+                launches[entry] = launches.get(entry, 0) \
+                    + res["launches"][name]
+            del dg_rem, rhs
+        if not moist and hyper:
+            kernels.update(dry_remainder_branches(dg, q, aux0, launches))
+        del cfg, dg, q0, aux0, q
+        torch.cuda.empty_cache()
+    return dict(kernels=kernels, launches=launches)
+
+
+def dry_remainder_branches(dg, q, aux0, launches: dict) -> dict:
+    """The dry kernel's new remainder branches (DRY_REM) on the generic
+    remainder's inputs against the plain version, bit for bit; each
+    generic remainder RHS against the one with every stage's plain
+    version (GENERIC_RHS_TOL), its launches counted into ``launches``;
+    its distance from the two-call difference dg − dg_lin is reported,
+    not held (float32 cancellation: the remainder is the small difference
+    of two large tendencies, and "every" cancels in all directions)."""
+    g, model = dg.grid, dg.balance_law
+    aux = model.update_auxiliary_state(q, aux0)
+    grid_only = SimpleNamespace(grid=g, hd=None, nq=5)
+    full = dg(q, aux0, 0.0)[0]
+    kernels = {}
+    for part, (ldir, lin) in DRY_REM.items():
+        dg_lin = linear_dg(dg, ldir, lin)
+        dg_rem = remainder_DGModel(dg, dg_lin)
+        entry = rem_entry(DRY, part)
+        args, kw = dry_volume_args(dg_rem, q, aux)
+        kernels[entry] = kernel_vs_plain(DRY, args, grid_only, n=0,
+                                         exact=True, **kw)
+        del args
+        reset_launch_counts()
+        rem = dg_rem(q, aux0, 0.0)[0]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        plain = remainder_DGModel(
+            DGModel(model, g, volume=KERNELS[DRY][1],
+                    chain_stages=ldg_kernel.PLAIN), dg_lin)
+        ref = plain(q, aux0, 0.0)[0]
+        err = per_var_err(rem, ref)
+        expected = expected_launches({DRY: 1, **{k: 1 for k in CHAIN}}, 1)
+        emit("generic_remainder", card=nvidia_smi(), direction=ldir,
+             linear=lin, lin_dims=list(kw["lin_dims"]),
+             lin_gravity=kw["lin_gravity"], rel_err_per_var=err,
+             exact=torch.equal(rem, ref), tol=GENERIC_RHS_TOL,
+             rel_err_vs_difference_per_var=per_var_err(
+                 rem, full - dg_lin(q, aux, 0.0)[0]),
+             launches=counts, expected_launches=expected,
+             ms=cuda_ms(lambda: dg_rem(q, aux0, 0.0), 5, warm=1))
+        check_launches(counts, expected)
         check(all(torch.isfinite(torch.tensor(err)))
               and max(err) <= GENERIC_RHS_TOL,
-              ("moist RHS at order", poly, err))
+              ("generic remainder vs plain stages", ldir, lin, err))
+        launches[entry] = counts[DRY]
+    return kernels
+
+
+def dense_acoustic_path(base, table) -> dict:
+    """``IMEXSolverType(implicit_model=AtmosAcousticLinearModel,
+    columnwise_solver="dense", state_layout="grid")`` on ``base`` with the
+    filter: from the dense path's dt (the table's), halved up to
+    ACOUSTIC_DT_HALVINGS times until its steps stay finite with max|u| <
+    MAX_ABS_U for the table's 35 steps (each trial reported); then the 35
+    steps with exact launch counts (3 a step of the dry kernel's vertical
+    acoustic branch and of each chain kernel)."""
+    g, dg = base["cfg"].grid, base["dg"]
+    dt0 = 0.1 * min_node_distance(g, "horizontal") / 350.0
+    if abs(table.dt - dt0) < 1e-5 * dt0:
+        dt0 = table.dt
+    n = N_WARM_IMEX + N_STEPS_IMEX
+    for k in range(ACOUSTIC_DT_HALVINGS + 1):
+        dt = dt0 / 2 ** k
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver = IMEXSolverType(implicit_model=AtmosAcousticLinearModel,
+                                columnwise_solver="dense",
+                                state_layout="grid").make(
+            dg, base["q0"], base["aux0"], dt)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        solver.post_step = base["hsf"].apply_vm
+        q, aux, bad, umax = base["q0"], base["aux0"], None, 0.0
+        for i in range(n):
+            q, aux = solver.step(q, aux, i * dt)
+            umax = (q[:, 1:4] / q[:, :1]).abs().max().item()
+            if not (bool(torch.isfinite(q).all()) and umax < MAX_ABS_U):
+                bad = i + 1
+                break
+        emit("dense_acoustic_dt_scan", card=nvidia_smi(), dt_s=dt,
+             halvings=k, steps=n, stable=bad is None, first_bad_step=bad,
+             max_abs_u=umax)
+        del q, aux
+        if bad is None:
+            return dict(base, dt=dt, rhs=dg, solver=solver, setup_s=setup_s,
+                        halvings=k)
+        del solver
+        torch.cuda.empty_cache()
+    raise RuntimeError("chip_smoke check failed: no stable acoustic dense "
+                       "IMEX dt")
+
+
+def phase_solver_remainders(base, table) -> dict:
+    """The two solver types whose explicit or slow operator is a generic
+    remainder the earlier paths do not build, at full width, each with
+    exact launch counts: the dense IMEX step on the acoustic linear model
+    (:func:`dense_acoustic_path`; the dry kernel's vertical acoustic
+    branch) and ``MultirateSolverType`` (slow dt MULTIRATE_DT_RATIO times
+    the explicit path's, fast substeps at 1/MULTIRATE_TIMESTEP_RATIO of
+    it, 6 steps, no filter: the dry kernel's every-direction
+    acoustic-gravity branch in its slow operator), finite with max|u| <
+    MULTIRATE_MAX_ABS_U.  Returns each path's launches and ms a step."""
+    per_rhs = {DRY: 1, **{name: 1 for name in CHAIN}}
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    path = dense_acoustic_path(base, table)
+    n = N_WARM_IMEX + N_STEPS_IMEX
+    res, counts, q = run_path(path, N_WARM_IMEX, N_STEPS_IMEX)
+    expected = expected_launches({k: 3 * v for k, v in per_rhs.items()}, n)
+    res.update(path="dense_acoustic", implicit_model="AtmosAcousticLinearModel",
+               dt_halvings=path["halvings"], expected_launches=expected,
+               max_abs_u=(q[:, 1:4] / q[:, :1]).abs().max().item(),
+               max_abs_u_bound=MAX_ABS_U,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    emit("solver_path", **res)
+    check_launches(counts, expected)
+    out["dense_acoustic"] = dict(launches=counts, ms_per_step=res[
+        "ms_per_step"], dt_s=path["dt"])
+    del path, q
+    torch.cuda.empty_cache()
+
+    g, dg = base["cfg"].grid, base["dg"]
+    dt = MULTIRATE_DT_RATIO * 0.3 * min_node_distance(g) / 350.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver = MultirateSolverType(
+        timestep_ratio=MULTIRATE_TIMESTEP_RATIO).make(dg, base["q0"],
+                                                      base["aux0"], dt)
+    path = dict(base, dt=dt, rhs=dg, solver=solver,
+                setup_s=time.perf_counter() - t0)
+    res, counts, q = run_path(path, N_WARM_MR, N_STEPS_MR)
+    n = N_WARM_MR + N_STEPS_MR
+    expected = expected_launches({k: 5 * v for k, v in per_rhs.items()}, n)
+    umax = (q[:, 1:4] / q[:, :1]).abs().max().item()
+    res.update(path="multirate", fast_model="AtmosAcousticGravityLinearModel",
+               timestep_ratio=MULTIRATE_TIMESTEP_RATIO,
+               fast_dt_s=solver.fast.dt, slow_direction=dg.direction,
+               expected_launches=expected, max_abs_u=umax,
+               max_abs_u_bound=MULTIRATE_MAX_ABS_U)
+    emit("solver_path", **res)
+    check_launches(counts, expected)
+    check(umax < MULTIRATE_MAX_ABS_U, ("multirate max |u|", umax))
+    out["multirate"] = dict(launches=counts, ms_per_step=res["ms_per_step"],
+                            dt_s=dt)
+    return out
+
+
+def order_rhs_tol(key: str) -> float:
+    """The tolerance of an RHS against its plain-stage twin at the other
+    orders: REMAINDER_TOL for a remainder (the small difference of two
+    large tendencies: at 48 elements the card's cuBLAS sums the plain
+    volume product in another order, which the remainder's cancellation
+    amplifies to 1.3e-3 of its max at p5, NVIDIA H100 80GB HBM3), else
+    GENERIC_RHS_TOL."""
+    return REMAINDER_TOL if key.startswith("var_major[rem") \
+        else GENERIC_RHS_TOL
+
+
+def remainder_order_cases(dg, q, aux0, moist: bool):
+    """The remainder branches at one of EDGE_ORDERS on ``dg``'s state (q,
+    aux0): the cases for :func:`hold` (the volume kernel's, with and
+    without F₂, for each of REM_CASES; the surface kernels', with and
+    without the trace lanes, for each direction; dry, the dry kernel's
+    DRY_REM branches on the generic remainders' inputs) and each
+    remainder's var-major RHS (surface pass "pallas") against its
+    plain-stage twin, per variable."""
+    vm = "fused_volume_tendency_vm"
+    cases, errs = {}, {}
+    for ldir, lin in REM_CASES:
+        dg_rem = remainder_DGModel(dg, linear_dg(dg, ldir, lin))
+        rhs = VarMajorRHS(dg_rem, write_aux=False)
+        inputs = remainder_kernel_inputs(rhs, q, aux0)
+        args, kw = inputs[vm]
+        for f2 in (True, False):
+            cases[rem_entry(vm, ldir, lin, None if f2 else "no_f2",
+                            moist=moist)] = (vm, args, dict(kw, has_f2=f2))
+        if lin == "gravity":
+            for hyper in (True, False):
+                inp = inputs if hyper else remainder_kernel_inputs(
+                    rhs, q, aux0, hyper=False)
+                part = None if hyper else "no_hyper"
+                if ldir == "vertical":
+                    cases[rem_entry(SURFACE[0], part, moist=moist)] = (
+                        SURFACE[0],) + inp[SURFACE[0]]
+                cases[rem_entry(SURFACE[1], ldir, part, moist=moist)] = (
+                    SURFACE[1],) + inp[SURFACE[1]]
+        rhs.surface_kernel = "pallas"
+        errs[rem_entry("var_major", ldir, lin)] = per_var_err(
+            rhs(q, aux0, 0.0)[0], plain_rhs(dg_rem, "pallas")(q, aux0, 0.0)[0])
+    if not moist:
+        aux = dg.balance_law.update_auxiliary_state(q, aux0)
+        for part, (ldir, lin) in DRY_REM.items():
+            cases[rem_entry(DRY, part)] = (DRY,) + tuple(dry_volume_args(
+                remainder_DGModel(dg, linear_dg(dg, ldir, lin)), q, aux))
+    return cases, errs
 
 
 # --- the staged kernels at the other orders ----------------------------------
@@ -1735,24 +2178,26 @@ def phase_kernel_orders(seed: int):
         _, _, dry = dry_inputs(dg, q, aux)
         cases.update({entry: (DRY, args, kw)
                       for entry, (args, kw) in dry.items()})
+        rem_cases, rhs_errs = remainder_order_cases(dg, q, aux0, moist=False)
+        cases.update(rem_cases)
         held = {entry: hold(name, args, kw)
                 for entry, (name, args, kw) in cases.items()}
         plain_generic = DGModel(cfg.model, cfg.grid,
                                 volume=KERNELS[DRY][1],
                                 chain_stages=ldg_kernel.PLAIN)
-        rhs_errs = {
-            "var_major": per_var_err(rhs(q, aux0, 0.0)[0],
-                                     plain_rhs(dg, "xla")(q, aux0, 0.0)[0]),
-            "generic": per_var_err(dg(q, aux0, 0.0)[0],
-                                   plain_generic(q, aux0, 0.0)[0])}
+        rhs_errs.update(
+            var_major=per_var_err(rhs(q, aux0, 0.0)[0],
+                                  plain_rhs(dg, "xla")(q, aux0, 0.0)[0]),
+            generic=per_var_err(dg(q, aux0, 0.0)[0],
+                                plain_generic(q, aux0, 0.0)[0]))
         torch.cuda.synchronize()
         emit("kernel_orders", poly=poly, Np=cfg.grid.Np,
              elements=cfg.grid.nelem, tail_elements=TAIL_E, tol=KERNEL_TOL,
              kernels=held, rhs_rel_err_per_var=rhs_errs,
-             rhs_tol=GENERIC_RHS_TOL)
+             rhs_tol=GENERIC_RHS_TOL, remainder_rhs_tol=REMAINDER_TOL)
         for name, err in rhs_errs.items():
             check(all(torch.isfinite(torch.tensor(err)))
-                  and max(err) <= GENERIC_RHS_TOL,
+                  and max(err) <= order_rhs_tol(name),
                   ("RHS at order", poly, name, err))
 
 
@@ -1773,7 +2218,12 @@ def main(argv=None) -> int:
     phase_no_hyperdiffusion(args.seed)
     imex = phase_imex(args.seed, explicit)
     generic = phase_generic(args.seed)
+    remainder = phase_remainder(args.seed, moist=False)
     moist = None if args.skip_moist else phase_moist(args.seed)
+    if moist:
+        moist_rem = phase_remainder(args.seed, moist=True)
+        remainder["kernels"].update(moist_rem["kernels"])
+        remainder["launches"].update(moist_rem["launches"])
     phase_kernel_orders(args.seed)
     if moist:
         phase_moist_kernel_orders(args.seed)
@@ -1781,6 +2231,8 @@ def main(argv=None) -> int:
          explicit_ms_per_step=explicit["ms_per_step"],
          imex_ms_per_step=imex["ms_per_step"],
          generic_ms_per_step=generic["ms_per_step"],
+         dense_acoustic_dt_s=generic["dt_s"]["dense_acoustic"],
+         multirate_dt_s=generic["dt_s"]["multirate"],
          **({} if moist is None else dict(
              moist_explicit_ms_per_step=moist["explicit_ms_per_step"],
              moist_imex_ms_per_step=moist["imex_ms_per_step"],
@@ -1802,6 +2254,20 @@ def main(argv=None) -> int:
                         for name, k in moist["kernels"].items()})
         entries += [(name + MOIST, name, moist["launches"][name])
                     for name in EXPLICIT + SURFACE + LAYOUT]
+    # the remainder branches: the var-major RHS's with launches from its
+    # remainder RHS runs; the dry kernel's vertical acoustic branch from
+    # the dense acoustic IMEX path, its every-direction acoustic-gravity
+    # branch from the multirate path, the others from the generic
+    # remainder RHS runs
+    results.update(remainder["kernels"])
+    path_launches = {
+        rem_entry(DRY, "vertical:acoustic"):
+            generic["launches"]["dense_acoustic"][DRY],
+        rem_entry(DRY, "every:gravity"):
+            generic["launches"]["multirate"][DRY]}
+    entries += [(entry, entry.split("[")[0],
+                 path_launches.get(entry, remainder["launches"].get(entry)))
+                for entry in remainder["kernels"]]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": entry, "route": "cuda",

@@ -3,23 +3,32 @@
 //
 // Replaces climatemachine_tpu/dg/pallas_surface.py:extract_trace_vm (Pallas
 // body _k_extract) and :fused_surface_lift_vm (Pallas body _kernel) for what
-// the Held-Suarez step and the moist baroclinic wave run: float32, NQ = 5
-// prognostic variables (dry) or 6 (with the advected rhoq_tot of
-// EquilMoist), one aux lane (p_ref), the reference pressure subtracted from
-// the momentum flux, no fused remainder, with (2 NQ + 3 bundle lanes, NQ - 1
-// chain variables u_h[3], h_tot[, q_tot]) or without (NQ + 3 bundle lanes)
-// DryBiharmonic or EquilMoistBiharmonic hyperdiffusion.
+// the Held-Suarez step, the moist baroclinic wave and their fused
+// remainders run: float32, NQ = 5 prognostic variables (dry) or 6 (with
+// the advected rhoq_tot of EquilMoist), the reference pressure subtracted
+// from the momentum flux, with (NQ - 1 chain variables u_h[3], h_tot[,
+// q_tot]; NQ more bundle lanes) or without DryBiharmonic or
+// EquilMoistBiharmonic hyperdiffusion, and NA aux lanes: NA = 1 (p_ref;
+// NQ + 3 bundle lanes) or, for a fused remainder, NA = 4 (p_ref, phi, the
+// linear energy coefficient and the reference sound speed; NQ + 6 lanes,
+// JAX fast_rhs.py:406-423).
 //
 // extract_trace_vm_kernel, per element e and face lane x (X = 6 Nfp):
-//   B[v][x] = vol_v[node(x)]                 v = q[NQ], p, c, p_ref
+//   B[v][x] = vol_v[node(x)]                 v = q[NQ], p, c, aux[NA]
 //   G_j     = n0 g[0][j] + n1 g[1][j] + n2 g[2][j],   g = gl2 at node(x)
 //   s       = (0, rho nu G_0, rho nu G_1, rho nu G_2,
 //              nu (rhou . G) + rho nu G_3[, rho nu_q G_4])
 //             (the NQ trace lanes; nu = nu4, nu_q = nu4q)
 // surface_lift_vm_kernel, per element: for each face lane the wall ghost of
 // the neighbour side, both one-sided normal fluxes, the Rusanov flux with
-// the larger wavespeed, + (1 - bm) (s- - s+) / 2 with hyperdiffusion, times
-// sM; then for each node n
+// the larger wavespeed, + (1 - bm) (s- - s+) / 2 with hyperdiffusion, and
+// with a remainder (NA = 4) less the linear model's Rusanov flux on the
+// linear faces' lanes [sl_lo, sl_hi) (JAX body :173-200)
+//   FL[rho] = u.n (u.n = rhou . n), FL[rhou_j] = pL n_j, FL[rhoe] = c u.n,
+//   FL[rhoq_tot] = 0, pL = rho R_d T_0 + (R_d/cv_d)(rhoe - rho phi),
+//   f -= (FL- + FL+) / 2 - max(cl-, cl+) / 2 (q+ - q-)
+// (phi, c and cl the lanes NQ + 3, NQ + 4, NQ + 5), times sM; then for
+// each node n
 //   out[v][n] = -(MI[n] * sum over the lanes x that land on n of f[v][x]).
 //
 // The face-extraction matrix lift [Np][X] (grid.lift) is 0/1 with one 1 per
@@ -38,7 +47,10 @@
 // lift reads 2 x 13 bundle rows, 5 geometry rows and MI and writes 5 rows,
 // about 0.26 GB: 0.079 ms, against ~130 flops per lane.  At NQ = 6 the
 // extraction reads 26 volume rows (nu's both) and writes 15 face rows, the
-// lift reads 2 x 15 and writes 6: about 0.29 and 0.30 GB.
+// lift reads 2 x 15 and writes 6: about 0.29 and 0.30 GB.  A remainder's
+// bundle (NA = 4) has 3 more lanes: 3 more volume rows and face rows for
+// the extraction, 2 x 3 more rows read by the lift, which does ~40 flops
+// more a lane on the linear faces.
 //
 // Design: a block of TE = 8 elements, one thread per face lane and, in the
 // lift's second pass, per node (160 threads at p4).  The extraction gathers
@@ -72,13 +84,13 @@ __device__ __forceinline__ float maximum(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-// NQ variables; NGL = NQ - 1 chain variables.
-template <int NQ, bool HYPER>
+// NQ variables, NA aux lanes; NGL = NQ - 1 chain variables.
+template <int NQ, int NA, bool HYPER>
 __global__ void __launch_bounds__(MAX_THREADS)
 extract_trace_vm_kernel(const float* __restrict__ qv,    // [E][NQ][Np]
                         const float* __restrict__ p,     // [E][Np]
                         const float* __restrict__ c,     // [E][Np]
-                        const float* __restrict__ aux,   // [E][1][Np]
+                        const float* __restrict__ aux,   // [E][NA][Np]
                         const float* __restrict__ gl2,   // [E][3 NGL][Np]
                         const float* __restrict__ nu,    // [E][2][Np]
                         const int* __restrict__ sel_idx, // [X]
@@ -86,7 +98,8 @@ extract_trace_vm_kernel(const float* __restrict__ qv,    // [E][NQ][Np]
                         float* __restrict__ out,         // [E][NVB][X]
                         int E, int Np, int X) {
   constexpr int NGL = NQ - 1;
-  constexpr int NVB = HYPER ? 2 * NQ + 3 : NQ + 3;
+  constexpr int NVB0 = NQ + 2 + NA;     // the lanes before the trace lanes
+  constexpr int NVB = HYPER ? NVB0 + NQ : NVB0;
   const int x = threadIdx.x;
   if (x >= X) return;              // no barrier in this kernel
 
@@ -105,7 +118,9 @@ extract_trace_vm_kernel(const float* __restrict__ qv,    // [E][NQ][Np]
     }
     b[NQ] = __ldg(p + en);
     b[NQ + 1] = __ldg(c + en);
-    b[NQ + 2] = __ldg(aux + en);
+#pragma unroll
+    for (int k = 0; k < NA; ++k)
+      b[NQ + 2 + k] = __ldg(aux + ((size_t)e * NA + k) * Np + node);
     if constexpr (HYPER) {
       const float* g = gl2 + (size_t)e * 3 * NGL * Np + node;
       const float* nr = nrm + (size_t)e * 3 * X + x;
@@ -120,15 +135,15 @@ extract_trace_vm_kernel(const float* __restrict__ qv,    // [E][NQ][Np]
       }
       const float nu4 = __ldg(nu + (size_t)e * 2 * Np + node);
       const float rnu = mul(q[0], nu4);
-      b[NQ + 3] = 0.0f;
+      b[NVB0] = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 3; ++j) b[NQ + 4 + j] = mul(rnu, G[j]);
+      for (int j = 0; j < 3; ++j) b[NVB0 + 1 + j] = mul(rnu, G[j]);
       const float ruG =
           add(add(mul(q[1], G[0]), mul(q[2], G[1])), mul(q[3], G[2]));
-      b[NQ + 7] = add(mul(nu4, ruG), mul(rnu, G[3]));
+      b[NVB0 + 4] = add(mul(nu4, ruG), mul(rnu, G[3]));
       if constexpr (NQ == 6) {
         const float nu4q = __ldg(nu + ((size_t)e * 2 + 1) * Np + node);
-        b[NQ + 8] = mul(mul(q[0], nu4q), G[NGL - 1]);
+        b[NVB0 + 5] = mul(mul(q[0], nu4q), G[NGL - 1]);
       }
     }
     float* o = out + (size_t)e * NVB * X + x;
@@ -157,7 +172,27 @@ __device__ __forceinline__ float flux_n(const float S[NQ], float pv, float cs,
   return add(fabsf(un), cs);
 }
 
-template <int NQ, bool HYPER>
+// The linear acoustic(-gravity) model's normal flux of the NQ variables
+// (none for rhoq_tot) and its wavespeed cl.
+template <int NQ>
+__device__ __forceinline__ float flux_lin(const float S[NQ], float phi,
+                                          float coeff, float cl,
+                                          const float n[3], float R_d_T0,
+                                          float R_over_cv, float Fn[NQ]) {
+  const float pL = add(mul(S[0], R_d_T0),
+                       mul(R_over_cv, sub(S[4], mul(S[0], phi))));
+  const float un =
+      add(add(mul(S[1], n[0]), mul(S[2], n[1])), mul(S[3], n[2]));
+  Fn[0] = un;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) Fn[1 + c] = mul(pL, n[c]);
+  Fn[4] = mul(coeff, un);
+#pragma unroll
+  for (int v = 5; v < NQ; ++v) Fn[v] = 0.0f;
+  return cl;
+}
+
+template <int NQ, int NA, bool HYPER>
 __global__ void __launch_bounds__(MAX_THREADS)
 surface_lift_vm_kernel(const float* __restrict__ Bf,     // [E][NVB][X]
                        const float* __restrict__ BP,     // [E][NVB][X]
@@ -168,9 +203,11 @@ surface_lift_vm_kernel(const float* __restrict__ Bf,     // [E][NVB][X]
                        int L,
                        const float* __restrict__ MI,     // [E][Np]
                        float* __restrict__ out,          // [E][NQ][Np]
-                       int E, int Np, int X) {
-  constexpr int NVB = HYPER ? 2 * NQ + 3 : NQ + 3;
+                       int E, int Np, int X, int sl_lo, int sl_hi,
+                       float R_d_T0, float R_over_cv) {
+  constexpr int NVB = NQ + 2 + NA + (HYPER ? NQ : 0);
   constexpr int IPREF = NQ + 2;   // the p_ref lane of the bundle
+  constexpr bool REM = NA == 4;   // lanes phi, coeff, cl follow p_ref
   extern __shared__ float smf[];                 // [TE][NQ][X]
   const int t = threadIdx.x;
   const int e0 = blockIdx.x * TE;
@@ -210,6 +247,18 @@ surface_lift_vm_kernel(const float* __restrict__ Bf,     // [E][NVB][X]
                                   __ldg(Pr + (NQ + 1) * X),
                                   __ldg(Pr + IPREF * X), n, FP);
       const float half_c = mul(0.5f, maximum(cM, cP));
+      // the remainder's linear faces: the linear Rusanov flux
+      const bool lin = REM && t >= sl_lo && t < sl_hi;
+      float FLM[NQ], FLP[NQ], half_cl = 0.0f;
+      if (REM && lin) {
+        const float clM = flux_lin<NQ>(
+            M, __ldg(Mr + (NQ + 3) * X), __ldg(Mr + (NQ + 4) * X),
+            __ldg(Mr + (NQ + 5) * X), n, R_d_T0, R_over_cv, FLM);
+        const float clP = flux_lin<NQ>(
+            P, __ldg(Pr + (NQ + 3) * X), __ldg(Pr + (NQ + 4) * X),
+            __ldg(Pr + (NQ + 5) * X), n, R_d_T0, R_over_cv, FLP);
+        half_cl = mul(0.5f, maximum(clM, clP));
+      }
       float* s = smf + te * NQ * X + t;
 #pragma unroll
       for (int v = 0; v < NQ; ++v) {
@@ -221,6 +270,9 @@ surface_lift_vm_kernel(const float* __restrict__ Bf,     // [E][NVB][X]
           const float d2 = mul(0.5f, sub(__ldg(Mr + h), __ldg(Pr + h)));
           f = add(f, mul(keep, d2));
         }
+        if (REM && lin)
+          f = sub(f, sub(mul(0.5f, add(FLM[v], FLP[v])),
+                         mul(half_cl, sub(P[v], M[v]))));
         s[v * X] = mul(sm, f);
       }
     }
@@ -248,36 +300,39 @@ surface_lift_vm_kernel(const float* __restrict__ Bf,     // [E][NVB][X]
   }
 }
 
-template <int NQ>
+template <int NQ, int NA>
 auto extract_kernel(bool hyper) {
-  return hyper ? extract_trace_vm_kernel<NQ, true>
-               : extract_trace_vm_kernel<NQ, false>;
+  return hyper ? extract_trace_vm_kernel<NQ, NA, true>
+               : extract_trace_vm_kernel<NQ, NA, false>;
 }
 
-template <int NQ>
+template <int NQ, int NA>
 auto lift_kernel(bool hyper) {
-  return hyper ? surface_lift_vm_kernel<NQ, true>
-               : surface_lift_vm_kernel<NQ, false>;
+  return hyper ? surface_lift_vm_kernel<NQ, NA, true>
+               : surface_lift_vm_kernel<NQ, NA, false>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the extraction of nq = 5 or 6 variables on `stream`; gl2, nu and
-// nrm are read only with has_hyper != 0.  Returns the CUDA error code of
-// the launch (0 on success).
+// Launches the extraction of nq = 5 or 6 variables and na = 1 or 4 aux
+// lanes on `stream`; gl2, nu and nrm are read only with has_hyper != 0.
+// Returns the CUDA error code of the launch (0 on success).
 int extract_trace_vm_f32(const void* qv, const void* p, const void* c,
                          const void* aux, const void* gl2, const void* nu,
                          const void* sel_idx, const void* nrm, void* out, int E,
-                         int Np, int X, int nq, int has_hyper, void* stream) {
+                         int Np, int X, int nq, int na, int has_hyper,
+                         void* stream) {
   const int threads = (X + 31) / 32 * 32;
   if (E <= 0 || Np <= 0 || X <= 0 || threads > MAX_THREADS ||
-      (nq != 5 && nq != 6))
+      (nq != 5 && nq != 6) || (na != 1 && na != 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = nq == 5 ? extract_kernel<5>(has_hyper)
-                        : extract_kernel<6>(has_hyper);
+  auto kernel = nq == 5 ? (na == 1 ? extract_kernel<5, 1>(has_hyper)
+                                   : extract_kernel<5, 4>(has_hyper))
+                        : (na == 1 ? extract_kernel<6, 1>(has_hyper)
+                                   : extract_kernel<6, 4>(has_hyper));
   kernel<<<(E + TE - 1) / TE, threads, 0, s>>>(
       static_cast<const float*>(qv), static_cast<const float*>(p),
       static_cast<const float*>(c), static_cast<const float*>(aux),
@@ -287,27 +342,36 @@ int extract_trace_vm_f32(const void* qv, const void* p, const void* c,
   return (int)cudaGetLastError();
 }
 
-// Launches the flux + lift of nq = 5 or 6 variables on `stream`.  Returns
-// the CUDA error code of the launch (0 on success).
+// Launches the flux + lift of nq = 5 or 6 variables on `stream`, the
+// bundle with na = 1 aux lane or, for a fused remainder, na = 4: then the
+// linear Rusanov flux comes off the lanes [sl_lo, sl_hi), R_d_T0 = R_d T_0
+// and R_over_cv = R_d/cv_d (float32).  Returns the CUDA error code of the
+// launch (0 on success).
 int surface_lift_vm_f32(const void* Bf, const void* BP, const void* nrm,
                         const void* sM, const void* bmask,
                         const void* lift_idx, int L, const void* MI, void* out,
-                        int E, int Np, int X, int nq,
-                        int has_hyper, void* stream) {
+                        int E, int Np, int X, int nq, int na, int has_hyper,
+                        int sl_lo, int sl_hi, float R_d_T0, float R_over_cv,
+                        void* stream) {
   const int width = X > Np ? X : Np;
   const int threads = (width + 31) / 32 * 32;
   if (E <= 0 || Np <= 0 || X <= 0 || L <= 0 || threads > MAX_THREADS ||
-      (nq != 5 && nq != 6))
+      (nq != 5 && nq != 6) || (na != 1 && na != 4) || sl_lo < 0 ||
+      sl_hi > X || sl_lo > sl_hi)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // at most 8 * 6 * 256 * 4 = 48 KB, the default limit
   const size_t smem = (size_t)TE * nq * X * sizeof(float);
-  auto kernel = nq == 5 ? lift_kernel<5>(has_hyper) : lift_kernel<6>(has_hyper);
+  auto kernel = nq == 5 ? (na == 1 ? lift_kernel<5, 1>(has_hyper)
+                                   : lift_kernel<5, 4>(has_hyper))
+                        : (na == 1 ? lift_kernel<6, 1>(has_hyper)
+                                   : lift_kernel<6, 4>(has_hyper));
   kernel<<<(E + TE - 1) / TE, threads, smem, s>>>(
       static_cast<const float*>(Bf), static_cast<const float*>(BP),
       static_cast<const float*>(nrm), static_cast<const float*>(sM),
       static_cast<const float*>(bmask), static_cast<const int*>(lift_idx), L,
-      static_cast<const float*>(MI), static_cast<float*>(out), E, Np, X);
+      static_cast<const float*>(MI), static_cast<float*>(out), E, Np, X,
+      sl_lo, sl_hi, R_d_T0, R_over_cv);
   return (int)cudaGetLastError();
 }
 

@@ -10,14 +10,21 @@
 //     (Pallas body _kernel_vm), the var-major RHS's: the pressure p is an
 //     input; with or without the hyperdiffusive flux F2 of DryBiharmonic
 //     (ngl = 4 chain variables u_h[3], h_tot) or, at NV = 6, of
-//     EquilMoistBiharmonic (ngl = 5: q_tot too); no linear-flux
-//     subtraction.
+//     EquilMoistBiharmonic (ngl = 5: q_tot too); with lin_dims = () or,
+//     for a fused remainder, (2,) or (0, 1, 2) (the body's lin_dims
+//     branch, :209-245).
 //   * climatemachine_tpu/dg/pallas_volume.py:dry_volume_tendency (Pallas
 //     body _kernel), the generic DG operator's: e_int, T and p are computed
-//     from q and phi in the kernel; with lin_dims = () or, for the fused
-//     IMEX remainder, lin_dims = (2,) with lin_gravity: the linear
-//     acoustic-gravity flux of the vertical direction subtracted on
-//     direction slot 2.  NV = 5 only.
+//     from q and phi in the kernel; with lin_dims = () or, for a fused
+//     remainder, (2,), (0, 1) or (0, 1, 2).  NV = 5 only.
+//
+// A fused remainder (the full model less a linear acoustic(-gravity)
+// model, JAX spatial.py:867-883) subtracts the linear flux Flin on the
+// derivative directions a in lin_dims only; with lin_gravity = False (the
+// acoustic-only model) its energy coefficient is the reference enthalpy
+// less phi.  The template parameter LIN holds lin_dims as a bit mask (bit
+// a for direction a) and ACOUSTIC (bit 3) for lin_gravity = False: each
+// branch is its own instantiation, and LIN = 0 is the code without it.
 //
 // Per element e, variable v and node n:
 //
@@ -35,9 +42,10 @@
 //               T = T_0 + e_int * (1/cv_d), p = rho R_d T
 //   Flin_i[rho] = rhou_i, Flin_i[rhou_i] = pL, Flin_i[rhoe] = c rhou_i
 //   with pL = rho R_d T_0 + (R_d/cv_d)(rhoe - rho phi),
-//        c  = (rhoe_ref + p_ref) / rho_ref  (ref3 = rhoe_ref, rho_ref,
-//   p_ref), subtracted where the JAX kernel subtracts it: every i for rho
-//   and rhoe, i = j for rhou_j.
+//        c  = (rhoe_ref + p_ref) / rho_ref [- phi without gravity]
+//   (ref3 = rhoe_ref, rho_ref, p_ref), subtracted from mf[v][a] for a in
+//   lin_dims where the JAX kernel subtracts it: every i for rho and rhoe,
+//   i = j for rhou_j, none for rhoq_tot.
 //
 // What bounds them: at p4 (Np = 125), E = 12288, the fluxes are ~111
 // flops a node (217 with F2) and the weak divergence, sum-factorised
@@ -53,8 +61,9 @@
 // Design (sum-factorised, bound by its bytes):
 //   - persistent blocks of 256 threads walk tiles of TE = 4 elements (2 at
 //     p5, Order<NQ>); each
-//     tile's inputs (qv, p or phi, p_ref, xiv, M, MI; gl2 with F2, ref3
-//     with the remainder) are contiguous runs, staged by TMA bulk copies
+//     tile's inputs (qv, p or phi, p_ref, xiv, M, MI; gl2 with F2; with
+//     the remainder ref3, and phi beside p in the var-major kernel) are
+//     contiguous runs, staged by TMA bulk copies
 //     into one of two stages of shared memory while the block computes on
 //     the other (tile_pipeline.cuh).  At NV = 5 only lane 0 (nu4) of nu
 //     [E][2][Np] is read: at p4 its rows start 1000 bytes apart, 8-byte
@@ -74,7 +83,8 @@
 //   3. scale by MI and store (one warp, 32 consecutive nodes of a row).
 //   About 156 KB of shared memory a block with F2, 104 KB without at p4
 //   (136 and 91 KB at p5); at NV = 6 with F2 182 KB at p4 (one block an
-//   SM, as at NV = 5) and 159 KB at p5.  The line order NQ is a template
+//   SM, as at NV = 5) and 159 KB at p5; the remainder's phi and ref3 add
+//   16 KB at p4 (198 KB at NV = 6 with F2) and 14 KB at p5.  The line order NQ is a template
 //   parameter, built for NQ = 2..6 (p1-p5, tile::by_order); the bench
 //   shape is p4.
 // Tensor cores have nothing to do here: 150 flops a node.
@@ -115,15 +125,19 @@ struct Order {
 };
 
 // the flux branches (node_flux)
-enum Kind { P_GIVEN = 0, P_GIVEN_F2 = 1, DRY = 2, DRY_REMAINDER = 3 };
+enum Kind { P_GIVEN = 0, P_GIVEN_F2 = 1, DRY = 2 };
+
+// The remainder branch LIN: lin_dims as a bit mask (bit a: direction a)
+// and ACOUSTIC for lin_gravity = False.  LIN = 0: no remainder.
+constexpr int LIN_DIMS = 7, ACOUSTIC = 8;
 
 struct Inputs {
   const float* qv;     // [E][5][Np]
   const float* p;      // [E][Np]     P_GIVEN*
-  const float* phi;    // [E][Np]     DRY*
+  const float* phi;    // [E][Np]     DRY, or LIN
   const float* pref;   // [E][Np]
-  const float* ref3;   // [E][3][Np]  DRY_REMAINDER: rhoe_ref, rho_ref, p_ref
-  const float* gl2;    // [E][12][Np] P_GIVEN_F2
+  const float* ref3;   // [E][3][Np]  LIN: rhoe_ref, rho_ref, p_ref
+  const float* gl2;    // [E][3 NG][Np] P_GIVEN_F2
   const float* nu;     // [E][2][Np]  P_GIVEN_F2 (lane 0)
   const float* xiv;    // [E][9][Np]  xi_a,i at 3a+i
   const float* M;      // [E][Np]
@@ -131,35 +145,43 @@ struct Inputs {
   const float* lines;  // [3][NQ][NQ] Wdiv's line weights
   tile::Strides strides;  // node stride of each direction's lines
   float* out;          // [E][5][Np]
-  float R_d, inv_cv, T_0, R_over_cv;   // DRY*
+  float R_d, inv_cv, T_0, R_over_cv;   // DRY (inv_cv) or LIN
 };
 
 // Shared memory of a branch with NV variables, in 4-byte words: the two
 // stage mbarriers, the line weights, each node's line (start | position <<
 // 16) per direction; two stages of TE elements, each the tile's
-// contiguous runs [qv | p or phi | p_ref | xiv | M | MI | gl2 or ref3 |
-// nu4 slots (NV = 5) or nu (NV = 6)]; the mf tile.  Every offset is a
-// multiple of 4 words (16 bytes).
-template <int KIND, int NQ, int NV>
+// contiguous runs [qv | p or phi | p_ref | xiv | M | MI | gl2 (F2) | phi
+// (a P_GIVEN* remainder) | ref3 (a remainder) | nu4 slots (NV = 5) or nu
+// (NV = 6)]; the mf tile.  Every offset is a multiple of 4 words (16
+// bytes); a run a branch does not read takes no room.
+template <int KIND, int NQ, int NV, int LIN>
 struct Layout {
   using O = Order<NQ>;
   static constexpr int NP = O::NP, K = O::K, TE = O::TE,
                        NU_SLOT = O::NU_SLOT;
   static constexpr bool F2 = KIND == P_GIVEN_F2;
-  static constexpr bool REM = KIND == DRY_REMAINDER;
-  static_assert(NV == 5 || (NV == 6 && !REM && KIND != DRY),
+  static constexpr bool REM = (LIN & LIN_DIMS) != 0;
+  static constexpr bool DRYK = KIND == DRY;
+  static constexpr bool PHI_RUN = REM && !DRYK;   // phi beside p
+  static_assert(NV == 5 || (NV == 6 && !DRYK),
                 "NV = 6 is a branch of fused_volume_tendency_vm only");
   static constexpr int NG = NV - 1;           // chain variables of F2
   static constexpr bool NU_ROWS = F2 && NV == 5;   // nu4 alone, by rows
   static constexpr bool NU_RUN = F2 && NV == 6;    // nu4 and nu4q, a run
-  static constexpr int NSEG = 6 + ((F2 || REM) ? 1 : 0) + (NU_RUN ? 1 : 0);
+  static constexpr int NSEG = 6 + (F2 ? 1 : 0) + (PHI_RUN ? 1 : 0) +
+                              (REM ? 1 : 0) + (NU_RUN ? 1 : 0);
   static constexpr int LINES = 4, INFO = LINES + 3 * NQ * NQ;
   static constexpr int STAGE = (INFO + 3 * NP + 31) / 32 * 32;
   static constexpr int QV = 0, P = QV + TE * NV * NP, PREF = P + TE * NP,
                        XIV = PREF + TE * NP, M = XIV + TE * 9 * NP,
                        MI = M + TE * NP, EXTRA = MI + TE * NP;
-  static constexpr int EXTRA_FLOATS = F2 ? 3 * NG * NP : REM ? 3 * NP : 0;
-  static constexpr int NU = EXTRA + TE * EXTRA_FLOATS;
+  static constexpr int EXTRA_FLOATS = F2 ? 3 * NG * NP : 0;
+  static constexpr int PHI = EXTRA + TE * EXTRA_FLOATS;
+  static constexpr int PHI_FLOATS = PHI_RUN ? NP : 0;
+  static constexpr int REF3 = PHI + TE * PHI_FLOATS;
+  static constexpr int REF3_FLOATS = REM ? 3 * NP : 0;
+  static constexpr int NU = REF3 + TE * REF3_FLOATS;
   static constexpr int NU_FLOATS = NU_ROWS ? NU_SLOT : NU_RUN ? 2 * NP : 0;
   static constexpr int STAGE_WORDS = (NU + TE * NU_FLOATS + 31) / 32 * 32;
   static constexpr int MF = STAGE + 2 * STAGE_WORDS;
@@ -185,10 +207,11 @@ __device__ __forceinline__ float sub(float a, float b) {
 // Stage 1 for node n of a staged element: mfe[v * K + a * NP + n] for the
 // NV variables and 3 directions.  s.nu is nu4's row; at NV = 6 nu4q's
 // follows it, NP floats on.
-template <int KIND, int NQ, int NV>
+template <int KIND, int NQ, int NV, int LIN>
 __device__ __forceinline__ void node_flux(const Inputs& in, const Elem& s,
                                           int n, float* mfe) {
   constexpr int NP = Order<NQ>::NP, K = Order<NQ>::K, NG = NV - 1;
+  constexpr bool REM = (LIN & LIN_DIMS) != 0;
   const float* q = s.qv + n;
   const float rho = q[0];
   const float ru[3] = {q[NP], q[2 * NP], q[3 * NP]};
@@ -197,8 +220,8 @@ __device__ __forceinline__ void node_flux(const Inputs& in, const Elem& s,
   const float u[3] = {mul(ru[0], inv_rho), mul(ru[1], inv_rho),
                       mul(ru[2], inv_rho)};
   float pv, phi = 0.0f;
-  if (KIND == DRY || KIND == DRY_REMAINDER) {
-    phi = s.phi[n];
+  if (KIND == DRY || REM) phi = s.phi[n];
+  if (KIND == DRY) {
     const float ruu = add(add(mul(ru[0], u[0]), mul(ru[1], u[1])),
                           mul(ru[2], u[2]));
     const float e_int = sub(mul(sub(rhoe, mul(0.5f, ruu)), inv_rho), phi);
@@ -245,11 +268,12 @@ __device__ __forceinline__ void node_flux(const Inputs& in, const Elem& s,
     }
   }
   float pL = 0.0f, coeff = 0.0f;
-  if (KIND == DRY_REMAINDER) {
+  if (REM) {
     pL = add(mul(mul(rho, in.R_d), in.T_0),
              mul(in.R_over_cv, sub(rhoe, mul(rho, phi))));
     const float* r3 = s.ref3 + n;
     coeff = add(r3[0], r3[2 * NP]) / r3[NP];
+    if (LIN & ACOUSTIC) coeff = sub(coeff, phi);   // no gravity
   }
 #pragma unroll
   for (int v = 0; v < NV; ++v)
@@ -257,16 +281,16 @@ __device__ __forceinline__ void node_flux(const Inputs& in, const Elem& s,
     for (int a = 0; a < 3; ++a) {
       float acc = add(add(mul(x[3 * a], F[0][v]), mul(x[3 * a + 1], F[1][v])),
                       mul(x[3 * a + 2], F[2][v]));
-      if (KIND == DRY_REMAINDER && a == 2) {
-        // lin_dims = (2,): the linear flux on the vertical slot only
+      if (REM && ((LIN >> a) & 1)) {
+        // a in lin_dims: the linear flux on this direction's slot
         if (v == 0 || v == 4) {
 #pragma unroll
           for (int i = 0; i < 3; ++i)
             acc = sub(acc, mul(x[3 * a + i],
                                v == 0 ? ru[i] : mul(coeff, ru[i])));
-        } else {
+        } else if (v < 4) {
           acc = sub(acc, mul(x[3 * a + v - 1], pL));
-        }
+        }                                  // rhoq_tot: no linear flux
       }
       if (KIND == P_GIVEN_F2 && v > 0) {
 #pragma unroll
@@ -277,10 +301,10 @@ __device__ __forceinline__ void node_flux(const Inputs& in, const Elem& s,
     }
 }
 
-template <int KIND, int NQ, int NV>
+template <int KIND, int NQ, int NV, int LIN>
 __global__ void __launch_bounds__(THREADS)
 volume_kernel(const Inputs in, int E) {
-  using L = Layout<KIND, NQ, NV>;
+  using L = Layout<KIND, NQ, NV, LIN>;
   constexpr int NP = L::NP, K = L::K, TE = L::TE;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -290,17 +314,18 @@ volume_kernel(const Inputs in, int E) {
   float* mf = sm + L::MF;
   const int tid = threadIdx.x;
   const int tiles = (E + TE - 1) / TE;
-  constexpr bool DRYK = KIND == DRY || KIND == DRY_REMAINDER;
   tile::Segment seg[L::NSEG];
   seg[0] = {in.qv, NV * NP, L::QV};
-  seg[1] = {DRYK ? in.phi : in.p, NP, L::P};
+  seg[1] = {L::DRYK ? in.phi : in.p, NP, L::P};
   seg[2] = {in.pref, NP, L::PREF};
   seg[3] = {in.xiv, 9 * NP, L::XIV};
   seg[4] = {in.M, NP, L::M};
   seg[5] = {in.MI, NP, L::MI};
-  if constexpr (L::F2 || L::REM)
-    seg[6] = {L::F2 ? in.gl2 : in.ref3, L::EXTRA_FLOATS, L::EXTRA};
-  if constexpr (L::NU_RUN) seg[7] = {in.nu, 2 * NP, L::NU};
+  int k = 6;
+  if constexpr (L::F2) seg[k++] = {in.gl2, L::EXTRA_FLOATS, L::EXTRA};
+  if constexpr (L::PHI_RUN) seg[k++] = {in.phi, NP, L::PHI};
+  if constexpr (L::REM) seg[k++] = {in.ref3, L::REF3_FLOATS, L::REF3};
+  if constexpr (L::NU_RUN) seg[k++] = {in.nu, 2 * NP, L::NU};
   const tile::Rows nu{in.nu, 2 * NP, NP, L::NU, L::NU_SLOT};
   const tile::Rows* rows = L::NU_ROWS ? &nu : nullptr;
   auto stage = [&](int st) { return sm + L::STAGE + st * L::STAGE_WORDS; };
@@ -340,16 +365,18 @@ volume_kernel(const Inputs in, int E) {
       const int te = i / NP, n = i - te * NP;
       Elem el;
       el.qv = S + L::QV + te * NV * NP;
-      el.p = el.phi = S + L::P + te * NP;
+      el.p = S + L::P + te * NP;
+      el.phi = L::DRYK ? el.p : S + L::PHI + te * NP;
       el.pref = S + L::PREF + te * NP;
       el.xiv = S + L::XIV + te * 9 * NP;
       el.M = S + L::M + te * NP;
-      el.gl2 = el.ref3 = S + L::EXTRA + te * L::EXTRA_FLOATS;
+      el.gl2 = S + L::EXTRA + te * L::EXTRA_FLOATS;
+      el.ref3 = S + L::REF3 + te * L::REF3_FLOATS;
       el.nu = L::NU_ROWS ? S + L::NU + te * L::NU_SLOT
                                + tile::row_shift(nu, e0 + te)
               : L::NU_RUN ? S + L::NU + te * 2 * NP
                           : nullptr;
-      node_flux<KIND, NQ, NV>(in, el, n, mf + te * NV * K);
+      node_flux<KIND, NQ, NV, LIN>(in, el, n, mf + te * NV * K);
     }
     __syncthreads();
 
@@ -391,36 +418,59 @@ bool aligned(const float* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <int KIND, int NQ, int NV>
+template <int KIND, int NQ, int NV, int LIN>
 int launch(const Inputs& in, int E, cudaStream_t s) {
-  using L = Layout<KIND, NQ, NV>;
+  using L = Layout<KIND, NQ, NV, LIN>;
   constexpr int TE = L::TE;
   for (int a = 0; a < 3; ++a)
     if (in.strides.at(a) <= 0 || in.strides.at(a) > L::NP)
       return (int)cudaErrorInvalidValue;
-  constexpr bool DRYK = KIND == DRY || KIND == DRY_REMAINDER;
-  const float* runs[] = {in.qv, DRYK ? in.phi : in.p, in.pref, in.xiv, in.M,
-                         in.MI, L::F2 ? in.gl2 : L::REM ? in.ref3 : in.qv,
-                         L::F2 ? in.nu : in.qv};
+  const float* runs[] = {in.qv, L::DRYK ? in.phi : in.p, in.pref, in.xiv,
+                         in.M, in.MI, L::F2 ? in.gl2 : in.qv,
+                         L::F2 ? in.nu : in.qv, L::REM ? in.phi : in.qv,
+                         L::REM ? in.ref3 : in.qv};
   for (const float* ptr : runs)
     if (!aligned(ptr)) return (int)cudaErrorMisalignedAddress;
   static int2 cache[16];
   int grid = 0;
-  cudaError_t err = tile::persistent_grid(volume_kernel<KIND, NQ, NV>,
+  cudaError_t err = tile::persistent_grid(volume_kernel<KIND, NQ, NV, LIN>,
                                           THREADS, L::BYTES,
                                           (E + TE - 1) / TE, cache, &grid);
   if (err != cudaSuccess) return (int)err;
-  volume_kernel<KIND, NQ, NV><<<grid, THREADS, L::BYTES, s>>>(in, E);
+  volume_kernel<KIND, NQ, NV, LIN><<<grid, THREADS, L::BYTES, s>>>(in, E);
   return (int)cudaGetLastError();
 }
 
-// The branch KIND with NV variables at the order of Np (tile::by_order).
-template <int KIND, int NV = 5>
+// The branch KIND with NV variables and remainder LIN at the order of Np
+// (tile::by_order).
+template <int KIND, int NV, int LIN>
 int launch_order(const Inputs& in, int E, int Np, cudaStream_t s) {
   if (E <= 0) return (int)cudaErrorInvalidValue;
   return tile::by_order(Np, [&](auto nq) {
-    return launch<KIND, decltype(nq)::value, NV>(in, E, s);
+    return launch<KIND, decltype(nq)::value, NV, LIN>(in, E, s);
   });
+}
+
+// Calls f(std::integral_constant<int, LIN>) for the remainder branch of
+// lin_dims mask `dims` and lin_gravity: no remainder (dims = 0), (2,) or
+// (0, 1, 2), and with `horizontal` also (0, 1); any other mask gives
+// cudaErrorInvalidValue.
+template <bool HORIZONTAL, typename F>
+int by_lin(int dims, int lin_gravity, F&& f) {
+  using std::integral_constant;
+  const bool g = lin_gravity != 0;
+  switch (dims) {
+    case 0: return f(integral_constant<int, 0>());
+    case 4: return g ? f(integral_constant<int, 4>())
+                     : f(integral_constant<int, 4 | ACOUSTIC>());
+    case 7: return g ? f(integral_constant<int, 7>())
+                     : f(integral_constant<int, 7 | ACOUSTIC>());
+    case 3:
+      if constexpr (HORIZONTAL)
+        return g ? f(integral_constant<int, 3>())
+                 : f(integral_constant<int, 3 | ACOUSTIC>());
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -432,16 +482,23 @@ extern "C" {
 // [3][NQ][NQ] and the node strides s0, s1, s2 of the three directions'
 // lines; dg/line_ops.py), Np = NQ^3 with NQ = 2..6 (tile::by_order),
 // every input 16-byte aligned.  gl2 and nu are read only with has_f2 !=
-// 0.  Returns the CUDA error code of the launch (0 on success).
-int volume_vm_f32(const void* qv, const void* p, const void* pref,
-                  const void* xiv, const void* M, const void* MI,
-                  const void* gl2, const void* nu, const void* lines,
-                  void* out, int E, int Np, int nq, int has_f2, int s0,
-                  int s1, int s2, void* stream) {
+// 0; phi and ref3 only with a remainder: lin_dims as the mask lin (bit a
+// for direction a: 0, 4 for (2,) or 7 for (0, 1, 2)) and lin_gravity;
+// R_d, T_0 and R_over_cv = R_d/cv_d are the float32 values of the
+// constants.  Returns the CUDA error code of the launch (0 on success).
+int volume_vm_f32(const void* qv, const void* p, const void* phi,
+                  const void* pref, const void* ref3, const void* xiv,
+                  const void* M, const void* MI, const void* gl2,
+                  const void* nu, const void* lines, void* out, int E,
+                  int Np, int nq, int has_f2, int lin, int lin_gravity,
+                  int s0, int s1, int s2, float R_d, float T_0,
+                  float R_over_cv, void* stream) {
   Inputs in{};
   in.qv = static_cast<const float*>(qv);
   in.p = static_cast<const float*>(p);
+  in.phi = static_cast<const float*>(phi);
   in.pref = static_cast<const float*>(pref);
+  in.ref3 = static_cast<const float*>(ref3);
   in.gl2 = static_cast<const float*>(gl2);
   in.nu = static_cast<const float*>(nu);
   in.xiv = static_cast<const float*>(xiv);
@@ -450,26 +507,32 @@ int volume_vm_f32(const void* qv, const void* p, const void* pref,
   in.lines = static_cast<const float*>(lines);
   in.strides = tile::Strides{{s0, s1, s2}};
   in.out = static_cast<float*>(out);
+  in.R_d = R_d;
+  in.T_0 = T_0;
+  in.R_over_cv = R_over_cv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nq == 5)
-    return has_f2 ? launch_order<P_GIVEN_F2>(in, E, Np, s)
-                  : launch_order<P_GIVEN>(in, E, Np, s);
-  if (nq == 6)
-    return has_f2 ? launch_order<P_GIVEN_F2, 6>(in, E, Np, s)
-                  : launch_order<P_GIVEN, 6>(in, E, Np, s);
-  return (int)cudaErrorInvalidValue;
+  if (nq != 5 && nq != 6) return (int)cudaErrorInvalidValue;
+  return by_lin<false>(lin, lin_gravity, [&](auto lc) {
+    constexpr int LIN = decltype(lc)::value;
+    if (nq == 5)
+      return has_f2 ? launch_order<P_GIVEN_F2, 5, LIN>(in, E, Np, s)
+                    : launch_order<P_GIVEN, 5, LIN>(in, E, Np, s);
+    return has_f2 ? launch_order<P_GIVEN_F2, 6, LIN>(in, E, Np, s)
+                  : launch_order<P_GIVEN, 6, LIN>(in, E, Np, s);
+  });
 }
 
 // dry_volume_tendency on `stream`, lines and strides as above.  ref3 is
-// read only with remainder != 0 (lin_dims = (2,), lin_gravity).  R_d,
-// inv_cv = 1/cv_d, T_0 and R_over_cv = R_d/cv_d are the float32 values of
-// the constants.  Returns the CUDA error code of the launch (0 on
-// success).
+// read only with a remainder: lin_dims as the mask lin (0, 4 for (2,), 3
+// for (0, 1) or 7 for (0, 1, 2)) and lin_gravity.  R_d, inv_cv = 1/cv_d,
+// T_0 and R_over_cv = R_d/cv_d are the float32 values of the constants.
+// Returns the CUDA error code of the launch (0 on success).
 int dry_volume_f32(const void* qv, const void* phi, const void* pref,
                    const void* ref3, const void* xiv, const void* M,
                    const void* MI, const void* lines, void* out, int E,
-                   int Np, int remainder, int s0, int s1, int s2, float R_d,
-                   float inv_cv, float T_0, float R_over_cv, void* stream) {
+                   int Np, int lin, int lin_gravity, int s0, int s1, int s2,
+                   float R_d, float inv_cv, float T_0, float R_over_cv,
+                   void* stream) {
   Inputs in{};
   in.qv = static_cast<const float*>(qv);
   in.phi = static_cast<const float*>(phi);
@@ -486,8 +549,9 @@ int dry_volume_f32(const void* qv, const void* phi, const void* pref,
   in.T_0 = T_0;
   in.R_over_cv = R_over_cv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return remainder ? launch_order<DRY_REMAINDER>(in, E, Np, s)
-                   : launch_order<DRY>(in, E, Np, s);
+  return by_lin<true>(lin, lin_gravity, [&](auto lc) {
+    return launch_order<DRY, 5, decltype(lc)::value>(in, E, Np, s);
+  });
 }
 
 const char* volume_vm_error_string(int code) {

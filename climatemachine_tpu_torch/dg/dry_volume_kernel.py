@@ -23,8 +23,9 @@ Dispatch is by device: a CPU tensor takes
 sum-factorised contraction of ``fused_volume_tendency_vm`` and reads
 Wdiv through its line table) or raises.  The kernel covers p1-p5,
 float32, ``subtract_ref=True`` (the port's reference state always
-subtracts), ``lin_dims=()`` and ``lin_dims=(2,)`` with ``lin_gravity``;
-the plain version covers the whole JAX signature.
+subtracts), ``lin_dims`` () or, for a fused remainder in "vertical",
+"horizontal" or "every", (2,), (0, 1) or (0, 1, 2), with or without
+``lin_gravity``; the plain version covers the whole JAX signature.
 """
 
 from __future__ import annotations
@@ -37,7 +38,12 @@ from climatemachine_tpu_torch.atmos.model import AtmosModel
 from climatemachine_tpu_torch.dg.directions import direction_dims
 from climatemachine_tpu_torch.dg.line_ops import wdiv_lines
 from climatemachine_tpu_torch.dg.volume_kernel import (check_tensors, launch,
+                                                       lin_mask,
                                                        volume_tendency_plain)
+
+#: the ``lin_dims`` the kernel is built for: none, and a remainder in
+#: "vertical", "horizontal" or "every"
+KERNEL_LIN_DIMS = ((), (2,), (0, 1), (0, 1, 2))
 
 
 def dry_volume_tendency_plain(qv, phi, p_ref, ref3, xiv, M, MI, Wdiv,
@@ -81,13 +87,11 @@ def dry_volume_tendency(qv, phi, p_ref, ref3, xiv, M, MI, Wdiv, R_d: float,
             T_0=T_0, subtract_ref=subtract_ref, lin_dims=lin_dims,
             lin_gravity=lin_gravity)
     lin_dims = tuple(lin_dims)
-    if not subtract_ref or lin_dims not in ((), (2,)) \
-            or (lin_dims and not lin_gravity):
+    if not subtract_ref or lin_dims not in KERNEL_LIN_DIMS:
         raise NotImplementedError(
             "the CUDA dry volume kernel covers subtract_ref=True with "
-            "lin_dims=() or lin_dims=(2,) and lin_gravity=True (got "
-            f"subtract_ref={subtract_ref}, lin_dims={lin_dims}, "
-            f"lin_gravity={lin_gravity})")
+            f"lin_dims in {KERNEL_LIN_DIMS} (got subtract_ref="
+            f"{subtract_ref}, lin_dims={lin_dims})")
     E, _, Np = qv.shape
     more = {"phi": (phi, (E, Np)), "p_ref": (p_ref, (E, Np))}
     if lin_dims:
@@ -99,8 +103,8 @@ def dry_volume_tendency(qv, phi, p_ref, ref3, xiv, M, MI, Wdiv, R_d: float,
            p_ref.data_ptr(), ref3.data_ptr() if lin_dims else None,
            xiv.data_ptr(), M.data_ptr(), MI.data_ptr(),
            lines.values.data_ptr(), out.data_ptr(), E, Np,
-           int(bool(lin_dims)), *lines.strides, R_d, 1.0 / cv_d, T_0,
-           R_d / cv_d)
+           lin_mask(lin_dims), int(lin_gravity), *lines.strides, R_d,
+           1.0 / cv_d, T_0, R_d / cv_d)
     dry_volume_tendency.launches += 1
     return out
 

@@ -1,7 +1,9 @@
 """Var-major RHS of the Held-Suarez step and the moist baroclinic wave
 (port of ``climatemachine_tpu/dg/fast_rhs.py`` ``VarMajorRHS`` :141-682
 for a dry model, with or without DryBiharmonic hyperdiffusion, and an
-EquilMoist model with EquilMoistBiharmonic, without a fused remainder).
+EquilMoist model with EquilMoistBiharmonic; either full or as a fused
+remainder ``remainder_DGModel(dg, dg_lin)`` of an acoustic(-gravity)
+linear model in "vertical" or "every", :97-105).
 
 State and aux stay var-major ``[E, nvar, Np]`` throughout.  Per call:
 
@@ -24,6 +26,14 @@ State and aux stay var-major ``[E, nvar, Np]`` throughout.  Per call:
   kernel (dg/surface_kernel.py); ``"pallas"`` also runs the flux and
   lift kernel after the gather;
 - sources: the model's ``contributions_vm`` hooks.
+
+A fused remainder (the full RHS less the linear model's, in one pass)
+takes the linear flux out in the volume kernel on the linear direction's
+derivative slots (``lin_dims``), carries three more aux lanes on the face
+bundle (φ, the linear energy coefficient and the reference sound speed,
+after p_ref: na = 4) and takes the linear Rusanov flux out on the linear
+direction's faces, and, for the acoustic-gravity model, adds back the
+gravity source ρ∇Φ the linear model holds.
 """
 
 from __future__ import annotations
@@ -34,6 +44,8 @@ import torch
 
 from climatemachine_tpu_torch.atmos.hyperdiffusion import (
     DryBiharmonic, EquilMoistBiharmonic)
+from climatemachine_tpu_torch.atmos.linear import (
+    AtmosAcousticGravityLinearModel, AtmosAcousticLinearModel)
 from climatemachine_tpu_torch.atmos.model import AtmosModel
 from climatemachine_tpu_torch.dg import (fast_surface, ldg_kernel,
                                         surface_kernel)
@@ -55,9 +67,17 @@ def _check_supported(dg):
         raise ValueError("VarMajorRHS discretizes in every direction, got "
                          f"{dg.direction!r}")
     hd = bl.physics.hyperdiffusion
-    if dg.remainder is not None or not (
-            hd is None or type(hd) in (DryBiharmonic, EquilMoistBiharmonic)):
+    if not (hd is None or type(hd) in (DryBiharmonic, EquilMoistBiharmonic)):
         raise NotImplementedError("next slice")
+    if dg.remainder is not None:
+        lin, ldir = dg.remainder
+        if type(lin) not in (AtmosAcousticGravityLinearModel,
+                             AtmosAcousticLinearModel):
+            raise ValueError("VarMajorRHS takes the remainder of an "
+                             f"acoustic(-gravity) linear model, got {lin!r}")
+        if ldir not in ("vertical", "every") or bl.ref_state is None:
+            raise ValueError("VarMajorRHS takes a remainder in 'vertical' or "
+                             f"'every' about a reference state, got {ldir!r}")
     if hd is not None and bl.moist != (type(hd) is EquilMoistBiharmonic):
         raise ValueError("VarMajorRHS takes EquilMoist with "
                          "EquilMoistBiharmonic and a dry model with "
@@ -76,7 +96,8 @@ def _check_supported(dg):
 class VarMajorRHS:
     """``(qv, auxv, t) -> (dqv, auxv')`` with qv ``[E, 5, Np]`` and auxv
     ``[E, 13, Np]`` (``[E, 14, Np]`` with hyperdiffusion); with EquilMoist
-    qv ``[E, 6, Np]`` and auxv ``[E, 15, Np]`` (16).
+    qv ``[E, 6, Np]`` and auxv ``[E, 15, Np]`` (16).  ``dg`` is the full
+    model's DGModel or a fused remainder (module docstring).
 
     ``write_aux``: refresh the dry aux lanes θ_v and T from the state on
     every call.  Nothing inside a step reads them, so a time integrator
@@ -110,6 +131,15 @@ class VarMajorRHS:
         self.moist = bl.moist
         self.i_phi = sp.index("orientation.Phi").start
         self.i_pref = sp.index("ref_state.p").start
+        self.rem = dg.remainder
+        if self.rem is not None:
+            lin, ldir = self.rem
+            self.lin_gravity = isinstance(lin, AtmosAcousticGravityLinearModel)
+            self.lin_dims = direction_dims(ldir, g.dim)
+            faces = direction_faces(ldir, g.dim)
+            self.lin_lanes = (faces[0] * g.Nfp_max,
+                              (faces[-1] + 1) * g.Nfp_max)
+            self.i_gphi = sp.index("orientation.grad_Phi")
         # var-major geometry, built once
         self.xiv = g.xi_x.permute(0, 2, 3, 1).reshape(E, 9, g.Np).contiguous()
         self.nrm = g.normals.permute(0, 3, 1, 2).reshape(E, 3, X).contiguous()
@@ -196,23 +226,40 @@ class VarMajorRHS:
                                          tuple(range(self.grid.nface)),
                                          self.grid.Nfp_max)
 
-    def _bundle(self, qv, p, c_s, p_ref, gl2):
+    def _aux_lanes(self, auxv):
+        """The bundle's aux lanes ``[E, na, Np]``: p_ref (na = 1); with a
+        remainder also φ, the linear energy coefficient (ρe_ref +
+        p_ref)/ρ_ref (less φ for the acoustic model) and the reference
+        sound speed (na = 4)."""
+        if self.rem is None:
+            return auxv[:, self.i_pref:self.i_pref + 1].contiguous()
+        sp, ps = self.bl.aux_spec, self.bl.param_set
+        p_ref = auxv[:, self.i_pref]
+        phi = auxv[:, self.i_phi]
+        coeff = (sp.get(auxv, "ref_state.rhoe") + p_ref) \
+            / sp.get(auxv, "ref_state.rho")
+        if not self.lin_gravity:
+            coeff = coeff - phi
+        return torch.stack([p_ref, phi, coeff, td.soundspeed_air(
+            ps, sp.get(auxv, "ref_state.T"))], dim=1)
+
+    def _bundle(self, qv, p, c_s, aux_lanes, gl2):
         """Minus-side face bundle ``[E, nvb, X]``: lanes q (nq), p, c_s,
-        p_ref, and with ``gl2`` the nq n·F₂ trace lanes, built on the
-        faces from ∇Δ extracted by the same matmul and the static face
+        the aux lanes, and with ``gl2`` the nq n·F₂ trace lanes, built on
+        the faces from ∇Δ extracted by the same matmul and the static face
         ν₄, ν₄_q (each side contracts its own volume F₂ with its own
         normal)."""
         g, nq, nrm = self.grid, self.nq, self.nrm
         E, Np = g.nelem, g.Np
         X = g.nface * g.Nfp_max
-        lanes = [qv, p[:, None], c_s[:, None], p_ref[:, None]]
+        lanes = [qv, p[:, None], c_s[:, None], aux_lanes]
         if gl2 is not None:
             lanes.append(gl2)
         B = torch.cat(lanes, dim=1)
         Bx = torch.matmul(B.reshape(-1, Np), g.lift).reshape(E, -1, X)
         if gl2 is None:
             return Bx
-        nvb = nq + 3
+        nvb = nq + 2 + aux_lanes.shape[1]
         ngl = gl2.shape[1] // 3
         gl2f = Bx[:, nvb:].reshape(E, 3, ngl, X)
         nu4f, nu4qf = self.nu4_faces, self.nu4q_faces
@@ -226,37 +273,42 @@ class VarMajorRHS:
             trace.append(rhoF * nu4qf * G[:, 4])
         return torch.cat([Bx[:, :nvb], torch.stack(trace, dim=1)], dim=1)
 
-    def _extract(self, qv, p, c_s, p_ref, gl2):
+    def _extract(self, qv, p, c_s, aux_lanes, gl2):
         """The face bundle of :meth:`_bundle` from the extraction stage."""
         hyper = gl2 is not None
         return self.surface_stages[0](
-            qv, p, c_s, p_ref[:, None], gl2, self.nu if hyper else None,
-            self.grid.lift, self.nrm, nq=self.nq, na=1,
+            qv, p, c_s, aux_lanes, gl2, self.nu if hyper else None,
+            self.grid.lift, self.nrm, nq=self.nq, na=aux_lanes.shape[1],
             ngl=self.bl.gradlap_spec.num, has_hyper=hyper)
 
     def _flux_lift(self, Bf, BP, hyper: bool):
         """The surface term from the bundle and its neighbour side by the
         flux + lift stage."""
-        ps = self.bl.param_set
+        ps, nq = self.bl.param_set, self.nq
+        rem_lanes, (sl_lo, sl_hi) = (
+            ((nq + 3, nq + 4, nq + 5), self.lin_lanes) if self.rem
+            else ((), (0, 0)))
         return self.surface_stages[1](
             Bf, BP, self.nrm, self.sM, self.bmask, self.liftT, self.grid.MI,
-            nq=self.nq, nvb=Bf.shape[1], subtract=True, i_pref=self.nq + 2,
-            has_hyper=hyper, rem_lanes=(), sl_lo=0, sl_hi=0,
+            nq=nq, nvb=Bf.shape[1], subtract=True, i_pref=nq + 2,
+            has_hyper=hyper, rem_lanes=rem_lanes, sl_lo=sl_lo, sl_hi=sl_hi,
             R_d_T0=ps.R_d * ps.T_0, R_over_cv=ps.R_d / ps.cv_d)
 
-    def _surface(self, qv, p, c_s, p_ref, gl2=None):
-        """Rusanov surface term −M⁻¹ L (sM · f*), ``[E, nq, Np]``; with
+    def _surface(self, qv, p, c_s, aux_lanes, gl2=None):
+        """Rusanov surface term −M⁻¹ L (sM · f*), ``[E, nq, Np]``, of the
+        state, its thermo and the aux lanes (:meth:`_aux_lanes`); with
         ``gl2`` the interior hyperdiffusive correction ½(s⁻ − s⁺) of the
-        n·F₂ traces joins f* (wall faces carry none)."""
+        n·F₂ traces joins f* (wall faces carry none); a remainder takes
+        the linear model's Rusanov flux out on its faces."""
         mode = self.surface_kernel
         if mode not in SURFACE_KERNELS:
             raise ValueError(f"surface_kernel must be one of "
                              f"{SURFACE_KERNELS}, got {mode!r}")
         g, nq, nrm = self.grid, self.nq, self.nrm
         if mode == "xla":
-            Bf = self._bundle(qv, p, c_s, p_ref, gl2)
+            Bf = self._bundle(qv, p, c_s, aux_lanes, gl2)
         else:
-            Bf = self._extract(qv, p, c_s, p_ref, gl2)
+            Bf = self._extract(qv, p, c_s, aux_lanes, gl2)
         BP = self._gather_faces(Bf)
         if mode == "pallas":
             return self._flux_lift(Bf, BP, gl2 is not None)
@@ -264,10 +316,16 @@ class VarMajorRHS:
         BP = fast_surface.wall_ghost(BP, nrm, self.tab["bnd_lane"])
         fstar = fast_surface.rusanov(Bf, BP, nrm, nq)
         if gl2 is not None:
-            sl_h = slice(nq + 3, 2 * nq + 3)
+            base = nq + 2 + aux_lanes.shape[1]
+            sl_h = slice(base, base + nq)
             fstar = fstar + torch.where(
                 self.tab["bnd_lane"][:, None, :], 0.0,
                 0.5 * (Bf[:, sl_h] - BP[:, sl_h]))
+        if self.rem is not None:
+            sl = slice(*self.lin_lanes)
+            fstar[:, :, sl] -= fast_surface.linear_rusanov(
+                Bf[:, :, sl], BP[:, :, sl], nrm[:, :, sl], nq, nq + 3,
+                self.bl.param_set)
         return fast_surface.lift(fstar, self.sM, self.liftT, g.MI)
 
     # --- sources -------------------------------------------------------------
@@ -277,15 +335,27 @@ class VarMajorRHS:
 
     # --- full RHS ------------------------------------------------------------
     def __call__(self, qv, auxv, t):
-        g, ps = self.grid, self.bl.param_set
+        g, ps, sp = self.grid, self.bl.param_set, self.bl.aux_spec
         T, p, c_s, auxv = self._thermo_update(qv, auxv, self.write_aux)
         hyper = self.hd is not None
         gl2 = self._chain(qv, auxv, p) if hyper else None
-        p_ref = auxv[:, self.i_pref].contiguous()
-        tend = self.volume(qv, p, auxv[:, self.i_phi], p_ref, None, gl2,
+        aux_lanes = self._aux_lanes(auxv)
+        p_ref = aux_lanes[:, 0].contiguous()     # a view when na = 1
+        phi, ref3, lin_dims, lin_gravity = auxv[:, self.i_phi], None, (), True
+        if self.rem is not None:
+            phi = phi.contiguous()
+            ref3 = torch.stack([sp.get(auxv, "ref_state.rhoe"),
+                                sp.get(auxv, "ref_state.rho"), p_ref], dim=1)
+            lin_dims, lin_gravity = self.lin_dims, self.lin_gravity
+        tend = self.volume(qv, p, phi, p_ref, ref3, gl2,
                            self.nu if hyper else None, self.xiv, g.M, g.MI,
                            g.Wdiv, nq=self.nq, ngl=self.bl.gradlap_spec.num,
                            R_d=ps.R_d, cv_d=ps.cv_d, T_0=ps.T_0,
-                           subtract_ref=True, has_f2=hyper)
-        tend = tend + self._surface(qv, p, c_s, p_ref, gl2)
-        return tend + self._sources(qv, auxv, T, p, t), auxv
+                           subtract_ref=True, has_f2=hyper, lin_dims=lin_dims,
+                           lin_gravity=lin_gravity)
+        tend = tend + self._surface(qv, p, c_s, aux_lanes, gl2)
+        tend = tend + self._sources(qv, auxv, T, p, t)
+        if self.rem is not None and self.lin_gravity:
+            # take out the linear model's gravity source −ρ∇Φ
+            tend[:, 1:4] += qv[:, :1] * auxv[:, self.i_gphi]
+        return tend, auxv

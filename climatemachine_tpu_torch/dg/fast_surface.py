@@ -13,7 +13,8 @@ The pass is shared: :func:`surface_tendency` is the generic DG
 operator's (dg/spatial.py; face thermo from the extracted state and φ,
 as the JAX package computes it), and the var-major RHS's plain pass
 (dg/fast_rhs.py, surface pass "xla") extracts its own thermo lanes; both
-then take the wall ghost, the Rusanov flux and the lift from here.  The
+then take the wall ghost, the Rusanov flux, a remainder's linear Rusanov
+flux and the lift from here.  The
 JAX package runs this pass in XLA, not in a Pallas kernel: it is plain
 PyTorch.
 """
@@ -162,34 +163,44 @@ def surface_tendency(dg, q, aux, t):
     fstar = rusanov(with_thermo(Bf), with_thermo(BP), nrm, 5)
     if rem is not None:
         lin, ldir = rem
+        gravity = isinstance(lin, AtmosAcousticGravityLinearModel)
         lf = direction_faces(ldir, g.dim)
         sl = slice(lf[0] * Nfp, (lf[-1] + 1) * Nfp)
-        fstar[:, :, sl] -= _linear_rusanov(Bf[:, :, sl], BP[:, :, sl],
-                                           nrm[:, :, sl], lin, ps)
+
+        def with_linear(Bs):
+            """q, φ, the linear energy coefficient and the reference sound
+            speed from the remainder's lanes (q, φ, p_ref, ρe_ref, ρ_ref,
+            T_ref)."""
+            phi, p_r, rhoe_r, rho_r, T_r = (Bs[:, 5 + k] for k in range(5))
+            coeff = (rhoe_r + p_r) / rho_r
+            if not gravity:
+                coeff = coeff - phi
+            return torch.cat([Bs[:, :6], coeff[:, None],
+                              td.soundspeed_air(ps, T_r)[:, None]], dim=1)
+
+        fstar[:, :, sl] -= linear_rusanov(
+            with_linear(Bf[:, :, sl]), with_linear(BP[:, :, sl]),
+            nrm[:, :, sl], 5, 5, ps)
     return lift(fstar, ops["sM"], ops["liftT"], g.MI)
 
 
-def _linear_rusanov(Bf, BP, nrm, lin, ps):
-    """Rusanov flux of the linear acoustic(-gravity) model from the
-    remainder's bundle lanes (q, φ, p_ref, ρe_ref, ρ_ref, T_ref): p_L =
-    ρ R_d T_0 + R_d/cv_d (ρe − ρφ), the reference enthalpy (less φ without
-    gravity), the reference sound speed."""
-    gravity = isinstance(lin, AtmosAcousticGravityLinearModel)
-
+def linear_rusanov(Bf, BP, nrm, nq: int, i_lin: int, ps):
+    """Rusanov flux ``[E, nq, L]`` of the linear acoustic(-gravity) model
+    from the two sides' bundles ``[E, nvb, L]``: lanes q (nq) and, from
+    ``i_lin``, φ, the linear energy coefficient and the reference sound
+    speed (JAX fast_rhs.py:586-602).  p_L = ρ R_d T_0 + R_d/cv_d (ρe −
+    ρφ); an advected scalar past ρe has no linear flux."""
     def flux_lin(Bs):
-        rho, rhoe, phi = Bs[:, 0], Bs[:, 4], Bs[:, 5]
-        p_r, rhoe_r, rho_r, T_r = Bs[:, 6], Bs[:, 7], Bs[:, 8], Bs[:, 9]
+        rho, rhoe, phi = Bs[:, 0], Bs[:, 4], Bs[:, i_lin]
         pL = rho * ps.R_d * ps.T_0 + ps.R_d / ps.cv_d * (rhoe - rho * phi)
-        coeff = (rhoe_r + p_r) / rho_r
-        if not gravity:
-            coeff = coeff - phi
         un = Bs[:, 1] * nrm[:, 0] + Bs[:, 2] * nrm[:, 1] + Bs[:, 3] * nrm[:, 2]
-        Fn = (un, pL * nrm[:, 0], pL * nrm[:, 1], pL * nrm[:, 2], coeff * un)
-        return Fn, td.soundspeed_air(ps, T_r)
+        Fn = [un, pL * nrm[:, 0], pL * nrm[:, 1], pL * nrm[:, 2],
+              Bs[:, i_lin + 1] * un] + [torch.zeros_like(un)] * (nq - 5)
+        return Fn, Bs[:, i_lin + 2]
 
     FnM, cM = flux_lin(Bf)
     FnP, cP = flux_lin(BP)
     c = torch.maximum(cM, cP)
     return torch.stack([0.5 * (FnM[v] + FnP[v])
                         - 0.5 * c * (BP[:, v] - Bf[:, v])
-                        for v in range(5)], dim=1)
+                        for v in range(nq)], dim=1)

@@ -24,10 +24,12 @@ bodies' arithmetic, in their order, with the dense extraction matrix
 ``lift [Np, X]`` and its transpose); any other tensor takes the kernel
 (csrc/surface_vm.cu) or raises.  The kernels take the 0/1 extraction
 matrix as the index tables of :func:`face_tables` instead of multiplying
-by it, and cover what the Held-Suarez step and the moist baroclinic wave
-run: float32, ``nq=5`` or ``nq=6`` (EquilMoist), ``na=1``,
-``subtract=True``, no remainder, with (``ngl = nq − 1``) or without
-hyperdiffusion.  Each wrapper
+by it, and cover what the Held-Suarez step, the moist baroclinic wave
+and their fused remainders run: float32, ``nq=5`` or ``nq=6``
+(EquilMoist), ``subtract=True``, with (``ngl = nq − 1``) or without
+hyperdiffusion; ``na=1`` without a remainder, and for a remainder
+``na=4`` with ``rem_lanes = (nq+3, nq+4, nq+5)`` and any face-lane range
+``[sl_lo, sl_hi)`` ("vertical": faces 4-5; "every": all).  Each wrapper
 counts its launches in ``.launches``.  The plain versions cover the whole
 signature.
 """
@@ -181,9 +183,10 @@ def face_tables(matrix, transposed: bool):
 def _library():
     lib = cuda_build.load("surface_vm")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.extract_trace_vm_f32.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
+    f32 = ctypes.c_float
+    lib.extract_trace_vm_f32.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
     lib.surface_lift_vm_f32.argtypes = ([ptr] * 6 + [i32] + [ptr] * 2
-                                        + [i32] * 5 + [ptr])
+                                        + [i32] * 8 + [f32] * 2 + [ptr])
     for fn in ("extract_trace_vm_f32", "surface_lift_vm_f32"):
         getattr(lib, fn).restype = ctypes.c_int
     lib.surface_vm_error_string.argtypes = [i32]
@@ -228,25 +231,26 @@ def extract_trace_vm(qv, p, c_s, aux4, gl2k, nu, lift, nrm, *, nq: int,
     if qv.device.type == "cpu":
         return extract_trace_plain(qv, p, c_s, aux4, gl2k, nu, lift, nrm,
                                    nq=nq, na=na, ngl=ngl, has_hyper=has_hyper)
-    if nq not in (5, 6) or na != 1 or (has_hyper and ngl != nq - 1):
+    if nq not in (5, 6) or na not in (1, 4) or (has_hyper
+                                                 and ngl != nq - 1):
         raise NotImplementedError(
-            "the CUDA extract_trace_vm kernel covers nq=5 or 6, na=1 and, "
-            f"with has_hyper, ngl=nq-1 (got nq={nq}, na={na}, ngl={ngl}, "
-            f"has_hyper={has_hyper})")
+            "the CUDA extract_trace_vm kernel covers nq=5 or 6, na=1 or 4 "
+            f"and, with has_hyper, ngl=nq-1 (got nq={nq}, na={na}, "
+            f"ngl={ngl}, has_hyper={has_hyper})")
     E, _, Np = qv.shape
     X = lift.shape[1]
     shapes = dict(qv=(qv, (E, nq, Np)), p=(p, (E, Np)), c_s=(c_s, (E, Np)),
-                  aux4=(aux4, (E, 1, Np)), lift=(lift, (Np, X)),
+                  aux4=(aux4, (E, na, Np)), lift=(lift, (Np, X)),
                   nrm=(nrm, (E, 3, X)))
     if has_hyper:
         shapes.update(gl2k=(gl2k, (E, 3 * ngl, Np)), nu=(nu, (E, 2, Np)))
     _check_tensors("extract_trace_vm", qv, max(Np, X), **shapes)
     sel_idx, _ = face_tables(lift, transposed=False)
-    out = torch.empty((E, nq + 3 + nq * has_hyper, X), dtype=qv.dtype,
+    out = torch.empty((E, nq + 2 + na + nq * has_hyper, X), dtype=qv.dtype,
                       device=qv.device)
     _launch("extract_trace_vm", "extract_trace_vm_f32", qv, p, c_s, aux4,
             gl2k if has_hyper else None, nu if has_hyper else None, sel_idx,
-            nrm, out, E, Np, X, nq, int(has_hyper))
+            nrm, out, E, Np, X, nq, na, int(has_hyper))
     extract_trace_vm.launches += 1
     return out
 
@@ -264,17 +268,24 @@ def fused_surface_lift_vm(Bf, BP, nrm, sM, bmask, liftT, MI, *, nq: int,
             subtract=subtract, i_pref=i_pref, has_hyper=has_hyper,
             rem_lanes=rem_lanes, sl_lo=sl_lo, sl_hi=sl_hi, R_d_T0=R_d_T0,
             R_over_cv=R_over_cv)
-    want_nvb = nq + 3 + nq * has_hyper
+    rem_lanes = tuple(rem_lanes)
+    na = 4 if rem_lanes else 1
+    want_nvb = nq + 2 + na + nq * has_hyper
     if nq not in (5, 6) or nvb != want_nvb or not subtract \
-            or i_pref != nq + 2 or tuple(rem_lanes):
+            or i_pref != nq + 2 or rem_lanes not in (
+                (), (nq + 3, nq + 4, nq + 5)):
         raise NotImplementedError(
             "the CUDA fused_surface_lift_vm kernel covers nq=5 or 6, "
-            "nvb=nq+3 (2nq+3 with has_hyper), subtract=True with "
-            f"i_pref=nq+2 and rem_lanes=() (got nq={nq}, nvb={nvb}, "
-            f"subtract={subtract}, i_pref={i_pref}, has_hyper={has_hyper}, "
+            "subtract=True with i_pref=nq+2, and rem_lanes=() with nvb=nq+3 "
+            "or rem_lanes=(nq+3, nq+4, nq+5) with nvb=nq+6 (nq more with "
+            f"has_hyper) (got nq={nq}, nvb={nvb}, subtract={subtract}, "
+            f"i_pref={i_pref}, has_hyper={has_hyper}, "
             f"rem_lanes={rem_lanes})")
     E, _, X = Bf.shape
     Np = liftT.shape[1]
+    if rem_lanes and not 0 <= sl_lo <= sl_hi <= X:
+        raise ValueError(f"fused_surface_lift_vm: the linear face lanes "
+                         f"[{sl_lo}, {sl_hi}) are not within [0, {X})")
     _check_tensors("fused_surface_lift_vm", Bf, max(Np, X),
                    Bf=(Bf, (E, nvb, X)),
                    BP=(BP, (E, nvb, X)), nrm=(nrm, (E, 3, X)),
@@ -283,8 +294,9 @@ def fused_surface_lift_vm(Bf, BP, nrm, sM, bmask, liftT, MI, *, nq: int,
     _, lift_idx = face_tables(liftT, transposed=True)
     out = torch.empty((E, nq, Np), dtype=Bf.dtype, device=Bf.device)
     _launch("fused_surface_lift_vm", "surface_lift_vm_f32", Bf, BP, nrm, sM,
-            bmask, lift_idx, lift_idx.shape[1], MI, out, E, Np, X, nq,
-            int(has_hyper))
+            bmask, lift_idx, lift_idx.shape[1], MI, out, E, Np, X, nq, na,
+            int(has_hyper), sl_lo if rem_lanes else 0,
+            sl_hi if rem_lanes else 0, R_d_T0, R_over_cv)
     fused_surface_lift_vm.launches += 1
     return out
 

@@ -12,12 +12,13 @@ on ``lin_dims``.
 
 Dispatch is by device: a CPU tensor takes :func:`volume_tendency_plain`;
 any other tensor takes the kernel (csrc/volume_vm.cu) or raises.  The
-kernel covers what the Held-Suarez step and the moist baroclinic wave
-run: float32, ``nq=5`` (dry) or ``nq=6`` (EquilMoist, ρq_tot advected),
-``subtract_ref=True``, no linear flux, with or without the F₂ of
-DryBiharmonic (``ngl=4``) or EquilMoistBiharmonic (``ngl=5``, with
-ν₄_q): ``ngl = nq − 1``.  The plain version covers the whole
-signature.
+kernel covers what the Held-Suarez step, the moist baroclinic wave and
+their fused remainders run: float32, ``nq=5`` (dry) or ``nq=6``
+(EquilMoist, ρq_tot advected), ``subtract_ref=True``, with or without the
+F₂ of DryBiharmonic (``ngl=4``) or EquilMoistBiharmonic (``ngl=5``, with
+ν₄_q): ``ngl = nq − 1``; ``lin_dims`` () or, for a remainder in
+"vertical" or "every", (2,) or (0, 1, 2), with or without
+``lin_gravity``.  The plain version covers the whole signature.
 
 The kernel is compiled at first use (cuda_build.py) and called through
 ctypes on PyTorch's current stream.  It is sum-factorised: it reads
@@ -118,14 +119,24 @@ def volume_tendency_plain(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
     return MI[:, None, :] * torch.matmul(mf, Wdiv.T)
 
 
+#: the ``lin_dims`` the var-major kernel is built for: none, and a
+#: remainder in "vertical" or "every"
+KERNEL_LIN_DIMS = ((), (2,), (0, 1, 2))
+
+
+def lin_mask(lin_dims) -> int:
+    """``lin_dims`` as the kernels' bit mask (bit a for direction a)."""
+    return sum(1 << a for a in lin_dims)
+
+
 @functools.cache
 def _library():
     lib = cuda_build.load("volume_vm")
-    lib.volume_vm_f32.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.volume_vm_f32.argtypes = [ctypes.c_void_p] * 12 + [
+        ctypes.c_int] * 9 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
     lib.volume_vm_f32.restype = ctypes.c_int
     lib.dry_volume_f32.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_int] * 6 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
     lib.dry_volume_f32.restype = ctypes.c_int
     lib.volume_vm_error_string.argtypes = [ctypes.c_int]
     lib.volume_vm_error_string.restype = ctypes.c_char_p
@@ -144,19 +155,21 @@ def launch(fn_name: str, ref, *args):
                            + lib.volume_vm_error_string(code).decode())
 
 
-def _check_kernel_args(qv, p, p_ref, gl2, nu, xiv, M, MI, Wdiv, nq, ngl,
-                       subtract_ref, has_f2, lin_dims):
-    if nq not in (5, 6) or (has_f2 and ngl != nq - 1) or tuple(lin_dims) \
-            or not subtract_ref:
+def _check_kernel_args(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI, Wdiv,
+                       nq, ngl, subtract_ref, has_f2, lin_dims):
+    if nq not in (5, 6) or (has_f2 and ngl != nq - 1) \
+            or tuple(lin_dims) not in KERNEL_LIN_DIMS or not subtract_ref:
         raise NotImplementedError(
             "the CUDA volume kernel covers nq=5 or 6, subtract_ref=True, "
-            "lin_dims=() and has_f2 with ngl=nq-1 (got nq="
-            f"{nq}, subtract_ref={subtract_ref}, has_f2={has_f2}, "
+            f"lin_dims in {KERNEL_LIN_DIMS} and has_f2 with ngl=nq-1 (got "
+            f"nq={nq}, subtract_ref={subtract_ref}, has_f2={has_f2}, "
             f"ngl={ngl}, lin_dims={lin_dims})")
     E, _, Np = qv.shape
     shapes = {"p": (p, (E, Np)), "p_ref": (p_ref, (E, Np))}
     if has_f2:
         shapes.update(gl2=(gl2, (E, 3 * ngl, Np)), nu=(nu, (E, 2, Np)))
+    if lin_dims:
+        shapes.update(phi=(phi, (E, Np)), ref3=(ref3, (E, 3, Np)))
     check_tensors(qv, xiv, M, MI, Wdiv, nq=nq, **shapes)
 
 
@@ -190,9 +203,10 @@ def fused_volume_tendency_vm(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
                              has_f2: bool = False, lin_dims: tuple = (),
                              lin_gravity: bool = True):
     """Var-major volume tendency ``[E, nq, Np]``: qv ``[E, nq, Np]``,
-    p/phi/p_ref/M/MI ``[E, Np]``, ref3 ``[E, 3, Np]`` (ref ρe, ρ, p),
-    gl2 ``[E, 3·ngl, Np]`` with nu ``[E, 2, Np]`` (ν₄, ν₄_q), xiv
-    ``[E, 9, Np]`` (ξ_a,ᵢ at 3a+i), Wdiv ``[Np, 3Np]``.
+    p/phi/p_ref/M/MI ``[E, Np]``, ref3 ``[E, 3, Np]`` (ref ρe, ρ, p; phi
+    and ref3 read only with ``lin_dims``), gl2 ``[E, 3·ngl, Np]`` with nu
+    ``[E, 2, Np]`` (ν₄, ν₄_q), xiv ``[E, 9, Np]`` (ξ_a,ᵢ at 3a+i), Wdiv
+    ``[Np, 3Np]``.
 
     CPU tensors take the plain version; otherwise the CUDA kernel runs
     and ``fused_volume_tendency_vm.launches`` counts it."""
@@ -201,17 +215,19 @@ def fused_volume_tendency_vm(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
             qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI, Wdiv, nq=nq,
             ngl=ngl, R_d=R_d, cv_d=cv_d, T_0=T_0, subtract_ref=subtract_ref,
             has_f2=has_f2, lin_dims=lin_dims, lin_gravity=lin_gravity)
-    _check_kernel_args(qv, p, p_ref, gl2, nu, xiv, M, MI, Wdiv, nq, ngl,
-                       subtract_ref, has_f2, lin_dims)
+    lin_dims = tuple(lin_dims)
+    _check_kernel_args(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI, Wdiv,
+                       nq, ngl, subtract_ref, has_f2, lin_dims)
     E, _, Np = qv.shape
     lines = wdiv_lines(Wdiv)
     out = torch.empty_like(qv)
-    launch("volume_vm_f32", qv, qv.data_ptr(), p.data_ptr(), p_ref.data_ptr(),
-           xiv.data_ptr(), M.data_ptr(), MI.data_ptr(),
-           gl2.data_ptr() if has_f2 else None,
-           nu.data_ptr() if has_f2 else None,
-           lines.values.data_ptr(), out.data_ptr(), E, Np, nq, int(has_f2),
-           *lines.strides)
+    launch("volume_vm_f32", qv, qv.data_ptr(), p.data_ptr(),
+           phi.data_ptr() if lin_dims else None, p_ref.data_ptr(),
+           ref3.data_ptr() if lin_dims else None, xiv.data_ptr(),
+           M.data_ptr(), MI.data_ptr(), gl2.data_ptr() if has_f2 else None,
+           nu.data_ptr() if has_f2 else None, lines.values.data_ptr(),
+           out.data_ptr(), E, Np, nq, int(has_f2), lin_mask(lin_dims),
+           int(lin_gravity), *lines.strides, R_d, T_0, R_d / cv_d)
     fused_volume_tendency_vm.launches += 1
     return out
 

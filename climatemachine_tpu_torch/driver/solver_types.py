@@ -1,6 +1,7 @@
 """Solver-type strategy objects (port of
 ``climatemachine_tpu/driver/solver_types.py`` ``ExplicitSolverType``
-:24-63 and ``IMEXSolverType`` :66-178).
+:24-63, ``IMEXSolverType`` :66-178 and ``MultirateSolverType``
+:330-357).
 
 ``ExplicitSolverType().make(dg, q0, aux0, dt)`` builds LSRK54;
 ``IMEXSolverType().make(dg, q0, aux0, dt)`` builds the HEVI IMEX step:
@@ -16,7 +17,10 @@ State and aux are var-major ``[E, n, Np]``; the caller sets
 ``post_step`` (the Held-Suarez filter) on the solver made.  A moist
 model (EquilMoist) runs the var-major RHS with its aux lanes written on
 every call, as the JAX package's does; on the generic DG operator
-(``state_layout="grid"``, the dense solver) it raises.
+(``state_layout="grid"``, the dense solver, the multirate solver) it
+raises.  ``MultirateSolverType().make`` builds the slow-fast multirate
+step: the fast part the linear acoustic-gravity model in the model's
+direction, the slow part the fused remainder, both generic DG operators.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
 from climatemachine_tpu_torch.dg.spatial import DGModel, remainder_DGModel
 from climatemachine_tpu_torch.ode.ark import ARK2GiraldoKellyConstantinescu
 from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
+from climatemachine_tpu_torch.ode.multirate import MultirateRungeKutta
 from climatemachine_tpu_torch.solvers.columnwise import (
     BlockTridiagColumnSolver, ColumnLayout, ManyColumnSolver)
 
@@ -147,4 +152,33 @@ class IMEXSolverType:
         for g in sorted({float(solver.A_im[i, i])
                          for i in range(solver.nstages)} - {0.0}):
             col_solver.prefactorize(g * dt)
+        return solver
+
+
+@dataclass
+class MultirateSolverType:
+    """Slow-fast multirate: the fast operator is ``fast_model(atmos)`` (the
+    linear acoustic-gravity model) in ``dg``'s direction, the slow one the
+    fused remainder ``remainder_DGModel(dg, dg_fast)``; ``dt`` drives the
+    slow solver and the fast one substeps at ``dt / timestep_ratio``.
+    Both are generic DG operators: on the card the slow one runs the dry
+    volume kernel's remainder branch with ``lin_dims`` (0, 1, 2) where
+    ``dg`` discretizes every direction.  ``solver.vm`` is None."""
+    fast_model: Callable = AtmosAcousticGravityLinearModel
+    slow_method: Callable = LSRK54CarpenterKennedy
+    fast_method: Callable = LSRK54CarpenterKennedy
+    timestep_ratio: int = 100
+
+    def getdtmodel(self, bl):
+        """The model with the most restrictive dt: the fast one."""
+        return self.fast_model(bl)
+
+    def make(self, dg: DGModel, q0, aux0, dt: float):
+        _refuse_unported(dg, "grid", generic=True)
+        dg_fast = DGModel(self.fast_model(dg.balance_law), dg.grid,
+                          direction=dg.direction, update_aux=False)
+        slow = self.slow_method(remainder_DGModel(dg, dg_fast), dt)
+        fast = self.fast_method(dg_fast, dt / self.timestep_ratio)
+        solver = MultirateRungeKutta(slow, fast, dt=dt)
+        solver.vm = None
         return solver

@@ -16,7 +16,9 @@ class LowStorageRungeKutta2N:
     ``pre_stage(q, aux, t) -> q`` projects the state before every RHS
     evaluation, and the stage continues from the projected state (the
     generic DG operator's ``pre_stage``); ``post_step(q, aux) -> q`` runs
-    once after the last stage (the Held-Suarez every-step filter)."""
+    once after the last stage (the Held-Suarez every-step filter).
+    ``nstages`` counts the stages; ``dt_fixed``: the step does not adapt
+    dt."""
 
     def __init__(self, rhs: Callable, dt: float, A, B, C,
                  post_step: Optional[Callable] = None,
@@ -26,6 +28,8 @@ class LowStorageRungeKutta2N:
         self.A = tuple(float(a) for a in A)
         self.B = tuple(float(b) for b in B)
         self.C = tuple(float(c) for c in C)
+        self.nstages = len(self.A)
+        self.dt_fixed = True
         self.post_step = post_step
         self.pre_stage = pre_stage
 

@@ -268,7 +268,7 @@ def _meta(*shape):
 STILL_REFUSED = {
     "volume_nq7": ("volume", dict(nq=7, ngl=6, has_f2=True)),
     "volume_moist_lin_dims": ("volume", dict(nq=6, ngl=5, has_f2=True,
-                                             lin_dims=(2,))),
+                                             lin_dims=(0, 1))),
     "volume_moist_ngl4": ("volume", dict(nq=6, ngl=4, has_f2=True)),
     "extract_nq7": ("extract", dict(nq=7, ngl=6)),
     "extract_moist_ngl4": ("extract", dict(nq=6, ngl=4)),

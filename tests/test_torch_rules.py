@@ -20,7 +20,8 @@ from climatemachine_tpu_torch.atmos.linear import \
     AtmosAcousticGravityLinearModel
 from climatemachine_tpu_torch.atmos.model import AtmosModel
 from climatemachine_tpu_torch.dg import (dry_volume_kernel, ldg_kernel,
-                                        ldg_tables, volume_kernel)
+                                        ldg_tables, surface_kernel,
+                                        volume_kernel)
 from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
 from climatemachine_tpu_torch.dg.spatial import (DGModel, direction_dims,
                                                  direction_faces,
@@ -77,15 +78,40 @@ def _dry_meta_args(E=8, Np=64):
 
 
 #: (kernel wrapper, flags it does not cover); the moist width nq=6 is
-#: covered with ngl=5 only
+#: covered with ngl=5 only, a remainder in "horizontal" by the dry kernel
+#: only, and no remainder without the reference pressure subtracted
 UNSUPPORTED = {
     "nq6": ("volume", dict(nq=6, has_f2=True, ngl=4)),
     "has_f2": ("volume", dict(has_f2=True, ngl=5)),
-    "lin_dims": ("volume", dict(lin_dims=(2,))),
+    "lin_dims": ("volume", dict(lin_dims=(0, 1))),
     "no_subtract": ("volume", dict(subtract_ref=False)),
-    "dry_lin_every": ("dry", dict(lin_dims=(0, 1, 2))),
-    "dry_lin_acoustic": ("dry", dict(lin_dims=(2,), lin_gravity=False)),
+    "lin_every_no_subtract": ("volume", dict(lin_dims=(0, 1, 2),
+                                             subtract_ref=False)),
+    "lin_acoustic_no_subtract": ("volume", dict(
+        lin_dims=(2,), lin_gravity=False, subtract_ref=False)),
+    "dry_lin_every": ("dry", dict(lin_dims=(0, 1, 2), subtract_ref=False)),
+    "dry_lin_acoustic": ("dry", dict(lin_dims=(2,), lin_gravity=False,
+                                     subtract_ref=False)),
+    "dry_lin_horizontal": ("dry", dict(lin_dims=(0, 1), subtract_ref=False)),
+    "dry_lin_slots": ("dry", dict(lin_dims=(1, 2))),
     "dry_no_subtract": ("dry", dict(subtract_ref=False)),
+}
+
+#: the remainder branches each wrapper now takes to its kernel
+REMAINDER_BRANCHES = {
+    "vertical": ("volume", dict(lin_dims=(2,))),
+    "vertical_acoustic": ("volume", dict(lin_dims=(2,), lin_gravity=False)),
+    "every": ("volume", dict(lin_dims=(0, 1, 2))),
+    "every_acoustic": ("volume", dict(lin_dims=(0, 1, 2),
+                                      lin_gravity=False)),
+    "moist_every_f2": ("volume", dict(nq=6, ngl=5, has_f2=True,
+                                      lin_dims=(0, 1, 2))),
+    "dry_vertical_acoustic": ("dry", dict(lin_dims=(2,),
+                                          lin_gravity=False)),
+    "dry_horizontal": ("dry", dict(lin_dims=(0, 1))),
+    "dry_every": ("dry", dict(lin_dims=(0, 1, 2))),
+    "dry_every_acoustic": ("dry", dict(lin_dims=(0, 1, 2),
+                                       lin_gravity=False)),
 }
 
 
@@ -103,6 +129,78 @@ def test_kernel_wrapper_refuses_unsupported_flags(flags):
     kw.update(flags)
     with pytest.raises(NotImplementedError):
         volume_kernel.fused_volume_tendency_vm(*_meta_args(kw["nq"]), **kw)
+
+
+@pytest.mark.parametrize("flags", list(REMAINDER_BRANCHES.values()),
+                         ids=list(REMAINDER_BRANCHES))
+def test_remainder_branches_reach_the_kernel(flags):
+    """Each remainder branch the kernels are built for passes the
+    wrapper's refusal and reaches the kernel path, which refuses a
+    non-CUDA tensor (here on the meta device) and counts no launch."""
+    wrapper, flags = flags
+    kw = dict(R_d=EARTH.R_d, cv_d=EARTH.cv_d, T_0=EARTH.T_0, **flags)
+    if wrapper == "dry":
+        fn, args = dry_volume_kernel.dry_volume_tendency, _dry_meta_args()
+    else:
+        kw.setdefault("nq", 5)
+        kw.setdefault("ngl", 4)
+        fn = volume_kernel.fused_volume_tendency_vm
+        args = _meta_args(kw["nq"])
+        if kw.get("has_f2"):
+            t = lambda *s: torch.empty(s, dtype=torch.float32, device="meta")
+            args = args[:5] + (t(8, 3 * kw["ngl"], 64),) + args[6:]
+    before = fn.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fn(*args, **kw)
+    assert fn.launches == before
+
+
+def _meta(*shape):
+    return torch.empty(shape, dtype=torch.float32, device="meta")
+
+
+#: the surface kernels' remainder calls (nq, hyperdiffusion, linear face
+#: lanes of 96) and what they still refuse
+SURFACE_REMAINDER = {
+    "vertical_hyper": (dict(nq=5, has_hyper=True), (64, 96), None),
+    "every_moist": (dict(nq=6, has_hyper=False), (0, 96), None),
+    "no_subtract": (dict(nq=5, has_hyper=True, subtract=False), (0, 96),
+                    NotImplementedError),
+    "other_lanes": (dict(nq=5, has_hyper=True, rem_lanes=(5, 6, 7)),
+                    (0, 96), NotImplementedError),
+    "lanes_past_faces": (dict(nq=5, has_hyper=False), (64, 128),
+                         ValueError),
+}
+
+
+@pytest.mark.parametrize("case", list(SURFACE_REMAINDER))
+def test_surface_remainder_wrappers(case):
+    """The extraction at na = 4 and the flux + lift with ``rem_lanes``
+    reach the kernel path, which refuses a non-CUDA tensor; a remainder
+    without the reference pressure subtracted, other lanes and a face
+    range past the faces are refused first.  No launch is counted."""
+    flags, (lo, hi), refused = SURFACE_REMAINDER[case]
+    nq, hyper = flags["nq"], flags["has_hyper"]
+    E, Np, X = 8, 64, 96
+    nvb = nq + 6 + nq * hyper
+    before = [k.launches for k in surface_kernel.KERNELS]
+    kw = dict(nvb=nvb, subtract=True, i_pref=nq + 2,
+              rem_lanes=(nq + 3, nq + 4, nq + 5), sl_lo=lo, sl_hi=hi,
+              R_d_T0=EARTH.R_d * EARTH.T_0, R_over_cv=EARTH.R_d / EARTH.cv_d)
+    kw.update(flags)
+    match = {None: "CUDA tensors", ValueError: "not within"}.get(refused)
+    with pytest.raises(refused or ValueError, match=match):
+        surface_kernel.fused_surface_lift_vm(
+            _meta(E, nvb, X), _meta(E, nvb, X), _meta(E, 3, X),
+            _meta(E, 1, X), _meta(E, 1, X), _meta(X, Np), _meta(E, Np), **kw)
+    if refused is None:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            surface_kernel.extract_trace_vm(
+                _meta(E, nq, Np), _meta(E, Np), _meta(E, Np),
+                _meta(E, 4, Np), _meta(E, 3 * (nq - 1), Np),
+                _meta(E, 2, Np), _meta(Np, X), _meta(E, 3, X), nq=nq, na=4,
+                ngl=nq - 1, has_hyper=hyper)
+    assert [k.launches for k in surface_kernel.KERNELS] == before
 
 
 def test_kernel_wrapper_never_falls_back_off_cpu():
@@ -169,6 +267,20 @@ def test_chain_wrapper_refuses_rows_other_than_four(stage):
     assert wrapper.launches == before
 
 
+@pytest.mark.parametrize("stage", ["ldg_first", "ldg_grad_to_div",
+                                   "ldg_div_to_grad"])
+@pytest.mark.parametrize("nd", [1, 3])
+def test_chain_wrapper_refuses_other_direction_counts(stage, nd):
+    """K1-K3 are built for the nd = 2 derivative directions of the
+    horizontal hyperdiffusion: the wrapper refuses another nd before it
+    looks at the device, and counts no launch."""
+    wrapper = getattr(ldg_kernel, stage)
+    before = wrapper.launches
+    with pytest.raises(NotImplementedError, match="nd=2 directions"):
+        wrapper(*_chain_meta_args(stage, nd=nd))
+    assert wrapper.launches == before
+
+
 @pytest.mark.parametrize("name", ["to_blocks_vm", "from_blocks_vm"])
 def test_layout_wrapper_never_falls_back_off_cpu(name):
     """A layout tensor that is not on the CPU goes to the kernel path,
@@ -198,20 +310,25 @@ class _OtherBiharmonic(DryBiharmonic):
 
 
 def test_next_slice_configurations_raise():
-    """What is not ported raises "next slice": the var-major RHS on a
-    remainder model, a hyperdiffusion other than DryBiharmonic (in the
-    var-major RHS and the generic DG operator), a sharded model and a
-    reduced-precision column operator (banded and dense).  The generic
-    DG operator on the full AtmosModel and with a remainder, the grid
-    layout, the dense solver and the ARK step without a block layout are
-    ported (tests/test_torch_generic_dg.py, test_torch_grid_steps.py,
-    test_torch_dense_imex.py)."""
+    """What is not ported raises "next slice": a hyperdiffusion other
+    than DryBiharmonic (in the var-major RHS and the generic DG
+    operator), a sharded model and a reduced-precision column operator
+    (banded and dense); the var-major RHS refuses a remainder in
+    "horizontal", as the JAX package's does.  The generic DG operator on
+    the full AtmosModel and with a remainder, the var-major RHS on a
+    remainder in "vertical" and "every", the grid layout, the dense
+    solver and the ARK step without a block layout are ported
+    (tests/test_torch_generic_dg.py, test_torch_remainder_rhs.py,
+    test_torch_grid_steps.py, test_torch_dense_imex.py)."""
     cfg = held_suarez_config(2, 2, 3, dtype=torch.float64, device="cpu")
     assert type(cfg.model.physics.hyperdiffusion) is DryBiharmonic
     VarMajorRHS(DGModel(cfg.model, cfg.grid))      # the default now builds
-    with pytest.raises(NotImplementedError, match="next slice"):
-        VarMajorRHS(DGModel(cfg.model, cfg.grid, remainder=(
-            AtmosAcousticGravityLinearModel(cfg.model), "vertical")))
+    lin = AtmosAcousticGravityLinearModel(cfg.model)
+    for ldir in ("vertical", "every"):
+        VarMajorRHS(DGModel(cfg.model, cfg.grid, remainder=(lin, ldir)))
+    with pytest.raises(ValueError, match="'vertical' or 'every'"):
+        VarMajorRHS(DGModel(cfg.model, cfg.grid,
+                            remainder=(lin, "horizontal")))
     m = cfg.model
     hyper = AtmosModel(replace(m.physics,
                                hyperdiffusion=_OtherBiharmonic(3600.0)),
