@@ -85,6 +85,32 @@ filter:
   branches ((2,) without gravity, (0, 1) and (0, 1, 2) with and without)
   on the generic remainders' inputs, bit for bit, each generic remainder
   against its plain-stage twin;
+- the isentropic vortex (tests/test_isentropic_vortex.py): a
+  periodic 32 × 32 × 12 brick on [−L, L]³ at p4 and float32 (12,288
+  elements, the grid shape of the Held-Suarez rows),
+  ``AtmosPhysics(orientation=NoOrientation())``, whose default
+  reference state, NoReferenceState, takes no reference pressure out
+  of the fluxes: the four branches without it ("[nosub]": the
+  var-major volume kernel with ``subtract_ref=False``, the dry kernel
+  likewise, the extraction at na = 0, the flux + lift with
+  ``subtract=False``) against their plain versions on the path's own
+  perturbed state; the var-major RHS under each surface pass against
+  its plain-stage twin and the generic RHS, the generic RHS of the
+  Rusanov, Roe and HLLC fluxes against their plain-stage and all-plain
+  twins (per variable, the momentum over its largest component); then
+  ``ExplicitSolverType().make`` (LSRK54 on the var-major RHS: "auto"
+  takes it for the Rusanov flux) over a quarter crossing under each
+  surface pass, ``ExplicitSolverType(state_layout="grid")`` with each
+  flux over an eighth, and the quarter crossing at 8 × 8 × 12, dt = 0.4
+  · min node distance / 400 as the JAX test's; each run with exact
+  launch counts, the L2 error against the exact solution <= 3e-4 (the
+  JAX test's bound) and ρ, ρe drift <= 1e-5.  Then, on Held-Suarez with
+  ``HydrostaticState(_subtract_off=False)``, the remainder branches
+  without p_ref (the volume kernel's vertical acoustic-gravity and
+  every-direction acoustic, the lift's, the dry kernel's vertical,
+  horizontal and every) and the var-major kernel's "horizontal"
+  lin_dims (0, 1) with and without p_ref against their plain versions,
+  and those remainder RHS under each surface pass with their launches;
 - the staged kernels (K1-K4, the volume kernel with and without F₂,
   both dry branches; the moist branches of K1-K4 and the volume kernel)
   and every remainder branch above at the other orders the kernels are
@@ -92,7 +118,11 @@ filter:
   plain version on all elements and on the first 37, then the var-major
   (dry and moist, full and each remainder under "pallas") and the
   generic RHS with their defaults against the ones with every stage's
-  plain version (kernel_orders).
+  plain version (kernel_orders); and (vortex_kernel_orders) the four
+  [nosub] branches on the vortex's 4 × 4 × 3 brick, every remainder
+  branch without p_ref and the "horizontal" lin_dims on Held-Suarez
+  with ``HydrostaticState(_subtract_off=False)``, and those RHS against
+  their plain-stage twins.
 Copied into a checkout of an earlier commit that has the same modules
 and run there, the script measures that commit's kernels by the same
 method, so two designs compare in one call.
@@ -109,7 +139,10 @@ branches, "[moist]", with launches from the moist IMEX path with
 kernels' with launches from the remainder RHS runs, the dry kernel's
 vertical acoustic branch from the dense acoustic IMEX path, its
 every-direction acoustic-gravity branch from the multirate path, its
-others from the generic remainder runs) and, last, ``{"ok": true,
+others from the generic remainder runs; the four [nosub] branches with
+launches from the vortex paths: the var-major kernels' from its "pallas"
+run, the dry kernel's from the grid-layout Rusanov run) and, last,
+``{"ok": true,
 "device": ...}``.  Any failure raises and exits non-zero without the
 last line.  Without a CUDA device it exits 1 at once.
 
@@ -241,22 +274,31 @@ import argparse
 import copy
 import importlib.util
 import json
+import math
 import pathlib
 import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from climatemachine_tpu_torch import cuda_build, resolve_device
+from climatemachine_tpu_torch.atmos.boundaryconditions import AtmosBC
 from climatemachine_tpu_torch.atmos.linear import (
     AtmosAcousticGravityLinearModel, AtmosAcousticLinearModel)
+from climatemachine_tpu_torch.atmos.model import (AtmosModel, AtmosPhysics,
+                                                  AtmosProblem)
+from climatemachine_tpu_torch.common.orientations import NoOrientation
 from climatemachine_tpu_torch.dg import (dry_volume_kernel, ldg_kernel,
                                         ldg_tables, ldg_varmajor,
                                         surface_kernel, volume_kernel)
 from climatemachine_tpu_torch.dg.fast_rhs import SURFACE_KERNELS, VarMajorRHS
+from climatemachine_tpu_torch.dg.numerical_fluxes import (
+    HLLCNumericalFlux, RoeNumericalFlux, RusanovNumericalFlux)
 from climatemachine_tpu_torch.dg.spatial import (DGModel, init_ode_state,
                                                  remainder_DGModel)
 from climatemachine_tpu_torch.driver.solver_types import (
@@ -264,9 +306,12 @@ from climatemachine_tpu_torch.driver.solver_types import (
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
 from climatemachine_tpu_torch.interop import grid_from_numpy, grid_to_numpy
-from climatemachine_tpu_torch.mesh.grid import min_node_distance
+from climatemachine_tpu_torch.mesh.grid import make_grid, min_node_distance
+from climatemachine_tpu_torch.mesh.topology import brick_topology
 from climatemachine_tpu_torch.ode.ark import ARK2GiraldoKellyConstantinescu
 from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
+from climatemachine_tpu_torch.physics import thermodynamics as td
+from climatemachine_tpu_torch.physics.parameters import EARTH
 from climatemachine_tpu_torch.solvers import layout_kernel
 from climatemachine_tpu_torch.solvers.columnwise import ColumnLayout
 from climatemachine_tpu_torch.timing import (PEAK_BYTES, PEAK_FP32_FLOPS,
@@ -367,6 +412,24 @@ ACOUSTIC_DT_HALVINGS = 6
 MULTIRATE_DT_RATIO, MULTIRATE_TIMESTEP_RATIO = 4, 4
 N_WARM_MR, N_STEPS_MR = 1, 5
 MULTIRATE_MAX_ABS_U = 100.0
+#: the isentropic vortex (tests/test_isentropic_vortex.py): a periodic
+#: VORTEX_NE × VORTEX_NE × VORTEX_NZ brick on [−L, L]³ at p4 (12,288
+#: elements: the grid shape of the Held-Suarez rows), its error also at
+#: VORTEX_SMALL_NE; the JAX test's L2 bound (:126, at 8 × 8 × 1) and the
+#: ρ, ρe drift bound in float32 (the JAX test's float64 bound is 1e-12)
+VORTEX_NE, VORTEX_NZ, VORTEX_SMALL_NE = 32, 12, 8
+VORTEX_L2_TOL = 3e-4
+VORTEX_DRIFT_TOL = 1e-5
+#: the vortex's 48-element grid at the other orders (kernel_orders)
+VORTEX_EDGE = (4, 3)
+#: the vortex's flow (tests/test_isentropic_vortex.py:25-33)
+V_P_INF, V_T_INF, V_U_T, V_U_V = 1e5, 300.0, 150.0, 50.0
+V_ALPHA, V_R, V_L = math.pi / 4, 1.0 / 200, 1.0 / 20
+VORTEX_FLUXES = {"rusanov": RusanovNumericalFlux, "roe": RoeNumericalFlux,
+                 "hllc": HLLCNumericalFlux}
+#: the suffix of the entries of the branches without the reference
+#: pressure taken out (subtract_ref=False, na = 0, subtract=False)
+NOSUB = "[nosub]"
 #: kernel name -> (wrapper, plain version, source, TPU kernel it replaces)
 KERNELS = {
     "fused_volume_tendency_vm": (
@@ -452,7 +515,7 @@ def reset_launch_counts():
 
 def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
           has_f2: bool = True, dense: bool = True, lin_dims: tuple = (),
-          lin_gravity: bool = True, nq: int = 5):
+          lin_gravity: bool = True, nq: int = 5, subtract: bool = True):
     """(bytes, flops) of one call: each input read once, each output
     written once (float32; the int32 face tables and the operator once:
     its dense matrix, or sum-factorised the Nq × Nq weights of each
@@ -469,7 +532,8 @@ def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
     place of p); a remainder reads ref3 (and φ, in the var-major kernel)
     and does 8 more for p_L and the energy coefficient (9 without
     gravity) and 21 for the linear flux of each direction in
-    ``lin_dims`` (29 for the vertical remainder)."""
+    ``lin_dims`` (29 for the vertical remainder); without ``subtract``
+    p_ref is not read."""
     R, X = 3 * n, nd * 3
     K = Np if dense else Nq
     deriv = lambda rows: 2 * E * rows * nd * Np * K
@@ -478,7 +542,7 @@ def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
     lin = (8 + (not lin_gravity) + 21 * len(lin_dims)) if lin_dims else 0
     if name == "fused_volume_tendency_vm":
         f2_rows = 3 * (nq - 1) + (1 if nq == 5 else 2)     # gl2 and ν
-        nbytes = 4 * (E * Np * (nq + 1 + 1 + 9 + 1 + 1 + nq
+        nbytes = 4 * (E * Np * (nq + 1 + subtract + 9 + 1 + 1 + nq
                                 + (f2_rows if has_f2 else 0)
                                 + (4 if lin_dims else 0))
                       + 3 * op)
@@ -486,7 +550,7 @@ def costs(name: str, E: int, Np: int, Nq: int, n: int, nd: int, F: int,
                                  + (106 + 24 * (nq - 5) if has_f2 else 0)
                                  + lin)
     if name == DRY:
-        nbytes = 4 * (E * Np * (5 + 1 + 1 + 9 + 1 + 1 + 5
+        nbytes = 4 * (E * Np * (5 + 1 + subtract + 9 + 1 + 1 + 5
                                 + (3 if lin_dims else 0))
                       + 3 * op)
         return nbytes, E * Np * (2 * 5 * 3 * K + 111 + 5 + 13 + lin)
@@ -570,7 +634,8 @@ def bounds(name: str, rhs, n: int, has_f2: bool = True, args=None,
         else:
             nbytes, flops = costs(name, g.nelem, g.Np, g.Nq[0], n, nd, F,
                                   has_f2, dense, tuple(kw.get("lin_dims", ())),
-                                  kw.get("lin_gravity", True), nq)
+                                  kw.get("lin_gravity", True), nq,
+                                  kw.get("subtract_ref", True))
         t_bytes = 1e3 * nbytes / PEAK_BYTES
         t_ops = 1e3 * flops / PEAK_FP32_FLOPS
         out.update({"bytes": nbytes, "bytes_ms": t_bytes,
@@ -750,8 +815,8 @@ def kernel_vs_plain(name, args, rhs, n, exact: bool = False, **kw) -> dict:
         # each element's arithmetic is the same in a partial tile
         same = all(torch.equal(a, b[:TAIL_E]) for a, b in zip(tail, out))
         emit("kernel_tail", name=name, elements=TAIL_E,
-             **{k: kw[k] for k in ("has_f2", "lin_dims", "lin_gravity")
-                if k in kw},
+             **{k: kw[k] for k in ("has_f2", "lin_dims", "lin_gravity",
+                                   "subtract_ref", "subtract") if k in kw},
              max_abs_err_per_output=tail_errs,
              max_abs_plain_per_output=tail_scales, tol=KERNEL_TOL,
              equals_full_run=same)
@@ -772,7 +837,8 @@ def kernel_vs_plain(name, args, rhs, n, exact: bool = False, **kw) -> dict:
     res["share_of_bound_dense"] = res["bound_dense_ms"] / res["ms"]
     emit("kernel_vs_plain", name=name,
          **{k: kw[k] for k in ("has_f2", "has_hyper", "lin_dims",
-                               "lin_gravity", "na", "rem_lanes", "sl_lo",
+                               "lin_gravity", "subtract_ref", "subtract",
+                               "i_pref", "na", "rem_lanes", "sl_lo",
                                "sl_hi") if k in kw}, **res)
     check(finite, (name, "kernel output not finite"))
     check(res["exact"] or not exact, (name, "kernel != plain bit for bit",
@@ -785,8 +851,8 @@ def kernel_vs_plain(name, args, rhs, n, exact: bool = False, **kw) -> dict:
 def volume_kwargs(rhs, has_f2: bool) -> dict:
     ps = rhs.bl.param_set
     return dict(nq=rhs.nq, ngl=rhs.bl.gradlap_spec.num, R_d=ps.R_d,
-                cv_d=ps.cv_d,
-                T_0=ps.T_0, subtract_ref=True, has_f2=has_f2)
+                cv_d=ps.cv_d, T_0=ps.T_0, subtract_ref=rhs.subtract,
+                has_f2=has_f2)
 
 
 def phase_kernels(rhs, q, aux) -> dict:
@@ -1802,7 +1868,8 @@ def remainder_kernel_inputs(rhs, q, aux, hyper: bool = None) -> dict:
     sl_lo, sl_hi = rhs.lin_lanes
     lift = ((Bf, rhs._gather_faces(Bf), rhs.nrm, rhs.sM, rhs.bmask,
              rhs.liftT, g.MI),
-            dict(nq=nq, nvb=Bf.shape[1], subtract=True, i_pref=nq + 2,
+            dict(nq=nq, nvb=Bf.shape[1], subtract=rhs.subtract,
+                 i_pref=nq + 2,
                  has_hyper=hyper, rem_lanes=(nq + 3, nq + 4, nq + 5),
                  sl_lo=sl_lo, sl_hi=sl_hi, R_d_T0=ps.R_d * ps.T_0,
                  R_over_cv=ps.R_d / ps.cv_d))
@@ -2120,6 +2187,403 @@ def remainder_order_cases(dg, q, aux0, moist: bool):
     return cases, errs
 
 
+# --- the isentropic vortex: the branches without the reference pressure ------
+
+def vortex_state(model, coords, t):
+    """The vortex's exact state ``[E, 5, Np]`` at time t of coords ``[E, 3,
+    Np]`` (tests/test_isentropic_vortex.py:36-56): a Gaussian vortex
+    carried by a uniform stream, wrapped into the periodic box."""
+    ps = EARTH
+    rho_inf = V_P_INF / (ps.R_d * V_T_INF)
+    u_inf = (V_U_T * math.cos(V_ALPHA), V_U_T * math.sin(V_ALPHA))
+    x = [coords[:, d] - u_inf[d] * t for d in range(2)]
+    x = [xd - torch.floor((xd + V_L) / (2 * V_L)) * 2 * V_L for xd in x]
+    r2 = x[0] ** 2 + x[1] ** 2
+    gauss = torch.exp(-r2 / V_R ** 2 / 2.0)
+    u = torch.stack([u_inf[0] - V_U_V * x[1] / V_R * gauss,
+                     u_inf[1] + V_U_V * x[0] / V_R * gauss,
+                     torch.zeros_like(gauss)], dim=1)
+    T = V_T_INF * (1 - ps.kappa_d * V_U_V ** 2 / 2 * rho_inf / V_P_INF
+                   * torch.exp(-r2 / V_R ** 2))
+    p = V_P_INF * (T / V_T_INF) ** (1.0 / ps.kappa_d)
+    rho = p / (ps.R_d * T)
+    rhoe = rho * (td.internal_energy(ps, T) + 0.5 * torch.sum(u * u, dim=1))
+    return torch.cat([rho[:, None], rho[:, None] * u, rhoe[:, None]], dim=1)
+
+
+def build_vortex(ne=VORTEX_NE, nz=VORTEX_NZ, poly=POLY, nf=None) -> dict:
+    """The vortex as a user builds it (tests/test_isentropic_vortex.py
+    ``_setup``): a periodic ne × ne × nz brick on [−L, L]³, float32 on the
+    card, ``AtmosPhysics(orientation=NoOrientation())`` (the default
+    reference state, NoReferenceState, takes nothing out of the fluxes),
+    dry Euler, no sources, numerical flux ``nf`` (None: Rusanov)."""
+    t0 = time.perf_counter()
+    r = ([np.linspace(-V_L, V_L, ne + 1)] * 2
+         + [np.linspace(-V_L, V_L, nz + 1)])
+    grid = make_grid(brick_topology(r, periodicity=(True, True, True)),
+                     poly, dtype=torch.float32, device="cuda")
+    model = AtmosModel(
+        AtmosPhysics(orientation=NoOrientation()),
+        AtmosProblem(init_state=lambda m, c, aux, t: vortex_state(m, c, t),
+                     boundary_conditions=(AtmosBC(),)))
+    dg = DGModel(model, grid, numerical_flux_first_order=nf)
+    q0, aux0 = init_ode_state(dg)
+    torch.cuda.synchronize()
+    return dict(model=model, grid=grid, dg=dg, q0=q0, aux0=aux0,
+                setup_s=time.perf_counter() - t0)
+
+
+def vortex_dt(grid, t_end: float):
+    """(dt, steps) of the JAX test's ``_advance``: 0.4 · min node
+    distance / 400, shortened so that whole steps reach ``t_end``."""
+    n = int(math.ceil(t_end / (0.4 * min_node_distance(grid) / 400.0)))
+    return t_end / n, n
+
+
+def vortex_err(got, ref) -> list:
+    """max|got − ref| per variable over max|ref| of it, the momentum's
+    three components over the largest (ρw's tendency is round-off about
+    zero)."""
+    scale = ref.abs().amax(dim=(0, 2))
+    scale[1:4] = scale[1:4].max()
+    return ((got - ref).abs().amax(dim=(0, 2)) / scale).tolist()
+
+
+def vortex_l2_error(grid, q, q_exact) -> float:
+    """The JAX test's ``_l2_error`` (tests/test_isentropic_vortex.py:90-99)
+    in float64: Σ over ρ, ρu, ρe of Σ M (q − q_exact)² over the field's
+    max|q_exact|², square-rooted."""
+    M = grid.M.double()[:, None]
+    err = 0.0
+    for sl in (slice(0, 1), slice(1, 4), slice(4, 5)):
+        d = q[:, sl].double() - q_exact[:, sl]
+        err += float(torch.sum(M * d * d)
+                     / q_exact[:, sl].abs().max() ** 2)
+    return math.sqrt(err)
+
+
+def run_vortex(v: dict, solver, dt: float, steps: int, mode=None,
+               expected=None) -> dict:
+    """``steps`` steps of ``solver`` from the vortex's initial state, its
+    launch counts from 0 (with ``mode`` the var-major RHS's surface
+    pass), the L2 error against the exact solution at the final time and
+    the ρ and ρe drift; checks the JAX test's conditions and, with
+    ``expected``, the launches."""
+    g, model = v["grid"], v["model"]
+    mass = lambda q, k: torch.sum(g.M.double() * q[:, k].double()).item()
+    if mode is not None:
+        solver.vm.surface_kernel = mode
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    q, aux = v["q0"], v["aux0"]
+    for i in range(steps):
+        q, aux = solver.step(q, aux, i * dt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = launch_counts()
+    q_exact = vortex_state(model, g.coords.double().transpose(1, 2),
+                           steps * dt)
+    err = vortex_l2_error(g, q, q_exact)
+    drift = {name: abs(mass(q, k) - mass(v["q0"], k)) / abs(mass(v["q0"], k))
+             for name, k in (("rho", 0), ("rhoe", 4))}
+    finite = bool(torch.isfinite(q).all())
+    res = dict(card=nvidia_smi(), elements=g.nelem, poly=g.Nq[0] - 1,
+               surface_kernel=mode, flux=type(v["dg"].nf1).__name__,
+               var_major=solver.vm is not None, dt_s=dt, steps=steps,
+               t_end_s=steps * dt, setup_s=v["setup_s"],
+               ms_per_step=1e3 * wall / steps,
+               gridpoints_per_s=g.nelem * g.Np * steps / wall,
+               l2_error=err, l2_tol=VORTEX_L2_TOL, drift_rel=drift,
+               drift_tol=VORTEX_DRIFT_TOL, finite=finite, launches=counts)
+    check(finite, "vortex state not finite")
+    check(err <= VORTEX_L2_TOL, ("vortex L2 error", err))
+    check(max(drift.values()) <= VORTEX_DRIFT_TOL, ("vortex drift", drift))
+    if expected is not None:
+        res["expected_launches"] = expected
+        check_launches(counts, expected)
+    return res
+
+
+def vortex_kernel_inputs(rhs, q, aux) -> dict:
+    """The var-major kernels' (args, kwargs) on the vortex's RHS ``rhs`` at
+    (q, aux), as it hands them over: the volume kernel without p_ref
+    (subtract_ref=False), the extraction at na = 0 and the flux + lift
+    with subtract=False on the plain extraction's bundle and its
+    neighbour side."""
+    g, ps, nq = rhs.grid, rhs.bl.param_set, rhs.nq
+    _, p, c_s, aux = rhs._thermo_update(q, aux, False)
+    vol = ((q, p, aux[:, rhs.i_phi].contiguous(), None, None, None, None,
+            rhs.xiv, g.M, g.MI, g.Wdiv), volume_kwargs(rhs, False))
+    ext = ((q, p, c_s, rhs._aux_lanes(aux), None, None, g.lift, rhs.nrm),
+           dict(nq=nq, na=0, ngl=0, has_hyper=False))
+    Bf = surface_kernel.extract_trace_plain(*ext[0], **ext[1])
+    lift = ((Bf, rhs._gather_faces(Bf), rhs.nrm, rhs.sM, rhs.bmask,
+             rhs.liftT, g.MI),
+            dict(nq=nq, nvb=Bf.shape[1], subtract=False, i_pref=nq,
+                 has_hyper=False, rem_lanes=(), sl_lo=0, sl_hi=0,
+                 R_d_T0=ps.R_d * ps.T_0, R_over_cv=ps.R_d / ps.cv_d))
+    return {"fused_volume_tendency_vm": vol, "extract_trace_vm": ext,
+            "fused_surface_lift_vm": lift}
+
+
+def vortex_rhs_errs(v: dict, q) -> dict:
+    """The vortex's RHS at state q: the var-major RHS under each surface
+    pass against its plain-stage twin and against the generic RHS, and
+    the generic RHS of each flux against its plain-stage twin (the dry
+    kernel's plain version) and its all-plain twin (the contraction);
+    per variable (:func:`vortex_err`)."""
+    model, g, dg, aux0 = v["model"], v["grid"], v["dg"], v["aux0"]
+    rhs = VarMajorRHS(dg, write_aux=False)
+    errs = {}
+    generic = dg(q, aux0, 0.0)[0]
+    for mode in SURFACE_KERNELS:
+        rhs.surface_kernel = mode
+        out = rhs(q, aux0, 0.0)[0]
+        errs[f"var_major:{mode}"] = vortex_err(
+            out, plain_rhs(dg, mode)(q, aux0, 0.0)[0])
+        errs[f"var_major:{mode}_vs_generic"] = vortex_err(out, generic)
+    for name, nf in VORTEX_FLUXES.items():
+        dg_f = DGModel(model, g, numerical_flux_first_order=nf())
+        ref = dg_f(q, aux0, 0.0)[0]
+        for twin, d in (("plain_stages", DGModel(
+                model, g, numerical_flux_first_order=nf(),
+                volume=KERNELS[DRY][1])), ("all_plain", DGModel(
+                    model, g, numerical_flux_first_order=nf(),
+                    volume_kernel="xla"))):
+            errs[f"generic:{name}_vs_{twin}"] = vortex_err(
+                ref, d(q, aux0, 0.0)[0])
+    torch.cuda.synchronize()
+    return errs
+
+
+def nosub_model(model):
+    """``model`` with its hydrostatic reference state kept in aux but not
+    taken out of the fluxes and sources (``HydrostaticState(
+    _subtract_off=False)``)."""
+    ph = model.physics
+    return AtmosModel(replace(ph, ref_state=replace(ph.ref_state,
+                                                    _subtract_off=False)),
+                      model.problem, model.sources)
+
+
+def nosub_entry(entry: str) -> str:
+    """The kernels-line name of ``entry``'s branch without p_ref."""
+    name, _, rest = entry.partition("[")
+    return name + NOSUB + ("[" + rest if rest else "")
+
+
+def nosub_remainders(seed: int) -> dict:
+    """The remainder branches without the reference pressure taken out, on
+    Held-Suarez at full width with ``HydrostaticState(_subtract_off=
+    False)`` (its reference state still in aux: the remainder reads it)
+    and DryBiharmonic(8 h), on a perturbed initial state: the volume
+    kernel's vertical acoustic-gravity (with F₂) and every-direction
+    acoustic (without) branches and the flux + lift's (subtract=False
+    with rem_lanes, with and without the trace lanes) against their
+    plain versions on the RHS's own inputs, and each RHS under each
+    surface pass against its plain-stage twin with its launches; the
+    var-major kernel's "horizontal" lin_dims (0, 1), with and without
+    p_ref, on the vertical remainder's inputs (no var-major RHS takes a
+    horizontal remainder); the dry kernel's vertical, horizontal and
+    every branches on the generic remainders' inputs."""
+    cfg = held_suarez_config(n_horz=N_HORZ, n_vert=N_VERT, poly_order=POLY,
+                             dtype=torch.float32,
+                             hyperdiffusion_tau=8 * 3600.0, device="cuda")
+    model = nosub_model(cfg.model)
+    dg = DGModel(model, cfg.grid)
+    q0, aux0 = init_ode_state(dg)
+    q = perturbed(q0, seed)
+    vm = "fused_volume_tendency_vm"
+    kernels = {}
+    for ldir, lin, f2 in (("vertical", "gravity", True),
+                          ("every", "acoustic", False)):
+        dg_rem = remainder_DGModel(dg, linear_dg(dg, ldir, lin))
+        rhs = VarMajorRHS(dg_rem, write_aux=False)
+        check(not rhs.subtract and rhs.i_pref is not None,
+              "the remainder's bundle carries p_ref without subtracting")
+        inputs = remainder_kernel_inputs(rhs, q, aux0)
+        args, kw = inputs[vm]
+        kw = dict(kw, has_f2=f2)
+        kernels[nosub_entry(rem_entry(vm, ldir, lin, None if f2
+                                      else "no_f2"))] = kernel_vs_plain(
+            vm, args, rhs, n=0, **kw)
+        if ldir == "vertical":
+            for sub in (True, False):
+                entry = rem_entry(vm, "horizontal", lin)
+                kernels[entry if sub else nosub_entry(entry)] = \
+                    kernel_vs_plain(vm, args, rhs, n=0, **dict(
+                        kw, lin_dims=(0, 1), subtract_ref=sub))
+        for hyper in (True, False):
+            args, kw = (inputs if hyper else remainder_kernel_inputs(
+                rhs, q, aux0, hyper=False))[SURFACE[1]]
+            kernels[nosub_entry(rem_entry(SURFACE[1], ldir, None if hyper
+                                          else "no_hyper"))] = \
+                kernel_vs_plain(SURFACE[1], args, rhs, n=0, **kw)
+        del inputs, args
+        res = remainder_rhs_run(dg_rem, rhs, q, aux0, moist=False)
+        expected = {name: 3 * (name in (vm,) + CHAIN) + {
+            "extract_trace_vm": 2, "fused_surface_lift_vm": 1}.get(name, 0)
+            for name in KERNELS}
+        emit("remainder_rhs", card=nvidia_smi(), moist=False,
+             subtract_ref=False, hyperdiffusion_tau=8 * 3600.0,
+             direction=ldir, linear=lin, expected_launches=expected,
+             tol=GENERIC_RHS_TOL, remainder_tol=REMAINDER_TOL, **res)
+        check_launches(res["launches"], expected)
+        for key, err in res["rel_err_per_var"].items():
+            tol = REMAINDER_TOL if key == "generic_remainder" \
+                else GENERIC_RHS_TOL
+            check(all(torch.isfinite(torch.tensor(err))) and max(err) <= tol,
+                  ("remainder RHS without p_ref", ldir, lin, key, err))
+        del dg_rem, rhs
+    aux = model.update_auxiliary_state(q, aux0)
+    grid_only = SimpleNamespace(grid=cfg.grid, hd=None, nq=5)
+    for ldir, lin in (("vertical", "gravity"), ("horizontal", "acoustic"),
+                      ("every", "acoustic")):
+        args, kw = dry_volume_args(
+            remainder_DGModel(dg, linear_dg(dg, ldir, lin)), q, aux)
+        kernels[nosub_entry(rem_entry(DRY, ldir, lin))] = kernel_vs_plain(
+            DRY, args, grid_only, n=0, **kw)
+    del cfg, dg, q0, aux0, q, aux
+    torch.cuda.empty_cache()
+    return kernels
+
+
+def phase_vortex(seed: int) -> dict:
+    """The isentropic vortex at full width (module docstring): the four
+    branches without the reference pressure ([nosub]) against their plain
+    versions on the path's own perturbed state, the RHS checks, then the
+    paths: ``ExplicitSolverType().make`` (the var-major RHS: "auto"
+    takes it for the Rusanov flux) over a quarter crossing under each
+    surface pass, ``ExplicitSolverType(state_layout="grid")`` with the
+    Rusanov, Roe and HLLC fluxes over an eighth each, and the quarter
+    crossing at VORTEX_SMALL_NE on the var-major RHS; each with exact
+    launch counts, the L2 error against the exact solution and the ρ and
+    ρe drift.  Then the remainder branches without p_ref
+    (:func:`nosub_remainders`).  Returns {"kernels": {entry: result},
+    "launches": {entry: launches}, "ms_per_step": {run: ms}}."""
+    t_phase = time.perf_counter()
+    v = build_vortex()
+    g, dg = v["grid"], v["dg"]
+    q = perturbed(v["q0"], seed)
+    aux = v["model"].update_auxiliary_state(q, v["aux0"])
+    rhs = VarMajorRHS(dg, write_aux=False)
+    check(not rhs.subtract and rhs.i_pref is None,
+          "the vortex's bundle carries no p_ref")
+    kernels = {}
+    for name, (args, kw) in vortex_kernel_inputs(rhs, q, v["aux0"]).items():
+        kernels[name + NOSUB] = kernel_vs_plain(name, args, rhs, n=0, **kw)
+    args, kw = dry_volume_args(dg, q, aux)
+    check(kw["subtract_ref"] is False and args[2] is None,
+          "the generic vortex RHS hands the dry kernel no p_ref")
+    kernels[DRY + NOSUB] = kernel_vs_plain(
+        DRY, args, SimpleNamespace(grid=g, hd=None, nq=5), n=0, **kw)
+    del args
+    errs = vortex_rhs_errs(v, q)
+    emit("vortex_rhs", card=nvidia_smi(), rel_err_per_var=errs,
+         tol=GENERIC_RHS_TOL)
+    for key, err in errs.items():
+        check(all(torch.isfinite(torch.tensor(err)))
+              and max(err) <= GENERIC_RHS_TOL, ("vortex RHS", key, err))
+
+    launches, ms = {}, {}
+    t_end = 2 * V_L / V_U_T / 4
+    dt, steps = vortex_dt(g, t_end)
+    solver = ExplicitSolverType().make(dg, v["q0"], v["aux0"], dt)
+    check(solver.vm is not None, "auto takes the var-major RHS (Rusanov)")
+    for mode in SURFACE_KERNELS:
+        per_step = {name: 5 for name in ("fused_volume_tendency_vm",)
+                    + SURFACE_LAUNCHES[mode]}
+        res = run_vortex(v, solver, dt, steps, mode,
+                         expected_launches(per_step, steps))
+        emit("vortex_path", layout="vm", crossing=0.25, **res)
+        ms[f"vm:{mode}"] = res["ms_per_step"]
+        if mode == "pallas":
+            launches.update({name + NOSUB: res["launches"][name]
+                             for name in per_step})
+    dt8, steps8 = vortex_dt(g, t_end / 2)
+    for name, nf in VORTEX_FLUXES.items():
+        vf = dict(v, dg=DGModel(v["model"], g,
+                                numerical_flux_first_order=nf()))
+        solver = ExplicitSolverType(state_layout="grid").make(
+            vf["dg"], v["q0"], v["aux0"], dt8)
+        res = run_vortex(vf, solver, dt8, steps8,
+                         expected=expected_launches({DRY: 5}, steps8))
+        emit("vortex_path", layout="grid", crossing=0.125, **res)
+        ms[f"grid:{name}"] = res["ms_per_step"]
+        if name == "rusanov":
+            launches[DRY + NOSUB] = res["launches"][DRY]
+    del v, dg, rhs, solver, q, aux
+    torch.cuda.empty_cache()
+    small = build_vortex(VORTEX_SMALL_NE)
+    dt_s, steps_s = vortex_dt(small["grid"], t_end)
+    res = run_vortex(small, ExplicitSolverType().make(
+        small["dg"], small["q0"], small["aux0"], dt_s), dt_s, steps_s,
+        "xla")
+    emit("vortex_path", layout="vm", crossing=0.25, small=True, **res)
+    del small
+    kernels.update(nosub_remainders(seed))
+    emit("vortex_phase", card=nvidia_smi(),
+         seconds=time.perf_counter() - t_phase, ms_per_step=ms)
+    return dict(kernels=kernels, launches=launches, ms_per_step=ms)
+
+
+def phase_vortex_kernel_orders(seed: int):
+    """The [nosub] branches at each of EDGE_ORDERS: the vortex's four on a
+    VORTEX_EDGE brick (48 elements: a partial last tile), the remainder
+    branches without p_ref on Held-Suarez (EDGE_GRID) with
+    ``HydrostaticState(_subtract_off=False)`` (every remainder case of
+    :func:`remainder_order_cases`, and the var-major "horizontal"
+    lin_dims with and without p_ref), each held as
+    :func:`phase_kernel_orders` holds its kernels; then the vortex's
+    var-major RHS under "pallas" and generic RHS, and each remainder RHS,
+    against their plain-stage twins."""
+    vm = "fused_volume_tendency_vm"
+    for poly in EDGE_ORDERS:
+        ne, nz = VORTEX_EDGE
+        v = build_vortex(ne, nz, poly)
+        q = perturbed(v["q0"], seed)
+        aux = v["model"].update_auxiliary_state(q, v["aux0"])
+        rhs = VarMajorRHS(v["dg"], write_aux=False)
+        cases = {name + NOSUB: (name,) + inp for name, inp in
+                 vortex_kernel_inputs(rhs, q, v["aux0"]).items()}
+        cases[DRY + NOSUB] = (DRY,) + tuple(dry_volume_args(v["dg"], q, aux))
+        rhs.surface_kernel = "pallas"
+        errs = {"vortex:var_major": vortex_err(
+            rhs(q, v["aux0"], 0.0)[0],
+            plain_rhs(v["dg"], "pallas")(q, v["aux0"], 0.0)[0]),
+            "vortex:generic": vortex_err(
+                v["dg"](q, v["aux0"], 0.0)[0],
+                DGModel(v["model"], v["grid"], volume=KERNELS[DRY][1])(
+                    q, v["aux0"], 0.0)[0])}
+        cfg = held_suarez_config(*EDGE_GRID, poly, dtype=torch.float32,
+                                 hyperdiffusion_tau=8 * 3600.0,
+                                 device="cuda")
+        dg = DGModel(nosub_model(cfg.model), cfg.grid)
+        q0, aux0 = init_ode_state(dg)
+        qh = perturbed(q0, seed)
+        rem_cases, rem_errs = remainder_order_cases(dg, qh, aux0,
+                                                    moist=False)
+        cases.update({nosub_entry(k): c for k, c in rem_cases.items()})
+        errs.update({nosub_entry(k): e for k, e in rem_errs.items()})
+        _, args, kw = rem_cases[rem_entry(vm, "vertical", "gravity")]
+        for sub in (True, False):
+            entry = rem_entry(vm, "horizontal", "gravity")
+            cases[entry if sub else nosub_entry(entry)] = (vm, args, dict(
+                kw, lin_dims=(0, 1), subtract_ref=sub))
+        held = {entry: hold(name, args, kw)
+                for entry, (name, args, kw) in cases.items()}
+        torch.cuda.synchronize()
+        emit("vortex_kernel_orders", poly=poly, Np=v["grid"].Np,
+             elements=v["grid"].nelem, tail_elements=TAIL_E,
+             tol=KERNEL_TOL, kernels=held, rhs_rel_err_per_var=errs,
+             rhs_tol=GENERIC_RHS_TOL, remainder_rhs_tol=REMAINDER_TOL)
+        for name, err in errs.items():
+            check(all(torch.isfinite(torch.tensor(err)))
+                  and max(err) <= order_rhs_tol(name.replace(NOSUB, "")),
+                  ("RHS without p_ref at order", poly, name, err))
+
+
 # --- the staged kernels at the other orders ----------------------------------
 
 def hold(name, args, kw) -> dict:
@@ -2224,10 +2688,13 @@ def main(argv=None) -> int:
         moist_rem = phase_remainder(args.seed, moist=True)
         remainder["kernels"].update(moist_rem["kernels"])
         remainder["launches"].update(moist_rem["launches"])
+    vortex = phase_vortex(args.seed)
     phase_kernel_orders(args.seed)
     if moist:
         phase_moist_kernel_orders(args.seed)
+    phase_vortex_kernel_orders(args.seed)
     emit("surface_modes", card=nvidia_smi(),
+         vortex_ms_per_step=vortex["ms_per_step"],
          explicit_ms_per_step=explicit["ms_per_step"],
          imex_ms_per_step=imex["ms_per_step"],
          generic_ms_per_step=generic["ms_per_step"],
@@ -2268,6 +2735,12 @@ def main(argv=None) -> int:
     entries += [(entry, entry.split("[")[0],
                  path_launches.get(entry, remainder["launches"].get(entry)))
                 for entry in remainder["kernels"]]
+    # the branches without the reference pressure, with launches from the
+    # vortex paths: the var-major kernels' from its "pallas" run, the dry
+    # kernel's from the grid-layout Rusanov run
+    results.update(vortex["kernels"])
+    entries += [(entry, entry.split("[")[0], vortex["launches"][entry])
+                for entry in vortex["launches"]]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": entry, "route": "cuda",

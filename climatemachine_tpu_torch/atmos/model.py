@@ -10,7 +10,8 @@ gradient-Laplacian hooks :539-550, ``flux_second_order`` :552
 ``boundary_state`` :608-618).
 
 Prognostic: ρ, ρu(3), ρe, then with ``EquilMoist`` ρq_tot.  Auxiliary:
-coord(3), orientation (Φ, ∇Φ), reference state (ρ, p, T, ρe), moisture
+coord(3), orientation (Φ, ∇Φ), with a ``HydrostaticState`` the
+reference state (ρ, p, T, ρe), moisture
 (θ_v, T dry; T, θ_v, q_liq, q_ice with ``EquilMoist``), in the JAX
 package's order, then, with hyperdiffusion, ``hyperdiffusion.delta``.
 State and aux are var-major ``[E, n, L]`` over L nodes (volume or face
@@ -26,9 +27,11 @@ import torch
 
 from climatemachine_tpu_torch.atmos.boundaryconditions import AtmosBC
 from climatemachine_tpu_torch.atmos.moisture import DryModel, EquilMoist
-from climatemachine_tpu_torch.atmos.ref_state import HydrostaticState
+from climatemachine_tpu_torch.atmos.ref_state import (NoReferenceState,
+                                                     ReferenceState)
 from climatemachine_tpu_torch.atmos.sources import VMContext
-from climatemachine_tpu_torch.common.orientations import SphericalOrientation
+from climatemachine_tpu_torch.common.orientations import (FlatOrientation,
+                                                          Orientation)
 from climatemachine_tpu_torch.physics import thermodynamics as td
 from climatemachine_tpu_torch.physics.parameters import (EARTH,
                                                          PlanetParameterSet)
@@ -39,15 +42,16 @@ from climatemachine_tpu_torch.utils.variables import VarSpec
 class AtmosPhysics:
     """Physics bundle.  ``moisture`` is a
     :class:`~climatemachine_tpu_torch.atmos.moisture.DryModel` or an
-    :class:`~climatemachine_tpu_torch.atmos.moisture.EquilMoist`;
-    ``hyperdiffusion`` is None, a
+    :class:`~climatemachine_tpu_torch.atmos.moisture.EquilMoist`; the
+    orientation defaults to ``FlatOrientation`` and the reference state
+    to ``NoReferenceState``, as in the JAX package; ``hyperdiffusion`` is
+    None, a
     :class:`~climatemachine_tpu_torch.atmos.hyperdiffusion.DryBiharmonic`
     or, with ``EquilMoist``, an ``EquilMoistBiharmonic`` (the var-major
     RHS refuses any other kind)."""
     param_set: PlanetParameterSet = EARTH
-    orientation: SphericalOrientation = field(
-        default_factory=SphericalOrientation)
-    ref_state: HydrostaticState = field(default_factory=HydrostaticState)
+    orientation: Orientation = field(default_factory=FlatOrientation)
+    ref_state: ReferenceState = field(default_factory=NoReferenceState)
     hyperdiffusion: Optional[object] = None
     moisture: object = field(default_factory=DryModel)
 
@@ -82,9 +86,12 @@ class AtmosModel:
             prog_fields["moisture"] = moist.vars_prognostic()
         self.prog_spec = VarSpec(**prog_fields)
         aux_fields = dict(coord=3,
-                          orientation=physics.orientation.vars_aux(),
-                          ref_state=physics.ref_state.vars_aux(),
-                          moisture=moist.vars_aux())
+                          orientation=physics.orientation.vars_aux())
+        #: aux carries the reference state's lanes
+        self.has_ref_state = bool(physics.ref_state.vars_aux().num)
+        if self.has_ref_state:
+            aux_fields["ref_state"] = physics.ref_state.vars_aux()
+        aux_fields["moisture"] = moist.vars_aux()
         hyper = physics.hyperdiffusion
         if hyper is not None:
             aux_fields["hyperdiffusion"] = hyper.vars_aux()
@@ -99,21 +106,23 @@ class AtmosModel:
         return self.physics.param_set
 
     @property
-    def ref_state(self) -> HydrostaticState:
+    def ref_state(self) -> ReferenceState:
         return self.physics.ref_state
 
     def nodal_init_state_auxiliary(self, coords, aux, grid):
-        """Fill Φ, ∇Φ and the reference state from coords ``[E, 3, Np]``,
-        and the hyperdiffusion lengthscale from the grid's metrics."""
+        """Fill Φ, ∇Φ and a hydrostatic reference state from coords
+        ``[E, 3, Np]``, and the hyperdiffusion lengthscale from the grid's
+        metrics."""
         ps, sp = self.param_set, self.aux_spec
         ori = self.physics.orientation
         Phi = ori.geopotential(ps, coords)
         aux = _set(aux, sp.index("orientation.Phi"), Phi)
         aux = _set(aux, sp.index("orientation.grad_Phi"),
                    ori.grad_geopotential(ps, coords))
-        for name, val in self.ref_state.fields(ps, Phi / ps.grav,
-                                               Phi).items():
-            aux = _set(aux, sp.index(f"ref_state.{name}"), val)
+        if self.has_ref_state:
+            for name, val in self.ref_state.fields(ps, Phi / ps.grav,
+                                                   Phi).items():
+                aux = _set(aux, sp.index(f"ref_state.{name}"), val)
         if self.physics.hyperdiffusion is not None:
             aux = self.physics.hyperdiffusion.init_aux(self, grid, aux)
         return aux
@@ -144,14 +153,17 @@ class AtmosModel:
 
     # --- the generic DG operator's hooks ---------------------------------------
     def flux_first_order(self, q, aux, t):
-        """Advection, the pressure gradient with the reference pressure
-        taken out, and the pressure work: F_i[ρ] = ρu_i, F_i[ρu_j] =
-        ρu_i u_j + (p − p_ref) δ_ij, F_i[ρe] = (ρe + p) u_i, and each
-        advected scalar (ρq_tot) F_i[ρχ] = ρχ u_i."""
+        """Advection, the pressure gradient (with the reference pressure
+        taken out where the reference state's ``subtract_off`` says so),
+        and the pressure work: F_i[ρ] = ρu_i, F_i[ρu_j] = ρu_i u_j +
+        (p − p_ref) δ_ij, F_i[ρe] = (ρe + p) u_i, and each advected scalar
+        (ρq_tot) F_i[ρχ] = ρχ u_i."""
         rho, rhou, rhoe = q[:, 0], q[:, 1:4], q[:, 4]
         _, p = self.thermo(q, aux)
         u = rhou / rho[:, None]
-        p_eff = p - self.aux_spec.get(aux, "ref_state.p")
+        p_eff = p
+        if self.ref_state.subtract_off:
+            p_eff = p - self.aux_spec.get(aux, "ref_state.p")
         E, n, L = q.shape
         F = torch.empty((E, 3, n, L), dtype=q.dtype, device=q.device)
         F[:, :, 0] = rhou

@@ -1,5 +1,6 @@
 """Gravity and Coriolis sources (port of
-``climatemachine_tpu/atmos/sources.py``: Gravity :26, Coriolis :46, their
+``climatemachine_tpu/atmos/sources.py``: Gravity :26 (with and without
+the reference density, :33/:41), Coriolis :46, their
 ``contributions`` :30,:50 and ``contributions_vm`` :38,:59).
 
 A source maps prognostic names to additive var-major tendencies
@@ -44,10 +45,13 @@ class Source:
 
 
 class Gravity(Source):
-    """−(ρ − ρ_ref) ∇Φ."""
+    """−(ρ − ρ_ref) ∇Φ, or −ρ∇Φ where the reference state does not
+    subtract."""
 
     def contributions_vm(self, model, ctx, t):
-        rho = ctx.rho - ctx.aux("ref_state.rho")
+        rho = ctx.rho
+        if model.ref_state.subtract_off:
+            rho = rho - ctx.aux("ref_state.rho")
         return {"rhou": -rho[:, None, :] * ctx.grad_Phi}
 
 

@@ -1,6 +1,9 @@
-"""Spherical orientation and coordinate helpers (port of
-``climatemachine_tpu/common/orientations.py``).
+"""Orientations and coordinate helpers (port of
+``climatemachine_tpu/common/orientations.py``: the ``Orientation`` base
+:21-52, ``NoOrientation`` :55-67, ``FlatOrientation`` :70-78 and
+``SphericalOrientation`` :81-90).
 
+An orientation fills the geopotential Φ and its gradient ∇Φ into aux.
 Var-major: coordinates and vectors are ``[E, 3, Np]`` with the vector
 axis at position 1; scalars are ``[E, Np]``.
 """
@@ -13,11 +16,44 @@ from climatemachine_tpu_torch.physics.parameters import PlanetParameterSet
 from climatemachine_tpu_torch.utils.variables import VarSpec
 
 
-class SphericalOrientation:
-    """Φ = g (|x| − planet_radius) and its gradient."""
+class Orientation:
+    """Base: the aux lanes Φ (scalar) and ∇Φ (3-vector)."""
 
     def vars_aux(self) -> VarSpec:
         return VarSpec(Phi=1, grad_Phi=3)
+
+    def geopotential(self, ps: PlanetParameterSet, coords):
+        raise NotImplementedError
+
+    def grad_geopotential(self, ps: PlanetParameterSet, coords):
+        raise NotImplementedError
+
+
+class NoOrientation(Orientation):
+    """Φ = 0: no gravity geometry (gravity-free test configurations such
+    as the isentropic vortex)."""
+
+    def geopotential(self, ps, coords):
+        return torch.zeros_like(coords[:, -1])
+
+    def grad_geopotential(self, ps, coords):
+        return torch.zeros_like(coords)
+
+
+class FlatOrientation(Orientation):
+    """Φ = g z with z the last coordinate."""
+
+    def geopotential(self, ps, coords):
+        return ps.grav * coords[:, -1]
+
+    def grad_geopotential(self, ps, coords):
+        g = torch.zeros_like(coords)
+        g[:, -1] = ps.grav
+        return g
+
+
+class SphericalOrientation(Orientation):
+    """Φ = g (|x| − planet_radius) and its gradient."""
 
     def geopotential(self, ps: PlanetParameterSet, coords):
         r = torch.linalg.vector_norm(coords, dim=1)

@@ -3,15 +3,22 @@
 //
 // Replaces climatemachine_tpu/dg/pallas_surface.py:extract_trace_vm (Pallas
 // body _k_extract) and :fused_surface_lift_vm (Pallas body _kernel) for what
-// the Held-Suarez step, the moist baroclinic wave and their fused
-// remainders run: float32, NQ = 5 prognostic variables (dry) or 6 (with
-// the advected rhoq_tot of EquilMoist), the reference pressure subtracted
-// from the momentum flux, with (NQ - 1 chain variables u_h[3], h_tot[,
-// q_tot]; NQ more bundle lanes) or without DryBiharmonic or
-// EquilMoistBiharmonic hyperdiffusion, and NA aux lanes: NA = 1 (p_ref;
-// NQ + 3 bundle lanes) or, for a fused remainder, NA = 4 (p_ref, phi, the
-// linear energy coefficient and the reference sound speed; NQ + 6 lanes,
-// JAX fast_rhs.py:406-423).
+// the Held-Suarez step, the moist baroclinic wave, their fused remainders
+// and the isentropic vortex run: float32, NQ = 5 prognostic variables
+// (dry) or 6 (with the advected rhoq_tot of EquilMoist), with (NQ - 1
+// chain variables u_h[3], h_tot[, q_tot]; NQ more bundle lanes) or
+// without DryBiharmonic or EquilMoistBiharmonic hyperdiffusion, and NA aux
+// lanes (JAX fast_rhs.py:406-423): NA = 1 (p_ref; NQ + 3 bundle lanes),
+// for a fused remainder NA = 4 (p_ref, phi, the linear energy coefficient
+// and the reference sound speed; NQ + 6 lanes), or NA = 0 where nothing
+// reads p_ref (a reference state that does not subtract and no remainder:
+// the Pallas body's na = 0 branch, :52-53; NQ + 2 lanes).  The lift takes
+// the reference pressure (lane NQ + 2) out of the momentum flux where SUB
+// (the Pallas body's subtract branch, :151) and leaves it in otherwise: a
+// reference state that does not subtract, with (NA = 4) or without (NA =
+// 0) a remainder.  Every lane offset is a constant of the template (a run-
+// time flag or lane index cost the moist lift with hyperdiffusion 15 % on
+// an NVIDIA H100, PERF.md).
 //
 // extract_trace_vm_kernel, per element e and face lane x (X = 6 Nfp):
 //   B[v][x] = vol_v[node(x)]                 v = q[NQ], p, c, aux[NA]
@@ -154,14 +161,15 @@ extract_trace_vm_kernel(const float* __restrict__ qv,    // [E][NQ][Np]
 
 // The one-sided normal flux of the NQ variables and its wavespeed |u.n| +
 // c; a variable past rhoe (rhoq_tot) is carried by u.n.
-template <int NQ>
+// p_ref is taken out of the momentum flux where SUB.
+template <int NQ, bool SUB>
 __device__ __forceinline__ float flux_n(const float S[NQ], float pv, float cs,
                                         float pref, const float n[3],
                                         float Fn[NQ]) {
   const float inv = __fdiv_rn(1.0f, S[0]);
   const float un =
       mul(add(add(mul(S[1], n[0]), mul(S[2], n[1])), mul(S[3], n[2])), inv);
-  const float p_eff = sub(pv, pref);
+  const float p_eff = SUB ? sub(pv, pref) : pv;
   Fn[0] = mul(S[0], un);
 #pragma unroll
   for (int c = 0; c < 3; ++c)
@@ -192,7 +200,9 @@ __device__ __forceinline__ float flux_lin(const float S[NQ], float phi,
   return cl;
 }
 
-template <int NQ, int NA, bool HYPER>
+// NA aux lanes in the bundle (NA = 4: a remainder's, whose linear flux
+// comes off the lanes [sl_lo, sl_hi)); SUB: take p_ref out.
+template <int NQ, int NA, bool HYPER, bool SUB>
 __global__ void __launch_bounds__(MAX_THREADS)
 surface_lift_vm_kernel(const float* __restrict__ Bf,     // [E][NVB][X]
                        const float* __restrict__ BP,     // [E][NVB][X]
@@ -206,8 +216,9 @@ surface_lift_vm_kernel(const float* __restrict__ Bf,     // [E][NVB][X]
                        int E, int Np, int X, int sl_lo, int sl_hi,
                        float R_d_T0, float R_over_cv) {
   constexpr int NVB = NQ + 2 + NA + (HYPER ? NQ : 0);
-  constexpr int IPREF = NQ + 2;   // the p_ref lane of the bundle
+  constexpr int IPREF = NQ + 2;   // the p_ref lane of the bundle (NA > 0)
   constexpr bool REM = NA == 4;   // lanes phi, coeff, cl follow p_ref
+  static_assert(NA > 0 || !SUB, "p_ref is taken from the bundle");
   extern __shared__ float smf[];                 // [TE][NQ][X]
   const int t = threadIdx.x;
   const int e0 = blockIdx.x * TE;
@@ -240,12 +251,14 @@ surface_lift_vm_kernel(const float* __restrict__ Bf,     // [E][NVB][X]
         P[1 + c] = add(mul(bm, ghost), mul(keep, P[1 + c]));
       }
       float FM[NQ], FP[NQ];
-      const float cM = flux_n<NQ>(M, __ldg(Mr + NQ * X),
-                                  __ldg(Mr + (NQ + 1) * X),
-                                  __ldg(Mr + IPREF * X), n, FM);
-      const float cP = flux_n<NQ>(P, __ldg(Pr + NQ * X),
-                                  __ldg(Pr + (NQ + 1) * X),
-                                  __ldg(Pr + IPREF * X), n, FP);
+      const float cM = flux_n<NQ, SUB>(M, __ldg(Mr + NQ * X),
+                                       __ldg(Mr + (NQ + 1) * X),
+                                       SUB ? __ldg(Mr + IPREF * X) : 0.0f,
+                                       n, FM);
+      const float cP = flux_n<NQ, SUB>(P, __ldg(Pr + NQ * X),
+                                       __ldg(Pr + (NQ + 1) * X),
+                                       SUB ? __ldg(Pr + IPREF * X) : 0.0f,
+                                       n, FP);
       const float half_c = mul(0.5f, maximum(cM, cP));
       // the remainder's linear faces: the linear Rusanov flux
       const bool lin = REM && t >= sl_lo && t < sl_hi;
@@ -306,18 +319,36 @@ auto extract_kernel(bool hyper) {
                : extract_trace_vm_kernel<NQ, NA, false>;
 }
 
-template <int NQ, int NA>
+template <int NQ>
+auto extract_kernel(int na, bool hyper) {
+  return na == 0 ? extract_kernel<NQ, 0>(hyper)
+                 : na == 1 ? extract_kernel<NQ, 1>(hyper)
+                           : extract_kernel<NQ, 4>(hyper);
+}
+
+template <int NQ, int NA, bool SUB>
 auto lift_kernel(bool hyper) {
-  return hyper ? surface_lift_vm_kernel<NQ, NA, true>
-               : surface_lift_vm_kernel<NQ, NA, false>;
+  return hyper ? surface_lift_vm_kernel<NQ, NA, true, SUB>
+               : surface_lift_vm_kernel<NQ, NA, false, SUB>;
+}
+
+// NA = 0 has no p_ref to take out; NA = 1 carries p_ref only to take it
+// out.
+template <int NQ>
+auto lift_kernel(int na, bool sub, bool hyper) {
+  return na == 0   ? lift_kernel<NQ, 0, false>(hyper)
+         : na == 1 ? lift_kernel<NQ, 1, true>(hyper)
+                   : (sub ? lift_kernel<NQ, 4, true>(hyper)
+                          : lift_kernel<NQ, 4, false>(hyper));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the extraction of nq = 5 or 6 variables and na = 1 or 4 aux
-// lanes on `stream`; gl2, nu and nrm are read only with has_hyper != 0.
+// Launches the extraction of nq = 5 or 6 variables and na = 0, 1 or 4 aux
+// lanes (the bundles of fast_rhs.py) on `stream`; aux is read only with
+// na > 0, gl2, nu and nrm only with has_hyper != 0.
 // Returns the CUDA error code of the launch (0 on success).
 int extract_trace_vm_f32(const void* qv, const void* p, const void* c,
                          const void* aux, const void* gl2, const void* nu,
@@ -326,13 +357,11 @@ int extract_trace_vm_f32(const void* qv, const void* p, const void* c,
                          void* stream) {
   const int threads = (X + 31) / 32 * 32;
   if (E <= 0 || Np <= 0 || X <= 0 || threads > MAX_THREADS ||
-      (nq != 5 && nq != 6) || (na != 1 && na != 4))
+      (nq != 5 && nq != 6) || (na != 0 && na != 1 && na != 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = nq == 5 ? (na == 1 ? extract_kernel<5, 1>(has_hyper)
-                                   : extract_kernel<5, 4>(has_hyper))
-                        : (na == 1 ? extract_kernel<6, 1>(has_hyper)
-                                   : extract_kernel<6, 4>(has_hyper));
+  auto kernel = nq == 5 ? extract_kernel<5>(na, has_hyper)
+                        : extract_kernel<6>(na, has_hyper);
   kernel<<<(E + TE - 1) / TE, threads, 0, s>>>(
       static_cast<const float*>(qv), static_cast<const float*>(p),
       static_cast<const float*>(c), static_cast<const float*>(aux),
@@ -343,29 +372,29 @@ int extract_trace_vm_f32(const void* qv, const void* p, const void* c,
 }
 
 // Launches the flux + lift of nq = 5 or 6 variables on `stream`, the
-// bundle with na = 1 aux lane or, for a fused remainder, na = 4: then the
-// linear Rusanov flux comes off the lanes [sl_lo, sl_hi), R_d_T0 = R_d T_0
-// and R_over_cv = R_d/cv_d (float32).  Returns the CUDA error code of the
-// launch (0 on success).
+// bundle with na = 0 aux lanes, na = 1 (p_ref) or, for a fused remainder,
+// na = 4: then the linear Rusanov flux comes off the lanes [sl_lo,
+// sl_hi), R_d_T0 = R_d T_0 and R_over_cv = R_d/cv_d (float32); p_ref
+// (lane nq + 2) is taken out of the momentum flux where subtract != 0
+// (na = 1 always subtracts, na = 0 never, na = 4 either way).  Returns the
+// CUDA error code of the launch (0 on success).
 int surface_lift_vm_f32(const void* Bf, const void* BP, const void* nrm,
                         const void* sM, const void* bmask,
                         const void* lift_idx, int L, const void* MI, void* out,
                         int E, int Np, int X, int nq, int na, int has_hyper,
-                        int sl_lo, int sl_hi, float R_d_T0, float R_over_cv,
-                        void* stream) {
+                        int subtract, int sl_lo, int sl_hi, float R_d_T0,
+                        float R_over_cv, void* stream) {
   const int width = X > Np ? X : Np;
   const int threads = (width + 31) / 32 * 32;
   if (E <= 0 || Np <= 0 || X <= 0 || L <= 0 || threads > MAX_THREADS ||
-      (nq != 5 && nq != 6) || (na != 1 && na != 4) || sl_lo < 0 ||
-      sl_hi > X || sl_lo > sl_hi)
+      (nq != 5 && nq != 6) || (na != 0 && na != 1 && na != 4) ||
+      (subtract && na == 0) || (!subtract && na == 1) || sl_lo < 0 || sl_hi > X || sl_lo > sl_hi)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // at most 8 * 6 * 256 * 4 = 48 KB, the default limit
   const size_t smem = (size_t)TE * nq * X * sizeof(float);
-  auto kernel = nq == 5 ? (na == 1 ? lift_kernel<5, 1>(has_hyper)
-                                   : lift_kernel<5, 4>(has_hyper))
-                        : (na == 1 ? lift_kernel<6, 1>(has_hyper)
-                                   : lift_kernel<6, 4>(has_hyper));
+  auto kernel = nq == 5 ? lift_kernel<5>(na, subtract != 0, has_hyper)
+                        : lift_kernel<6>(na, subtract != 0, has_hyper);
   kernel<<<(E + TE - 1) / TE, threads, smem, s>>>(
       static_cast<const float*>(Bf), static_cast<const float*>(BP),
       static_cast<const float*>(nrm), static_cast<const float*>(sM),

@@ -1,18 +1,21 @@
 // Fused var-major DG volume tendencies for Hopper (sm_90a).
 //
 // One kernel template, two functions of the JAX package, for the
-// configurations the Held-Suarez paths and the moist baroclinic wave run
-// (NV = 5 prognostic variables rho, rhou[3], rhoe, or NV = 6 with the
-// advected rhoq_tot of EquilMoist; the reference pressure subtracted from
-// the momentum flux):
+// configurations the Held-Suarez paths, the moist baroclinic wave and the
+// isentropic vortex run (NV = 5 prognostic variables rho, rhou[3], rhoe,
+// or NV = 6 with the advected rhoq_tot of EquilMoist; the reference
+// pressure subtracted from the momentum flux or, with subtract = 0 (a
+// NoReferenceState or a HydrostaticState that does not subtract), not,
+// the Pallas bodies' subtract_ref branch, JAX pallas_volume.py:49 and
+// :171):
 //
 //   * climatemachine_tpu/dg/pallas_volume.py:fused_volume_tendency_vm
 //     (Pallas body _kernel_vm), the var-major RHS's: the pressure p is an
 //     input; with or without the hyperdiffusive flux F2 of DryBiharmonic
 //     (ngl = 4 chain variables u_h[3], h_tot) or, at NV = 6, of
 //     EquilMoistBiharmonic (ngl = 5: q_tot too); with lin_dims = () or,
-//     for a fused remainder, (2,) or (0, 1, 2) (the body's lin_dims
-//     branch, :209-245).
+//     for a fused remainder, (2,), (0, 1) or (0, 1, 2) (the body's
+//     lin_dims branch, :209-245).
 //   * climatemachine_tpu/dg/pallas_volume.py:dry_volume_tendency (Pallas
 //     body _kernel), the generic DG operator's: e_int, T and p are computed
 //     from q and phi in the kernel; with lin_dims = () or, for a fused
@@ -31,7 +34,8 @@
 //   mf[v][a*Np + m] = M[m] * sum_i xi[3a+i][m] * F_i[v](m)  (+ F2, - Flin)
 //   out[e][v][n]    = MI[n] * sum_k Wdiv[n][k] * mf[v][k],  k < 3*Np
 //
-//   F_i[rho] = rhou_i,  F_i[rhou_j] = rhou_j u_i + (p - p_ref) d_ij,
+//   F_i[rho] = rhou_i,  F_i[rhou_j] = rhou_j u_i + (p - p_ref) d_ij
+//   (p d_ij with subtract = 0, when p_ref is neither staged nor read),
 //   F_i[rhoe] = (rhoe + p) u_i,  F_i[rhoq_tot] = rhoq_tot u_i (NV = 6)
 //   F2_i[rhou_j] = rho nu4 gl2[i][j],
 //   F2_i[rhoe]   = nu4 sum_j rhou_j gl2[i][j] + rho nu4 gl2[i][3]
@@ -51,9 +55,9 @@
 // flops a node (217 with F2) and the weak divergence, sum-factorised
 // along the lines of the Kronecker operator Wdiv (dg/line_ops.py), 2*5*15
 // = 150 flops a node, against 23 floats read or written a node (26 with
-// the remainder's ref3, 36 with F2 and nu4): bytes alone bound every
-// branch, 0.042 ms (0.048 with ref3, 0.066 with F2; the H100's 3.35
-// TB/s).  At NV = 6 with F2 (27 + 15 + 2 = 44 floats a node, ~250 flops)
+// the remainder's ref3, 36 with F2 and nu4; one fewer without p_ref):
+// bytes alone bound every branch, 0.042 ms (0.048 with ref3, 0.066 with
+// F2, about 0.002 less without p_ref; the H100's 3.35 TB/s).  At NV = 6 with F2 (27 + 15 + 2 = 44 floats a node, ~250 flops)
 // the bound is 0.081 ms.  Counted dense (the 3*Np terms a node of the kernel this design
 // replaced), the contraction was 3750 flops a node and bound by the fp32
 // pipes (0.089 ms, 0.091 with F2).
@@ -61,7 +65,7 @@
 // Design (sum-factorised, bound by its bytes):
 //   - persistent blocks of 256 threads walk tiles of TE = 4 elements (2 at
 //     p5, Order<NQ>); each
-//     tile's inputs (qv, p or phi, p_ref, xiv, M, MI; gl2 with F2; with
+//     tile's inputs (qv, p or phi, p_ref if subtract, xiv, M, MI; gl2 with F2; with
 //     the remainder ref3, and phi beside p in the var-major kernel) are
 //     contiguous runs, staged by TMA bulk copies
 //     into one of two stages of shared memory while the block computes on
@@ -81,6 +85,10 @@
 //      Nq^2 (a warp's reads span fewer than 32 consecutive words of a row:
 //      no bank conflicts), 75 FMAs a node at p4;
 //   3. scale by MI and store (one warp, 32 consecutive nodes of a row).
+//   subtract is a uniform run-time flag, not a template parameter: its one
+//   use is p_eff, and without it the p_ref run is not staged (a segment
+//   of 0 floats issues no copy), so the branch costs no instantiations
+//   (nvcc time) and no shared memory.
 //   About 156 KB of shared memory a block with F2, 104 KB without at p4
 //   (136 and 91 KB at p5); at NV = 6 with F2 182 KB at p4 (one block an
 //   SM, as at NV = 5) and 159 KB at p5; the remainder's phi and ref3 add
@@ -146,6 +154,7 @@ struct Inputs {
   tile::Strides strides;  // node stride of each direction's lines
   float* out;          // [E][5][Np]
   float R_d, inv_cv, T_0, R_over_cv;   // DRY (inv_cv) or LIN
+  int subtract;        // p_ref taken out of the momentum flux (read)
 };
 
 // Shared memory of a branch with NV variables, in 4-byte words: the two
@@ -230,7 +239,7 @@ __device__ __forceinline__ void node_flux(const Inputs& in, const Elem& s,
   } else {
     pv = s.p[n];
   }
-  const float p_eff = sub(pv, s.pref[n]);
+  const float p_eff = in.subtract ? sub(pv, s.pref[n]) : pv;
   const float h = add(rhoe, pv);
   const float m = s.M[n];
   const float* xi = s.xiv + n;
@@ -317,7 +326,7 @@ volume_kernel(const Inputs in, int E) {
   tile::Segment seg[L::NSEG];
   seg[0] = {in.qv, NV * NP, L::QV};
   seg[1] = {L::DRYK ? in.phi : in.p, NP, L::P};
-  seg[2] = {in.pref, NP, L::PREF};
+  seg[2] = {in.pref, in.subtract ? NP : 0, L::PREF};
   seg[3] = {in.xiv, 9 * NP, L::XIV};
   seg[4] = {in.M, NP, L::M};
   seg[5] = {in.MI, NP, L::MI};
@@ -452,10 +461,10 @@ int launch_order(const Inputs& in, int E, int Np, cudaStream_t s) {
 }
 
 // Calls f(std::integral_constant<int, LIN>) for the remainder branch of
-// lin_dims mask `dims` and lin_gravity: no remainder (dims = 0), (2,) or
-// (0, 1, 2), and with `horizontal` also (0, 1); any other mask gives
-// cudaErrorInvalidValue.
-template <bool HORIZONTAL, typename F>
+// lin_dims mask `dims` and lin_gravity: no remainder (dims = 0), (2,)
+// ("vertical"), (0, 1) ("horizontal") or (0, 1, 2) ("every"); any other
+// mask, which no direction yields, gives cudaErrorInvalidValue.
+template <typename F>
 int by_lin(int dims, int lin_gravity, F&& f) {
   using std::integral_constant;
   const bool g = lin_gravity != 0;
@@ -465,10 +474,8 @@ int by_lin(int dims, int lin_gravity, F&& f) {
                      : f(integral_constant<int, 4 | ACOUSTIC>());
     case 7: return g ? f(integral_constant<int, 7>())
                      : f(integral_constant<int, 7 | ACOUSTIC>());
-    case 3:
-      if constexpr (HORIZONTAL)
-        return g ? f(integral_constant<int, 3>())
-                 : f(integral_constant<int, 3 | ACOUSTIC>());
+    case 3: return g ? f(integral_constant<int, 3>())
+                     : f(integral_constant<int, 3 | ACOUSTIC>());
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -483,16 +490,17 @@ extern "C" {
 // lines; dg/line_ops.py), Np = NQ^3 with NQ = 2..6 (tile::by_order),
 // every input 16-byte aligned.  gl2 and nu are read only with has_f2 !=
 // 0; phi and ref3 only with a remainder: lin_dims as the mask lin (bit a
-// for direction a: 0, 4 for (2,) or 7 for (0, 1, 2)) and lin_gravity;
-// R_d, T_0 and R_over_cv = R_d/cv_d are the float32 values of the
-// constants.  Returns the CUDA error code of the launch (0 on success).
+// for direction a: 0, 4 for (2,), 3 for (0, 1) or 7 for (0, 1, 2)) and
+// lin_gravity; pref only with subtract != 0; R_d, T_0 and R_over_cv =
+// R_d/cv_d are the float32 values of the constants.  Returns the CUDA
+// error code of the launch (0 on success).
 int volume_vm_f32(const void* qv, const void* p, const void* phi,
                   const void* pref, const void* ref3, const void* xiv,
                   const void* M, const void* MI, const void* gl2,
                   const void* nu, const void* lines, void* out, int E,
                   int Np, int nq, int has_f2, int lin, int lin_gravity,
-                  int s0, int s1, int s2, float R_d, float T_0,
-                  float R_over_cv, void* stream) {
+                  int subtract, int s0, int s1, int s2, float R_d,
+                  float T_0, float R_over_cv, void* stream) {
   Inputs in{};
   in.qv = static_cast<const float*>(qv);
   in.p = static_cast<const float*>(p);
@@ -510,9 +518,10 @@ int volume_vm_f32(const void* qv, const void* p, const void* phi,
   in.R_d = R_d;
   in.T_0 = T_0;
   in.R_over_cv = R_over_cv;
+  in.subtract = subtract != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nq != 5 && nq != 6) return (int)cudaErrorInvalidValue;
-  return by_lin<false>(lin, lin_gravity, [&](auto lc) {
+  return by_lin(lin, lin_gravity, [&](auto lc) {
     constexpr int LIN = decltype(lc)::value;
     if (nq == 5)
       return has_f2 ? launch_order<P_GIVEN_F2, 5, LIN>(in, E, Np, s)
@@ -524,15 +533,16 @@ int volume_vm_f32(const void* qv, const void* p, const void* phi,
 
 // dry_volume_tendency on `stream`, lines and strides as above.  ref3 is
 // read only with a remainder: lin_dims as the mask lin (0, 4 for (2,), 3
-// for (0, 1) or 7 for (0, 1, 2)) and lin_gravity.  R_d, inv_cv = 1/cv_d,
+// for (0, 1) or 7 for (0, 1, 2)) and lin_gravity; pref only with subtract
+// != 0.  R_d, inv_cv = 1/cv_d,
 // T_0 and R_over_cv = R_d/cv_d are the float32 values of the constants.
 // Returns the CUDA error code of the launch (0 on success).
 int dry_volume_f32(const void* qv, const void* phi, const void* pref,
                    const void* ref3, const void* xiv, const void* M,
                    const void* MI, const void* lines, void* out, int E,
-                   int Np, int lin, int lin_gravity, int s0, int s1, int s2,
-                   float R_d, float inv_cv, float T_0, float R_over_cv,
-                   void* stream) {
+                   int Np, int lin, int lin_gravity, int subtract, int s0,
+                   int s1, int s2, float R_d, float inv_cv, float T_0,
+                   float R_over_cv, void* stream) {
   Inputs in{};
   in.qv = static_cast<const float*>(qv);
   in.phi = static_cast<const float*>(phi);
@@ -548,8 +558,9 @@ int dry_volume_f32(const void* qv, const void* phi, const void* pref,
   in.inv_cv = inv_cv;
   in.T_0 = T_0;
   in.R_over_cv = R_over_cv;
+  in.subtract = subtract != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return by_lin<true>(lin, lin_gravity, [&](auto lc) {
+  return by_lin(lin, lin_gravity, [&](auto lc) {
     return launch_order<DRY, 5, decltype(lc)::value>(in, E, Np, s);
   });
 }

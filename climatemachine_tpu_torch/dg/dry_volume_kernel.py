@@ -7,8 +7,8 @@ body ``_kernel`` :34-94, with ``supports`` :318 and
     out[e, v, :] = MI · Wdiv · concat_a(M · Σ_i ξ[a, i] · (F_i[v] − F_lin,i[v]))
 
 F is the dry Euler flux with e_int, T and p computed from the state and
-the geopotential φ (and the reference pressure taken out of the momentum
-flux); the linear acoustic(-gravity) flux F_lin of a fused IMEX remainder
+the geopotential φ (and, with ``subtract_ref``, the reference pressure
+taken out of the momentum flux); the linear acoustic(-gravity) flux F_lin of a fused IMEX remainder
 is subtracted on the direction slots ``lin_dims``, reading the reference
 ρe, ρ and p from ``ref3``.  Unlike ``fused_volume_tendency_vm``
 (dg/volume_kernel.py), which the var-major RHS hands its precomputed
@@ -22,10 +22,10 @@ Dispatch is by device: a CPU tensor takes
 (the ``dry_volume_f32`` entry of csrc/volume_vm.cu, which shares the
 sum-factorised contraction of ``fused_volume_tendency_vm`` and reads
 Wdiv through its line table) or raises.  The kernel covers p1-p5,
-float32, ``subtract_ref=True`` (the port's reference state always
-subtracts), ``lin_dims`` () or, for a fused remainder in "vertical",
-"horizontal" or "every", (2,), (0, 1) or (0, 1, 2), with or without
-``lin_gravity``; the plain version covers the whole JAX signature.
+float32, with and without ``subtract_ref``, ``lin_dims`` () or, for a
+fused remainder in "vertical", "horizontal" or "every", (2,), (0, 1) or
+(0, 1, 2), with or without ``lin_gravity``; it refuses a ``lin_dims`` no
+direction yields.  The plain version covers the whole JAX signature.
 """
 
 from __future__ import annotations
@@ -35,15 +35,13 @@ import torch
 from climatemachine_tpu_torch.atmos.linear import (
     AtmosAcousticGravityLinearModel, AtmosAcousticLinearModel)
 from climatemachine_tpu_torch.atmos.model import AtmosModel
+from climatemachine_tpu_torch.atmos.ref_state import reads_p_ref
 from climatemachine_tpu_torch.dg.directions import direction_dims
 from climatemachine_tpu_torch.dg.line_ops import wdiv_lines
-from climatemachine_tpu_torch.dg.volume_kernel import (check_tensors, launch,
+from climatemachine_tpu_torch.dg.volume_kernel import (KERNEL_LIN_DIMS,
+                                                       check_tensors, launch,
                                                        lin_mask,
                                                        volume_tendency_plain)
-
-#: the ``lin_dims`` the kernel is built for: none, and a remainder in
-#: "vertical", "horizontal" or "every"
-KERNEL_LIN_DIMS = ((), (2,), (0, 1), (0, 1, 2))
 
 
 def dry_volume_tendency_plain(qv, phi, p_ref, ref3, xiv, M, MI, Wdiv,
@@ -77,7 +75,7 @@ def dry_volume_tendency(qv, phi, p_ref, ref3, xiv, M, MI, Wdiv, R_d: float,
     """Dry volume tendency ``[E, 5, Np]``: qv ``[E, 5, Np]``,
     phi/p_ref/M/MI ``[E, Np]``, ref3 ``[E, 3, Np]`` (reference ρe, ρ, p;
     read only with ``lin_dims``), xiv ``[E, 9, Np]`` (ξ_a,ᵢ at 3a+i), Wdiv
-    ``[Np, 3Np]``.
+    ``[Np, 3Np]``; p_ref is read only with ``subtract_ref``.
 
     CPU tensors take the plain version; otherwise the CUDA kernel runs
     and ``dry_volume_tendency.launches`` counts it."""
@@ -87,24 +85,26 @@ def dry_volume_tendency(qv, phi, p_ref, ref3, xiv, M, MI, Wdiv, R_d: float,
             T_0=T_0, subtract_ref=subtract_ref, lin_dims=lin_dims,
             lin_gravity=lin_gravity)
     lin_dims = tuple(lin_dims)
-    if not subtract_ref or lin_dims not in KERNEL_LIN_DIMS:
+    if lin_dims not in KERNEL_LIN_DIMS:
         raise NotImplementedError(
-            "the CUDA dry volume kernel covers subtract_ref=True with "
-            f"lin_dims in {KERNEL_LIN_DIMS} (got subtract_ref="
-            f"{subtract_ref}, lin_dims={lin_dims})")
+            f"the CUDA dry volume kernel covers lin_dims in "
+            f"{KERNEL_LIN_DIMS} (got lin_dims={lin_dims})")
     E, _, Np = qv.shape
-    more = {"phi": (phi, (E, Np)), "p_ref": (p_ref, (E, Np))}
+    more = {"phi": (phi, (E, Np))}
+    if subtract_ref:
+        more["p_ref"] = (p_ref, (E, Np))
     if lin_dims:
         more["ref3"] = (ref3, (E, 3, Np))
     check_tensors(qv, xiv, M, MI, Wdiv, **more)
     lines = wdiv_lines(Wdiv)
     out = torch.empty_like(qv)
     launch("dry_volume_f32", qv, qv.data_ptr(), phi.data_ptr(),
-           p_ref.data_ptr(), ref3.data_ptr() if lin_dims else None,
+           p_ref.data_ptr() if subtract_ref else None,
+           ref3.data_ptr() if lin_dims else None,
            xiv.data_ptr(), M.data_ptr(), MI.data_ptr(),
            lines.values.data_ptr(), out.data_ptr(), E, Np,
-           lin_mask(lin_dims), int(lin_gravity), *lines.strides, R_d,
-           1.0 / cv_d, T_0, R_d / cv_d)
+           lin_mask(lin_dims), int(lin_gravity), int(subtract_ref),
+           *lines.strides, R_d, 1.0 / cv_d, T_0, R_d / cv_d)
     dry_volume_tendency.launches += 1
     return out
 
@@ -131,12 +131,16 @@ def supports(balance_law, grid, direction, remainder=None) -> bool:
 
 def volume_tendency_from_grid(dg, q, aux, volume=dry_volume_tendency):
     """The kernel's arguments from a DGModel (its grid's metric and
-    operators, the model's constants, the remainder's ``lin_dims``) and
-    the call, through ``volume`` (the wrapper, or its plain version)."""
+    operators, the model's constants, whether its reference state
+    subtracts, the remainder's ``lin_dims``) and the call, through
+    ``volume`` (the wrapper, or its plain version); p_ref is None where
+    nothing reads it."""
     bl, g = dg.balance_law, dg.grid
     ps, sp = bl.param_set, bl.aux_spec
     phi = sp.get(aux, "orientation.Phi").contiguous()
-    p_ref = sp.get(aux, "ref_state.p").contiguous()
+    subtract = bl.ref_state.subtract_off
+    p_ref = (sp.get(aux, "ref_state.p").contiguous() if reads_p_ref(dg)
+             else None)
     lin_dims, lin_gravity, ref3 = (), True, None
     if dg.remainder is not None:
         lin, ldir = dg.remainder
@@ -145,5 +149,6 @@ def volume_tendency_from_grid(dg, q, aux, volume=dry_volume_tendency):
         ref3 = torch.stack([sp.get(aux, "ref_state.rhoe"),
                             sp.get(aux, "ref_state.rho"), p_ref], dim=1)
     return volume(q.contiguous(), phi, p_ref, ref3, dg.xiv, g.M, g.MI, g.Wdiv,
-                  R_d=ps.R_d, cv_d=ps.cv_d, T_0=ps.T_0, subtract_ref=True,
-                  lin_dims=lin_dims, lin_gravity=lin_gravity)
+                  R_d=ps.R_d, cv_d=ps.cv_d, T_0=ps.T_0,
+                  subtract_ref=subtract, lin_dims=lin_dims,
+                  lin_gravity=lin_gravity)

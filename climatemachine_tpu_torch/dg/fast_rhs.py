@@ -1,9 +1,10 @@
-"""Var-major RHS of the Held-Suarez step and the moist baroclinic wave
-(port of ``climatemachine_tpu/dg/fast_rhs.py`` ``VarMajorRHS`` :141-682
-for a dry model, with or without DryBiharmonic hyperdiffusion, and an
-EquilMoist model with EquilMoistBiharmonic; either full or as a fused
-remainder ``remainder_DGModel(dg, dg_lin)`` of an acoustic(-gravity)
-linear model in "vertical" or "every", :97-105).
+"""Var-major RHS of the Held-Suarez step, the moist baroclinic wave and
+the isentropic vortex (port of ``climatemachine_tpu/dg/fast_rhs.py``
+``VarMajorRHS`` :141-682 for a dry model, with or without DryBiharmonic
+hyperdiffusion, and an EquilMoist model with EquilMoistBiharmonic; with
+the Rusanov flux; either full or as a fused remainder
+``remainder_DGModel(dg, dg_lin)`` of an acoustic(-gravity) linear model
+in "vertical" or "every", :97-105; ``supports`` :52).
 
 State and aux stay var-major ``[E, nvar, Np]`` throughout.  Per call:
 
@@ -16,11 +17,16 @@ State and aux stay var-major ``[E, nvar, Np]`` throughout.  Per call:
   ν₄_q = (Δ/2)⁴/2τ_q (0 when dry) are built once;
 - volume: the fused volume-tendency kernel (dg/volume_kernel.py), which
   builds the hyperdiffusive flux F₂ from ∇Δ and ν₄ itself;
-- surface: the face bundle (q, p, c, p_ref and, with hyperdiffusion,
-  the n·F₂ trace built on the faces from the extracted ∇Δ), neighbour
-  rows by gathers over elements, wall ghosts, Rusanov flux plus the
-  interior hyperdiffusive correction, and the lift.  ``surface_kernel``
-  picks how, with the JAX package's names: ``"xla"`` (the default) is
+- the reference pressure p_ref: taken out of the momentum flux where the
+  reference state's ``subtract_off`` says so (a HydrostaticState by
+  default), not read at all on a NoReferenceState (the isentropic
+  vortex), read for a remainder's linear flux without being taken out
+  on a HydrostaticState that does not subtract (:380, :412, :640-670);
+- surface: the face bundle (q, p, c, p_ref where read and, with
+  hyperdiffusion, the n·F₂ trace built on the faces from the extracted
+  ∇Δ), neighbour rows by gathers over elements, wall ghosts, Rusanov
+  flux plus the interior hyperdiffusive correction, and the lift.
+  ``surface_kernel`` picks how, with the JAX package's names: ``"xla"`` (the default) is
   plain PyTorch, one extraction matmul against the 0/1 lift matrix and
   one lift matmul; ``"hybrid"`` builds the bundle with the extraction
   kernel (dg/surface_kernel.py); ``"pallas"`` also runs the flux and
@@ -47,10 +53,12 @@ from climatemachine_tpu_torch.atmos.hyperdiffusion import (
 from climatemachine_tpu_torch.atmos.linear import (
     AtmosAcousticGravityLinearModel, AtmosAcousticLinearModel)
 from climatemachine_tpu_torch.atmos.model import AtmosModel
+from climatemachine_tpu_torch.atmos.ref_state import reads_p_ref
 from climatemachine_tpu_torch.dg import (fast_surface, ldg_kernel,
                                         surface_kernel)
 from climatemachine_tpu_torch.dg.directions import (direction_dims,
                                                     direction_faces)
+from climatemachine_tpu_torch.dg.numerical_fluxes import RusanovNumericalFlux
 from climatemachine_tpu_torch.dg.volume_kernel import fused_volume_tendency_vm
 from climatemachine_tpu_torch.physics import thermodynamics as td
 
@@ -59,45 +67,67 @@ from climatemachine_tpu_torch.physics import thermodynamics as td
 SURFACE_KERNELS = ("xla", "hybrid", "pallas")
 
 
-def _check_supported(dg):
+def _unsupported(dg):
+    """(exception type, reason) why VarMajorRHS does not take ``dg``, or
+    None when it does."""
     bl, g = dg.balance_law, dg.grid
     if not isinstance(bl, AtmosModel):
-        raise ValueError("VarMajorRHS needs an AtmosModel")
+        return ValueError, "VarMajorRHS needs an AtmosModel"
     if dg.direction != "every":
-        raise ValueError("VarMajorRHS discretizes in every direction, got "
-                         f"{dg.direction!r}")
+        return ValueError, ("VarMajorRHS discretizes in every direction, "
+                            f"got {dg.direction!r}")
+    if type(getattr(dg, "nf1", None)) is not RusanovNumericalFlux:
+        return ValueError, ("VarMajorRHS computes the Rusanov flux, got "
+                            f"{getattr(dg, 'nf1', None)!r}")
     hd = bl.physics.hyperdiffusion
     if not (hd is None or type(hd) in (DryBiharmonic, EquilMoistBiharmonic)):
-        raise NotImplementedError("next slice")
+        return NotImplementedError, "next slice"
     if dg.remainder is not None:
         lin, ldir = dg.remainder
         if type(lin) not in (AtmosAcousticGravityLinearModel,
                              AtmosAcousticLinearModel):
-            raise ValueError("VarMajorRHS takes the remainder of an "
-                             f"acoustic(-gravity) linear model, got {lin!r}")
-        if ldir not in ("vertical", "every") or bl.ref_state is None:
-            raise ValueError("VarMajorRHS takes a remainder in 'vertical' or "
-                             f"'every' about a reference state, got {ldir!r}")
+            return ValueError, ("VarMajorRHS takes the remainder of an "
+                                "acoustic(-gravity) linear model, got "
+                                f"{lin!r}")
+        if ldir not in ("vertical", "every") \
+                or not bl.has_ref_state:
+            return ValueError, ("VarMajorRHS takes a remainder in "
+                                "'vertical' or 'every' about a reference "
+                                f"state, got {ldir!r}")
     if hd is not None and bl.moist != (type(hd) is EquilMoistBiharmonic):
-        raise ValueError("VarMajorRHS takes EquilMoist with "
-                         "EquilMoistBiharmonic and a dry model with "
-                         f"DryBiharmonic, got {hd!r}")
+        return ValueError, ("VarMajorRHS takes EquilMoist with "
+                            "EquilMoistBiharmonic and a dry model with "
+                            f"DryBiharmonic, got {hd!r}")
     if not g.face_perm_identity:
-        raise ValueError("VarMajorRHS needs identity face orientations")
+        return ValueError, "VarMajorRHS needs identity face orientations"
     for bc in bl.problem.boundary_conditions:
         if not bc.is_free_slip_wall():
-            raise ValueError("VarMajorRHS implements the impenetrable "
-                             "free-slip, insulating wall only")
+            return ValueError, ("VarMajorRHS implements the impenetrable "
+                                "free-slip, insulating wall only")
     for src in bl.sources:
         if not hasattr(src, "contributions_vm"):
-            raise ValueError(f"source {src!r} has no contributions_vm")
+            return ValueError, f"source {src!r} has no contributions_vm"
+    return None
+
+
+def supports(dg) -> bool:
+    """True when VarMajorRHS takes ``dg``'s configuration (the JAX
+    package's ``fast_rhs.supports``, :52-131, for what the port has)."""
+    return _unsupported(dg) is None
+
+
+def _check_supported(dg):
+    why = _unsupported(dg)
+    if why is not None:
+        raise why[0](why[1])
 
 
 class VarMajorRHS:
     """``(qv, auxv, t) -> (dqv, auxv')`` with qv ``[E, 5, Np]`` and auxv
-    ``[E, 13, Np]`` (``[E, 14, Np]`` with hyperdiffusion); with EquilMoist
-    qv ``[E, 6, Np]`` and auxv ``[E, 15, Np]`` (16).  ``dg`` is the full
-    model's DGModel or a fused remainder (module docstring).
+    ``[E, 13, Np]`` on a hydrostatic reference state (``[E, 14, Np]``
+    with hyperdiffusion; ``[E, 9, Np]`` without a reference state); with
+    EquilMoist qv ``[E, 6, Np]`` and auxv ``[E, 15, Np]`` (16).  ``dg``
+    is the full model's DGModel or a fused remainder (module docstring).
 
     ``write_aux``: refresh the dry aux lanes θ_v and T from the state on
     every call.  Nothing inside a step reads them, so a time integrator
@@ -130,8 +160,13 @@ class VarMajorRHS:
         self.nq = bl.prog_spec.num
         self.moist = bl.moist
         self.i_phi = sp.index("orientation.Phi").start
-        self.i_pref = sp.index("ref_state.p").start
         self.rem = dg.remainder
+        # the reference pressure: taken out of the momentum flux where
+        # the reference state subtracts it, a bundle lane where that or a
+        # remainder needs it, and not read at all otherwise
+        self.subtract = bl.ref_state.subtract_off
+        self.i_pref = (sp.index("ref_state.p").start if reads_p_ref(dg)
+                       else None)
         if self.rem is not None:
             lin, ldir = self.rem
             self.lin_gravity = isinstance(lin, AtmosAcousticGravityLinearModel)
@@ -227,10 +262,12 @@ class VarMajorRHS:
                                          self.grid.Nfp_max)
 
     def _aux_lanes(self, auxv):
-        """The bundle's aux lanes ``[E, na, Np]``: p_ref (na = 1); with a
-        remainder also φ, the linear energy coefficient (ρe_ref +
-        p_ref)/ρ_ref (less φ for the acoustic model) and the reference
-        sound speed (na = 4)."""
+        """The bundle's aux lanes ``[E, na, Np]``: none where nothing reads
+        p_ref (na = 0), else p_ref (na = 1); with a remainder also φ, the
+        linear energy coefficient (ρe_ref + p_ref)/ρ_ref (less φ for the
+        acoustic model) and the reference sound speed (na = 4)."""
+        if self.i_pref is None:
+            return auxv[:, :0]
         if self.rem is None:
             return auxv[:, self.i_pref:self.i_pref + 1].contiguous()
         sp, ps = self.bl.aux_spec, self.bl.param_set
@@ -290,7 +327,8 @@ class VarMajorRHS:
             else ((), (0, 0)))
         return self.surface_stages[1](
             Bf, BP, self.nrm, self.sM, self.bmask, self.liftT, self.grid.MI,
-            nq=nq, nvb=Bf.shape[1], subtract=True, i_pref=nq + 2,
+            nq=nq, nvb=Bf.shape[1], subtract=self.subtract,
+            i_pref=nq if self.i_pref is None else nq + 2,
             has_hyper=hyper, rem_lanes=rem_lanes, sl_lo=sl_lo, sl_hi=sl_hi,
             R_d_T0=ps.R_d * ps.T_0, R_over_cv=ps.R_d / ps.cv_d)
 
@@ -314,7 +352,7 @@ class VarMajorRHS:
             return self._flux_lift(Bf, BP, gl2 is not None)
 
         BP = fast_surface.wall_ghost(BP, nrm, self.tab["bnd_lane"])
-        fstar = fast_surface.rusanov(Bf, BP, nrm, nq)
+        fstar = fast_surface.rusanov(Bf, BP, nrm, nq, self.subtract)
         if gl2 is not None:
             base = nq + 2 + aux_lanes.shape[1]
             sl_h = slice(base, base + nq)
@@ -340,7 +378,8 @@ class VarMajorRHS:
         hyper = self.hd is not None
         gl2 = self._chain(qv, auxv, p) if hyper else None
         aux_lanes = self._aux_lanes(auxv)
-        p_ref = aux_lanes[:, 0].contiguous()     # a view when na = 1
+        p_ref = (aux_lanes[:, 0].contiguous()    # a view when na = 1
+                 if self.i_pref is not None else None)
         phi, ref3, lin_dims, lin_gravity = auxv[:, self.i_phi], None, (), True
         if self.rem is not None:
             phi = phi.contiguous()
@@ -351,7 +390,8 @@ class VarMajorRHS:
                            self.nu if hyper else None, self.xiv, g.M, g.MI,
                            g.Wdiv, nq=self.nq, ngl=self.bl.gradlap_spec.num,
                            R_d=ps.R_d, cv_d=ps.cv_d, T_0=ps.T_0,
-                           subtract_ref=True, has_f2=hyper, lin_dims=lin_dims,
+                           subtract_ref=self.subtract, has_f2=hyper,
+                           lin_dims=lin_dims,
                            lin_gravity=lin_gravity)
         tend = tend + self._surface(qv, p, c_s, aux_lanes, gl2)
         tend = tend + self._sources(qv, auxv, T, p, t)

@@ -26,6 +26,7 @@ import torch
 
 from climatemachine_tpu_torch.atmos.linear import \
     AtmosAcousticGravityLinearModel
+from climatemachine_tpu_torch.atmos.ref_state import reads_p_ref
 from climatemachine_tpu_torch.dg.directions import direction_faces
 from climatemachine_tpu_torch.physics import thermodynamics as td
 
@@ -82,19 +83,19 @@ def wall_ghost(BP, nrm, bnd_lane):
     return torch.where(bnd_lane[:, None, :], ghost, BP)
 
 
-def rusanov(Bf, BP, nrm, nq: int):
+def rusanov(Bf, BP, nrm, nq: int, subtract: bool):
     """Rusanov flux ``[E, nq, X]`` of the Euler model from the two sides'
-    bundles, lanes q (nq), p, the sound speed, p_ref: the central flux
-    with p − p_ref in the momentum flux and each advected scalar past
-    ρe (ρq_tot) carried by u·n, minus ½ max(|u·n| + c) times the
-    jump."""
+    bundles, lanes q (nq), p, the sound speed, p_ref (read only with
+    ``subtract``): the central flux with p − p_ref (p without
+    ``subtract``) in the momentum flux and each advected scalar past ρe
+    (ρq_tot) carried by u·n, minus ½ max(|u·n| + c) times the jump."""
     def flux_n(Bs):
         rho = Bs[:, 0]
         inv = 1.0 / rho
         un = (Bs[:, 1] * inv * nrm[:, 0] + Bs[:, 2] * inv * nrm[:, 1]
               + Bs[:, 3] * inv * nrm[:, 2])
         pv = Bs[:, nq]
-        p_eff = pv - Bs[:, nq + 2]
+        p_eff = pv - Bs[:, nq + 2] if subtract else pv
         Fn = [rho * un]
         for c in range(3):
             Fn.append(Bs[:, 1 + c] * un + p_eff * nrm[:, c])
@@ -121,8 +122,9 @@ def lift(fstar, sM, liftT, MI):
 
 def surface_tendency(dg, q, aux, t):
     """−M⁻¹ L (sM · f*) ``[E, 5, Np]`` of the dry AtmosModel on every face
-    of ``dg``'s grid: the bundle (q, φ, p_ref and, with a fused remainder,
-    the reference ρe, ρ and T) extracted by one matmul against the 0/1
+    of ``dg``'s grid: the bundle (q, φ, p_ref where the reference state
+    subtracts or a fused remainder needs it and, with a remainder, the
+    reference ρe, ρ and T) extracted by one matmul against the 0/1
     lift matrix, its neighbour side gathered, the wall ghost, the face
     thermo of each side, the Rusanov flux and, with a remainder, the
     linear acoustic(-gravity) Rusanov flux taken out on the linear model's
@@ -136,8 +138,10 @@ def surface_tendency(dg, q, aux, t):
     E, Np, Nfp = g.nelem, g.Np, g.Nfp_max
     X = g.nface * Nfp
     rem = dg.remainder
-    lanes = [q, aux[:, sp.index("orientation.Phi")],
-             aux[:, sp.index("ref_state.p")]]
+    subtract = bl.ref_state.subtract_off
+    lanes = [q, aux[:, sp.index("orientation.Phi")]]
+    if reads_p_ref(dg):
+        lanes.append(aux[:, sp.index("ref_state.p")])
     if rem is not None:
         lanes += [aux[:, sp.index(f"ref_state.{name}")]
                   for name in ("rhoe", "rho", "T")]
@@ -149,7 +153,7 @@ def surface_tendency(dg, q, aux, t):
                     nrm, ops["tab"]["bnd_lane"])
 
     def with_thermo(Bs):
-        """q, p, c_s, p_ref lanes from q, φ, p_ref."""
+        """q, p, c_s (, p_ref) lanes from q, φ (, p_ref)."""
         rho, ru, rhoe, phi = Bs[:, 0], Bs[:, 1:4], Bs[:, 4], Bs[:, 5]
         inv = 1.0 / rho
         e_int = (rhoe - 0.5 * (ru[:, 0] * (ru[:, 0] * inv)
@@ -160,7 +164,7 @@ def surface_tendency(dg, q, aux, t):
                           td.soundspeed_air(ps, T)[:, None], Bs[:, 6:7]],
                          dim=1)
 
-    fstar = rusanov(with_thermo(Bf), with_thermo(BP), nrm, 5)
+    fstar = rusanov(with_thermo(Bf), with_thermo(BP), nrm, 5, subtract)
     if rem is not None:
         lin, ldir = rem
         gravity = isinstance(lin, AtmosAcousticGravityLinearModel)

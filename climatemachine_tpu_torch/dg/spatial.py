@@ -38,7 +38,6 @@ from climatemachine_tpu_torch.dg.ldg_kernel import (KERNELS as CHAIN_KERNELS,
                                                     chain_operators)
 from climatemachine_tpu_torch.dg.numerical_fluxes import RusanovNumericalFlux
 
-_RUSANOV = RusanovNumericalFlux()
 VOLUME_KERNELS = ("auto", "pallas", "xla")
 SURFACE_KERNELS = ("auto", "varmajor", "xla")
 LDG_KERNELS = ("auto", "pallas", "varmajor")
@@ -76,10 +75,12 @@ class DGModel:
     gradient-Laplacian state (DryBiharmonic hyperdiffusion), the hyper
     state and its second-order flux F₂; the weak volume divergence of the
     first-order flux (and F₂) along the direction's reference dims; the
-    Rusanov flux on the direction's faces with the balance law's
-    ``boundary_state`` as the wall ghost, lifted, and F₂'s interface term;
-    and ``source``.  ``remainder = (linear model, its direction)`` makes
-    this the fused full − linear operator of the IMEX step: the linear
+    numerical flux ``numerical_flux_first_order`` (``nf1``: Rusanov by
+    default, or Roe or HLLC) on the direction's faces with the balance
+    law's ``boundary_state`` as the wall ghost, lifted, and F₂'s
+    interface term; and ``source``.  ``remainder = (linear model, its
+    direction)`` makes this the fused full − linear operator of the
+    IMEX step: the linear
     flux, numerical flux and source are subtracted on the linear model's
     slots and faces.
 
@@ -93,8 +94,9 @@ class DGModel:
       chain stages (``chain_stages``: the CUDA kernels), "varmajor" the
       plain per-pass chain (dg/ldg_varmajor.py).
     - ``surface_kernel``: "auto" and "varmajor" take the var-major surface
-      pass (dg/fast_surface.py) for the AtmosModel in every direction;
-      "xla", and any other balance law, the generic node-gather pass.
+      pass (dg/fast_surface.py) for the AtmosModel in every direction
+      with the Rusanov flux; "xla", any other balance law and any other
+      flux, the generic node-gather pass.
 
     ``volume`` is the dry volume function (the kernel wrapper; chip_smoke.py
     passes its plain version)."""
@@ -108,11 +110,14 @@ class DGModel:
     ldg_kernel: str = "auto"
     volume: Callable = dry_volume_kernel.dry_volume_tendency
     chain_stages: tuple = CHAIN_KERNELS
+    numerical_flux_first_order: Optional[object] = None
     _cache: dict = field(default_factory=dict, init=False, repr=False,
                          compare=False)
 
     def __post_init__(self):
         bl = self.balance_law
+        self.nf1 = (self.numerical_flux_first_order
+                    or RusanovNumericalFlux())
         for name, allowed in (("volume_kernel", VOLUME_KERNELS),
                               ("surface_kernel", SURFACE_KERNELS),
                               ("ldg_kernel", LDG_KERNELS)):
@@ -131,6 +136,7 @@ class DGModel:
                              "does not cover this configuration")
         self.fast_surface = (
             self.surface_kernel != "xla" and isinstance(bl, AtmosModel)
+            and type(self.nf1) is RusanovNumericalFlux
             and self.direction == "every" and self.grid.face_perm_identity
             and all(bc.is_free_slip_wall()
                     for bc in bl.problem.boundary_conditions))
@@ -271,7 +277,8 @@ class DGModel:
     def _generic_surface(self, q, aux, t):
         """− M⁻¹ L (sM · f*) by node gathers: the face bundle (q, aux) at
         the direction's face nodes, its neighbour side, the balance law's
-        wall ghost and Rusanov flux, less the remainder's on its faces."""
+        wall ghost and numerical flux, less the remainder's on its
+        faces."""
         bl, g, ops = self.balance_law, self.grid, self.operators()
         n, Nfp = q.shape[1], g.Nfp_max
         BM = torch.cat([q, aux], dim=1)[:, :, ops["node"]]
@@ -283,7 +290,7 @@ class DGModel:
             mask = (ops["bctag"] == tag)[:, None, :]
             qP = torch.where(mask, qB, qP)
             auxP = torch.where(mask, auxB, auxP)
-        fstar = _RUSANOV(bl, nrm, qM, auxM, qP, auxP, t)
+        fstar = self.nf1(bl, nrm, qM, auxM, qP, auxP, t)
         if self.remainder is not None:
             lin, ldir = self.remainder
             pos = [ops["faces"].index(f)
@@ -292,7 +299,7 @@ class DGModel:
                 raise ValueError("the linear faces must be contiguous in "
                                  "the active face set")
             sl = slice(pos[0] * Nfp, (pos[-1] + 1) * Nfp)
-            fstar[:, :, sl] -= _RUSANOV(lin, nrm[:, :, sl], qM[:, :, sl],
+            fstar[:, :, sl] -= self.nf1(lin, nrm[:, :, sl], qM[:, :, sl],
                                         auxM[:, :, sl], qP[:, :, sl],
                                         auxP[:, :, sl], t)
         return fast_surface.lift(fstar, ops["sM"], ops["liftT"], g.MI)
@@ -300,9 +307,9 @@ class DGModel:
 
 def remainder_DGModel(dg_full: DGModel, dg_lin: DGModel) -> DGModel:
     """The fused full − linear operator: ``dg_full`` with the remainder
-    ``(dg_lin.balance_law, dg_lin.direction)``, its options kept; equal to
-    the two-call difference ``dg_full(q) − dg_lin(q)``, in one volume and
-    one face pass."""
+    ``(dg_lin.balance_law, dg_lin.direction)``, its options (the numerical
+    flux among them) kept; equal to the two-call difference ``dg_full(q)
+    − dg_lin(q)``, in one volume and one face pass."""
     return replace(dg_full,
                    remainder=(dg_lin.balance_law, dg_lin.direction))
 

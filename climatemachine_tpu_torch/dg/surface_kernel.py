@@ -14,6 +14,7 @@ body ``_k_extract`` :38-72, and ``fused_surface_lift_vm`` :216, body
   scaling, the lift and −MI: the surface tendency ``[E, nq, Np]``.
 
 Bundle lanes (the lane contract of dg/fast_rhs.py): q (nq), p, c, aux (na:
+none without a reference pressure to take out and no remainder, else
 p_ref, then for a fused remainder φ, the linear energy coefficient and the
 linear sound speed), then with hyperdiffusion the nq n·F₂ trace lanes.
 The neighbour gather between the two kernels stays plain PyTorch
@@ -24,14 +25,16 @@ bodies' arithmetic, in their order, with the dense extraction matrix
 ``lift [Np, X]`` and its transpose); any other tensor takes the kernel
 (csrc/surface_vm.cu) or raises.  The kernels take the 0/1 extraction
 matrix as the index tables of :func:`face_tables` instead of multiplying
-by it, and cover what the Held-Suarez step, the moist baroclinic wave
-and their fused remainders run: float32, ``nq=5`` or ``nq=6``
-(EquilMoist), ``subtract=True``, with (``ngl = nq − 1``) or without
-hyperdiffusion; ``na=1`` without a remainder, and for a remainder
-``na=4`` with ``rem_lanes = (nq+3, nq+4, nq+5)`` and any face-lane range
-``[sl_lo, sl_hi)`` ("vertical": faces 4-5; "every": all).  Each wrapper
-counts its launches in ``.launches``.  The plain versions cover the whole
-signature.
+by it, and cover what the Held-Suarez step, the moist baroclinic wave,
+their fused remainders and the isentropic vortex run: float32, ``nq=5``
+or ``nq=6`` (EquilMoist), with (``ngl = nq − 1``) or without
+hyperdiffusion; the bundles of dg/fast_rhs.py: ``na=0`` (nothing reads
+p_ref: a reference state that does not subtract, no remainder), ``na=1``
+(p_ref, ``subtract=True`` with ``i_pref = nq+2``) and, for a remainder,
+``na=4`` with ``rem_lanes = (nq+3, nq+4, nq+5)``, with and without
+``subtract``, and any face-lane range ``[sl_lo, sl_hi)`` within the
+faces ("vertical": faces 4-5; "every": all).  Each wrapper counts its launches
+in ``.launches``.  The plain versions cover the whole signature.
 """
 
 from __future__ import annotations
@@ -186,7 +189,7 @@ def _library():
     f32 = ctypes.c_float
     lib.extract_trace_vm_f32.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
     lib.surface_lift_vm_f32.argtypes = ([ptr] * 6 + [i32] + [ptr] * 2
-                                        + [i32] * 8 + [f32] * 2 + [ptr])
+                                        + [i32] * 9 + [f32] * 2 + [ptr])
     for fn in ("extract_trace_vm_f32", "surface_lift_vm_f32"):
         getattr(lib, fn).restype = ctypes.c_int
     lib.surface_vm_error_string.argtypes = [i32]
@@ -231,26 +234,28 @@ def extract_trace_vm(qv, p, c_s, aux4, gl2k, nu, lift, nrm, *, nq: int,
     if qv.device.type == "cpu":
         return extract_trace_plain(qv, p, c_s, aux4, gl2k, nu, lift, nrm,
                                    nq=nq, na=na, ngl=ngl, has_hyper=has_hyper)
-    if nq not in (5, 6) or na not in (1, 4) or (has_hyper
-                                                 and ngl != nq - 1):
+    if nq not in (5, 6) or na not in (0, 1, 4) or (has_hyper
+                                                    and ngl != nq - 1):
         raise NotImplementedError(
-            "the CUDA extract_trace_vm kernel covers nq=5 or 6, na=1 or 4 "
-            f"and, with has_hyper, ngl=nq-1 (got nq={nq}, na={na}, "
-            f"ngl={ngl}, has_hyper={has_hyper})")
+            "the CUDA extract_trace_vm kernel covers nq=5 or 6, the "
+            "bundles' na=0, 1 or 4 and, with has_hyper, ngl=nq-1 (got "
+            f"nq={nq}, na={na}, ngl={ngl}, has_hyper={has_hyper})")
     E, _, Np = qv.shape
     X = lift.shape[1]
     shapes = dict(qv=(qv, (E, nq, Np)), p=(p, (E, Np)), c_s=(c_s, (E, Np)),
-                  aux4=(aux4, (E, na, Np)), lift=(lift, (Np, X)),
-                  nrm=(nrm, (E, 3, X)))
+                  lift=(lift, (Np, X)), nrm=(nrm, (E, 3, X)))
+    if na:
+        shapes["aux4"] = (aux4, (E, na, Np))
     if has_hyper:
         shapes.update(gl2k=(gl2k, (E, 3 * ngl, Np)), nu=(nu, (E, 2, Np)))
     _check_tensors("extract_trace_vm", qv, max(Np, X), **shapes)
     sel_idx, _ = face_tables(lift, transposed=False)
     out = torch.empty((E, nq + 2 + na + nq * has_hyper, X), dtype=qv.dtype,
                       device=qv.device)
-    _launch("extract_trace_vm", "extract_trace_vm_f32", qv, p, c_s, aux4,
-            gl2k if has_hyper else None, nu if has_hyper else None, sel_idx,
-            nrm, out, E, Np, X, nq, na, int(has_hyper))
+    _launch("extract_trace_vm", "extract_trace_vm_f32", qv, p, c_s,
+            aux4 if na else None, gl2k if has_hyper else None,
+            nu if has_hyper else None, sel_idx, nrm, out, E, Np, X, nq, na,
+            int(has_hyper))
     extract_trace_vm.launches += 1
     return out
 
@@ -269,18 +274,19 @@ def fused_surface_lift_vm(Bf, BP, nrm, sM, bmask, liftT, MI, *, nq: int,
             rem_lanes=rem_lanes, sl_lo=sl_lo, sl_hi=sl_hi, R_d_T0=R_d_T0,
             R_over_cv=R_over_cv)
     rem_lanes = tuple(rem_lanes)
-    na = 4 if rem_lanes else 1
-    want_nvb = nq + 2 + na + nq * has_hyper
-    if nq not in (5, 6) or nvb != want_nvb or not subtract \
-            or i_pref != nq + 2 or rem_lanes not in (
+    # the bundles of dg/fast_rhs.py: p_ref (lane nq + 2) where it
+    # subtracts, and a remainder's p_ref, φ, coefficient and sound speed
+    na = 4 if rem_lanes else 1 if subtract else 0
+    if nq not in (5, 6) or nvb != nq + 2 + na + nq * has_hyper \
+            or (subtract and i_pref != nq + 2) or rem_lanes not in (
                 (), (nq + 3, nq + 4, nq + 5)):
         raise NotImplementedError(
-            "the CUDA fused_surface_lift_vm kernel covers nq=5 or 6, "
-            "subtract=True with i_pref=nq+2, and rem_lanes=() with nvb=nq+3 "
-            "or rem_lanes=(nq+3, nq+4, nq+5) with nvb=nq+6 (nq more with "
-            f"has_hyper) (got nq={nq}, nvb={nvb}, subtract={subtract}, "
-            f"i_pref={i_pref}, has_hyper={has_hyper}, "
-            f"rem_lanes={rem_lanes})")
+            "the CUDA fused_surface_lift_vm kernel covers nq=5 or 6, p_ref "
+            "at i_pref=nq+2 with subtract=True, and the bundles nvb=nq+2 "
+            "(subtract=False), nq+3 (subtract=True) or, with rem_lanes=("
+            "nq+3, nq+4, nq+5), nq+6 (nq more with has_hyper) (got "
+            f"nq={nq}, nvb={nvb}, subtract={subtract}, i_pref={i_pref}, "
+            f"has_hyper={has_hyper}, rem_lanes={rem_lanes})")
     E, _, X = Bf.shape
     Np = liftT.shape[1]
     if rem_lanes and not 0 <= sl_lo <= sl_hi <= X:
@@ -295,7 +301,7 @@ def fused_surface_lift_vm(Bf, BP, nrm, sM, bmask, liftT, MI, *, nq: int,
     out = torch.empty((E, nq, Np), dtype=Bf.dtype, device=Bf.device)
     _launch("fused_surface_lift_vm", "surface_lift_vm_f32", Bf, BP, nrm, sM,
             bmask, lift_idx, lift_idx.shape[1], MI, out, E, Np, X, nq, na,
-            int(has_hyper), sl_lo if rem_lanes else 0,
+            int(has_hyper), int(subtract), sl_lo if rem_lanes else 0,
             sl_hi if rem_lanes else 0, R_d_T0, R_over_cv)
     fused_surface_lift_vm.launches += 1
     return out

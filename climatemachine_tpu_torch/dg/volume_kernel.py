@@ -6,19 +6,22 @@ and its plain PyTorch version (port of
     out[e, v, :] = MI · Wdiv · concat_a(M · Σ_i ξ[a, i] · F_i[v])
 
 F is the Euler flux from the state and the precomputed pressure (with
-the reference pressure taken out of the momentum flux), optionally plus
+the reference pressure taken out of the momentum flux where
+``subtract_ref``), optionally plus
 the hyperdiffusive flux F₂ and minus the linear acoustic(-gravity) flux
 on ``lin_dims``.
 
 Dispatch is by device: a CPU tensor takes :func:`volume_tendency_plain`;
 any other tensor takes the kernel (csrc/volume_vm.cu) or raises.  The
 kernel covers what the Held-Suarez step, the moist baroclinic wave and
-their fused remainders run: float32, ``nq=5`` (dry) or ``nq=6``
-(EquilMoist, ρq_tot advected), ``subtract_ref=True``, with or without the
-F₂ of DryBiharmonic (``ngl=4``) or EquilMoistBiharmonic (``ngl=5``, with
-ν₄_q): ``ngl = nq − 1``; ``lin_dims`` () or, for a remainder in
-"vertical" or "every", (2,) or (0, 1, 2), with or without
-``lin_gravity``.  The plain version covers the whole signature.
+their fused remainders and the isentropic vortex run: float32, ``nq=5``
+(dry) or ``nq=6`` (EquilMoist, ρq_tot advected), with and without
+``subtract_ref``, with or without the F₂ of DryBiharmonic (``ngl=4``) or
+EquilMoistBiharmonic (``ngl=5``, with ν₄_q): ``ngl = nq − 1``;
+``lin_dims`` () or, for a remainder in "vertical", "horizontal" or
+"every", (2,), (0, 1) or (0, 1, 2), with or without ``lin_gravity``.  It
+refuses ``ngl ≠ nq − 1`` and a ``lin_dims`` no direction yields.  The
+plain version covers the whole signature.
 
 The kernel is compiled at first use (cuda_build.py) and called through
 ctypes on PyTorch's current stream.  It is sum-factorised: it reads
@@ -119,9 +122,10 @@ def volume_tendency_plain(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
     return MI[:, None, :] * torch.matmul(mf, Wdiv.T)
 
 
-#: the ``lin_dims`` the var-major kernel is built for: none, and a
-#: remainder in "vertical" or "every"
-KERNEL_LIN_DIMS = ((), (2,), (0, 1, 2))
+#: the ``lin_dims`` the kernels are built for: none, and the dims of a
+#: remainder in "vertical", "horizontal" or "every" (no direction yields
+#: another set)
+KERNEL_LIN_DIMS = ((), (2,), (0, 1), (0, 1, 2))
 
 
 def lin_mask(lin_dims) -> int:
@@ -133,10 +137,10 @@ def lin_mask(lin_dims) -> int:
 def _library():
     lib = cuda_build.load("volume_vm")
     lib.volume_vm_f32.argtypes = [ctypes.c_void_p] * 12 + [
-        ctypes.c_int] * 9 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+        ctypes.c_int] * 10 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
     lib.volume_vm_f32.restype = ctypes.c_int
     lib.dry_volume_f32.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_int] * 7 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+        ctypes.c_int] * 8 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
     lib.dry_volume_f32.restype = ctypes.c_int
     lib.volume_vm_error_string.argtypes = [ctypes.c_int]
     lib.volume_vm_error_string.restype = ctypes.c_char_p
@@ -158,14 +162,15 @@ def launch(fn_name: str, ref, *args):
 def _check_kernel_args(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI, Wdiv,
                        nq, ngl, subtract_ref, has_f2, lin_dims):
     if nq not in (5, 6) or (has_f2 and ngl != nq - 1) \
-            or tuple(lin_dims) not in KERNEL_LIN_DIMS or not subtract_ref:
+            or tuple(lin_dims) not in KERNEL_LIN_DIMS:
         raise NotImplementedError(
-            "the CUDA volume kernel covers nq=5 or 6, subtract_ref=True, "
-            f"lin_dims in {KERNEL_LIN_DIMS} and has_f2 with ngl=nq-1 (got "
-            f"nq={nq}, subtract_ref={subtract_ref}, has_f2={has_f2}, "
-            f"ngl={ngl}, lin_dims={lin_dims})")
+            "the CUDA volume kernel covers nq=5 or 6, lin_dims in "
+            f"{KERNEL_LIN_DIMS} and has_f2 with ngl=nq-1 (got nq={nq}, "
+            f"has_f2={has_f2}, ngl={ngl}, lin_dims={lin_dims})")
     E, _, Np = qv.shape
-    shapes = {"p": (p, (E, Np)), "p_ref": (p_ref, (E, Np))}
+    shapes = {"p": (p, (E, Np))}
+    if subtract_ref:
+        shapes["p_ref"] = (p_ref, (E, Np))
     if has_f2:
         shapes.update(gl2=(gl2, (E, 3 * ngl, Np)), nu=(nu, (E, 2, Np)))
     if lin_dims:
@@ -204,7 +209,8 @@ def fused_volume_tendency_vm(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
                              lin_gravity: bool = True):
     """Var-major volume tendency ``[E, nq, Np]``: qv ``[E, nq, Np]``,
     p/phi/p_ref/M/MI ``[E, Np]``, ref3 ``[E, 3, Np]`` (ref ρe, ρ, p; phi
-    and ref3 read only with ``lin_dims``), gl2 ``[E, 3·ngl, Np]`` with nu
+    and ref3 read only with ``lin_dims``, p_ref only with
+    ``subtract_ref``), gl2 ``[E, 3·ngl, Np]`` with nu
     ``[E, 2, Np]`` (ν₄, ν₄_q), xiv ``[E, 9, Np]`` (ξ_a,ᵢ at 3a+i), Wdiv
     ``[Np, 3Np]``.
 
@@ -222,12 +228,14 @@ def fused_volume_tendency_vm(qv, p, phi, p_ref, ref3, gl2, nu, xiv, M, MI,
     lines = wdiv_lines(Wdiv)
     out = torch.empty_like(qv)
     launch("volume_vm_f32", qv, qv.data_ptr(), p.data_ptr(),
-           phi.data_ptr() if lin_dims else None, p_ref.data_ptr(),
+           phi.data_ptr() if lin_dims else None,
+           p_ref.data_ptr() if subtract_ref else None,
            ref3.data_ptr() if lin_dims else None, xiv.data_ptr(),
            M.data_ptr(), MI.data_ptr(), gl2.data_ptr() if has_f2 else None,
            nu.data_ptr() if has_f2 else None, lines.values.data_ptr(),
            out.data_ptr(), E, Np, nq, int(has_f2), lin_mask(lin_dims),
-           int(lin_gravity), *lines.strides, R_d, T_0, R_d / cv_d)
+           int(lin_gravity), int(subtract_ref), *lines.strides, R_d, T_0,
+           R_d / cv_d)
     fused_volume_tendency_vm.launches += 1
     return out
 

@@ -6,13 +6,16 @@
 ``ExplicitSolverType().make(dg, q0, aux0, dt)`` builds LSRK54;
 ``IMEXSolverType().make(dg, q0, aux0, dt)`` builds the HEVI IMEX step:
 ARK2GiraldoKellyConstantinescu whose implicit part is a column solver
-over the vertical ``AtmosAcousticGravityLinearModel``.  ``state_layout``
-picks the right-hand side: "auto"/"vm" the var-major RHS
-(dg/fast_rhs.py ``VarMajorRHS``), "grid" the generic DG operator ``dg``
-itself (the JAX package's node-major layout; the port keeps its state
-var-major in both).  ``columnwise_solver="dense"`` takes the dense
-``ManyColumnSolver`` and the ARK step's grid-layout loop on the fused
-remainder ``remainder_DGModel(dg, dg_lin)``, whatever the layout.
+over the vertical ``AtmosAcousticGravityLinearModel`` (its DGModel with
+``dg``'s numerical flux).  ``state_layout`` picks the right-hand side:
+"vm" the var-major RHS (dg/fast_rhs.py ``VarMajorRHS``), "grid" the
+generic DG operator ``dg`` itself (the JAX package's node-major layout;
+the port keeps its state var-major in both), "auto" the var-major RHS
+where ``fast_rhs.supports(dg)`` holds (the Rusanov flux among its
+conditions) and the generic operator otherwise (a Roe or HLLC flux).
+``columnwise_solver="dense"`` takes the dense ``ManyColumnSolver`` and
+the ARK step's grid-layout loop on the fused remainder
+``remainder_DGModel(dg, dg_lin)``, whatever the layout.
 State and aux are var-major ``[E, n, Np]``; the caller sets
 ``post_step`` (the Held-Suarez filter) on the solver made.  A moist
 model (EquilMoist) runs the var-major RHS with its aux lanes written on
@@ -32,7 +35,7 @@ import torch
 
 from climatemachine_tpu_torch.atmos.linear import \
     AtmosAcousticGravityLinearModel
-from climatemachine_tpu_torch.dg.fast_rhs import VarMajorRHS
+from climatemachine_tpu_torch.dg import fast_rhs
 from climatemachine_tpu_torch.dg.spatial import DGModel, remainder_DGModel
 from climatemachine_tpu_torch.ode.ark import ARK2GiraldoKellyConstantinescu
 from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
@@ -55,29 +58,40 @@ def _refuse_unported(dg, state_layout: str, generic: bool):
             "next slice: the generic DG operator on a moist model")
 
 
-def _var_major_rhs(dg) -> VarMajorRHS:
+def _var_major_rhs(dg) -> fast_rhs.VarMajorRHS:
     """The var-major RHS, its dry aux lanes deferred to ``export_aux``
     (a moist model writes its lanes on every call)."""
-    return VarMajorRHS(dg, write_aux=dg.balance_law.moist)
+    return fast_rhs.VarMajorRHS(dg, write_aux=dg.balance_law.moist)
+
+
+def _generic(dg, state_layout: str) -> bool:
+    """Whether the explicit part runs on the generic DG operator: with
+    "grid", and with "auto" where the var-major RHS does not take ``dg``
+    (as the JAX package chooses, solver_types.py:33-51); "vm" where it
+    does not raises."""
+    if state_layout == "vm" and not fast_rhs.supports(dg):
+        raise ValueError("state_layout='vm' requested but the var-major "
+                         "RHS does not take this configuration")
+    return state_layout == "grid" or (state_layout == "auto"
+                                      and not fast_rhs.supports(dg))
 
 
 @dataclass
 class ExplicitSolverType:
-    """Explicit time stepping.  With ``state_layout`` "auto" or "vm",
-    on the var-major RHS: ``solver.vm`` is that RHS (:class:`VarMajorRHS`,
-    built with ``write_aux=False``: call ``solver.vm.export_aux`` when aux
-    leaves the loop; with a moist model ``write_aux=True``).  With
-    "grid", on ``dg`` itself, with ``dg.pre_stage``
-    before each stage; ``solver.vm`` is None.  In the JAX package "auto"
-    falls back to the generic DG operator for a configuration the
-    var-major RHS does not take; here VarMajorRHS raises for it."""
+    """Explicit time stepping.  On the var-major RHS (``state_layout``
+    "vm", or "auto" where ``fast_rhs.supports(dg)``): ``solver.vm`` is
+    that RHS (:class:`VarMajorRHS`, built with ``write_aux=False``: call
+    ``solver.vm.export_aux`` when aux leaves the loop; with a moist model
+    ``write_aux=True``).  On ``dg`` itself ("grid", or "auto" where the
+    var-major RHS does not take it, e.g. with a Roe or HLLC flux), with
+    ``dg.pre_stage`` before each stage; ``solver.vm`` is None."""
     solver_method: Callable = LSRK54CarpenterKennedy
     state_layout: str = "auto"
 
     def make(self, dg: DGModel, q0, aux0, dt: float):
-        _refuse_unported(dg, self.state_layout,
-                         generic=self.state_layout == "grid")
-        if self.state_layout == "grid":
+        generic = _generic(dg, self.state_layout)
+        _refuse_unported(dg, self.state_layout, generic=generic)
+        if generic:
             solver = self.solver_method(dg, dt, pre_stage=dg.pre_stage)
             solver.vm = None
             return solver
@@ -93,8 +107,10 @@ class IMEXSolverType:
     ``implicit_model(atmos)``, solved columnwise; the explicit part is
     the full RHS with the linear split absorbed into the stage algebra
     (the banded solver's block loop: ``rhs_full`` is the var-major RHS, or
-    ``dg`` with ``state_layout="grid"``), or the fused remainder
-    ``dg − dg_lin`` (the dense solver's grid-layout loop).
+    ``dg`` with ``state_layout="grid"`` or with "auto" where the var-major
+    RHS does not take it), or the fused remainder ``dg − dg_lin`` (the
+    dense solver's grid-layout loop); ``dg_lin`` has ``dg``'s numerical
+    flux.
 
     ``check_frozen_operator``: at set-up, refuse a linear operator that
     changes with aux or t (the factorization freezes it at (aux0, 0))."""
@@ -105,8 +121,9 @@ class IMEXSolverType:
     state_layout: str = "auto"
 
     def make(self, dg: DGModel, q0, aux0, dt: float):
-        _refuse_unported(dg, self.state_layout, generic=(
-            self.state_layout == "grid" or self.columnwise_solver == "dense"))
+        dense = self.columnwise_solver == "dense"
+        generic = dense or _generic(dg, self.state_layout)
+        _refuse_unported(dg, self.state_layout, generic=generic)
         solver_cls = {"banded": BlockTridiagColumnSolver,
                       "dense": ManyColumnSolver}.get(self.columnwise_solver)
         if solver_cls is None:
@@ -114,7 +131,8 @@ class IMEXSolverType:
                              f"got {self.columnwise_solver!r}")
         atmos, grid = dg.balance_law, dg.grid
         dg_lin = DGModel(self.implicit_model(atmos), grid,
-                         direction="vertical", update_aux=False)
+                         direction="vertical", update_aux=False,
+                         numerical_flux_first_order=dg.nf1)
 
         if self.check_frozen_operator:
             f0, _ = dg_lin(q0, aux0, 0.0)
@@ -135,11 +153,11 @@ class IMEXSolverType:
         def rhs_im(q, aux, t):
             return dg_lin(q, aux, t)[0], aux
 
-        if self.columnwise_solver == "dense":
+        if dense:
             solver = self.solver_method(remainder_DGModel(dg, dg_lin),
                                         rhs_im, col_solver, dt)
             solver.vm = None
-        elif self.state_layout == "grid":
+        elif generic:
             solver = self.solver_method(None, rhs_im, col_solver, dt,
                                         rhs_full=dg)
             solver.vm = None
@@ -176,7 +194,8 @@ class MultirateSolverType:
     def make(self, dg: DGModel, q0, aux0, dt: float):
         _refuse_unported(dg, "grid", generic=True)
         dg_fast = DGModel(self.fast_model(dg.balance_law), dg.grid,
-                          direction=dg.direction, update_aux=False)
+                          direction=dg.direction, update_aux=False,
+                          numerical_flux_first_order=dg.nf1)
         slow = self.slow_method(remainder_DGModel(dg, dg_fast), dt)
         fast = self.fast_method(dg_fast, dt / self.timestep_ratio)
         solver = MultirateRungeKutta(slow, fast, dt=dt)

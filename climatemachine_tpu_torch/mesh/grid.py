@@ -1,6 +1,8 @@
 """Discontinuous spectral-element grid on the device (port of
 ``climatemachine_tpu/mesh/grid.py``: make_grid :144, min_node_distance
-:333, the stack metadata n_horz/n_vert :132-133).
+:333, the stack metadata n_horz/n_vert :132-133), on a stacked cubed
+sphere or a brick (periodic faces are interior faces whose neighbour
+wraps around).
 
 The geometry is built once in numpy float64 on the host and uploaded in
 the run dtype, as the JAX package does.  The grid carries what the
@@ -103,9 +105,10 @@ def make_grid(topology: Topology, polyorder: int,
     Np = int(np.prod(Nq))
 
     coords = metrics.nodal_coordinates(topology.elem_to_coord, xi, 3)
-    x1, x2, x3 = topology.meshwarp(coords[..., 0], coords[..., 1],
-                                   coords[..., 2])
-    geo = metrics.geometry_3d(np.stack([x1, x2, x3], axis=-1), D, w)
+    if topology.meshwarp is not None:
+        coords = np.stack(topology.meshwarp(
+            coords[..., 0], coords[..., 1], coords[..., 2]), axis=-1)
+    geo = metrics.geometry_3d(coords, D, w)
 
     Nfp = geo["Nfp"]
     Nfp_max = max(Nfp)

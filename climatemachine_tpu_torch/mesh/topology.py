@@ -1,20 +1,22 @@
-"""Stacked cubed-sphere topology (port of
-``climatemachine_tpu/mesh/topology.py``: stacked_cubed_sphere_topology
-:508, cubed_shell_vertices :290, the equiangular warp :327 and the numpy
-face matcher of connect_from_vertices :110-161).
+"""Brick and stacked cubed-sphere topologies (port of
+``climatemachine_tpu/mesh/topology.py``: brick_topology :164-219,
+stacked_cubed_sphere_topology :508, cubed_shell_vertices :290, the
+equiangular warp :327 and the numpy face matcher of
+connect_from_vertices :110-161).
 
-Host-side numpy.  Elements are ordered column-major,
-``e = eh * n_vert + ev``, and the topology carries the stack's
-``n_horz`` (horizontal elements, 6·n²) and ``n_vert``.  Face
-``f = 2*d + s`` is the reference face with ``xi_d = -1`` (s=0) or
-``+1`` (s=1); xi3 is radial, so faces 4/5 are bottom/top, with boundary
-tags 1 and 2.
+Host-side numpy.  Face ``f = 2*d + s`` is the reference face with
+``xi_d = -1`` (s=0) or ``+1`` (s=1).  The stacked cubed sphere orders
+its elements column-major, ``e = eh * n_vert + ev``, and carries the
+stack's ``n_horz`` (horizontal elements, 6·n²) and ``n_vert``; xi3 is
+radial, so faces 4/5 are bottom/top, with boundary tags 1 and 2.  The
+3-D brick orders its elements dim 0 fastest, is not stacked (``n_horz``
+and ``n_vert`` are None) and has identity face orientations.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
@@ -35,9 +37,9 @@ class Topology:
     face_neighbor_face: np.ndarray  # [E, 6] face id on the neighbour
     face_orient: np.ndarray         # [E, 6] orientation code
     face_bctag: np.ndarray          # [E, 6] 0 = interior, >= 1 = boundary tag
-    meshwarp: Callable              # nodal warp (x1, x2, x3) -> (x1, x2, x3)
-    n_horz: int                     # horizontal elements of the stack
-    n_vert: int                     # vertical elements of the stack
+    meshwarp: Optional[Callable] = None   # nodal warp (x1, x2, x3) -> same
+    n_horz: Optional[int] = None    # horizontal elements of a stack
+    n_vert: Optional[int] = None    # vertical elements of a stack
 
 
 def _orient_code_edge(my_corners, nb_corners) -> int:
@@ -183,3 +185,45 @@ def stacked_cubed_sphere_topology(n_horz: int,
     return Topology(elem_to_coord, neighbor, neighbor_face, orient, bctag,
                     meshwarp=equiangular_cubed_sphere_warp, n_horz=Eh,
                     n_vert=n_vert)
+
+
+def brick_topology(ranges: Sequence[np.ndarray],
+                   periodicity: Optional[Sequence[bool]] = None) -> Topology:
+    """3-D Cartesian brick of hexahedra: ``ranges`` holds each dimension's
+    element interface coordinates (nelem_d + 1 of them, possibly
+    stretched), ``periodicity`` which dimensions wrap around (default
+    none); every side that does not wrap has boundary tag 1.  Elements
+    dim 0 fastest, ``e = ix + nx·(iy + ny·iz)``; every face orientation
+    is the identity; no warp."""
+    if len(ranges) != 3:
+        raise ValueError(f"brick_topology builds 3-D bricks, got "
+                         f"{len(ranges)} ranges")
+    periodicity = (tuple(periodicity) if periodicity is not None
+                   else (False,) * 3)
+    nel = [len(r) - 1 for r in ranges]
+    E = int(np.prod(nel))
+    idx = np.stack(np.unravel_index(np.arange(E), nel[::-1])[::-1],
+                   axis=1)                             # [E, 3] (ix, iy, iz)
+    stride = np.array([1, nel[0], nel[0] * nel[1]])
+    elem_to_coord = np.zeros((E, 8, 3))
+    for c in range(8):
+        for d in range(3):
+            elem_to_coord[:, c, d] = np.asarray(ranges[d])[
+                idx[:, d] + ((c >> d) & 1)]
+    e = np.arange(E)
+    neighbor = np.zeros((E, 6), dtype=np.int64)
+    neighbor_face = np.zeros((E, 6), dtype=np.int64)
+    bctag = np.zeros((E, 6), dtype=np.int32)
+    for d in range(3):
+        for s in (0, 1):
+            f = 2 * d + s
+            nidx = idx[:, d] + (1 if s else -1)
+            inside = (nidx >= 0) & (nidx < nel[d])
+            wrap = ~inside & periodicity[d]
+            nbr = e + (np.mod(nidx, nel[d]) - idx[:, d]) * stride[d]
+            joined = inside | wrap
+            neighbor[:, f] = np.where(joined, nbr, e)
+            neighbor_face[:, f] = np.where(joined, 2 * d + (1 - s), f)
+            bctag[:, f] = np.where(joined, 0, 1)
+    return Topology(elem_to_coord, neighbor, neighbor_face,
+                    np.zeros((E, 6), dtype=np.int32), bctag)

@@ -264,11 +264,13 @@ def _meta(*shape):
     return torch.empty(shape, dtype=torch.float32, device="meta")
 
 
-#: (wrapper, keyword arguments) the CUDA kernels do not cover
+#: (wrapper, keyword arguments) the CUDA kernels do not cover (a remainder
+#: in "horizontal", lin_dims (0, 1), is covered; (1, 2) no direction
+#: yields)
 STILL_REFUSED = {
     "volume_nq7": ("volume", dict(nq=7, ngl=6, has_f2=True)),
     "volume_moist_lin_dims": ("volume", dict(nq=6, ngl=5, has_f2=True,
-                                             lin_dims=(0, 1))),
+                                             lin_dims=(1, 2))),
     "volume_moist_ngl4": ("volume", dict(nq=6, ngl=4, has_f2=True)),
     "extract_nq7": ("extract", dict(nq=7, ngl=6)),
     "extract_moist_ngl4": ("extract", dict(nq=6, ngl=4)),

@@ -77,12 +77,27 @@ def _dry_meta_args(E=8, Np=64):
             t(E, Np), t(E, Np), t(Np, 3 * Np))
 
 
-#: (kernel wrapper, flags it does not cover); the moist width nq=6 is
-#: covered with ngl=5 only, a remainder in "horizontal" by the dry kernel
-#: only, and no remainder without the reference pressure subtracted
+#: (kernel wrapper, flags it does not cover), none of them a branch of the
+#: Pallas kernels: the hyperdiffusive flux F₂ of nq variables has nq − 1
+#: chain variables (ngl ≠ nq − 1 is not a model's), and a remainder's
+#: lin_dims are those of "vertical", "horizontal" or "every" (no direction
+#: yields (1, 2), (0,) or (1,)); the kernels are built for the widths of
+#: the port's models, nq = 5 and 6
 UNSUPPORTED = {
     "nq6": ("volume", dict(nq=6, has_f2=True, ngl=4)),
     "has_f2": ("volume", dict(has_f2=True, ngl=5)),
+    "nq7": ("volume", dict(nq=7)),
+    "lin_slots": ("volume", dict(lin_dims=(1, 2))),
+    "lin_x": ("volume", dict(lin_dims=(0,), subtract_ref=False)),
+    "dry_lin_slots": ("dry", dict(lin_dims=(1, 2))),
+    "dry_lin_y": ("dry", dict(lin_dims=(1,), subtract_ref=False)),
+}
+
+#: the branches each wrapper takes to its kernel: the remainders, and with
+#: subtract_ref=False (a NoReferenceState, or a HydrostaticState that does
+#: not subtract) with and without them; the var-major kernel's "horizontal"
+#: lin_dims (0, 1) too
+REMAINDER_BRANCHES = {
     "lin_dims": ("volume", dict(lin_dims=(0, 1))),
     "no_subtract": ("volume", dict(subtract_ref=False)),
     "lin_every_no_subtract": ("volume", dict(lin_dims=(0, 1, 2),
@@ -93,12 +108,7 @@ UNSUPPORTED = {
     "dry_lin_acoustic": ("dry", dict(lin_dims=(2,), lin_gravity=False,
                                      subtract_ref=False)),
     "dry_lin_horizontal": ("dry", dict(lin_dims=(0, 1), subtract_ref=False)),
-    "dry_lin_slots": ("dry", dict(lin_dims=(1, 2))),
     "dry_no_subtract": ("dry", dict(subtract_ref=False)),
-}
-
-#: the remainder branches each wrapper now takes to its kernel
-REMAINDER_BRANCHES = {
     "vertical": ("volume", dict(lin_dims=(2,))),
     "vertical_acoustic": ("volume", dict(lin_dims=(2,), lin_gravity=False)),
     "every": ("volume", dict(lin_dims=(0, 1, 2))),
@@ -160,25 +170,28 @@ def _meta(*shape):
 
 
 #: the surface kernels' remainder calls (nq, hyperdiffusion, linear face
-#: lanes of 96) and what they still refuse
+#: lanes of 96): the remainder without the reference pressure taken out
+#: reaches the kernel; linear lanes other than those of dg/fast_rhs.py's
+#: bundle (nq+3, nq+4, nq+5) and a face range past the faces are refused
 SURFACE_REMAINDER = {
     "vertical_hyper": (dict(nq=5, has_hyper=True), (64, 96), None),
     "every_moist": (dict(nq=6, has_hyper=False), (0, 96), None),
     "no_subtract": (dict(nq=5, has_hyper=True, subtract=False), (0, 96),
-                    NotImplementedError),
+                    None),
     "other_lanes": (dict(nq=5, has_hyper=True, rem_lanes=(5, 6, 7)),
                     (0, 96), NotImplementedError),
     "lanes_past_faces": (dict(nq=5, has_hyper=False), (64, 128),
                          ValueError),
 }
+REFUSAL = {"other_lanes": "covers", "lanes_past_faces": "not within"}
 
 
 @pytest.mark.parametrize("case", list(SURFACE_REMAINDER))
 def test_surface_remainder_wrappers(case):
     """The extraction at na = 4 and the flux + lift with ``rem_lanes``
-    reach the kernel path, which refuses a non-CUDA tensor; a remainder
-    without the reference pressure subtracted, other lanes and a face
-    range past the faces are refused first.  No launch is counted."""
+    reach the kernel path, which refuses a non-CUDA tensor, with and
+    without ``subtract``; other linear lanes and a face range past the
+    faces are refused first.  No launch is counted."""
     flags, (lo, hi), refused = SURFACE_REMAINDER[case]
     nq, hyper = flags["nq"], flags["has_hyper"]
     E, Np, X = 8, 64, 96
@@ -188,7 +201,7 @@ def test_surface_remainder_wrappers(case):
               rem_lanes=(nq + 3, nq + 4, nq + 5), sl_lo=lo, sl_hi=hi,
               R_d_T0=EARTH.R_d * EARTH.T_0, R_over_cv=EARTH.R_d / EARTH.cv_d)
     kw.update(flags)
-    match = {None: "CUDA tensors", ValueError: "not within"}.get(refused)
+    match = REFUSAL.get(case, "CUDA tensors")
     with pytest.raises(refused or ValueError, match=match):
         surface_kernel.fused_surface_lift_vm(
             _meta(E, nvb, X), _meta(E, nvb, X), _meta(E, 3, X),
@@ -200,6 +213,56 @@ def test_surface_remainder_wrappers(case):
                 _meta(E, 4, Np), _meta(E, 3 * (nq - 1), Np),
                 _meta(E, 2, Np), _meta(Np, X), _meta(E, 3, X), nq=nq, na=4,
                 ngl=nq - 1, has_hyper=hyper)
+    assert [k.launches for k in surface_kernel.KERNELS] == before
+
+
+#: the surface kernels' calls without a remainder: the vortex's bundle
+#: (na = 0, subtract=False: no p_ref lane), the Held-Suarez one (na = 1),
+#: and what stays refused: an aux width no bundle has, ngl ≠ nq − 1, p_ref
+#: from another lane than nq + 2
+SURFACE_BUNDLES = {
+    "na0": (dict(nq=5, na=0, has_hyper=False), None),
+    "na0_hyper_moist": (dict(nq=6, na=0, has_hyper=True), None),
+    "na1": (dict(nq=5, na=1, has_hyper=False), None),
+    "na2": (dict(nq=5, na=2, has_hyper=False), NotImplementedError),
+    "ngl": (dict(nq=6, na=0, has_hyper=True, ngl=4), NotImplementedError),
+    "pref_other_lane": (dict(nq=5, na=1, has_hyper=False, subtract=True,
+                             i_pref=5), NotImplementedError),
+}
+
+
+@pytest.mark.parametrize("case", list(SURFACE_BUNDLES))
+def test_surface_bundle_wrappers(case):
+    """The extraction at na = 0, 1 and the flux + lift without a remainder,
+    with ``subtract`` where the bundle has p_ref (na > 0) and without it
+    where it has none, reach the kernel path, which refuses a non-CUDA
+    tensor; the refused calls raise first.  No launch is counted."""
+    flags, refused = SURFACE_BUNDLES[case]
+    nq, na, hyper = flags["nq"], flags["na"], flags["has_hyper"]
+    ngl = flags.get("ngl", nq - 1)
+    E, Np, X = 8, 64, 96
+    nvb = nq + 2 + na + nq * hyper
+    before = [k.launches for k in surface_kernel.KERNELS]
+    match = {None: "CUDA tensors", NotImplementedError: "covers"}[refused]
+    lift_kw = dict(nq=nq, nvb=nvb, subtract=flags.get("subtract", na > 0),
+                   i_pref=flags.get("i_pref", nq + 2 if na else nq),
+                   has_hyper=hyper,
+                   rem_lanes=(), sl_lo=0, sl_hi=0,
+                   R_d_T0=EARTH.R_d * EARTH.T_0,
+                   R_over_cv=EARTH.R_d / EARTH.cv_d)
+    if case != "ngl":
+        with pytest.raises(refused or ValueError, match=match):
+            surface_kernel.fused_surface_lift_vm(
+                _meta(E, nvb, X), _meta(E, nvb, X), _meta(E, 3, X),
+                _meta(E, 1, X), _meta(E, 1, X), _meta(X, Np), _meta(E, Np),
+                **lift_kw)
+    if case != "pref_other_lane":
+        with pytest.raises(refused or ValueError, match=match):
+            surface_kernel.extract_trace_vm(
+                _meta(E, nq, Np), _meta(E, Np), _meta(E, Np),
+                _meta(E, na, Np), _meta(E, 3 * ngl, Np), _meta(E, 2, Np),
+                _meta(Np, X), _meta(E, 3, X), nq=nq, na=na, ngl=ngl,
+                has_hyper=hyper)
     assert [k.launches for k in surface_kernel.KERNELS] == before
 
 

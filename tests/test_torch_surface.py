@@ -295,13 +295,34 @@ def test_extract_kernel_refuses_unsupported_flags(flags):
 
 @pytest.mark.parametrize("flags", [
     dict(rem_lanes=(5, 6, 7), sl_lo=64, sl_hi=96, nvb=16),
-    dict(nq=6, nvb=15, i_pref=7), dict(subtract=False, i_pref=5)],
+    dict(nq=6, nvb=15, i_pref=7), dict(subtract=True, i_pref=5)],
     ids=["rem_lanes", "nq6", "no_subtract"])
 def test_lift_kernel_refuses_unsupported_flags(flags):
+    """The flux + lift takes the bundles of dg/fast_rhs.py: a remainder's
+    linear lanes other than (nq+3, nq+4, nq+5), and p_ref from a lane
+    other than nq + 2 (here at nq = 6, and p itself at nq = 5) are
+    refused; subtract=False is covered (below)."""
     kw = dict(LIFT_KW, **flags)
     with pytest.raises(NotImplementedError):
         surface_kernel.fused_surface_lift_vm(*_meta_lift_args(kw["nvb"]),
                                              **kw)
+
+
+@pytest.mark.parametrize("flags", [
+    dict(nq=6, nvb=15, i_pref=8), dict(subtract=False, i_pref=5, nvb=12),
+    dict(subtract=False, rem_lanes=(8, 9, 10), sl_lo=64, sl_hi=96,
+         nvb=16)], ids=["nq6", "no_subtract", "remainder_no_subtract"])
+def test_lift_kernel_takes_the_pallas_flags(flags):
+    """nq = 6, and subtract=False (a reference state that does not
+    subtract: no p_ref lane, or a remainder's bundle whose p_ref is not
+    taken out) reach the kernel path, which refuses a non-CUDA tensor,
+    and count no launch."""
+    kw = dict(LIFT_KW, **flags)
+    before = surface_kernel.fused_surface_lift_vm.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        surface_kernel.fused_surface_lift_vm(*_meta_lift_args(kw["nvb"]),
+                                             **kw)
+    assert surface_kernel.fused_surface_lift_vm.launches == before
 
 
 @pytest.mark.parametrize("has_hyper", [True, False], ids=["hyper", "plain"])
