@@ -60,8 +60,28 @@ filter:
   layouts plain, and 35 steps under each surface pass; every run with
   exact launch counts and the JAX package's checks (finite, ρ and ρq_tot
   mass drift, max|u| < 150 m/s; 0 <= q_tot < 0.02 at the start).
-  ``--skip-moist`` leaves this path out (for a checkout of a commit
-  without it; the default run never sets it);
+  ``--skip-moist`` leaves this path and the next out (for a checkout of
+  a commit without them; the default run never sets it);
+- the moist wave with two passive tracers and warm rain (``baroclinic_
+  wave_config(tracers=NTracers((1.0, 2.0)))``, ``replace(physics,
+  precipitation=RainModel())``, sources Gravity, Coriolis, WarmRain1M;
+  ρχ = ρ·(1, z/H) at the start), state [12288, 9, 125], on the generic
+  DG operator, which the solver types' "auto" takes (the var-major RHS
+  takes no tracers or rain, as the JAX package's): K1-K4 against their
+  plain versions bit for bit on its chain input (the hook's (u_h, h_tot,
+  q_tot)), the RHS against its plain-stage twin; LSRK54 through
+  ``ExplicitSolverType().make`` (one step against the plain-stage step,
+  23 steps), 5 steps each with the Roe, moist Roe, HLLC and LMARS fluxes
+  and with RainSnowModel + RainSnow1M; ``IMEXSolverType().make`` (the
+  banded solver, 45 × 45 blocks) at the moist IMEX dt, halved until 35
+  steps stay stable, with both layout kernels at (1536, 8, 9, 5, 25),
+  template-constant and runtime-dims branches, against their plain
+  versions and ``permute(...).contiguous()`` bit for bit, one step
+  against the plain-stage, plain-layout step, 35 steps; and
+  ``IMEXSolverType(columnwise_solver="dense").make`` (360 × 360 columns)
+  at the same dt, one step against the plain-stage step, 35 steps;
+  every run with exact launch counts, the tracers' mass drift <= 1e-5,
+  max ρq_rai, max|u| < 150 m/s, finite;
 - on the generic operator of the first path, two solver types whose
   explicit or slow operator is a generic fused remainder:
   ``IMEXSolverType(implicit_model=AtmosAcousticLinearModel,
@@ -135,7 +155,9 @@ with launches from the IMEX path with "pallas", the dry volume kernel
 with launches from the grid-layout IMEX path and its vertical
 acoustic-gravity remainder branch from the dense one, the nine moist
 branches, "[moist]", with launches from the moist IMEX path with
-"pallas", and the remainder branches, "[rem:...]": the var-major
+"pallas" (K1-K4 adding the tracer path's banded IMEX launches), the
+two layout kernels at nvars = 9, "*_tracers", with launches from that
+banded IMEX step, and the remainder branches, "[rem:...]": the var-major
 kernels' with launches from the remainder RHS runs, the dry kernel's
 vertical acoustic branch from the dense acoustic IMEX path, its
 every-direction acoustic-gravity branch from the multirate path, its
@@ -232,6 +254,14 @@ Tolerances:
   relative drift <= 1e-5 over each path
   (float32 round-off; F₂ carries no mass flux, and the filter keeps each
   element's mode 0 but is not exactly conservative on curved elements);
+  on the tracer paths Σ M ρχ of each tracer alone (no source touches
+  them and the walls pass none, while the rain forms out of ρ and
+  ρq_tot and falls out through the bottom wall: their changes are
+  reported);
+- the tracer path's K1-K4 and layouts against their plain versions, its
+  RHS against the plain-stage RHS (GENERIC_RHS_TOL) and its steps
+  against the plain-stage steps (STEP_TOL's bound), as above; with the
+  kernels bit-identical, all of them equal bit for bit (reported);
 - kernel_orders: each kernel on all elements and on the first 37,
   per output within KERNEL_TOL · max|reference| of its plain version on
   the card (float32) or of its plain version in float64 (on the CPU,
@@ -298,7 +328,8 @@ from climatemachine_tpu_torch.dg import (dry_volume_kernel, ldg_kernel,
                                         surface_kernel, volume_kernel)
 from climatemachine_tpu_torch.dg.fast_rhs import SURFACE_KERNELS, VarMajorRHS
 from climatemachine_tpu_torch.dg.numerical_fluxes import (
-    HLLCNumericalFlux, RoeNumericalFlux, RusanovNumericalFlux)
+    HLLCNumericalFlux, LMARSNumericalFlux, RoeNumericalFlux,
+    RoeNumericalFluxMoist, RusanovNumericalFlux)
 from climatemachine_tpu_torch.dg.spatial import (DGModel, init_ode_state,
                                                  remainder_DGModel)
 from climatemachine_tpu_torch.driver.solver_types import (
@@ -430,6 +461,27 @@ VORTEX_FLUXES = {"rusanov": RusanovNumericalFlux, "roe": RoeNumericalFlux,
 #: the suffix of the entries of the branches without the reference
 #: pressure taken out (subtract_ref=False, na = 0, subtract=False)
 NOSUB = "[nosub]"
+#: the moist wave with tracers and warm rain: the tracers' diffusivity
+#: ratios, the height H of the second tracer's profile ρχ₂ = ρ z/H (the
+#: domain's), the banded IMEX step's layout dims (Eh, nv, nvars, Nq3, ji),
+#: the suffix of its layout entries in the kernels line, the explicit steps
+#: of each other flux and of rain with snow, and those fluxes
+TRACER_DELTA = (1.0, 2.0)
+TRACER_H = 30e3
+TRACER_LAYOUT_DIMS = (1536, 8, 9, 5, 25)
+#: the IMEX paths' first dt: the dry IMEX dt over 2^this, the moist
+#: var-major IMEX path's first stable halving (5.46 s at full width; 10.91
+#: s turned NaN on this path too, PERF.md PR 13)
+TRACER_IMEX_HALVINGS = 2
+#: the rain (and snow) of the runs that start with some: ρq = this · ρ
+#: below RAIN_TOP, so that the microphysics, the sedimentation and the
+#: rain's fall through the bottom wall act from the first step (the
+#: wave's own state makes no rain in these steps)
+RAIN_START, RAIN_TOP = 1e-4, 5e3
+TRACERS = "_tracers"
+N_STEPS_TR_FLUX = 5
+TRACER_FLUXES = {"roe": RoeNumericalFlux, "roe_moist": RoeNumericalFluxMoist,
+                 "hllc": HLLCNumericalFlux, "lmars": LMARSNumericalFlux}
 #: kernel name -> (wrapper, plain version, source, TPU kernel it replaces)
 KERNELS = {
     "fused_volume_tendency_vm": (
@@ -675,9 +727,19 @@ def chain_inputs(rhs, q, aux):
     """Each kernel's inputs on the main path from state (q, aux), the
     chain's stages run in their plain versions: {kernel name: args}, and
     the chain input."""
-    ops, g = rhs.chain, rhs.grid
+    g = rhs.grid
     _, p, _, _ = rhs._thermo_update(q, aux, False)
     glv = rhs.chain_input(q, aux, p)
+    args, gl2 = chain_stage_args(glv, rhs.chain, g)
+    volume_args = (q, p, aux[:, rhs.i_phi], aux[:, rhs.i_pref].contiguous(),
+                   None, gl2, rhs.nu, rhs.xiv, g.M, g.MI, g.Wdiv)
+    return glv, {"fused_volume_tendency_vm": volume_args, **args}
+
+
+def chain_stage_args(glv, ops, g):
+    """K1-K4's inputs from the chain input ``glv`` ``[E, n, Np]`` on the
+    chain operators ``ops``, each stage run in its plain version:
+    ({kernel name: args}, ∇Δ ``[E, 3·n, Np]``)."""
     vol1, rows1 = ldg_kernel.ldg_first_plain(glv, ops.xi, ops.Wd, ops.fo)
     args2 = (vol1, ldg_kernel.face_jump(rows1, ops), ops.w3, ops.nrm,
              ops.MI, ops.xi, ops.Wd, ops.fo)
@@ -688,12 +750,9 @@ def chain_inputs(rhs, q, aux):
     args4 = (vol3, ldg_kernel.face_jump(rows3, ops), ops.w3, ops.MI, ops.fo)
     gl2 = ldg_kernel.ldg_last_plain(*args4).reshape(
         g.nelem, 3 * glv.shape[1], g.Np)
-    volume_args = (q, p, aux[:, rhs.i_phi], aux[:, rhs.i_pref].contiguous(),
-                   None, gl2, rhs.nu, rhs.xiv, g.M, g.MI, g.Wdiv)
-    return glv, {"fused_volume_tendency_vm": volume_args,
-                 "ldg_first": (glv, ops.xi, ops.Wd, ops.fo),
-                 "ldg_grad_to_div": args2, "ldg_div_to_grad": args3,
-                 "ldg_last": args4}
+    return {"ldg_first": (glv, ops.xi, ops.Wd, ops.fo),
+            "ldg_grad_to_div": args2, "ldg_div_to_grad": args3,
+            "ldg_last": args4}, gl2
 
 
 def yardstick(name, args, rhs, has_hyper: bool = True):
@@ -1097,7 +1156,7 @@ def phase_no_hyperdiffusion(seed: int):
         check_launches(counts, expected)
 
 
-def layout_vs_plain(name, src, dims) -> dict:
+def layout_vs_plain(name, src, dims, runtime_dims: bool = False) -> dict:
     """A layout kernel against its plain version and against one
     ``permute(...).contiguous()`` (the library call) on the same input:
     all three equal bit for bit.  Times: the kernel, the plain version
@@ -1107,13 +1166,19 @@ def layout_vs_plain(name, src, dims) -> dict:
     distinct inputs (cold L2; the ms fields, medians over the rounds, with
     their min and max), and the same on ``src`` alone (warm, the *_warm
     fields: inside the step a layout's input was often just written);
-    with the bytes bound."""
+    with the bytes bound.  With ``runtime_dims``, the same kernel with
+    the dims as run-time values (``layout_kernel.*_runtime_dims``) joins
+    the rounds and the bit-for-bit check."""
     wrapper, plain, _, _ = KERNELS[name]
     library = library_call(name == "to_blocks_vm", dims)
     out, ref = wrapper(src, dims), plain(src, dims)
     torch.cuda.synchronize()
     contenders = {"kernel": lambda x: wrapper(x, dims),
                   "library": library, "plain": lambda x: plain(x, dims)}
+    if runtime_dims:
+        rt = getattr(layout_kernel, name + "_runtime_dims")
+        contenders["runtime_dims"] = lambda x: rt(x, dims)
+        rt_out = rt(src, dims)
     inputs = [src] + [src + i for i in range(1, LAYOUT_INPUTS)]
     cold = paired_rounds(contenders, inputs, LAYOUT_ROUNDS, LAYOUT_LAUNCHES)
     warm = paired_rounds(contenders, [src], LAYOUT_ROUNDS, LAYOUT_LAUNCHES)
@@ -1138,7 +1203,11 @@ def layout_vs_plain(name, src, dims) -> dict:
                bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
                shape=list(src.shape), out_shape=list(out.shape))
     res["share_of_bound"] = res["bound_ms"] / res["ms"]
-    emit("kernel_vs_plain", name=name, **res)
+    if runtime_dims:
+        res.update(runtime_dims_exact=torch.equal(rt_out, ref),
+                   runtime_dims_ms=med["runtime_dims"])
+        check(res["runtime_dims_exact"], (name, "runtime dims vs plain"))
+    emit("kernel_vs_plain", name=name, layout_dims=list(dims), **res)
     check(res["exact"] and res["library_exact"], (name, "kernel vs plain"))
     return res
 
@@ -1824,6 +1893,358 @@ def phase_moist_kernel_orders(seed: int):
             check(all(torch.isfinite(torch.tensor(err)))
                   and max(err) <= order_rhs_tol(name),
                   ("moist RHS at order", poly, name, err))
+
+
+# --- the moist wave with tracers and warm rain: the generic DG operator ------
+
+def tracer_model(model, precip: str = "warm_rain"):
+    """The moist wave's model (with its tracers) with a precipitation
+    model and its microphysics source added from the public parts, as a
+    user builds them: ``replace(physics, precipitation=RainModel())`` and
+    sources (Gravity(), Coriolis(), WarmRain1M()); or, "rain_snow",
+    RainSnowModel and RainSnow1M."""
+    from climatemachine_tpu_torch.atmos import precipitation as pr
+    from climatemachine_tpu_torch.atmos.sources import Coriolis, Gravity
+    prec, src = {"warm_rain": (pr.RainModel, pr.WarmRain1M),
+                 "rain_snow": (pr.RainSnowModel, pr.RainSnow1M)}[precip]
+    return AtmosModel(replace(model.physics, precipitation=prec()),
+                      model.problem, sources=(Gravity(), Coriolis(), src()))
+
+
+def build_tracer_base(precip: str = "warm_rain", grid_cfg=None,
+                      n_horz=N_HORZ, n_vert=N_VERT, device="cuda") -> dict:
+    """The moist wave with two tracers (``baroclinic_wave_config(tracers=
+    NTracers(TRACER_DELTA))``, EquilMoistBiharmonic(8 h), no filter) and
+    the precipitation of ``precip``, the generic DG operator
+    ``DGModel(model, grid)``, and its initial state with ρχ = ρ·(1,
+    z/TRACER_H) (tests/test_moisture.py:85-86; the wave's own initial
+    state leaves ρχ and ρq_rai zero).  ``grid_cfg``: a config whose grid
+    and physics to reuse."""
+    from climatemachine_tpu_torch.atmos.tracers import NTracers
+    from climatemachine_tpu_torch.experiments.baroclinic_wave import \
+        baroclinic_wave_config
+    t0 = time.perf_counter()
+    cfg = grid_cfg or baroclinic_wave_config(
+        n_horz=n_horz, n_vert=n_vert, poly_order=POLY, dtype=torch.float32,
+        hyperdiffusion_tau=MOIST_TAU, tracers=NTracers(TRACER_DELTA),
+        device=device)
+    model = tracer_model(cfg.model, precip)
+    dg = DGModel(model, cfg.grid)
+    q0, aux0 = init_ode_state(dg)
+    sp = model.prog_spec
+    z = model.aux_spec.get(aux0, "orientation.Phi") / model.param_set.grav
+    rho = q0[:, 0]
+    q0[:, sp.index("tracers.rhochi")] = torch.stack(
+        [rho, rho * z / TRACER_H], dim=1)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return dict(tau=MOIST_TAU, cfg=SimpleNamespace(model=model,
+                                                   grid=cfg.grid),
+                base_cfg=cfg, dg=dg, q0=q0, aux0=aux0, hsf=None,
+                precip=precip, n_horz=n_horz, n_vert=n_vert,
+                build_s=time.perf_counter() - t0)
+
+
+def with_rain(base) -> dict:
+    """The base with ρq = RAIN_START · ρ on every precipitation lane below
+    RAIN_TOP in its initial state."""
+    model = base["cfg"].model
+    sp = model.prog_spec
+    z = model.aux_spec.get(base["aux0"], "orientation.Phi") \
+        / model.param_set.grav
+    q0 = base["q0"].clone()
+    low = RAIN_START * torch.where(z < RAIN_TOP, q0[:, 0], 0.0)
+    for i, name in enumerate(sp.flattened_names()):
+        if name.startswith("precipitation."):
+            q0[:, i] = low
+    return dict(base, q0=q0, precip=base["precip"] + "+rain_start")
+
+
+def tracer_make(base, kind: str, dt: float, dg=None):
+    """(solver, set-up s, peak device bytes of the set-up) of ``kind``:
+    "explicit" (``ExplicitSolverType().make``), "imex"
+    (``IMEXSolverType().make``: "auto" takes the generic operator, the
+    banded solver) or "dense" (``IMEXSolverType(columnwise_solver=
+    "dense").make``), on ``dg`` (the base's unless given)."""
+    dg = dg or base["dg"]
+    make = {"explicit": ExplicitSolverType(), "imex": IMEXSolverType(),
+            "dense": IMEXSolverType(columnwise_solver="dense")}[kind].make
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver = make(dg, base["q0"], base["aux0"], dt)
+    torch.cuda.synchronize()
+    check(solver.vm is None, (kind, "the generic operator"))
+    return (solver, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+def tracer_masses(model, g, q) -> dict:
+    """Σ M q of ρ, ρq_tot, each precipitation lane and each tracer, in
+    float64."""
+    return {name: torch.sum(g.M.double() * q[:, i].double()).item()
+            for i, name in enumerate(model.prog_spec.flattened_names())
+            if i == 0 or i >= 5}
+
+
+def run_tracer_path(base, solver, dt: float, n_warm: int, n_steps: int,
+                    per_step: dict, label: str, stable_only=False) -> dict:
+    """Set every launch count to 0, take ``n_warm`` + ``n_steps`` steps
+    from the base's initial state (timing the last ``n_steps``), read the
+    counts; report ms a step, launches against ``per_step`` × steps, the
+    masses' relative changes (the tracers' held to MASS_TOL: no source
+    touches them and the walls pass none; ρ, ρq_tot and the rain's move
+    with the microphysics and the rain's fall through the bottom wall),
+    max ρq_rai (and ρq_sno), max|u| (< MAX_ABS_U) and finiteness.  With
+    ``stable_only`` an unstable run returns its report instead of
+    raising."""
+    g, model = base["cfg"].grid, base["cfg"].model
+    m0 = tracer_masses(model, g, base["q0"])
+    reset_launch_counts()
+    q, aux, t = base["q0"], base["aux0"], 0.0
+    for _ in range(n_warm):
+        q, aux = solver.step(q, aux, t)
+        t += dt
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n_steps):
+        q, aux = solver.step(q, aux, t)
+        t += dt
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = launch_counts()
+    n = n_warm + n_steps
+    expected = expected_launches(per_step, n)
+    m1 = tracer_masses(model, g, q)
+    change = {k: abs(m1[k] - m0[k]) / max(abs(m0[k]), 1e-300) for k in m0}
+    tracers = {k: v for k, v in change.items() if k.startswith("tracers")}
+    finite = bool(torch.isfinite(q).all() and torch.isfinite(aux).all())
+    umax = (q[:, 1:4] / q[:, :1]).abs().max().item()
+    sp = model.prog_spec
+    res = dict(card=nvidia_smi(), path=label, precip=base["precip"],
+               nq=sp.num, n_horz=base["n_horz"], n_vert=base["n_vert"],
+               poly=POLY,
+               elements=g.nelem, gridpoints=g.nelem * g.Np,
+               dtype="float32", dt_s=dt, warm_steps=n_warm,
+               steps=n_steps, ms_per_step=1e3 * wall / n_steps,
+               sim_s_per_wall_s=dt * n_steps / wall, launches=counts,
+               expected_launches=expected, mass_change_rel=change,
+               tracer_mass_drift_rel=tracers, tracer_mass_tol=MASS_TOL,
+               max_abs_u=umax, max_abs_u_bound=MAX_ABS_U, finite=finite,
+               shape=list(q.shape),
+               **{"max_" + name.split(".")[1]: q[:, i].max().item()
+                  for i, name in enumerate(sp.flattened_names())
+                  if name.startswith("precipitation.")})
+    res["stable"] = finite and umax < MAX_ABS_U
+    if stable_only and not res["stable"]:
+        return res
+    check(finite, (label, "state not finite"))
+    check(umax < MAX_ABS_U, (label, "max |u|", umax))
+    check(max(tracers.values()) <= MASS_TOL, (label, "tracer mass drift",
+                                              tracers))
+    check_launches(counts, expected)
+    return res
+
+
+def per_var_err0(got, ref) -> list:
+    """:func:`per_var_err` with 0 where a variable is 0 in both."""
+    diff = (got - ref).abs().amax(dim=(0, 2))
+    scale = ref.abs().amax(dim=(0, 2))
+    return torch.where(diff == 0, 0.0, diff / scale).tolist()
+
+
+def tracer_step_vs_plain(solver, plain, q0, aux0, label: str):
+    """One step of ``solver`` (the kernels) against one of ``plain`` (the
+    same with the chain's and the layouts' plain versions) from (q0,
+    aux0): per variable within STEP_TOL's bound (:func:`step_vs_plain`),
+    0 where both steps leave a variable unchanged; and whether the two
+    are equal bit for bit."""
+    q1, _ = solver.step(q0, aux0, 0.0)
+    q1p, _ = plain.step(q0, aux0, 0.0)
+    eps32 = torch.finfo(torch.float32).eps
+    bound = (STEP_TOL * (q1p - q0).abs().amax(dim=(0, 2))
+             + 4 * eps32 * q1p.abs().amax(dim=(0, 2)))
+    diff = (q1 - q1p).abs().amax(dim=(0, 2))
+    err = torch.where(diff == 0, 0.0, diff / bound).tolist()
+    emit("tracer_step_vs_plain", path=label, err_over_bound_per_var=err,
+         max_abs_diff_per_var=diff.tolist(), exact=torch.equal(q1, q1p),
+         tol=STEP_TOL)
+    check(max(err) <= 1.0, (label, "step vs plain", err))
+
+
+def tracer_kernels(base, seed: int) -> dict:
+    """K1-K4 against their plain versions, bit for bit, on the generic
+    operator's own chain input at a perturbed state (the gradient-
+    Laplacian hook's (u_h, h_tot, q_tot), n = 5, after the aux refresh),
+    each stage's input from the plain stages before it; then the RHS
+    against the one with the chain's plain stages and with the node-
+    gather surface pass it takes, and both RHS' times."""
+    dg, model, g = base["dg"], base["cfg"].model, base["cfg"].grid
+    q = perturbed(base["q0"], seed)
+    aux = model.update_auxiliary_state(q, base["aux0"])
+    direction = model.hyperdiffusion_direction or dg.direction
+    ops = dg.ldg_operators(direction)
+    glv = model.compute_gradient_laplacian_argument(q, aux, 0.0)
+    check(glv.shape[1] == 5, ("chain rows", glv.shape))
+    args, _ = chain_stage_args(glv, ops, g)
+    view = SimpleNamespace(grid=g, hd=model.physics.hyperdiffusion,
+                           chain=ops, nq=model.prog_spec.num, bl=model)
+    kernels = {name: kernel_vs_plain(name, args[name], view, n=5,
+                                     exact=True) for name in CHAIN}
+    del args
+    plain = DGModel(model, g, chain_stages=ldg_kernel.PLAIN)
+    check(not dg.fast_surface and not dg.dry_volume, "generic moist route")
+    got, ref = dg(q, base["aux0"], 0.0)[0], plain(q, base["aux0"], 0.0)[0]
+    torch.cuda.synchronize()
+    err = per_var_err0(got, ref)
+    times = {key: cuda_ms(lambda d=d: d(q, base["aux0"], 0.0), 10, warm=2)
+             for key, d in (("generic_rhs_ms", dg),
+                            ("plain_stages_rhs_ms", plain))}
+    emit("tracer_rhs", card=nvidia_smi(), rel_err_per_var=err,
+         exact=torch.equal(got, ref), tol=GENERIC_RHS_TOL,
+         max_abs_per_var=ref.abs().amax(dim=(0, 2)).tolist(), **times)
+    check(all(math.isfinite(e) for e in err) and max(err) <= GENERIC_RHS_TOL,
+          ("tracer RHS vs plain stages", err))
+    return kernels
+
+
+def phase_moist_tracers(seed: int) -> dict:
+    """The moist baroclinic wave with two passive tracers and warm rain
+    (nq = 9) on the generic DG operator at full width: K1-K4 against
+    their plain versions on its chain input and its RHS against the
+    plain-stage RHS (:func:`tracer_kernels`); LSRK54 through
+    ``ExplicitSolverType().make`` ("auto": the generic operator) at the
+    moist explicit dt, one step against the plain-stage step, then
+    N_WARM + N_STEPS steps; 5 steps each with the Roe, moist Roe, HLLC
+    and LMARS fluxes, and, from a state with rain below RAIN_TOP
+    (:func:`with_rain`), 5 with warm rain and 5 with RainSnowModel +
+    RainSnow1M (nq = 10, snow as well); the banded IMEX path
+    (``IMEXSolverType().make``: 45 × 45 blocks) at the moist IMEX dt
+    (TRACER_IMEX_HALVINGS), halved until 35 steps stay stable: both
+    layout kernels
+    at (1536, 8, 9, 5, 25), their template-constant and runtime-dims
+    branches, against their plain versions and the library call, one
+    step against the plain-stage, plain-layout step, 35 steps; the dense
+    IMEX path at the same dt (360 × 360 columns), one step against the
+    plain-stage step, 35 steps.  Every run with exact
+    launch counts, the tracers' mass drift, max ρq_rai, max|u|."""
+    base = build_tracer_base()
+    model, g = base["cfg"].model, base["cfg"].grid
+    check(model.prog_spec.num == 9 and model.prog_spec.flattened_names()[5:]
+          == ["moisture.rhoq_tot", "precipitation.rhoq_rai",
+              "tracers.rhochi[0]", "tracers.rhochi[1]"], "the 9 lanes")
+    emit("tracer_initial_state", build_s=base["build_s"],
+         masses=tracer_masses(model, g, base["q0"]))
+    kernels = tracer_kernels(base, seed)
+    chain = {name: 1 for name in CHAIN}
+    ms, setup, peak, launches = {}, {}, {}, {}
+
+    # explicit, the Rusanov flux (the default)
+    dt_ex = 0.3 * min_node_distance(g) / 350.0
+    solver, setup["explicit"], peak["explicit"] = tracer_make(
+        base, "explicit", dt_ex)
+    check(solver.rhs is base["dg"], "explicit: the generic operator")
+    plain_dg = DGModel(model, g, chain_stages=ldg_kernel.PLAIN)
+    tracer_step_vs_plain(solver, ExplicitSolverType().make(
+        plain_dg, base["q0"], base["aux0"], dt_ex), base["q0"],
+        base["aux0"], "explicit")
+    res = run_tracer_path(base, solver, dt_ex, N_WARM, N_STEPS,
+                          {k: 5 * v for k, v in chain.items()}, "explicit")
+    emit("tracer_path", solver="LSRK54", setup_s=setup["explicit"],
+         peak_memory_setup_bytes=peak["explicit"], **res)
+    ms["explicit"], launches["explicit"] = res["ms_per_step"], res["launches"]
+    del solver
+
+    # the other first-order fluxes, and rain with snow
+    for name, flux in TRACER_FLUXES.items():
+        dg = DGModel(model, g, numerical_flux_first_order=flux())
+        solver, s_s, _ = tracer_make(base, "explicit", dt_ex, dg=dg)
+        res = run_tracer_path(base, solver, dt_ex, 0, N_STEPS_TR_FLUX,
+                              {k: 5 * v for k, v in chain.items()},
+                              f"explicit:{name}")
+        emit("tracer_path", solver="LSRK54", flux=name, setup_s=s_s, **res)
+        ms[f"explicit:{name}"] = res["ms_per_step"]
+    snow = with_rain(build_tracer_base(
+        "rain_snow", grid_cfg=base["base_cfg"], n_horz=base["n_horz"],
+        n_vert=base["n_vert"], device=g.device.type))
+    check(snow["cfg"].model.prog_spec.num == 10, "rain and snow lanes")
+    for label, b in (("explicit:rain_start", with_rain(base)),
+                     ("explicit:rain_snow", snow)):
+        solver, s_s, _ = tracer_make(b, "explicit", dt_ex)
+        res = run_tracer_path(b, solver, dt_ex, 0, N_STEPS_TR_FLUX,
+                              {k: 5 * v for k, v in chain.items()}, label)
+        emit("tracer_path", solver="LSRK54", setup_s=s_s,
+             start_masses=tracer_masses(b["cfg"].model, g, b["q0"]), **res)
+        ms[label] = res["ms_per_step"]
+    del solver, snow, dg, b
+    torch.cuda.empty_cache()
+
+    # banded IMEX at the moist IMEX dt, halved until stable
+    dt0 = 0.1 * min_node_distance(g, "horizontal") / 350.0
+    for k in range(TRACER_IMEX_HALVINGS, MOIST_DT_HALVINGS + 1):
+        dt_im = dt0 / 2 ** k
+        solver, setup["imex"], peak["imex"] = tracer_make(base, "imex",
+                                                          dt_im)
+        sv = solver.solver
+        check(solver.rhs_full is base["dg"] and sv.layout.nvars == 9
+              and sv.nb == 45, ("banded blocks", sv.nb))
+        if k == TRACER_IMEX_HALVINGS:
+            dims = sv.layout.layout_dims
+            check(tuple(dims) == TRACER_LAYOUT_DIMS, ("layout dims", dims))
+            qp = perturbed(base["q0"], seed)
+            kernels["to_blocks_vm" + TRACERS] = layout_vs_plain(
+                "to_blocks_vm", qp, dims, runtime_dims=True)
+            yb = sv.layout.to_blocks(qp)
+            kernels["from_blocks_vm" + TRACERS] = layout_vs_plain(
+                "from_blocks_vm", yb, dims, runtime_dims=True)
+            check(torch.equal(sv.layout.from_blocks(yb), qp),
+                  "from_blocks(to_blocks(x)) != x at nvars = 9")
+            del qp, yb
+            plain_sv = copy.copy(sv)
+            plain_sv.layout = ColumnLayout(
+                g, 9, to_blocks=layout_kernel.to_blocks_vm_plain,
+                from_blocks=layout_kernel.from_blocks_vm_plain)
+            tracer_step_vs_plain(solver, ARK2GiraldoKellyConstantinescu(
+                None, None, plain_sv, dt_im, rhs_full=plain_dg),
+                base["q0"], base["aux0"], "imex")
+            del plain_sv
+        res = run_tracer_path(
+            base, solver, dt_im, N_WARM_IMEX, N_STEPS_IMEX,
+            {**{c: 3 * v for c, v in chain.items()},
+             "to_blocks_vm": 3, "from_blocks_vm": 2}, "imex",
+            stable_only=True)
+        emit("tracer_path", solver="ARK2GiraldoKellyConstantinescu"
+             "+BlockTridiag", halvings=k, block_size=sv.nb,
+             active_unknowns=sv.active_count, setup_s=setup["imex"],
+             peak_memory_setup_bytes=peak["imex"], **res)
+        del solver, sv
+        torch.cuda.empty_cache()
+        if res["stable"]:
+            break
+    check(res["stable"], "no stable IMEX dt on the tracer path")
+    ms["imex"], launches["imex"] = res["ms_per_step"], res["launches"]
+
+    # dense IMEX at the same dt
+    solver, setup["dense"], peak["dense"] = tracer_make(base, "dense",
+                                                        dt_im)
+    sv = solver.solver
+    check(sv.layout.nvars == 9 and sv.A.shape[-1] == sv.layout.Nv,
+          ("dense columns", sv.A.shape))
+    plain = copy.copy(solver)
+    plain.rhs_ex = replace(solver.rhs_ex, chain_stages=ldg_kernel.PLAIN)
+    tracer_step_vs_plain(solver, plain, base["q0"], base["aux0"], "dense")
+    del plain
+    res = run_tracer_path(base, solver, dt_im, N_WARM_IMEX, N_STEPS_IMEX,
+                          {c: 3 * v for c, v in chain.items()}, "dense")
+    emit("tracer_path", solver="ARK2GiraldoKellyConstantinescu+dense",
+         setup_s=setup["dense"], peak_memory_setup_bytes=peak["dense"],
+         column_unknowns=sv.layout.Nv,
+         dense_matrix_bytes=sv.A.numel() * sv.A.element_size(), **res)
+    ms["dense"], launches["dense"] = res["ms_per_step"], res["launches"]
+    del solver, sv, base
+    torch.cuda.empty_cache()
+    return dict(kernels=kernels, launches=launches, ms_per_step=ms,
+                setup_s=setup, peak_memory_setup_bytes=peak, imex_dt_s=dt_im)
 
 
 # --- the fused remainder -------------------------------------------------------
@@ -2688,6 +3109,7 @@ def main(argv=None) -> int:
         moist_rem = phase_remainder(args.seed, moist=True)
         remainder["kernels"].update(moist_rem["kernels"])
         remainder["launches"].update(moist_rem["launches"])
+    tracers = None if args.skip_moist else phase_moist_tracers(args.seed)
     vortex = phase_vortex(args.seed)
     phase_kernel_orders(args.seed)
     if moist:
@@ -2703,7 +3125,12 @@ def main(argv=None) -> int:
          **({} if moist is None else dict(
              moist_explicit_ms_per_step=moist["explicit_ms_per_step"],
              moist_imex_ms_per_step=moist["imex_ms_per_step"],
-             moist_imex_dt_s=moist["imex_dt_s"])))
+             moist_imex_dt_s=moist["imex_dt_s"],
+             tracer_ms_per_step=tracers["ms_per_step"],
+             tracer_setup_s=tracers["setup_s"],
+             tracer_peak_memory_setup_bytes=tracers[
+                 "peak_memory_setup_bytes"],
+             tracer_imex_dt_s=tracers["imex_dt_s"])))
     # each kernel's launches from the run of its path: the var-major IMEX
     # step with "pallas" (all nine earlier kernels), the dry kernel from
     # the grid-layout IMEX step and its remainder branch from the dense one
@@ -2715,12 +3142,18 @@ def main(argv=None) -> int:
                 (DRY + "_remainder", DRY,
                  generic["launches"]["dense"][DRY])]
     # the moist branches, with launches from the moist IMEX step with
-    # "pallas"
+    # "pallas" and, K1-K4, the tracer path's banded IMEX step beside it;
+    # the layouts at nvars = 9 from that step
     if moist:
         results.update({name + MOIST: k
                         for name, k in moist["kernels"].items()})
-        entries += [(name + MOIST, name, moist["launches"][name])
+        tr = tracers["launches"]["imex"]
+        entries += [(name + MOIST, name, moist["launches"][name]
+                     + (tr[name] if name in CHAIN else 0))
                     for name in EXPLICIT + SURFACE + LAYOUT]
+        results.update({name + TRACERS: tracers["kernels"][name + TRACERS]
+                        for name in LAYOUT})
+        entries += [(name + TRACERS, name, tr[name]) for name in LAYOUT]
     # the remainder branches: the var-major RHS's with launches from its
     # remainder RHS runs; the dry kernel's vertical acoustic branch from
     # the dense acoustic IMEX path, its every-direction acoustic-gravity

@@ -50,7 +50,9 @@ class AtmosBC:
     def ghost_state(self, model, nrm, q, aux, t):
         """(q_ghost, aux) on var-major face lanes: q ``[E, n, X]``,
         normals ``[E, 3, X]``; ρu loses twice its normal component, the
-        rest is copied."""
+        rest is copied: ρe (insulating), ρq_tot (impermeable) and the
+        precipitation and tracer lanes, which the JAX ghost leaves as
+        they are too."""
         if not self.is_free_slip_wall():
             raise NotImplementedError(f"next slice: wall {self!r}")
         sl = model.prog_spec.index("rhou")

@@ -10,8 +10,8 @@ each column of a stacked grid.
 
 Var-major: state ``[E, n, L]`` and aux ``[E, naux, L]`` over L nodes
 (volume or face lanes), flux ``[E, 3, n, L]`` (direction i, variable);
-n = 5, or 6 with EquilMoist's ρq_tot, which has no linear flux (JAX
-``linear.py`` :55-66).
+n = 5, or more with moisture, precipitation and tracers, whose lanes have
+no linear flux and no linear source (JAX ``linear.py`` :55-66).
 """
 
 from __future__ import annotations

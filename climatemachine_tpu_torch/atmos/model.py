@@ -1,21 +1,24 @@
 """The atmosphere balance law (port of the parts of
-``climatemachine_tpu/atmos/model.py`` the Held-Suarez step and the
-moist baroclinic wave use: the prognostic/aux schemas :146-203,
-``nodal_init_state_auxiliary`` :334, the thermo refresh of the aux lanes
-through the moisture model (``nodal_update_auxiliary_state`` :493), and
-the hooks of the generic DG operator for the dry, total-energy,
-compressible model: ``flux_first_order`` :372, ``wavespeed`` :449, the
-gradient-Laplacian hooks :539-550, ``flux_second_order`` :552
-(hyperdiffusion only), ``source`` :583 and the wall ghost
-``boundary_state`` :608-618).
+``climatemachine_tpu/atmos/model.py`` the Held-Suarez step, the moist
+baroclinic wave and its tracers and warm rain use: ``AtmosPhysics`` :76
+with ``tracers`` :84 and ``precipitation`` :86, the prognostic/aux
+schemas :143-203, ``thermo_full`` :274, ``nodal_init_state_auxiliary``
+:334, the thermo refresh of the aux lanes through the moisture model
+(``nodal_update_auxiliary_state`` :493), and the hooks of the generic DG
+operator for the total-energy, compressible model: ``flux_first_order``
+:372-447 (the advected moisture, precipitation and tracer scalars
+:419-437), ``wavespeed`` :449, the gradient-Laplacian hooks :539-550,
+``flux_second_order`` :552 (hyperdiffusion only), ``source`` :583-605
+and the wall ghost ``boundary_state`` :608-618).
 
-Prognostic: ρ, ρu(3), ρe, then with ``EquilMoist`` ρq_tot.  Auxiliary:
-coord(3), orientation (Φ, ∇Φ), with a ``HydrostaticState`` the
-reference state (ρ, p, T, ρe), moisture
-(θ_v, T dry; T, θ_v, q_liq, q_ice with ``EquilMoist``), in the JAX
-package's order, then, with hyperdiffusion, ``hyperdiffusion.delta``.
-State and aux are var-major ``[E, n, L]`` over L nodes (volume or face
-lanes); fluxes ``[E, 3, n, L]`` (direction i, then variable).
+Prognostic, in the JAX package's order: ρ, ρu(3), ρe, then with
+``EquilMoist`` ρq_tot, with a precipitation model ρq_rai (and ρq_sno),
+with ``NTracers`` ρχ (N).  Auxiliary: coord(3), orientation (Φ, ∇Φ),
+with a ``HydrostaticState`` the reference state (ρ, p, T, ρe), moisture
+(θ_v, T dry; T, θ_v, q_liq, q_ice with ``EquilMoist``), then, with
+hyperdiffusion, ``hyperdiffusion.delta``.  State and aux are var-major
+``[E, n, L]`` over L nodes (volume or face lanes); fluxes ``[E, 3, n,
+L]`` (direction i, then variable).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from climatemachine_tpu_torch.atmos.moisture import DryModel, EquilMoist
 from climatemachine_tpu_torch.atmos.ref_state import (NoReferenceState,
                                                      ReferenceState)
 from climatemachine_tpu_torch.atmos.sources import VMContext
+from climatemachine_tpu_torch.atmos.tracers import NoTracers
 from climatemachine_tpu_torch.common.orientations import (FlatOrientation,
                                                           Orientation)
 from climatemachine_tpu_torch.physics import thermodynamics as td
@@ -48,12 +52,17 @@ class AtmosPhysics:
     None, a
     :class:`~climatemachine_tpu_torch.atmos.hyperdiffusion.DryBiharmonic`
     or, with ``EquilMoist``, an ``EquilMoistBiharmonic`` (the var-major
-    RHS refuses any other kind)."""
+    RHS refuses any other kind); ``tracers`` None or an
+    :class:`~climatemachine_tpu_torch.atmos.tracers.NTracers`;
+    ``precipitation`` None or a model of
+    :mod:`climatemachine_tpu_torch.atmos.precipitation`."""
     param_set: PlanetParameterSet = EARTH
     orientation: Orientation = field(default_factory=FlatOrientation)
     ref_state: ReferenceState = field(default_factory=NoReferenceState)
     hyperdiffusion: Optional[object] = None
     moisture: object = field(default_factory=DryModel)
+    tracers: Optional[object] = None
+    precipitation: Optional[object] = None
 
 
 @dataclass(frozen=True)
@@ -73,7 +82,7 @@ def _set(arr, sl: slice, val):
 
 class AtmosModel:
     """Compressible atmosphere with total energy, dry or in equilibrium
-    moisture."""
+    moisture, with passive tracers and precipitation."""
 
     def __init__(self, physics: AtmosPhysics, problem: AtmosProblem,
                  sources: Sequence = ()):
@@ -81,9 +90,19 @@ class AtmosModel:
         self.problem = problem
         self.sources = tuple(sources)
         moist = physics.moisture
+        self.tracers = physics.tracers or NoTracers()
+        #: the precipitation model with prognostic lanes, else None
+        self.precipitation = (
+            physics.precipitation if physics.precipitation is not None
+            and physics.precipitation.vars_prognostic().num else None)
         prog_fields = dict(rho=1, rhou=3, rhoe=1)
         if moist.vars_prognostic().num:
             prog_fields["moisture"] = moist.vars_prognostic()
+        if self.precipitation is not None:
+            prog_fields["precipitation"] = \
+                self.precipitation.vars_prognostic()
+        if self.tracers.N:
+            prog_fields["tracers"] = self.tracers.vars_prognostic()
         self.prog_spec = VarSpec(**prog_fields)
         aux_fields = dict(coord=3,
                           orientation=physics.orientation.vars_aux())
@@ -141,6 +160,11 @@ class AtmosModel:
         ``moisture.temperature`` and its phase partition."""
         return self.physics.moisture.thermo(self, q, aux)[:2]
 
+    def thermo_full(self, q, aux):
+        """(T, p, u ``[E, 3, L]``, the phase partition or None)."""
+        T, p, pp = self.physics.moisture.thermo(self, q, aux)
+        return T, p, q[:, 1:4] / q[:, :1], pp
+
     def update_auxiliary_state(self, q, aux):
         """Refresh the moisture model's thermo lanes from the state (θ_v
         and T dry; T by saturation adjustment, θ_v, q_liq and q_ice with
@@ -156,8 +180,9 @@ class AtmosModel:
         """Advection, the pressure gradient (with the reference pressure
         taken out where the reference state's ``subtract_off`` says so),
         and the pressure work: F_i[ρ] = ρu_i, F_i[ρu_j] = ρu_i u_j +
-        (p − p_ref) δ_ij, F_i[ρe] = (ρe + p) u_i, and each advected scalar
-        (ρq_tot) F_i[ρχ] = ρχ u_i."""
+        (p − p_ref) δ_ij, F_i[ρe] = (ρe + p) u_i, each advected scalar
+        (ρq_tot, ρq_rai, ρχ) F_i[ρχ] = ρχ u_i, and the precipitation's
+        sedimentation on its lanes."""
         rho, rhou, rhoe = q[:, 0], q[:, 1:4], q[:, 4]
         _, p = self.thermo(q, aux)
         u = rhou / rho[:, None]
@@ -173,6 +198,8 @@ class AtmosModel:
         F[:, :, 4] = (rhoe + p)[:, None] * u
         for v in range(5, n):
             F[:, :, v] = q[:, v, None] * u
+        if self.precipitation is not None:
+            F = self.precipitation.flux_first_order(self, q, aux, F, u)
         return F
 
     def wavespeed(self, nrm, q, aux, t):
@@ -202,13 +229,19 @@ class AtmosModel:
 
     def source_context(self, q, aux, thermo=None) -> VMContext:
         """The sources' view of state q and aux; ``thermo`` is (T, p) when
-        the caller has computed it, else this model's thermo is."""
-        T, p = thermo if thermo is not None else self.thermo(q, aux)
-        sp = self.aux_spec
-        return VMContext(rho=q[:, 0], rhou=q[:, 1:4], T=T, p=p,
-                         grad_Phi=sp.get(aux, "orientation.grad_Phi"),
-                         coords=sp.get(aux, "coord"),
-                         aux=lambda name: sp.get(aux, name))
+        the caller has computed it (the var-major RHS: no phase
+        partition), else the moisture model's thermo gives T, p and the
+        phase partition."""
+        pp = None
+        if thermo is None:
+            T, p, pp = self.physics.moisture.thermo(self, q, aux)
+        else:
+            T, p = thermo
+        sp, ap = self.prog_spec, self.aux_spec
+        return VMContext(rho=sp.get(q, "rho"), rhou=sp.get(q, "rhou"), T=T,
+                         p=p, grad_Phi=ap.get(aux, "orientation.grad_Phi"),
+                         coords=ap.get(aux, "coord"),
+                         aux=lambda name: ap.get(aux, name), q=q, pp=pp)
 
     def sum_sources(self, ctx: VMContext, t):
         """Σ of the sources' ``contributions_vm``, ``[E, n, Np]``."""
@@ -226,6 +259,6 @@ class AtmosModel:
 
     def boundary_state(self, tag: int, nrm, q_minus, aux_minus, t):
         """Ghost (q⁺, aux⁺) on wall face lanes of boundary ``tag``:
-        q ``[E, 5, X]``, normals ``[E, 3, X]``."""
+        q ``[E, n, X]``, normals ``[E, 3, X]``."""
         bc = self.problem.boundary_conditions[tag - 1]
         return bc.ghost_state(self, nrm, q_minus, aux_minus, t)

@@ -1,20 +1,25 @@
 """Gravity and Coriolis sources (port of
 ``climatemachine_tpu/atmos/sources.py``: Gravity :26 (with and without
 the reference density, :33/:41), Coriolis :46, their
-``contributions`` :30,:50 and ``contributions_vm`` :38,:59).
+``contributions`` :30,:50 and ``contributions_vm`` :38,:59), and the
+base of the microphysics sources (atmos/precipitation.py).
 
 A source maps prognostic names to additive var-major tendencies
 (``[E, Np]`` scalars, ``[E, 3, Np]`` vectors) in
 ``contributions_vm(model, ctx, t)``, from a :class:`VMContext` whose
 thermo the caller computed once: the var-major RHS its own, the generic
-DG operator the model's.  ``contributions(model, q, gf, aux, t)`` is the
-JAX package's signature on state and aux.
+DG operator the model's (with the state and its phase partition, which
+the microphysics sources read).  ``contributions(model, q, gf, aux, t)``
+is the JAX package's signature on state and aux.  A source with
+``on_var_major_rhs`` False runs on the generic DG operator only, as the
+JAX package's var-major RHS takes only sources with a
+``contributions_vm``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -22,7 +27,10 @@ import torch
 @dataclass
 class VMContext:
     """What the var-major source hooks see: ``[E, Np]`` scalars,
-    ``[E, 3, Np]`` vectors; ``aux(name)`` reads var-major aux lanes."""
+    ``[E, 3, Np]`` vectors; ``aux(name)`` reads var-major aux lanes.  On
+    the generic DG operator ``q`` is the state ``[E, n, Np]`` and ``pp``
+    the moisture model's phase partition (None when dry); the var-major
+    RHS passes neither."""
     rho: torch.Tensor
     rhou: torch.Tensor
     T: torch.Tensor
@@ -30,10 +38,15 @@ class VMContext:
     grad_Phi: torch.Tensor
     coords: torch.Tensor
     aux: Callable
+    q: Optional[torch.Tensor] = None
+    pp: Optional[object] = None
 
 
 class Source:
     """Base of the atmosphere sources."""
+
+    #: whether the var-major RHS (dg/fast_rhs.py) takes this source
+    on_var_major_rhs = True
 
     def contributions_vm(self, model, ctx: VMContext, t):
         raise NotImplementedError

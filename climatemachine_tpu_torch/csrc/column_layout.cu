@@ -45,13 +45,15 @@
 //   A shape whose tile of 8 eh overflows the static 48 KB of shared
 //   memory takes the largest power-of-two tile that fits; a shape whose
 //   single chunk does not fit is refused.
-// - The dims (NVARS, NQ3, JI) and T are template constants for the two
-//   shapes the port runs on the card, (5, 5, 25) dry and (6, 5, 25)
-//   moist, with T = 8, so the splits are multiply-shift sequences; any
-//   other shape takes the same kernel with runtime dims.  The grid NV * ceil(Eh / T) is a function of the
-//   dims alone: no device query.  The offsets inside a tile run in 32
-//   bits when the state has fewer than 2^31 elements, in 64 otherwise;
-//   block bases in 64.
+// - The dims (NVARS, NQ3, JI) and T are template constants for the three
+//   shapes the port runs on the card, (5, 5, 25) dry, (6, 5, 25) moist
+//   and (9, 5, 25) moist with warm rain and two tracers, with T = 8, so
+//   the splits are multiply-shift sequences; any other shape takes the
+//   same kernel with runtime dims, and the *_runtime_f32 entries take it
+//   at every shape (to hold both branches at one shape).  The grid
+//   NV * ceil(Eh / T) is a function of the dims alone: no device query.
+//   The offsets inside a tile run in 32 bits when the state has fewer
+//   than 2^31 elements, in 64 otherwise; block bases in 64.
 
 #include <cuda_runtime.h>
 
@@ -229,9 +231,10 @@ int tile_for(int NVARS, int NQ3, int JI) {
   return 0;
 }
 
+// runtime_dims: take the runtime-dims kernel whatever the shape.
 template <bool TO_BLOCKS>
 int launch(const void* src, void* dst, int Eh, int NV, int NVARS, int NQ3,
-           int JI, void* stream) {
+           int JI, void* stream, bool runtime_dims) {
   if (Eh <= 0 || NV <= 0 || NVARS <= 0 || NQ3 <= 0 || JI <= 0 ||
       (int64_t)NVARS * NQ3 * JI > INT32_MAX / 2)
     return (int)cudaErrorInvalidValue;
@@ -249,14 +252,20 @@ int launch(const void* src, void* dst, int Eh, int NV, int NVARS, int NQ3,
   const float* s = static_cast<const float*>(src);
   float* d = static_cast<float*>(dst);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (NVARS == 5 && NQ3 == 5 && JI == 25 && tile == TILE)
-    return (int)launch_dims<5, 5, 25, TILE, TO_BLOCKS>(
-        s, d, Eh, NV, Dims<5, 5, 25, TILE>{5, 5, 25, TILE}, (unsigned)blocks,
-        smem, use_vec, wide, st);
-  if (NVARS == 6 && NQ3 == 5 && JI == 25 && tile == TILE)
-    return (int)launch_dims<6, 5, 25, TILE, TO_BLOCKS>(
-        s, d, Eh, NV, Dims<6, 5, 25, TILE>{6, 5, 25, TILE}, (unsigned)blocks,
-        smem, use_vec, wide, st);
+  if (!runtime_dims) {
+    if (NVARS == 5 && NQ3 == 5 && JI == 25 && tile == TILE)
+      return (int)launch_dims<5, 5, 25, TILE, TO_BLOCKS>(
+          s, d, Eh, NV, Dims<5, 5, 25, TILE>{5, 5, 25, TILE},
+          (unsigned)blocks, smem, use_vec, wide, st);
+    if (NVARS == 6 && NQ3 == 5 && JI == 25 && tile == TILE)
+      return (int)launch_dims<6, 5, 25, TILE, TO_BLOCKS>(
+          s, d, Eh, NV, Dims<6, 5, 25, TILE>{6, 5, 25, TILE},
+          (unsigned)blocks, smem, use_vec, wide, st);
+    if (NVARS == 9 && NQ3 == 5 && JI == 25 && tile == TILE)
+      return (int)launch_dims<9, 5, 25, TILE, TO_BLOCKS>(
+          s, d, Eh, NV, Dims<9, 5, 25, TILE>{9, 5, 25, TILE},
+          (unsigned)blocks, smem, use_vec, wide, st);
+  }
   return (int)launch_dims<0, 0, 0, 0, TO_BLOCKS>(
       s, d, Eh, NV, Dims<0, 0, 0, 0>{NVARS, NQ3, JI, tile}, (unsigned)blocks,
       smem, use_vec, wide, st);
@@ -271,12 +280,23 @@ extern "C" {
 
 int to_blocks_f32(const void* x, void* y, int Eh, int NV, int NVARS, int NQ3,
                   int JI, void* stream) {
-  return launch<true>(x, y, Eh, NV, NVARS, NQ3, JI, stream);
+  return launch<true>(x, y, Eh, NV, NVARS, NQ3, JI, stream, false);
 }
 
 int from_blocks_f32(const void* y, void* x, int Eh, int NV, int NVARS,
                     int NQ3, int JI, void* stream) {
-  return launch<false>(y, x, Eh, NV, NVARS, NQ3, JI, stream);
+  return launch<false>(y, x, Eh, NV, NVARS, NQ3, JI, stream, false);
+}
+
+// The same with the runtime-dims kernel at every shape.
+int to_blocks_runtime_f32(const void* x, void* y, int Eh, int NV, int NVARS,
+                          int NQ3, int JI, void* stream) {
+  return launch<true>(x, y, Eh, NV, NVARS, NQ3, JI, stream, true);
+}
+
+int from_blocks_runtime_f32(const void* y, void* x, int Eh, int NV,
+                            int NVARS, int NQ3, int JI, void* stream) {
+  return launch<false>(y, x, Eh, NV, NVARS, NQ3, JI, stream, true);
 }
 
 const char* column_layout_error_string(int code) {

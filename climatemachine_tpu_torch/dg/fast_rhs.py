@@ -4,7 +4,8 @@ the isentropic vortex (port of ``climatemachine_tpu/dg/fast_rhs.py``
 hyperdiffusion, and an EquilMoist model with EquilMoistBiharmonic; with
 the Rusanov flux; either full or as a fused remainder
 ``remainder_DGModel(dg, dg_lin)`` of an acoustic(-gravity) linear model
-in "vertical" or "every", :97-105; ``supports`` :52).
+in "vertical" or "every", :97-105; ``supports`` :52, which refuses
+tracers, precipitation and the microphysics sources, :76-85).
 
 State and aux stay var-major ``[E, nvar, Np]`` throughout.  Per call:
 
@@ -104,9 +105,14 @@ def _unsupported(dg):
         if not bc.is_free_slip_wall():
             return ValueError, ("VarMajorRHS implements the impenetrable "
                                 "free-slip, insulating wall only")
+    if bl.tracers.N or bl.precipitation is not None:
+        return ValueError, ("VarMajorRHS takes no tracers and no "
+                            "precipitation: the generic DG operator does")
     for src in bl.sources:
-        if not hasattr(src, "contributions_vm"):
-            return ValueError, f"source {src!r} has no contributions_vm"
+        if not (hasattr(src, "contributions_vm")
+                and getattr(src, "on_var_major_rhs", True)):
+            return ValueError, (f"source {src!r} runs on the generic DG "
+                                "operator only")
     return None
 
 

@@ -1,6 +1,7 @@
 """Var-major surface pass of the Euler model (port of
-``climatemachine_tpu/dg/fast_surface.py``: ``_tables`` :99-132 and
-``surface_tendency`` :135-263, with its fused-remainder subtraction).
+``climatemachine_tpu/dg/fast_surface.py``: ``supports`` :38-96,
+``_tables`` :99-132 and ``surface_tendency`` :135-263, with its
+fused-remainder subtraction).
 
 Face data is var-major ``[E, nvb, nface·Nfp]``.  The neighbour side of
 face f is, for most elements, the opposite face ``f ^ 1`` of the
@@ -26,9 +27,29 @@ import torch
 
 from climatemachine_tpu_torch.atmos.linear import \
     AtmosAcousticGravityLinearModel
+from climatemachine_tpu_torch.atmos.model import AtmosModel
+from climatemachine_tpu_torch.atmos.moisture import DryModel
 from climatemachine_tpu_torch.atmos.ref_state import reads_p_ref
 from climatemachine_tpu_torch.dg.directions import direction_faces
+from climatemachine_tpu_torch.dg.numerical_fluxes import RusanovNumericalFlux
 from climatemachine_tpu_torch.physics import thermodynamics as td
+
+
+def supports(dg) -> bool:
+    """True when the generic DG operator ``dg`` takes this pass: the dry
+    AtmosModel (five prognostic lanes, DryModel, no tracers: the JAX
+    package's conditions) with the Rusanov flux in every direction on a
+    grid of identity face orientations, with impenetrable free-slip,
+    insulating walls.  Any other configuration, a moist one among them,
+    takes the node-gather pass (``DGModel._generic_surface``)."""
+    bl, g = dg.balance_law, dg.grid
+    return (isinstance(bl, AtmosModel) and dg.direction == "every"
+            and g.face_perm_identity and bl.prog_spec.num == 5
+            and isinstance(bl.physics.moisture, DryModel)
+            and bl.tracers.N == 0
+            and type(dg.nf1) is RusanovNumericalFlux
+            and all(bc.is_free_slip_wall()
+                    for bc in bl.problem.boundary_conditions))
 
 
 def _tables(grid):
@@ -128,11 +149,14 @@ def surface_tendency(dg, q, aux, t):
     lift matrix, its neighbour side gathered, the wall ghost, the face
     thermo of each side, the Rusanov flux and, with a remainder, the
     linear acoustic(-gravity) Rusanov flux taken out on the linear model's
-    faces.  Dry models only: a moist model raises."""
+    faces.  The dry model only (:func:`supports`): any other raises, its
+    surface term is the node-gather pass's."""
     bl, g = dg.balance_law, dg.grid
-    if bl.prog_spec.num != 5:
-        raise NotImplementedError(
-            "next slice: the generic surface pass on a moist model")
+    if not supports(dg):
+        raise ValueError(
+            "the var-major surface pass takes the dry AtmosModel with the "
+            "Rusanov flux (fast_surface.supports); this configuration's "
+            "surface term is the node-gather pass, DGModel._generic_surface")
     ps, sp = bl.param_set, bl.aux_spec
     ops = dg.operators()
     E, Np, Nfp = g.nelem, g.Np, g.Nfp_max

@@ -5,16 +5,17 @@ and ``__call__`` :699-864, ``remainder_DGModel`` :867,
 init_state_auxiliary :895, init_ode_state :909).
 
 State is var-major ``[E, n, Np]``.  :class:`DGModel` is the right-hand
-side of a balance law on a grid: of the full Held-Suarez AtmosModel (the
-JAX package's node-major "grid" layout; here state stays var-major, and
-interop.py transposes the JAX package's tensors), of the linear acoustic
-models of the IMEX step in the vertical direction, and of the fused IMEX
-remainder (full − linear).  Its kernels are the dry volume kernel
-(dg/dry_volume_kernel.py) and the hyperdiffusion chain
-(dg/ldg_kernel.py); everything else is plain PyTorch, as the JAX package
-leaves it to XLA.  A moist AtmosModel (EquilMoist) builds a DGModel, the
-grid and model the var-major RHS reads, but calling it raises: the
-generic moist operator is not ported.
+side of a balance law on a grid: of the full AtmosModel (the JAX
+package's node-major "grid" layout; here state stays var-major, and
+interop.py transposes the JAX package's tensors), dry or moist, with
+tracers and precipitation, of the linear acoustic models of the IMEX
+step in the vertical direction, and of the fused IMEX remainder (full −
+linear).  Its kernels are the dry volume kernel (dg/dry_volume_kernel.py;
+the dry model only) and the hyperdiffusion chain (dg/ldg_kernel.py; n =
+4 rows dry, 5 with EquilMoistBiharmonic); everything else is plain
+PyTorch, as the JAX package leaves it to XLA: on a moist model the
+saturation adjustment of ``update_aux``, the volume flux of every lane
+and the node-gather surface pass.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ import torch
 
 from climatemachine_tpu_torch.atmos.hyperdiffusion import (
     DryBiharmonic, EquilMoistBiharmonic)
-from climatemachine_tpu_torch.atmos.model import AtmosModel
 from climatemachine_tpu_torch.device import require_full_fp32
 from climatemachine_tpu_torch.dg import (dry_volume_kernel, fast_surface,
                                         ldg_tables, ldg_varmajor)
@@ -94,9 +94,10 @@ class DGModel:
       chain stages (``chain_stages``: the CUDA kernels), "varmajor" the
       plain per-pass chain (dg/ldg_varmajor.py).
     - ``surface_kernel``: "auto" and "varmajor" take the var-major surface
-      pass (dg/fast_surface.py) for the AtmosModel in every direction
-      with the Rusanov flux; "xla", any other balance law and any other
-      flux, the generic node-gather pass.
+      pass (dg/fast_surface.py) where :func:`fast_surface.supports` holds
+      (the dry AtmosModel in every direction with the Rusanov flux);
+      "xla", any other balance law (a moist one among them) and any
+      other flux, the generic node-gather pass.
 
     ``volume`` is the dry volume function (the kernel wrapper; chip_smoke.py
     passes its plain version)."""
@@ -134,12 +135,8 @@ class DGModel:
         if self.volume_kernel == "pallas" and not self.dry_volume:
             raise ValueError("volume_kernel='pallas': the dry volume kernel "
                              "does not cover this configuration")
-        self.fast_surface = (
-            self.surface_kernel != "xla" and isinstance(bl, AtmosModel)
-            and type(self.nf1) is RusanovNumericalFlux
-            and self.direction == "every" and self.grid.face_perm_identity
-            and all(bc.is_free_slip_wall()
-                    for bc in bl.problem.boundary_conditions))
+        self.fast_surface = (self.surface_kernel != "xla"
+                             and fast_surface.supports(self))
 
     def _cached(self, key, build):
         if key not in self._cache:
@@ -216,10 +213,6 @@ class DGModel:
         if not hasattr(bl, "flux_first_order"):
             raise NotImplementedError(
                 "next slice: a balance law without a first-order flux")
-        if getattr(bl, "moist", False):
-            raise NotImplementedError(
-                "next slice: the generic DG operator on a moist model (its "
-                "right-hand side is the var-major RHS, dg/fast_rhs.py)")
         if q.device.type == "cuda":
             require_full_fp32("the DG operator")
         ops = self.operators()

@@ -12,16 +12,18 @@ over the vertical ``AtmosAcousticGravityLinearModel`` (its DGModel with
 generic DG operator ``dg`` itself (the JAX package's node-major layout;
 the port keeps its state var-major in both), "auto" the var-major RHS
 where ``fast_rhs.supports(dg)`` holds (the Rusanov flux among its
-conditions) and the generic operator otherwise (a Roe or HLLC flux).
+conditions) and the generic operator otherwise (a Roe, HLLC or LMARS
+flux, tracers, precipitation).
 ``columnwise_solver="dense"`` takes the dense ``ManyColumnSolver`` and
 the ARK step's grid-layout loop on the fused remainder
 ``remainder_DGModel(dg, dg_lin)``, whatever the layout.
 State and aux are var-major ``[E, n, Np]``; the caller sets
 ``post_step`` (the Held-Suarez filter) on the solver made.  A moist
 model (EquilMoist) runs the var-major RHS with its aux lanes written on
-every call, as the JAX package's does; on the generic DG operator
-(``state_layout="grid"``, the dense solver, the multirate solver) it
-raises.  ``MultirateSolverType().make`` builds the slow-fast multirate
+every call, as the JAX package's does, or the generic DG operator: with
+tracers or precipitation "auto" picks the generic operator (the
+var-major RHS does not take them) and "vm" raises, as in the JAX
+package.  ``MultirateSolverType().make`` builds the slow-fast multirate
 step: the fast part the linear acoustic-gravity model in the model's
 direction, the slow part the fused remainder, both generic DG operators.
 """
@@ -46,16 +48,12 @@ from climatemachine_tpu_torch.solvers.columnwise import (
 STATE_LAYOUTS = ("auto", "vm", "grid")
 
 
-def _refuse_unported(dg, state_layout: str, generic: bool):
-    """``generic``: the path runs the generic DG operator on ``dg``."""
+def _refuse_unported(dg, state_layout: str):
     if state_layout not in STATE_LAYOUTS:
         raise ValueError(f"state_layout must be one of {STATE_LAYOUTS}, "
                          f"got {state_layout!r}")
     if hasattr(dg, "inner") and hasattr(dg, "mesh"):
         raise NotImplementedError("next slice: a sharded DGModel")
-    if generic and getattr(dg.balance_law, "moist", False):
-        raise NotImplementedError(
-            "next slice: the generic DG operator on a moist model")
 
 
 def _var_major_rhs(dg) -> fast_rhs.VarMajorRHS:
@@ -83,15 +81,15 @@ class ExplicitSolverType:
     that RHS (:class:`VarMajorRHS`, built with ``write_aux=False``: call
     ``solver.vm.export_aux`` when aux leaves the loop; with a moist model
     ``write_aux=True``).  On ``dg`` itself ("grid", or "auto" where the
-    var-major RHS does not take it, e.g. with a Roe or HLLC flux), with
-    ``dg.pre_stage`` before each stage; ``solver.vm`` is None."""
+    var-major RHS does not take it, e.g. with a Roe or HLLC flux, with
+    tracers or with precipitation), with ``dg.pre_stage`` before each
+    stage; ``solver.vm`` is None."""
     solver_method: Callable = LSRK54CarpenterKennedy
     state_layout: str = "auto"
 
     def make(self, dg: DGModel, q0, aux0, dt: float):
-        generic = _generic(dg, self.state_layout)
-        _refuse_unported(dg, self.state_layout, generic=generic)
-        if generic:
+        _refuse_unported(dg, self.state_layout)
+        if _generic(dg, self.state_layout):
             solver = self.solver_method(dg, dt, pre_stage=dg.pre_stage)
             solver.vm = None
             return solver
@@ -122,8 +120,8 @@ class IMEXSolverType:
 
     def make(self, dg: DGModel, q0, aux0, dt: float):
         dense = self.columnwise_solver == "dense"
+        _refuse_unported(dg, self.state_layout)
         generic = dense or _generic(dg, self.state_layout)
-        _refuse_unported(dg, self.state_layout, generic=generic)
         solver_cls = {"banded": BlockTridiagColumnSolver,
                       "dense": ManyColumnSolver}.get(self.columnwise_solver)
         if solver_cls is None:
@@ -192,7 +190,7 @@ class MultirateSolverType:
         return self.fast_model(bl)
 
     def make(self, dg: DGModel, q0, aux0, dt: float):
-        _refuse_unported(dg, "grid", generic=True)
+        _refuse_unported(dg, "grid")
         dg_fast = DGModel(self.fast_model(dg.balance_law), dg.grid,
                           direction=dg.direction, update_aux=False,
                           numerical_flux_first_order=dg.nf1)

@@ -6,9 +6,11 @@ of ``climatemachine_tpu/experiments/baroclinic_wave.py`` :34-167:
 The deep-atmosphere analytic base state of Ullrich et al. (2016) with a
 localized velocity dipole and, moist, the low-tropics humidity profile;
 EquilMoist with EquilMoistBiharmonic hyperdiffusion (DryModel with
-DryBiharmonic when dry), Gravity and Coriolis, free-slip insulating
-walls.  Coordinates ``[E, 3, Np]``, state and aux var-major ``[E, n,
-Np]``.
+DryBiharmonic when dry), optional passive tracers, Gravity and
+Coriolis, free-slip insulating walls.  The initial state leaves every
+lane past ρq_tot (the precipitation's and the tracers', of a model that
+has them) at zero, as the JAX package's does.  Coordinates ``[E, 3,
+Np]``, state and aux var-major ``[E, n, Np]``.
 """
 
 from __future__ import annotations
@@ -111,7 +113,8 @@ def moist_low_tropics_q(ps: PlanetParameterSet, phi, p):
 
 def baroclinic_wave_init(model, coords, aux, t):
     """The base state plus the perturbation, with the low-tropics q_tot
-    under EquilMoist; var-major q ``[E, n, Np]``."""
+    under EquilMoist and zero on any further lane; var-major q ``[E, n,
+    Np]``."""
     ps, sp = model.param_set, model.aux_spec
     phi, lam = latitude(coords), longitude(coords)
     Phi = sp.get(aux, "orientation.Phi")
@@ -137,6 +140,8 @@ def baroclinic_wave_init(model, coords, aux, t):
              (rho * (e_int + ke + Phi))[:, None]]
     if model.moist:
         parts.append((rho * q_tot)[:, None])
+    n = model.prog_spec.num - sum(p.shape[1] for p in parts)
+    parts.append(rho.new_zeros((rho.shape[0], n, rho.shape[1])))
     return torch.cat(parts, dim=1)
 
 
@@ -156,10 +161,9 @@ def baroclinic_wave_config(n_horz: int = 8, n_vert: int = 4,
     DecayingTemperatureProfile(290, 220, 8e3) reference state, Gravity
     and Coriolis, and, unless ``hyperdiffusion_tau`` is None or 0,
     EquilMoistBiharmonic (moist) or DryBiharmonic (dry) with that
-    timescale.  ``dtype=None`` means float32, ``device=None`` CUDA.
-    Tracers are not ported: ``tracers`` must be None."""
-    if tracers is not None:
-        raise NotImplementedError("next slice: tracers")
+    timescale; ``tracers`` None or an
+    :class:`~climatemachine_tpu_torch.atmos.tracers.NTracers`.
+    ``dtype=None`` means float32, ``device=None`` CUDA."""
     a = param_set.planet_radius
     vert_range = a + np.linspace(0.0, domain_height, n_vert + 1)
     topo = stacked_cubed_sphere_topology(n_horz, vert_range)
@@ -174,7 +178,7 @@ def baroclinic_wave_config(n_horz: int = 8, n_vert: int = 4,
         ref_state=HydrostaticState(
             DecayingTemperatureProfile(290.0, 220.0, 8e3)),
         moisture=EquilMoist() if moist else DryModel(),
-        hyperdiffusion=hyper)
+        tracers=tracers, hyperdiffusion=hyper)
     problem = AtmosProblem(init_state=baroclinic_wave_init,
                            boundary_conditions=(AtmosBC(), AtmosBC()))
     model = AtmosModel(physics, problem, sources=(Gravity(), Coriolis()))

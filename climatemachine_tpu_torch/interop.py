@@ -7,8 +7,11 @@ state can be fed to this package and to another implementation of it.
 aux and tendencies var-major ``[E, n, Np]``: ``to_var_major`` and
 ``to_node_major`` turn one into the other, ``state_from_numpy`` and
 ``state_to_numpy`` a (state, aux) pair: the dry model's 5 prognostic
-lanes or the moist model's 6 (ρq_tot last) and their aux lanes, in the
-lane order the two packages share.
+lanes, the moist model's 6 (ρq_tot after ρe) or, with precipitation and
+tracers, more (ρq_tot, ρq_rai, ρχ…), and their aux lanes, in the lane
+order the two packages share.  Given the other package's lane names,
+``state_from_numpy`` checks them against the model's schema name by
+name.
 """
 
 from __future__ import annotations
@@ -75,26 +78,40 @@ def to_node_major(t) -> np.ndarray:
     return np.ascontiguousarray(t.detach().cpu().numpy().transpose(0, 2, 1))
 
 
-def _check_lanes(model, nq: int, naux: int):
+def _check_lanes(model, nq: int, naux: int, names=None):
     """Raise ValueError unless ``model`` (if given) has nq prognostic and
-    naux aux lanes."""
-    if model is not None and (nq, naux) != (model.prog_spec.num,
-                                            model.aux_spec.num):
+    naux aux lanes and, with ``names`` = (prognostic names, aux names),
+    those flattened lane names in that order."""
+    if model is None:
+        return
+    if (nq, naux) != (model.prog_spec.num, model.aux_spec.num):
         raise ValueError(
             f"state with {nq} prognostic and {naux} aux lanes, the model "
             f"has {model.prog_spec.num} and {model.aux_spec.num}")
+    if names is None:
+        return
+    for kind, got, spec in (("prognostic", names[0], model.prog_spec),
+                            ("aux", names[1], model.aux_spec)):
+        want = list(spec.flattened_names())
+        if list(got) != want:
+            raise ValueError(f"{kind} lanes {list(got)}, the model has "
+                             f"{want}")
 
 
-def state_from_numpy(q, aux, device=None, dtype=None, model=None):
+def state_from_numpy(q, aux, device=None, dtype=None, model=None,
+                     names=None):
     """Node-major ``[E, Np, n]`` q and aux → var-major ``[E, n, Np]``
     contiguous tensors; ``dtype=None`` keeps the arrays' dtype.  With
-    ``model``, the lane counts must be its prognostic and aux specs'."""
-    _check_lanes(model, np.shape(q)[-1], np.shape(aux)[-1])
+    ``model``, the lane counts must be its prognostic and aux specs' and,
+    with ``names`` (the flattened lane names of the arrays' prognostic
+    and aux schemas), the names too."""
+    _check_lanes(model, np.shape(q)[-1], np.shape(aux)[-1], names)
     return (to_var_major(q, device, dtype), to_var_major(aux, device, dtype))
 
 
 def state_to_numpy(q, aux, model=None):
     """Var-major q and aux → node-major ``[E, Np, n]`` numpy arrays; with
-    ``model``, checked as :func:`state_from_numpy` checks them."""
+    ``model``, the lane counts checked as :func:`state_from_numpy` checks
+    them."""
     _check_lanes(model, q.shape[1], aux.shape[1])
     return to_node_major(q), to_node_major(aux)

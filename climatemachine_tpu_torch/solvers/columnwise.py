@@ -287,16 +287,22 @@ class BlockTridiagColumnSolver:
                                                  alpha_dt, factors))
 
 
+#: the bytes of the column matrices one batched inverse takes at a time
+#: (ManyColumnSolver._factor)
+INV_CHUNK_BYTES = 1 << 30
+
+
 class ManyColumnSolver:
     """Dense per-column factor and apply of (I − α·dt·L): Nv basis probes
     assemble A ``[ncol, Nv, Nv]``, inverted once per α·dt; each solve and
     each application is one batched matrix-vector product.  O(ncol·Nv²)
-    memory (6.1 GB per matrix in float32 at n_horz=16, n_vert=8, p4):
-    the small-grid oracle of the block-tridiagonal solver, and the dense
-    ``columnwise_solver`` of the IMEX step, whose ARK step has no block
-    layout (``ode/ark.py`` ``_step_impl``).  The probes are written into
-    A in place, one column at a time; the batched products and the
-    inverse are library calls, as the JAX package leaves them to XLA."""
+    memory (in float32 at n_horz=16, n_vert=8, p4: 6.1 GB per matrix
+    with 5 variables, 19.9 GB with 9): the small-grid oracle of the
+    block-tridiagonal solver, and the dense ``columnwise_solver`` of the
+    IMEX step, whose ARK step has no block layout (``ode/ark.py``
+    ``_step_impl``).  The probes are written into A in place, one column
+    at a time; the batched products and the inverse are library calls,
+    as the JAX package leaves them to XLA."""
 
     exact_linear_solve = True
 
@@ -332,10 +338,18 @@ class ManyColumnSolver:
         return lay.from_columns(yc + b)
 
     def _factor(self, alpha_dt: float):
-        """(I − α·dt·A)⁻¹, with one temporary the size of A."""
-        m = self.A * -alpha_dt
-        m.diagonal(dim1=-2, dim2=-1).add_(1.0)
-        return torch.linalg.inv(m)
+        """(I − α·dt·A)⁻¹, inverted in batches of INV_CHUNK_BYTES of
+        columns: beside A and the result, the inverse's temporaries (the
+        shifted matrix, its LU factors, the identity it solves against)
+        take a few such batches, not a few copies of A."""
+        A = self.A
+        out = torch.empty_like(A)
+        step = max(1, INV_CHUNK_BYTES // (A[0].numel() * A.element_size()))
+        for c0 in range(0, A.shape[0], step):
+            m = A[c0:c0 + step] * -alpha_dt
+            m.diagonal(dim1=-2, dim2=-1).add_(1.0)
+            out[c0:c0 + step] = torch.linalg.inv(m)
+        return out
 
     def prefactorize(self, alpha_dt: float):
         """Invert (I − α·dt·A) per column once per α·dt and keep it."""

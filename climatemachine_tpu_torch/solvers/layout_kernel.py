@@ -15,7 +15,14 @@ for bit.
 
 Dispatch is by device: a CPU tensor takes the plain version; any other
 tensor takes the kernel (csrc/column_layout.cu) or raises.  The kernels
-cover float32; each wrapper counts its launches in ``.launches``.  They
+cover float32; each wrapper counts its launches in ``.launches``.  The
+kernel's dims (nvars, Nq3, ji) are compile-time constants at the three
+shapes the port's IMEX paths run, (5, 5, 25) dry, (6, 5, 25) moist and
+(9, 5, 25) moist with warm rain and two tracers, and runtime values at
+any other; :func:`to_blocks_vm_runtime_dims` and
+:func:`from_blocks_vm_runtime_dims` take the runtime-dims kernel at every
+shape, so that both branches can be held at one shape (they count no
+launches: no path runs them).  They
 are compiled at first use (cuda_build.py) and called through ctypes on
 PyTorch's current stream, inside the tensor's device; the launch makes
 no device query.
@@ -47,7 +54,8 @@ def from_blocks_vm_plain(yb, layout_dims):
 @functools.cache
 def _library():
     lib = cuda_build.load("column_layout")
-    for fn in ("to_blocks_f32", "from_blocks_f32"):
+    for fn in ("to_blocks_f32", "from_blocks_f32", "to_blocks_runtime_f32",
+               "from_blocks_runtime_f32"):
         getattr(lib, fn).argtypes = ([ctypes.c_void_p] * 2
                                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         getattr(lib, fn).restype = ctypes.c_int
@@ -100,6 +108,20 @@ def from_blocks_vm(yb, layout_dims):
                   layout_dims)
     from_blocks_vm.launches += 1
     return out
+
+
+def to_blocks_vm_runtime_dims(x, layout_dims):
+    """:func:`to_blocks_vm` through the runtime-dims kernel, on CUDA."""
+    Eh, nv, nvars, Nq3, ji = layout_dims
+    return _launch("to_blocks_runtime", x, (nv, Nq3 * nvars, Eh * ji),
+                   layout_dims)
+
+
+def from_blocks_vm_runtime_dims(yb, layout_dims):
+    """:func:`from_blocks_vm` through the runtime-dims kernel, on CUDA."""
+    Eh, nv, nvars, Nq3, ji = layout_dims
+    return _launch("from_blocks_runtime", yb, (Eh * nv, nvars, Nq3 * ji),
+                   layout_dims)
 
 
 to_blocks_vm.launches = 0

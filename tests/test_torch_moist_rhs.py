@@ -13,8 +13,9 @@ on the JAX grid's arrays:
 - one LSRK54 step through ``ExplicitSolverType().make`` of each package
   from that state, state and aux 1e-12 (the moist RHS writes its aux
   lanes on every call, so the aux after a step is the last stage's);
-- the refusals around the moist model: the generic DG operator and its
-  solver routes, and a dry hyperdiffusion on a moist model;
+- the refusals around the moist model: the var-major surface pass
+  called directly on it, and a dry hyperdiffusion on a moist model (the
+  generic DG operator and its solver routes take it);
 - the port's float32 against float64 on the CPU for the small moist
   references of chip_smoke.py (tests/moist_precision_gap.py, which also
   measures the JAX package's): within a fifth of the card's tolerance,
@@ -147,17 +148,22 @@ def test_explicit_solver_type_step_matches_jax(setup):
 
 
 def test_moist_refusals(setup):
+    """The generic DG operator and its solver routes take the moist model
+    now (tests/test_torch_tracers.py holds them against the JAX
+    package's): what is left refused is the var-major surface pass
+    called directly on it (its surface term is the node-gather pass's)
+    and a dry hyperdiffusion on a moist model."""
     dg_t, model = setup["dg_t"], setup["cfg_t"].model
     qv, auxv = state_from_numpy(setup["q"], setup["aux0"], device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        dg_t(qv, auxv, 0.0)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    assert not dg_t.fast_surface
+    dq, _ = dg_t(qv, auxv, 0.0)
+    assert dq.shape == qv.shape and bool(torch.isfinite(dq).all())
+    with pytest.raises(ValueError, match="node-gather"):
         fast_surface.surface_tendency(dg_t, qv, auxv, 0.0)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ExplicitSolverType(state_layout="grid").make(dg_t, qv, auxv, 1.0)
+    assert ExplicitSolverType(state_layout="grid").make(
+        dg_t, qv, auxv, 1.0).rhs is dg_t
     for kw in (dict(state_layout="grid"), dict(columnwise_solver="dense")):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            IMEXSolverType(**kw).make(dg_t, qv, auxv, 1.0)
+        assert IMEXSolverType(**kw).make(dg_t, qv, auxv, 1.0).vm is None
     from dataclasses import replace
     dry_hd = AtmosModel(replace(model.physics,
                                 hyperdiffusion=DryBiharmonic(3600.0)),

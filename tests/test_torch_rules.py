@@ -357,6 +357,22 @@ def test_layout_wrapper_never_falls_back_off_cpu(name):
     assert wrapper.launches == before
 
 
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("name", ["to_blocks_vm", "from_blocks_vm"])
+def test_layout_runtime_dims_entry_is_kernel_only(name, device):
+    """The runtime-dims entries (chip_smoke.py holds that branch at the
+    constant shapes) launch the kernel or raise: no plain version on any
+    device, no launch counted."""
+    wrapper = getattr(layout_kernel, name)
+    entry = getattr(layout_kernel, name + "_runtime_dims")
+    dims = (1536, 8, 9, 5, 25)
+    shape = (12288, 9, 125) if name == "to_blocks_vm" else (8, 45, 38400)
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        entry(torch.empty(shape, dtype=torch.float32, device=device), dims)
+    assert wrapper.launches == before
+
+
 @pytest.mark.parametrize("source", ["volume_vm", "ldg_chain",
                                     "column_layout", "surface_vm"])
 def test_build_without_nvcc_raises(monkeypatch, tmp_path, source):
