@@ -131,6 +131,25 @@ filter:
   horizontal and every) and the var-major kernel's "horizontal"
   lin_dims (0, 1) with and without p_ref against their plain versions,
   and those remainder RHS under each surface pass with their launches;
+- the rising-bubble LES (experiments/risingbubble.py, the JAX package's
+  examples/risingbubble.py: the 2500 m cube, lateral sides periodic,
+  walls at the bottom and top, a 2 K bubble of radius 500 m at (1250,
+  1000) m) at Δ = 25 m, p4, float32 (25 × 25 × 25 = 15,625 elements),
+  built only through the driver's entry: ``AtmosLESConfiguration`` →
+  ``make_solver_configuration`` (dt from ``calculate_dt`` at Courant
+  0.4) → ``invoke`` (3 + 23 LSRK54 steps, the last 23 timed).  With
+  SmagorinskyLilly(0.21) "auto" takes the generic DG operator's
+  gradient path, which launches no kernel (les_path: set-up seconds, ms
+  per step, peak memory, mass drift <= 1e-5, max w > 0, invoke's norm
+  ratio); without a closure it takes the var-major RHS: its volume
+  kernel (no F₂, p_ref taken out), extraction (na = 1, no
+  hyperdiffusion) and flux + lift, and the dry volume kernel of its
+  generic operator, "[les]", against their plain versions on the path's
+  perturbed state, the RHS against its plain-stage twins and the
+  generic RHS, then ``invoke`` under each surface pass and with
+  ``state_layout="grid"``, with exact launch counts; each closure's 3 ×
+  3 × 3 box, 3 steps in float32 on the card against the port's float64
+  run on the CPU (LES_SMALL_TOL);
 - the staged kernels (K1-K4, the volume kernel with and without F₂,
   both dry branches; the moist branches of K1-K4 and the volume kernel)
   and every remainder branch above at the other orders the kernels are
@@ -163,7 +182,10 @@ vertical acoustic branch from the dense acoustic IMEX path, its
 every-direction acoustic-gravity branch from the multirate path, its
 others from the generic remainder runs; the four [nosub] branches with
 launches from the vortex paths: the var-major kernels' from its "pallas"
-run, the dry kernel's from the grid-layout Rusanov run) and, last,
+run, the dry kernel's from the grid-layout Rusanov run; the four [les]
+branches with launches from the inviscid bubble's runs: the var-major
+kernels' from its "pallas" run, the dry kernel's from its grid-layout
+run) and, last,
 ``{"ok": true,
 "device": ...}``.  Any failure raises and exits non-zero without the
 last line.  Without a CUDA device it exits 1 at once.
@@ -332,10 +354,17 @@ from climatemachine_tpu_torch.dg.numerical_fluxes import (
     RoeNumericalFluxMoist, RusanovNumericalFlux)
 from climatemachine_tpu_torch.dg.spatial import (DGModel, init_ode_state,
                                                  remainder_DGModel)
+from climatemachine_tpu_torch.common.turbulence import SmagorinskyLilly
+from climatemachine_tpu_torch.driver.driver import init as driver_init
+from climatemachine_tpu_torch.driver.driver import invoke
+from climatemachine_tpu_torch.driver.solver_configs import \
+    make_solver_configuration
 from climatemachine_tpu_torch.driver.solver_types import (
     ExplicitSolverType, IMEXSolverType, MultirateSolverType)
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
+from climatemachine_tpu_torch.experiments.risingbubble import \
+    risingbubble_config
 from climatemachine_tpu_torch.interop import grid_from_numpy, grid_to_numpy
 from climatemachine_tpu_torch.mesh.grid import make_grid, min_node_distance
 from climatemachine_tpu_torch.mesh.topology import brick_topology
@@ -483,6 +512,25 @@ N_STEPS_TR_FLUX = 5
 TRACER_FLUXES = {"roe": RoeNumericalFlux, "roe_moist": RoeNumericalFluxMoist,
                  "hllc": HLLCNumericalFlux, "lmars": LMARSNumericalFlux}
 #: kernel name -> (wrapper, plain version, source, TPU kernel it replaces)
+# the rising-bubble LES (experiments/risingbubble.py, the JAX package's
+# examples/risingbubble.py): the 2500 m cube at Δ = 25 m, p4
+LES = "[les]"
+LES_RESOLUTION = 25.0
+LES_ELEMENTS = 15625
+LES_COURANT = 0.4
+LES_WARM, LES_STEPS = 3, 23
+LES_SMALL_RESOLUTION = 2500.0 / 12      # 3 × 3 × 3 elements at p4
+LES_SMALL_STEPS = 3
+# float32 on the card against float64 on the CPU after LES_SMALL_STEPS
+# steps of the small box, per variable (ρ, ρu, ρe; the momentum's
+# components over the largest): the same gap with float32 on the CPU is
+# 2.7e-7, 1.8e-3, 7.7e-7, with or without the closure (float32's
+# rounding of the hydrostatic balance, felt by a momentum that starts
+# at rest); these are 11-37 times that
+LES_SMALL_TOL = (1e-5, 2e-2, 2e-2, 2e-2, 1e-5)
+# invoke's norm(Q)/norm(Q0), as tests/test_driver.py bounds it
+LES_RATIO_TOL = 0.1
+
 KERNELS = {
     "fused_volume_tendency_vm": (
         volume_kernel.fused_volume_tendency_vm,
@@ -2726,34 +2774,39 @@ def run_vortex(v: dict, solver, dt: float, steps: int, mode=None,
     return res
 
 
-def vortex_kernel_inputs(rhs, q, aux) -> dict:
-    """The var-major kernels' (args, kwargs) on the vortex's RHS ``rhs`` at
-    (q, aux), as it hands them over: the volume kernel without p_ref
-    (subtract_ref=False), the extraction at na = 0 and the flux + lift
-    with subtract=False on the plain extraction's bundle and its
-    neighbour side."""
+def var_major_kernel_inputs(rhs, q, aux) -> dict:
+    """The var-major kernels' (args, kwargs) on a path's RHS ``rhs`` without
+    hyperdiffusion at (q, aux), as it hands them over: the volume kernel
+    without F₂, the extraction and the flux + lift on the plain
+    extraction's bundle and its neighbour side; with p_ref where the RHS
+    reads it (na = 1, the bubble: taken out), else without (na = 0, the
+    vortex: subtract=False)."""
     g, ps, nq = rhs.grid, rhs.bl.param_set, rhs.nq
     _, p, c_s, aux = rhs._thermo_update(q, aux, False)
-    vol = ((q, p, aux[:, rhs.i_phi].contiguous(), None, None, None, None,
+    has_pref = rhs.i_pref is not None
+    p_ref = aux[:, rhs.i_pref].contiguous() if has_pref else None
+    vol = ((q, p, aux[:, rhs.i_phi].contiguous(), p_ref, None, None, None,
             rhs.xiv, g.M, g.MI, g.Wdiv), volume_kwargs(rhs, False))
     ext = ((q, p, c_s, rhs._aux_lanes(aux), None, None, g.lift, rhs.nrm),
-           dict(nq=nq, na=0, ngl=0, has_hyper=False))
+           dict(nq=nq, na=int(has_pref), ngl=0, has_hyper=False))
     Bf = surface_kernel.extract_trace_plain(*ext[0], **ext[1])
     lift = ((Bf, rhs._gather_faces(Bf), rhs.nrm, rhs.sM, rhs.bmask,
              rhs.liftT, g.MI),
-            dict(nq=nq, nvb=Bf.shape[1], subtract=False, i_pref=nq,
-                 has_hyper=False, rem_lanes=(), sl_lo=0, sl_hi=0,
-                 R_d_T0=ps.R_d * ps.T_0, R_over_cv=ps.R_d / ps.cv_d))
+            dict(nq=nq, nvb=Bf.shape[1], subtract=rhs.subtract,
+                 i_pref=nq + 2 if has_pref else nq, has_hyper=False,
+                 rem_lanes=(), sl_lo=0, sl_hi=0, R_d_T0=ps.R_d * ps.T_0,
+                 R_over_cv=ps.R_d / ps.cv_d))
     return {"fused_volume_tendency_vm": vol, "extract_trace_vm": ext,
             "fused_surface_lift_vm": lift}
 
 
-def vortex_rhs_errs(v: dict, q) -> dict:
-    """The vortex's RHS at state q: the var-major RHS under each surface
+def vortex_rhs_errs(v: dict, q, fluxes=VORTEX_FLUXES) -> dict:
+    """A path's RHS at state q (the vortex's, and the inviscid bubble's
+    with the Rusanov flux alone): the var-major RHS under each surface
     pass against its plain-stage twin and against the generic RHS, and
-    the generic RHS of each flux against its plain-stage twin (the dry
-    kernel's plain version) and its all-plain twin (the contraction);
-    per variable (:func:`vortex_err`)."""
+    the generic RHS of each of ``fluxes`` against its plain-stage twin
+    (the dry kernel's plain version) and its all-plain twin (the
+    contraction); per variable (:func:`vortex_err`)."""
     model, g, dg, aux0 = v["model"], v["grid"], v["dg"], v["aux0"]
     rhs = VarMajorRHS(dg, write_aux=False)
     errs = {}
@@ -2764,7 +2817,7 @@ def vortex_rhs_errs(v: dict, q) -> dict:
         errs[f"var_major:{mode}"] = vortex_err(
             out, plain_rhs(dg, mode)(q, aux0, 0.0)[0])
         errs[f"var_major:{mode}_vs_generic"] = vortex_err(out, generic)
-    for name, nf in VORTEX_FLUXES.items():
+    for name, nf in fluxes.items():
         dg_f = DGModel(model, g, numerical_flux_first_order=nf())
         ref = dg_f(q, aux0, 0.0)[0]
         for twin, d in (("plain_stages", DGModel(
@@ -2892,7 +2945,8 @@ def phase_vortex(seed: int) -> dict:
     check(not rhs.subtract and rhs.i_pref is None,
           "the vortex's bundle carries no p_ref")
     kernels = {}
-    for name, (args, kw) in vortex_kernel_inputs(rhs, q, v["aux0"]).items():
+    for name, (args, kw) in var_major_kernel_inputs(rhs, q,
+                                                    v["aux0"]).items():
         kernels[name + NOSUB] = kernel_vs_plain(name, args, rhs, n=0, **kw)
     args, kw = dry_volume_args(dg, q, aux)
     check(kw["subtract_ref"] is False and args[2] is None,
@@ -2967,7 +3021,7 @@ def phase_vortex_kernel_orders(seed: int):
         aux = v["model"].update_auxiliary_state(q, v["aux0"])
         rhs = VarMajorRHS(v["dg"], write_aux=False)
         cases = {name + NOSUB: (name,) + inp for name, inp in
-                 vortex_kernel_inputs(rhs, q, v["aux0"]).items()}
+                 var_major_kernel_inputs(rhs, q, v["aux0"]).items()}
         cases[DRY + NOSUB] = (DRY,) + tuple(dry_volume_args(v["dg"], q, aux))
         rhs.surface_kernel = "pallas"
         errs = {"vortex:var_major": vortex_err(
@@ -3006,6 +3060,238 @@ def phase_vortex_kernel_orders(seed: int):
 
 
 # --- the staged kernels at the other orders ----------------------------------
+
+class StepTimer:
+    """A ``solve`` callback: the host clock, after a synchronize, at the
+    end of step ``warm`` and at the end of the run."""
+
+    def __init__(self, warm: int):
+        self.warm = warm
+        self.start = self.end = None
+        self.steps = 0
+
+    def call(self, state):
+        if state.step == self.warm:
+            torch.cuda.synchronize()
+            self.start = time.perf_counter()
+        return False
+
+    def fini(self, state):
+        torch.cuda.synchronize()
+        self.end = time.perf_counter()
+        self.steps = state.step - self.warm
+
+
+def les_config(turbulence, resolution=LES_RESOLUTION, solver_type=None,
+               dc=None):
+    """(driver configuration, solver configuration) of the rising bubble
+    as a user builds them: ``AtmosLESConfiguration`` (through
+    ``risingbubble_config``; float32 on the card) and
+    ``make_solver_configuration`` (dt from ``calculate_dt`` at Courant
+    0.4, ``ExplicitSolverType()`` unless ``solver_type``); ``dc`` reuses
+    a driver configuration."""
+    dc = dc or risingbubble_config(resolution, POLY, turbulence,
+                                   torch.float32, "cuda")
+    sc = make_solver_configuration(0.0, -1.0, dc, ode_solver_type=solver_type,
+                                   Courant_number=LES_COURANT)
+    return dc, sc
+
+
+def run_les(sc, q0, aux0, expected: dict, mode=None) -> dict:
+    """``invoke`` of ``sc`` from (q0, aux0) over LES_WARM + LES_STEPS
+    steps (with ``mode`` the var-major RHS's surface pass), every launch
+    count set to 0 just before and read just after, the last LES_STEPS
+    steps timed; checks the state (shape, finite), the mass drift, that
+    the bubble rises (max w > 0), invoke's norm ratio and the launches."""
+    g = sc.dg.grid
+    if mode is not None:
+        sc.solver.vm.surface_kernel = mode
+    sc.q, sc.aux, sc.t0 = q0, aux0, 0.0
+    sc.timeend = (LES_WARM + LES_STEPS) * sc.dt
+    timer = StepTimer(LES_WARM)
+    reset_launch_counts()
+    ratio = invoke(sc, user_callbacks=(timer,))
+    counts = launch_counts()
+    q = sc.q
+    mass = lambda x: torch.sum(g.M.double() * x[:, 0].double()).item()
+    drift = abs(mass(q) - mass(q0)) / mass(q0)
+    finite = bool(torch.isfinite(q).all())
+    wall = timer.end - timer.start
+    res = dict(card=nvidia_smi(), elements=g.nelem, poly=g.Nq[0] - 1,
+               gridpoints=g.nelem * g.Np, dtype="float32", dt_s=sc.dt,
+               warm_steps=LES_WARM, steps=timer.steps,
+               var_major=sc.solver.vm is not None, surface_kernel=mode,
+               ms_per_step=1e3 * wall / timer.steps,
+               gridpoints_per_s=g.nelem * g.Np * timer.steps / wall,
+               sim_s_per_wall_s=sc.dt * timer.steps / wall,
+               norm_ratio=ratio, mass_drift_rel=drift, mass_tol=MASS_TOL,
+               max_w=(q[:, 3] / q[:, 0]).max().item(), finite=finite,
+               launches=counts, expected_launches=expected)
+    check(timer.steps == LES_STEPS, ("LES steps timed", timer.steps))
+    check(list(q.shape) == [g.nelem, 5, g.Np], ("LES state shape",
+                                                 list(q.shape)))
+    check(finite, "LES state not finite")
+    check(drift <= MASS_TOL, ("LES mass drift", drift))
+    check(res["max_w"] > 0.0, ("the bubble does not rise", res["max_w"]))
+    check(math.isfinite(ratio) and abs(ratio - 1.0) <= LES_RATIO_TOL,
+          ("invoke's norm ratio", ratio))
+    check_launches(counts, expected)
+    return res
+
+
+def les_small_reference(turbulence) -> list:
+    """LES_SMALL_STEPS steps of the bubble on the small box
+    (LES_SMALL_RESOLUTION: 3 × 3 × 3 elements at p4) in float32 on the
+    card against the port's float64 run on the CPU from the same float32
+    geometry and initial state (upcast), the same solver type ("auto"):
+    the per-variable error (:func:`vortex_err`)."""
+    dc, sc = les_config(turbulence, LES_SMALL_RESOLUTION)
+    check(dc.grid.nelem == 27, ("small LES box", dc.grid.nelem))
+    grid64 = grid_from_numpy(grid_to_numpy(dc.grid), device="cpu",
+                             dtype=torch.float64)
+    sc64 = make_solver_configuration(0.0, -1.0, replace(dc, grid=grid64),
+                                     ode_dt=sc.dt)
+    check((sc.solver.vm is None) == (sc64.solver.vm is None),
+          "the small reference's twin takes the card run's RHS")
+    runs = {"f32": (sc.solver, sc.q, sc.aux),
+            "f64": (sc64.solver, sc.q.double().cpu(),
+                    sc.aux.double().cpu())}
+    final = {}
+    for name, (solver, q, aux) in runs.items():
+        for i in range(LES_SMALL_STEPS):
+            q, aux = solver.step(q, aux, i * sc.dt)
+        final[name] = q.double().cpu()
+    return vortex_err(final["f32"], final["f64"])
+
+
+def phase_les_bubble(seed: int) -> dict:
+    """The rising-bubble LES with SmagorinskyLilly(0.21) at full size
+    (15,625 elements, p4, float32), built only through the driver's
+    entry: ``AtmosLESConfiguration`` → ``make_solver_configuration`` →
+    ``invoke``.  "auto" puts it on the generic DG operator with its
+    gradient pass, which runs no kernel (as in the JAX package: the dry
+    volume kernel and the var-major surface pass take no gradient flux),
+    so every launch count stays 0.  Reports the set-up seconds, ms per
+    LSRK54 step (LES_STEPS after LES_WARM), the peak device memory, the
+    mass drift, max w, invoke's norm ratio, then the small box against
+    float64."""
+    t_phase = time.perf_counter()
+    driver_init(show_updates="never")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dc, sc = les_config(SmagorinskyLilly(0.21))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    dg = sc.dg
+    check(dc.grid.nelem == LES_ELEMENTS, ("LES elements", dc.grid.nelem))
+    check(sc.solver.vm is None and dg.n_gradient == 5
+          and not dg.dry_volume and not dg.fast_surface,
+          "the closure takes the generic operator's gradient path")
+    res = run_les(sc, sc.q, sc.aux, expected_launches({}, 0))
+    res.update(setup_s=setup_s,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    emit("les_path", closure="SmagorinskyLilly(0.21)", layout="grid", **res)
+    del dc, sc, dg
+    torch.cuda.empty_cache()
+    err = les_small_reference(SmagorinskyLilly(0.21))
+    emit("les_small_reference", closure="SmagorinskyLilly(0.21)",
+         elements=27, poly=POLY, steps=LES_SMALL_STEPS, rel_err_per_var=err,
+         tol=LES_SMALL_TOL)
+    check(all(e <= t for e, t in zip(err, LES_SMALL_TOL)),
+          ("LES small reference", err))
+    emit("les_bubble_phase", card=nvidia_smi(),
+         seconds=time.perf_counter() - t_phase)
+    return dict(ms_per_step=res["ms_per_step"], setup_s=setup_s,
+                peak_memory_bytes=res["peak_memory_bytes"])
+
+
+def les_perturbed(q0, seed: int):
+    """The bubble's initial state (at rest) times 1 + 1e-3 · N(0, 1), its
+    momentum then ρ·u with u ~ N(0, 1) m/s, from ``seed``: every lane of
+    the kernels' inputs away from 0."""
+    q = perturbed(q0, seed)
+    gen = torch.Generator(device=q.device).manual_seed(seed + 1)
+    q[:, 1:4] = q[:, :1] * torch.randn(q[:, 1:4].shape, generator=gen,
+                                       device=q.device)
+    return q
+
+
+def phase_les_inviscid(seed: int) -> dict:
+    """The rising bubble without a closure at full size, built through
+    the driver's entry as :func:`phase_les_bubble`: "auto" takes the
+    var-major RHS on the walled, stacked brick (FlatOrientation,
+    HydrostaticState(DryAdiabaticProfile), Gravity).  Its kernels (the
+    volume kernel without F₂, the extraction at na = 1 without
+    hyperdiffusion, the flux + lift) and the dry volume kernel of its
+    generic operator against their plain versions on the path's own
+    perturbed state (E = 15,625: the staged kernels' last tile holds one
+    element), the RHS checks, then ``invoke`` under each surface pass and
+    with ``ExplicitSolverType(state_layout="grid")``, each with exact
+    launch counts, and the small box against float64.  Returns
+    {"kernels": {entry: result}, "launches": {entry: launches},
+    "ms_per_step": {run: ms}, "setup_s": s}."""
+    t_phase = time.perf_counter()
+    driver_init(show_updates="never")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dc, sc = les_config(None)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    dg, rhs = sc.dg, sc.solver.vm
+    check(rhs is not None and dg.dry_volume and dg.fast_surface
+          and dg.n_gradient == 0, "auto takes the var-major RHS")
+    q0, aux0 = sc.q, sc.aux
+    q = les_perturbed(q0, seed)
+    kernels = {}
+    for name, (args, kw) in var_major_kernel_inputs(rhs, q, aux0).items():
+        kernels[name + LES] = kernel_vs_plain(name, args, rhs, n=0, **kw)
+    args, kw = dry_volume_args(dg, q, dg.balance_law.update_auxiliary_state(
+        q, aux0))
+    check(kw["subtract_ref"] is True and args[2] is not None,
+          "the bubble's generic RHS hands the dry kernel p_ref")
+    kernels[DRY + LES] = kernel_vs_plain(
+        DRY, args, SimpleNamespace(grid=dg.grid, hd=None, nq=5), n=0, **kw)
+    del args
+    errs = vortex_rhs_errs(dict(model=dg.balance_law, grid=dg.grid, dg=dg,
+                                aux0=aux0), q,
+                           {"rusanov": RusanovNumericalFlux})
+    emit("les_rhs", card=nvidia_smi(), rel_err_per_var=errs,
+         tol=GENERIC_RHS_TOL)
+    for key, err in errs.items():
+        check(all(torch.isfinite(torch.tensor(err)))
+              and max(err) <= GENERIC_RHS_TOL, ("LES RHS", key, err))
+    del q
+
+    launches, ms = {}, {}
+    steps = LES_WARM + LES_STEPS
+    for mode in SURFACE_KERNELS:
+        per_step = {name: 5 for name in ("fused_volume_tendency_vm",)
+                    + SURFACE_LAUNCHES[mode]}
+        res = run_les(sc, q0, aux0, expected_launches(per_step, steps), mode)
+        emit("les_path", closure=None, layout="vm", setup_s=setup_s, **res)
+        ms[f"vm:{mode}"] = res["ms_per_step"]
+        if mode == "pallas":
+            launches.update({name + LES: res["launches"][name]
+                             for name in per_step})
+    _, sc_g = les_config(None, solver_type=ExplicitSolverType(
+        state_layout="grid"), dc=dc)
+    res = run_les(sc_g, q0, aux0, expected_launches({DRY: 5}, steps))
+    emit("les_path", closure=None, layout="grid", **res)
+    ms["grid"] = res["ms_per_step"]
+    launches[DRY + LES] = res["launches"][DRY]
+    del dc, sc, sc_g, dg, rhs, q0, aux0
+    torch.cuda.empty_cache()
+    err = les_small_reference(None)
+    emit("les_small_reference", closure=None, elements=27, poly=POLY,
+         steps=LES_SMALL_STEPS, rel_err_per_var=err, tol=LES_SMALL_TOL)
+    check(all(e <= t for e, t in zip(err, LES_SMALL_TOL)),
+          ("LES small reference (inviscid)", err))
+    emit("les_inviscid_phase", card=nvidia_smi(),
+         seconds=time.perf_counter() - t_phase, ms_per_step=ms)
+    return dict(kernels=kernels, launches=launches, ms_per_step=ms,
+                setup_s=setup_s)
+
 
 def hold(name, args, kw) -> dict:
     """The kernel on ``args`` and on their first TAIL_E elements against
@@ -3111,12 +3397,17 @@ def main(argv=None) -> int:
         remainder["launches"].update(moist_rem["launches"])
     tracers = None if args.skip_moist else phase_moist_tracers(args.seed)
     vortex = phase_vortex(args.seed)
+    les = phase_les_bubble(args.seed)
+    les_inviscid = phase_les_inviscid(args.seed)
     phase_kernel_orders(args.seed)
     if moist:
         phase_moist_kernel_orders(args.seed)
     phase_vortex_kernel_orders(args.seed)
     emit("surface_modes", card=nvidia_smi(),
          vortex_ms_per_step=vortex["ms_per_step"],
+         les_ms_per_step=les["ms_per_step"], les_setup_s=les["setup_s"],
+         les_peak_memory_bytes=les["peak_memory_bytes"],
+         les_inviscid_ms_per_step=les_inviscid["ms_per_step"],
          explicit_ms_per_step=explicit["ms_per_step"],
          imex_ms_per_step=imex["ms_per_step"],
          generic_ms_per_step=generic["ms_per_step"],
@@ -3174,6 +3465,11 @@ def main(argv=None) -> int:
     results.update(vortex["kernels"])
     entries += [(entry, entry.split("[")[0], vortex["launches"][entry])
                 for entry in vortex["launches"]]
+    # the inviscid bubble's: the var-major kernels' launches from its
+    # "pallas" run, the dry kernel's from its grid-layout run
+    results.update(les_inviscid["kernels"])
+    entries += [(entry, entry.split("[")[0], les_inviscid["launches"][entry])
+                for entry in les_inviscid["launches"]]
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": [{
         "name": entry, "route": "cuda",

@@ -1,24 +1,36 @@
-"""The atmosphere balance law (port of the parts of
-``climatemachine_tpu/atmos/model.py`` the Held-Suarez step, the moist
-baroclinic wave and its tracers and warm rain use: ``AtmosPhysics`` :76
-with ``tracers`` :84 and ``precipitation`` :86, the prognostic/aux
-schemas :143-203, ``thermo_full`` :274, ``nodal_init_state_auxiliary``
-:334, the thermo refresh of the aux lanes through the moisture model
-(``nodal_update_auxiliary_state`` :493), and the hooks of the generic DG
-operator for the total-energy, compressible model: ``flux_first_order``
-:372-447 (the advected moisture, precipitation and tracer scalars
-:419-437), ``wavespeed`` :449, the gradient-Laplacian hooks :539-550,
-``flux_second_order`` :552 (hyperdiffusion only), ``source`` :583-605
-and the wall ghost ``boundary_state`` :608-618).
+"""The atmosphere balance law (port of ``climatemachine_tpu/atmos/model.py``
+for the Held-Suarez step, the moist baroclinic wave with its tracers and
+warm rain, and the LES boxes: ``AtmosPhysics`` :76 with ``turbulence``
+:82, ``tracers`` :84, ``precipitation`` :86 and ``viscoussponge`` :87,
+the prognostic/aux/gradient schemas :143-233, ``thermo_full`` :274,
+``nodal_init_state_auxiliary`` :334 (the closure's lengthscale
+:346-347), the thermo refresh of the aux lanes through the moisture
+model (``nodal_update_auxiliary_state`` :493), and the hooks of the
+generic DG operator for the total-energy, compressible model:
+``flux_first_order`` :372-447 (the advected moisture, precipitation and
+tracer scalars :419-437), ``wavespeed`` :449, the gradient hooks
+``compute_gradient_argument`` / ``compute_gradient_flux`` :502-537, the
+gradient-Laplacian hooks :539-550, ``flux_second_order`` :552-580 (the
+closure's viscous flux with the moisture's and tracers' diffusion, and
+hyperdiffusion), ``source`` :583-605, the wall ghost ``boundary_state``
+:608-618, the wall fluxes ``boundary_flux_second_order`` :620-694, and
+the balance law's defaults ``boundary_state_gradient_flux`` and
+``update_auxiliary_state_gradient``
+(``climatemachine_tpu/balance_laws/interface.py`` :112-115, :133-139)).
 
 Prognostic, in the JAX package's order: ρ, ρu(3), ρe, then with
 ``EquilMoist`` ρq_tot, with a precipitation model ρq_rai (and ρq_sno),
 with ``NTracers`` ρχ (N).  Auxiliary: coord(3), orientation (Φ, ∇Φ),
-with a ``HydrostaticState`` the reference state (ρ, p, T, ρe), moisture
-(θ_v, T dry; T, θ_v, q_liq, q_ice with ``EquilMoist``), then, with
-hyperdiffusion, ``hyperdiffusion.delta``.  State and aux are var-major
-``[E, n, L]`` over L nodes (volume or face lanes); fluxes ``[E, 3, n,
-L]`` (direction i, then variable).
+with a ``HydrostaticState`` the reference state (ρ, p, T, ρe), with a
+turbulence closure that needs it ``turbulence.delta``, moisture (θ_v, T
+dry; T, θ_v, q_liq, q_ice with ``EquilMoist``), then, with
+hyperdiffusion, ``hyperdiffusion.delta``.  With a turbulence closure the
+model has gradient lanes (the closure's u, h_tot[, θ_v], then
+``moisture.q_tot``, ``tracers.chi``) and gradient-flux lanes (the
+closure's, then ``moisture.d_q_tot``, ``tracers.d_chi``).  State and aux
+are var-major ``[E, n, L]`` over L nodes (volume or face lanes); fluxes
+``[E, 3, n, L]`` (direction i, then variable); gradients ``[E, 3, ng,
+L]``; gradient fluxes ``[E, ngf, L]``.
 """
 
 from __future__ import annotations
@@ -28,7 +40,9 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from climatemachine_tpu_torch.atmos.boundaryconditions import AtmosBC
+from climatemachine_tpu_torch.atmos import boundaryconditions as abc
+from climatemachine_tpu_torch.atmos.boundaryconditions import (AtmosBC,
+                                                               _bc_value)
 from climatemachine_tpu_torch.atmos.moisture import DryModel, EquilMoist
 from climatemachine_tpu_torch.atmos.ref_state import (NoReferenceState,
                                                      ReferenceState)
@@ -55,14 +69,31 @@ class AtmosPhysics:
     RHS refuses any other kind); ``tracers`` None or an
     :class:`~climatemachine_tpu_torch.atmos.tracers.NTracers`;
     ``precipitation`` None or a model of
-    :mod:`climatemachine_tpu_torch.atmos.precipitation`."""
+    :mod:`climatemachine_tpu_torch.atmos.precipitation`; ``turbulence``
+    None or a closure of :mod:`climatemachine_tpu_torch.common.turbulence`
+    (it brings the gradient pass); ``viscoussponge`` None or an
+    ``UpperAtmosSponge``.  ``sgstke``, ``lsforcing``, ``turbconv`` and
+    ``radiation`` are not ported: the model refuses them."""
     param_set: PlanetParameterSet = EARTH
     orientation: Orientation = field(default_factory=FlatOrientation)
     ref_state: ReferenceState = field(default_factory=NoReferenceState)
+    turbulence: Optional[object] = None
     hyperdiffusion: Optional[object] = None
     moisture: object = field(default_factory=DryModel)
     tracers: Optional[object] = None
     precipitation: Optional[object] = None
+    viscoussponge: Optional[object] = None
+    sgstke: Optional[object] = None
+    lsforcing: Optional[object] = None
+    turbconv: Optional[object] = None
+    radiation: Optional[object] = None
+
+
+#: the AtmosPhysics fields not ported, with the slice each waits for
+_NOT_PORTED = {"sgstke": "the SGS TKE model (atmos/sgstke.py)",
+               "lsforcing": "the large-scale forcing (atmos/lsforcing.py)",
+               "turbconv": "EDMF (atmos/edmf.py)",
+               "radiation": "radiation (atmos/radiation.py)"}
 
 
 @dataclass(frozen=True)
@@ -86,6 +117,9 @@ class AtmosModel:
 
     def __init__(self, physics: AtmosPhysics, problem: AtmosProblem,
                  sources: Sequence = ()):
+        for name, what in _NOT_PORTED.items():
+            if getattr(physics, name) is not None:
+                raise NotImplementedError(f"next slice: {what}")
         self.physics = physics
         self.problem = problem
         self.sources = tuple(sources)
@@ -110,6 +144,9 @@ class AtmosModel:
         self.has_ref_state = bool(physics.ref_state.vars_aux().num)
         if self.has_ref_state:
             aux_fields["ref_state"] = physics.ref_state.vars_aux()
+        turb = physics.turbulence
+        if turb is not None and turb.vars_aux().num:
+            aux_fields["turbulence"] = turb.vars_aux()
         aux_fields["moisture"] = moist.vars_aux()
         hyper = physics.hyperdiffusion
         if hyper is not None:
@@ -119,6 +156,19 @@ class AtmosModel:
                              if hyper is not None else VarSpec())
         self.hyperdiffusion_direction = (hyper.direction
                                          if hyper is not None else None)
+        # the gradient pass runs with a turbulence closure (its diffusivity
+        # D_t also diffuses the moisture and the tracers)
+        gfields, gffields = {}, {}
+        if turb is not None:
+            gfields = turb.vars_gradient().field_dict()
+            gffields = turb.vars_gradient_flux().field_dict()
+            for name, part in (("moisture", moist), ("tracers",
+                                                     self.tracers)):
+                if part.vars_gradient().num:
+                    gfields[name] = part.vars_gradient()
+                    gffields[name] = part.vars_gradient_flux()
+        self.grad_spec = VarSpec(**gfields)
+        self.gf_spec = VarSpec(**gffields)
 
     @property
     def param_set(self) -> PlanetParameterSet:
@@ -142,6 +192,8 @@ class AtmosModel:
             for name, val in self.ref_state.fields(ps, Phi / ps.grav,
                                                    Phi).items():
                 aux = _set(aux, sp.index(f"ref_state.{name}"), val)
+        if self.physics.turbulence is not None:
+            aux = self.physics.turbulence.init_aux(self, grid, aux)
         if self.physics.hyperdiffusion is not None:
             aux = self.physics.hyperdiffusion.init_aux(self, grid, aux)
         return aux
@@ -216,16 +268,44 @@ class AtmosModel:
     def transform_post_gradient_laplacian(self, grad_lap, q, aux, t):
         return self.physics.hyperdiffusion.transform(self, grad_lap, q, aux, t)
 
+    def compute_gradient_argument(self, q, aux, t):
+        """The gradient arguments ``[E, ng, L]``: the closure's (u, h_tot[,
+        θ_v]), the moisture's q_tot and the tracers' χ."""
+        ph = self.physics
+        out = ph.turbulence.gradient_argument(self, q, aux, t)
+        out = ph.moisture.gradient_argument(self, q, aux, t, out)
+        return self.tracers.gradient_argument(self, q, aux, t, out)
+
+    def compute_gradient_flux(self, grad_g, q, aux, t):
+        """The gradient flux ``[E, ngf, L]`` of the gradient ``grad_g``
+        ``[E, 3, ng, L]``."""
+        ph = self.physics
+        out = ph.turbulence.gradient_flux(self, grad_g, q, aux, t)
+        out = ph.moisture.gradient_flux(self, grad_g, q, aux, t, out)
+        return self.tracers.gradient_flux(self, grad_g, q, aux, t, out)
+
     def flux_second_order(self, q, gf, hyper, aux, t):
-        """The hyperdiffusive flux ``[E, 3, n, Np]`` from the hyper state;
-        a gradient flux (a turbulence closure) is not ported."""
-        if gf is not None:
-            raise NotImplementedError("next slice: a gradient-flux state")
+        """F₂ ``[E, 3, n, L]``: with a gradient flux ``gf`` the closure's
+        viscous flux and, with its diffusivity D_t, the moisture's and
+        the tracers' diffusive fluxes; with a hyper state the
+        hyperdiffusive flux."""
         F = torch.zeros((q.shape[0], 3) + q.shape[1:], dtype=q.dtype,
                         device=q.device)
+        turb = self.physics.turbulence
+        if turb is not None and gf is not None:
+            F = F + turb.flux(self, q, gf, aux, t)
+            _, D_t = turb.viscosity(self, q, gf, aux, t)
+            F = self.physics.moisture.flux_second_order(self, q, gf, aux,
+                                                        D_t, F)
+            F = self.tracers.flux_second_order(self, q, gf, aux, D_t, F)
         if hyper is not None:
             F = self.physics.hyperdiffusion.flux(self, q, hyper, aux, F)
         return F
+
+    def update_auxiliary_state_gradient(self, dg, gf, q, aux, t):
+        """The aux update that reads the gradient flux: none for this
+        model.  Returns (aux, q)."""
+        return aux, q
 
     def source_context(self, q, aux, thermo=None) -> VMContext:
         """The sources' view of state q and aux; ``thermo`` is (T, p) when
@@ -254,7 +334,9 @@ class AtmosModel:
                 out[:, sl] += val if val.dim() == 3 else val[:, None]
         return out
 
-    def source(self, q, aux, t):
+    def source(self, q, aux, t, gf=None):
+        """Σ of the sources at (q, aux); ``gf`` (the gradient flux) is
+        read by none of the ported sources."""
         return self.sum_sources(self.source_context(q, aux), t)
 
     def boundary_state(self, tag: int, nrm, q_minus, aux_minus, t):
@@ -262,3 +344,68 @@ class AtmosModel:
         q ``[E, n, X]``, normals ``[E, 3, X]``."""
         bc = self.problem.boundary_conditions[tag - 1]
         return bc.ghost_state(self, nrm, q_minus, aux_minus, t)
+
+    def boundary_state_gradient_flux(self, tag: int, nrm, gf_minus, q_minus,
+                                     aux_minus, t):
+        """The gradient-flux ghost on wall lanes: the minus side."""
+        return gf_minus
+
+    @property
+    def has_boundary_flux_second_order(self) -> bool:
+        """Walls may prescribe diffusive fluxes (with a turbulence closure
+        only)."""
+        return self.physics.turbulence is not None
+
+    def boundary_flux_second_order(self, tag: int, nrm, qM, gfM, auxM, t):
+        """The normal diffusive flux ``[E, n, X]`` prescribed on the wall
+        lanes of boundary ``tag``, or None where the walls prescribe none
+        (no closure, or a condition other than ``AtmosBC``): 0 for
+        free-slip or no-slip insulating impermeable walls; DragLaw's
+        ρ C_d |u_t| u_t on ρu; a moisture flux f_in (prescribed, or the
+        bulk formula C_q ρ |u_t| (q_sfc − q)) taken off ρq_tot, ρ and, as
+        f_in u, ρu; BulkFormulaEnergy's ρ C_h |u_t| (h − h_sfc) on ρe, or
+        a prescribed energy flux taken off it."""
+        if self.physics.turbulence is None:
+            return None
+        bc = self.problem.boundary_conditions[tag - 1]
+        if not isinstance(bc, abc.AtmosBC):
+            return None
+        sp = self.prog_spec
+        rho = sp.get(qM, "rho")
+        out = torch.zeros_like(qM)
+        T, p, u, _ = self.thermo_full(qM, auxM)
+        un = torch.sum(u * nrm, dim=1, keepdim=True)
+        u_t = u - un * nrm
+        speed = torch.linalg.vector_norm(u_t, dim=1)
+        mom = bc.momentum
+        drag = getattr(mom, "bc", mom)
+        if isinstance(drag, abc.DragLaw):
+            C_d = _bc_value(drag.C_drag, self, qM, auxM, t, speed)
+            out[:, sp.index("rhou")] = (rho * C_d * speed)[:, None] * u_t
+        mo = bc.moisture
+        if self.physics.moisture.vars_prognostic().num \
+                and not isinstance(mo, abc.Impermeable):
+            if isinstance(mo, abc.PrescribedMoistureFlux):
+                f_in = mo.fn(self, qM, auxM, t) * torch.ones_like(rho)
+            else:
+                q_sfc = _bc_value(mo.q_tot_sfc, self, qM, auxM, t)
+                C_q = _bc_value(mo.C_q, self, qM, auxM, t, speed)
+                q_int = sp.get(qM, "moisture.rhoq_tot") / rho
+                f_in = C_q * rho * speed * (q_sfc - q_int)
+            out[:, sp.index("moisture.rhoq_tot").start] -= f_in
+            out[:, sp.index("rho").start] -= f_in
+            out[:, sp.index("rhou")] -= f_in[:, None] * u
+        en = bc.energy
+        i_e = sp.index("rhoe").start
+        if isinstance(en, abc.BulkFormulaEnergy):
+            ps = self.param_set
+            h = (sp.get(qM, "rhoe") + p) / rho
+            Phi = self.aux_spec.get(auxM, "orientation.Phi")
+            T_sfc = _bc_value(en.T_sfc, self, qM, auxM, t)
+            C_h = _bc_value(en.C_h, self, qM, auxM, t, speed)
+            h_sfc = td.internal_energy(ps, T_sfc) + ps.R_d * T_sfc + Phi
+            out[:, i_e] = rho * C_h * speed * (h - h_sfc)
+        elif isinstance(en, abc.PrescribedEnergyFlux):
+            f_in = en.fn(self, qM, auxM, t) if callable(en.fn) else en.fn
+            out[:, i_e] -= f_in * torch.ones_like(rho)
+        return out

@@ -1,12 +1,16 @@
 """Moisture models (port of ``climatemachine_tpu/atmos/moisture.py``
-:24-172: ``MoistureModel``, ``DryModel``, ``EquilMoist``).
+:24-172: ``MoistureModel`` with its gradient hooks :24-53, ``DryModel``,
+``EquilMoist`` with its gradient hooks and diffusive flux :103-160).
 
 A moisture model names its prognostic and aux lanes, refreshes the aux
 lanes from the state (``update_aux``) and gives the model's thermo
 (``thermo``: T, p and the phase partition).  ``DryModel`` caches θ_v and
 T; ``EquilMoist`` adds ρq_tot and caches T, θ_v, q_liq and q_ice, with T
-from the saturation adjustment.  State and aux are var-major ``[E, n,
-L]``.
+from the saturation adjustment.  Under a turbulence closure
+``EquilMoist`` adds q_tot to the gradient arguments, ∇q_tot to the
+gradient flux and −ρ D_t ∇q_tot to the fluxes of ρq_tot and ρ (and its
+u-weighted part to ρu); the dry model adds nothing.  State and aux are
+var-major ``[E, n, L]``.
 """
 
 from __future__ import annotations
@@ -48,6 +52,21 @@ class MoistureModel:
         """(T, p, phase partition or None) from the state and aux."""
         raise NotImplementedError
 
+    def vars_gradient(self) -> VarSpec:
+        return VarSpec()
+
+    def vars_gradient_flux(self) -> VarSpec:
+        return VarSpec()
+
+    def gradient_argument(self, model, q, aux, t, out):
+        return out
+
+    def gradient_flux(self, model, grad_g, q, aux, t, out):
+        return out
+
+    def flux_second_order(self, model, q, gf, aux, D_t, F):
+        return F
+
 
 class DryModel(MoistureModel):
     """Dry air; aux caches θ_v and T."""
@@ -79,6 +98,39 @@ class EquilMoist(MoistureModel):
 
     def vars_aux(self) -> VarSpec:
         return VarSpec(temperature=1, theta_v=1, q_liq=1, q_ice=1)
+
+    def vars_gradient(self) -> VarSpec:
+        return VarSpec(q_tot=1)
+
+    def vars_gradient_flux(self) -> VarSpec:
+        return VarSpec(d_q_tot=3)
+
+    def gradient_argument(self, model, q, aux, t, out):
+        """q_tot into ``moisture.q_tot`` of ``out``."""
+        sp = model.prog_spec
+        out = out.clone()
+        out[:, model.grad_spec.index("moisture.q_tot").start] = \
+            sp.get(q, "moisture.rhoq_tot") / sp.get(q, "rho")
+        return out
+
+    def gradient_flux(self, model, grad_g, q, aux, t, out):
+        """∇q_tot into ``moisture.d_q_tot`` of ``out``."""
+        out = out.clone()
+        out[:, model.gf_spec.index("moisture.d_q_tot")] = grad_g[
+            :, :, model.grad_spec.index("moisture.q_tot").start]
+        return out
+
+    def flux_second_order(self, model, q, gf, aux, D_t, F):
+        """Adds f = −ρ D_t ∇q_tot to F[ρq_tot] and F[ρ], and f u to F[ρu]
+        (in place); returns F."""
+        sp = model.prog_spec
+        rho = sp.get(q, "rho")
+        f_q = -rho[:, None] * D_t * model.gf_spec.get(gf, "moisture.d_q_tot")
+        F[:, :, sp.index("moisture.rhoq_tot").start] += f_q
+        F[:, :, sp.index("rho").start] += f_q
+        F[:, :, sp.index("rhou")] += f_q[:, :, None] * (
+            sp.get(q, "rhou") / rho[:, None])[:, None]
+        return F
 
     def update_aux(self, model, q, aux):
         ps, sp = model.param_set, model.prog_spec

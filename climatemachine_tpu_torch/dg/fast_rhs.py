@@ -5,7 +5,8 @@ hyperdiffusion, and an EquilMoist model with EquilMoistBiharmonic; with
 the Rusanov flux; either full or as a fused remainder
 ``remainder_DGModel(dg, dg_lin)`` of an acoustic(-gravity) linear model
 in "vertical" or "every", :97-105; ``supports`` :52, which refuses
-tracers, precipitation and the microphysics sources, :76-85).
+a turbulence closure, tracers, precipitation and the microphysics
+sources, :76-85).
 
 State and aux stay var-major ``[E, nvar, Np]`` throughout.  Per call:
 
@@ -80,6 +81,13 @@ def _unsupported(dg):
     if type(getattr(dg, "nf1", None)) is not RusanovNumericalFlux:
         return ValueError, ("VarMajorRHS computes the Rusanov flux, got "
                             f"{getattr(dg, 'nf1', None)!r}")
+    if bl.physics.turbulence is not None:
+        # the JAX package's supports refuses a closure too (fast_rhs.py:78):
+        # this RHS has no gradient pass, so taking the model here would
+        # drop its viscous flux without a word
+        return ValueError, ("VarMajorRHS has no gradient pass: a "
+                            "turbulence closure takes the generic DG "
+                            "operator")
     hd = bl.physics.hyperdiffusion
     if not (hd is None or type(hd) in (DryBiharmonic, EquilMoistBiharmonic)):
         return NotImplementedError, "next slice"

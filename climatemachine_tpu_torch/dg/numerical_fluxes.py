@@ -1,6 +1,7 @@
 """Interface (numerical) fluxes on var-major face lanes (port of
 ``climatemachine_tpu/dg/numerical_fluxes.py`` ``RusanovNumericalFlux``
-:34-50, and of the atmosphere's Riemann solvers in
+:34-50, ``CentralNumericalFluxGradient`` :53-64 and
+``CentralNumericalFluxSecondOrder`` :73-81, and of the atmosphere's Riemann solvers in
 ``climatemachine_tpu/atmos/numerical_fluxes.py``: ``RoeNumericalFlux``
 :66-172 with its passive-scalar upwinding :151-170, its linear-model
 form ``_roe_linear`` :25-63, ``HLLCNumericalFlux`` :174-241,
@@ -51,6 +52,27 @@ class RusanovNumericalFlux:
         c = bl.wavespeed(nrm, qM, auxM, t).maximum(
             bl.wavespeed(nrm, qP, auxP, t))
         return central - 0.5 * c[:, None] * (qP - qM)
+
+
+class CentralNumericalFluxGradient:
+    """g* = ½(g⁻ + g⁺), returned as the jump correction n ⊗ (g* − g⁻)
+    ``[E, 3, ng, X]`` (direction i, then variable) that the strong-form
+    gradient lifts, of gradient arguments ``[E, ng, X]``."""
+
+    def __call__(self, bl, nrm, gM, gP):
+        return nrm[:, :, None, :] * (0.5 * (gP + gM) - gM)[:, None]
+
+
+class CentralNumericalFluxSecondOrder:
+    """F₂* = ½(F₂(q⁻, gf⁻, hyper⁻) + F₂(q⁺, gf⁺, hyper⁺))·n ``[E, n, X]``,
+    from the balance law's ``flux_second_order`` on each side."""
+
+    def __call__(self, bl, nrm, qM, gfM, auxM, qP, gfP, auxP, t,
+                 hyperM=None, hyperP=None):
+        Fs = (bl.flux_second_order(qM, gfM, hyperM, auxM, t)
+              + bl.flux_second_order(qP, gfP, hyperP, auxP, t))
+        return 0.5 * (Fs[:, 0] * nrm[:, 0, None] + Fs[:, 1] * nrm[:, 1, None]
+                      + Fs[:, 2] * nrm[:, 2, None])
 
 
 def _roe_linear(bl, nrm, qM, auxM, qP, auxP, t):

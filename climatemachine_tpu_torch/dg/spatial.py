@@ -1,8 +1,10 @@
 """The generic DG operator (port of ``climatemachine_tpu/dg/spatial.py``:
 ``contract_flux_metric`` :148, ``weak_divergence_sel`` :124,
-``DGModel`` :198 with ``hyperdiffusive_state`` :636, ``pre_stage`` :689
-and ``__call__`` :699-864, ``remainder_DGModel`` :867,
-init_state_auxiliary :895, init_ode_state :909).
+``ref_gradient`` :162, ``strong_gradient`` :183, ``DGModel`` :198 with
+its gradient fluxes and ``diffusion_direction`` :232-235, ``n_gradient``
+:302, ``spatial_gradient`` :429-456, ``hyperdiffusive_state`` :636,
+``pre_stage`` :689 and ``__call__`` :699-864, ``remainder_DGModel``
+:867, init_state_auxiliary :895, init_ode_state :909).
 
 State is var-major ``[E, n, Np]``.  :class:`DGModel` is the right-hand
 side of a balance law on a grid: of the full AtmosModel (the JAX
@@ -36,7 +38,9 @@ from climatemachine_tpu_torch.dg.directions import (direction_dims,
 from climatemachine_tpu_torch.dg.ldg_kernel import (KERNELS as CHAIN_KERNELS,
                                                     ChainOperators,
                                                     chain_operators)
-from climatemachine_tpu_torch.dg.numerical_fluxes import RusanovNumericalFlux
+from climatemachine_tpu_torch.dg.numerical_fluxes import (
+    CentralNumericalFluxGradient, CentralNumericalFluxSecondOrder,
+    RusanovNumericalFlux)
 
 VOLUME_KERNELS = ("auto", "pallas", "xla")
 SURFACE_KERNELS = ("auto", "varmajor", "xla")
@@ -54,6 +58,28 @@ def contract_flux_metric(xi, F):
         acc = acc + xa[:, 2, None] * F[:, 2]
         parts.append(acc)
     return torch.stack(parts, dim=2)
+
+
+def ref_gradient(grid, g, dims):
+    """D_a g ``[E, ng, len(dims), Np]`` of g ``[E, ng, Np]`` along the
+    reference dims ``dims``: one matmul against the matching rows of
+    Wgrad, the variable axis folded into the rows."""
+    E, ng, Np = g.shape
+    W = torch.cat([grid.Wgrad[a * Np:(a + 1) * Np] for a in dims], dim=0)
+    return torch.matmul(g.reshape(E * ng, Np), W.T).reshape(
+        E, ng, len(dims), Np)
+
+
+def strong_gradient(grid, g, dims):
+    """The nodal gradient ∂g/∂x_i = Σ_a ξ_a,ᵢ D_a g ``[E, 3, ng, Np]`` of g
+    ``[E, ng, Np]`` (direction i, then variable), over the reference dims
+    ``dims``."""
+    dg = ref_gradient(grid, g, dims)
+    out = 0.0
+    for k, a in enumerate(dims):
+        xa = grid.xi_x[:, :, a, :].transpose(1, 2)          # [E, 3, Np]
+        out = out + xa[:, :, None, :] * dg[:, None, :, k, :]
+    return out
 
 
 def weak_divergence_sel(grid, F_xi, WT):
@@ -78,7 +104,14 @@ class DGModel:
     numerical flux ``numerical_flux_first_order`` (``nf1``: Rusanov by
     default, or Roe or HLLC) on the direction's faces with the balance
     law's ``boundary_state`` as the wall ghost, lifted, and F₂'s
-    interface term; and ``source``.  ``remainder = (linear model, its
+    interface term; and ``source``.  A balance law with gradient lanes
+    (``n_gradient`` > 0: a turbulence closure) first gets its gradient
+    along ``diffusion_direction`` (:meth:`spatial_gradient`), its
+    gradient flux and ``update_auxiliary_state_gradient``; F₂ then holds
+    the viscous flux, its face term is ``numerical_flux_second_order``
+    (``nf2``, central) with the gradient flux's wall ghost
+    ``boundary_state_gradient_flux`` and the walls' prescribed fluxes
+    ``boundary_flux_second_order``.  ``remainder = (linear model, its
     direction)`` makes this the fused full − linear operator of the
     IMEX step: the linear
     flux, numerical flux and source are subtracted on the linear model's
@@ -87,8 +120,10 @@ class DGModel:
     The JAX package's kernel options:
 
     - ``volume_kernel``: "auto" and "pallas" take the dry volume kernel
-      where :func:`dry_volume_kernel.supports` holds (the AtmosModel), the
-      contraction below otherwise; "pallas" on a configuration it does
+      where :func:`dry_volume_kernel.supports` holds (the AtmosModel) and
+      the model has no gradient lanes (with a gradient flux the JAX
+      package's kernel is not taken either), the contraction below
+      otherwise; "pallas" on a configuration it does
       not cover raises; "xla" is the plain contraction.
     - ``ldg_kernel``: "auto" and "pallas" run the chain through the four
       chain stages (``chain_stages``: the CUDA kernels), "varmajor" the
@@ -96,8 +131,8 @@ class DGModel:
     - ``surface_kernel``: "auto" and "varmajor" take the var-major surface
       pass (dg/fast_surface.py) where :func:`fast_surface.supports` holds
       (the dry AtmosModel in every direction with the Rusanov flux);
-      "xla", any other balance law (a moist one among them) and any
-      other flux, the generic node-gather pass.
+      "xla", any other balance law (a moist one, one with gradient lanes
+      among them) and any other flux, the generic node-gather pass.
 
     ``volume`` is the dry volume function (the kernel wrapper; chip_smoke.py
     passes its plain version)."""
@@ -112,6 +147,9 @@ class DGModel:
     volume: Callable = dry_volume_kernel.dry_volume_tendency
     chain_stages: tuple = CHAIN_KERNELS
     numerical_flux_first_order: Optional[object] = None
+    numerical_flux_gradient: Optional[object] = None
+    numerical_flux_second_order: Optional[object] = None
+    diffusion_direction: Optional[str] = None
     _cache: dict = field(default_factory=dict, init=False, repr=False,
                          compare=False)
 
@@ -119,6 +157,11 @@ class DGModel:
         bl = self.balance_law
         self.nf1 = (self.numerical_flux_first_order
                     or RusanovNumericalFlux())
+        self.nfg = (self.numerical_flux_gradient
+                    or CentralNumericalFluxGradient())
+        self.nf2 = (self.numerical_flux_second_order
+                    or CentralNumericalFluxSecondOrder())
+        self.diffusion_direction = self.diffusion_direction or self.direction
         for name, allowed in (("volume_kernel", VOLUME_KERNELS),
                               ("surface_kernel", SURFACE_KERNELS),
                               ("ldg_kernel", LDG_KERNELS)):
@@ -129,30 +172,40 @@ class DGModel:
         if hd is not None and type(hd) not in (DryBiharmonic,
                                                EquilMoistBiharmonic):
             raise NotImplementedError(f"next slice: hyperdiffusion {hd!r}")
-        self.dry_volume = (
-            self.volume_kernel != "xla" and dry_volume_kernel.supports(
-                bl, self.grid, self.direction, self.remainder))
-        if self.volume_kernel == "pallas" and not self.dry_volume:
+        supported = dry_volume_kernel.supports(bl, self.grid, self.direction,
+                                               self.remainder)
+        if self.volume_kernel == "pallas" and not supported:
             raise ValueError("volume_kernel='pallas': the dry volume kernel "
                              "does not cover this configuration")
+        # with a gradient flux neither the dry kernel nor the var-major
+        # surface pass (both first-order only) is taken, as in JAX
+        # (spatial.py:721, :774)
+        self.dry_volume = (self.volume_kernel != "xla" and supported
+                           and self.n_gradient == 0)
         self.fast_surface = (self.surface_kernel != "xla"
+                             and self.n_gradient == 0
                              and fast_surface.supports(self))
+
+    @property
+    def n_gradient(self) -> int:
+        """The balance law's number of gradient lanes (0 without a
+        turbulence closure)."""
+        spec = getattr(self.balance_law, "grad_spec", None)
+        return spec.num if spec is not None else 0
 
     def _cached(self, key, build):
         if key not in self._cache:
             self._cache[key] = build()
         return self._cache[key]
 
-    def operators(self) -> dict:
-        """Static operands on the direction, built at the first call:
-        the metric rows ξ_a ``[E, 3, Np]`` per dim, the weak-divergence
-        columns, the face node ids, normals, weights, lift and wall
-        tags of the direction's faces, and the neighbour tables."""
+    def face_operators(self, direction) -> dict:
+        """Static face operands of ``direction``'s faces, built at the
+        first call: the face ids, their node ids, normals, weights, lift
+        and wall tags, the tags present and the neighbour tables."""
         def build():
             g = self.grid
-            E, Np, Nfp = g.nelem, g.Np, g.Nfp_max
-            dims = direction_dims(self.direction, g.dim)
-            faces = direction_faces(self.direction, g.dim)
+            E, Nfp = g.nelem, g.Nfp_max
+            faces = direction_faces(direction, g.dim)
             cols = np.concatenate([np.arange(f * Nfp, (f + 1) * Nfp)
                                    for f in faces])
             idx = lambda a: torch.as_tensor(a, dtype=torch.int64,
@@ -160,9 +213,6 @@ class DGModel:
             bctag = g.face_bctag[:, list(faces)]
             return dict(
                 faces=faces,
-                xi=[g.xi_x[:, :, a, :].transpose(1, 2) for a in dims],
-                WT=torch.cat([g.Wdiv[:, a * Np:(a + 1) * Np] for a in dims],
-                             dim=1).T.contiguous(),
                 node=idx(g.fmask_padded[list(faces)].reshape(-1)),
                 nrm=g.normals[:, list(faces)].permute(0, 3, 1, 2).reshape(
                     E, 3, -1),
@@ -171,6 +221,21 @@ class DGModel:
                 bctag=bctag.repeat_interleave(Nfp, dim=1),
                 tags=sorted(int(x) for x in bctag.unique() if x != 0),
                 tab=fast_surface._tables(g))
+        return self._cached(("faces", direction), build)
+
+    def operators(self) -> dict:
+        """Static operands on the direction, built at the first call:
+        :meth:`face_operators` of its faces, the metric rows ξ_a ``[E, 3,
+        Np]`` per dim and the weak-divergence columns."""
+        def build():
+            g = self.grid
+            Np = g.Np
+            dims = direction_dims(self.direction, g.dim)
+            return dict(
+                self.face_operators(self.direction),
+                xi=[g.xi_x[:, :, a, :].transpose(1, 2) for a in dims],
+                WT=torch.cat([g.Wdiv[:, a * Np:(a + 1) * Np] for a in dims],
+                             dim=1).T.contiguous())
         return self._cached("ops", build)
 
     @property
@@ -208,24 +273,80 @@ class DGModel:
         (``pre_stage=dg.pre_stage`` of the time integrators)."""
         return self.balance_law.preprocess_state(self, q, aux, t)
 
-    def __call__(self, q, aux, t):
+    def spatial_gradient(self, q, aux, t):
+        """The DG gradient ``[E, 3, ng, Np]`` of the balance law's gradient
+        arguments along ``diffusion_direction``: the strong gradient
+        within each element plus the lift of sM · n ⊗ (g* − g⁻) on the
+        direction's faces, the central g* from the neighbour side or, on
+        wall lanes, from the ghost state ``boundary_state`` of the wall's
+        tag."""
         bl, g = self.balance_law, self.grid
+        ops = self.face_operators(self.diffusion_direction)
+        grad = strong_gradient(g, bl.compute_gradient_argument(q, aux, t),
+                               direction_dims(self.diffusion_direction,
+                                              g.dim))
+        n = q.shape[1]
+        BM, BP = self._face_sides(ops, torch.cat([q, aux], dim=1))
+        qM, auxM = BM[:, :n], BM[:, n:]
+        qP, auxP = self._wall_ghost(ops, qM, auxM, BP[:, :n], BP[:, n:], t)
+        corr = self.nfg(bl, ops["nrm"], bl.compute_gradient_argument(
+            qM, auxM, t), bl.compute_gradient_argument(qP, auxP, t))
+        E, _, ng, X = corr.shape
+        # the strong form ADDS the lifted jump: fast_surface.lift returns
+        # the weak form's −M⁻¹ L (sM f), hence the minus
+        return grad - fast_surface.lift(corr.reshape(E, 3 * ng, X),
+                                        ops["sM"], ops["liftT"],
+                                        g.MI).reshape(E, 3, ng, g.Np)
+
+    def __call__(self, q, aux, t):
+        bl = self.balance_law
         if not hasattr(bl, "flux_first_order"):
             raise NotImplementedError(
                 "next slice: a balance law without a first-order flux")
         if q.device.type == "cuda":
             require_full_fp32("the DG operator")
-        ops = self.operators()
         if self.update_aux:
             aux = bl.update_auxiliary_state(q, aux)
 
-        # volume: M⁻¹ Σ_a D_aᵀ (M ξ_a·F) over the direction's dims; the dry
-        # kernel covers the first-order part (the remainder's linear flux
-        # included), F₂ rides the contraction on top
-        F2 = None
-        if bl.gradlap_spec.num:
-            hyper = self.hyperdiffusive_state(q, aux, t)
-            F2 = bl.flux_second_order(q, None, hyper, aux, t)
+        gf = None
+        if self.n_gradient:
+            gf = bl.compute_gradient_flux(self.spatial_gradient(q, aux, t),
+                                          q, aux, t)
+            aux, q = bl.update_auxiliary_state_gradient(self, gf, q, aux, t)
+        hyper = (self.hyperdiffusive_state(q, aux, t)
+                 if bl.gradlap_spec.num else None)
+
+        tend, F2 = self.volume_tendency(q, aux, t, gf, hyper)
+
+        # a hyper-only F₂ (no gradient flux, walls prescribing no diffusive
+        # flux) takes the scalar n·F₂ exchange on interior faces; otherwise
+        # the hyper state rides the face bundle
+        scalar_hyper = (hyper is not None and gf is None and not getattr(
+            bl, "has_boundary_flux_second_order",
+            hasattr(bl, "boundary_flux_second_order")))
+        tend = tend + self.surface(q, aux, t, gf,
+                                   None if scalar_hyper else hyper)
+        if scalar_hyper:
+            tend = tend + ldg_varmajor.scalar_hyper_correction(
+                self, F2, self.direction)
+
+        tend = tend + (bl.source(q, aux, t) if gf is None
+                       else bl.source(q, aux, t, gf=gf))
+        if self.remainder is not None:
+            tend = tend - self.remainder[0].source(q, aux, t)
+        return tend, aux
+
+    def volume_tendency(self, q, aux, t, gf=None, hyper=None):
+        """(M⁻¹ Σ_a D_aᵀ (M ξ_a·F) over the direction's dims ``[E, n, Np]``,
+        F₂ or None): F the first-order flux, less a remainder's linear
+        flux on its dims, plus F₂, the second-order flux of the gradient
+        flux ``gf`` and the hyper state ``hyper`` where either is given.
+        The dry kernel, where taken, covers the first-order part (the
+        remainder's linear flux included) and F₂ rides the contraction
+        on top."""
+        bl, g, ops = self.balance_law, self.grid, self.operators()
+        F2 = (bl.flux_second_order(q, gf, hyper, aux, t)
+              if gf is not None or hyper is not None else None)
         tend = None
         if self.dry_volume:
             tend = dry_volume_kernel.volume_tendency_from_grid(
@@ -248,41 +369,57 @@ class DGModel:
                     F_xi[:, :, dims.index(a)] -= F_lin[:, :, i]
             wd = g.MI[:, None] * weak_divergence_sel(g, F_xi, ops["WT"])
             tend = wd if tend is None else tend + wd
+        return tend, F2
 
-        tend = tend + self.surface(q, aux, t)
-        if F2 is not None:
-            tend = tend + ldg_varmajor.scalar_hyper_correction(
-                self, F2, self.direction)
-
-        tend = tend + bl.source(q, aux, t)
-        if self.remainder is not None:
-            tend = tend - self.remainder[0].source(q, aux, t)
-        return tend, aux
-
-    def surface(self, q, aux, t):
+    def surface(self, q, aux, t, gf=None, hyper=None):
         """The interface term − M⁻¹ L (sM · f*) over the direction's
-        faces: the var-major surface pass (``fast_surface``) or the
-        node-gather pass."""
-        if self.fast_surface:
+        faces: the var-major surface pass (``fast_surface``; first order
+        only) or the node-gather pass, which adds the second-order flux
+        F₂* of the gradient flux ``gf`` and the hyper state ``hyper``
+        where given."""
+        if self.fast_surface and gf is None and hyper is None:
             return fast_surface.surface_tendency(self, q, aux, t)
-        return self._generic_surface(q, aux, t)
+        return self._generic_surface(q, aux, t, gf, hyper)
 
-    def _generic_surface(self, q, aux, t):
-        """− M⁻¹ L (sM · f*) by node gathers: the face bundle (q, aux) at
-        the direction's face nodes, its neighbour side, the balance law's
-        wall ghost and numerical flux, less the remainder's on its
-        faces."""
-        bl, g, ops = self.balance_law, self.grid, self.operators()
-        n, Nfp = q.shape[1], g.Nfp_max
-        BM = torch.cat([q, aux], dim=1)[:, :, ops["node"]]
-        BP = fast_surface.gather_faces(ops["tab"], BM, ops["faces"], Nfp)
-        qM, auxM, qP, auxP = BM[:, :n], BM[:, n:], BP[:, :n], BP[:, n:]
-        nrm = ops["nrm"]
+    def _face_sides(self, ops, B):
+        """(minus, neighbour) sides ``[E, nv, X]`` of the volume bundle B
+        ``[E, nv, Np]`` at the face nodes of ``ops`` (a wall's neighbour
+        is its own face)."""
+        BM = B[:, :, ops["node"]]
+        return BM, fast_surface.gather_faces(ops["tab"], BM, ops["faces"],
+                                             self.grid.Nfp_max)
+
+    def _wall_ghost(self, ops, qM, auxM, qP, auxP, t):
+        """(qP, auxP) with the balance law's ghost state on the wall lanes
+        of each boundary tag."""
         for tag in ops["tags"]:
-            qB, auxB = bl.boundary_state(tag, nrm, qM, auxM, t)
+            qB, auxB = self.balance_law.boundary_state(tag, ops["nrm"], qM,
+                                                       auxM, t)
             mask = (ops["bctag"] == tag)[:, None, :]
             qP = torch.where(mask, qB, qP)
             auxP = torch.where(mask, auxB, auxP)
+        return qP, auxP
+
+    def _generic_surface(self, q, aux, t, gf=None, hyper=None):
+        """− M⁻¹ L (sM · f*) by node gathers: the face bundle (q, aux, and
+        gf and the hyper state where given) at the direction's face
+        nodes, its neighbour side, the balance law's wall ghost and
+        numerical flux, less the remainder's on its faces; with gf or
+        hyper, plus the second-order flux F₂* (``nf2``) with the gradient
+        flux's wall ghost, no hyperdiffusive transport through walls, and
+        the walls' prescribed diffusive fluxes in place of F₂* there."""
+        bl, g, ops = self.balance_law, self.grid, self.operators()
+        n, naux, Nfp = q.shape[1], aux.shape[1], g.Nfp_max
+        parts = [q, aux]
+        if gf is not None:
+            parts.append(gf)
+        if hyper is not None:
+            parts.append(hyper.reshape(g.nelem, -1, g.Np))
+        BM, BP = self._face_sides(ops, torch.cat(parts, dim=1))
+        qM, auxM = BM[:, :n], BM[:, n:n + naux]
+        nrm = ops["nrm"]
+        qP, auxP = self._wall_ghost(ops, qM, auxM, BP[:, :n],
+                                    BP[:, n:n + naux], t)
         fstar = self.nf1(bl, nrm, qM, auxM, qP, auxP, t)
         if self.remainder is not None:
             lin, ldir = self.remainder
@@ -295,6 +432,33 @@ class DGModel:
             fstar[:, :, sl] -= self.nf1(lin, nrm[:, :, sl], qM[:, :, sl],
                                         auxM[:, :, sl], qP[:, :, sl],
                                         auxP[:, :, sl], t)
+        if gf is not None or hyper is not None:
+            off = n + naux
+            walls = [(tag, (ops["bctag"] == tag)[:, None, :])
+                     for tag in ops["tags"]]
+            gfM = gfP = hyM = hyP = None
+            if gf is not None:
+                ngf = gf.shape[1]
+                gfM, gfP = BM[:, off:off + ngf], BP[:, off:off + ngf]
+                off += ngf
+                for tag, mask in walls:
+                    gfP = torch.where(mask, bl.boundary_state_gradient_flux(
+                        tag, nrm, gfM, qM, auxM, t), gfP)
+            if hyper is not None:
+                # no hyperdiffusive transport through walls
+                interior = (ops["bctag"] == 0)[:, None, :]
+                shape = (g.nelem,) + hyper.shape[1:3] + (-1,)
+                hyM = torch.where(interior, BM[:, off:], 0.0).reshape(shape)
+                hyP = torch.where(interior, BP[:, off:], 0.0).reshape(shape)
+            f2star = self.nf2(bl, nrm, qM, gfM, auxM, qP, gfP, auxP, t, hyM,
+                              hyP)
+            if hasattr(bl, "boundary_flux_second_order"):
+                for tag, mask in walls:
+                    fb = bl.boundary_flux_second_order(tag, nrm, qM, gfM,
+                                                       auxM, t)
+                    if fb is not None:
+                        f2star = torch.where(mask, fb, f2star)
+            fstar = fstar + f2star
         return fast_surface.lift(fstar, ops["sM"], ops["liftT"], g.MI)
 
 

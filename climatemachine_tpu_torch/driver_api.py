@@ -1,0 +1,65 @@
+"""One-import user API (port of ``climatemachine_tpu/driver_api.py``, with
+the names the port provides): what an experiment script needs.
+
+>>> from climatemachine_tpu_torch import driver_api as cm
+>>> cm.init(show_updates="never")
+>>> dc = cm.AtmosLESConfiguration("bubble", 4, (25.0,) * 3, 2500.0,
+...                               2500.0, 2500.0, model)
+>>> sc = cm.make_solver_configuration(0.0, 10.0, dc, Courant_number=0.4)
+>>> cm.invoke(sc)
+
+Grids and state live on the card unless the configuration is given
+``device="cpu"`` (or ``init(disable_gpu=True)``).
+"""
+
+# flake8: noqa: F401
+
+from climatemachine_tpu_torch.physics import thermodynamics as td
+from climatemachine_tpu_torch.physics.parameters import (EARTH,
+                                                         PlanetParameterSet)
+from climatemachine_tpu_torch.physics.temperature_profiles import (
+    DecayingTemperatureProfile, DryAdiabaticProfile, IsothermalProfile)
+
+from climatemachine_tpu_torch.atmos.model import (AtmosModel, AtmosPhysics,
+                                                  AtmosProblem)
+from climatemachine_tpu_torch.atmos.ref_state import (HydrostaticState,
+                                                      NoReferenceState)
+from climatemachine_tpu_torch.atmos.sources import Coriolis, Gravity
+from climatemachine_tpu_torch.atmos.boundaryconditions import (
+    AtmosBC, BulkFormulaEnergy, BulkFormulaMoisture, DragLaw, FreeSlip,
+    Impenetrable, Impermeable, InitStateBC, Insulating, NoSlip,
+    PrescribedEnergyFlux, PrescribedMoistureFlux, PrescribedTemperature)
+from climatemachine_tpu_torch.atmos.hyperdiffusion import (
+    DryBiharmonic, EquilMoistBiharmonic)
+from climatemachine_tpu_torch.atmos.moisture import DryModel, EquilMoist
+from climatemachine_tpu_torch.atmos.precipitation import (RainModel,
+                                                          RainSnowModel)
+from climatemachine_tpu_torch.atmos.tracers import NTracers
+
+from climatemachine_tpu_torch.common.orientations import (
+    FlatOrientation, NoOrientation, SphericalOrientation)
+from climatemachine_tpu_torch.common.turbulence import (
+    AnisoMinDiss, ConstantDynamicViscosity, ConstantKinematicViscosity,
+    Deardorff, SmagorinskyLilly, UpperAtmosSponge, Vreman)
+
+from climatemachine_tpu_torch.dg.spatial import (DGModel, init_ode_state,
+                                                 remainder_DGModel)
+from climatemachine_tpu_torch.dg.numerical_fluxes import (
+    CentralNumericalFluxGradient, CentralNumericalFluxSecondOrder,
+    HLLCNumericalFlux, LMARSNumericalFlux, RoeNumericalFlux,
+    RusanovNumericalFlux)
+from climatemachine_tpu_torch.dg.courant import calculate_dt
+
+from climatemachine_tpu_torch.mesh.grid import make_grid, min_node_distance
+from climatemachine_tpu_torch.mesh import topology
+
+from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
+from climatemachine_tpu_torch.ode.solve import solve
+
+from climatemachine_tpu_torch.driver.configs import (AtmosLESConfiguration,
+                                                     DriverConfiguration)
+from climatemachine_tpu_torch.driver.driver import SETTINGS, init, invoke
+from climatemachine_tpu_torch.driver.solver_configs import (
+    SolverConfiguration, make_solver_configuration)
+from climatemachine_tpu_torch.driver.solver_types import (
+    ExplicitSolverType, IMEXSolverType, MultirateSolverType)

@@ -1,16 +1,20 @@
-"""Brick and stacked cubed-sphere topologies (port of
-``climatemachine_tpu/mesh/topology.py``: brick_topology :164-219,
+"""Brick, stacked brick and stacked cubed-sphere topologies (port of
+``climatemachine_tpu/mesh/topology.py``: ``StackInfo`` :54,
+brick_topology :164-224 with its ``boundary`` tags and ``meshwarp``,
+stacked_brick_topology :227-251, _permute_topology :254,
 stacked_cubed_sphere_topology :508, cubed_shell_vertices :290, the
 equiangular warp :327 and the numpy face matcher of
 connect_from_vertices :110-161).
 
 Host-side numpy.  Face ``f = 2*d + s`` is the reference face with
-``xi_d = -1`` (s=0) or ``+1`` (s=1).  The stacked cubed sphere orders
-its elements column-major, ``e = eh * n_vert + ev``, and carries the
-stack's ``n_horz`` (horizontal elements, 6·n²) and ``n_vert``; xi3 is
-radial, so faces 4/5 are bottom/top, with boundary tags 1 and 2.  The
-3-D brick orders its elements dim 0 fastest, is not stacked (``n_horz``
-and ``n_vert`` are None) and has identity face orientations.
+``xi_d = -1`` (s=0) or ``+1`` (s=1).  Stacked topologies order their
+elements column-major, ``e = eh * n_vert + ev``, and carry the stack's
+``n_horz`` (horizontal elements) and ``n_vert``.  On the stacked cubed
+sphere xi3 is radial, so faces 4/5 are bottom/top, with boundary tags 1
+and 2.  The 3-D brick orders its elements dim 0 fastest, is not stacked
+(``n_horz`` and ``n_vert`` are None) and has identity face
+orientations; the stacked brick is the brick renumbered column-major,
+its last dimension vertical.
 """
 
 from __future__ import annotations
@@ -40,6 +44,21 @@ class Topology:
     meshwarp: Optional[Callable] = None   # nodal warp (x1, x2, x3) -> same
     n_horz: Optional[int] = None    # horizontal elements of a stack
     n_vert: Optional[int] = None    # vertical elements of a stack
+
+    @property
+    def stack(self) -> Optional["StackInfo"]:
+        """The stack's bookkeeping, None for a topology that is not
+        stacked."""
+        if self.n_vert is None:
+            return None
+        return StackInfo(self.n_horz, self.n_vert)
+
+
+@dataclass(frozen=True)
+class StackInfo:
+    """Stacked-topology bookkeeping: ``e = eh * n_vert + ev``."""
+    n_horz: int
+    n_vert: int
 
 
 def _orient_code_edge(my_corners, nb_corners) -> int:
@@ -188,18 +207,24 @@ def stacked_cubed_sphere_topology(n_horz: int,
 
 
 def brick_topology(ranges: Sequence[np.ndarray],
-                   periodicity: Optional[Sequence[bool]] = None) -> Topology:
+                   periodicity: Optional[Sequence[bool]] = None,
+                   boundary: Optional[np.ndarray] = None,
+                   meshwarp: Optional[Callable] = None) -> Topology:
     """3-D Cartesian brick of hexahedra: ``ranges`` holds each dimension's
     element interface coordinates (nelem_d + 1 of them, possibly
     stretched), ``periodicity`` which dimensions wrap around (default
-    none); every side that does not wrap has boundary tag 1.  Elements
-    dim 0 fastest, ``e = ix + nx·(iy + ny·iz)``; every face orientation
-    is the identity; no warp."""
+    none), ``boundary`` the ``[3, 2]`` boundary tags of each (dimension,
+    side) that does not wrap (default 1 everywhere), ``meshwarp`` a nodal
+    warp (x1, x2, x3) -> (x1, x2, x3) or None.  Elements dim 0 fastest,
+    ``e = ix + nx·(iy + ny·iz)``; every face orientation is the
+    identity."""
     if len(ranges) != 3:
         raise ValueError(f"brick_topology builds 3-D bricks, got "
                          f"{len(ranges)} ranges")
     periodicity = (tuple(periodicity) if periodicity is not None
                    else (False,) * 3)
+    boundary = (np.ones((3, 2), dtype=np.int32) if boundary is None
+                else np.asarray(boundary))
     nel = [len(r) - 1 for r in ranges]
     E = int(np.prod(nel))
     idx = np.stack(np.unravel_index(np.arange(E), nel[::-1])[::-1],
@@ -224,6 +249,41 @@ def brick_topology(ranges: Sequence[np.ndarray],
             joined = inside | wrap
             neighbor[:, f] = np.where(joined, nbr, e)
             neighbor_face[:, f] = np.where(joined, 2 * d + (1 - s), f)
-            bctag[:, f] = np.where(joined, 0, 1)
+            bctag[:, f] = np.where(joined, 0, boundary[d, s])
     return Topology(elem_to_coord, neighbor, neighbor_face,
-                    np.zeros((E, 6), dtype=np.int32), bctag)
+                    np.zeros((E, 6), dtype=np.int32), bctag,
+                    meshwarp=meshwarp)
+
+
+def stacked_brick_topology(ranges: Sequence[np.ndarray],
+                           periodicity: Optional[Sequence[bool]] = None,
+                           boundary: Optional[np.ndarray] = None,
+                           meshwarp: Optional[Callable] = None) -> Topology:
+    """The brick of :func:`brick_topology` with its last dimension
+    stacked: element ``e = eh * n_vert + ev`` is the brick's element at
+    horizontal index eh (dim 0 fastest) and vertical index ev, so each
+    column is contiguous; ``n_horz``, ``n_vert`` set."""
+    base = brick_topology(ranges, periodicity, boundary, meshwarp)
+    nel = [len(r) - 1 for r in ranges]
+    n_vert = nel[-1]
+    E = base.face_bctag.shape[0]
+    # perm[new] = old: the brick's ids [z, y, x] with z moved fastest
+    perm = np.moveaxis(np.arange(E).reshape(nel[::-1]), 0, -1).reshape(-1)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(E)
+    topo = _permute_topology(base, perm, inv)
+    topo.n_horz, topo.n_vert = E // n_vert, n_vert
+    return topo
+
+
+def _permute_topology(t: Topology, perm: np.ndarray,
+                      inv: np.ndarray) -> Topology:
+    """Renumber elements: new element i is old element perm[i]; ``inv`` is
+    perm's inverse."""
+    return Topology(
+        elem_to_coord=t.elem_to_coord[perm],
+        face_neighbor=inv[t.face_neighbor[perm]],
+        face_neighbor_face=t.face_neighbor_face[perm],
+        face_orient=t.face_orient[perm],
+        face_bctag=t.face_bctag[perm],
+        meshwarp=t.meshwarp, n_horz=t.n_horz, n_vert=t.n_vert)

@@ -1,6 +1,6 @@
 """Physical constants (port of ``climatemachine_tpu/physics/parameters.py``,
-the dry and moist subset the Held-Suarez step and the moist baroclinic
-wave read).  Plain Python floats with the same values as the JAX
+the dry and moist subset the Held-Suarez step, the moist baroclinic
+wave and the turbulence closures read).  Plain Python floats with the same values as the JAX
 package's Earth set."""
 
 from __future__ import annotations
@@ -31,6 +31,14 @@ class PlanetParameterSet:
     press_triple: float = 611.657          # Pa triple-point vapor pressure
     LH_v0: float = 2.5008e6                # J/kg latent heat vaporization @T_0
     LH_s0: float = 2.8344e6                # J/kg latent heat sublimation @T_0
+    # subgrid scale
+    C_smag: float = 0.21
+    Prandtl_turb: float = 1.0 / 3.0
+    C_drag: float = 0.0044                 # surface bulk-transfer coefficient
+
+    @property
+    def inv_Pr_turb(self) -> float:
+        return 1.0 / self.Prandtl_turb
 
     @property
     def R_d(self) -> float:

@@ -3,7 +3,7 @@ time on the card.
 
     python -m climatemachine_tpu_torch.profile_step [--steps N] [--out DIR]
         [--no-hyperdiffusion] [--imex] [--surface-kernel {xla,hybrid,pallas}]
-        [--grid] [--dense] [--moist] [--dt SECONDS]
+        [--grid] [--dense] [--moist] [--dt SECONDS] [--les]
 
 Builds a ``chip_smoke.py`` path (dry Held-Suarez p4 with DryBiharmonic(8
 h) hyperdiffusion, n_horz=16, n_vert=8, float32, with the every-step
@@ -19,7 +19,15 @@ baroclinic wave instead (EquilMoist, EquilMoistBiharmonic(8 h), no
 filter, at the same width), with a ``saturation`` span inside
 ``thermo``; ``--dt`` overrides the step's dt (the moist IMEX step is
 stable only below the dry one's: chip_smoke.py's moist_imex_dt_scan
-finds the dt).  It warms up, times ``--steps``
+finds the dt).  ``--les`` builds the rising-bubble LES instead
+(experiments/risingbubble.py: SmagorinskyLilly(0.21), the 2500 m cube at
+Δ = 25 m, p4, 15,625 elements, float32) through
+``AtmosLESConfiguration`` and ``make_solver_configuration`` (dt at
+Courant 0.4), whose explicit step runs on the generic DG operator with
+its gradient pass; its spans are ``gradient`` (the DG gradient),
+``gradient_flux``, ``volume`` (the volume tendency with F₂),
+``surface`` (the face pass) with ``second_order_faces`` (F₂* on both
+sides) inside it, and ``sources``.  It warms up, times ``--steps``
 steps with tracing off, then traces the same number of steps with
 ``torch.profiler``.  The RHS's parts (the surface kernels' stages as
 ``extract`` and ``lift`` inside ``surface``), and on the IMEX step the
@@ -55,18 +63,23 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from climatemachine_tpu_torch.dg.fast_rhs import SURFACE_KERNELS
 from climatemachine_tpu_torch.dg.spatial import DGModel, init_ode_state
+from climatemachine_tpu_torch.driver.driver import init as driver_init
+from climatemachine_tpu_torch.driver.solver_configs import \
+    make_solver_configuration
 from climatemachine_tpu_torch.driver.solver_types import (ExplicitSolverType,
                                                           IMEXSolverType)
 from climatemachine_tpu_torch.experiments.baroclinic_wave import \
     baroclinic_wave_config
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
+from climatemachine_tpu_torch.experiments.risingbubble import \
+    risingbubble_config
 from climatemachine_tpu_torch.mesh.grid import min_node_distance
 from climatemachine_tpu_torch.physics import thermodynamics as td
 
 SPANS = ("thermo", "saturation", "chain", "volume", "surface", "extract",
          "lift", "sources", "filter", "solve", "apply", "to_blocks",
-         "from_blocks")
+         "from_blocks", "gradient", "gradient_flux", "second_order_faces")
 
 
 def _span(name, fn):
@@ -118,6 +131,7 @@ def main(argv=None):
     ap.add_argument("--dense", action="store_true")
     ap.add_argument("--moist", action="store_true")
     ap.add_argument("--dt", type=float, default=None)
+    ap.add_argument("--les", action="store_true")
     args = ap.parse_args(argv)
     args.imex |= args.dense
     power = subprocess.run(
@@ -126,15 +140,23 @@ def main(argv=None):
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
     tau = None if args.no_hyperdiffusion else 8 * 3600.0
-    config = baroclinic_wave_config if args.moist else held_suarez_config
-    cfg = config(16, 8, 4, dtype=torch.float32, device="cuda",
-                 hyperdiffusion_tau=tau)
-    dg = DGModel(cfg.model, cfg.grid)
-    q, aux = init_ode_state(dg)
+    if args.les:
+        driver_init(show_updates="never")
+        cfg = risingbubble_config(device="cuda")
+        sc = make_solver_configuration(0.0, -1.0, cfg, Courant_number=0.4)
+        dg, q, aux, dt = sc.dg, sc.q, sc.aux, args.dt or sc.dt
+        tau = None
+    else:
+        config = (baroclinic_wave_config if args.moist
+                  else held_suarez_config)
+        cfg = config(16, 8, 4, dtype=torch.float32, device="cuda",
+                     hyperdiffusion_tau=tau)
+        dg = DGModel(cfg.model, cfg.grid)
+        q, aux = init_ode_state(dg)
+        dt = args.dt or (
+            0.1 * min_node_distance(cfg.grid, "horizontal") if args.imex
+            else 0.3 * min_node_distance(cfg.grid)) / 350.0
     layout = "grid" if args.grid else "auto"
-    dt = args.dt or (
-        0.1 * min_node_distance(cfg.grid, "horizontal") if args.imex
-        else 0.3 * min_node_distance(cfg.grid)) / 350.0
     if args.moist:
         td.saturation_adjustment = _span("saturation",
                                          td.saturation_adjustment)
@@ -151,13 +173,26 @@ def main(argv=None):
         sv.apply_op_blocks = _span("apply", sv.apply_op_blocks)
         sv.layout.to_blocks = _span("to_blocks", sv.layout.to_blocks)
         sv.layout.from_blocks = _span("from_blocks", sv.layout.from_blocks)
+    elif args.les:
+        solver = sc.solver
+        solver.dt = dt
+        rhs = solver.rhs
     else:
         solver = ExplicitSolverType(state_layout=layout).make(dg, q, aux, dt)
         rhs = solver.rhs
-    if not args.moist:
+    if not (args.moist or args.les):
         solver.post_step = _span("filter", HeldSuarezStepFilter(
             cfg.grid, cfg.model).apply_vm)
-    if isinstance(rhs, DGModel):
+    if args.les:
+        rhs.spatial_gradient = _span("gradient", rhs.spatial_gradient)
+        bl = rhs.balance_law
+        bl.compute_gradient_flux = _span("gradient_flux",
+                                         bl.compute_gradient_flux)
+        rhs.volume_tendency = _span("volume", rhs.volume_tendency)
+        rhs.surface = _span("surface", rhs.surface)
+        rhs.nf2 = _span("second_order_faces", rhs.nf2)
+        bl.source = _span("sources", bl.source)
+    elif isinstance(rhs, DGModel):
         rhs.hyperdiffusive_state = _span("chain", rhs.hyperdiffusive_state)
         rhs.volume = _span("volume", rhs.volume)
         rhs.surface = _span("surface", rhs.surface)
@@ -229,14 +264,16 @@ def main(argv=None):
                                           "profile_step_trace.json"))
     print(json.dumps({
         "card": power, "steps": args.steps,
-        "model": "moist baroclinic wave" if args.moist else "Held-Suarez",
+        "model": ("rising bubble LES (SmagorinskyLilly)" if args.les
+                  else "moist baroclinic wave" if args.moist
+                  else "Held-Suarez"),
         "step": ("dense imex" if args.dense else "imex" if args.imex
                  else "explicit"), "dt_s": dt,
         "rhs": type(rhs).__name__,
         "surface_kernel": (args.surface_kernel if not isinstance(rhs, DGModel)
                            else rhs.surface_kernel),
-        "hyperdiffusion_tau": (cfg.model.physics.hyperdiffusion.tau_timescale
-                               if cfg.model.physics.hyperdiffusion else None),
+        "hyperdiffusion_tau": tau,
+        "elements": dg.grid.nelem,
         "ms_per_step_untraced": 1e3 * untraced,
         "ms_per_step_traced": 1e3 * traced,
         "device_busy_ms_per_step": busy / 1e3 / args.steps,

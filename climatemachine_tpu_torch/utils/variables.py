@@ -84,6 +84,27 @@ class VarSpec:
                        else [f"{full}[{i}]" for i in range(n)])
         return out
 
+    def field_dict(self) -> dict:
+        """{name: shape or VarSpec}, to rebuild or compose specs."""
+        out = {}
+        for name, ent in self._fields.items():
+            if ent[0] == "sub":
+                out[name] = VarSpec(**ent[1].field_dict())
+            else:
+                out[name] = ent[2] if ent[2] else 1
+        return out
+
+    def pack(self, values: dict):
+        """A var-major ``[E, num, L]`` tensor with ``values`` (name → ``[E,
+        L]`` scalar or ``[E, n, L]`` vector) in their slots and 0
+        elsewhere, in the dtype and on the device of the first value."""
+        first = next(iter(values.values()))
+        out = first.new_zeros((first.shape[0], self.num, first.shape[-1]))
+        for name, val in values.items():
+            sl = self.index(name)
+            out[:, sl] = val.reshape(out[:, sl].shape)
+        return out
+
     def get(self, arr, name: str):
         """Var-major view ``arr[:, slots, :]``; scalars drop the var axis
         (``[E, Np]``), vectors keep it (``[E, n, Np]``)."""

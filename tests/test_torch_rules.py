@@ -47,6 +47,30 @@ def _imported_modules(path):
             yield node.module
 
 
+#: the LES slice's modules, which test_port_imports_no_jax must scan
+LES_MODULES = ("common/turbulence.py", "dg/courant.py", "ode/solve.py",
+               "driver/callbacks.py", "driver/configs.py",
+               "driver/driver.py", "driver/solver_configs.py",
+               "driver_api.py", "atmos/boundaryconditions.py",
+               "physics/temperature_profiles.py", "mesh/topology.py",
+               "experiments/risingbubble.py")
+
+
+def test_scan_reaches_les_modules():
+    assert {ROOT / "climatemachine_tpu_torch" / m
+            for m in LES_MODULES} <= set(PORT_FILES)
+
+
+@pytest.mark.parametrize("name", ["sgstke", "lsforcing", "turbconv",
+                                  "radiation"])
+def test_unported_physics_refused(name):
+    """The AtmosPhysics fields of models not ported raise "next slice"."""
+    from climatemachine_tpu_torch.atmos.model import (AtmosPhysics,
+                                                      AtmosProblem)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        AtmosModel(AtmosPhysics(**{name: object()}), AtmosProblem())
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_port_imports_no_jax(path):
