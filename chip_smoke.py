@@ -150,6 +150,21 @@ filter:
   ``state_layout="grid"``, with exact launch counts; each closure's 3 ×
   3 × 3 box, 3 steps in float32 on the card against the port's float64
   run on the CPU (LES_SMALL_TOL);
+- the ocean box GCM (experiments/ocean_box.py, the JAX package's
+  examples/ocean_box_gcm.py at its defaults: HydrostaticBoussinesqModel
+  on 20 × 20 × 20 elements at p4 over 4e6 × 4e6 × 400 m, float64,
+  LSRK144 at dt = 55 s with the vertical filters before each stage,
+  driven by ``solve``) for HomogeneousBox and OceanGyre: set-up seconds,
+  ms per step (10 after 3), simulated s per wall s, peak memory, max|u|,
+  the η range, the drift of ∫η dV within the bound of
+  tests/test_ocean.py:195, and every kernel's launches, all 0 (the
+  ocean's stack integrals and filters are plain PyTorch, as XLA code in
+  the JAX package); the Julia reference's golden tables in float64 at
+  the JAX tests' configurations and digits
+  (tests/test_ocean_golden_extra.py:94, :121: windstress, 5 × 5 × 5 p4,
+  20 steps at 180 s; ocean_gyre, 30 steps at 120 s); and the one-call
+  HydrostaticBoussinesqSuperModel's geostrophic adjustment with the
+  assertions of tests/test_ocean.py:155-200;
 - the staged kernels (K1-K4, the volume kernel with and without F₂,
   both dry branches; the moist branches of K1-K4 and the volume kernel)
   and every remainder branch above at the other orders the kernels are
@@ -363,13 +378,16 @@ from climatemachine_tpu_torch.driver.solver_types import (
     ExplicitSolverType, IMEXSolverType, MultirateSolverType)
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
+from climatemachine_tpu_torch.experiments.ocean_box import ocean_box_config
 from climatemachine_tpu_torch.experiments.risingbubble import \
     risingbubble_config
 from climatemachine_tpu_torch.interop import grid_from_numpy, grid_to_numpy
 from climatemachine_tpu_torch.mesh.grid import make_grid, min_node_distance
 from climatemachine_tpu_torch.mesh.topology import brick_topology
+from climatemachine_tpu_torch.ocean import super_model
 from climatemachine_tpu_torch.ode.ark import ARK2GiraldoKellyConstantinescu
 from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
+from climatemachine_tpu_torch.ode.solve import solve
 from climatemachine_tpu_torch.physics import thermodynamics as td
 from climatemachine_tpu_torch.physics.parameters import EARTH
 from climatemachine_tpu_torch.solvers import layout_kernel
@@ -530,6 +548,20 @@ LES_SMALL_STEPS = 3
 LES_SMALL_TOL = (1e-5, 2e-2, 2e-2, 2e-2, 1e-5)
 # invoke's norm(Q)/norm(Q0), as tests/test_driver.py bounds it
 LES_RATIO_TOL = 0.1
+
+#: the ocean box of examples/ocean_box_gcm.py at its defaults
+OCEAN_NELEM = (20, 20, 20)
+OCEAN_WARM, OCEAN_STEPS = 3, 10
+#: |Δ∫η dV| <= OCEAN_VOLUME_TOL · |V · η scale| + 1e-12, the volume check of
+#: tests/test_ocean.py:195 (its η scale the bump's amplitude; the box's
+#: the largest |η| of the run)
+OCEAN_VOLUME_TOL = 1e-10
+#: the Julia reference's golden tables (data only, read by path) and the
+#: JAX tests' configurations: (problem, H, dt, steps, table)
+REFVALS = pathlib.Path(__file__).resolve().parent / "tests" / "refvals"
+OCEAN_GATES = {"windstress": ("homogeneous", 400.0, 180.0, 20,
+                              "explicit_cpu"),
+               "ocean_gyre": ("gyre", 1000.0, 120.0, 30, "short")}
 
 KERNELS = {
     "fused_volume_tendency_vm": (
@@ -3293,6 +3325,233 @@ def phase_les_inviscid(seed: int) -> dict:
                 setup_s=setup_s)
 
 
+# --- the ocean box GCM ---------------------------------------------------------
+
+def ocean_volume(dg, q) -> float:
+    """∫η dV in float64."""
+    eta = dg.balance_law.prog_spec.get(q, "eta")
+    return torch.sum(dg.grid.M * eta).item()
+
+
+def ocean_path(problem: str) -> dict:
+    """``ocean_box_config(problem)`` at the example's defaults on the
+    card, driven by ``solve``: OCEAN_WARM steps, then OCEAN_STEPS timed on
+    the host clock ending in a synchronize, every launch count set to 0
+    just before and read just after (all 0: the path runs no kernel);
+    checks the state (shape, finite), the drift of ∫η dV and the
+    launches."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dg, q0, aux0, solver = ocean_box_config(problem, OCEAN_NELEM,
+                                            device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    g, model = dg.grid, dg.balance_law
+    check(g.nelem == int(np.prod(OCEAN_NELEM)) and g.dtype == torch.float64,
+          ("ocean grid", g.nelem, g.dtype))
+    check(dg.n_gradient == 3 and not dg.dry_volume and not dg.fast_surface,
+          "the ocean takes the generic operator's gradient path")
+    dt = solver.dt
+    vol0 = ocean_volume(dg, q0)
+    reset_launch_counts()
+    st = solve(q0, aux0, solver, OCEAN_WARM * dt)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    st = solve(st.q, st.aux, solver, (OCEAN_WARM + OCEAN_STEPS) * dt,
+               t0=OCEAN_WARM * dt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = launch_counts()
+    q = st.q
+    u, eta = model.prog(q, "u"), model.prog(q, "eta")
+    eta_scale = eta.abs().max().item()
+    drift = abs(ocean_volume(dg, q) - vol0)
+    bound = OCEAN_VOLUME_TOL * abs(torch.sum(g.M).item() * eta_scale) + 1e-12
+    finite = bool(torch.isfinite(q).all())
+    res = dict(card=nvidia_smi(), problem=problem, elements=g.nelem,
+               poly=g.Nq[0] - 1, gridpoints=g.nelem * g.Np, dtype="float64",
+               dt_s=dt, warm_steps=OCEAN_WARM, steps=st.step,
+               setup_s=setup_s, ms_per_step=1e3 * wall / st.step,
+               sim_s_per_wall_s=dt * st.step / wall,
+               gridpoints_per_s=g.nelem * g.Np * st.step / wall,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               max_abs_u=u.abs().max().item(),
+               eta_range=[eta.min().item(), eta.max().item()],
+               eta_volume_drift=drift, eta_volume_bound=bound, finite=finite,
+               launches=counts)
+    check(st.step == OCEAN_STEPS, ("ocean steps timed", st.step))
+    check(list(q.shape) == [g.nelem, 4, g.Np], ("ocean state shape",
+                                                 list(q.shape)))
+    check(finite, ("ocean state not finite", problem))
+    check(drift <= bound, ("ocean ∫η dV drift", problem, drift, bound))
+    check_launches(counts, expected_launches({}, 0))
+    return res
+
+
+def field_stats(model, q, aux) -> dict:
+    """{(label, lane): [min, max, mean, std (ddof 1)]} of every
+    prognostic and aux lane, in float64 on the host, as the golden tables
+    hold them."""
+    out = {}
+    for label, spec, x in (("state", model.prog_spec, q),
+                           ("aux", model.aux_spec, aux)):
+        a = x.detach().double().cpu().numpy()
+        for i, name in enumerate(spec.flattened_names()):
+            v = a[:, i]
+            out[(label, name)] = [float(v.min()), float(v.max()),
+                                  float(v.mean()), float(v.std(ddof=1))]
+    return out
+
+
+def check_digits(fields, ref, parr) -> tuple:
+    """The check of tests/test_ocean_refvals.py ``check_parr``: each
+    statistic within 5·10^−d relative of the table (|g| <= 10^−d where the
+    table holds 0), d from ``parr`` (0: skipped).  Returns (the digits
+    each statistic reached, the failures)."""
+    reached, failures = {}, []
+    for key, row in ref.items():
+        for stat, g, r, d in zip(("min", "max", "mean", "std"), fields[key],
+                                 row, parr[key]):
+            if d == 0:
+                continue
+            name = f"{key[0]}.{key[1]}|{stat}"
+            if r == 0.0:
+                reached[name] = (16.0 if g == 0.0
+                                 else min(-math.log10(abs(g)), 16.0))
+                ok = abs(g) <= 10.0 ** (-d)
+            else:
+                rel = abs(g - r) / abs(r)
+                reached[name] = (16.0 if rel == 0.0
+                                 else min(-math.log10(rel / 5.0), 16.0))
+                ok = rel <= 5.0 * 10.0 ** (-d)
+            if not ok:
+                failures.append((name, g, r, d))
+    return reached, failures
+
+
+def ocean_gate(name: str) -> dict:
+    """The Julia reference's table ``name`` (tests/refvals/<name>.py, read
+    by path) against the port in float64 on the card at the JAX test's
+    configuration (5 × 5 × 5 p4 over 1e6 × 1e6 × H, c_h = √(gH), LSRK144
+    with the filters, through ``solve``) and digits: windstress with the
+    u means at 9 (tests/test_ocean_golden_extra.py:113-116), the gyre at
+    5 with θ's minimum skipped (:132-140)."""
+    problem, H, dt, steps, table = OCEAN_GATES[name]
+    spec = importlib.util.spec_from_file_location(
+        "rv_" + name, REFVALS / f"{name}.py")
+    rv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rv)
+    if name == "windstress":
+        parr = dict(rv.parr)
+        parr[("state", "u[0]")] = [12, 12, 9, 12]
+        parr[("state", "u[1]")] = [12, 12, 9, 12]
+    else:
+        parr = {k: [min(d, 5) for d in v] for k, v in rv.parr.items()}
+        parr[("state", "theta")][0] = 0
+    dg, q0, aux0, solver = ocean_box_config(
+        problem, (5, 5, 5), 4, (1e6, 1e6, H), dt,
+        floor_free_slip=(problem == "homogeneous"), device="cuda")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    st = solve(q0, aux0, solver, steps * dt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check(st.step == steps and bool(torch.isfinite(st.q).all()),
+          (name, "steps", st.step))
+    reached, failures = check_digits(
+        field_stats(dg.balance_law, st.q, st.aux), getattr(rv, table), parr)
+    res = dict(card=nvidia_smi(), table=f"tests/refvals/{name}.py:{table}",
+               problem=problem, elements=dg.grid.nelem, steps=st.step,
+               dt_s=dt, seconds=wall, min_digits_reached=min(reached.values()),
+               digits_reached=reached, failures=failures, launches=counts)
+    emit("ocean_golden_gate", **res)
+    check(not failures, (name, "golden table", failures))
+    check_launches(counts, expected_launches({}, 0))
+    return res
+
+
+def ocean_super_model() -> dict:
+    """HydrostaticBoussinesqSuperModel's geostrophic adjustment on the card
+    in float64 at tests/test_ocean.py:155's configuration (Ne = (20, 1, 1),
+    p4, y periodic, LS3NRK33Heuns at 100 s) with its assertions: 36
+    steps to 1 h, finite, ∫η dV kept, the bump decays and its
+    disturbance radiates past 4 widths."""
+    Lx, f, grav = 1e6, 1e-4, 9.81
+    U, Lg = 0.1, Lx / 40
+    a, x0 = f * U * Lg / grav, Lx / 4
+    gauss = lambda x: torch.exp(-x ** 2 / (2 * Lg ** 2))
+    domain = super_model.RectangularDomain(
+        Ne=(20, 1, 1), Np=4, x=(0, Lx), y=(0, Lx), z=(-400.0, 0.0),
+        periodicity=(False, True, False))
+    t0 = time.perf_counter()
+    model = super_model.HydrostaticBoussinesqSuperModel(
+        domain, time_step=100.0,
+        initial_conditions=super_model.InitialConditions(
+            v=lambda x, y, z: -U * (x - x0) / Lg * gauss(x - x0),
+            eta=lambda x, y, z: 2 * a * gauss(x - x0)),
+        coriolis=dict(f_0=f, beta=0.0),
+        turbulence_closure=dict(nu_h=1e3, nu_z=1e-2, kappa_h=1e3,
+                                kappa_z=1e-4),
+        rusanov_wave_speeds=dict(c_h=math.sqrt(grav * 400.0), c_z=1e-3),
+        device="cuda")
+    M = model.grid.M
+    eta0 = model.fields["eta"].clone()
+    vol0 = torch.sum(M * eta0).item()
+    reset_launch_counts()
+    model.solve(until=3600.0)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    eta1 = model.fields["eta"]
+    vol1 = torch.sum(M * eta1).item()
+    x = model.grid.coords[..., 0]
+    far = (x - x0).abs() > 4 * Lg
+    cart = model.cartesian_field("eta").assemble()
+    res = dict(card=nvidia_smi(), steps=model.step_count,
+               seconds=time.perf_counter() - t0,
+               volume_drift=abs(vol1 - vol0),
+               volume_bound=OCEAN_VOLUME_TOL * abs(torch.sum(M).item() * a)
+               + 1e-12,
+               eta_max=[eta0.max().item(), eta1.max().item()],
+               far_eta_max=[eta0[far].abs().max().item(),
+                            eta1[far].abs().max().item()],
+               cartesian_shape=list(cart.shape), launches=counts)
+    emit("ocean_super_model", **res)
+    check(model.step_count == 36, ("super model steps", model.step_count))
+    check(bool(torch.isfinite(eta1).all()), "super model η not finite")
+    check(res["volume_drift"] <= res["volume_bound"],
+          ("super model volume", res["volume_drift"], res["volume_bound"]))
+    check(res["eta_max"][1] < 0.95 * res["eta_max"][0],
+          ("the bump does not decay", res["eta_max"]))
+    check(res["far_eta_max"][1] > 10 * res["far_eta_max"][0],
+          ("the disturbance does not radiate", res["far_eta_max"]))
+    check(list(cart.shape) == [81, 5, 5], ("cartesian field",
+                                            list(cart.shape)))
+    check_launches(counts, expected_launches({}, 0))
+    return res
+
+
+def phase_ocean() -> dict:
+    """The ocean box GCM at full width for both problems, the golden
+    gates and the super model (module docstring).  Returns {problem:
+    {ms_per_step, setup_s, peak_memory_bytes}}."""
+    t_phase = time.perf_counter()
+    out = {}
+    for problem in ("homogeneous", "gyre"):
+        res = ocean_path(problem)
+        emit("ocean_path", **res)
+        out[problem] = {k: res[k] for k in ("ms_per_step", "setup_s",
+                                            "peak_memory_bytes")}
+    torch.cuda.empty_cache()
+    for name in OCEAN_GATES:
+        ocean_gate(name)
+    ocean_super_model()
+    emit("ocean_phase", card=nvidia_smi(),
+         seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def hold(name, args, kw) -> dict:
     """The kernel on ``args`` and on their first TAIL_E elements against
     two references, its plain version on the card (float32) and in
@@ -3399,6 +3658,7 @@ def main(argv=None) -> int:
     vortex = phase_vortex(args.seed)
     les = phase_les_bubble(args.seed)
     les_inviscid = phase_les_inviscid(args.seed)
+    ocean = phase_ocean()
     phase_kernel_orders(args.seed)
     if moist:
         phase_moist_kernel_orders(args.seed)
@@ -3408,6 +3668,7 @@ def main(argv=None) -> int:
          les_ms_per_step=les["ms_per_step"], les_setup_s=les["setup_s"],
          les_peak_memory_bytes=les["peak_memory_bytes"],
          les_inviscid_ms_per_step=les_inviscid["ms_per_step"],
+         ocean=ocean,
          explicit_ms_per_step=explicit["ms_per_step"],
          imex_ms_per_step=imex["ms_per_step"],
          generic_ms_per_step=generic["ms_per_step"],

@@ -17,7 +17,11 @@ the JAX package's "grid" layout, and the dense column solver on the
 fused IMEX remainder), whose volume tendency is the dry kernel
 (dg/dry_volume_kernel.py, a branch of csrc/volume_vm.cu).  Entry points take
 ``device=None``, meaning ``"cuda"``; tests pass ``device="cpu"``, where
-every kernel wrapper runs its plain PyTorch version.
+every kernel wrapper runs its plain PyTorch version.  Beside the
+atmosphere it runs the ocean box GCM (``ocean/``: the hydrostatic
+Boussinesq model on the generic operator, float64, with its stack
+integrals and vertical filters, which are plain PyTorch as they are XLA
+code in the JAX package).
 """
 
 from climatemachine_tpu_torch.device import resolve_device  # noqa: F401

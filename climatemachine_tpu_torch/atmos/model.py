@@ -48,6 +48,7 @@ from climatemachine_tpu_torch.atmos.ref_state import (NoReferenceState,
                                                      ReferenceState)
 from climatemachine_tpu_torch.atmos.sources import VMContext
 from climatemachine_tpu_torch.atmos.tracers import NoTracers
+from climatemachine_tpu_torch.balance_laws.interface import BalanceLaw
 from climatemachine_tpu_torch.common.orientations import (FlatOrientation,
                                                           Orientation)
 from climatemachine_tpu_torch.physics import thermodynamics as td
@@ -111,9 +112,10 @@ def _set(arr, sl: slice, val):
     return out
 
 
-class AtmosModel:
+class AtmosModel(BalanceLaw):
     """Compressible atmosphere with total energy, dry or in equilibrium
-    moisture, with passive tracers and precipitation."""
+    moisture, with passive tracers and precipitation (a
+    :class:`BalanceLaw` whose hooks override the base's)."""
 
     def __init__(self, physics: AtmosPhysics, problem: AtmosProblem,
                  sources: Sequence = ()):

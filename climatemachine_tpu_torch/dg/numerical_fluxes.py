@@ -1,6 +1,8 @@
 """Interface (numerical) fluxes on var-major face lanes (port of
-``climatemachine_tpu/dg/numerical_fluxes.py`` ``RusanovNumericalFlux``
-:34-50, ``CentralNumericalFluxGradient`` :53-64 and
+``climatemachine_tpu/dg/numerical_fluxes.py``
+``CentralNumericalFluxFirstOrder`` :25, ``RusanovNumericalFlux`` :34-50
+with the balance law's ``numerical_flux_penalty`` hook :47-49,
+``CentralNumericalFluxGradient`` :53-64 and
 ``CentralNumericalFluxSecondOrder`` :73-81, and of the atmosphere's Riemann solvers in
 ``climatemachine_tpu/atmos/numerical_fluxes.py``: ``RoeNumericalFlux``
 :66-172 with its passive-scalar upwinding :151-170, its linear-model
@@ -40,18 +42,34 @@ def _is_linear(bl) -> bool:
     return hasattr(bl, "linearized_pressure") and hasattr(bl, "atmos")
 
 
-class RusanovNumericalFlux:
-    """Local Lax-Friedrichs: the central flux ½(F⁻ + F⁺)·n minus
-    ½·max(c⁻, c⁺)·(q⁺ − q⁻)."""
+def _central(bl, nrm, qM, auxM, qP, auxP, t):
+    """½(F(q⁻) + F(q⁺))·n ``[E, n, X]``."""
+    Fs = bl.flux_first_order(qM, auxM, t) + bl.flux_first_order(qP, auxP, t)
+    return 0.5 * (Fs[:, 0] * nrm[:, 0, None] + Fs[:, 1] * nrm[:, 1, None]
+                  + Fs[:, 2] * nrm[:, 2, None])
+
+
+class CentralNumericalFluxFirstOrder:
+    """The central flux ½(F⁻ + F⁺)·n."""
 
     def __call__(self, bl, nrm, qM, auxM, qP, auxP, t):
-        Fs = bl.flux_first_order(qM, auxM, t) + bl.flux_first_order(qP, auxP,
-                                                                     t)
-        central = 0.5 * (Fs[:, 0] * nrm[:, 0, None] + Fs[:, 1] * nrm[:, 1, None]
-                         + Fs[:, 2] * nrm[:, 2, None])
+        return _central(bl, nrm, qM, auxM, qP, auxP, t)
+
+
+class RusanovNumericalFlux:
+    """Local Lax-Friedrichs: the central flux ½(F⁻ + F⁺)·n minus
+    ½·max(c⁻, c⁺)·Δq, Δq = q⁺ − q⁻ as the balance law's
+    ``numerical_flux_penalty(nrm, qM, auxM, qP, auxP, Δq)`` adjusts it
+    where it has one (the ocean's Δη = 0)."""
+
+    def __call__(self, bl, nrm, qM, auxM, qP, auxP, t):
+        central = _central(bl, nrm, qM, auxM, qP, auxP, t)
         c = bl.wavespeed(nrm, qM, auxM, t).maximum(
             bl.wavespeed(nrm, qP, auxP, t))
-        return central - 0.5 * c[:, None] * (qP - qM)
+        dq = qP - qM
+        if hasattr(bl, "numerical_flux_penalty"):
+            dq = bl.numerical_flux_penalty(nrm, qM, auxM, qP, auxP, dq)
+        return central - 0.5 * c[:, None] * dq
 
 
 class CentralNumericalFluxGradient:

@@ -4,7 +4,10 @@
 its gradient fluxes and ``diffusion_direction`` :232-235, ``n_gradient``
 :302, ``spatial_gradient`` :429-456, ``hyperdiffusive_state`` :636,
 ``pre_stage`` :689 and ``__call__`` :699-864, ``remainder_DGModel``
-:867, init_state_auxiliary :895, init_ode_state :909).
+:867, init_state_auxiliary :895, init_ode_state :909).  The balance
+law's hooks are those of ``balance_laws/interface.py``; the ocean's
+(``pre_stage`` → ``preprocess_state``, the stack integrals in
+``update_auxiliary_state_gradient``) need no branch here.
 
 State is var-major ``[E, n, Np]``.  :class:`DGModel` is the right-hand
 side of a balance law on a grid: of the full AtmosModel (the JAX
@@ -303,7 +306,7 @@ class DGModel:
         if not hasattr(bl, "flux_first_order"):
             raise NotImplementedError(
                 "next slice: a balance law without a first-order flux")
-        if q.device.type == "cuda":
+        if q.device.type == "cuda" and q.dtype == torch.float32:
             require_full_fp32("the DG operator")
         if self.update_aux:
             aux = bl.update_auxiliary_state(q, aux)

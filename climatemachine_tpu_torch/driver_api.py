@@ -8,6 +8,11 @@ the names the port provides): what an experiment script needs.
 >>> sc = cm.make_solver_configuration(0.0, 10.0, dc, Courant_number=0.4)
 >>> cm.invoke(sc)
 
+The ocean box GCM: ``cm.HydrostaticBoussinesqModel(cm.OceanGyre(Lx, Ly,
+H), c_h=...)`` on ``cm.ocean_box_grid(problem, nx, ny, nz, p)``, or the
+one-call ``cm.HydrostaticBoussinesqSuperModel(cm.RectangularDomain(...),
+time_step)``.
+
 Grids and state live on the card unless the configuration is given
 ``device="cpu"`` (or ``init(disable_gpu=True)``).
 """
@@ -45,7 +50,8 @@ from climatemachine_tpu_torch.common.turbulence import (
 from climatemachine_tpu_torch.dg.spatial import (DGModel, init_ode_state,
                                                  remainder_DGModel)
 from climatemachine_tpu_torch.dg.numerical_fluxes import (
-    CentralNumericalFluxGradient, CentralNumericalFluxSecondOrder,
+    CentralNumericalFluxFirstOrder, CentralNumericalFluxGradient,
+    CentralNumericalFluxSecondOrder,
     HLLCNumericalFlux, LMARSNumericalFlux, RoeNumericalFlux,
     RusanovNumericalFlux)
 from climatemachine_tpu_torch.dg.courant import calculate_dt
@@ -53,7 +59,8 @@ from climatemachine_tpu_torch.dg.courant import calculate_dt
 from climatemachine_tpu_torch.mesh.grid import make_grid, min_node_distance
 from climatemachine_tpu_torch.mesh import topology
 
-from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
+from climatemachine_tpu_torch.ode.lsrk import (LSRK54CarpenterKennedy,
+                                               LSRK144NiegemannDiehlBusch)
 from climatemachine_tpu_torch.ode.solve import solve
 
 from climatemachine_tpu_torch.driver.configs import (AtmosLESConfiguration,
@@ -63,3 +70,10 @@ from climatemachine_tpu_torch.driver.solver_configs import (
     SolverConfiguration, make_solver_configuration)
 from climatemachine_tpu_torch.driver.solver_types import (
     ExplicitSolverType, IMEXSolverType, MultirateSolverType)
+
+from climatemachine_tpu_torch.ocean.hydrostatic_boussinesq import (
+    HydrostaticBoussinesqModel)
+from climatemachine_tpu_torch.ocean.problems import (OceanGyre, SimpleBox,
+                                                     ocean_box_grid)
+from climatemachine_tpu_torch.ocean.super_model import (
+    HydrostaticBoussinesqSuperModel, InitialConditions, RectangularDomain)

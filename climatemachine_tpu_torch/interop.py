@@ -8,8 +8,9 @@ aux and tendencies var-major ``[E, n, Np]``: ``to_var_major`` and
 ``to_node_major`` turn one into the other, ``state_from_numpy`` and
 ``state_to_numpy`` a (state, aux) pair: the dry model's 5 prognostic
 lanes, the moist model's 6 (ρq_tot after ρe) or, with precipitation and
-tracers, more (ρq_tot, ρq_rai, ρχ…), and their aux lanes, in the lane
-order the two packages share.  Given the other package's lane names,
+tracers, more (ρq_tot, ρq_rai, ρχ…), the ocean's 4 (u[0], u[1], η,
+θ; aux coord, y, w, pkin, wz0, ud, dGu), and their aux lanes, in the
+lane order the two packages share.  Given the other package's lane names,
 ``state_from_numpy`` checks them against the model's schema name by
 name.
 """
@@ -23,8 +24,8 @@ from climatemachine_tpu_torch.device import resolve_device
 from climatemachine_tpu_torch.mesh.grid import Grid
 
 #: grid fields uploaded in the run dtype
-FLOAT_FIELDS = ("coords", "M", "MI", "J", "xi_x", "normals", "sM", "lift",
-                "Wdiv", "Wgrad")
+FLOAT_FIELDS = ("coords", "M", "MI", "J", "JcV", "xi_x", "normals", "sM",
+                "lift", "Wdiv", "Wgrad")
 #: grid fields uploaded as int64
 INDEX_FIELDS = ("face_bctag", "face_nbr_row")
 #: grid fields kept on the host

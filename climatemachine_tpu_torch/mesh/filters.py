@@ -1,11 +1,15 @@
-"""Exponential modal filter (port of ``climatemachine_tpu/mesh/filters.py``:
-spectral_filter_matrix, ExponentialFilter :137, nodal_matrix :108,
-apply_vm :128).
+"""Modal filters (port of ``climatemachine_tpu/mesh/filters.py``:
+spectral_filter_matrix, ``SpectralFilter`` :88-134 with its
+``direction`` argument, ``nodal_matrix`` :108 and ``apply_vm`` :128,
+``ExponentialFilter`` :137, ``CutoffFilter`` :169).
 
 The per-dimension filter matrices V diag(σ) V⁻¹ are built in numpy
-float64, rounded to the grid dtype (as the JAX package stores them),
-and composed into one ``[Np, Np]`` nodal operator; ``apply_vm`` is one
-``torch.matmul`` over the var-major state.
+float64 and rounded to the grid dtype, as the JAX package stores them.
+Calling a filter contracts the var-major state ``[E, n, Np]`` with the
+matrices of the direction's reference dims, one dim at a time (the
+ocean's vertical filters: Nq₃ × Nq₃ over k); ``apply_vm`` (every
+direction, the Held-Suarez step filter) is one ``torch.matmul`` with
+the composed ``[Np, Np]`` nodal operator.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from climatemachine_tpu_torch.dg.directions import direction_dims
 
 
 def _legendre_vandermonde(r: np.ndarray) -> np.ndarray:
@@ -45,34 +51,90 @@ def spectral_filter_matrix(r: np.ndarray, Nc: int,
     return V @ np.diag(S) @ np.linalg.inv(V)
 
 
-class ExponentialFilter:
-    """σ(η) = exp(−α η^s) above mode ``Nc`` in every reference direction."""
+def _normalize_Nc(Nc, dim: int = 3):
+    """A cut-off per dim from an int, (horizontal, vertical) or one per
+    dim."""
+    if isinstance(Nc, int):
+        return (Nc,) * dim
+    Nc = tuple(Nc)
+    if len(Nc) == 2 and dim == 3:
+        return (Nc[0], Nc[0], Nc[1])
+    return Nc
 
-    def __init__(self, grid, Nc: int = 0, s: int = 32):
-        alpha = -math.log(np.finfo(np.float64).eps)
-        if s % 2:
-            raise ValueError("filter order s must be even")
-        sigma = lambda eta: math.exp(-alpha * eta ** s)
-        np_dtype = torch.empty((), dtype=grid.dtype).numpy().dtype
-        self.matrices = tuple(
-            spectral_filter_matrix(grid.xi[d], Nc, sigma)
-            .astype(np_dtype).astype(np.float64) for d in range(3))
+
+class SpectralFilter:
+    """A filter from one matrix per reference dim (``matrices``, numpy,
+    already rounded to the grid dtype)."""
+
+    def __init__(self, grid, matrices):
         self.Nq = grid.Nq
+        self.matrices = tuple(np.asarray(m, dtype=np.float64)
+                              for m in matrices)
+        self.mats = tuple(torch.as_tensor(m, dtype=grid.dtype,
+                                          device=grid.device)
+                          for m in self.matrices)
         self.nodal = torch.as_tensor(self.nodal_matrix(), dtype=grid.dtype,
                                      device=grid.device)
 
-    def nodal_matrix(self) -> np.ndarray:
+    def nodal_matrix(self, direction: str = "every") -> np.ndarray:
         """The composed ``[Np, Np]`` operator F (out = F q per element and
-        variable), in float64."""
+        variable) over the direction's dims, in float64."""
         Np = int(np.prod(self.Nq))
         xb = np.eye(Np).reshape(tuple(self.Nq[::-1]) + (Np,))
-        for d in range(3):
+        for d in direction_dims(direction, 3):
             out = np.tensordot(xb, self.matrices[d], axes=((2 - d,), (1,)))
             xb = np.moveaxis(out, -1, 2 - d)
         return xb.reshape(Np, Np)
 
+    def __call__(self, qv, direction: str = "every"):
+        """Filter var-major ``qv [E, n, Np]`` along the direction's
+        reference dims (an axis-wise contraction a dim)."""
+        E, n, Np = qv.shape
+        Nq1, Nq2, Nq3 = self.Nq
+        xb = qv.reshape(E * n, Nq3, Nq2, Nq1)
+        for d in direction_dims(direction, 3):
+            F = self.mats[d]
+            if d == 0:
+                xb = torch.matmul(xb, F.T)
+            elif d == 1:
+                xb = torch.matmul(F, xb)
+            else:
+                xb = torch.matmul(F, xb.reshape(E * n, Nq3, Nq2 * Nq1))
+                xb = xb.reshape(E * n, Nq3, Nq2, Nq1)
+        return xb.reshape(E, n, Np)
+
     def apply_vm(self, qv):
-        """Filter var-major ``qv [E, n, Np]`` with one matmul."""
+        """Filter var-major ``qv [E, n, Np]`` in every direction with one
+        matmul."""
         E, n, Np = qv.shape
         return torch.matmul(qv.reshape(E * n, Np),
                             self.nodal.T).reshape(E, n, Np)
+
+
+def _matrices(grid, Nc, sigma):
+    """One filter matrix per dim, rounded to the grid dtype."""
+    np_dtype = torch.empty((), dtype=grid.dtype).numpy().dtype
+    return [spectral_filter_matrix(grid.xi[d], c, sigma)
+            .astype(np_dtype).astype(np.float64)
+            for d, c in enumerate(_normalize_Nc(Nc))]
+
+
+class ExponentialFilter(SpectralFilter):
+    """σ(η) = exp(−α η^s) above mode ``Nc``."""
+
+    def __init__(self, grid, Nc=0, s: int = 32):
+        alpha = -math.log(np.finfo(np.float64).eps)
+        if s % 2:
+            raise ValueError("filter order s must be even")
+        super().__init__(grid, _matrices(
+            grid, Nc, lambda eta: math.exp(-alpha * eta ** s)))
+
+
+class CutoffFilter(SpectralFilter):
+    """Zero every mode from ``Nc`` on (default: the top mode of each
+    dim)."""
+
+    def __init__(self, grid, Nc=None):
+        if Nc is None:
+            Nc = tuple(nq - 1 for nq in grid.Nq)
+        super().__init__(grid, _matrices(grid, Nc, lambda eta: 0.0))

@@ -6,7 +6,8 @@ wraps around).
 
 The geometry is built once in numpy float64 on the host and uploaded in
 the run dtype, as the JAX package does.  The grid carries what the
-var-major explicit step reads: nodal coordinates, metrics, mass, face
+var-major explicit step reads: nodal coordinates, metrics (the vertical
+line Jacobian ``JcV`` of the stack integrals among them), mass, face
 normals and weights, the 0/1 lift matrix, the fused weak-divergence
 operator ``Wdiv``, the stacked derivative operator ``Wgrad``, the
 face-row neighbour tables and the stack's ``n_horz``/``n_vert`` (element
@@ -62,6 +63,7 @@ class Grid:
     M: torch.Tensor                # [E, Np]  w⊗J
     MI: torch.Tensor               # [E, Np]
     J: torch.Tensor                # [E, Np]
+    JcV: torch.Tensor              # [E, Np]  |dx/dxi3|, the column's dz/dξ
     xi_x: torch.Tensor             # [E, Np, 3, 3]  d xi_a / d x_i at [a, i]
     normals: torch.Tensor          # [E, 6, Nfp_max, 3]
     sM: torch.Tensor               # [E, 6, Nfp_max]
@@ -143,7 +145,8 @@ def make_grid(topology: Topology, polyorder: int,
     return Grid(
         Nq=Nq, Np=Np, Nfp=tuple(Nfp), Nfp_max=Nfp_max,
         xi=tuple(xi), coords=dev(geo["coords"]), M=dev(geo["M"]),
-        MI=dev(geo["MI"]), J=dev(geo["J"]), xi_x=dev(geo["xi_x"]),
+        MI=dev(geo["MI"]), J=dev(geo["J"]), JcV=dev(geo["JcV"]),
+        xi_x=dev(geo["xi_x"]),
         normals=dev(geo["normals"]), sM=dev(geo["sM"]),
         face_bctag=idx(topology.face_bctag), lift=dev(lift),
         face_nbr_row=idx(face_nbr_row), face_perm_identity=perm_identity,

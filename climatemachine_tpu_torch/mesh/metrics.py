@@ -1,5 +1,6 @@
 """Curvilinear metric terms (port of ``climatemachine_tpu/mesh/metrics.py``:
-nodal_coordinates, geometry_3d :52).  Host-side numpy float64.
+nodal_coordinates, geometry_3d :52 with the vertical line Jacobian JcV
+:88).  Host-side numpy float64.
 
 The contravariant metrics use the discrete curl-invariant form (Kopriva
 2006) so free-stream preservation holds on the warped cubed sphere.
@@ -39,7 +40,8 @@ def _dmat_apply(D: np.ndarray, x: np.ndarray, refdim: int, dim: int):
 def geometry_3d(coords: np.ndarray, D, w):
     """Volume and surface geometry of ``coords [E, Nq3, Nq2, Nq1, 3]``.
 
-    Returns J, M = w⊗J and MI as ``[E, Np]``; xi_x ``[E, Np, 3, 3]``
+    Returns J, M = w⊗J, MI and the vertical line Jacobian JcV = |∂x/∂ξ₃|
+    as ``[E, Np]``; xi_x ``[E, Np, 3, 3]``
     (d xi_a / d x_i at [a, i]); coords ``[E, Np, 3]``; unit normals
     ``[E, 6, Nfp_max, 3]``; sM ``[E, 6, Nfp_max]`` (tangential weights ×
     J|∇xi_d|); Nfp per face."""
@@ -58,6 +60,7 @@ def geometry_3d(coords: np.ndarray, D, w):
          + dx[..., 2, 0] * (dx[..., 0, 1] * dx[..., 1, 2] - dx[..., 1, 1] * dx[..., 0, 2]))
     if np.any(J <= 0):
         raise ValueError(f"non-positive Jacobian: min {J.min():.3e}")
+    JcV = np.sqrt(dx[..., 0, 2] ** 2 + dx[..., 1, 2] ** 2 + dx[..., 2, 2] ** 2)
 
     # J d(xi_a)/d(x_i) = (1/2)[D_{a+1}(V^i_{a+2}) - D_{a+2}(V^i_{a+1})],
     # V^i_a = x_{i+1} d(x_{i+2})/d(xi_a) - x_{i+2} d(x_{i+1})/d(xi_a)
@@ -101,7 +104,7 @@ def geometry_3d(coords: np.ndarray, D, w):
             sM[:, f, :Nfp[f]] = norm * tw[None, :]
 
     flat = lambda a: a.reshape(E, Np)
-    return dict(J=flat(J), M=flat(M), MI=flat(MI),
+    return dict(J=flat(J), M=flat(M), MI=flat(MI), JcV=flat(JcV),
                 xi_x=xi_x.reshape(E, Np, 3, 3),
                 coords=coords.reshape(E, Np, 3),
                 normals=n_out, sM=sM, Nfp=Nfp)

@@ -1,8 +1,9 @@
 """Low-storage 2N Runge-Kutta (port of ``climatemachine_tpu/ode/lsrk.py``:
-LowStorageRungeKutta2N :25 with ``pre_stage`` :35-51,
-LSRK54CarpenterKennedy :69).
+LowStorageRungeKutta2N :25 with ``pre_stage`` :35-51, LSRKEulerMethod
+:63, LSRK54CarpenterKennedy :69, LSRK144NiegemannDiehlBusch :89).
 
-Tableau from Carpenter & Kennedy (1994), NASA TM-109112.
+Tableaus from Carpenter & Kennedy (1994), NASA TM-109112, and Niegemann,
+Diehl & Busch (2012), J. Comput. Phys. 231(2).
 """
 
 from __future__ import annotations
@@ -48,6 +49,14 @@ class LowStorageRungeKutta2N:
         return q, aux
 
 
+def LSRKEulerMethod(rhs: Callable, dt: float,
+                    post_step: Optional[Callable] = None,
+                    pre_stage: Optional[Callable] = None):
+    """Forward Euler in the 2N form."""
+    return LowStorageRungeKutta2N(rhs, dt, (0.0,), (1.0,), (0.0,),
+                                  post_step=post_step, pre_stage=pre_stage)
+
+
 def LSRK54CarpenterKennedy(rhs: Callable, dt: float,
                            post_step: Optional[Callable] = None,
                            pre_stage: Optional[Callable] = None):
@@ -67,5 +76,56 @@ def LSRK54CarpenterKennedy(rhs: Callable, dt: float,
          2526269341429.0 / 6820363962896.0,
          2006345519317.0 / 3224310063776.0,
          2802321613138.0 / 2924317926251.0)
+    return LowStorageRungeKutta2N(rhs, dt, A, B, C, post_step=post_step,
+                                  pre_stage=pre_stage)
+
+
+def LSRK144NiegemannDiehlBusch(rhs: Callable, dt: float,
+                               post_step: Optional[Callable] = None,
+                               pre_stage: Optional[Callable] = None):
+    """14-stage 4th-order scheme of Niegemann, Diehl and Busch, with a
+    large stability region along the imaginary axis."""
+    A = (0.0,
+         -0.7188012108672410,
+         -0.7785331173421570,
+         -0.0053282796654044,
+         -0.8552979934029281,
+         -3.9564138245774565,
+         -1.5780575380587385,
+         -2.0837094552574054,
+         -0.7483334182761610,
+         -0.7032861106563359,
+         0.0013917096117681,
+         -0.0932075369637460,
+         -0.9514200470875948,
+         -7.1151571693922548)
+    B = (0.0367762454319673,
+         0.3136296607553959,
+         0.1531848691869027,
+         0.0030097086818182,
+         0.3326293790646110,
+         0.2440251405350864,
+         0.3718879239592277,
+         0.6204126221582444,
+         0.1524043173028741,
+         0.0760894927419266,
+         0.0077604214040978,
+         0.0024647284755382,
+         0.0780348340049386,
+         5.5059777270269628)
+    C = (0.0,
+         0.0367762454319673,
+         0.1249685262725025,
+         0.2446177702277698,
+         0.2476149531070420,
+         0.2969311120382472,
+         0.3978149645802642,
+         0.5270854589440328,
+         0.6981269994175695,
+         0.8190890835352128,
+         0.8527059887098624,
+         0.8604711817462826,
+         0.8627060376969976,
+         0.8734213127600976)
     return LowStorageRungeKutta2N(rhs, dt, A, B, C, post_step=post_step,
                                   pre_stage=pre_stage)

@@ -1,9 +1,10 @@
-"""Where the Held-Suarez step, or the moist baroclinic wave's, spends its
-time on the card.
+"""Where the Held-Suarez step, or the moist baroclinic wave's, the LES
+bubble's or the ocean box's, spends its time on the card.
 
     python -m climatemachine_tpu_torch.profile_step [--steps N] [--out DIR]
         [--no-hyperdiffusion] [--imex] [--surface-kernel {xla,hybrid,pallas}]
         [--grid] [--dense] [--moist] [--dt SECONDS] [--les]
+        [--ocean [--problem {homogeneous,gyre}]]
 
 Builds a ``chip_smoke.py`` path (dry Held-Suarez p4 with DryBiharmonic(8
 h) hyperdiffusion, n_horz=16, n_vert=8, float32, with the every-step
@@ -27,7 +28,13 @@ Courant 0.4), whose explicit step runs on the generic DG operator with
 its gradient pass; its spans are ``gradient`` (the DG gradient),
 ``gradient_flux``, ``volume`` (the volume tendency with F₂),
 ``surface`` (the face pass) with ``second_order_faces`` (F₂* on both
-sides) inside it, and ``sources``.  It warms up, times ``--steps``
+sides) inside it, and ``sources``.  ``--ocean`` builds the ocean box
+GCM (experiments/ocean_box.py at its defaults: HomogeneousBox, or
+OceanGyre with ``--problem gyre``, 20 × 20 × 20 elements at p4, float64,
+LSRK144 at dt = 55 s), whose spans are ``pre_stage`` (the vertical
+filters before each stage), ``gradient``, ``gradient_flux``,
+``stack_integrals`` (w, pkin and wz0), ``volume``, ``surface`` with
+``second_order_faces`` inside it, and ``sources``.  It warms up, times ``--steps``
 steps with tracing off, then traces the same number of steps with
 ``torch.profiler``.  The RHS's parts (the surface kernels' stages as
 ``extract`` and ``lift`` inside ``surface``), and on the IMEX step the
@@ -70,6 +77,8 @@ from climatemachine_tpu_torch.driver.solver_types import (ExplicitSolverType,
                                                           IMEXSolverType)
 from climatemachine_tpu_torch.experiments.baroclinic_wave import \
     baroclinic_wave_config
+from climatemachine_tpu_torch.experiments.ocean_box import (PROBLEMS,
+                                                             ocean_box_config)
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
 from climatemachine_tpu_torch.experiments.risingbubble import \
@@ -79,7 +88,8 @@ from climatemachine_tpu_torch.physics import thermodynamics as td
 
 SPANS = ("thermo", "saturation", "chain", "volume", "surface", "extract",
          "lift", "sources", "filter", "solve", "apply", "to_blocks",
-         "from_blocks", "gradient", "gradient_flux", "second_order_faces")
+         "from_blocks", "gradient", "gradient_flux", "second_order_faces",
+         "pre_stage", "stack_integrals")
 
 
 def _span(name, fn):
@@ -132,6 +142,8 @@ def main(argv=None):
     ap.add_argument("--moist", action="store_true")
     ap.add_argument("--dt", type=float, default=None)
     ap.add_argument("--les", action="store_true")
+    ap.add_argument("--ocean", action="store_true")
+    ap.add_argument("--problem", choices=PROBLEMS, default="homogeneous")
     args = ap.parse_args(argv)
     args.imex |= args.dense
     power = subprocess.run(
@@ -140,7 +152,11 @@ def main(argv=None):
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
     tau = None if args.no_hyperdiffusion else 8 * 3600.0
-    if args.les:
+    if args.ocean:
+        dg, q, aux, solver = ocean_box_config(args.problem, device="cuda")
+        dt = solver.dt = args.dt or solver.dt
+        tau = None
+    elif args.les:
         driver_init(show_updates="never")
         cfg = risingbubble_config(device="cuda")
         sc = make_solver_configuration(0.0, -1.0, cfg, Courant_number=0.4)
@@ -177,15 +193,21 @@ def main(argv=None):
         solver = sc.solver
         solver.dt = dt
         rhs = solver.rhs
+    elif args.ocean:
+        rhs = solver.rhs
+        solver.pre_stage = _span("pre_stage", solver.pre_stage)
     else:
         solver = ExplicitSolverType(state_layout=layout).make(dg, q, aux, dt)
         rhs = solver.rhs
-    if not (args.moist or args.les):
+    if not (args.moist or args.les or args.ocean):
         solver.post_step = _span("filter", HeldSuarezStepFilter(
             cfg.grid, cfg.model).apply_vm)
-    if args.les:
+    if args.les or args.ocean:
         rhs.spatial_gradient = _span("gradient", rhs.spatial_gradient)
         bl = rhs.balance_law
+        if args.ocean:
+            bl.update_auxiliary_state_gradient = _span(
+                "stack_integrals", bl.update_auxiliary_state_gradient)
         bl.compute_gradient_flux = _span("gradient_flux",
                                          bl.compute_gradient_flux)
         rhs.volume_tendency = _span("volume", rhs.volume_tendency)
@@ -264,7 +286,8 @@ def main(argv=None):
                                           "profile_step_trace.json"))
     print(json.dumps({
         "card": power, "steps": args.steps,
-        "model": ("rising bubble LES (SmagorinskyLilly)" if args.les
+        "model": (f"ocean box GCM ({args.problem})" if args.ocean
+                  else "rising bubble LES (SmagorinskyLilly)" if args.les
                   else "moist baroclinic wave" if args.moist
                   else "Held-Suarez"),
         "step": ("dense imex" if args.dense else "imex" if args.imex

@@ -61,6 +61,43 @@ def test_scan_reaches_les_modules():
             for m in LES_MODULES} <= set(PORT_FILES)
 
 
+#: the ocean slice's modules, which test_port_imports_no_jax must scan
+OCEAN_MODULES = ("balance_laws/__init__.py", "balance_laws/interface.py",
+                 "balance_laws/state_types.py", "dg/columns.py",
+                 "mesh/filters.py", "ode/lsrk3n.py", "ocean/__init__.py",
+                 "ocean/core.py", "ocean/problems.py",
+                 "ocean/hydrostatic_boussinesq.py", "ocean/super_model.py",
+                 "common/cartesian_fields.py", "experiments/ocean_box.py")
+
+
+def test_scan_reaches_ocean_modules():
+    assert {ROOT / "climatemachine_tpu_torch" / m
+            for m in OCEAN_MODULES} <= set(PORT_FILES)
+
+
+@pytest.mark.parametrize("name", ["ShallowWaterModel", "ConstantViscosity",
+                                  "CoupledHBModel", "BarotropicModel",
+                                  "SplitExplicitSolver", "IVDCModel",
+                                  "ivdc_coefficients", "ivdc_solve"])
+def test_next_slice_ocean_names_raise(name):
+    """The shallow-water model, the split-explicit coupling and IVDC
+    raise "next slice"; any other missing name is an AttributeError."""
+    import climatemachine_tpu_torch.ocean as ocean
+    with pytest.raises(NotImplementedError, match="next slice"):
+        getattr(ocean, name)
+    with pytest.raises(AttributeError):
+        ocean.NoSuchModel
+
+
+def test_coupled_ocean_refused():
+    from climatemachine_tpu_torch.ocean import (Coupled,
+                                                HydrostaticBoussinesqModel)
+    from climatemachine_tpu_torch.ocean.problems import OceanGyre
+    with pytest.raises(NotImplementedError, match="next slice"):
+        HydrostaticBoussinesqModel(OceanGyre(1e6, 1e6, 400.0),
+                                   coupling=Coupled())
+
+
 @pytest.mark.parametrize("name", ["sgstke", "lsforcing", "turbconv",
                                   "radiation"])
 def test_unported_physics_refused(name):
