@@ -165,6 +165,22 @@ filter:
   20 steps at 180 s; ocean_gyre, 30 steps at 120 s); and the one-call
   HydrostaticBoussinesqSuperModel's geostrophic adjustment with the
   assertions of tests/test_ocean.py:155-200;
+- the split-explicit ocean (experiments/ocean_split_explicit.py, the JAX
+  package's examples/ocean_split_explicit_box.py at the Julia
+  experiment's width: CoupledHBModel on 20 × 20 × 20 elements and
+  BarotropicModel on the 20 × 20 brick at p4, float64, SplitExplicitSolver
+  "new" with LSRK54 slow at 5400 s and fast at 240 s, then 5 IVDC solves
+  by GMRES after each slow step, the schedule on the 3-D model): set-up
+  seconds, 1 + 3 slow steps with the split-explicit step and the IVDC
+  solves timed apart, every GMRES residual ‖b − Lx‖/‖b‖ (b = θⁿ/Δt,
+  each solve's own) within SPLIT_GMRES_TOL, θ within SPLIT_THETA_RANGE,
+  the ∫η dV drift, max|u|, max|U|, peak memory, every kernel's launches 0; then the Julia reference's
+  hydrostatic_spindown coupled and uncoupled tables (5 × 5 × 8 at p4,
+  288 slow steps at 300 s) and the spindown_2d table (5 × 5 at p4, 288
+  LSRK54 steps) in float64 at the JAX tests' configurations and digits
+  (tests/test_split_explicit_refvals.py:147-183, with its three reduced
+  transfer entries; tests/test_ocean_golden_extra.py:147-171), each with
+  its analytic error below 0.005;
 - the staged kernels (K1-K4, the volume kernel with and without F₂,
   both dry branches; the moist branches of K1-K4 and the volume kernel)
   and every remainder branch above at the other orders the kernels are
@@ -365,8 +381,8 @@ from climatemachine_tpu_torch.dg import (dry_volume_kernel, ldg_kernel,
                                         surface_kernel, volume_kernel)
 from climatemachine_tpu_torch.dg.fast_rhs import SURFACE_KERNELS, VarMajorRHS
 from climatemachine_tpu_torch.dg.numerical_fluxes import (
-    HLLCNumericalFlux, LMARSNumericalFlux, RoeNumericalFlux,
-    RoeNumericalFluxMoist, RusanovNumericalFlux)
+    CentralNumericalFluxFirstOrder, HLLCNumericalFlux, LMARSNumericalFlux,
+    RoeNumericalFlux, RoeNumericalFluxMoist, RusanovNumericalFlux)
 from climatemachine_tpu_torch.dg.spatial import (DGModel, init_ode_state,
                                                  remainder_DGModel)
 from climatemachine_tpu_torch.common.turbulence import SmagorinskyLilly
@@ -378,13 +394,22 @@ from climatemachine_tpu_torch.driver.solver_types import (
     ExplicitSolverType, IMEXSolverType, MultirateSolverType)
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
+from climatemachine_tpu_torch.experiments import ocean_split_explicit
 from climatemachine_tpu_torch.experiments.ocean_box import ocean_box_config
 from climatemachine_tpu_torch.experiments.risingbubble import \
     risingbubble_config
 from climatemachine_tpu_torch.interop import grid_from_numpy, grid_to_numpy
 from climatemachine_tpu_torch.mesh.grid import make_grid, min_node_distance
-from climatemachine_tpu_torch.mesh.topology import brick_topology
+from climatemachine_tpu_torch.mesh.topology import (brick_topology,
+                                                    stacked_brick_topology)
 from climatemachine_tpu_torch.ocean import super_model
+from climatemachine_tpu_torch.ocean.hydrostatic_boussinesq import \
+    HydrostaticBoussinesqModel
+from climatemachine_tpu_torch.ocean.problems import Fixed, SimpleBox
+from climatemachine_tpu_torch.ocean.shallow_water import (ConstantViscosity,
+                                                          ShallowWaterModel)
+from climatemachine_tpu_torch.ocean.split_explicit import (
+    BarotropicModel, CoupledHBModel, SplitExplicitSolver)
 from climatemachine_tpu_torch.ode.ark import ARK2GiraldoKellyConstantinescu
 from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
 from climatemachine_tpu_torch.ode.solve import solve
@@ -562,6 +587,20 @@ REFVALS = pathlib.Path(__file__).resolve().parent / "tests" / "refvals"
 OCEAN_GATES = {"windstress": ("homogeneous", 400.0, 180.0, 20,
                               "explicit_cpu"),
                "ocean_gyre": ("gyre", 1000.0, 120.0, 30, "short")}
+#: the split-explicit gyre (experiments/ocean_split_explicit.py): nx × nx
+#: × nz elements, warm and timed slow steps, each with its 5 IVDC solves
+SPLIT_NX, SPLIT_NZ = 20, 20
+SPLIT_WARM, SPLIT_STEPS = 1, 3
+#: θ stays within the restoring target's [0, θᴱ = 10] widened by 1 K for
+#: the DG overshoot (the initial θ lies in [0, 9]); explicit convective
+#: mixing at κᶜ = 0.1 beside IVDC leaves it within 3 steps at 20 layers
+SPLIT_THETA_RANGE = (-1.0, 11.0)
+#: every GMRES residual ‖b − Lx‖/‖b‖, b = θⁿ/Δt of its own solve
+SPLIT_GMRES_TOL = 1e-10
+#: the Julia spindown of tests/test_split_explicit_refvals.py:55-183 and
+#: tests/test_ocean_golden_extra.py:147-171: 5 × 5 elements (× 8 layers)
+#: at p4 over 1e6 × 1e6 × 400 m, 288 steps at 300 s; the analytic bound
+SPINDOWN_STEPS, SPINDOWN_DT, SPINDOWN_ERR = 288, 300.0, 0.005
 
 KERNELS = {
     "fused_volume_tendency_vm": (
@@ -1642,7 +1681,7 @@ def phase_generic_checks(base, seed: int) -> dict:
     Returns the kernel results by entry of the kernels line."""
     dg, model, g = base["dg"], base["cfg"].model, base["cfg"].grid
     q = perturbed(base["q0"], seed)
-    aux = model.update_auxiliary_state(q, base["aux0"])
+    aux = model.update_auxiliary_state(q, base["aux0"], g)
     dg_lin, dg_rem, dry = dry_inputs(dg, q, aux)
     grid_only = SimpleNamespace(grid=g, hd=None, nq=5)
     kernels = {entry: kernel_vs_plain(DRY, args, grid_only, n=0, **kw)
@@ -2161,7 +2200,7 @@ def tracer_kernels(base, seed: int) -> dict:
     gather surface pass it takes, and both RHS' times."""
     dg, model, g = base["dg"], base["cfg"].model, base["cfg"].grid
     q = perturbed(base["q0"], seed)
-    aux = model.update_auxiliary_state(q, base["aux0"])
+    aux = model.update_auxiliary_state(q, base["aux0"], g)
     direction = model.hyperdiffusion_direction or dg.direction
     ops = dg.ldg_operators(direction)
     glv = model.compute_gradient_laplacian_argument(q, aux, 0.0)
@@ -2501,7 +2540,7 @@ def dry_remainder_branches(dg, q, aux0, launches: dict) -> dict:
     not held (float32 cancellation: the remainder is the small difference
     of two large tendencies, and "every" cancels in all directions)."""
     g, model = dg.grid, dg.balance_law
-    aux = model.update_auxiliary_state(q, aux0)
+    aux = model.update_auxiliary_state(q, aux0, g)
     grid_only = SimpleNamespace(grid=g, hd=None, nq=5)
     full = dg(q, aux0, 0.0)[0]
     kernels = {}
@@ -2681,7 +2720,7 @@ def remainder_order_cases(dg, q, aux0, moist: bool):
         errs[rem_entry("var_major", ldir, lin)] = per_var_err(
             rhs(q, aux0, 0.0)[0], plain_rhs(dg_rem, "pallas")(q, aux0, 0.0)[0])
     if not moist:
-        aux = dg.balance_law.update_auxiliary_state(q, aux0)
+        aux = dg.balance_law.update_auxiliary_state(q, aux0, dg.grid)
         for part, (ldir, lin) in DRY_REM.items():
             cases[rem_entry(DRY, part)] = (DRY,) + tuple(dry_volume_args(
                 remainder_DGModel(dg, linear_dg(dg, ldir, lin)), q, aux))
@@ -2942,7 +2981,7 @@ def nosub_remainders(seed: int) -> dict:
             check(all(torch.isfinite(torch.tensor(err))) and max(err) <= tol,
                   ("remainder RHS without p_ref", ldir, lin, key, err))
         del dg_rem, rhs
-    aux = model.update_auxiliary_state(q, aux0)
+    aux = model.update_auxiliary_state(q, aux0, cfg.grid)
     grid_only = SimpleNamespace(grid=cfg.grid, hd=None, nq=5)
     for ldir, lin in (("vertical", "gravity"), ("horizontal", "acoustic"),
                       ("every", "acoustic")):
@@ -2972,7 +3011,7 @@ def phase_vortex(seed: int) -> dict:
     v = build_vortex()
     g, dg = v["grid"], v["dg"]
     q = perturbed(v["q0"], seed)
-    aux = v["model"].update_auxiliary_state(q, v["aux0"])
+    aux = v["model"].update_auxiliary_state(q, v["aux0"], g)
     rhs = VarMajorRHS(dg, write_aux=False)
     check(not rhs.subtract and rhs.i_pref is None,
           "the vortex's bundle carries no p_ref")
@@ -3050,7 +3089,8 @@ def phase_vortex_kernel_orders(seed: int):
         ne, nz = VORTEX_EDGE
         v = build_vortex(ne, nz, poly)
         q = perturbed(v["q0"], seed)
-        aux = v["model"].update_auxiliary_state(q, v["aux0"])
+        aux = v["model"].update_auxiliary_state(q, v["aux0"],
+                                                v["grid"])
         rhs = VarMajorRHS(v["dg"], write_aux=False)
         cases = {name + NOSUB: (name,) + inp for name, inp in
                  var_major_kernel_inputs(rhs, q, v["aux0"]).items()}
@@ -3279,7 +3319,7 @@ def phase_les_inviscid(seed: int) -> dict:
     for name, (args, kw) in var_major_kernel_inputs(rhs, q, aux0).items():
         kernels[name + LES] = kernel_vs_plain(name, args, rhs, n=0, **kw)
     args, kw = dry_volume_args(dg, q, dg.balance_law.update_auxiliary_state(
-        q, aux0))
+        q, aux0, dg.grid))
     check(kw["subtract_ref"] is True and args[2] is not None,
           "the bubble's generic RHS hands the dry kernel p_ref")
     kernels[DRY + LES] = kernel_vs_plain(
@@ -3552,6 +3592,268 @@ def phase_ocean() -> dict:
     return out
 
 
+# --- the split-explicit ocean ---------------------------------------------------
+
+def split_explicit_path() -> dict:
+    """experiments/ocean_split_explicit.py at its defaults on the card
+    (20 × 20 × 20 at p4, the 20 × 20 barotropic brick, float64, LSRK54
+    slow at 5400 s and fast at 240 s, 5 IVDC solves a slow step):
+    SPLIT_WARM slow steps, then SPLIT_STEPS timed, each part on the host
+    clock after a synchronize, every launch count set to 0 just before
+    and read just after (all 0: the path runs no kernel); checks the
+    state pair (shape, finite), θ within SPLIT_THETA_RANGE, every GMRES
+    residual, the drift of ∫η dV and the launches."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = ocean_split_explicit.make(SPLIT_NX, SPLIT_NZ, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    g3, g2 = cfg.dg3.grid, cfg.dg2.grid
+    check((g3.nelem, g2.nelem, g3.dim, g2.dim)
+          == (SPLIT_NX ** 2 * SPLIT_NZ, SPLIT_NX ** 2, 3, 2)
+          and g3.dtype == g2.dtype == torch.float64,
+          ("split-explicit grids", g3.nelem, g2.nelem, g3.dtype))
+    check(cfg.dg3.n_gradient == 5 and cfg.dg2.n_gradient == 2
+          and not (cfg.dg3.dry_volume or cfg.dg3.fast_surface
+                   or cfg.dg2.dry_volume or cfg.dg2.fast_surface),
+          "the split-explicit ocean takes the generic gradient path")
+    fast_steps = cfg.solver.fast_steps()
+    check(sum(fast_steps) == 24, ("fast steps a slow step", fast_steps))
+    dt = cfg.solver.dt
+    vol0 = ocean_volume(cfg.dg3, cfg.q[0])
+    q, aux, t = cfg.q, cfg.aux, 0.0
+    reset_launch_counts()
+    residuals, split_s, ivdc_s = [], [], []
+    for i in range(SPLIT_WARM + SPLIT_STEPS):
+        q, aux, res, ts, ti = ocean_split_explicit.step(
+            cfg, q, aux, t, sync=torch.cuda.synchronize)
+        t += dt
+        residuals.append([r.item() for r in res])
+        if i >= SPLIT_WARM:
+            split_s.append(ts)
+            ivdc_s.append(ti)
+    counts = launch_counts()
+    wall = sum(split_s) + sum(ivdc_s)
+    eta = cfg.m3.prog(q[0], "eta")
+    eta_scale = eta.abs().max().item()
+    drift = abs(ocean_volume(cfg.dg3, q[0]) - vol0)
+    bound = OCEAN_VOLUME_TOL * abs(torch.sum(g3.M).item() * eta_scale) \
+        + 1e-12
+    summary = ocean_split_explicit.summary(cfg, q)
+    res = dict(card=nvidia_smi(), elements_3d=g3.nelem,
+               elements_2d=g2.nelem, poly=g3.Nq[0] - 1,
+               gridpoints_3d=g3.nelem * g3.Np, dtype="float64", dt_s=dt,
+               fast_dt_s=cfg.solver.fast_dt, fast_steps=fast_steps,
+               ivdc_solves_per_step=cfg.m3.num_impl_steps,
+               warm_steps=SPLIT_WARM, steps=SPLIT_STEPS, setup_s=setup_s,
+               ms_per_step=1e3 * wall / SPLIT_STEPS,
+               split_explicit_ms_per_step=1e3 * sum(split_s) / SPLIT_STEPS,
+               ivdc_ms_per_step=1e3 * sum(ivdc_s) / SPLIT_STEPS,
+               step_ms=[1e3 * (a + b) for a, b in zip(split_s, ivdc_s)],
+               sim_s_per_wall_s=dt * SPLIT_STEPS / wall,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               gmres_residuals=residuals,
+               eta_volume=[vol0, ocean_volume(cfg.dg3, q[0])],
+               eta_volume_drift=drift, eta_volume_bound=bound,
+               launches=counts, **summary)
+    emit("split_explicit_path", **res)
+    check(list(q[0].shape) == [g3.nelem, 4, g3.Np]
+          and list(q[1].shape) == [g2.nelem, 3, g2.Np],
+          ("split-explicit state shapes", list(q[0].shape),
+           list(q[1].shape)))
+    check(summary["finite"], "split-explicit state not finite")
+    # each ‖b − Lx‖ / ‖b‖ against its own right-hand side b = θⁿ/Δt
+    check(all(math.isfinite(r) and r <= SPLIT_GMRES_TOL
+              for row in residuals for r in row),
+          ("GMRES residuals", residuals))
+    lo, hi = SPLIT_THETA_RANGE
+    check(lo <= summary["theta_range"][0] and summary["theta_range"][1] <= hi,
+          ("split-explicit θ range", summary["theta_range"]))
+    check(drift <= bound, ("split-explicit ∫η dV drift", drift, bound))
+    check_launches(counts, expected_launches({}, 0))
+    return res
+
+
+def spindown_stats(pairs) -> dict:
+    """{(label, field): [min, max, mean, std (ddof 1)]} of the named
+    lanes, in float64 on the host."""
+    out = {}
+    for key, x in pairs:
+        a = x.detach().double().cpu().numpy()
+        out[key] = [float(a.min()), float(a.max()), float(a.mean()),
+                    float(a.std(ddof=1))]
+    return out
+
+
+def load_refvals(name):
+    spec = importlib.util.spec_from_file_location("rv_" + name,
+                                                  REFVALS / f"{name}.py")
+    rv = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rv)
+    return rv
+
+
+def spindown_gate(coupled: bool) -> dict:
+    """The Julia reference's hydrostatic spindown table (tests/refvals/
+    hydrostatic_spindown.py, "coupled" or "uncoupled") against the port in
+    float64 on the card at tests/test_split_explicit_refvals.py:55-183's
+    configuration: SimpleBox(Fixed) with αᵀ = κ = 0 and no advection,
+    CoupledHBModel with BarotropicModel (or HydrostaticBoussinesqModel
+    with ShallowWaterModel) on the periodic 5 × 5 × 8 box at p4 and the
+    5 × 5 brick, ``SplitExplicitSolver`` with LSRK54 slow and fast at
+    300 s, 288 steps; the analytic errors below SPINDOWN_ERR and the
+    table at the test's digits, the coupled transfer entries at its
+    reduced ones."""
+    Lx = Ly = 1e6
+    H = 400.0
+    problem = SimpleBox(Lx, Ly, H, rotation=Fixed())
+    kw = dict(c_h=1.0, alpha_T=0.0, kappa_h=0.0, kappa_z=0.0,
+              momentum_advection=None, tracer_advection=None)
+    m3 = CoupledHBModel(problem, **kw) if coupled else \
+        HydrostaticBoussinesqModel(problem, **kw)
+    m2 = (BarotropicModel if coupled else ShallowWaterModel)(
+        problem, turbulence=ConstantViscosity(m3.nu_h), advection=None,
+        c=1.0)
+    ranges = [np.linspace(0.0, Lx, 6), np.linspace(0.0, Ly, 6)]
+    g2 = make_grid(brick_topology(ranges, periodicity=(True, True)), 4,
+                   dtype=torch.float64, device="cuda")
+    g3 = make_grid(stacked_brick_topology(
+        ranges + [np.linspace(-H, 0.0, 9)], periodicity=(True, True, False),
+        boundary=np.array([[0, 0], [0, 0], [1, 2]])), 4,
+        dtype=torch.float64, device="cuda")
+    dg3 = DGModel(m3, g3)
+    dg2 = DGModel(m2, g2,
+                  numerical_flux_first_order=CentralNumericalFluxFirstOrder())
+    q2, aux2 = init_ode_state(dg2, init_state=problem.sw_init_state)
+    q3, aux3 = init_ode_state(dg3)
+    dt = SPINDOWN_DT
+    se = SplitExplicitSolver(LSRK54CarpenterKennedy(dg3, dt),
+                             LSRK54CarpenterKennedy(dg2, dt), dg3, dg2,
+                             dt=dt, fast_dt=dt, coupled=coupled)
+    q, aux, t = (q3, q2), (aux3, aux2), 0.0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(SPINDOWN_STEPS):
+        q, aux = se.step(q, aux, t)
+        t += dt
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    (q3, q2), (aux3, aux2) = q, aux
+    c3, c2 = g3.coords.transpose(1, 2), g2.coords.transpose(1, 2)
+    qe3 = problem.init_state(m3, c3, aux3, t)
+    qe2 = problem.sw_init_state(m2, c2, aux2, t)
+    err3 = ((q3 - qe3).norm() / qe3.norm()).item()
+    err2 = ((q2 - qe2).norm() / qe2.norm()).item()
+    pairs = []
+    for i in (0, 1):
+        pairs += [(("3D state", f"u[{i + 1}]"), m3.prog(q3, "u")[:, i]),
+                  (("3D aux", f"uᵈ[{i + 1}]"), m3.aux_get(aux3, "ud")[:, i]),
+                  (("3D aux", f"ΔGᵘ[{i + 1}]"),
+                   m3.aux_get(aux3, "dGu")[:, i]),
+                  (("2D state", f"U[{i + 1}]"), m2.prog(q2, "U")[:, i]),
+                  (("2D aux", f"Gᵁ[{i + 1}]"), m2.aux_get(aux2, "GU")[:, i]),
+                  (("2D aux", f"Δu[{i + 1}]"), m2.aux_get(aux2, "du")[:, i])]
+    pairs += [(("3D state", "η"), m3.prog(q3, "eta")),
+              (("3D state", "θ"), m3.prog(q3, "theta")),
+              (("2D state", "η"), m2.prog(q2, "eta")),
+              (("2D aux", "y"), m2.aux_get(aux2, "y"))]
+    pairs += [(("3D aux", name), m3.aux_get(aux3, name))
+              for name in ("y", "w", "pkin", "wz0")]
+    rv = load_refvals("hydrostatic_spindown")
+    parr = dict(rv.parr)
+    if coupled:
+        # tests/test_split_explicit_refvals.py:170-172
+        parr[("3D aux", "ΔGᵘ[1]")] = [10.0, 10.0, 0.0, 11.0]
+        parr[("2D aux", "Gᵁ[1]")] = [10.0, 10.0, 0.0, 11.0]
+        parr[("2D aux", "Δu[1]")] = [8.0, 8.0, 0.0, 8.0]
+    table = "coupled" if coupled else "uncoupled"
+    reached, failures = check_digits(spindown_stats(pairs),
+                                     getattr(rv, table), parr)
+    res = dict(card=nvidia_smi(),
+               table=f"tests/refvals/hydrostatic_spindown.py:{table}",
+               elements_3d=g3.nelem, elements_2d=g2.nelem,
+               steps=SPINDOWN_STEPS, dt_s=dt, seconds=wall,
+               ms_per_step=1e3 * wall / SPINDOWN_STEPS,
+               analytic_err_3d=err3, analytic_err_2d=err2,
+               analytic_bound=SPINDOWN_ERR,
+               min_digits_reached=min(reached.values()),
+               digits_reached=reached, failures=failures, launches=counts)
+    emit("split_explicit_golden_gate", **res)
+    check(bool(torch.isfinite(q3).all()) and bool(torch.isfinite(q2).all()),
+          (table, "spindown not finite"))
+    check(err3 < SPINDOWN_ERR and err2 < SPINDOWN_ERR,
+          (table, "analytic error", err3, err2))
+    check(not failures, (table, "golden table", failures))
+    check_launches(counts, expected_launches({}, 0))
+    return res
+
+
+def spindown_2d_gate() -> dict:
+    """The Julia reference's 2-D spindown table (tests/refvals/
+    spindown_2d.py "explicit") against the port in float64 on the card at
+    tests/test_ocean_golden_extra.py:147-171's configuration:
+    ShallowWaterModel(ConstantViscosity(5e3), advection None, c = 1, f = 0)
+    on the periodic 5 × 5 brick at p4, central flux, LSRK54 at 300 s, 288
+    steps from the analytic barotropic state; the analytic error below
+    SPINDOWN_ERR and the table at the test's digits."""
+    Lx = Ly = 1e6
+    problem = SimpleBox(Lx, Ly, 400.0, rotation=Fixed())
+    model = ShallowWaterModel(problem, turbulence=ConstantViscosity(5e3),
+                              advection=None, c=1.0, f_o=0.0, beta=0.0)
+    r = [np.linspace(0.0, Lx, 6), np.linspace(0.0, Ly, 6)]
+    g = make_grid(brick_topology(r, periodicity=(True, True)), 4,
+                  dtype=torch.float64, device="cuda")
+    dg = DGModel(model, g,
+                 numerical_flux_first_order=CentralNumericalFluxFirstOrder())
+    q0, aux0 = init_ode_state(dg, init_state=problem.sw_init_state)
+    solver = LSRK54CarpenterKennedy(dg, SPINDOWN_DT, pre_stage=dg.pre_stage)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    st = solve(q0, aux0, solver, SPINDOWN_STEPS * SPINDOWN_DT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    qe = problem.sw_init_state(model, g.coords.transpose(1, 2), st.aux,
+                               SPINDOWN_STEPS * SPINDOWN_DT)
+    err = ((st.q - qe).norm() / qe.norm()).item()
+    rv = load_refvals("spindown_2d")
+    reached, failures = check_digits(field_stats(model, st.q, st.aux),
+                                     rv.explicit, rv.parr)
+    res = dict(card=nvidia_smi(), table="tests/refvals/spindown_2d.py:"
+               "explicit", elements=g.nelem, steps=st.step,
+               dt_s=SPINDOWN_DT, seconds=wall, analytic_err=err,
+               analytic_bound=SPINDOWN_ERR,
+               min_digits_reached=min(reached.values()),
+               digits_reached=reached, failures=failures, launches=counts)
+    emit("split_explicit_golden_gate", **res)
+    check(st.step == SPINDOWN_STEPS and bool(torch.isfinite(st.q).all()),
+          ("spindown_2d steps", st.step))
+    check(err < SPINDOWN_ERR, ("spindown_2d analytic error", err))
+    check(not failures, ("spindown_2d golden table", failures))
+    check_launches(counts, expected_launches({}, 0))
+    return res
+
+
+def phase_split_explicit() -> dict:
+    """The split-explicit ocean at full width, then the Julia reference's
+    spindown tables (module docstring).  Returns {ms_per_step,
+    split_explicit_ms_per_step, ivdc_ms_per_step, setup_s,
+    peak_memory_bytes, sim_s_per_wall_s}."""
+    t_phase = time.perf_counter()
+    res = split_explicit_path()
+    torch.cuda.empty_cache()
+    spindown_gate(coupled=True)
+    spindown_gate(coupled=False)
+    spindown_2d_gate()
+    emit("split_explicit_phase", card=nvidia_smi(),
+         seconds=time.perf_counter() - t_phase)
+    return {k: res[k] for k in ("ms_per_step", "split_explicit_ms_per_step",
+                                "ivdc_ms_per_step", "setup_s",
+                                "peak_memory_bytes", "sim_s_per_wall_s")}
+
+
 def hold(name, args, kw) -> dict:
     """The kernel on ``args`` and on their first TAIL_E elements against
     two references, its plain version on the card (float32) and in
@@ -3597,7 +3899,7 @@ def phase_kernel_orders(seed: int):
         dg = DGModel(cfg.model, cfg.grid)
         q0, aux0 = init_ode_state(dg)
         q = perturbed(q0, seed)
-        aux = cfg.model.update_auxiliary_state(q, aux0)
+        aux = cfg.model.update_auxiliary_state(q, aux0, cfg.grid)
         rhs = VarMajorRHS(dg)
         glv, inputs = chain_inputs(rhs, q, aux0)
         cases = {name: (name, inputs[name], {}) for name in CHAIN}
@@ -3659,6 +3961,7 @@ def main(argv=None) -> int:
     les = phase_les_bubble(args.seed)
     les_inviscid = phase_les_inviscid(args.seed)
     ocean = phase_ocean()
+    split_explicit = phase_split_explicit()
     phase_kernel_orders(args.seed)
     if moist:
         phase_moist_kernel_orders(args.seed)
@@ -3668,7 +3971,7 @@ def main(argv=None) -> int:
          les_ms_per_step=les["ms_per_step"], les_setup_s=les["setup_s"],
          les_peak_memory_bytes=les["peak_memory_bytes"],
          les_inviscid_ms_per_step=les_inviscid["ms_per_step"],
-         ocean=ocean,
+         ocean=ocean, split_explicit=split_explicit,
          explicit_ms_per_step=explicit["ms_per_step"],
          imex_ms_per_step=imex["ms_per_step"],
          generic_ms_per_step=generic["ms_per_step"],

@@ -75,7 +75,7 @@ class AtmosLinearModel:
     def boundary_state(self, tag, nrm, q_minus, aux_minus, t):
         return self.atmos.boundary_state(tag, nrm, q_minus, aux_minus, t)
 
-    def update_auxiliary_state(self, q, aux):
+    def update_auxiliary_state(self, q, aux, grid):
         return aux
 
 

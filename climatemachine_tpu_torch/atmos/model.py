@@ -219,7 +219,7 @@ class AtmosModel(BalanceLaw):
         T, p, pp = self.physics.moisture.thermo(self, q, aux)
         return T, p, q[:, 1:4] / q[:, :1], pp
 
-    def update_auxiliary_state(self, q, aux):
+    def update_auxiliary_state(self, q, aux, grid):
         """Refresh the moisture model's thermo lanes from the state (θ_v
         and T dry; T by saturation adjustment, θ_v, q_liq and q_ice with
         ``EquilMoist``)."""

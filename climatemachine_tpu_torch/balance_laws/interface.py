@@ -3,10 +3,10 @@ interface.py`` :32-156): dq/dt = −∇·F₁(q) − ∇·F₂(q, ∇g) + S.
 
 Hooks act on var-major face or volume lanes, in the port's signatures,
 which :class:`~climatemachine_tpu_torch.dg.spatial.DGModel` calls: q
-``[E, n, L]``, aux ``[E, naux, L]``, fluxes ``[E, 3, n, L]`` (direction
-i, then variable), gradient arguments ``[E, ng, L]``, gradients ``[E,
-3, ng, L]``, gradient fluxes ``[E, ngf, L]``, unit normals ``[E, 3,
-X]``.  A subclass sets ``prog_spec`` and ``aux_spec`` and overrides the
+``[E, n, L]``, aux ``[E, naux, L]``, fluxes ``[E, d, n, L]`` (direction
+i, then variable; d = 3, or 2 for a model on a 2-D grid), gradient
+arguments ``[E, ng, L]``, gradients ``[E, d, ng, L]``, gradient fluxes
+``[E, ngf, L]``, unit normals ``[E, d, X]``.  A subclass sets ``prog_spec`` and ``aux_spec`` and overrides the
 hooks it needs; the defaults are the JAX package's: no gradient or
 gradient-Laplacian lanes, zero fluxes, wave speed and source, identity
 ``preprocess_state``, ``update_auxiliary_state`` and
@@ -15,6 +15,8 @@ side, and no column integrals.  A balance law that prescribes wall
 diffusive fluxes defines ``boundary_flux_second_order``, one whose
 Rusanov dissipation departs from the jump ``numerical_flux_penalty``:
 the base defines neither, so the DG operator leaves both steps out.
+``update_auxiliary_state(q, aux, grid)`` gets the grid, as the JAX hook
+does, for a refresh that reads it (the coupled ocean's column total).
 """
 
 from __future__ import annotations
@@ -101,7 +103,7 @@ class BalanceLaw:
         return gf_minus
 
     # ------ auxiliary updates ----------------------------------------------
-    def update_auxiliary_state(self, q, aux):
+    def update_auxiliary_state(self, q, aux, grid):
         """The aux refresh at the start of each RHS call."""
         return aux
 

@@ -2,7 +2,10 @@
 and column broadcasts (port of ``climatemachine_tpu/dg/columns.py``
 :39-108: ``lagrange_antiderivative_matrix``, ``ColumnOps`` with
 ``indefinite_integral``, ``reverse_indefinite_integral``,
-``column_total``, ``broadcast_top``, ``broadcast_bottom``).
+``column_total``, ``broadcast_top``, ``broadcast_bottom``), with the
+2-D layouts of the split-explicit coupling
+(``climatemachine_tpu/ocean/split_explicit.py`` ``_col_total_2d``,
+``_to_3d`` :223-234).
 
 Fields are var-major ``[E, n, Np]`` on a stacked grid, whose element
 ``e = eh · n_vert + ev`` puts each column's elements next to each other
@@ -11,6 +14,10 @@ stack view ``[Eh, n_vert, n, Nq₃, Nq₂·Nq₁]`` without a copy.  A stack
 integral is the antiderivative matrix over an element's vertical nodes
 (one contraction) plus an exclusive cumulative sum of the element totals
 over the column's layers.
+
+The 2-D layout ``[Eh, n, Nq₂·Nq₁]`` of a column field is that of the
+2-D brick on the same horizontal ranges: its element ``eh = ix + nx·iy``
+and node ``i + Nq₁ j`` are the stacked brick's horizontal ones.
 """
 
 from __future__ import annotations
@@ -81,11 +88,21 @@ class ColumnOps:
         integral."""
         return self.column_total(f) - self.indefinite_integral(f)
 
+    def column_total_2d(self, f):
+        """∫_bottom^top f dz of each column, in the 2-D layout ``[Eh, n,
+        Nq₂·Nq₁]``."""
+        return self._layer_totals(self.to_stack(f * self.JcV)).sum(dim=1)
+
     def column_total(self, f):
         """∫_bottom^top f dz at every node of the column."""
-        fs = self.to_stack(f * self.JcV)
-        total = self._layer_totals(fs).sum(dim=1, keepdim=True)
-        return self.from_stack(total[:, :, :, None].expand(fs.shape))
+        return self.broadcast_2d(self.column_total_2d(f))
+
+    def broadcast_2d(self, f2):
+        """A 2-D field ``[Eh, n, Nq₂·Nq₁]`` at every node of its column,
+        ``[E, n, Np]``."""
+        Nq3 = self.Nq[-1]
+        return self.from_stack(f2[:, None, :, None, :].expand(
+            self.n_horz, self.n_vert, f2.shape[1], Nq3, f2.shape[-1]))
 
     def broadcast_top(self, x):
         """The value at the column's top node at every node of it."""

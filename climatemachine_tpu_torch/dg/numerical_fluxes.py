@@ -10,9 +10,9 @@ form ``_roe_linear`` :25-63, ``HLLCNumericalFlux`` :174-241,
 ``LMARSNumericalFlux`` :242-305 and ``RoeNumericalFluxMoist`` :307).
 
 Face data is var-major: states ``[E, n, X]`` over X face nodes, unit
-normals ``[E, 3, X]``; a balance law's ``flux_first_order`` gives
-``[E, 3, n, X]`` (direction i, then variable) and its ``wavespeed``
-``[E, X]``.  The result is the normal numerical flux ``[E, n, X]``.
+normals ``[E, d, X]`` (d = 3, or 2 on a 2-D grid); a balance law's
+``flux_first_order`` gives ``[E, d, n, X]`` (direction i, then
+variable) and its ``wavespeed`` ``[E, X]``.  The result is the normal numerical flux ``[E, n, X]``.
 The lanes past ρe (ρq_tot, the precipitation's, the tracers') are
 advected scalars: Roe upwinds them on the contact wave, HLLC carries them
 through its star states, LMARS upwinds them by its interface velocity.
@@ -30,11 +30,18 @@ from climatemachine_tpu_torch.atmos.moisture import DryModel
 from climatemachine_tpu_torch.physics import thermodynamics as td
 
 
+def _dot_n(F, nrm):
+    """Σ_i F_i n_i ``[E, n, X]`` of a flux ``[E, d, n, X]``, summed in
+    direction order."""
+    acc = F[:, 0] * nrm[:, 0, None]
+    for i in range(1, nrm.shape[1]):
+        acc = acc + F[:, i] * nrm[:, i, None]
+    return acc
+
+
 def _normal_flux(bl, nrm, q, aux, t):
     """n · F(q) ``[E, n, X]`` of the balance law's first-order flux."""
-    F = bl.flux_first_order(q, aux, t)
-    return (F[:, 0] * nrm[:, 0, None] + F[:, 1] * nrm[:, 1, None]
-            + F[:, 2] * nrm[:, 2, None])
+    return _dot_n(bl.flux_first_order(q, aux, t), nrm)
 
 
 def _is_linear(bl) -> bool:
@@ -45,8 +52,7 @@ def _is_linear(bl) -> bool:
 def _central(bl, nrm, qM, auxM, qP, auxP, t):
     """½(F(q⁻) + F(q⁺))·n ``[E, n, X]``."""
     Fs = bl.flux_first_order(qM, auxM, t) + bl.flux_first_order(qP, auxP, t)
-    return 0.5 * (Fs[:, 0] * nrm[:, 0, None] + Fs[:, 1] * nrm[:, 1, None]
-                  + Fs[:, 2] * nrm[:, 2, None])
+    return 0.5 * _dot_n(Fs, nrm)
 
 
 class CentralNumericalFluxFirstOrder:
@@ -74,7 +80,7 @@ class RusanovNumericalFlux:
 
 class CentralNumericalFluxGradient:
     """g* = ½(g⁻ + g⁺), returned as the jump correction n ⊗ (g* − g⁻)
-    ``[E, 3, ng, X]`` (direction i, then variable) that the strong-form
+    ``[E, d, ng, X]`` (direction i, then variable) that the strong-form
     gradient lifts, of gradient arguments ``[E, ng, X]``."""
 
     def __call__(self, bl, nrm, gM, gP):
@@ -89,8 +95,7 @@ class CentralNumericalFluxSecondOrder:
                  hyperM=None, hyperP=None):
         Fs = (bl.flux_second_order(qM, gfM, hyperM, auxM, t)
               + bl.flux_second_order(qP, gfP, hyperP, auxP, t))
-        return 0.5 * (Fs[:, 0] * nrm[:, 0, None] + Fs[:, 1] * nrm[:, 1, None]
-                      + Fs[:, 2] * nrm[:, 2, None])
+        return 0.5 * _dot_n(Fs, nrm)
 
 
 def _roe_linear(bl, nrm, qM, auxM, qP, auxP, t):

@@ -3,13 +3,16 @@
 ``ref_gradient`` :162, ``strong_gradient`` :183, ``DGModel`` :198 with
 its gradient fluxes and ``diffusion_direction`` :232-235, ``n_gradient``
 :302, ``spatial_gradient`` :429-456, ``hyperdiffusive_state`` :636,
-``pre_stage`` :689 and ``__call__`` :699-864, ``remainder_DGModel``
-:867, init_state_auxiliary :895, init_ode_state :909).  The balance
+``dg_gradient_of`` :560-583, ``pre_stage`` :689 and ``__call__``
+:699-864, ``remainder_DGModel`` :867, init_state_auxiliary :895,
+init_ode_state :909).  The balance
 law's hooks are those of ``balance_laws/interface.py``; the ocean's
 (``pre_stage`` → ``preprocess_state``, the stack integrals in
 ``update_auxiliary_state_gradient``) need no branch here.
 
-State is var-major ``[E, n, Np]``.  :class:`DGModel` is the right-hand
+State is var-major ``[E, n, Np]``; fluxes and gradients carry one row
+per coordinate direction, ``grid.dim`` of them (3, or 2 on the
+barotropic ocean's 2-D grid).  :class:`DGModel` is the right-hand
 side of a balance law on a grid: of the full AtmosModel (the JAX
 package's node-major "grid" layout; here state stays var-major, and
 interop.py transposes the JAX package's tensors), dry or moist, with
@@ -52,13 +55,13 @@ LDG_KERNELS = ("auto", "pallas", "varmajor")
 
 def contract_flux_metric(xi, F):
     """F_ξ ``[E, n, nd, Np]``: ξ_a·F = Σ_i ξ_a,ᵢ F_i for each direction a
-    with metric rows ``xi[a]`` ``[E, 3, Np]``, of a flux F ``[E, 3, n,
-    Np]``."""
+    with metric rows ``xi[a]`` ``[E, d, Np]``, of a flux F ``[E, d, n,
+    Np]``, summed in direction order."""
     parts = []
     for xa in xi:
         acc = xa[:, 0, None] * F[:, 0]
-        acc = acc + xa[:, 1, None] * F[:, 1]
-        acc = acc + xa[:, 2, None] * F[:, 2]
+        for i in range(1, F.shape[1]):
+            acc = acc + xa[:, i, None] * F[:, i]
         parts.append(acc)
     return torch.stack(parts, dim=2)
 
@@ -74,13 +77,13 @@ def ref_gradient(grid, g, dims):
 
 
 def strong_gradient(grid, g, dims):
-    """The nodal gradient ∂g/∂x_i = Σ_a ξ_a,ᵢ D_a g ``[E, 3, ng, Np]`` of g
-    ``[E, ng, Np]`` (direction i, then variable), over the reference dims
-    ``dims``."""
+    """The nodal gradient ∂g/∂x_i = Σ_a ξ_a,ᵢ D_a g ``[E, d, ng, Np]`` of
+    g ``[E, ng, Np]`` (direction i, then variable), over the reference
+    dims ``dims``."""
     dg = ref_gradient(grid, g, dims)
     out = 0.0
     for k, a in enumerate(dims):
-        xa = grid.xi_x[:, :, a, :].transpose(1, 2)          # [E, 3, Np]
+        xa = grid.xi_x[:, :, a, :].transpose(1, 2)          # [E, d, Np]
         out = out + xa[:, :, None, :] * dg[:, None, :, k, :]
     return out
 
@@ -218,7 +221,7 @@ class DGModel:
                 faces=faces,
                 node=idx(g.fmask_padded[list(faces)].reshape(-1)),
                 nrm=g.normals[:, list(faces)].permute(0, 3, 1, 2).reshape(
-                    E, 3, -1),
+                    E, g.dim, -1),
                 sM=g.sM[:, list(faces)].reshape(E, 1, -1),
                 liftT=g.lift[:, idx(cols)].T.contiguous(),
                 bctag=bctag.repeat_interleave(Nfp, dim=1),
@@ -228,7 +231,7 @@ class DGModel:
 
     def operators(self) -> dict:
         """Static operands on the direction, built at the first call:
-        :meth:`face_operators` of its faces, the metric rows ξ_a ``[E, 3,
+        :meth:`face_operators` of its faces, the metric rows ξ_a ``[E, d,
         Np]`` per dim and the weak-divergence columns."""
         def build():
             g = self.grid
@@ -243,10 +246,11 @@ class DGModel:
 
     @property
     def xiv(self):
-        """ξ ``[E, 9, Np]`` (ξ_a,ᵢ at 3a + i), the dry kernel's metric."""
+        """ξ ``[E, d², Np]`` (ξ_a,ᵢ at d·a + i), the dry kernel's
+        metric."""
         g = self.grid
         return self._cached("xiv", lambda: g.xi_x.permute(0, 2, 3, 1).reshape(
-            g.nelem, 9, g.Np).contiguous())
+            g.nelem, g.dim ** 2, g.Np).contiguous())
 
     def ldg_operators(self, direction) -> ChainOperators:
         """The chain's tables and geometry on ``direction``'s dims and
@@ -277,7 +281,7 @@ class DGModel:
         return self.balance_law.preprocess_state(self, q, aux, t)
 
     def spatial_gradient(self, q, aux, t):
-        """The DG gradient ``[E, 3, ng, Np]`` of the balance law's gradient
+        """The DG gradient ``[E, d, ng, Np]`` of the balance law's gradient
         arguments along ``diffusion_direction``: the strong gradient
         within each element plus the lift of sM · n ⊗ (g* − g⁻) on the
         direction's faces, the central g* from the neighbour side or, on
@@ -294,12 +298,31 @@ class DGModel:
         qP, auxP = self._wall_ghost(ops, qM, auxM, BP[:, :n], BP[:, n:], t)
         corr = self.nfg(bl, ops["nrm"], bl.compute_gradient_argument(
             qM, auxM, t), bl.compute_gradient_argument(qP, auxP, t))
-        E, _, ng, X = corr.shape
-        # the strong form ADDS the lifted jump: fast_surface.lift returns
-        # the weak form's −M⁻¹ L (sM f), hence the minus
-        return grad - fast_surface.lift(corr.reshape(E, 3 * ng, X),
-                                        ops["sM"], ops["liftT"],
-                                        g.MI).reshape(E, 3, ng, g.Np)
+        return grad + self._lift_jump(ops, corr)
+
+    def _lift_jump(self, ops, corr):
+        """M⁻¹ L (sM · corr) ``[E, d, n, Np]`` of a face jump correction
+        ``[E, d, n, X]`` on the faces of ``ops``: the strong form ADDS the
+        lifted jump, and fast_surface.lift returns the weak form's −M⁻¹ L
+        (sM f), hence the minus."""
+        E, d, n, X = corr.shape
+        return -fast_surface.lift(corr.reshape(E, d * n, X), ops["sM"],
+                                  ops["liftT"], self.grid.MI).reshape(
+                                      E, d, n, self.grid.Np)
+
+    def dg_gradient_of(self, x, direction: Optional[str] = None):
+        """The central-flux DG gradient ``[E, d, n, Np]`` of arbitrary
+        fields x ``[E, n, Np]`` along ``direction`` (default
+        ``diffusion_direction``): the strong gradient plus the lifted
+        sM · n ⊗ (½(x⁺ + x⁻) − x⁻), x⁺ the neighbour's (the own face at a
+        wall, where the jump is 0)."""
+        g = self.grid
+        direction = direction or self.diffusion_direction
+        ops = self.face_operators(direction)
+        xM, xP = self._face_sides(ops, x)
+        corr = ops["nrm"][:, :, None, :] * (0.5 * (xP + xM) - xM)[:, None]
+        return (strong_gradient(g, x, direction_dims(direction, g.dim))
+                + self._lift_jump(ops, corr))
 
     def __call__(self, q, aux, t):
         bl = self.balance_law
@@ -309,7 +332,7 @@ class DGModel:
         if q.device.type == "cuda" and q.dtype == torch.float32:
             require_full_fp32("the DG operator")
         if self.update_aux:
-            aux = bl.update_auxiliary_state(q, aux)
+            aux = bl.update_auxiliary_state(q, aux, self.grid)
 
         gf = None
         if self.n_gradient:
@@ -477,16 +500,22 @@ def remainder_DGModel(dg_full: DGModel, dg_lin: DGModel) -> DGModel:
 def init_state_auxiliary(balance_law, grid):
     """Aux ``[E, naux, Np]`` with the coordinates filled, then the
     model's nodal initialization (which reads the grid's metrics)."""
-    coords = grid.coords.transpose(1, 2)                 # [E, 3, Np]
+    coords = grid.coords.transpose(1, 2)                 # [E, d, Np]
     aux = torch.zeros((grid.nelem, balance_law.aux_spec.num, grid.Np),
                       dtype=grid.dtype, device=grid.device)
     aux[:, balance_law.aux_spec.index("coord")] = coords
     return balance_law.nodal_init_state_auxiliary(coords, aux, grid)
 
 
-def init_ode_state(dg: DGModel, t0: float = 0.0):
-    """Var-major (q0, aux0) from the balance law's initial condition."""
+def init_ode_state(dg: DGModel, t0: float = 0.0,
+                   init_state: Optional[Callable] = None):
+    """Var-major (q0, aux0) from the balance law's initial condition or,
+    given, ``init_state(balance_law, coords [E, d, Np], aux, t0)`` in its
+    place (the split-explicit ocean's 2-D state at rest, or a problem's
+    ``sw_init_state``)."""
     bl, grid = dg.balance_law, dg.grid
     aux = init_state_auxiliary(bl, grid)
-    q = bl.init_state_prognostic(grid.coords.transpose(1, 2), aux, t0)
-    return q, bl.update_auxiliary_state(q, aux)
+    coords = grid.coords.transpose(1, 2)
+    q = (bl.init_state_prognostic(coords, aux, t0) if init_state is None
+         else init_state(bl, coords, aux, t0))
+    return q, bl.update_auxiliary_state(q, aux, grid)

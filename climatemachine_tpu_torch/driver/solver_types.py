@@ -1,7 +1,7 @@
 """Solver-type strategy objects (port of
 ``climatemachine_tpu/driver/solver_types.py`` ``ExplicitSolverType``
-:24-63, ``IMEXSolverType`` :66-178 and ``MultirateSolverType``
-:330-357).
+:24-63, ``IMEXSolverType`` :66-178, ``SplitExplicitSolverType``
+:298-329 and ``MultirateSolverType`` :330-357).
 
 ``ExplicitSolverType().make(dg, q0, aux0, dt)`` builds LSRK54;
 ``IMEXSolverType().make(dg, q0, aux0, dt)`` builds the HEVI IMEX step:
@@ -26,6 +26,9 @@ var-major RHS does not take them) and "vm" raises, as in the JAX
 package.  ``MultirateSolverType().make`` builds the slow-fast multirate
 step: the fast part the linear acoustic-gravity model in the model's
 direction, the slow part the fused remainder, both generic DG operators.
+``SplitExplicitSolverType().make(dg3, dg2)`` builds the split-explicit
+ocean's step (ocean/split_explicit.py): the slow method over the 3-D
+operator, the fast one (LS3NRK33Heuns by default) over the 2-D one.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ from climatemachine_tpu_torch.dg import fast_rhs
 from climatemachine_tpu_torch.dg.spatial import DGModel, remainder_DGModel
 from climatemachine_tpu_torch.ode.ark import ARK2GiraldoKellyConstantinescu
 from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
+from climatemachine_tpu_torch.ode.lsrk3n import LS3NRK33Heuns
+from climatemachine_tpu_torch.ocean.split_explicit import SplitExplicitSolver
 from climatemachine_tpu_torch.ode.multirate import MultirateRungeKutta
 from climatemachine_tpu_torch.solvers.columnwise import (
     BlockTridiagColumnSolver, ColumnLayout, ManyColumnSolver)
@@ -134,7 +139,7 @@ class IMEXSolverType:
 
         if self.check_frozen_operator:
             f0, _ = dg_lin(q0, aux0, 0.0)
-            aux_p = atmos.update_auxiliary_state(q0 * 1.001, aux0)
+            aux_p = atmos.update_auxiliary_state(q0 * 1.001, aux0, grid)
             f1, _ = dg_lin(q0, aux_p, 86400.0)
             scale = f0.abs().max().item() + 1e-300
             tol = 1e-5 if q0.dtype == torch.float32 else 1e-11
@@ -168,6 +173,29 @@ class IMEXSolverType:
         for g in sorted({float(solver.A_im[i, i])
                          for i in range(solver.nstages)} - {0.0}):
             col_solver.prefactorize(g * dt)
+        return solver
+
+
+@dataclass
+class SplitExplicitSolverType:
+    """The ocean's barotropic/baroclinic split: the slow 3-D method at
+    ``dt_slow``, the fast 2-D one substepping at ``dt_fast``, each with
+    its operator's ``pre_stage``; ``make`` takes both DG operators (the
+    3-D and the 2-D) and the split's dts, the fields where not given."""
+    dt_slow: float = 0.0
+    dt_fast: float = 0.0
+    slow_method: Callable = LSRK54CarpenterKennedy
+    fast_method: Callable = LS3NRK33Heuns
+
+    def make(self, dg3: DGModel, dg2: DGModel, dt_slow: float = None,
+             dt_fast: float = None):
+        dts = float(dt_slow if dt_slow is not None else self.dt_slow)
+        dtf = float(dt_fast if dt_fast is not None else self.dt_fast)
+        slow = self.slow_method(dg3, dts, pre_stage=dg3.pre_stage)
+        fast = self.fast_method(dg2, dtf, pre_stage=dg2.pre_stage)
+        solver = SplitExplicitSolver(slow, fast, dg3, dg2, dt=dts,
+                                     fast_dt=dtf)
+        solver.vm = None
         return solver
 
 

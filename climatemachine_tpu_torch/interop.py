@@ -2,15 +2,17 @@
 state can be fed to this package and to another implementation of it.
 
 ``grid_from_numpy`` takes the arrays of a node-major grid (the
-``climatemachine_tpu`` ``Grid`` fields, as numpy).  The JAX package's
+``climatemachine_tpu`` ``Grid`` fields, as numpy), 3-D or 2-D.  The JAX package's
 "grid" layout is node-major ``[E, Np, n]``; this package keeps state,
 aux and tendencies var-major ``[E, n, Np]``: ``to_var_major`` and
 ``to_node_major`` turn one into the other, ``state_from_numpy`` and
 ``state_to_numpy`` a (state, aux) pair: the dry model's 5 prognostic
 lanes, the moist model's 6 (ρq_tot after ρe) or, with precipitation and
 tracers, more (ρq_tot, ρq_rai, ρχ…), the ocean's 4 (u[0], u[1], η,
-θ; aux coord, y, w, pkin, wz0, ud, dGu), and their aux lanes, in the
-lane order the two packages share.  Given the other package's lane names,
+θ; aux coord, y, w, pkin, wz0, ud, dGu), the shallow-water model's 3
+(η, U[0], U[1]; aux coord (2), y, GU, du) and the barotropic model's
+(the same, its aux also U_c, η_c, U_s, η_s, η_diag, Δη), and their aux
+lanes, in the lane order the two packages share.  Given the other package's lane names,
 ``state_from_numpy`` checks them against the model's schema name by
 name.
 """
@@ -29,7 +31,7 @@ FLOAT_FIELDS = ("coords", "M", "MI", "J", "JcV", "xi_x", "normals", "sM",
 #: grid fields uploaded as int64
 INDEX_FIELDS = ("face_bctag", "face_nbr_row")
 #: grid fields kept on the host
-HOST_FIELDS = ("xi", "face_perm_identity", "fmask_padded", "n_horz",
+HOST_FIELDS = ("dim", "xi", "face_perm_identity", "fmask_padded", "n_horz",
                "n_vert")
 
 
@@ -37,7 +39,8 @@ def grid_from_numpy(fields: dict, device=None,
                     dtype: torch.dtype = torch.float32) -> Grid:
     """A :class:`Grid` from a dict holding the arrays named in
     ``FLOAT_FIELDS`` and ``INDEX_FIELDS`` and the host fields
-    ``HOST_FIELDS``: the 1-D node tuple ``xi``, ``face_perm_identity``,
+    ``HOST_FIELDS``: ``dim`` (3 or 2; the count of 1-D node arrays where
+    absent), the 1-D node tuple ``xi``, ``face_perm_identity``,
     ``fmask_padded`` and the stack's ``n_horz`` and ``n_vert`` (None for
     a grid that is not stacked)."""
     device = resolve_device(device)
@@ -47,8 +50,13 @@ def grid_from_numpy(fields: dict, device=None,
                                device=device) for k in INDEX_FIELDS})
     xi = tuple(np.asarray(x, dtype=np.float64) for x in fields["xi"])
     Nq = tuple(len(x) for x in xi)
-    Nfp = (Nq[1] * Nq[2],) * 2 + (Nq[0] * Nq[2],) * 2 + (Nq[0] * Nq[1],) * 2
-    return Grid(Nq=Nq, Np=int(np.prod(Nq)), Nfp=Nfp,
+    dim = int(fields.get("dim", len(Nq)))
+    if dim != len(Nq) or dim not in (2, 3):
+        raise ValueError(f"a {dim}-D grid with {len(Nq)} node arrays")
+    # face f's nodes: the product of the other dims' node counts
+    Nfp = tuple(int(np.prod([Nq[t] for t in range(dim) if t != f // 2]))
+                for f in range(2 * dim))
+    return Grid(Nq=Nq, Np=int(np.prod(Nq)), Nfp=Nfp, dim=dim,
                 Nfp_max=max(Nfp), xi=xi,
                 face_perm_identity=bool(fields["face_perm_identity"]),
                 fmask_padded=np.array(fields["fmask_padded"], dtype=np.int64),

@@ -1,11 +1,12 @@
 """Curvilinear metric terms (port of ``climatemachine_tpu/mesh/metrics.py``:
 nodal_coordinates, geometry_3d :52 with the vertical line Jacobian JcV
-:88).  Host-side numpy float64.
+:88, geometry_2d :157).  Host-side numpy float64.
 
 The contravariant metrics use the discrete curl-invariant form (Kopriva
 2006) so free-stream preservation holds on the warped cubed sphere.
 Node convention: flat node n = i + Nq1*(j + Nq2*k); blocks are
-``[E, Nq3, Nq2, Nq1]`` (k slowest).
+``[E, Nq3, Nq2, Nq1]`` (k slowest), in 2-D n = i + Nq1*j, ``[E, Nq2,
+Nq1]``.
 """
 
 from __future__ import annotations
@@ -107,4 +108,55 @@ def geometry_3d(coords: np.ndarray, D, w):
     return dict(J=flat(J), M=flat(M), MI=flat(MI), JcV=flat(JcV),
                 xi_x=xi_x.reshape(E, Np, 3, 3),
                 coords=coords.reshape(E, Np, 3),
+                normals=n_out, sM=sM, Nfp=Nfp)
+
+
+def geometry_2d(coords: np.ndarray, D, w):
+    """Planar volume and surface geometry of ``coords [E, Nq2, Nq1, 2]``:
+    J, M, MI and JcV = |∂x/∂ξ₂| as ``[E, Np]``; xi_x ``[E, Np, 2, 2]``
+    (d xi_a / d x_i at [a, i]); coords ``[E, Np, 2]``; unit normals
+    ``[E, 4, Nfp_max, 2]``; sM ``[E, 4, Nfp_max]``; Nfp per edge."""
+    E, Nq2, Nq1 = coords.shape[:3]
+    Np = Nq1 * Nq2
+    x = [coords[..., i] for i in range(2)]
+    dx = np.empty((E, Nq2, Nq1, 2, 2))            # dx_i / dxi_a at [i, a]
+    for a in range(2):
+        for i in range(2):
+            dx[..., i, a] = _dmat_apply(D[a], x[i], a, 2)
+    J = dx[..., 0, 0] * dx[..., 1, 1] - dx[..., 1, 0] * dx[..., 0, 1]
+    if np.any(J <= 0):
+        raise ValueError(f"non-positive Jacobian: min {J.min():.3e}")
+    xi_x = np.zeros((E, Nq2, Nq1, 2, 2))
+    xi_x[..., 0, 0] = dx[..., 1, 1] / J
+    xi_x[..., 0, 1] = -dx[..., 0, 1] / J
+    xi_x[..., 1, 0] = -dx[..., 1, 0] / J
+    xi_x[..., 1, 1] = dx[..., 0, 0] / J
+    JcV = np.sqrt(dx[..., 0, 1] ** 2 + dx[..., 1, 1] ** 2)
+
+    M = np.multiply.outer(w[1], w[0])[None] * J
+    MI = 1.0 / M
+
+    Nfp = (Nq2, Nq2, Nq1, Nq1)
+    Nfp_max = max(Nfp)
+    n_out = np.zeros((E, 4, Nfp_max, 2))
+    sM = np.zeros((E, 4, Nfp_max))
+    Jxi = xi_x * J[..., None, None]
+    for d in range(2):
+        for s in (0, 1):
+            f = 2 * d + s
+            end = -1 if s else 0
+            if d == 0:
+                sl, tw = (slice(None), slice(None), end), w[1]
+            else:
+                sl, tw = (slice(None), end, slice(None)), w[0]
+            nf = (1.0 if s else -1.0) * Jxi[sl + (d, slice(None))].reshape(
+                E, -1, 2)
+            norm = np.linalg.norm(nf, axis=-1)
+            n_out[:, f, :Nfp[f], :] = nf / norm[..., None]
+            sM[:, f, :Nfp[f]] = norm * tw[None, :]
+
+    flat = lambda a: a.reshape(E, Np)
+    return dict(J=flat(J), M=flat(M), MI=flat(MI), JcV=flat(JcV),
+                xi_x=xi_x.reshape(E, Np, 2, 2),
+                coords=coords.reshape(E, Np, 2),
                 normals=n_out, sM=sM, Nfp=Nfp)

@@ -1,6 +1,7 @@
 """Brick, stacked brick and stacked cubed-sphere topologies (port of
 ``climatemachine_tpu/mesh/topology.py``: ``StackInfo`` :54,
-brick_topology :164-224 with its ``boundary`` tags and ``meshwarp``,
+brick_topology :164-224 in 2 and 3 dimensions with its ``boundary``
+tags and ``meshwarp``,
 stacked_brick_topology :227-251, _permute_topology :254,
 stacked_cubed_sphere_topology :508, cubed_shell_vertices :290, the
 equiangular warp :327 and the numpy face matcher of
@@ -35,15 +36,20 @@ _FACE_CORNERS_2D = (
 
 @dataclass
 class Topology:
-    """A 3-D hexahedral topology: corners and face connectivity."""
-    elem_to_coord: np.ndarray       # [E, 8, 3] corner coordinates, pre-warp
-    face_neighbor: np.ndarray       # [E, 6] neighbour element (self at a wall)
-    face_neighbor_face: np.ndarray  # [E, 6] face id on the neighbour
-    face_orient: np.ndarray         # [E, 6] orientation code
-    face_bctag: np.ndarray          # [E, 6] 0 = interior, >= 1 = boundary tag
-    meshwarp: Optional[Callable] = None   # nodal warp (x1, x2, x3) -> same
+    """A hexahedral (3-D) or quadrilateral (2-D) topology: corners and
+    face connectivity; ``nface = 2 · dim``."""
+    elem_to_coord: np.ndarray       # [E, 2^dim, dim] corners, pre-warp
+    face_neighbor: np.ndarray       # [E, nface] neighbour (self at a wall)
+    face_neighbor_face: np.ndarray  # [E, nface] face id on the neighbour
+    face_orient: np.ndarray         # [E, nface] orientation code
+    face_bctag: np.ndarray          # [E, nface] 0 interior, >= 1 a wall tag
+    meshwarp: Optional[Callable] = None   # nodal warp (x1, ...) -> same
     n_horz: Optional[int] = None    # horizontal elements of a stack
     n_vert: Optional[int] = None    # vertical elements of a stack
+
+    @property
+    def dim(self) -> int:
+        return self.elem_to_coord.shape[-1]
 
     @property
     def stack(self) -> Optional["StackInfo"]:
@@ -210,36 +216,37 @@ def brick_topology(ranges: Sequence[np.ndarray],
                    periodicity: Optional[Sequence[bool]] = None,
                    boundary: Optional[np.ndarray] = None,
                    meshwarp: Optional[Callable] = None) -> Topology:
-    """3-D Cartesian brick of hexahedra: ``ranges`` holds each dimension's
-    element interface coordinates (nelem_d + 1 of them, possibly
-    stretched), ``periodicity`` which dimensions wrap around (default
-    none), ``boundary`` the ``[3, 2]`` boundary tags of each (dimension,
-    side) that does not wrap (default 1 everywhere), ``meshwarp`` a nodal
-    warp (x1, x2, x3) -> (x1, x2, x3) or None.  Elements dim 0 fastest,
-    ``e = ix + nx·(iy + ny·iz)``; every face orientation is the
-    identity."""
-    if len(ranges) != 3:
-        raise ValueError(f"brick_topology builds 3-D bricks, got "
-                         f"{len(ranges)} ranges")
+    """Cartesian brick of hexahedra (3 ranges) or quadrilaterals (2):
+    ``ranges`` holds each dimension's element interface coordinates
+    (nelem_d + 1 of them, possibly stretched), ``periodicity`` which
+    dimensions wrap around (default none), ``boundary`` the ``[dim, 2]``
+    boundary tags of each (dimension, side) that does not wrap (default 1
+    everywhere), ``meshwarp`` a nodal warp of the dim coordinates or
+    None.  Elements dim 0 fastest, ``e = ix + nx·(iy + ny·iz)``; every
+    face orientation is the identity."""
+    dim = len(ranges)
+    if dim not in (2, 3):
+        raise ValueError(f"brick_topology builds 2-D or 3-D bricks, got "
+                         f"{dim} ranges")
     periodicity = (tuple(periodicity) if periodicity is not None
-                   else (False,) * 3)
-    boundary = (np.ones((3, 2), dtype=np.int32) if boundary is None
+                   else (False,) * dim)
+    boundary = (np.ones((dim, 2), dtype=np.int32) if boundary is None
                 else np.asarray(boundary))
     nel = [len(r) - 1 for r in ranges]
-    E = int(np.prod(nel))
+    E, nface = int(np.prod(nel)), 2 * dim
     idx = np.stack(np.unravel_index(np.arange(E), nel[::-1])[::-1],
-                   axis=1)                             # [E, 3] (ix, iy, iz)
-    stride = np.array([1, nel[0], nel[0] * nel[1]])
-    elem_to_coord = np.zeros((E, 8, 3))
-    for c in range(8):
-        for d in range(3):
+                   axis=1)                             # [E, dim] (ix, ...)
+    stride = np.cumprod([1] + nel[:-1])
+    elem_to_coord = np.zeros((E, 2 ** dim, dim))
+    for c in range(2 ** dim):
+        for d in range(dim):
             elem_to_coord[:, c, d] = np.asarray(ranges[d])[
                 idx[:, d] + ((c >> d) & 1)]
     e = np.arange(E)
-    neighbor = np.zeros((E, 6), dtype=np.int64)
-    neighbor_face = np.zeros((E, 6), dtype=np.int64)
-    bctag = np.zeros((E, 6), dtype=np.int32)
-    for d in range(3):
+    neighbor = np.zeros((E, nface), dtype=np.int64)
+    neighbor_face = np.zeros((E, nface), dtype=np.int64)
+    bctag = np.zeros((E, nface), dtype=np.int32)
+    for d in range(dim):
         for s in (0, 1):
             f = 2 * d + s
             nidx = idx[:, d] + (1 if s else -1)
@@ -251,7 +258,7 @@ def brick_topology(ranges: Sequence[np.ndarray],
             neighbor_face[:, f] = np.where(joined, 2 * d + (1 - s), f)
             bctag[:, f] = np.where(joined, 0, boundary[d, s])
     return Topology(elem_to_coord, neighbor, neighbor_face,
-                    np.zeros((E, 6), dtype=np.int32), bctag,
+                    np.zeros((E, nface), dtype=np.int32), bctag,
                     meshwarp=meshwarp)
 
 
@@ -259,7 +266,7 @@ def stacked_brick_topology(ranges: Sequence[np.ndarray],
                            periodicity: Optional[Sequence[bool]] = None,
                            boundary: Optional[np.ndarray] = None,
                            meshwarp: Optional[Callable] = None) -> Topology:
-    """The brick of :func:`brick_topology` with its last dimension
+    """The 3-D brick of :func:`brick_topology` with its last dimension
     stacked: element ``e = eh * n_vert + ev`` is the brick's element at
     horizontal index eh (dim 0 fastest) and vertical index ev, so each
     column is contiguous; ``n_horz``, ``n_vert`` set."""

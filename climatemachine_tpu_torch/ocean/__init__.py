@@ -1,28 +1,31 @@
 """The ocean (port of ``climatemachine_tpu/ocean``): the hydrostatic
 Boussinesq box GCM (core.py, problems.py, hydrostatic_boussinesq.py,
-super_model.py).  The shallow-water model, the split-explicit coupling
-and the implicit vertical diffusive convection come in a later slice:
-their names raise NotImplementedError "next slice"."""
+super_model.py), the shallow-water model (shallow_water.py), the
+split-explicit coupling in its "new" variant (split_explicit.py) and the
+implicit vertical diffusive convection (ivdc.py).  The split-explicit
+solver's "split01" and "split01_3n" variants come in a later slice:
+``SplitExplicitSolver(..., variant=...)`` and those names here raise
+NotImplementedError "next slice"."""
 
 from climatemachine_tpu_torch.ocean.core import (  # noqa: F401
     Coupled, FreeSlip, Impenetrable, Insulating, KinematicStress, NoSlip,
     OceanBC, Penetrable, TemperatureFlux, Uncoupled)
 from climatemachine_tpu_torch.ocean.hydrostatic_boussinesq import (  # noqa
     HydrostaticBoussinesqModel, LinearHBModel, OceanForcing)
+from climatemachine_tpu_torch.ocean.ivdc import (  # noqa: F401
+    IVDCModel, ivdc_coefficients, ivdc_solve)
+from climatemachine_tpu_torch.ocean.shallow_water import (  # noqa: F401
+    ConstantViscosity, LinearDrag, ShallowWaterModel)
+from climatemachine_tpu_torch.ocean.split_explicit import (  # noqa: F401
+    BarotropicModel, CoupledHBModel, SplitExplicitSolver)
 
-#: names of the JAX package's ocean that the port does not have yet
+#: the split-explicit variants of the JAX package that the port does not
+#: have yet
 NEXT_SLICE = {
-    "ShallowWaterModel": "the shallow-water model (ocean/shallow_water.py)",
-    "ConstantViscosity": "the shallow-water model (ocean/shallow_water.py)",
-    "LinearDrag": "the shallow-water model (ocean/shallow_water.py)",
-    "CoupledHBModel": "the split-explicit coupling (ocean/split_explicit.py)",
-    "BarotropicModel": "the split-explicit coupling (ocean/split_explicit.py)",
-    "SplitExplicitSolver":
-        "the split-explicit coupling (ocean/split_explicit.py)",
-    "IVDCModel": "implicit vertical diffusive convection (ocean/ivdc.py)",
-    "ivdc_coefficients":
-        "implicit vertical diffusive convection (ocean/ivdc.py)",
-    "ivdc_solve": "implicit vertical diffusive convection (ocean/ivdc.py)",
+    "split01": "the split-explicit variant 'split01' (multi-rate "
+               "averaging, IVDC in the step)",
+    "split01_3n": "the split-explicit variant 'split01_3n' (the 3N slow "
+                  "recurrence)",
 }
 
 

@@ -9,7 +9,9 @@ The primitive hydrostatic equations with a linear free surface:
 with w = −∫_b^z ∇ʰ·u dz (continuity) and pkin = ∫_z^0 −αᵀθ dz.
 
 A :class:`~climatemachine_tpu_torch.balance_laws.interface.BalanceLaw`
-on the generic DG operator's gradient path.  Before each stage,
+on the generic DG operator's gradient path; ``coupling`` is stored, as
+in the JAX package: the split-explicit ocean's baroclinic side is the
+subclass ``CoupledHBModel`` (ocean/split_explicit.py).  Before each stage,
 ``preprocess_state`` (``DGModel.pre_stage``) filters u with a vertical
 cut-off and θ with a vertical exponential filter; after the gradient
 pass, ``update_auxiliary_state_gradient`` fills w, pkin and w(z = 0)
@@ -62,9 +64,6 @@ class HydrostaticBoussinesqModel(BalanceLaw):
                  kappa_c=1e-1, f_o=1e-4, beta=1e-11,
                  apply_vert_filters: bool = True):
         self.coupling = coupling or oc.Uncoupled()
-        if not isinstance(self.coupling, oc.Uncoupled):
-            raise NotImplementedError(
-                "next slice: the split-explicit coupling (Coupled)")
         self.apply_vert_filters = apply_vert_filters
         self.problem = problem
         self.param_set = param_set

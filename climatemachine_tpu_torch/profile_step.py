@@ -1,10 +1,11 @@
 """Where the Held-Suarez step, or the moist baroclinic wave's, the LES
-bubble's or the ocean box's, spends its time on the card.
+bubble's, the ocean box's or the split-explicit ocean's, spends its time
+on the card.
 
     python -m climatemachine_tpu_torch.profile_step [--steps N] [--out DIR]
         [--no-hyperdiffusion] [--imex] [--surface-kernel {xla,hybrid,pallas}]
         [--grid] [--dense] [--moist] [--dt SECONDS] [--les]
-        [--ocean [--problem {homogeneous,gyre}]]
+        [--ocean [--problem {homogeneous,gyre}]] [--split-explicit]
 
 Builds a ``chip_smoke.py`` path (dry Held-Suarez p4 with DryBiharmonic(8
 h) hyperdiffusion, n_horz=16, n_vert=8, float32, with the every-step
@@ -34,7 +35,15 @@ OceanGyre with ``--problem gyre``, 20 × 20 × 20 elements at p4, float64,
 LSRK144 at dt = 55 s), whose spans are ``pre_stage`` (the vertical
 filters before each stage), ``gradient``, ``gradient_flux``,
 ``stack_integrals`` (w, pkin and wz0), ``volume``, ``surface`` with
-``second_order_faces`` inside it, and ``sources``.  It warms up, times ``--steps``
+``second_order_faces`` inside it, and ``sources``.  ``--split-explicit``
+builds the split-explicit gyre (experiments/ocean_split_explicit.py at
+its defaults: 20 × 20 × 20 elements at p4 and the 20 × 20 barotropic
+brick, float64, LSRK54 slow at 5400 s and fast at 240 s, 5 IVDC solves
+a slow step), whose step is a slow step and its IVDC solves; its spans
+are ``slow_rhs`` (the 3-D RHS after its filters), ``transfer`` (Gᵁ and
+ΔGᵘ), ``fast`` (a stage's fast steps), ``reconcile`` (Δu and η down the
+columns) and ``ivdc`` with ``gmres`` inside it (these two the
+experiment's and ocean/ivdc.py's own).  It warms up, times ``--steps``
 steps with tracing off, then traces the same number of steps with
 ``torch.profiler``.  The RHS's parts (the surface kernels' stages as
 ``extract`` and ``lift`` inside ``surface``), and on the IMEX step the
@@ -79,6 +88,7 @@ from climatemachine_tpu_torch.experiments.baroclinic_wave import \
     baroclinic_wave_config
 from climatemachine_tpu_torch.experiments.ocean_box import (PROBLEMS,
                                                              ocean_box_config)
+from climatemachine_tpu_torch.experiments import ocean_split_explicit
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
 from climatemachine_tpu_torch.experiments.risingbubble import \
@@ -89,7 +99,8 @@ from climatemachine_tpu_torch.physics import thermodynamics as td
 SPANS = ("thermo", "saturation", "chain", "volume", "surface", "extract",
          "lift", "sources", "filter", "solve", "apply", "to_blocks",
          "from_blocks", "gradient", "gradient_flux", "second_order_faces",
-         "pre_stage", "stack_integrals")
+         "pre_stage", "stack_integrals", "slow_rhs", "transfer", "fast",
+         "reconcile", "ivdc", "gmres")
 
 
 def _span(name, fn):
@@ -129,49 +140,23 @@ def _saturation_alone(rhs, q, aux, calls=3):
     return len(kernels) / calls, _busy_us(kernels) / 1e3 / calls
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=5)
-    ap.add_argument("--out", default="profile_out")
-    ap.add_argument("--no-hyperdiffusion", action="store_true")
-    ap.add_argument("--imex", action="store_true")
-    ap.add_argument("--surface-kernel", choices=SURFACE_KERNELS,
-                    default="xla")
-    ap.add_argument("--grid", action="store_true")
-    ap.add_argument("--dense", action="store_true")
-    ap.add_argument("--moist", action="store_true")
-    ap.add_argument("--dt", type=float, default=None)
-    ap.add_argument("--les", action="store_true")
-    ap.add_argument("--ocean", action="store_true")
-    ap.add_argument("--problem", choices=PROBLEMS, default="homogeneous")
-    args = ap.parse_args(argv)
-    args.imex |= args.dense
-    power = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+class SplitExplicitStep:
+    """A slow split-explicit step and its IVDC solves, as ``step(q, aux,
+    t)`` over the state pairs, with the spans of the module docstring."""
 
-    tau = None if args.no_hyperdiffusion else 8 * 3600.0
-    if args.ocean:
-        dg, q, aux, solver = ocean_box_config(args.problem, device="cuda")
-        dt = solver.dt = args.dt or solver.dt
-        tau = None
-    elif args.les:
-        driver_init(show_updates="never")
-        cfg = risingbubble_config(device="cuda")
-        sc = make_solver_configuration(0.0, -1.0, cfg, Courant_number=0.4)
-        dg, q, aux, dt = sc.dg, sc.q, sc.aux, args.dt or sc.dt
-        tau = None
-    else:
-        config = (baroclinic_wave_config if args.moist
-                  else held_suarez_config)
-        cfg = config(16, 8, 4, dtype=torch.float32, device="cuda",
-                     hyperdiffusion_tau=tau)
-        dg = DGModel(cfg.model, cfg.grid)
-        q, aux = init_ode_state(dg)
-        dt = args.dt or (
-            0.1 * min_node_distance(cfg.grid, "horizontal") if args.imex
-            else 0.3 * min_node_distance(cfg.grid)) / 350.0
+    def __init__(self, cfg):
+        self.cfg, se = cfg, cfg.solver
+        for name in ("slow_rhs", "transfer", "fast", "reconcile"):
+            setattr(se, "_" + name, _span(name, getattr(se, "_" + name)))
+
+    def step(self, q, aux, t):
+        q, aux, *_ = ocean_split_explicit.step(self.cfg, q, aux, t)
+        return q, aux
+
+
+def _instrument(args, cfg, dg, q, aux, dt, solver, sc):
+    """(solver, rhs) of the Held-Suarez, moist, LES or ocean-box step with
+    its spans."""
     layout = "grid" if args.grid else "auto"
     if args.moist:
         td.saturation_adjustment = _span("saturation",
@@ -229,6 +214,60 @@ def main(argv=None):
         rhs.volume = _span("volume", rhs.volume)
         rhs._surface = _span("surface", rhs._surface)
         rhs._sources = _span("sources", rhs._sources)
+    return solver, rhs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--out", default="profile_out")
+    ap.add_argument("--no-hyperdiffusion", action="store_true")
+    ap.add_argument("--imex", action="store_true")
+    ap.add_argument("--surface-kernel", choices=SURFACE_KERNELS,
+                    default="xla")
+    ap.add_argument("--grid", action="store_true")
+    ap.add_argument("--dense", action="store_true")
+    ap.add_argument("--moist", action="store_true")
+    ap.add_argument("--dt", type=float, default=None)
+    ap.add_argument("--les", action="store_true")
+    ap.add_argument("--ocean", action="store_true")
+    ap.add_argument("--problem", choices=PROBLEMS, default="homogeneous")
+    ap.add_argument("--split-explicit", action="store_true")
+    args = ap.parse_args(argv)
+    args.imex |= args.dense
+    power = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+    tau = None if args.no_hyperdiffusion else 8 * 3600.0
+    cfg = sc = solver = None
+    if args.split_explicit:
+        cfg = ocean_split_explicit.make(device="cuda")
+        dg, q, aux, dt = cfg.dg3, cfg.q, cfg.aux, cfg.solver.dt
+        solver, rhs, tau = SplitExplicitStep(cfg), cfg.dg3, None
+    elif args.ocean:
+        dg, q, aux, solver = ocean_box_config(args.problem, device="cuda")
+        dt = solver.dt = args.dt or solver.dt
+        tau = None
+    elif args.les:
+        driver_init(show_updates="never")
+        cfg = risingbubble_config(device="cuda")
+        sc = make_solver_configuration(0.0, -1.0, cfg, Courant_number=0.4)
+        dg, q, aux, dt = sc.dg, sc.q, sc.aux, args.dt or sc.dt
+        tau = None
+    else:
+        config = (baroclinic_wave_config if args.moist
+                  else held_suarez_config)
+        cfg = config(16, 8, 4, dtype=torch.float32, device="cuda",
+                     hyperdiffusion_tau=tau)
+        dg = DGModel(cfg.model, cfg.grid)
+        q, aux = init_ode_state(dg)
+        dt = args.dt or (
+            0.1 * min_node_distance(cfg.grid, "horizontal") if args.imex
+            else 0.3 * min_node_distance(cfg.grid)) / 350.0
+    if not args.split_explicit:
+        solver, rhs = _instrument(args, cfg, dg, q, aux, dt, solver, sc)
 
     def run(n, q, aux):
         for i in range(n):
@@ -246,7 +285,8 @@ def main(argv=None):
         t0 = time.perf_counter()
         q, aux = run(args.steps, q, aux)
         traced = (time.perf_counter() - t0) / args.steps
-    assert torch.isfinite(q).all()
+    assert all(bool(torch.isfinite(x).all())
+               for x in (q if isinstance(q, tuple) else (q,)))
 
     # device-side events are kernels, memcpys and the device ranges of
     # the record_function spans; the spans are counted apart
@@ -286,11 +326,13 @@ def main(argv=None):
                                           "profile_step_trace.json"))
     print(json.dumps({
         "card": power, "steps": args.steps,
-        "model": (f"ocean box GCM ({args.problem})" if args.ocean
+        "model": ("split-explicit ocean gyre" if args.split_explicit
+                  else f"ocean box GCM ({args.problem})" if args.ocean
                   else "rising bubble LES (SmagorinskyLilly)" if args.les
                   else "moist baroclinic wave" if args.moist
                   else "Held-Suarez"),
         "step": ("dense imex" if args.dense else "imex" if args.imex
+                 else "split-explicit with IVDC" if args.split_explicit
                  else "explicit"), "dt_s": dt,
         "rhs": type(rhs).__name__,
         "surface_kernel": (args.surface_kernel if not isinstance(rhs, DGModel)

@@ -158,7 +158,7 @@ def test_aux_matches_jax(box, case):
         case != "default")
     q, _ = state_from_numpy(box["q"], c["aux_j"], device="cpu")
     aux = c["model"].update_auxiliary_state(
-        q, init_state_auxiliary(c["model"], box["grid"]))
+        q, init_state_auxiliary(c["model"], box["grid"]), box["grid"])
     ref = c["aux_j"]
     scale = np.maximum(np.max(np.abs(ref), axis=(0, 1)), 1e-300)
     err = np.max(np.abs(to_node_major(aux) - ref), axis=(0, 1)) / scale

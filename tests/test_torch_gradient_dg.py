@@ -92,7 +92,7 @@ def _setup(box, case):
 
 def test_spatial_gradient(box):
     dgj, dgp, q, aux0 = _setup(box, "smagorinsky")
-    aux = dgp.balance_law.update_auxiliary_state(vm(q), vm(aux0))
+    aux = dgp.balance_law.update_auxiliary_state(vm(q), vm(aux0), dgp.grid)
     ref = np.asarray(jax.jit(dgj.spatial_gradient)(
         q, jnp.asarray(nm(aux)), 0.0))                    # [E, Np, 3, ng]
     got = dgp.spatial_gradient(vm(q), aux, 0.0)           # [E, 3, ng, Np]

@@ -75,7 +75,7 @@ def case(request):
 def test_source_contributions_match_jax(case):
     mt = case["model_t"]
     qt, auxt = tp.port_state(case)
-    aux = mt.update_auxiliary_state(qt, auxt)
+    aux = mt.update_auxiliary_state(qt, auxt, case["dg_t"].grid)
     got = mt.sources[-1].contributions(mt, qt, None, aux, 0.0)
     want = case["ref"]["src"]
     assert set(got) == set(want) and len(got) >= 3
@@ -90,7 +90,7 @@ def test_source_contributions_match_jax(case):
 def test_flux_matches_jax(case):
     mt = case["model_t"]
     qt, auxt = tp.port_state(case)
-    aux = mt.update_auxiliary_state(qt, auxt)
+    aux = mt.update_auxiliary_state(qt, auxt, case["dg_t"].grid)
     F = mt.flux_first_order(qt, aux, 0.0)                 # [E, 3, n, Np]
     ref = case["ref"]["F"].transpose(0, 2, 3, 1)          # [E, 3, n, Np]
     err = (np.abs(F.numpy() - ref).max(axis=(0, 1, 3))

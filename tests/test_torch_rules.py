@@ -75,27 +75,55 @@ def test_scan_reaches_ocean_modules():
             for m in OCEAN_MODULES} <= set(PORT_FILES)
 
 
+#: the split-explicit slice's modules, which test_port_imports_no_jax
+#: must scan
+SPLIT_EXPLICIT_MODULES = ("ocean/shallow_water.py", "ocean/split_explicit.py",
+                          "ocean/ivdc.py", "solvers/iterative.py",
+                          "experiments/ocean_split_explicit.py",
+                          "mesh/metrics.py", "mesh/grid.py")
+
+
+def test_scan_reaches_split_explicit_modules():
+    assert {ROOT / "climatemachine_tpu_torch" / m
+            for m in SPLIT_EXPLICIT_MODULES} <= set(PORT_FILES)
+
+
 @pytest.mark.parametrize("name", ["ShallowWaterModel", "ConstantViscosity",
                                   "CoupledHBModel", "BarotropicModel",
                                   "SplitExplicitSolver", "IVDCModel",
                                   "ivdc_coefficients", "ivdc_solve"])
 def test_next_slice_ocean_names_raise(name):
-    """The shallow-water model, the split-explicit coupling and IVDC
-    raise "next slice"; any other missing name is an AttributeError."""
+    """The shallow-water model, the split-explicit coupling and IVDC are
+    ported: each name is its module's object.  The split01 variants'
+    names raise "next slice"; any other missing name is an
+    AttributeError."""
     import climatemachine_tpu_torch.ocean as ocean
-    with pytest.raises(NotImplementedError, match="next slice"):
-        getattr(ocean, name)
+    from climatemachine_tpu_torch.ocean import (ivdc, shallow_water,
+                                                split_explicit)
+    assert any(getattr(ocean, name) is getattr(m, name, None)
+               for m in (ivdc, shallow_water, split_explicit))
+    for variant in ("split01", "split01_3n"):
+        with pytest.raises(NotImplementedError, match="next slice"):
+            getattr(ocean, variant)
     with pytest.raises(AttributeError):
         ocean.NoSuchModel
 
 
 def test_coupled_ocean_refused():
+    """The coupling is stored, as in the JAX package (CoupledHBModel
+    brings the coupled physics); the split-explicit solver refuses the
+    split01 variants with "next slice"."""
     from climatemachine_tpu_torch.ocean import (Coupled,
                                                 HydrostaticBoussinesqModel)
     from climatemachine_tpu_torch.ocean.problems import OceanGyre
+    from climatemachine_tpu_torch.ocean.split_explicit import (
+        CoupledHBModel, SplitExplicitSolver)
+    problem = OceanGyre(1e6, 1e6, 400.0)
+    m = HydrostaticBoussinesqModel(problem, coupling=Coupled())
+    assert isinstance(m.coupling, Coupled)
+    assert isinstance(CoupledHBModel(problem).coupling, Coupled)
     with pytest.raises(NotImplementedError, match="next slice"):
-        HydrostaticBoussinesqModel(OceanGyre(1e6, 1e6, 400.0),
-                                   coupling=Coupled())
+        SplitExplicitSolver(None, None, None, None, variant="split01")
 
 
 @pytest.mark.parametrize("name", ["sgstke", "lsforcing", "turbconv",
