@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--skip-moist]
+    python3 chip_smoke.py [--seed N] [--skip-moist] [--julia-gates]
 
 Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch version on its path's own
@@ -181,6 +181,44 @@ filter:
   (tests/test_split_explicit_refvals.py:147-183, with its three reduced
   transfer entries; tests/test_ocean_golden_extra.py:147-171), each with
   its analytic error below 0.005;
+- the split-explicit ocean's split01 variants (phase ``split01``:
+  ``ocean_split_explicit.make_julia`` at the Julia simple_box constants
+  of tests/test_simple_box_ivd_refvals.py:41-96, 20 × 20 × 20 and 20 ×
+  20 at p4, float64: "split01" LSRK54 at 5400 / 240 s with 2 added
+  substeps, "split01_3n" LS3NRK33Heuns3N at 2400 / 120 s with 3, 5 IVDC
+  solves each): 1 + 3 slow steps each with the split-explicit step and
+  the IVDC solves timed apart, every GMRES residual, θ, the ∫η dV drift
+  and every launch count (0) checked as the "new" variant's; the Julia
+  multirate spindown tables at 30, 60 and 90 min (5 × 5 × 8 at p4,
+  "split01" with 2 added substeps and 5 IVDC solves, fast 300 s) at the
+  digits of tests/test_split_explicit_refvals.py:262-293 with the
+  analytic error below 0.005; the vertical_integral tables (no
+  stepping, :296-343) at their digits, initial, day, month and century
+  (year and decade with ``--julia-gates``: VERTINT_TABLES);
+  ``batched_gmres`` on the card on
+  a batch-dependent operator against the same solve on the CPU in
+  float64.  With ``--julia-gates`` the four 5-day Julia gates follow at
+  the JAX tests' widths and digits: simple_box_ivd (80 slow steps),
+  simple_box_2dt (80, no IVDC), simple_box_rk3 (108) and the double
+  gyre (75, ``_DBL_GYRE_GATES``), and the vertical_integral year and
+  decade tables; a failed gate exits non-zero;
+- the GCM driver entry (phase ``gcm_driver``): Held-Suarez through
+  ``held_suarez_driver`` → ``invoke`` at n_horz=16, n_vert=8, p4,
+  float32, IMEX at the Courant number 0.3 of examples/heldsuarez.py,
+  GCM_STEPS steps under each surface pass, against
+  ``IMEXSolverType().make`` with the filter driven by ``solve`` on the
+  same dt: equal bit for bit with the same launch counts; a restart (k
+  steps with ``checkpoint_at_end``, ``restart_from``, k more) against 2k
+  steps in one run, bit for bit; solid-body rotation at its example's
+  defaults through ``AtmosGCMConfiguration`` (Roe, IMEX, Courant 0.2
+  horizontal, float32, 2 h) with max |u| after every step reported (the
+  JAX example does not keep the rest state there: 0.76 m/s after one
+  step in float32, NaN from 1229 s) and its launches checked;
+  ``gcm_driver_config
+  ("heldsuarez")`` (moist, 8 × 4, p4) and its bulk surface-flux variant,
+  GCM_LSRK_STEPS LSRK54 steps each, finite, with the mass drift; the
+  Courant and timestep monitors and ``AdaptTimestep`` run once on the
+  Held-Suarez state, with their host cost;
 - the staged kernels (K1-K4, the volume kernel with and without F₂,
   both dry branches; the moist branches of K1-K4 and the volume kernel)
   and every remainder branch above at the other orders the kernels are
@@ -199,7 +237,8 @@ method, so two designs compare in one call.
 Each run sets every launch count to 0 just before it starts and reads
 the counts just after.  One JSON line per phase and ``surface_modes``
 with the ms per step of each surface pass on both steps and of the
-three generic paths; then the card's name and power limit as nvidia-smi
+three generic paths, ``phase_seconds`` with each phase's wall seconds
+and the total; then the card's name and power limit as nvidia-smi
 reports them, a ``{"kernels": [...]}`` line (the nine earlier kernels
 with launches from the IMEX path with "pallas", the dry volume kernel
 with launches from the grid-layout IMEX path and its vertical
@@ -383,9 +422,12 @@ from climatemachine_tpu_torch.dg.fast_rhs import SURFACE_KERNELS, VarMajorRHS
 from climatemachine_tpu_torch.dg.numerical_fluxes import (
     CentralNumericalFluxFirstOrder, HLLCNumericalFlux, LMARSNumericalFlux,
     RoeNumericalFlux, RoeNumericalFluxMoist, RusanovNumericalFlux)
+from climatemachine_tpu_torch.dg.columns import ColumnOps
 from climatemachine_tpu_torch.dg.spatial import (DGModel, init_ode_state,
+                                                 init_state_auxiliary,
                                                  remainder_DGModel)
 from climatemachine_tpu_torch.common.turbulence import SmagorinskyLilly
+from climatemachine_tpu_torch.driver import callbacks as cbs
 from climatemachine_tpu_torch.driver.driver import init as driver_init
 from climatemachine_tpu_torch.driver.driver import invoke
 from climatemachine_tpu_torch.driver.solver_configs import \
@@ -393,8 +435,10 @@ from climatemachine_tpu_torch.driver.solver_configs import \
 from climatemachine_tpu_torch.driver.solver_types import (
     ExplicitSolverType, IMEXSolverType, MultirateSolverType)
 from climatemachine_tpu_torch.experiments.held_suarez import (
-    HeldSuarezStepFilter, held_suarez_config)
-from climatemachine_tpu_torch.experiments import ocean_split_explicit
+    HeldSuarezStepFilter, held_suarez_config, held_suarez_driver)
+from climatemachine_tpu_torch.experiments import (ocean_split_explicit,
+                                                  solid_body_rotation)
+from climatemachine_tpu_torch.experiments.gcm_driver import gcm_driver_config
 from climatemachine_tpu_torch.experiments.ocean_box import ocean_box_config
 from climatemachine_tpu_torch.experiments.risingbubble import \
     risingbubble_config
@@ -417,6 +461,7 @@ from climatemachine_tpu_torch.physics import thermodynamics as td
 from climatemachine_tpu_torch.physics.parameters import EARTH
 from climatemachine_tpu_torch.solvers import layout_kernel
 from climatemachine_tpu_torch.solvers.columnwise import ColumnLayout
+from climatemachine_tpu_torch.solvers.iterative import batched_gmres
 from climatemachine_tpu_torch.timing import (PEAK_BYTES, PEAK_FP32_FLOPS,
                                              paired_rounds)
 
@@ -601,6 +646,77 @@ SPLIT_GMRES_TOL = 1e-10
 #: tests/test_ocean_golden_extra.py:147-171: 5 × 5 elements (× 8 layers)
 #: at p4 over 1e6 × 1e6 × 400 m, 288 steps at 300 s; the analytic bound
 SPINDOWN_STEPS, SPINDOWN_DT, SPINDOWN_ERR = 288, 300.0, 0.005
+#: the split01 variants at the Julia width: warm and timed slow steps
+SPLIT01_WARM, SPLIT01_STEPS = 1, 3
+#: the multirate spindown (tests/test_split_explicit_refvals.py:186-293):
+#: slow dt in minutes and each table's digits on the primary fields
+MULTIRATE_GATES = {30: ("thirty_minutes", 4.0), 60: ("sixty_minutes", 4.0),
+                   90: ("ninety_minutes", 3.0)}
+#: the vertical_integral tables (:296-343): t of each.  The year and
+#: decade tables are 1.2e-11 and 9e-11 off the exact exp(M t) (60-digit
+#: mpmath), beyond their 12-digit gate (5e-12), and the JAX package
+#: computes NaN there (its expm takes more than 16 squarings), so its
+#: test never held them: they run with --julia-gates, at 12 digits
+VERTINT_TABLES = {"initial": 0.0, "day": 86400.0, "month": 30 * 86400.0,
+                  "year": 365 * 86400.0, "decade": 3650 * 86400.0,
+                  "century": 36500 * 86400.0}
+VERTINT_DEFAULT = ("initial", "day", "month", "century")
+#: batched_gmres on the card: systems, size, Krylov vectors, restarts; the
+#: solution against the CPU's in float64, each residual against its ‖b‖
+BATCHED_GMRES = (64, 200, 40, 3)
+BATCHED_GMRES_TOL = 1e-10
+#: the Julia 5-day gates (tests/test_simple_box_ivd_refvals.py:150-235 and
+#: :392-438): (make_julia keywords, slow steps, refvals file); the window
+#: diagnostics are skipped and the rest gated at 2 digits (:160-170)
+JULIA_GATES = {
+    "simple_box_ivd": (dict(variant="split01"), 80, "simple_box_ivd"),
+    "simple_box_2dt": (dict(variant="split01", num_impl_steps=0), 80,
+                       "simple_box_2dt"),
+    "simple_box_rk3": (dict(variant="split01_3n"), 108, "simple_box_rk3"),
+    "dbl_gyre": (None, 75, "simple_dbl_gyre")}
+JULIA_WINDOW_FIELDS = ("w", "wz0", "Δη", "ΔGu[1]", "ΔGu[2]", "Gᵁ[1]",
+                       "Gᵁ[2]", "Δu[1]", "Δu[2]")
+#: the double gyre's gates: the digits its full run reached less one
+#: (tests/test_simple_box_ivd_refvals.py:392-422), capped by the table's
+DBL_GYRE_GATES = {
+    ('baro Q_2D', 'U[1]'): [3.0, 3.5, 4.0, 5.0],
+    ('baro Q_2D', 'U[2]'): [3.5, 2.5, 4.0, 4.0],
+    ('baro Q_2D', 'η'): [4.0, 5.0, 2.0, 4.5],
+    ('baro aux', 'Gᵁ[1]'): [2.0, 4.5, 3.0, 3.5],
+    ('baro aux', 'Gᵁ[2]'): [3.5, 2.0, 4.0, 3.5],
+    ('baro aux', 'U_c[1]'): [3.0, 3.5, 4.0, 5.0],
+    ('baro aux', 'U_c[2]'): [3.5, 2.5, 4.0, 4.0],
+    ('baro aux', 'U_s[1]'): [3.0, 3.5, 4.0, 5.0],
+    ('baro aux', 'U_s[2]'): [3.5, 2.5, 4.0, 4.0],
+    ('baro aux', 'y'): [12.0, 12.0, 12.0, 12.0],
+    ('baro aux', 'Δu[1]'): [1.0, 3.5, 4.5, 4.0],
+    ('baro aux', 'Δu[2]'): [3.5, 3.0, 4.5, 4.0],
+    ('baro aux', 'Δη'): [1.5, 0.5, 0.5, 0.5],
+    ('baro aux', 'η_c'): [4.0, 5.0, 2.0, 4.5],
+    ('baro aux', 'η_diag'): [4.0, 5.0, 2.0, 4.5],
+    ('baro aux', 'η_s'): [4.0, 5.0, 2.0, 4.5],
+    ('oce Q_3D', 'u[1]'): [3.5, 3.5, 4.0, 5.0],
+    ('oce Q_3D', 'u[2]'): [4.0, 3.5, 4.0, 4.0],
+    ('oce Q_3D', 'η'): [4.0, 5.0, 2.0, 4.5],
+    ('oce Q_3D', 'θ'): [1.5, 4.0, 4.0, 4.0],
+    ('oce aux', 'pkin'): [4.5, 12.0, 5.0, 5.0],
+    ('oce aux', 'u_d[1]'): [5.0, 4.0, 3.5, 5.0],
+    ('oce aux', 'u_d[2]'): [4.0, 3.5, 3.5, 5.0],
+    ('oce aux', 'w'): [3.5, 3.5, 1.5, 5.5],
+    ('oce aux', 'wz0'): [2.0, 4.0, 4.5, 4.0],
+    ('oce aux', 'y'): [12.0, 12.0, 12.0, 12.0],
+    ('oce aux', 'ΔGu[1]'): [4.5, 2.0, 3.0, 3.5],
+    ('oce aux', 'ΔGu[2]'): [2.0, 3.5, 4.0, 3.5],
+}
+#: the GCM driver entry: Held-Suarez steps through ``invoke`` per surface
+#: pass, the restart's k, its dyadic dt (k·dt and 2k·dt exact), LSRK54
+#: steps of the composable GCM, solid-body rotation's end time
+GCM_STEPS = 5
+GCM_RESTART_K, GCM_RESTART_DT = 3, 0.5
+GCM_LSRK_STEPS = 3
+#: solid-body rotation: the example's end time and the dt its Courant
+#: number gives at its defaults (the JAX example's, 7200 s / 41 steps)
+SBR_TIMEEND, SBR_DT = 7200.0, 7200.0 / 41
 
 KERNELS = {
     "fused_volume_tendency_vm": (
@@ -3854,6 +3970,572 @@ def phase_split_explicit() -> dict:
                                 "peak_memory_bytes", "sim_s_per_wall_s")}
 
 
+# --- the split01 variants -------------------------------------------------
+
+def split01_path(variant: str) -> dict:
+    """``ocean_split_explicit.make_julia(variant)`` on the card at the Julia
+    width: SPLIT01_WARM slow steps, then SPLIT01_STEPS timed, the
+    split-explicit step and the IVDC solves apart (each on the host clock
+    after a synchronize), every launch count set to 0 just before and read
+    just after (all 0); the checks of :func:`split_explicit_path`."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = ocean_split_explicit.make_julia(variant, SPLIT_NX, SPLIT_NZ,
+                                          device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    g3, g2 = cfg.dg3.grid, cfg.dg2.grid
+    check((g3.nelem, g2.nelem) == (SPLIT_NX ** 2 * SPLIT_NZ, SPLIT_NX ** 2)
+          and g3.dtype == g2.dtype == torch.float64
+          and cfg.solver.variant == variant,
+          ("split01 grids", variant, g3.nelem, g2.nelem))
+    windows = cfg.solver.windows()
+    dt = cfg.solver.dt
+    vol0 = ocean_volume(cfg.dg3, cfg.q[0])
+    q, aux, t = cfg.q, cfg.aux, 0.0
+    reset_launch_counts()
+    residuals, split_s, ivdc_s = [], [], []
+    for i in range(SPLIT01_WARM + SPLIT01_STEPS):
+        q, aux, res, ts, ti = ocean_split_explicit.step(
+            cfg, q, aux, t, sync=torch.cuda.synchronize)
+        t += dt
+        residuals.append([r.item() for r in res])
+        if i >= SPLIT01_WARM:
+            split_s.append(ts)
+            ivdc_s.append(ti)
+    counts = launch_counts()
+    wall = sum(split_s) + sum(ivdc_s)
+    eta_scale = cfg.m3.prog(q[0], "eta").abs().max().item()
+    drift = abs(ocean_volume(cfg.dg3, q[0]) - vol0)
+    bound = OCEAN_VOLUME_TOL * abs(torch.sum(g3.M).item() * eta_scale) \
+        + 1e-12
+    summary = ocean_split_explicit.summary(cfg, q)
+    m2 = cfg.m2
+    res = dict(card=nvidia_smi(), variant=variant, elements_3d=g3.nelem,
+               elements_2d=g2.nelem, poly=g3.Nq[0] - 1, dtype="float64",
+               dt_s=dt, fast_dt_s=cfg.solver.fast_dt,
+               add_fast_substeps=cfg.m3.add_fast_substeps,
+               windows=[w[:3] for w in windows],
+               fast_steps_per_slow_step=sum(w[2] for w in windows),
+               ivdc_solves_per_step=cfg.m3.num_impl_steps,
+               warm_steps=SPLIT01_WARM, steps=SPLIT01_STEPS,
+               setup_s=setup_s, ms_per_step=1e3 * wall / SPLIT01_STEPS,
+               split_explicit_ms_per_step=1e3 * sum(split_s) / SPLIT01_STEPS,
+               ivdc_ms_per_step=1e3 * sum(ivdc_s) / SPLIT01_STEPS,
+               step_ms=[1e3 * (a + b) for a, b in zip(split_s, ivdc_s)],
+               sim_s_per_wall_s=dt * SPLIT01_STEPS / wall,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               gmres_residuals=residuals,
+               max_abs_U_c=m2.aux_get(aux[1], "U_c").abs().max().item(),
+               max_abs_deta=m2.aux_get(aux[1], "deta").abs().max().item(),
+               eta_volume_drift=drift, eta_volume_bound=bound,
+               launches=counts, **summary)
+    emit("split01_path", **res)
+    check(summary["finite"], (variant, "state not finite"))
+    check(all(math.isfinite(r) and r <= SPLIT_GMRES_TOL
+              for row in residuals for r in row),
+          (variant, "GMRES residuals", residuals))
+    check(len(residuals[0]) == cfg.m3.num_impl_steps == 5,
+          (variant, "IVDC solves a step", residuals[0]))
+    lo, hi = SPLIT_THETA_RANGE
+    check(lo <= summary["theta_range"][0] and summary["theta_range"][1] <= hi,
+          (variant, "θ range", summary["theta_range"]))
+    check(drift <= bound, (variant, "∫η dV drift", drift, bound))
+    check_launches(counts, expected_launches({}, 0))
+    return res
+
+
+def multirate_gate(minutes: int) -> dict:
+    """The Julia multirate spindown table at a slow dt of ``minutes``
+    (tests/test_split_explicit_refvals.py:186-293) in float64 on the
+    card: SimpleBox(Fixed) with αᵀ = κ = 0 and no advection,
+    CoupledHBModel with 2 added substeps and 5 IVDC solves at dt/5,
+    BarotropicModel with the central flux, the periodic 5 × 5 × 8 box and
+    5 × 5 brick at p4, "split01" with LSRK54 slow and fast at 300 s, one
+    day; the analytic error below SPINDOWN_ERR and the table at the
+    test's digits."""
+    table, digits = MULTIRATE_GATES[minutes]
+    dt = minutes * 60.0
+    Lx = Ly = 1e6
+    H = 400.0
+    problem = SimpleBox(Lx, Ly, H, rotation=Fixed())
+    m3 = CoupledHBModel(problem, c_h=1.0, alpha_T=0.0, kappa_h=0.0,
+                        kappa_z=0.0, momentum_advection=None,
+                        tracer_advection=None, num_impl_steps=5,
+                        ivdc_dt=dt / 5.0, add_fast_substeps=2)
+    m2 = BarotropicModel(problem, turbulence=ConstantViscosity(m3.nu_h),
+                         advection=None, c=1.0)
+    ranges = [np.linspace(0.0, Lx, 6), np.linspace(0.0, Ly, 6)]
+    g2 = make_grid(brick_topology(ranges, periodicity=(True, True)), 4,
+                   dtype=torch.float64, device="cuda")
+    g3 = make_grid(stacked_brick_topology(
+        ranges + [np.linspace(-H, 0.0, 9)], periodicity=(True, True, False),
+        boundary=np.array([[0, 0], [0, 0], [1, 2]])), 4,
+        dtype=torch.float64, device="cuda")
+    dg3 = DGModel(m3, g3)
+    dg2 = DGModel(m2, g2,
+                  numerical_flux_first_order=CentralNumericalFluxFirstOrder())
+    q2, aux2 = init_ode_state(dg2, init_state=problem.sw_init_state)
+    q3, aux3 = init_ode_state(dg3)
+    se = SplitExplicitSolver(LSRK54CarpenterKennedy(dg3, dt),
+                             LSRK54CarpenterKennedy(dg2, 300.0), dg3, dg2,
+                             dt=dt, fast_dt=300.0, variant="split01")
+    nsteps = int(round(86400.0 / dt))
+    q, aux, t = (q3, q2), (aux3, aux2), 0.0
+    reset_launch_counts()
+    residuals = []
+    t0 = time.perf_counter()
+    for _ in range(nsteps):
+        q, aux = se.step(q, aux, t)
+        residuals += se.ivdc_residuals
+        t += dt
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    (q3, q2), (aux3, aux2) = q, aux
+    qe3 = problem.init_state(m3, g3.coords.transpose(1, 2), aux3, t)
+    err3 = ((q3 - qe3).norm() / qe3.norm()).item()
+    pairs = []
+    for i in (0, 1):
+        pairs += [(("3D state", f"u[{i + 1}]"), m3.prog(q3, "u")[:, i]),
+                  (("3D aux", f"uᵈ[{i + 1}]"), m3.aux_get(aux3, "ud")[:, i]),
+                  (("3D aux", f"ΔGᵘ[{i + 1}]"),
+                   m3.aux_get(aux3, "dGu")[:, i]),
+                  (("2D state", f"U[{i + 1}]"), m2.prog(q2, "U")[:, i]),
+                  (("2D aux", f"Gᵁ[{i + 1}]"), m2.aux_get(aux2, "GU")[:, i]),
+                  (("2D aux", f"Δu[{i + 1}]"), m2.aux_get(aux2, "du")[:, i])]
+    pairs += [(("3D state", "η"), m3.prog(q3, "eta")),
+              (("3D state", "θ"), m3.prog(q3, "theta")),
+              (("2D state", "η"), m2.prog(q2, "eta")),
+              (("2D aux", "y"), m2.aux_get(aux2, "y"))]
+    pairs += [(("3D aux", name), m3.aux_get(aux3, name))
+              for name in ("y", "w", "pkin", "wz0")]
+    rv = load_refvals("hydrostatic_spindown")
+    parr = {k: [min(d, digits) for d in v] for k, v in rv.parr.items()}
+    parr[("3D aux", "w")] = [2.0, 2.0, 0.0, 2.0]
+    parr[("3D aux", "wz0")] = [1.0, 1.0, 0.0, 1.0]
+    for k in (("3D aux", "ΔGᵘ[1]"), ("2D aux", "Gᵁ[1]"),
+              ("2D aux", "Δu[1]")):
+        parr[k] = [0.0, 0.0, 0.0, 0.0]
+    reached, failures = check_digits(spindown_stats(pairs),
+                                     getattr(rv, table), parr)
+    gmres = [r.item() for r in residuals]
+    res = dict(card=nvidia_smi(),
+               table=f"tests/refvals/hydrostatic_spindown.py:{table}",
+               elements_3d=g3.nelem, elements_2d=g2.nelem, steps=nsteps,
+               dt_s=dt, seconds=wall, ms_per_step=1e3 * wall / nsteps,
+               analytic_err_3d=err3, analytic_bound=SPINDOWN_ERR,
+               max_gmres_residual=max(gmres),
+               min_digits_reached=min(reached.values()),
+               digits_reached=reached, failures=failures, launches=counts)
+    emit("split01_golden_gate", **res)
+    check(bool(torch.isfinite(q3).all()) and bool(torch.isfinite(q2).all()),
+          (table, "multirate spindown not finite"))
+    check(err3 < SPINDOWN_ERR, (table, "analytic error", err3))
+    check(not failures, (table, "golden table", failures))
+    check(max(gmres) <= SPLIT_GMRES_TOL, (table, "GMRES", max(gmres)))
+    check_launches(counts, expected_launches({}, 0))
+    return res
+
+
+def vertical_integral_gate(table: str) -> dict:
+    """The Julia vertical_integral table ``table`` (tests/
+    test_split_explicit_refvals.py:296-343) on the card in float64: the
+    indefinite column integral of the analytic spindown u against the
+    analytic barotropic state, no stepping."""
+    t = VERTINT_TABLES[table]
+    Lx = Ly = 1e6
+    H = 400.0
+    problem = SimpleBox(Lx, Ly, H, rotation=Fixed())
+    m3 = HydrostaticBoussinesqModel(problem, c_h=1.0, alpha_T=0.0,
+                                    kappa_h=0.0, kappa_z=0.0,
+                                    momentum_advection=None,
+                                    tracer_advection=None)
+    m2 = ShallowWaterModel(problem, turbulence=ConstantViscosity(m3.nu_h),
+                           advection=None, c=1.0)
+    ranges = [np.linspace(0.0, Lx, 6), np.linspace(0.0, Ly, 6)]
+    g2 = make_grid(brick_topology(ranges, periodicity=(True, True)), 4,
+                   dtype=torch.float64, device="cuda")
+    g3 = make_grid(stacked_brick_topology(
+        ranges + [np.linspace(-H, 0.0, 9)], periodicity=(True, True, False),
+        boundary=np.array([[0, 0], [0, 0], [1, 2]])), 4,
+        dtype=torch.float64, device="cuda")
+    aux3 = init_state_auxiliary(m3, g3)
+    aux2 = init_state_auxiliary(m2, g2)
+    q3 = problem.init_state(m3, g3.coords.transpose(1, 2), aux3, t)
+    q2 = problem.sw_init_state(m2, g2.coords.transpose(1, 2), aux2, t)
+    int_u = ColumnOps(g3).indefinite_integral(m3.prog(q3, "u"))
+    pairs = [(("∫u", "∫x[1]"), int_u[:, 0]),
+             (("∫u", "∫x[2]"), int_u[:, 1]),
+             (("U", "η"), m2.prog(q2, "eta")),
+             (("U", "U[1]"), m2.prog(q2, "U")[:, 0]),
+             (("U", "U[2]"), m2.prog(q2, "U")[:, 1])]
+    rv = load_refvals("vertical_integral")
+    reached, failures = check_digits(spindown_stats(pairs),
+                                     getattr(rv, table), rv.parr)
+    res = dict(card=nvidia_smi(),
+               table=f"tests/refvals/vertical_integral.py:{table}", t_s=t,
+               min_digits_reached=min(reached.values()), failures=failures)
+    emit("split01_golden_gate", **res)
+    check(not failures, (table, "vertical_integral table", failures))
+    return res
+
+
+def batched_gmres_check(seed: int) -> dict:
+    """``batched_gmres`` on the card against the same solve on the CPU, in
+    float64, for BATCHED_GMRES systems whose operator differs per row
+    (I + 0.3 N(0, 1)/√n, made from ``seed``): max|x_card − x_cpu| over
+    max|x_cpu| and each residual ‖Ax − b‖/‖b‖."""
+    B, n, k, restarts = BATCHED_GMRES
+    rng = np.random.default_rng(seed)
+    A = np.eye(n)[None] + 0.3 * rng.standard_normal((B, n, n)) / n ** 0.5
+    b = rng.standard_normal((B, n))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        At = torch.as_tensor(A, device=dev)
+        out[dev] = batched_gmres(lambda x: torch.einsum("bij,bj->bi", At, x),
+                                 torch.as_tensor(b, device=dev), n_krylov=k,
+                                 restarts=restarts)
+    torch.cuda.synchronize()
+    x_card, r_card = (v.cpu() for v in out["cuda"])
+    x_cpu = out["cpu"][0]
+    bn = torch.linalg.vector_norm(torch.as_tensor(b), dim=1)
+    rel = (r_card / bn).max().item()
+    err = ((x_card - x_cpu).abs().max() / x_cpu.abs().max()).item()
+    res = dict(card=nvidia_smi(), systems=B, n=n, n_krylov=k,
+               restarts=restarts, max_rel_residual=rel,
+               max_rel_diff_from_cpu=err, tol=BATCHED_GMRES_TOL)
+    emit("batched_gmres", **res)
+    check(rel <= BATCHED_GMRES_TOL, ("batched_gmres residual", rel))
+    check(err <= BATCHED_GMRES_TOL, ("batched_gmres against the CPU", err))
+    return res
+
+
+def phase_split01(seed: int) -> dict:
+    """The split01 variants at the Julia width, the multirate spindown
+    and vertical_integral tables, ``batched_gmres`` (module docstring).
+    Returns {variant: {ms_per_step, split_explicit_ms_per_step,
+    ivdc_ms_per_step, sim_s_per_wall_s}}."""
+    t_phase = time.perf_counter()
+    out = {}
+    for variant in ocean_split_explicit.JULIA:
+        res = split01_path(variant)
+        out[variant] = {k: res[k] for k in (
+            "ms_per_step", "split_explicit_ms_per_step", "ivdc_ms_per_step",
+            "sim_s_per_wall_s", "setup_s", "peak_memory_bytes")}
+    torch.cuda.empty_cache()
+    for minutes in MULTIRATE_GATES:
+        multirate_gate(minutes)
+    for table in VERTINT_DEFAULT:
+        vertical_integral_gate(table)
+    batched_gmres_check(seed)
+    emit("split01_phase", card=nvidia_smi(),
+         seconds=time.perf_counter() - t_phase)
+    return out
+
+
+def julia_gate(name: str) -> dict:
+    """One of the Julia 5-day simple_box gates (JULIA_GATES) at the JAX
+    test's width, steps and digits, on the card in float64."""
+    kw, nsteps, refvals = JULIA_GATES[name]
+    torch.cuda.empty_cache()
+    if kw is None:
+        cfg = ocean_split_explicit.make_dbl_gyre(device="cuda")
+    else:
+        cfg = ocean_split_explicit.make_julia(nx=20, nz=20, device="cuda",
+                                              **kw)
+    rv = load_refvals(refvals)
+    if kw is None:
+        parr = {k: [min(float(d), g) for d, g in zip(rv.parr[k], gates)]
+                for k, gates in DBL_GYRE_GATES.items()}
+    else:
+        parr = {k: [0.0] * 4 if k[1] in JULIA_WINDOW_FIELDS
+                else [min(float(d), 2.0) for d in v]
+                for k, v in rv.parr.items()}
+    q, aux, t, dt = cfg.q, cfg.aux, 0.0, cfg.solver.dt
+    reset_launch_counts()
+    residuals = []
+    t0 = time.perf_counter()
+    for _ in range(nsteps):
+        q, aux = cfg.solver.step(q, aux, t)
+        residuals += cfg.solver.ivdc_residuals
+        t += dt
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    reached, failures = check_digits(
+        ocean_split_explicit.julia_fields(cfg, q, aux), rv.varr, parr)
+    gmres = [r.item() for r in residuals]
+    summary = ocean_split_explicit.summary(cfg, q)
+    res = dict(card=nvidia_smi(), gate=name,
+               table=f"tests/refvals/{refvals}.py:varr",
+               variant=cfg.solver.variant, elements_3d=cfg.dg3.grid.nelem,
+               elements_2d=cfg.dg2.grid.nelem, steps=nsteps, dt_s=dt,
+               seconds=wall, ms_per_step=1e3 * wall / nsteps,
+               max_gmres_residual=max(gmres, default=0.0),
+               min_digits_reached=min(reached.values()),
+               digits_reached=reached, failures=failures, launches=counts,
+               **summary)
+    emit("julia_gate", **res)
+    check(summary["finite"], (name, "state not finite"))
+    check(not failures, (name, "golden table", failures))
+    check(max(gmres, default=0.0) <= SPLIT_GMRES_TOL,
+          (name, "GMRES", max(gmres, default=0.0)))
+    check_launches(counts, expected_launches({}, 0))
+    return res
+
+
+def phase_julia_gates() -> dict:
+    """``--julia-gates``: the four 5-day Julia gates and the
+    vertical_integral tables the default run leaves out; each failure is
+    reported with the others' results before the run exits non-zero."""
+    t_phase = time.perf_counter()
+    out, failed = {}, []
+    gates = [(name, julia_gate) for name in JULIA_GATES]
+    gates += [(table, vertical_integral_gate) for table in VERTINT_TABLES
+              if table not in VERTINT_DEFAULT]
+    for name, gate in gates:
+        try:
+            out[name] = gate(name)
+        except RuntimeError as e:
+            failed.append((name, str(e)[:2000]))
+    emit("julia_gates_phase", card=nvidia_smi(), failed=failed,
+         seconds=time.perf_counter() - t_phase)
+    check(not failed, ("Julia gates failed", [f[0] for f in failed]))
+    return out
+
+
+# --- the GCM driver entry -------------------------------------------------
+
+def gcm_invoke_vs_direct(mode: str) -> dict:
+    """Held-Suarez at bench width through the driver entry
+    (``held_suarez_driver``, IMEX at Courant 0.3, ``invoke``) and through
+    ``IMEXSolverType().make`` with the filter driven by ``solve``, on the
+    same dt, GCM_STEPS steps each under surface pass ``mode``, every
+    launch count set to 0 just before each run and read just after: the
+    states equal bit for bit, the counts equal and are the IMEX path's a
+    step."""
+    driver_init(show_updates="never")
+    t0 = time.perf_counter()
+    sc = held_suarez_driver(N_HORZ, N_VERT, POLY, timeend=0.0, imex=True,
+                            device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    dt = sc.dt
+    sc.timeend = GCM_STEPS * dt
+    sc.solver.vm.surface_kernel = mode
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    invoke(sc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = launch_counts()
+    cfg = held_suarez_config(n_horz=N_HORZ, n_vert=N_VERT, poly_order=POLY,
+                             device="cuda")
+    dg = DGModel(cfg.model, cfg.grid)
+    q0, aux0 = init_ode_state(dg)
+    solver = IMEXSolverType().make(dg, q0, aux0, dt)
+    solver.post_step = HeldSuarezStepFilter(cfg.grid, cfg.model).apply_vm
+    solver.rhs_full.surface_kernel = mode
+    reset_launch_counts()
+    st = solve(q0, aux0, solver, GCM_STEPS * dt)
+    torch.cuda.synchronize()
+    direct = launch_counts()
+    per_step = {"fused_volume_tendency_vm": 3, **{k: 3 for k in CHAIN},
+                "to_blocks_vm": 3, "from_blocks_vm": 2,
+                **{k: 3 for k in SURFACE_LAUNCHES[mode]}}
+    res = dict(card=nvidia_smi(), surface_kernel=mode, n_horz=N_HORZ,
+               n_vert=N_VERT, poly=POLY, dtype="float32", dt_s=dt,
+               courant_number=sc.cfl, steps=GCM_STEPS, setup_s=setup_s,
+               ms_per_step_invoke=1e3 * wall / GCM_STEPS,
+               exact=bool(torch.equal(sc.q, st.q)), launches=counts,
+               launches_direct=direct, finite=bool(torch.isfinite(
+                   sc.q).all()))
+    emit("gcm_invoke_vs_direct", **res)
+    check(res["finite"], ("Held-Suarez invoke not finite", mode))
+    check(res["exact"], ("invoke against the direct IMEX path", mode))
+    check(counts == direct, ("invoke launches", counts, direct))
+    check_launches(counts, expected_launches(per_step, GCM_STEPS))
+    return res
+
+
+def gcm_restart() -> dict:
+    """k steps through ``invoke`` with ``checkpoint_at_end``, a restart
+    from that checkpoint and k more against 2k steps in one run, bit for
+    bit (Held-Suarez IMEX at bench width, float32, dt GCM_RESTART_DT)."""
+    import tempfile
+    k, dt = GCM_RESTART_K, GCM_RESTART_DT
+    kw = dict(imex=True, device="cuda", ode_dt=dt)
+    with tempfile.TemporaryDirectory() as tmp:
+        driver_init(show_updates="never")
+        whole = held_suarez_driver(N_HORZ, N_VERT, POLY, 2 * k * dt, **kw)
+        invoke(whole)
+        driver_init(show_updates="never", checkpoint_dir=tmp,
+                    checkpoint_at_end=True)
+        first = held_suarez_driver(N_HORZ, N_VERT, POLY, k * dt, **kw)
+        invoke(first)
+        t0 = time.perf_counter()
+        driver_init(show_updates="never", checkpoint_dir=tmp)
+        second = held_suarez_driver(N_HORZ, N_VERT, POLY, 2 * k * dt,
+                                    restart_from=(tmp, 9999), **kw)
+        restart_s = time.perf_counter() - t0
+        invoke(second)
+        torch.cuda.synchronize()
+        size = sum(f.stat().st_size for f in pathlib.Path(tmp).iterdir())
+    res = dict(card=nvidia_smi(), k=k, dt_s=dt, t0_restart=second.t0,
+               restart_setup_s=restart_s, checkpoint_bytes=size,
+               dtype=str(second.q.dtype),
+               exact=bool(torch.equal(second.q, whole.q)))
+    emit("gcm_restart", **res)
+    check(second.t0 == k * dt and second.q.dtype == torch.float32,
+          ("restart t0 and dtype", second.t0, second.q.dtype))
+    check(res["exact"], "restart against the unbroken run")
+    return res
+
+
+def gcm_monitors() -> dict:
+    """``MonitorCourant``, ``MonitorTimestepDuration`` and ``AdaptTimestep``
+    once each on Held-Suarez at bench width (IMEX), each callback's host
+    seconds from its call to a synchronize."""
+    driver_init(show_updates="never")
+    sc = held_suarez_driver(N_HORZ, N_VERT, POLY, timeend=0.0, imex=True,
+                            device="cuda")
+    state = SimpleNamespace(q=sc.q, aux=sc.aux, t=0.0, step=0)
+    out = {}
+    mon = cbs.MonitorCourant(sc.dg.grid, sc.dg.balance_law, sc.dt,
+                             every_steps=1)
+    tmon = cbs.MonitorTimestepDuration(every_steps=1)
+    adapt = cbs.AdaptTimestep(sc, every_steps=1, rtol=0.0)
+    dt0 = sc.solver.dt
+    for name, cb in (("courant", mon.make()), ("timestep", tmon.make()),
+                     ("adapt_timestep", adapt.make())):
+        cb.init(state)
+        state.step = 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cb.call(state)
+        torch.cuda.synchronize()
+        out[name + "_host_ms"] = 1e3 * (time.perf_counter() - t0)
+        state.step = 0
+    res = dict(card=nvidia_smi(), courant_advective=mon.last[0],
+               courant_acoustic=mon.last[1], dt_s=dt0,
+               adapted_dt_s=sc.solver.dt, **out)
+    emit("gcm_monitors", **res)
+    check(all(math.isfinite(v) for v in mon.last), ("Courant", mon.last))
+    check(math.isfinite(sc.solver.dt) and sc.solver.dt > dt0,
+          ("AdaptTimestep on the linear model's sound speed",
+           sc.solver.dt, dt0))
+    return res
+
+
+class _MaxSpeed:
+    """A callback: (t, max |u|) after every step."""
+
+    def __init__(self):
+        self.rows = []
+
+    def call(self, state):
+        q = state.q
+        u = torch.linalg.vector_norm(q[:, 1:4] / q[:, :1], dim=1).max()
+        self.rows.append((state.t, u.item()))
+        return False
+
+
+def gcm_solid_body_rotation() -> dict:
+    """examples/solid_body_rotation.py at its defaults through
+    ``AtmosGCMConfiguration`` (4 × 3, p4, float32 as the example runs on
+    an accelerator, Roe, IMEX, Courant 0.2 horizontal, SBR_TIMEEND), max
+    |u| after every step reported with the first time it reaches 0.5
+    m/s: the JAX example does not keep the rest state there (float32 on
+    the CPU: 0.76 m/s after its first step, NaN from 1229 s; float64:
+    8.2e-6 m/s at 1800 s, 9.47 at 3600, NaN at 7200; ROADMAP reference
+    caveats), so the check is the run's: its dt, a finite first step and
+    the kernels' launches a step (the dry volume kernel on the generic
+    operator's 3 explicit stages, the layouts 3 and 2)."""
+    driver_init(show_updates="never")
+    t0 = time.perf_counter()
+    sc = solid_body_rotation.solid_body_rotation_config(
+        timeend=SBR_TIMEEND, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    q0, speed = sc.q, _MaxSpeed()
+    steps = int(round(SBR_TIMEEND / sc.dt))
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    invoke(sc, user_callbacks=(speed,))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = launch_counts()
+    s = solid_body_rotation.rest_summary(sc, q0, sc.q)
+    bound = solid_body_rotation.MAX_ABS_U
+    broke = [t for t, u in speed.rows if not u < bound]
+    res = dict(card=nvidia_smi(), dtype="float32", elements=sc.dg.grid.nelem,
+               dt_s=sc.dt, timeend_s=SBR_TIMEEND, steps=len(speed.rows),
+               setup_s=setup_s, ms_per_step=1e3 * wall / len(speed.rows),
+               max_abs_u_bound=bound,
+               first_t_at_bound=broke[0] if broke else None,
+               max_abs_u_by_step=speed.rows, launches=counts, **s)
+    emit("gcm_solid_body_rotation", **res)
+    check(len(speed.rows) == steps and abs(sc.dt - SBR_DT) < 1e-9 * SBR_DT,
+          ("solid-body rotation steps and dt", len(speed.rows), sc.dt))
+    check(math.isfinite(speed.rows[0][1]),
+          ("solid-body rotation's first step", speed.rows[0]))
+    check_launches(counts, expected_launches(
+        {DRY: 3, "to_blocks_vm": 3, "from_blocks_vm": 2}, steps))
+    return res
+
+
+def gcm_composable(surface_flux: str) -> dict:
+    """``gcm_driver_config("heldsuarez")`` (moist, 8 × 4, p4, float32) with
+    ``surface_flux``: GCM_LSRK_STEPS LSRK54 steps at 0.3 of the acoustic
+    CFL on the generic operator; finite, the mass drift reported."""
+    cfg = gcm_driver_config("heldsuarez", surface_flux=surface_flux,
+                            device="cuda")
+    dg = DGModel(cfg.model, cfg.grid)
+    q0, aux0 = init_ode_state(dg)
+    dt = 0.3 * min_node_distance(cfg.grid) / 350.0
+    solver = LSRK54CarpenterKennedy(dg, dt)
+    m = lambda q: torch.sum(cfg.grid.M.double() * q[:, 0].double()).item()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = solve(q0, aux0, solver, GCM_LSRK_STEPS * dt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    res = dict(card=nvidia_smi(), surface_flux=surface_flux,
+               elements=cfg.grid.nelem, dt_s=dt, steps=st.step,
+               ms_per_step=1e3 * wall / st.step,
+               mass_drift_rel=abs(m(st.q) - m(q0)) / m(q0),
+               finite=bool(torch.isfinite(st.q).all()), launches=counts)
+    emit("gcm_composable", **res)
+    check(res["finite"], ("gcm_driver_config not finite", surface_flux))
+    check(res["mass_drift_rel"] <= MASS_TOL,
+          ("gcm_driver_config mass", res["mass_drift_rel"]))
+    return res
+
+
+def phase_gcm_driver() -> dict:
+    """The GCM driver entry (module docstring).  Returns {ms_per_step_invoke
+    per surface pass, the solid-body rotation's ms_per_step}."""
+    t_phase = time.perf_counter()
+    out = {}
+    for mode in SURFACE_KERNELS:
+        out[mode] = gcm_invoke_vs_direct(mode)["ms_per_step_invoke"]
+        torch.cuda.empty_cache()
+    gcm_restart()
+    torch.cuda.empty_cache()
+    gcm_monitors()
+    out["solid_body_rotation"] = gcm_solid_body_rotation()["ms_per_step"]
+    for flux in ("default", "bulk"):
+        gcm_composable(flux)
+    driver_init(show_updates="never")
+    emit("gcm_driver_phase", card=nvidia_smi(),
+         seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def hold(name, args, kw) -> dict:
     """The kernel on ``args`` and on their first TAIL_E elements against
     two references, its plain version on the card (float32) and in
@@ -3939,39 +4621,63 @@ def main(argv=None) -> int:
     ap.add_argument("--skip-moist", action="store_true",
                     help="leave out the moist baroclinic wave (to run this "
                     "script in a checkout of a commit without it)")
+    ap.add_argument("--julia-gates", action="store_true",
+                    help="also run the four 5-day Julia split01 gates "
+                    "(simple_box_ivd, simple_box_2dt, simple_box_rk3, the "
+                    "double gyre): minutes more")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    emit("options", seed=args.seed, skip_moist=args.skip_moist)
-    phase_device()
-    phase_build()
-    explicit = phase_main_path(args.seed)
-    phase_no_hyperdiffusion(args.seed)
-    imex = phase_imex(args.seed, explicit)
-    generic = phase_generic(args.seed)
-    remainder = phase_remainder(args.seed, moist=False)
-    moist = None if args.skip_moist else phase_moist(args.seed)
+    emit("options", seed=args.seed, skip_moist=args.skip_moist,
+         julia_gates=args.julia_gates)
+    start, seconds = time.perf_counter(), {}
+
+    def timed(name, phase, *a, **kw):
+        """``phase(*a, **kw)``, its wall seconds kept under ``name``."""
+        t0 = time.perf_counter()
+        out = phase(*a, **kw)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("device", phase_device)
+    timed("build", phase_build)
+    explicit = timed("main_path", phase_main_path, args.seed)
+    timed("no_hyperdiffusion", phase_no_hyperdiffusion, args.seed)
+    imex = timed("imex", phase_imex, args.seed, explicit)
+    generic = timed("generic", phase_generic, args.seed)
+    remainder = timed("remainder", phase_remainder, args.seed, moist=False)
+    moist = None if args.skip_moist else timed("moist", phase_moist,
+                                               args.seed)
     if moist:
-        moist_rem = phase_remainder(args.seed, moist=True)
+        moist_rem = timed("moist_remainder", phase_remainder, args.seed,
+                          moist=True)
         remainder["kernels"].update(moist_rem["kernels"])
         remainder["launches"].update(moist_rem["launches"])
-    tracers = None if args.skip_moist else phase_moist_tracers(args.seed)
-    vortex = phase_vortex(args.seed)
-    les = phase_les_bubble(args.seed)
-    les_inviscid = phase_les_inviscid(args.seed)
-    ocean = phase_ocean()
-    split_explicit = phase_split_explicit()
-    phase_kernel_orders(args.seed)
+    tracers = None if args.skip_moist else timed(
+        "moist_tracers", phase_moist_tracers, args.seed)
+    vortex = timed("vortex", phase_vortex, args.seed)
+    les = timed("les_bubble", phase_les_bubble, args.seed)
+    les_inviscid = timed("les_inviscid", phase_les_inviscid, args.seed)
+    ocean = timed("ocean", phase_ocean)
+    split_explicit = timed("split_explicit", phase_split_explicit)
+    split01 = timed("split01", phase_split01, args.seed)
+    if args.julia_gates:
+        timed("julia_gates", phase_julia_gates)
+    gcm = timed("gcm_driver", phase_gcm_driver)
+    timed("kernel_orders", phase_kernel_orders, args.seed)
     if moist:
-        phase_moist_kernel_orders(args.seed)
-    phase_vortex_kernel_orders(args.seed)
+        timed("moist_kernel_orders", phase_moist_kernel_orders, args.seed)
+    timed("vortex_kernel_orders", phase_vortex_kernel_orders, args.seed)
+    emit("phase_seconds", card=nvidia_smi(),
+         total=time.perf_counter() - start, **seconds)
     emit("surface_modes", card=nvidia_smi(),
          vortex_ms_per_step=vortex["ms_per_step"],
          les_ms_per_step=les["ms_per_step"], les_setup_s=les["setup_s"],
          les_peak_memory_bytes=les["peak_memory_bytes"],
          les_inviscid_ms_per_step=les_inviscid["ms_per_step"],
-         ocean=ocean, split_explicit=split_explicit,
+         ocean=ocean, split_explicit=split_explicit, split01=split01,
+         gcm_driver=gcm,
          explicit_ms_per_step=explicit["ms_per_step"],
          imex_ms_per_step=imex["ms_per_step"],
          generic_ms_per_step=generic["ms_per_step"],

@@ -72,6 +72,13 @@ class AtmosLinearModel:
         T_ref = self.aux_spec.get(aux, "ref_state.T")
         return td.soundspeed_air(self.param_set, T_ref)
 
+    def nondiffusive_courant(self, q, aux, dt, delta_x, direction="every"):
+        """c dt / Δx per node with c the reference state's sound speed
+        (the model has no flow speed, in any direction), as the
+        reference's linear model gives it; the JAX package's linear model
+        has no thermo and its Courant number raises."""
+        return self.wavespeed(None, q, aux, 0.0) * dt / delta_x
+
     def boundary_state(self, tag, nrm, q_minus, aux_minus, t):
         return self.atmos.boundary_state(tag, nrm, q_minus, aux_minus, t)
 

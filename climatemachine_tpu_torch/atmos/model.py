@@ -263,6 +263,21 @@ class AtmosModel(BalanceLaw):
         return torch.abs(torch.sum(u * nrm, dim=1)) + td.soundspeed_air(
             self.param_set, T, pp)
 
+    def nondiffusive_courant(self, q, aux, dt, delta_x, direction="every"):
+        """(|u| + c) dt / Δx per node, |u| the speed along the direction
+        ("vertical": along ∇Φ; "horizontal": across it), c the dry sound
+        speed (JAX dg/courant.py ``nondiffusive_courant``)."""
+        T, _, u, _ = self.thermo_full(q, aux)
+        if direction == "every":
+            speed = torch.linalg.vector_norm(u, dim=1)
+        else:
+            k = (self.aux_spec.get(aux, "orientation.grad_Phi")
+                 / self.param_set.grav)
+            un = torch.sum(u * k, dim=1, keepdim=True)
+            speed = (torch.abs(un[:, 0]) if direction == "vertical"
+                     else torch.linalg.vector_norm(u - un * k, dim=1))
+        return (speed + td.soundspeed_air(self.param_set, T)) * dt / delta_x
+
     def compute_gradient_laplacian_argument(self, q, aux, t):
         return self.physics.hyperdiffusion.gradient_laplacian_argument(
             self, q, aux, t)

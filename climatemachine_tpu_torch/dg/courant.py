@@ -12,23 +12,14 @@ from __future__ import annotations
 import torch
 
 from climatemachine_tpu_torch.mesh.grid import min_node_distance
-from climatemachine_tpu_torch.physics import thermodynamics as td
 
 
 def nondiffusive_courant(model, q, aux, dt, delta_x, direction="every"):
-    """(|u| + c) dt / Δx per node, |u| the speed along the direction
-    ("vertical": along ∇Φ; "horizontal": across it), c the dry sound
-    speed."""
-    T, _, u, _ = model.thermo_full(q, aux)
-    if direction == "every":
-        speed = torch.linalg.vector_norm(u, dim=1)
-    else:
-        k = (model.aux_spec.get(aux, "orientation.grad_Phi")
-             / model.param_set.grav)
-        un = torch.sum(u * k, dim=1, keepdim=True)
-        speed = (torch.abs(un[:, 0]) if direction == "vertical"
-                 else torch.linalg.vector_norm(u - un * k, dim=1))
-    return (speed + td.soundspeed_air(model.param_set, T)) * dt / delta_x
+    """The model's own non-diffusive Courant number per node:
+    ``AtmosModel.nondiffusive_courant``, (|u| + c) dt / Δx, or a linear
+    model's (atmos/linear.py, the IMEX solver type's dt model), c dt / Δx
+    with the reference state's sound speed."""
+    return model.nondiffusive_courant(q, aux, dt, delta_x, direction)
 
 
 def advective_courant(model, q, aux, dt, delta_x, direction="every"):

@@ -1,16 +1,19 @@
 """Driver configurations (port of ``climatemachine_tpu/driver/configs.py``
-:30-81: ``DriverConfiguration``, ``grid_stretching_1d`` and
-``AtmosLESConfiguration``).
+:30-105: ``DriverConfiguration``, ``grid_stretching_1d``,
+``AtmosLESConfiguration`` and ``AtmosGCMConfiguration``).
 
 ``AtmosLESConfiguration`` builds the LES box: a stacked brick (lateral
 sides periodic, the bottom wall tag 1, the top tag 2) whose elements are
-``polyorder`` nodes of the resolution Δ across, and its grid, on the
-card unless ``device`` (or the driver's ``disable_gpu`` setting) asks
-for the CPU.
+``polyorder`` nodes of the resolution Δ across, and its grid;
+``AtmosGCMConfiguration`` the stacked cubed sphere of (n_horz, n_vert)
+elements from the planet's radius up to ``domain_height``.  Both put
+the grid on the card unless ``device`` (or the driver's ``disable_gpu``
+setting) asks for the CPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -22,7 +25,12 @@ from climatemachine_tpu_torch.dg.numerical_fluxes import (
     RusanovNumericalFlux)
 from climatemachine_tpu_torch.driver.driver import SETTINGS
 from climatemachine_tpu_torch.mesh.grid import Grid, make_grid
-from climatemachine_tpu_torch.mesh.topology import stacked_brick_topology
+from climatemachine_tpu_torch.mesh.topology import (
+    equiangular_cubed_sphere_warp, stacked_brick_topology,
+    stacked_cubed_sphere_topology)
+
+#: the cubed sphere's warps by name
+_WARPS = {"equiangular": equiangular_cubed_sphere_warp}
 
 
 @dataclass
@@ -93,3 +101,32 @@ def AtmosLESConfiguration(name: str, polyorder: int, resolution: Tuple,
                      else default_device())
     return DriverConfiguration(name, polyorder, grid, model,
                                config_info=dict(resolution=resolution))
+
+
+def AtmosGCMConfiguration(name: str, polyorder: int,
+                          resolution: Tuple[int, int], domain_height: float,
+                          model, planet_radius: Optional[float] = None,
+                          dtype=None, meshwarp=None, device=None
+                          ) -> DriverConfiguration:
+    """The GCM shell: a stacked cubed sphere of ``resolution`` = (n_horz,
+    n_vert) elements, its layers evenly spaced from the planet's radius
+    (``planet_radius``, else the model's parameter set's) up to
+    ``domain_height`` above it, its grid of order ``polyorder`` in
+    ``dtype`` on ``device`` as :func:`AtmosLESConfiguration` takes
+    them.  ``meshwarp`` is a warp name ("equiangular", the default) or a
+    callable (x1, x2, x3) → (x1, x2, x3) of the nodal coordinates in its
+    place."""
+    n_horz, n_vert = resolution
+    a = planet_radius if planet_radius is not None \
+        else model.param_set.planet_radius
+    vert_range = a + np.linspace(0.0, domain_height, n_vert + 1)
+    topology = stacked_cubed_sphere_topology(n_horz, vert_range)
+    if meshwarp is not None:
+        topology = dataclasses.replace(topology, meshwarp=(
+            _WARPS[meshwarp] if isinstance(meshwarp, str) else meshwarp))
+    grid = make_grid(topology, polyorder, dtype=_torch_dtype(dtype),
+                     device=device if device is not None
+                     else default_device())
+    return DriverConfiguration(name, polyorder, grid, model,
+                               config_info=dict(n_horz=n_horz, n_vert=n_vert,
+                                                domain_height=domain_height))

@@ -5,12 +5,21 @@
 Settings come from the command line, else the environment
 (``CLIMATEMACHINE_SETTINGS_<NAME>``), else ``init``'s keywords, else the
 defaults.  ``invoke`` runs a solver configuration to its end time with
-the standard callbacks and returns norm(Q)/norm(Q₀).  Not ported, and
-refused when a setting asks for them: diagnostics, VTK output, the
-timestep and Courant monitors, adaptive time steps, checkpoints and
-restarts.  The run's device is the configuration's (the card unless
-its ``device`` or ``disable_gpu`` asks for the CPU, see
-driver/configs.py).
+the standard callbacks and returns norm(Q)/norm(Q₀): the summary log
+(``show_updates``), the timestep and Courant monitors
+(``monitor_timestep_duration``, ``monitor_courant_numbers``), adaptive
+time steps (``adapt_timestep``), checkpoints every ``checkpoint``
+interval into ``checkpoint_dir`` (``checkpoint_keep_one``), at the end
+(``checkpoint_at_end``) and at the step that crashed
+(``checkpoint_on_crash``), number 9999 both; ``restart_from_num`` is
+read by the experiment scripts, which pass it to
+``make_solver_configuration(restart_from=...)``.  A step interval fires
+every N steps; a simulated-time or wall-time interval fires as the
+summary log's does (the JAX package runs its monitors every 100 steps
+whatever the interval says; the port takes the interval).  Not ported,
+and refused when a setting asks for them: diagnostics and VTK output.
+The run's device is the configuration's (the card unless its
+``device`` or ``disable_gpu`` asks for the CPU, see driver/configs.py).
 """
 
 from __future__ import annotations
@@ -31,8 +40,7 @@ _ENV_PREFIX = "CLIMATEMACHINE_SETTINGS_"
 @dataclass
 class Settings:
     """The JAX package's settings that the port reads or refuses (the
-    intervals of callbacks that are not ported, checkpoints, restarts,
-    ``debug_init``)."""
+    intervals of the callbacks that are not ported, ``debug_init``)."""
     disable_gpu: bool = False
     show_updates: str = "60secs"
     diagnostics: str = "never"
@@ -41,8 +49,10 @@ class Settings:
     monitor_courant_numbers: str = "never"
     adapt_timestep: str = "never"
     checkpoint: str = "never"
+    checkpoint_keep_one: bool = True
     checkpoint_at_end: bool = False
     checkpoint_on_crash: bool = False
+    checkpoint_dir: str = "checkpoint"
     restart_from_num: int = -1
     debug_init: bool = False
     log_level: str = "INFO"
@@ -51,11 +61,10 @@ class Settings:
 SETTINGS = Settings()
 
 #: interval settings that ask for a callback that is not ported
-_NOT_PORTED_INTERVALS = {
-    "diagnostics": "diagnostics", "vtk": "VTK output",
-    "monitor_timestep_duration": "the timestep monitor",
-    "monitor_courant_numbers": "the Courant monitor",
-    "adapt_timestep": "adaptive time steps", "checkpoint": "checkpoints"}
+_NOT_PORTED_INTERVALS = {"diagnostics": "diagnostics", "vtk": "VTK output"}
+
+#: the number of the checkpoints written at the end and on a crash
+FINAL_CHECKPOINT = 9999
 
 _INTERVAL_RE = re.compile(
     r"^([0-9.]+)(smonths|sdays|shours|smins|ssecs|steps)$")
@@ -149,36 +158,96 @@ def _refuse_unported(diagnostics_config):
         if parse_interval(getattr(SETTINGS, name), 1.0) is not None:
             raise NotImplementedError(f"next slice: {what} ({name}="
                                       f"{getattr(SETTINGS, name)!r})")
-    if (SETTINGS.checkpoint_at_end or SETTINGS.checkpoint_on_crash
-            or SETTINGS.restart_from_num >= 0):
-        raise NotImplementedError("next slice: checkpoints and restarts")
+
+
+def _every(spec: str, dt: float, make):
+    """``make(n)``, a callback every n steps, for a step interval; for a
+    simulated-time or wall-time one ``make(1)``'s ``fn`` behind
+    :func:`_interval_callback`; None for 'never'."""
+    parsed = parse_interval(spec, dt)
+    if parsed is None:
+        return None
+    if parsed[0] == "steps":
+        return make(int(parsed[1]))
+    return _interval_callback(spec, dt, make(1).fn)
+
+
+def standard_callbacks(sc) -> list:
+    """The callbacks the settings ask for on configuration ``sc``, in the
+    JAX package's order: summary log, timestep monitor, Courant monitor,
+    adaptive time step, checkpoints."""
+    from climatemachine_tpu_torch.driver import callbacks as cbs
+    S, dt = SETTINGS, sc.dt
+    makers = (
+        (S.show_updates,
+         lambda n: cbs.SummaryLog(sc.dg.grid, every_steps=n).make()),
+        (S.monitor_timestep_duration,
+         lambda n: cbs.MonitorTimestepDuration(every_steps=n).make()),
+        (S.monitor_courant_numbers,
+         lambda n: cbs.MonitorCourant(sc.dg.grid, sc.dg.balance_law, dt,
+                                      every_steps=n).make()),
+        (S.adapt_timestep,
+         lambda n: cbs.AdaptTimestep(sc, every_steps=n).make()),
+        (S.checkpoint,
+         lambda n: cbs.CheckpointCallback(
+             S.checkpoint_dir, sc.name, every_steps=n,
+             keep_one=S.checkpoint_keep_one).make()))
+    return [cb for cb in (_every(spec, dt, make) for spec, make in makers)
+            if cb is not None]
+
+
+class _StateTracker:
+    """The first callback: keeps the state of the last completed step, so
+    that a crash checkpoint holds the state at the crash (also when a
+    later callback is what raises)."""
+    state = None
+
+    def call(self, state):
+        self.state = state
+        return False
 
 
 def invoke(solver_config, user_callbacks: Sequence = (),
            diagnostics_config=None, check_cons: Sequence = ()) -> float:
     """Run ``solver_config`` from t0 to its ``timeend`` with the user's
-    callbacks, the summary log of ``show_updates`` and the conservation
-    checks ``check_cons``; leave the final state in ``solver_config.q``
-    and ``.aux``.  Returns norm(Q)/norm(Q₀) (M-weighted)."""
+    callbacks, those the settings ask for (:func:`standard_callbacks`)
+    and the conservation checks ``check_cons``; leave the final state in
+    ``solver_config.q`` and ``.aux``.  With ``checkpoint_on_crash`` an
+    exception from the run first writes checkpoint 9999 of the last
+    completed step (of the initial state before the first), then
+    propagates.  Returns norm(Q)/norm(Q₀) (M-weighted)."""
     from climatemachine_tpu_torch.dg.reductions import norm
-    from climatemachine_tpu_torch.driver import callbacks as cbs
+    from climatemachine_tpu_torch.driver import checkpoint as cp
     from climatemachine_tpu_torch.ode.solve import solve
 
     _refuse_unported(diagnostics_config)
     sc = solver_config
-    callbacks = list(user_callbacks)
-    summary = _interval_callback(SETTINGS.show_updates, sc.dt,
-                                 cbs.SummaryLog(sc.dg.grid).make().fn)
-    if summary is not None:
-        callbacks.append(summary)
+    tracker = _StateTracker()
+    callbacks = [tracker, *user_callbacks, *standard_callbacks(sc)]
     callbacks.extend(check.make() for check in check_cons)
 
     eng0 = float(norm(sc.dg.grid, sc.q))
     logger.info("starting: norm(Q) = %.16e", eng0)
-    state = solve(sc.q, sc.aux, sc.solver, sc.timeend, t0=sc.t0,
-                  callbacks=callbacks)
+    try:
+        state = solve(sc.q, sc.aux, sc.solver, sc.timeend, t0=sc.t0,
+                      callbacks=callbacks)
+    except Exception:
+        if SETTINGS.checkpoint_on_crash:
+            st = tracker.state
+            if st is not None:
+                cp.write_checkpoint(SETTINGS.checkpoint_dir, sc.name,
+                                    FINAL_CHECKPOINT, st.q, st.aux, st.t,
+                                    st.step)
+            else:
+                cp.write_checkpoint(SETTINGS.checkpoint_dir, sc.name,
+                                    FINAL_CHECKPOINT, sc.q, sc.aux, sc.t0, 0)
+        raise
     sc.q, sc.aux = state.q, state.aux
     engf = float(norm(sc.dg.grid, state.q))
     logger.info("finished: norm(Q) = %.16e  ratio %.16e", engf,
                 engf / eng0 if eng0 else float("nan"))
+    if SETTINGS.checkpoint_at_end:
+        cp.write_checkpoint(SETTINGS.checkpoint_dir, sc.name,
+                            FINAL_CHECKPOINT, state.q, state.aux, state.t,
+                            state.step)
     return engf / eng0 if eng0 else float("nan")

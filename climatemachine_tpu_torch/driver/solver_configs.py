@@ -8,8 +8,12 @@ with its numerical fluxes, the initial state, dt from the Courant number
 snapped so that whole steps land on ``timeend``, and the solver of the
 solver type (``ExplicitSolverType()`` by default: "auto" puts a model
 with a turbulence closure on the generic DG operator and an inviscid
-one that the var-major RHS takes on that RHS).  Restarts and the
-initial-state dump (``debug_init``) are not ported.
+one that the var-major RHS takes on that RHS).  ``restart_from=
+(directory, num)`` takes q, aux and t0 from that checkpoint
+(driver/checkpoint.py; a file the JAX package wrote too), on the
+configuration's device in its grid's dtype, in place of the initial
+state; dt then comes from the restored state.  The initial-state dump
+(``debug_init``) is not ported.
 """
 
 from __future__ import annotations
@@ -22,8 +26,10 @@ from climatemachine_tpu_torch.dg.courant import (calculate_dt,
                                                  nondiffusive_courant)
 from climatemachine_tpu_torch.dg.spatial import DGModel, init_ode_state
 from climatemachine_tpu_torch.driver.configs import DriverConfiguration
+from climatemachine_tpu_torch.driver.checkpoint import read_checkpoint
 from climatemachine_tpu_torch.driver.driver import SETTINGS
 from climatemachine_tpu_torch.driver.solver_types import ExplicitSolverType
+from climatemachine_tpu_torch.interop import state_from_numpy
 
 
 @dataclass
@@ -47,10 +53,9 @@ def make_solver_configuration(
         ode_solver_type=None, Courant_number: Optional[float] = None,
         ode_dt: Optional[float] = None, CFL_direction: str = "every",
         restart_from: Optional[tuple] = None) -> SolverConfiguration:
-    """The runnable configuration of ``driver_config`` from t0 to
-    ``timeend`` (a ``timeend`` not after t0 leaves dt as computed)."""
-    if restart_from is not None:
-        raise NotImplementedError("next slice: restarts (checkpoints)")
+    """The runnable configuration of ``driver_config`` from t0 (the
+    checkpoint's with ``restart_from``) to ``timeend`` (a ``timeend``
+    not after t0 leaves dt as computed)."""
     if SETTINGS.debug_init:
         raise NotImplementedError("next slice: debug_init (VTK output)")
     dc = driver_config
@@ -58,7 +63,13 @@ def make_solver_configuration(
                  numerical_flux_first_order=dc.numerical_flux_first_order,
                  numerical_flux_gradient=dc.numerical_flux_gradient,
                  numerical_flux_second_order=dc.numerical_flux_second_order)
-    q, aux = init_ode_state(dg, t0)
+    if restart_from is not None:
+        directory, num = restart_from
+        qn, auxn, t0, _ = read_checkpoint(directory, dc.name, num)
+        q, aux = state_from_numpy(qn, auxn, device=dc.grid.device,
+                                  dtype=dc.grid.dtype, model=dc.model)
+    else:
+        q, aux = init_ode_state(dg, t0)
     cn = Courant_number if Courant_number is not None else 0.4
     if ode_dt is not None:
         dt = float(ode_dt)

@@ -92,6 +92,10 @@ class ExplicitSolverType:
     solver_method: Callable = LSRK54CarpenterKennedy
     state_layout: str = "auto"
 
+    def getdtmodel(self, bl):
+        """The model whose Courant number sets dt: the balance law."""
+        return bl
+
     def make(self, dg: DGModel, q0, aux0, dt: float):
         _refuse_unported(dg, self.state_layout)
         if _generic(dg, self.state_layout):
@@ -122,6 +126,11 @@ class IMEXSolverType:
     columnwise_solver: str = "banded"
     check_frozen_operator: bool = True
     state_layout: str = "auto"
+
+    def getdtmodel(self, bl):
+        """The model whose Courant number sets dt: the implicit linear
+        model (the rest of the dynamics is treated implicitly)."""
+        return self.implicit_model(bl)
 
     def make(self, dg: DGModel, q0, aux0, dt: float):
         dense = self.columnwise_solver == "dense"

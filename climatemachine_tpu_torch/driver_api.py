@@ -8,6 +8,11 @@ the names the port provides): what an experiment script needs.
 >>> sc = cm.make_solver_configuration(0.0, 10.0, dc, Courant_number=0.4)
 >>> cm.invoke(sc)
 
+The GCM: ``cm.AtmosGCMConfiguration(name, p, (n_horz, n_vert), height,
+model)`` for a cubed sphere, or ``cm.gcm_driver_config(...)`` for the
+composable GCM experiment; a run restarts from a checkpoint with
+``make_solver_configuration(..., restart_from=(directory, num))``.
+
 The ocean box GCM: ``cm.HydrostaticBoussinesqModel(cm.OceanGyre(Lx, Ly,
 H), c_h=...)`` on ``cm.ocean_box_grid(problem, nx, ny, nz, p)``, or the
 one-call ``cm.HydrostaticBoussinesqSuperModel(cm.RectangularDomain(...),
@@ -63,17 +68,30 @@ from climatemachine_tpu_torch.ode.lsrk import (LSRK54CarpenterKennedy,
                                                LSRK144NiegemannDiehlBusch)
 from climatemachine_tpu_torch.ode.solve import solve
 
-from climatemachine_tpu_torch.driver.configs import (AtmosLESConfiguration,
+from climatemachine_tpu_torch.driver.callbacks import (
+    AdaptTimestep, CheckpointCallback, ConservationCheck, MonitorCourant,
+    MonitorTimestepDuration, show_not_finite_fields)
+from climatemachine_tpu_torch.driver.checkpoint import (read_checkpoint,
+                                                        write_checkpoint)
+from climatemachine_tpu_torch.driver.configs import (AtmosGCMConfiguration,
+                                                     AtmosLESConfiguration,
                                                      DriverConfiguration)
 from climatemachine_tpu_torch.driver.driver import SETTINGS, init, invoke
 from climatemachine_tpu_torch.driver.solver_configs import (
     SolverConfiguration, make_solver_configuration)
 from climatemachine_tpu_torch.driver.solver_types import (
-    ExplicitSolverType, IMEXSolverType, MultirateSolverType)
+    ExplicitSolverType, IMEXSolverType, MultirateSolverType,
+    SplitExplicitSolverType)
+
+from climatemachine_tpu_torch.experiments.gcm_driver import (
+    VaryingSSTTJ16, gcm_driver_config)
 
 from climatemachine_tpu_torch.ocean.hydrostatic_boussinesq import (
     HydrostaticBoussinesqModel)
 from climatemachine_tpu_torch.ocean.problems import (OceanGyre, SimpleBox,
                                                      ocean_box_grid)
+from climatemachine_tpu_torch.ocean.shallow_water import ShallowWaterModel
+from climatemachine_tpu_torch.ocean.split_explicit import (
+    BarotropicModel, CoupledHBModel, SplitExplicitSolver)
 from climatemachine_tpu_torch.ocean.super_model import (
     HydrostaticBoussinesqSuperModel, InitialConditions, RectangularDomain)

@@ -1,10 +1,19 @@
 """Dry Held-Suarez GCM (port of
 ``climatemachine_tpu/experiments/held_suarez.py``: held_suarez_config
 :153, HeldSuarezForcing.contributions :45 and contributions_vm :76,
-held_suarez_init :105, HeldSuarezStepFilter.apply_vm :216).
+held_suarez_init :105, HeldSuarezStepFilter.apply_vm :216; and of
+``examples/heldsuarez.py`` :33-51, the run through the driver entry,
+:func:`held_suarez_driver` and the command line below).
 
 Everything is var-major: coordinates ``[E, 3, Np]``, state and aux
 ``[E, n, Np]``.
+
+    python -m climatemachine_tpu_torch.experiments.held_suarez \
+        [--n-horz 4] [--n-vert 3] [--poly 4] [--timeend 600] [--imex] \
+        [--device cpu] [driver settings: --checkpoint 10steps
+        --checkpoint-at-end true --restart-from-num N --adapt-timestep
+        5steps --monitor-courant-numbers 5steps
+        --monitor-timestep-duration 5steps --show-updates 10steps ...]
 """
 
 from __future__ import annotations
@@ -159,3 +168,67 @@ class HeldSuarezStepFilter:
         ref[:, self.i_rho] = auxv[:, self.i_rho_ref]
         ref[:, self.i_rhoe] = auxv[:, self.i_rhoe_ref]
         return self.filt.apply_vm(qv - ref) + ref
+
+
+def held_suarez_driver(n_horz: int = 4, n_vert: int = 3, poly_order: int = 4,
+                       timeend: float = 600.0, imex: bool = False,
+                       dtype=torch.float32, device=None,
+                       hyperdiffusion_tau: float = 8 * 3600.0,
+                       restart_from=None, ode_dt=None):
+    """The solver configuration of examples/heldsuarez.py: a
+    ``DriverConfiguration`` of :func:`held_suarez_config`,
+    ``make_solver_configuration(0, timeend, ..., IMEXSolverType() or
+    ExplicitSolverType(), Courant_number=0.3)`` (dt as given by
+    ``ode_dt``, or from the checkpoint ``restart_from`` = (directory,
+    num) on), and :class:`HeldSuarezStepFilter`'s ``apply_vm`` as the
+    solver's ``post_step``; run it with ``driver.invoke``."""
+    from climatemachine_tpu_torch.driver.configs import DriverConfiguration
+    from climatemachine_tpu_torch.driver.solver_configs import \
+        make_solver_configuration
+    from climatemachine_tpu_torch.driver.solver_types import (
+        ExplicitSolverType, IMEXSolverType)
+    cfg = held_suarez_config(n_horz=n_horz, n_vert=n_vert,
+                             poly_order=poly_order, dtype=dtype,
+                             hyperdiffusion_tau=hyperdiffusion_tau,
+                             device=device)
+    dc = DriverConfiguration("heldsuarez", poly_order, cfg.grid, cfg.model)
+    sc = make_solver_configuration(
+        0.0, timeend, dc,
+        ode_solver_type=IMEXSolverType() if imex else ExplicitSolverType(),
+        Courant_number=0.3, ode_dt=ode_dt, restart_from=restart_from)
+    sc.solver.post_step = HeldSuarezStepFilter(cfg.grid, cfg.model).apply_vm
+    return sc
+
+
+def main(argv=None):
+    import argparse
+
+    from climatemachine_tpu_torch.driver import driver
+    ap = argparse.ArgumentParser(description="Held-Suarez through the "
+                                 "driver entry")
+    ap.add_argument("--n-horz", type=int, default=4)
+    ap.add_argument("--n-vert", type=int, default=3)
+    ap.add_argument("--poly", type=int, default=4)
+    ap.add_argument("--timeend", type=float, default=600.0)
+    ap.add_argument("--imex", action="store_true",
+                    help="HEVI IMEX (ARK2GKC and the column solve)")
+    ap.add_argument("--device", default=None)
+    args, _ = ap.parse_known_args(argv)
+    settings = driver.init(parse_clargs=True, argv=argv)
+    device = args.device or ("cpu" if settings.disable_gpu else None)
+    restart = None
+    if settings.restart_from_num >= 0:
+        restart = (settings.checkpoint_dir, settings.restart_from_num)
+    sc = held_suarez_driver(args.n_horz, args.n_vert, args.poly,
+                            args.timeend, args.imex, device=device,
+                            dtype=torch.float64 if device == "cpu"
+                            else torch.float32, restart_from=restart)
+    print(f"dt = {sc.dt:.2f} s, elements = {sc.dg.grid.nelem}, "
+          f"solver = {'IMEX' if args.imex else 'explicit LSRK'}, "
+          f"t0 = {sc.t0:.1f} s", flush=True)
+    ratio = driver.invoke(sc)
+    print(f"norm(Q)/norm(Q0) = {ratio:.6f}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

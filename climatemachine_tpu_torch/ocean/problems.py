@@ -11,6 +11,8 @@ OceanBoxGCMConfiguration): lateral walls 1, the floor 2, the surface 3.
 
 from __future__ import annotations
 
+import math
+
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -32,8 +34,21 @@ class Rotating:
 
 
 def _expm_ones(M, t: float):
-    """exp(M t) · 1 as python floats (``torch.linalg.matrix_exp`` in
-    float64 on the host)."""
+    """exp(M t) · 1 as python floats, in float64 on the host: a 2 × 2 M
+    with complex eigenvalues τ ± iω in closed form, e^{τt}(cos ωt I +
+    sin ωt (M − τI)/ω); any other by ``torch.linalg.matrix_exp``, whose
+    scaling and squaring loses digits as ‖M t‖ grows (1e-11 relative at
+    ‖M t‖ ≈ 1e5, the spindown box's 30 days, against 3e-14 for the closed
+    form)."""
+    M = np.asarray(M, dtype=np.float64)
+    if M.shape == (2, 2):
+        tau = 0.5 * (M[0, 0] + M[1, 1])
+        w2 = M[0, 0] * M[1, 1] - M[0, 1] * M[1, 0] - tau * tau
+        if w2 > 0.0:
+            w = math.sqrt(w2)
+            E = math.exp(tau * t) * (math.cos(w * t) * np.eye(2) + math.sin(
+                w * t) / w * (M - tau * np.eye(2)))
+            return E.sum(axis=1).tolist()
     E = torch.linalg.matrix_exp(torch.tensor(M, dtype=torch.float64) * t)
     return E.sum(dim=1).tolist()
 

@@ -58,12 +58,17 @@ class AdditiveRungeKutta:
         self.post_step = post_step
 
     def _factors(self):
-        """{γ: the solver's factorization of (I − γ·dt·L)}."""
+        """{γ: the solver's factorization of (I − γ·dt·L)} at the dt in
+        force; the solver drops the factorizations of any other dt (a
+        restart or an adapted dt changes it)."""
         out = {}
         for i in range(self.nstages):
             g = float(self.A_im[i, i])
             if g and g not in out:
                 out[g] = self.solver.prefactorize(g * self.dt)
+        drop = getattr(self.solver, "drop_factors", None)
+        if drop is not None:
+            drop(keep={g * self.dt for g in out})
         return out
 
     def step(self, q, aux, t: float):

@@ -5,7 +5,8 @@ on the card.
     python -m climatemachine_tpu_torch.profile_step [--steps N] [--out DIR]
         [--no-hyperdiffusion] [--imex] [--surface-kernel {xla,hybrid,pallas}]
         [--grid] [--dense] [--moist] [--dt SECONDS] [--les]
-        [--ocean [--problem {homogeneous,gyre}]] [--split-explicit]
+        [--ocean [--problem {homogeneous,gyre}]]
+        [--split-explicit [--variant {new,split01,split01_3n}]]
 
 Builds a ``chip_smoke.py`` path (dry Held-Suarez p4 with DryBiharmonic(8
 h) hyperdiffusion, n_horz=16, n_vert=8, float32, with the every-step
@@ -42,8 +43,11 @@ brick, float64, LSRK54 slow at 5400 s and fast at 240 s, 5 IVDC solves
 a slow step), whose step is a slow step and its IVDC solves; its spans
 are ``slow_rhs`` (the 3-D RHS after its filters), ``transfer`` (Gᵁ and
 ΔGᵘ), ``fast`` (a stage's fast steps), ``reconcile`` (Δu and η down the
-columns) and ``ivdc`` with ``gmres`` inside it (these two the
-experiment's and ocean/ivdc.py's own).  It warms up, times ``--steps``
+columns) and ``ivdc`` with ``gmres`` inside it (these two the solver's
+and ocean/ivdc.py's own); ``--variant split01`` or ``split01_3n`` takes
+the Julia simple_box configuration of that variant instead
+(``ocean_split_explicit.make_julia``), whose stages run ``fast_window``
+(the averaging window's fast steps) and ``reconcile_split01``.  It warms up, times ``--steps``
 steps with tracing off, then traces the same number of steps with
 ``torch.profiler``.  The RHS's parts (the surface kernels' stages as
 ``extract`` and ``lift`` inside ``surface``), and on the IMEX step the
@@ -146,7 +150,8 @@ class SplitExplicitStep:
 
     def __init__(self, cfg):
         self.cfg, se = cfg, cfg.solver
-        for name in ("slow_rhs", "transfer", "fast", "reconcile"):
+        for name in ("slow_rhs", "transfer", "fast", "fast_window",
+                     "reconcile", "reconcile_split01"):
             setattr(se, "_" + name, _span(name, getattr(se, "_" + name)))
 
     def step(self, q, aux, t):
@@ -233,6 +238,8 @@ def main(argv=None):
     ap.add_argument("--ocean", action="store_true")
     ap.add_argument("--problem", choices=PROBLEMS, default="homogeneous")
     ap.add_argument("--split-explicit", action="store_true")
+    ap.add_argument("--variant", default="new",
+                    choices=("new",) + tuple(ocean_split_explicit.JULIA))
     args = ap.parse_args(argv)
     args.imex |= args.dense
     power = subprocess.run(
@@ -243,7 +250,9 @@ def main(argv=None):
     tau = None if args.no_hyperdiffusion else 8 * 3600.0
     cfg = sc = solver = None
     if args.split_explicit:
-        cfg = ocean_split_explicit.make(device="cuda")
+        cfg = (ocean_split_explicit.make(device="cuda")
+               if args.variant == "new" else ocean_split_explicit.make_julia(
+                   args.variant, device="cuda"))
         dg, q, aux, dt = cfg.dg3, cfg.q, cfg.aux, cfg.solver.dt
         solver, rhs, tau = SplitExplicitStep(cfg), cfg.dg3, None
     elif args.ocean:
@@ -326,7 +335,8 @@ def main(argv=None):
                                           "profile_step_trace.json"))
     print(json.dumps({
         "card": power, "steps": args.steps,
-        "model": ("split-explicit ocean gyre" if args.split_explicit
+        "model": (f"split-explicit ocean gyre ({args.variant})"
+                  if args.split_explicit
                   else f"ocean box GCM ({args.problem})" if args.ocean
                   else "rising bubble LES (SmagorinskyLilly)" if args.les
                   else "moist baroclinic wave" if args.moist

@@ -250,6 +250,11 @@ class BlockTridiagColumnSolver:
             self._cached[key] = self._factor(alpha_dt)
         return self._cached[key]
 
+    def drop_factors(self, keep):
+        """Drop the kept factorizations of every α·dt not in ``keep``."""
+        for key in [k for k in self._cached if k not in keep]:
+            del self._cached[key]
+
     def solve_blocks(self, rhs_b, alpha_dt, factors=None):
         """x with (I − α·dt·L) x = rhs, all ``[nv, nb, ncol]``: block
         forward and back substitution."""
@@ -357,6 +362,11 @@ class ManyColumnSolver:
         if key not in self._cached:
             self._cached[key] = self._factor(alpha_dt)
         return self._cached[key]
+
+    def drop_factors(self, keep):
+        """Drop the kept inverses of every α·dt not in ``keep``."""
+        for key in [k for k in self._cached if k not in keep]:
+            del self._cached[key]
 
     def solve(self, rhs, alpha_dt, factors=None):
         """q with (I − α·dt·L) q = rhs: ``factors`` if given, else the

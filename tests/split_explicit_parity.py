@@ -94,11 +94,13 @@ class Jitted:
         self._call = jax.jit(lambda q, a, t: dg(q, a, t))
         self._pre = jax.jit(lambda q, a, t: dg.pre_stage(q, a, t))
 
+    # t as a Python float: a numpy float64 (the 3N coefficients') would
+    # trace a second program
     def __call__(self, q, aux, t):
-        return self._call(q, aux, t)
+        return self._call(q, aux, float(t))
 
     def pre_stage(self, q, aux, t):
-        return self._pre(q, aux, t)
+        return self._pre(q, aux, float(t))
 
 
 def sw_pair(case, periodic, barotropic=False, seed=0, turb="visc",

@@ -168,9 +168,12 @@ def test_settings_precedence(monkeypatch):
     cm.init(show_updates="never")
 
 
-def test_summary_log_and_refusals(caplog):
+def test_summary_log_and_refusals(caplog, tmp_path):
     """``show_updates`` logs norm(Q) every N steps; a setting that asks
-    for a callback the port has not got refuses to run."""
+    for a callback the port has not got (VTK output, diagnostics, the
+    initial dump) refuses to run; the monitors, adaptive time steps,
+    checkpoints and restarts run (tests/test_torch_driver_checkpoint.py
+    holds them against the JAX package)."""
     cm.init(show_updates="2steps")
     dc = cm.AtmosLESConfiguration("bubble", 2, (250.0, 250.0, 250.0),
                                   1000.0, 1000.0, 1000.0, port_model(),
@@ -182,18 +185,25 @@ def test_summary_log_and_refusals(caplog):
     steps = [r.getMessage().split()[1] for r in caplog.records
              if r.getMessage().startswith("step ")]
     assert steps == ["2", "4"]
-    for kw in (dict(checkpoint="10steps"), dict(vtk="5steps"),
-               dict(monitor_courant_numbers="1steps"),
-               dict(adapt_timestep="10steps"),
-               dict(diagnostics="1ssecs"), dict(checkpoint_at_end=True)):
+    for kw in (dict(vtk="5steps"), dict(diagnostics="1ssecs")):
         cm.init(show_updates="never", **kw)
         with pytest.raises(NotImplementedError, match="next slice"):
             cm.invoke(sc)
+    for kw in (dict(checkpoint="10steps"),
+               dict(monitor_courant_numbers="1steps"),
+               dict(monitor_timestep_duration="1steps"),
+               dict(adapt_timestep="10steps"), dict(checkpoint_at_end=True)):
+        cm.init(show_updates="never", checkpoint_dir=str(tmp_path), **kw)
+        sc = cm.make_solver_configuration(0.0, -1.0, dc, Courant_number=0.4)
+        sc.timeend = 2 * sc.dt
+        assert np.isfinite(cm.invoke(sc))
+    end_q, end_t = sc.q, sc.timeend
     cm.init(show_updates="never", debug_init=True)
     with pytest.raises(NotImplementedError, match="next slice"):
         cm.make_solver_configuration(0.0, 1.0, dc)
     cm.init(show_updates="never")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cm.make_solver_configuration(0.0, 1.0, dc, restart_from=(".", 0))
+    sc = cm.make_solver_configuration(0.0, 1.0, dc,
+                                      restart_from=(str(tmp_path), 9999))
+    assert sc.t0 == end_t and torch.equal(sc.q, end_q)
     with pytest.raises(NotImplementedError, match="next slice"):
         cm.invoke(sc, diagnostics_config=object())

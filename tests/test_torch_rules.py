@@ -94,25 +94,25 @@ def test_scan_reaches_split_explicit_modules():
                                   "ivdc_coefficients", "ivdc_solve"])
 def test_next_slice_ocean_names_raise(name):
     """The shallow-water model, the split-explicit coupling and IVDC are
-    ported: each name is its module's object.  The split01 variants'
-    names raise "next slice"; any other missing name is an
-    AttributeError."""
+    ported: each name is its module's object.  The split01 variants are
+    ported too: their names are not attributes of the package (no "next
+    slice" stand-in is left), nor is any other missing name."""
     import climatemachine_tpu_torch.ocean as ocean
     from climatemachine_tpu_torch.ocean import (ivdc, shallow_water,
                                                 split_explicit)
     assert any(getattr(ocean, name) is getattr(m, name, None)
                for m in (ivdc, shallow_water, split_explicit))
-    for variant in ("split01", "split01_3n"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            getattr(ocean, variant)
-    with pytest.raises(AttributeError):
-        ocean.NoSuchModel
+    assert not hasattr(ocean, "NEXT_SLICE")
+    for missing in ("split01", "split01_3n", "NoSuchModel"):
+        with pytest.raises(AttributeError):
+            getattr(ocean, missing)
 
 
 def test_coupled_ocean_refused():
     """The coupling is stored, as in the JAX package (CoupledHBModel
-    brings the coupled physics); the split-explicit solver refuses the
-    split01 variants with "next slice"."""
+    brings the coupled physics); the split-explicit solver refuses a
+    variant the JAX package does not have, and no longer the split01
+    ones."""
     from climatemachine_tpu_torch.ocean import (Coupled,
                                                 HydrostaticBoussinesqModel)
     from climatemachine_tpu_torch.ocean.problems import OceanGyre
@@ -122,8 +122,10 @@ def test_coupled_ocean_refused():
     m = HydrostaticBoussinesqModel(problem, coupling=Coupled())
     assert isinstance(m.coupling, Coupled)
     assert isinstance(CoupledHBModel(problem).coupling, Coupled)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        SplitExplicitSolver(None, None, None, None, variant="split01")
+    assert CoupledHBModel(problem, add_fast_substeps=2).add_fast_substeps \
+        == 2
+    with pytest.raises(ValueError):
+        SplitExplicitSolver(None, None, None, None, variant="split02")
 
 
 @pytest.mark.parametrize("name", ["sgstke", "lsforcing", "turbconv",

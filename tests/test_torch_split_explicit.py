@@ -16,7 +16,8 @@ ranges, from the initial state plus noise (numpy seeds):
   (HydrostaticBoussinesqModel with ShallowWaterModel), and 1 slow step of
   ``SplitExplicitSolverType().make`` (LS3NRK33Heuns fast), each state
   and aux within 1e-10 per variable;
-- the variants "split01" and "split01_3n" raising "next slice".
+- the variants "split01" and "split01_3n" built (their parity:
+  tests/test_torch_split01.py).
 """
 
 import jax.numpy as jnp
@@ -42,6 +43,7 @@ from climatemachine_tpu_torch.dg.spatial import DGModel, init_ode_state
 from climatemachine_tpu_torch.driver.solver_types import \
     SplitExplicitSolverType
 from climatemachine_tpu_torch.ocean import hydrostatic_boussinesq as phb
+from climatemachine_tpu_torch.ocean import ivdc as pivdc
 from climatemachine_tpu_torch.ocean import shallow_water as psw
 from climatemachine_tpu_torch.ocean import split_explicit as pse
 from climatemachine_tpu_torch.ode import lsrk
@@ -196,12 +198,15 @@ def test_solver_type_heuns_fast(coupled):
 
 @pytest.mark.parametrize("variant", ["split01", "split01_3n"])
 def test_split01_variants_next_slice(variant, coupled):
+    """The split01 variants are ported (tests/test_torch_split01.py holds
+    them against the JAX package's): the solver builds them; another
+    variant is a ValueError."""
     s = coupled
-    with pytest.raises(NotImplementedError, match="next slice"):
-        pse.SplitExplicitSolver(
-            lsrk.LSRK54CarpenterKennedy(s["d3"], DT),
-            lsrk.LSRK54CarpenterKennedy(s["d2"], DT_FAST), s["d3"], s["d2"],
-            variant=variant)
+    st = pse.SplitExplicitSolver(
+        lsrk.LSRK54CarpenterKennedy(s["d3"], DT),
+        lsrk.LSRK54CarpenterKennedy(s["d2"], DT_FAST), s["d3"], s["d2"],
+        variant=variant)
+    assert st.variant == variant and st.ivdc_residuals == []
     with pytest.raises(ValueError):
         pse.SplitExplicitSolver(None, None, s["d3"], s["d2"], dt=DT,
                                 fast_dt=DT_FAST, variant="old")
@@ -224,6 +229,6 @@ def test_experiment_ivdc_schedule():
     k = gf[:, m3.gf_spec.index("kappa_grad_theta")]
     assert torch.equal(k[:, 2], torch.full((E, L), 0.5 * m3.kappa_z,
                                            dtype=torch.float64))
-    q3, res = ocean_split_explicit.ivdc_solve(
-        m3, cfg.dg3, cfg.q[0], cfg.aux[0], m3.ivdc_dt)
+    q3, res = pivdc.ivdc_solve(m3, cfg.dg3, cfg.q[0], cfg.aux[0],
+                               m3.ivdc_dt)
     assert float(res) < 1e-12 and bool(torch.isfinite(q3).all())
