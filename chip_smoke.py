@@ -219,6 +219,18 @@ filter:
   GCM_LSRK_STEPS LSRK54 steps each, finite, with the mass drift; the
   Courant and timestep monitors and ``AdaptTimestep`` run once on the
   Held-Suarez state, with their host cost;
+- the forced LES cases (phase ``les_forcing``), each built only through
+  the driver's entry from its experiment module, float64, on the
+  generic operator's gradient path, which runs no kernel (every launch
+  count must stay 0): BOMEX at its published width (4,864 elements, p4,
+  prescribed surface fluxes, TMAR on ρq_tot after every step),
+  FORCING_WARM + FORCING_STEPS steps, q_tot ≥ 0 after TMAR, its mass
+  change reported (its moisture sink is a mass source); DYCOMS-II RF01
+  (684 elements; q_liq > 0 from the start, the stratocumulus deck), the
+  convective boundary layer (4,500 elements), the stable one with each
+  surface option and the Deardorff canopy, 1 + 2 steps each; each with
+  ms per step, simulated s per wall s, set-up s and peak memory; then
+  BOMEX, DYCOMS and the canopy on 2 × 2 × 2 elements, card against CPU;
 - the staged kernels (K1-K4, the volume kernel with and without F₂,
   both dry branches; the moist branches of K1-K4 and the volume kernel)
   and every remainder branch above at the other orders the kernels are
@@ -380,6 +392,21 @@ Tolerances:
   p4; the remainder against dg − dg_lin: 1e-2 · max|dg − dg_lin| per
   variable, 7.7× the 1.3e-3 the same comparison gives on the CPU (the
   remainder is the small difference of two large tendencies);
+- the forced LES cases (float64): the dry boundary layers' Σ M ρ within
+  FORCING_MASS_TOL = 1e-12 relative over their steps (a conservative
+  scheme's round-off; their sources leave ρ alone), where ρ itself must
+  have moved; TMAR where it acts (BOMEX's q_tot stays at 3-17 g/kg):
+  ρq_tot set to −½ its value at TMAR_DIP_SHARE = 1 % of the nodes of
+  BOMEX's card state, then q_tot ≥ 0, ∫ρq_tot within TMAR_MASS_TOL =
+  1e-12 relative, the other lanes unchanged and the card against
+  ``tmar`` on the CPU within TMAR_TOL = 1e-13; DYCOMS's radiation
+  paths ``int_att`` / ``int_att_rev`` on the card against the same
+  stack integrals of the same integrand in float64 on the CPU within
+  RADIATION_TOL = 1e-12 of the path's largest magnitude; BOMEX, DYCOMS
+  and the canopy after FORCING_SMALL_STEPS steps on 2 × 2 × 2 elements
+  on the card against the port's run on the CPU from the same geometry,
+  state and dt, per variable within FORCING_SMALL_TOL = 1e-10 (both
+  float64: summation order alone);
 - the remainder branches against their plain versions at the bench
   shape: equal bit for bit (they round as the plain versions round);
   the remainder RHS against its plain-stage twin: GENERIC_RHS_TOL (bit
@@ -438,11 +465,14 @@ from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config, held_suarez_driver)
 from climatemachine_tpu_torch.experiments import (ocean_split_explicit,
                                                   solid_body_rotation)
+from climatemachine_tpu_torch.experiments.forced_les import \
+    CASES as FORCED_LES_CASES
 from climatemachine_tpu_torch.experiments.gcm_driver import gcm_driver_config
 from climatemachine_tpu_torch.experiments.ocean_box import ocean_box_config
 from climatemachine_tpu_torch.experiments.risingbubble import \
     risingbubble_config
 from climatemachine_tpu_torch.interop import grid_from_numpy, grid_to_numpy
+from climatemachine_tpu_torch.mesh.filters import tmar
 from climatemachine_tpu_torch.mesh.grid import make_grid, min_node_distance
 from climatemachine_tpu_torch.mesh.topology import (brick_topology,
                                                     stacked_brick_topology)
@@ -618,6 +648,47 @@ LES_SMALL_STEPS = 3
 LES_SMALL_TOL = (1e-5, 2e-2, 2e-2, 2e-2, 1e-5)
 # invoke's norm(Q)/norm(Q0), as tests/test_driver.py bounds it
 LES_RATIO_TOL = 0.1
+
+# the forced LES cases (experiments/bomex_les.py, dycoms.py,
+# boundary_layer_les.py, canopy_sgstke.py), float64 at their examples'
+# defaults: BOMEX at the published 100 × 100 × 40 m over 6.4 × 6.4 × 3
+# km (16 × 16 × 19 elements), DYCOMS-II RF01 6 × 6 × 19, the convective
+# boundary layer 15 × 15 × 20, the stable one 1 × 1 × 10, the canopy 2 ×
+# 2 × 5
+FORCING_ELEMENTS = {"bomex": 4864, "dycoms": 684, "convective_bl": 4500,
+                    "stable_bl": 10, "canopy": 20}
+# BOMEX: warm steps, then timed steps; every other case 1 + 2
+FORCING_WARM, FORCING_STEPS = 3, 10
+FORCING_CASE_WARM, FORCING_CASE_STEPS = 1, 2
+# Σ M ρ of the dry boundary layers, whose sources leave ρ alone, summed in
+# float64: relative drift over their steps (float64 round-off of a
+# conservative scheme; BOMEX's large-scale moisture sink and the moist
+# cases' surface water flux change the mass, which is reported)
+FORCING_MASS_TOL = 1e-12
+# BOMEX's q_tot stays at 3-17 g/kg over its steps, so TMAR is also held
+# where it acts: ρq_tot set to −½ its value at this share of the nodes,
+# then ∫ρq_tot kept within TMAR_MASS_TOL relative (TMAR rescales each
+# element to its integral) and the card against the CPU within TMAR_TOL
+# of the largest ρq_tot (both float64)
+TMAR_DIP_SHARE, TMAR_SEED = 0.01, 0
+TMAR_MASS_TOL = 1e-12
+TMAR_TOL = 1e-13
+# the radiation's attenuation paths on the card against the same stack
+# integrals of the same integrand in float64 on the CPU: max|Δ| over the
+# path's largest magnitude (the card and the CPU sum in other orders)
+RADIATION_TOL = 1e-12
+# the 2 × 2 × 2-element boxes at p4 ((Δx, Δy, Δz), then the domain where
+# the case's builder takes one: DYCOMS's is fixed) of BOMEX,
+# DYCOMS and the canopy: FORCING_SMALL_STEPS steps in float64 on the card
+# against the port's float64 run on the CPU from the same state, per
+# variable (the momentum's components over the largest): both are float64
+# and differ in summation order alone
+FORCING_SMALL_BOXES = {
+    "bomex": ((800.0, 800.0, 375.0), (6400.0, 6400.0, 3000.0)),
+    "dycoms": ((105.0, 105.0, 187.5),),
+    "canopy": ((12.5, 12.5, 12.5), (100.0, 100.0, 100.0))}
+FORCING_SMALL_STEPS = 3
+FORCING_SMALL_TOL = 1e-10
 
 #: the ocean box of examples/ocean_box_gcm.py at its defaults
 OCEAN_NELEM = (20, 20, 20)
@@ -3481,6 +3552,220 @@ def phase_les_inviscid(seed: int) -> dict:
                 setup_s=setup_s)
 
 
+# --- the forced LES cases -----------------------------------------------------
+
+def forcing_path(name: str, warm: int, steps: int) -> dict:
+    """Case ``name`` at its example's defaults, built only through the
+    driver's entry (the experiment's ``AtmosLESConfiguration``,
+    ``make_solver_configuration``), then ``invoke`` over warm + steps
+    steps with its callbacks, every launch count set to 0 just before and
+    read just after (all must stay 0: the gradient path runs no
+    kernel), the last ``steps`` timed.  Checks the element count, the
+    generic operator's gradient path, the state (finite) and the
+    launches; reports ms per step, simulated s per wall s, set-up s, peak
+    device memory, the mass change, max |w|.  Returns (result, solver
+    configuration, initial state)."""
+    case = FORCED_LES_CASES[name]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dc = case.config(device="cuda")
+    sc = make_solver_configuration(0.0, -1.0, dc,
+                                   ode_solver_type=case.solver_type,
+                                   Courant_number=case.courant)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    g, dg, model = dc.grid, sc.dg, dc.model
+    key = name.split("_custom")[0]
+    check(g.nelem == FORCING_ELEMENTS[key], (name, "elements", g.nelem))
+    check(g.dtype == torch.float64 and g.Nq[0] == POLY + 1,
+          (name, "float64 at p4"))
+    check(sc.solver.vm is None and dg.n_gradient > 0 and not dg.dry_volume
+          and not dg.fast_surface,
+          (name, "the closure takes the generic operator's gradient path"))
+    q0, aux0 = sc.q, sc.aux
+    mass = lambda x: torch.sum(g.M * x[:, 0]).item()
+    sc.timeend = (warm + steps) * sc.dt
+    timer = StepTimer(warm)
+    reset_launch_counts()
+    ratio = invoke(sc, user_callbacks=(*case.callbacks(dc), timer))
+    counts = launch_counts()
+    q = sc.q
+    wall = timer.end - timer.start
+    sp = model.prog_spec
+    rho = sp.get(q, "rho")
+    res = dict(card=nvidia_smi(), case=name, elements=g.nelem, poly=POLY,
+               gridpoints=g.nelem * g.Np, dtype="float64", dt_s=sc.dt,
+               courant=case.courant, warm_steps=warm, steps=timer.steps,
+               setup_s=setup_s, ms_per_step=1e3 * wall / timer.steps,
+               sim_s_per_wall_s=sc.dt * timer.steps / wall,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               norm_ratio=ratio, mass_change_rel=(mass(q) - mass(q0))
+               / mass(q0), rho_change_max_rel=((rho - q0[:, 0]).abs()
+                                               / q0[:, 0]).max().item(),
+               max_abs_w=(sp.get(q, "rhou")[:, 2] / rho)
+               .abs().max().item(), finite=bool(torch.isfinite(q).all()),
+               launches=counts)
+    check(timer.steps == steps, (name, "steps timed", timer.steps))
+    check(res["finite"], (name, "state not finite"))
+    check(math.isfinite(ratio) and abs(ratio - 1.0) <= LES_RATIO_TOL,
+          (name, "invoke's norm ratio", ratio))
+    check_launches(counts, expected_launches({}, 0))
+    return res, sc, q0, aux0
+
+
+def bomex_tmar_check(sc) -> dict:
+    """TMAR where it acts: BOMEX's card state with ρq_tot set to −½ its
+    value at TMAR_DIP_SHARE of the nodes (drawn from TMAR_SEED; no
+    element's integral turns negative), through the case's
+    callback on the card: q_tot ≥ 0 after it, ∫ρq_tot kept within
+    TMAR_MASS_TOL relative, the other lanes untouched, and the result
+    against :func:`tmar` of the same input in float64 on the CPU within
+    TMAR_TOL of its largest value."""
+    dc, sp = sc.driver_config, sc.dg.balance_law.prog_spec
+    lane = sp.index("moisture.rhoq_tot").start
+    gen = torch.Generator().manual_seed(TMAR_SEED)
+    dip = torch.rand(sc.q[:, lane].shape, generator=gen) < TMAR_DIP_SHARE
+    q = sc.q.clone()
+    q[:, lane] = torch.where(dip.to(q.device), -0.5 * q[:, lane],
+                             q[:, lane])
+    state = SimpleNamespace(q=q.clone())
+    FORCED_LES_CASES["bomex"].callbacks(dc)[0].fn(state)
+    g = dc.grid
+    ref = tmar(grid_from_numpy(grid_to_numpy(g), device="cpu",
+                               dtype=torch.float64), q.cpu(), fields=[lane])
+    got = state.q
+    qt = got[:, lane] / got[:, 0]
+    integral = lambda x: torch.sum(g.M * x[:, lane]).item()
+    others = [i for i in range(q.shape[1]) if i != lane]
+    res = dict(tmar_negative_nodes=int((q[:, lane] < 0).sum().item()),
+               tmar_q_tot_min=qt.min().item(),
+               tmar_mass_change_rel=abs(integral(got) - integral(q))
+               / integral(q),
+               tmar_rel_err=((got.cpu() - ref).abs().max()
+                             / ref[:, lane].abs().max()).item())
+    check(res["tmar_negative_nodes"] > 0, ("TMAR: no negative node",))
+    check(res["tmar_q_tot_min"] >= 0.0, ("TMAR q_tot", res["tmar_q_tot_min"]))
+    check(res["tmar_mass_change_rel"] <= TMAR_MASS_TOL,
+          ("TMAR ∫ρq_tot", res["tmar_mass_change_rel"]))
+    check(torch.equal(got[:, others], q[:, others]), "TMAR: other lanes")
+    check(res["tmar_rel_err"] <= TMAR_TOL, ("TMAR card against CPU",
+                                            res["tmar_rel_err"]))
+    return res
+
+
+def radiation_paths_check(sc) -> float:
+    """The attenuation paths ``radiation.int_att`` / ``int_att_rev`` that
+    the card's aux update writes, against the same stack integrals of the
+    same integrand (κ ρ q_liq of the card's state and moisture lanes) in
+    float64 on the CPU on the same geometry: the larger relative error."""
+    model, grid = sc.dg.balance_law, sc.dg.grid
+    aux = model.update_auxiliary_state(sc.q, sc.aux, grid)
+    f = model.physics.radiation.integrand(model, sc.q, aux).cpu()[:, None]
+    ops = ColumnOps(grid_from_numpy(grid_to_numpy(grid), device="cpu",
+                                    dtype=torch.float64))
+    err = 0.0
+    for lane, ref in (("radiation.int_att", ops.indefinite_integral(f)),
+                      ("radiation.int_att_rev",
+                       ops.reverse_indefinite_integral(f))):
+        got = model.aux_spec.get(aux, lane).cpu()
+        err = max(err, ((got - ref[:, 0]).abs().max()
+                        / ref.abs().max()).item())
+    return err
+
+
+def forcing_small_reference(name: str) -> list:
+    """FORCING_SMALL_STEPS steps of ``invoke`` of case ``name`` on its 2 ×
+    2 × 2-element box in float64 on the card against the port's float64
+    run on the CPU from the same geometry, state and dt: the per-variable
+    error (:func:`vortex_err`)."""
+    case = FORCED_LES_CASES[name]
+    dc = case.config(*FORCING_SMALL_BOXES[name], device="cuda")
+    check(dc.grid.nelem == 8, (name, "small box", dc.grid.nelem))
+    sc = make_solver_configuration(0.0, -1.0, dc,
+                                   ode_solver_type=case.solver_type,
+                                   Courant_number=case.courant)
+    dc64 = replace(dc, grid=grid_from_numpy(grid_to_numpy(dc.grid),
+                                            device="cpu",
+                                            dtype=torch.float64))
+    sc64 = make_solver_configuration(0.0, -1.0, dc64, ode_dt=sc.dt,
+                                     ode_solver_type=case.solver_type)
+    q0, aux0, final = sc.q, sc.aux, {}
+    for run, d, s in (("card", dc, sc), ("cpu", dc64, sc64)):
+        s.q, s.aux = q0.to(d.grid.device), aux0.to(d.grid.device)
+        s.timeend = FORCING_SMALL_STEPS * sc.dt
+        invoke(s, user_callbacks=case.callbacks(d))
+        final[run] = s.q.cpu()
+    return vortex_err(final["card"], final["cpu"])
+
+
+def phase_les_forcing() -> dict:
+    """The forced LES cases, each built only through the driver's entry
+    (``AtmosLESConfiguration`` → ``make_solver_configuration`` →
+    ``invoke``), float64, on the generic operator's gradient path, which
+    runs no kernel (every launch count stays 0): BOMEX at its published
+    width (4,864 elements, p4, prescribed surface fluxes, TMAR on ρq_tot
+    after every step; q_tot ≥ 0 after it; TMAR where it acts,
+    :func:`bomex_tmar_check`; its mass change is reported, its moisture
+    sink being a mass source), FORCING_WARM + FORCING_STEPS steps;
+    DYCOMS-II RF01 (684 elements: the stratocumulus deck makes q_liq > 0
+    from the start; its radiation paths on the card against float64 on
+    the CPU within RADIATION_TOL), the convective boundary layer (4,500
+    elements), the stable one with both surface options and the
+    Deardorff canopy, each 1 + 2 steps, the dry boundary layers' mass
+    drift within FORCING_MASS_TOL where ρ moved; then BOMEX, DYCOMS and
+    the canopy on 2 × 2 × 2 elements, card against CPU within
+    FORCING_SMALL_TOL."""
+    t_phase = time.perf_counter()
+    driver_init(show_updates="never")
+    out = {}
+    for name in ("bomex", "dycoms", "convective_bl", "stable_bl",
+                 "stable_bl_custom_sbl", "canopy"):
+        warm, steps = ((FORCING_WARM, FORCING_STEPS) if name == "bomex"
+                       else (FORCING_CASE_WARM, FORCING_CASE_STEPS))
+        res, sc, q0, aux0 = forcing_path(name, warm, steps)
+        model, sp = sc.dg.balance_law, sc.dg.balance_law.prog_spec
+        if name == "bomex":
+            qt = sp.get(sc.q, "moisture.rhoq_tot") / sp.get(sc.q, "rho")
+            res.update(q_tot_min=qt.min().item(), q_tot_max=qt.max().item())
+            check(res["q_tot_min"] >= 0.0, ("BOMEX q_tot after TMAR",
+                                            res["q_tot_min"]))
+            res.update(bomex_tmar_check(sc))
+        if name == "dycoms":
+            q_liq0 = model.aux_spec.get(aux0, "moisture.q_liq").max().item()
+            q_liq = model.aux_spec.get(model.update_auxiliary_state(
+                sc.q, sc.aux, sc.dg.grid), "moisture.q_liq").max().item()
+            res.update(max_q_liq_initial=q_liq0, max_q_liq=q_liq,
+                       radiation_rel_err=radiation_paths_check(sc),
+                       radiation_tol=RADIATION_TOL)
+            check(q_liq0 > 0.0 and q_liq > 0.0, ("DYCOMS q_liq", q_liq0,
+                                                  q_liq))
+            check(res["radiation_rel_err"] <= RADIATION_TOL,
+                  ("DYCOMS radiation paths", res["radiation_rel_err"]))
+        if name.startswith(("convective_bl", "stable_bl")):
+            res["mass_tol"] = FORCING_MASS_TOL
+            check(res["rho_change_max_rel"] > 0.0,
+                  (name, "ρ did not move: the mass gate checks nothing"))
+            check(abs(res["mass_change_rel"]) <= FORCING_MASS_TOL,
+                  (name, "mass drift", res["mass_change_rel"]))
+        emit("les_forcing_path", **res)
+        out[name] = {k: res[k] for k in ("ms_per_step", "sim_s_per_wall_s",
+                                         "setup_s", "peak_memory_bytes")}
+        del sc, q0, aux0
+    small = {}
+    for name in FORCING_SMALL_BOXES:
+        err = forcing_small_reference(name)
+        small[name] = err
+        emit("les_forcing_small_reference", case=name, elements=8, poly=POLY,
+             steps=FORCING_SMALL_STEPS, rel_err_per_var=err,
+             tol=FORCING_SMALL_TOL)
+        check(max(err) <= FORCING_SMALL_TOL, (name, "small reference", err))
+    torch.cuda.empty_cache()
+    emit("les_forcing_phase", card=nvidia_smi(),
+         seconds=time.perf_counter() - t_phase, **out)
+    return out
+
+
 # --- the ocean box GCM ---------------------------------------------------------
 
 def ocean_volume(dg, q) -> float:
@@ -4659,6 +4944,7 @@ def main(argv=None) -> int:
     vortex = timed("vortex", phase_vortex, args.seed)
     les = timed("les_bubble", phase_les_bubble, args.seed)
     les_inviscid = timed("les_inviscid", phase_les_inviscid, args.seed)
+    les_forcing = timed("les_forcing", phase_les_forcing)
     ocean = timed("ocean", phase_ocean)
     split_explicit = timed("split_explicit", phase_split_explicit)
     split01 = timed("split01", phase_split01, args.seed)
@@ -4676,6 +4962,7 @@ def main(argv=None) -> int:
          les_ms_per_step=les["ms_per_step"], les_setup_s=les["setup_s"],
          les_peak_memory_bytes=les["peak_memory_bytes"],
          les_inviscid_ms_per_step=les_inviscid["ms_per_step"],
+         les_forcing=les_forcing,
          ocean=ocean, split_explicit=split_explicit, split01=split01,
          gcm_driver=gcm,
          explicit_ms_per_step=explicit["ms_per_step"],

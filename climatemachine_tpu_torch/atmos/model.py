@@ -1,7 +1,12 @@
 """The atmosphere balance law (port of ``climatemachine_tpu/atmos/model.py``
 for the Held-Suarez step, the moist baroclinic wave with its tracers and
-warm rain, and the LES boxes: ``AtmosPhysics`` :76 with ``turbulence``
-:82, ``tracers`` :84, ``precipitation`` :86 and ``viscoussponge`` :87,
+warm rain, and the LES boxes with their forcings: ``AtmosPhysics`` :76
+with ``turbulence`` :82, ``tracers`` :84, ``precipitation`` :86,
+``viscoussponge`` :87, ``sgstke`` :88, ``lsforcing`` :94 and
+``radiation`` :96 (the SGS TKE lane :155-158, gradient lanes :216-223,
+fluxes :437-438, :441-446, :564-565, source :585-588; the large-scale
+forcing's aux :184-189 and ``init_aux`` :350-351; radiation's aux
+:192-194 and its stack integrals after the nodal update :482-490),
 the prognostic/aux/gradient schemas :143-233, ``thermo_full`` :274,
 ``nodal_init_state_auxiliary`` :334 (the closure's lengthscale
 :346-347), the thermo refresh of the aux lanes through the moisture
@@ -19,18 +24,23 @@ the balance law's defaults ``boundary_state_gradient_flux`` and
 (``climatemachine_tpu/balance_laws/interface.py`` :112-115, :133-139)).
 
 Prognostic, in the JAX package's order: ρ, ρu(3), ρe, then with
-``EquilMoist`` ρq_tot, with a precipitation model ρq_rai (and ρq_sno),
-with ``NTracers`` ρχ (N).  Auxiliary: coord(3), orientation (Φ, ∇Φ),
+``EquilMoist`` ρq_tot (``NonEquilMoist``: ρq_tot, ρq_liq, ρq_ice), with
+a precipitation model ρq_rai (and ρq_sno), with ``NTracers`` ρχ (N),
+with ``sgstke`` ρe_SGS.  Auxiliary: coord(3), orientation (Φ, ∇Φ),
 with a ``HydrostaticState`` the reference state (ρ, p, T, ρe), with a
 turbulence closure that needs it ``turbulence.delta``, moisture (θ_v, T
-dry; T, θ_v, q_liq, q_ice with ``EquilMoist``), then, with
-hyperdiffusion, ``hyperdiffusion.delta``.  With a turbulence closure the
-model has gradient lanes (the closure's u, h_tot[, θ_v], then
-``moisture.q_tot``, ``tracers.chi``) and gradient-flux lanes (the
-closure's, then ``moisture.d_q_tot``, ``tracers.d_chi``).  State and aux
-are var-major ``[E, n, L]`` over L nodes (volume or face lanes); fluxes
-``[E, 3, n, L]`` (direction i, then variable); gradients ``[E, 3, ng,
-L]``; gradient fluxes ``[E, ngf, L]``.
+dry; T, θ_v, q_liq, q_ice with ``EquilMoist``; T, θ_v with
+``NonEquilMoist``), then, with hyperdiffusion, ``hyperdiffusion.delta``,
+with a large-scale forcing its profile, with radiation its attenuation
+paths.  With a turbulence closure the model has gradient lanes (the
+closure's u, h_tot[, θ_v], then ``moisture.q_tot``, ``tracers.chi``,
+``sgstke.e_SGS``, ``sgstke.theta_li``, ``lsforcing.ta``,
+``lsforcing.hus``) and gradient-flux lanes (the closure's, then
+``moisture.d_q_tot``, ``tracers.d_chi``, ``sgstke.d_e_SGS``,
+``sgstke.d_theta_li``, ``lsforcing.dz_ta``, ``lsforcing.dz_hus``).
+State and aux are var-major ``[E, n, L]`` over L nodes (volume or face
+lanes); fluxes ``[E, 3, n, L]`` (direction i, then variable); gradients
+``[E, 3, ng, L]``; gradient fluxes ``[E, ngf, L]``.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from climatemachine_tpu_torch.atmos.tracers import NoTracers
 from climatemachine_tpu_torch.balance_laws.interface import BalanceLaw
 from climatemachine_tpu_torch.common.orientations import (FlatOrientation,
                                                           Orientation)
+from climatemachine_tpu_torch.dg.columns import ColumnOpsCache
 from climatemachine_tpu_torch.physics import thermodynamics as td
 from climatemachine_tpu_torch.physics.parameters import (EARTH,
                                                          PlanetParameterSet)
@@ -73,8 +84,13 @@ class AtmosPhysics:
     :mod:`climatemachine_tpu_torch.atmos.precipitation`; ``turbulence``
     None or a closure of :mod:`climatemachine_tpu_torch.common.turbulence`
     (it brings the gradient pass); ``viscoussponge`` None or an
-    ``UpperAtmosSponge``.  ``sgstke``, ``lsforcing``, ``turbconv`` and
-    ``radiation`` are not ported: the model refuses them."""
+    ``UpperAtmosSponge``; ``sgstke`` None or an
+    :class:`~climatemachine_tpu_torch.atmos.sgstke.SGStkeModel` (with a
+    closure, ``Deardorff`` for its viscosity); ``lsforcing`` None or a
+    model of :mod:`climatemachine_tpu_torch.atmos.lsforcing` (with a
+    closure); ``radiation`` None or a model of
+    :mod:`climatemachine_tpu_torch.atmos.radiation`.  ``turbconv`` (EDMF)
+    is not ported: the model refuses it."""
     param_set: PlanetParameterSet = EARTH
     orientation: Orientation = field(default_factory=FlatOrientation)
     ref_state: ReferenceState = field(default_factory=NoReferenceState)
@@ -91,10 +107,7 @@ class AtmosPhysics:
 
 
 #: the AtmosPhysics fields not ported, with the slice each waits for
-_NOT_PORTED = {"sgstke": "the SGS TKE model (atmos/sgstke.py)",
-               "lsforcing": "the large-scale forcing (atmos/lsforcing.py)",
-               "turbconv": "EDMF (atmos/edmf.py)",
-               "radiation": "radiation (atmos/radiation.py)"}
+_NOT_PORTED = {"turbconv": "EDMF (atmos/edmf.py)"}
 
 
 @dataclass(frozen=True)
@@ -113,9 +126,9 @@ def _set(arr, sl: slice, val):
 
 
 class AtmosModel(BalanceLaw):
-    """Compressible atmosphere with total energy, dry or in equilibrium
-    moisture, with passive tracers and precipitation (a
-    :class:`BalanceLaw` whose hooks override the base's)."""
+    """Compressible atmosphere with total energy, dry or moist, with
+    passive tracers, precipitation, SGS TKE, large-scale forcing and
+    radiation (a :class:`BalanceLaw` whose hooks override the base's)."""
 
     def __init__(self, physics: AtmosPhysics, problem: AtmosProblem,
                  sources: Sequence = ()):
@@ -139,6 +152,13 @@ class AtmosModel(BalanceLaw):
                 self.precipitation.vars_prognostic()
         if self.tracers.N:
             prog_fields["tracers"] = self.tracers.vars_prognostic()
+        turb = physics.turbulence
+        for name in ("sgstke", "lsforcing"):
+            if getattr(physics, name) is not None and turb is None:
+                raise ValueError(f"{name} needs a turbulence closure (the "
+                                 "gradient pass)")
+        if physics.sgstke is not None:
+            prog_fields["sgstke"] = physics.sgstke.vars_prognostic()
         self.prog_spec = VarSpec(**prog_fields)
         aux_fields = dict(coord=3,
                           orientation=physics.orientation.vars_aux())
@@ -146,14 +166,18 @@ class AtmosModel(BalanceLaw):
         self.has_ref_state = bool(physics.ref_state.vars_aux().num)
         if self.has_ref_state:
             aux_fields["ref_state"] = physics.ref_state.vars_aux()
-        turb = physics.turbulence
         if turb is not None and turb.vars_aux().num:
             aux_fields["turbulence"] = turb.vars_aux()
         aux_fields["moisture"] = moist.vars_aux()
         hyper = physics.hyperdiffusion
         if hyper is not None:
             aux_fields["hyperdiffusion"] = hyper.vars_aux()
+        for name in ("lsforcing", "radiation"):
+            part = getattr(physics, name)
+            if part is not None and part.vars_aux().num:
+                aux_fields[name] = part.vars_aux()
         self.aux_spec = VarSpec(**aux_fields)
+        self.column_ops = ColumnOpsCache()
         self.gradlap_spec = (hyper.vars_gradient_laplacian()
                              if hyper is not None else VarSpec())
         self.hyperdiffusion_direction = (hyper.direction
@@ -164,9 +188,11 @@ class AtmosModel(BalanceLaw):
         if turb is not None:
             gfields = turb.vars_gradient().field_dict()
             gffields = turb.vars_gradient_flux().field_dict()
-            for name, part in (("moisture", moist), ("tracers",
-                                                     self.tracers)):
-                if part.vars_gradient().num:
+            for name, part in (("moisture", moist),
+                               ("tracers", self.tracers),
+                               ("sgstke", physics.sgstke),
+                               ("lsforcing", physics.lsforcing)):
+                if part is not None and part.vars_gradient().num:
                     gfields[name] = part.vars_gradient()
                     gffields[name] = part.vars_gradient_flux()
         self.grad_spec = VarSpec(**gfields)
@@ -198,6 +224,8 @@ class AtmosModel(BalanceLaw):
             aux = self.physics.turbulence.init_aux(self, grid, aux)
         if self.physics.hyperdiffusion is not None:
             aux = self.physics.hyperdiffusion.init_aux(self, grid, aux)
+        if self.physics.lsforcing is not None:
+            aux = self.physics.lsforcing.init_aux(self, Phi / ps.grav, aux)
         return aux
 
     def init_state_prognostic(self, coords, aux, t):
@@ -222,8 +250,17 @@ class AtmosModel(BalanceLaw):
     def update_auxiliary_state(self, q, aux, grid):
         """Refresh the moisture model's thermo lanes from the state (θ_v
         and T dry; T by saturation adjustment, θ_v, q_liq and q_ice with
-        ``EquilMoist``)."""
-        return self.physics.moisture.update_aux(self, q, aux)
+        ``EquilMoist``), then radiation's stack integrals."""
+        aux = self.physics.moisture.update_aux(self, q, aux)
+        rad = self.physics.radiation
+        if rad is not None and hasattr(rad, "update_aux_integrals"):
+            aux = rad.update_aux_integrals(self, grid, q, aux)
+        return aux
+
+    def vertical_unit(self, aux):
+        """k̂ ``[E, 3, L]`` from the aux lane ∇Φ."""
+        return self.physics.orientation.vertical_unit_vector(
+            self.param_set, self.aux_spec.get(aux, "orientation.grad_Phi"))
 
     def preprocess_state(self, dg, q, aux, t):
         """The state projection before each stage: none for this model."""
@@ -235,8 +272,9 @@ class AtmosModel(BalanceLaw):
         taken out where the reference state's ``subtract_off`` says so),
         and the pressure work: F_i[ρ] = ρu_i, F_i[ρu_j] = ρu_i u_j +
         (p − p_ref) δ_ij, F_i[ρe] = (ρe + p) u_i, each advected scalar
-        (ρq_tot, ρq_rai, ρχ) F_i[ρχ] = ρχ u_i, and the precipitation's
-        sedimentation on its lanes."""
+        (ρq_tot, ρq_rai, ρχ, ρe_SGS) F_i[ρχ] = ρχ u_i, the
+        precipitation's sedimentation on its lanes, and radiation's
+        energy flux on ρe."""
         rho, rhou, rhoe = q[:, 0], q[:, 1:4], q[:, 4]
         _, p = self.thermo(q, aux)
         u = rhou / rho[:, None]
@@ -254,6 +292,9 @@ class AtmosModel(BalanceLaw):
             F[:, :, v] = q[:, v, None] * u
         if self.precipitation is not None:
             F = self.precipitation.flux_first_order(self, q, aux, F, u)
+        rad = self.physics.radiation
+        if rad is not None and hasattr(rad, "energy_flux"):
+            F[:, :, 4] += rad.energy_flux(self, q, aux)
         return F
 
     def wavespeed(self, nrm, q, aux, t):
@@ -285,27 +326,34 @@ class AtmosModel(BalanceLaw):
     def transform_post_gradient_laplacian(self, grad_lap, q, aux, t):
         return self.physics.hyperdiffusion.transform(self, grad_lap, q, aux, t)
 
+    def _gradient_parts(self):
+        ph = self.physics
+        return [part for part in (ph.moisture, self.tracers, ph.sgstke,
+                                  ph.lsforcing) if part is not None]
+
     def compute_gradient_argument(self, q, aux, t):
         """The gradient arguments ``[E, ng, L]``: the closure's (u, h_tot[,
-        θ_v]), the moisture's q_tot and the tracers' χ."""
-        ph = self.physics
-        out = ph.turbulence.gradient_argument(self, q, aux, t)
-        out = ph.moisture.gradient_argument(self, q, aux, t, out)
-        return self.tracers.gradient_argument(self, q, aux, t, out)
+        θ_v]), the moisture's q_tot, the tracers' χ, the SGS TKE's e_SGS
+        and θ_li, the large-scale forcing's ta and hus."""
+        out = self.physics.turbulence.gradient_argument(self, q, aux, t)
+        for part in self._gradient_parts():
+            out = part.gradient_argument(self, q, aux, t, out)
+        return out
 
     def compute_gradient_flux(self, grad_g, q, aux, t):
         """The gradient flux ``[E, ngf, L]`` of the gradient ``grad_g``
         ``[E, 3, ng, L]``."""
-        ph = self.physics
-        out = ph.turbulence.gradient_flux(self, grad_g, q, aux, t)
-        out = ph.moisture.gradient_flux(self, grad_g, q, aux, t, out)
-        return self.tracers.gradient_flux(self, grad_g, q, aux, t, out)
+        out = self.physics.turbulence.gradient_flux(self, grad_g, q, aux, t)
+        for part in self._gradient_parts():
+            out = part.gradient_flux(self, grad_g, q, aux, t, out)
+        return out
 
     def flux_second_order(self, q, gf, hyper, aux, t):
         """F₂ ``[E, 3, n, L]``: with a gradient flux ``gf`` the closure's
         viscous flux and, with its diffusivity D_t, the moisture's and
-        the tracers' diffusive fluxes; with a hyper state the
-        hyperdiffusive flux."""
+        the tracers' diffusive fluxes, and the SGS TKE's −2ρν∇e_SGS
+        (ν without the sponge's amplification, as in the JAX package);
+        with a hyper state the hyperdiffusive flux."""
         F = torch.zeros((q.shape[0], 3) + q.shape[1:], dtype=q.dtype,
                         device=q.device)
         turb = self.physics.turbulence
@@ -315,6 +363,10 @@ class AtmosModel(BalanceLaw):
             F = self.physics.moisture.flux_second_order(self, q, gf, aux,
                                                         D_t, F)
             F = self.tracers.flux_second_order(self, q, gf, aux, D_t, F)
+            if self.physics.sgstke is not None:
+                nu, _ = turb.viscosity(self, q, gf, aux, t)
+                F = self.physics.sgstke.flux_second_order(self, q, gf, aux,
+                                                          nu, F)
         if hyper is not None:
             F = self.physics.hyperdiffusion.flux(self, q, hyper, aux, F)
         return F
@@ -324,11 +376,11 @@ class AtmosModel(BalanceLaw):
         model.  Returns (aux, q)."""
         return aux, q
 
-    def source_context(self, q, aux, thermo=None) -> VMContext:
-        """The sources' view of state q and aux; ``thermo`` is (T, p) when
-        the caller has computed it (the var-major RHS: no phase
-        partition), else the moisture model's thermo gives T, p and the
-        phase partition."""
+    def source_context(self, q, aux, thermo=None, gf=None) -> VMContext:
+        """The sources' view of state q, aux and the gradient flux ``gf``
+        (None without a closure); ``thermo`` is (T, p) when the caller
+        has computed it (the var-major RHS: no phase partition), else the
+        moisture model's thermo gives T, p and the phase partition."""
         pp = None
         if thermo is None:
             T, p, pp = self.physics.moisture.thermo(self, q, aux)
@@ -338,13 +390,16 @@ class AtmosModel(BalanceLaw):
         return VMContext(rho=sp.get(q, "rho"), rhou=sp.get(q, "rhou"), T=T,
                          p=p, grad_Phi=ap.get(aux, "orientation.grad_Phi"),
                          coords=ap.get(aux, "coord"),
-                         aux=lambda name: ap.get(aux, name), q=q, pp=pp)
+                         aux=lambda name: ap.get(aux, name), q=q, pp=pp,
+                         gf=gf)
 
-    def sum_sources(self, ctx: VMContext, t):
-        """Σ of the sources' ``contributions_vm``, ``[E, n, Np]``."""
-        out = torch.zeros((ctx.rho.shape[0], self.prog_spec.num,
-                           ctx.rho.shape[1]), dtype=ctx.rho.dtype,
-                          device=ctx.rho.device)
+    def sum_sources(self, ctx: VMContext, t, out=None):
+        """Σ of the sources' ``contributions_vm``, ``[E, n, Np]``, added to
+        ``out`` (in place) where given."""
+        if out is None:
+            out = torch.zeros((ctx.rho.shape[0], self.prog_spec.num,
+                               ctx.rho.shape[1]), dtype=ctx.rho.dtype,
+                              device=ctx.rho.device)
         for src in self.sources:
             for name, val in src.contributions_vm(self, ctx, t).items():
                 sl = self.prog_spec.index(name)
@@ -352,9 +407,14 @@ class AtmosModel(BalanceLaw):
         return out
 
     def source(self, q, aux, t, gf=None):
-        """Σ of the sources at (q, aux); ``gf`` (the gradient flux) is
-        read by none of the ported sources."""
-        return self.sum_sources(self.source_context(q, aux), t)
+        """The SGS TKE's production and dissipation on ρe_SGS (with a
+        gradient flux), then Σ of the sources at (q, aux, ``gf``)."""
+        out = torch.zeros_like(q)
+        sg = self.physics.sgstke
+        if sg is not None:
+            out[:, self.prog_spec.index("sgstke.rhoe_SGS").start] += \
+                sg.source(self, q, gf, aux, t)
+        return self.sum_sources(self.source_context(q, aux, gf=gf), t, out)
 
     def boundary_state(self, tag: int, nrm, q_minus, aux_minus, t):
         """Ghost (q⁺, aux⁺) on wall face lanes of boundary ``tag``:

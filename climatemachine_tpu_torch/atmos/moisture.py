@@ -1,6 +1,7 @@
-"""Moisture models (port of ``climatemachine_tpu/atmos/moisture.py``
-:24-172: ``MoistureModel`` with its gradient hooks :24-53, ``DryModel``,
-``EquilMoist`` with its gradient hooks and diffusive flux :103-160).
+"""Moisture models (port of ``climatemachine_tpu/atmos/moisture.py``:
+``MoistureModel`` with its gradient hooks :24-53, ``DryModel``,
+``EquilMoist`` with its gradient hooks and diffusive flux :103-160,
+``NonEquilMoist`` :174-213).
 
 A moisture model names its prognostic and aux lanes, refreshes the aux
 lanes from the state (``update_aux``) and gives the model's thermo
@@ -9,8 +10,10 @@ T; ``EquilMoist`` adds ρq_tot and caches T, θ_v, q_liq and q_ice, with T
 from the saturation adjustment.  Under a turbulence closure
 ``EquilMoist`` adds q_tot to the gradient arguments, ∇q_tot to the
 gradient flux and −ρ D_t ∇q_tot to the fluxes of ρq_tot and ρ (and its
-u-weighted part to ρu); the dry model adds nothing.  State and aux are
-var-major ``[E, n, L]``.
+u-weighted part to ρu); the dry model adds nothing.  ``NonEquilMoist``
+carries ρq_tot, ρq_liq and ρq_ice, caches T and θ_v, and, as in the JAX
+package, adds no gradient lanes (its water is advected, not diffused).
+State and aux are var-major ``[E, n, L]``.
 """
 
 from __future__ import annotations
@@ -154,3 +157,40 @@ class EquilMoist(MoistureModel):
         T = model.aux_spec.get(aux, "moisture.temperature")
         pp = td.phase_partition_equil(ps, T, rho, q_tot)
         return T, td.air_pressure(ps, T, rho, pp), pp
+
+
+class NonEquilMoist(MoistureModel):
+    """Prognostic ρq_tot, ρq_liq and ρq_ice; aux caches T (from e_int and
+    the prognostic phase partition) and θ_v."""
+
+    def vars_prognostic(self) -> VarSpec:
+        return VarSpec(rhoq_tot=1, rhoq_liq=1, rhoq_ice=1)
+
+    def vars_aux(self) -> VarSpec:
+        return VarSpec(temperature=1, theta_v=1)
+
+    def _phase(self, model, q):
+        sp = model.prog_spec
+        rho = sp.get(q, "rho")
+        return td.PhasePartition(sp.get(q, "moisture.rhoq_tot") / rho,
+                                 sp.get(q, "moisture.rhoq_liq") / rho,
+                                 sp.get(q, "moisture.rhoq_ice") / rho)
+
+    def update_aux(self, model, q, aux):
+        ps = model.param_set
+        rho = model.prog_spec.get(q, "rho")
+        pp = self._phase(model, q)
+        T = td.air_temperature(ps, _internal_energy(model, q, aux), pp)
+        p = td.air_pressure(ps, T, rho, pp)
+        theta_v = td.virtual_temperature(ps, T, pp) * \
+            (ps.MSLP / p) ** ps.kappa_d
+        return _set(aux, model.aux_spec, {"moisture.temperature": T,
+                                          "moisture.theta_v": theta_v})
+
+    def thermo(self, model, q, aux):
+        """T from the aux lane the last ``update_aux`` wrote."""
+        ps = model.param_set
+        pp = self._phase(model, q)
+        T = model.aux_spec.get(aux, "moisture.temperature")
+        return T, td.air_pressure(ps, T, model.prog_spec.get(q, "rho"),
+                                  pp), pp

@@ -1,7 +1,8 @@
 """Orientations and coordinate helpers (port of
 ``climatemachine_tpu/common/orientations.py``: the ``Orientation`` base
-:21-52, ``NoOrientation`` :55-67, ``FlatOrientation`` :70-78 and
-``SphericalOrientation`` :81-90).
+:21-52 with ``altitude`` and ``vertical_unit_vector``, ``NoOrientation``
+:55-67, ``FlatOrientation`` :70-78 and ``SphericalOrientation``
+:81-90).
 
 An orientation fills the geopotential Φ and its gradient ∇Φ into aux.
 Var-major: coordinates and vectors are ``[E, 3, Np]`` with the vector
@@ -28,16 +29,30 @@ class Orientation:
     def grad_geopotential(self, ps: PlanetParameterSet, coords):
         raise NotImplementedError
 
+    @staticmethod
+    def altitude(ps: PlanetParameterSet, Phi):
+        """z = Φ/g."""
+        return Phi / ps.grav
+
+    @staticmethod
+    def vertical_unit_vector(ps: PlanetParameterSet, grad_Phi):
+        """k̂ = ∇Φ/g ``[E, 3, L]``."""
+        return grad_Phi / ps.grav
+
 
 class NoOrientation(Orientation):
     """Φ = 0: no gravity geometry (gravity-free test configurations such
-    as the isentropic vortex)."""
+    as the isentropic vortex); it has no altitude."""
 
     def geopotential(self, ps, coords):
         return torch.zeros_like(coords[:, -1])
 
     def grad_geopotential(self, ps, coords):
         return torch.zeros_like(coords)
+
+    @staticmethod
+    def altitude(ps, Phi):
+        raise ValueError("NoOrientation has no altitude")
 
 
 class FlatOrientation(Orientation):

@@ -2,8 +2,8 @@
 ``climatemachine_tpu/common/turbulence.py``: the ``TurbulenceClosure``
 base :48-160, ``UpperAtmosSponge`` :162, ``ConstantKinematicViscosity``
 :182, ``ConstantDynamicViscosity`` :193, ``SmagorinskyLilly`` :204,
-``Vreman`` :231, ``AnisoMinDiss`` :296; ``Deardorff`` :353 needs the
-SGS TKE model and is refused).
+``Vreman`` :231, ``AnisoMinDiss`` :296, ``Deardorff`` :353 with the SGS
+TKE model of atmos/sgstke.py).
 
 A closure owns the model's second-order chain: the gradient arguments
 (u, h_tot and, buoyancy-aware, θ_v), the gradient flux it keeps of their
@@ -321,10 +321,21 @@ class AnisoMinDiss(TurbulenceClosure):
         return nu, nu * model.param_set.inv_Pr_turb
 
 
+@dataclass
 class Deardorff(TurbulenceClosure):
-    """The TKE closure needs the prognostic SGS TKE model (sgstke), which
-    is not ported."""
+    """Deardorff's TKE closure: ν = 0.1 l √e and D_t = (1 + 2l/Δ) ν,
+    isotropic, with e and the stability length l from the paired
+    :class:`~climatemachine_tpu_torch.atmos.sgstke.SGStkeModel`
+    (``AtmosPhysics.sgstke``)."""
+    needs_delta = True
+    viscosity_needs_gradient_flux = True
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "next slice: Deardorff needs the SGS TKE model (sgstke)")
+    def viscosity(self, model, q, gf, aux, t):
+        sg = model.physics.sgstke
+        if sg is None:
+            raise ValueError("Deardorff needs AtmosPhysics.sgstke")
+        l, delta, e = sg.stability_length(model, q, gf, aux)
+        nu0 = 0.1 * l * torch.sqrt(e)
+        D_t0 = (1.0 + 2.0 * l / delta) * nu0
+        return (nu0[:, None].expand(-1, 3, -1),
+                D_t0[:, None].expand(-1, 3, -1))

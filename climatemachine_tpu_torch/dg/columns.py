@@ -113,3 +113,18 @@ class ColumnOps:
         """The value at the column's bottom node at every node of it."""
         xs = self.to_stack(x)
         return self.from_stack(xs[:, :1, :, :1].expand(xs.shape))
+
+
+class ColumnOpsCache:
+    """The :class:`ColumnOps` of each grid a model is given, built at its
+    first call for that grid (a grid freed and another built at its
+    address gets its own)."""
+
+    def __init__(self):
+        self._ops = {}
+
+    def __call__(self, grid) -> ColumnOps:
+        ent = self._ops.get(id(grid))
+        if ent is None or ent[0] is not grid:
+            ent = self._ops[id(grid)] = (grid, ColumnOps(grid))
+        return ent[1]

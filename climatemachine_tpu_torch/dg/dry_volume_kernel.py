@@ -35,6 +35,7 @@ import torch
 from climatemachine_tpu_torch.atmos.linear import (
     AtmosAcousticGravityLinearModel, AtmosAcousticLinearModel)
 from climatemachine_tpu_torch.atmos.model import AtmosModel
+from climatemachine_tpu_torch.atmos.moisture import DryModel
 from climatemachine_tpu_torch.atmos.ref_state import reads_p_ref
 from climatemachine_tpu_torch.dg.directions import direction_dims
 from climatemachine_tpu_torch.dg.line_ops import wdiv_lines
@@ -114,7 +115,8 @@ dry_volume_tendency.launches = 0
 
 def supports(balance_law, grid, direction, remainder=None) -> bool:
     """True when the kernel covers this configuration: the (dry,
-    total-energy, compressible) AtmosModel in every direction, and a
+    total-energy, compressible) AtmosModel without radiation in every
+    direction, and a
     remainder, if any, of an acoustic(-gravity) linear model."""
     if not isinstance(balance_law, AtmosModel):
         return False
@@ -125,8 +127,11 @@ def supports(balance_law, grid, direction, remainder=None) -> bool:
             return False
         if ldir not in ("vertical", "every", "horizontal"):
             return False
+    ph = balance_law.physics
     return (grid.dim == 3 and direction == "every"
-            and balance_law.prog_spec.num == 5 and grid.Wdiv is not None)
+            and balance_law.prog_spec.num == 5
+            and isinstance(ph.moisture, DryModel) and ph.radiation is None
+            and grid.Wdiv is not None)
 
 
 def volume_tendency_from_grid(dg, q, aux, volume=dry_volume_tendency):

@@ -55,6 +55,7 @@ from climatemachine_tpu_torch.atmos.hyperdiffusion import (
 from climatemachine_tpu_torch.atmos.linear import (
     AtmosAcousticGravityLinearModel, AtmosAcousticLinearModel)
 from climatemachine_tpu_torch.atmos.model import AtmosModel
+from climatemachine_tpu_torch.atmos.moisture import DryModel, EquilMoist
 from climatemachine_tpu_torch.atmos.ref_state import reads_p_ref
 from climatemachine_tpu_torch.dg import (fast_surface, ldg_kernel,
                                         surface_kernel)
@@ -88,7 +89,15 @@ def _unsupported(dg):
         return ValueError, ("VarMajorRHS has no gradient pass: a "
                             "turbulence closure takes the generic DG "
                             "operator")
-    hd = bl.physics.hyperdiffusion
+    ph = bl.physics
+    if not isinstance(ph.moisture, (DryModel, EquilMoist)):
+        return ValueError, ("VarMajorRHS takes a dry or an EquilMoist "
+                            f"model, got {ph.moisture!r}")
+    for name in ("sgstke", "radiation", "lsforcing"):
+        if getattr(ph, name) is not None:
+            return ValueError, (f"VarMajorRHS takes no {name}: the "
+                                "generic DG operator does")
+    hd = ph.hyperdiffusion
     if not (hd is None or type(hd) in (DryBiharmonic, EquilMoistBiharmonic)):
         return NotImplementedError, "next slice"
     if dg.remainder is not None:

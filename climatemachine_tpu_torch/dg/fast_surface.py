@@ -37,15 +37,17 @@ from climatemachine_tpu_torch.physics import thermodynamics as td
 
 def supports(dg) -> bool:
     """True when the generic DG operator ``dg`` takes this pass: the dry
-    AtmosModel (five prognostic lanes, DryModel, no tracers: the JAX
-    package's conditions) with the Rusanov flux in every direction on a
-    grid of identity face orientations, with impenetrable free-slip,
+    AtmosModel (five prognostic lanes, DryModel, no tracers, no
+    radiation: the JAX package's conditions) with the Rusanov flux in
+    every direction on a grid of identity face orientations, with
+    impenetrable free-slip,
     insulating walls.  Any other configuration, a moist one among them,
     takes the node-gather pass (``DGModel._generic_surface``)."""
     bl, g = dg.balance_law, dg.grid
     return (isinstance(bl, AtmosModel) and dg.direction == "every"
             and g.face_perm_identity and bl.prog_spec.num == 5
             and isinstance(bl.physics.moisture, DryModel)
+            and bl.physics.radiation is None
             and bl.tracers.N == 0
             and type(dg.nf1) is RusanovNumericalFlux
             and all(bc.is_free_slip_wall()

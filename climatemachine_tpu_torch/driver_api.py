@@ -8,6 +8,12 @@ the names the port provides): what an experiment script needs.
 >>> sc = cm.make_solver_configuration(0.0, 10.0, dc, Courant_number=0.4)
 >>> cm.invoke(sc)
 
+The forced LES cases: ``climatemachine_tpu_torch.experiments``
+``bomex_les.bomex_config``, ``dycoms.dycoms_config``,
+``boundary_layer_les.convective_bl_config`` /
+``stable_bl_config`` and ``canopy_sgstke.canopy_config`` give their
+``AtmosLESConfiguration``; the forcings they use are exported here.
+
 The GCM: ``cm.AtmosGCMConfiguration(name, p, (n_horz, n_vert), height,
 model)`` for a cubed sphere, or ``cm.gcm_driver_config(...)`` for the
 composable GCM experiment; a run restarts from a checkpoint with
@@ -34,16 +40,21 @@ from climatemachine_tpu_torch.atmos.model import (AtmosModel, AtmosPhysics,
                                                   AtmosProblem)
 from climatemachine_tpu_torch.atmos.ref_state import (HydrostaticState,
                                                       NoReferenceState)
-from climatemachine_tpu_torch.atmos.sources import Coriolis, Gravity
+from climatemachine_tpu_torch.atmos.sources import (
+    Coriolis, GeostrophicForcing, Gravity, RayleighSponge, Subsidence)
 from climatemachine_tpu_torch.atmos.boundaryconditions import (
     AtmosBC, BulkFormulaEnergy, BulkFormulaMoisture, DragLaw, FreeSlip,
     Impenetrable, Impermeable, InitStateBC, Insulating, NoSlip,
     PrescribedEnergyFlux, PrescribedMoistureFlux, PrescribedTemperature)
 from climatemachine_tpu_torch.atmos.hyperdiffusion import (
     DryBiharmonic, EquilMoistBiharmonic)
-from climatemachine_tpu_torch.atmos.moisture import DryModel, EquilMoist
+from climatemachine_tpu_torch.atmos.lsforcing import HadGEMVertical
+from climatemachine_tpu_torch.atmos.moisture import (DryModel, EquilMoist,
+                                                     NonEquilMoist)
 from climatemachine_tpu_torch.atmos.precipitation import (RainModel,
                                                           RainSnowModel)
+from climatemachine_tpu_torch.atmos.radiation import (DYCOMSRadiationModel,
+                                                      NoRadiation)
 from climatemachine_tpu_torch.atmos.tracers import NTracers
 
 from climatemachine_tpu_torch.common.orientations import (

@@ -11,8 +11,11 @@ lanes, the moist model's 6 (ρq_tot after ρe) or, with precipitation and
 tracers, more (ρq_tot, ρq_rai, ρχ…), the ocean's 4 (u[0], u[1], η,
 θ; aux coord, y, w, pkin, wz0, ud, dGu), the shallow-water model's 3
 (η, U[0], U[1]; aux coord (2), y, GU, du) and the barotropic model's
-(the same, its aux also U_c, η_c, U_s, η_s, η_diag, Δη), and their aux
-lanes, in the lane order the two packages share.  Given the other package's lane names,
+(the same, its aux also U_c, η_c, U_s, η_s, η_diag, Δη), the forced
+LES models' (NonEquilMoist's ρq_tot, ρq_liq, ρq_ice; the SGS TKE's
+ρe_SGS; the aux lanes of radiation's attenuation paths and of the
+large-scale forcing's profile), and their aux lanes, in the lane order
+the two packages share.  Given the other package's lane names,
 ``state_from_numpy`` checks them against the model's schema name by
 name.
 """

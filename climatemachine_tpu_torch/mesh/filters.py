@@ -1,7 +1,8 @@
 """Modal filters (port of ``climatemachine_tpu/mesh/filters.py``:
 spectral_filter_matrix, ``SpectralFilter`` :88-134 with its
 ``direction`` argument, ``nodal_matrix`` :108 and ``apply_vm`` :128,
-``ExponentialFilter`` :137, ``CutoffFilter`` :169).
+``ExponentialFilter`` :137, ``CutoffFilter`` :169), and the TMAR
+positivity filter ``tmar`` :195-211.
 
 The per-dimension filter matrices V diag(σ) V⁻¹ are built in numpy
 float64 and rounded to the grid dtype, as the JAX package stores them.
@@ -9,13 +10,14 @@ Calling a filter contracts the var-major state ``[E, n, Np]`` with the
 matrices of the direction's reference dims, one dim at a time (the
 ocean's vertical filters: Nq₃ × Nq₃ over k); ``apply_vm`` (every
 direction, the Held-Suarez step filter) is one ``torch.matmul`` with
-the composed ``[Np, Np]`` nodal operator.
+the composed ``[Np, Np]`` nodal operator.  ``tmar`` sums over each
+element's nodes, the last axis of the var-major state.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -138,3 +140,25 @@ class CutoffFilter(SpectralFilter):
         if Nc is None:
             Nc = tuple(nq - 1 for nq in grid.Nq)
         super().__init__(grid, _matrices(grid, Nc, lambda eta: 0.0))
+
+
+def tmar(grid, q, fields: Optional[Sequence[int]] = None):
+    """The truncation-and-mass-aware rescaling positivity filter (Light &
+    Durran 2016) of var-major q ``[E, n, Np]``: in each element, the
+    negative values clipped to 0 and the rest scaled so that the
+    element's M-weighted integral is max(its integral, 0) (0 where
+    nothing positive is left); ``fields`` the lanes filtered (default:
+    all), the others kept."""
+    M = grid.M[:, None]                                   # [E, 1, Np]
+    qc = torch.clamp_min(q, 0.0)
+    num = torch.sum(M * q, dim=2, keepdim=True)
+    den = torch.sum(M * qc, dim=2, keepdim=True)
+    pos = den > 0
+    scale = torch.where(pos, torch.clamp_min(num, 0.0)
+                        / torch.where(pos, den, 1.0), 0.0)
+    out = qc * scale
+    if fields is None:
+        return out
+    res = q.clone()
+    res[:, list(fields)] = out[:, list(fields)]
+    return res

@@ -31,7 +31,7 @@ import torch
 
 from climatemachine_tpu_torch.balance_laws import state_types as st
 from climatemachine_tpu_torch.balance_laws.interface import BalanceLaw
-from climatemachine_tpu_torch.dg.columns import ColumnOps
+from climatemachine_tpu_torch.dg.columns import ColumnOpsCache
 from climatemachine_tpu_torch.mesh.filters import (CutoffFilter,
                                                    ExponentialFilter)
 from climatemachine_tpu_torch.ocean import core as oc
@@ -82,7 +82,7 @@ class HydrostaticBoussinesqModel(BalanceLaw):
         self.grad_spec = VarSpec(u=2, theta=1)
         self.gf_spec = VarSpec(div_h_u=1, nu_grad_u=(3, 2),
                                kappa_grad_theta=3)
-        self._colops = {}
+        self._cols = ColumnOpsCache()
         self._filters = {}
 
     def vars_state(self, state_type) -> VarSpec:
@@ -99,12 +99,6 @@ class HydrostaticBoussinesqModel(BalanceLaw):
         return self.aux_spec.get(aux, name)
 
     # --- helpers -------------------------------------------------------------
-    def _cols(self, grid) -> ColumnOps:
-        key = id(grid)
-        if key not in self._colops:
-            self._colops[key] = ColumnOps(grid)
-        return self._colops[key]
-
     def _vert_filters(self, grid):
         """(cut-off on u, exponential on θ): the reference's CutoffFilter
         at Nq₃ − 2, which zeroes the top two vertical modes, and

@@ -1,13 +1,18 @@
 """Moist-air thermodynamics (port of
-``climatemachine_tpu/physics/thermodynamics.py`` :27-242): the equation
-of state and the saturation adjustment, the same formulas in the same
-evaluation order, on tensors.
+``climatemachine_tpu/physics/thermodynamics.py``): the equation of
+state, the saturation adjustment, the potential temperatures, relative
+humidity and enthalpy, and T from (p, θ_liq[, q_tot]), the same
+formulas in the same evaluation order, on tensors.
 
 ``q`` is a :class:`PhasePartition` (total, liquid and ice specific
 humidities); ``None`` means dry air, whose formulas are the dry limits
 the Held-Suarez step runs.  The saturation adjustment keeps the JAX
 package's static trip counts (30 bisections, then ``n_iter`` Newton
-steps): its float32 result depends on them.
+steps): its float32 result depends on them.  So does
+:func:`temperature_from_theta_liq`, 30 bisections whose test
+``θ_liq(mid) < θ_liq`` keeps the JAX package's order: a comparison that
+flips on round-off moves T by the bracket width of that step, at most
+(T_max − T_min)/2³⁰ after the last.
 """
 
 from __future__ import annotations
@@ -81,6 +86,19 @@ def air_temperature(ps: PlanetParameterSet, e_int,
                      + q.ice * (ps.e_int_v0 + ps.e_int_i0)) / cv_m(ps, q)
 
 
+def internal_energy_from_state(rho, rhoe, rhou, Phi):
+    """e_int = ρe/ρ − |ρu|²/2ρ² − Φ of a conserved state (ρu ``[E, 3,
+    L]``: the vector axis is 1)."""
+    ke = 0.5 * torch.sum(rhou * rhou, dim=1) / (rho * rho)
+    return rhoe / rho - ke - Phi
+
+
+def total_energy(ps: PlanetParameterSet, e_kin, e_pot, T,
+                 q: Optional[PhasePartition] = None):
+    """Specific total energy e_kin + e_pot + e_int(T, q)."""
+    return e_kin + e_pot + internal_energy(ps, T, q)
+
+
 # --- equation of state ---------------------------------------------------------
 
 def air_pressure(ps: PlanetParameterSet, T, rho,
@@ -90,15 +108,48 @@ def air_pressure(ps: PlanetParameterSet, T, rho,
     return rho * gas_constant_air(ps, q) * T
 
 
+def air_density(ps: PlanetParameterSet, T, p,
+                q: Optional[PhasePartition] = None):
+    return p / (gas_constant_air(ps, q) * T)
+
+
 def soundspeed_air(ps: PlanetParameterSet, T,
                    q: Optional[PhasePartition] = None):
     gamma = cp_m(ps, q) / cv_m(ps, q)
     return torch.sqrt(gamma * gas_constant_air(ps, q) * T)
 
 
+def exner(ps: PlanetParameterSet, p, q: Optional[PhasePartition] = None):
+    """Π = (p/p₀)^(R_m/c_pm) (dry: κ_d)."""
+    if q is None:
+        return (p / ps.MSLP) ** ps.kappa_d
+    return (p / ps.MSLP) ** (gas_constant_air(ps, q) / cp_m(ps, q))
+
+
+def dry_pottemp(ps: PlanetParameterSet, T, p,
+                q: Optional[PhasePartition] = None):
+    return T / exner(ps, p, q)
+
+
 def virtual_temperature(ps: PlanetParameterSet, T,
                         q: Optional[PhasePartition] = None):
     return gas_constant_air(ps, q) / ps.R_d * T
+
+
+def liquid_ice_pottemp(ps: PlanetParameterSet, T, p,
+                       q: Optional[PhasePartition] = None):
+    """θ_li = θ (1 − (L_v q_l + L_s q_i)/(c_pm T)); dry air: θ."""
+    theta = dry_pottemp(ps, T, p, q)
+    if q is None:
+        return theta
+    return theta * (1.0 - (ps.LH_v0 * q.liq + ps.LH_s0 * q.ice)
+                    / (cp_m(ps, q) * T))
+
+
+def virtual_pottemp(ps: PlanetParameterSet, T, p,
+                    q: Optional[PhasePartition] = None):
+    """θ_v = (R_m/R_d) θ."""
+    return gas_constant_air(ps, q) / ps.R_d * dry_pottemp(ps, T, p, q)
 
 
 # --- saturation ------------------------------------------------------------------
@@ -184,3 +235,48 @@ def saturation_adjustment(ps: PlanetParameterSet, e_int, rho, q_tot,
         Tn = T - f / torch.where(torch.abs(df) < 1e-12, 1e-12, df)
         T = torch.clamp(Tn, lo, hi)
     return torch.where(unsaturated, T_vap, T)
+
+
+def relative_humidity(ps: PlanetParameterSet, T, p,
+                      q: Optional[PhasePartition] = None):
+    """p_vap / p_vap,sat over the λ(T)-weighted liquid/ice mixture,
+    clipped to [0, 1]; dry air 0."""
+    if q is None:
+        return torch.zeros_like(T)
+    q_vap = q.tot - q.liq - q.ice
+    eps_vi = ps.R_v / ps.R_d
+    p_vap = q_vap * p / (q_vap + (1.0 / eps_vi) * (1 - q.tot))
+    lam = liquid_fraction(ps, T)
+    pvs = (lam * saturation_vapor_pressure_liquid(ps, T)
+           + (1 - lam) * saturation_vapor_pressure_ice(ps, T))
+    return torch.clamp(p_vap / pvs, 0.0, 1.0)
+
+
+def total_specific_enthalpy(ps: PlanetParameterSet, e_tot, T,
+                            q: Optional[PhasePartition] = None):
+    """h_tot = e_tot + R_m T."""
+    return e_tot + gas_constant_air(ps, q) * T
+
+
+def temperature_from_theta_liq(ps: PlanetParameterSet, p, theta_liq,
+                               q_tot=None):
+    """T from (p, θ_liq[, q_tot]).  Dry: T = θ Π.  Moist: 30 bisections
+    of [T_min, T_max] on θ_liq(T) at fixed (p, q_tot), θ_liq(T) the
+    liquid-ice potential temperature of the equilibrium phase partition
+    at ρ = p/(R_m(q_tot) T), which increases with T; the midpoint of the
+    last bracket."""
+    if q_tot is None:
+        return theta_liq * exner(ps, p)
+
+    def theta_liq_of(T):
+        rho = p / (gas_constant_air(ps, PhasePartition.vapor(q_tot)) * T)
+        return liquid_ice_pottemp(ps, T, p,
+                                  phase_partition_equil(ps, T, rho, q_tot))
+
+    lo = torch.full_like(theta_liq, ps.T_min)
+    hi = torch.full_like(theta_liq, ps.T_max)
+    for _ in range(30):
+        mid = 0.5 * (lo + hi)
+        below = theta_liq_of(mid) < theta_liq
+        lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
+    return 0.5 * (lo + hi)

@@ -1,10 +1,12 @@
 """Where the Held-Suarez step, or the moist baroclinic wave's, the LES
-bubble's, the ocean box's or the split-explicit ocean's, spends its time
-on the card.
+bubble's, a forced LES case's, the ocean box's or the split-explicit
+ocean's, spends its time on the card.
 
     python -m climatemachine_tpu_torch.profile_step [--steps N] [--out DIR]
         [--no-hyperdiffusion] [--imex] [--surface-kernel {xla,hybrid,pallas}]
         [--grid] [--dense] [--moist] [--dt SECONDS] [--les]
+        [--forcing {bomex,dycoms,convective_bl,stable_bl,
+                    stable_bl_custom_sbl,canopy}]
         [--ocean [--problem {homogeneous,gyre}]]
         [--split-explicit [--variant {new,split01,split01_3n}]]
 
@@ -30,7 +32,12 @@ Courant 0.4), whose explicit step runs on the generic DG operator with
 its gradient pass; its spans are ``gradient`` (the DG gradient),
 ``gradient_flux``, ``volume`` (the volume tendency with F₂),
 ``surface`` (the face pass) with ``second_order_faces`` (F₂* on both
-sides) inside it, and ``sources``.  ``--ocean`` builds the ocean box
+sides) inside it, and ``sources``.  ``--forcing`` builds a forced LES
+case of experiments/forced_les.py at its example's defaults instead
+(float64, the example's Courant number and solver), with the bubble's spans and
+``saturation`` (the saturation adjustment, with EquilMoist),
+``stack_integrals`` (DYCOMS's radiation paths) and ``tmar`` (BOMEX's
+TMAR after each step).  ``--ocean`` builds the ocean box
 GCM (experiments/ocean_box.py at its defaults: HomogeneousBox, or
 OceanGyre with ``--problem gyre``, 20 × 20 × 20 elements at p4, float64,
 LSRK144 at dt = 55 s), whose spans are ``pre_stage`` (the vertical
@@ -76,6 +83,7 @@ import os
 import subprocess
 import time
 from collections import defaultdict
+from types import SimpleNamespace
 
 import torch
 from torch.autograd import DeviceType
@@ -93,6 +101,7 @@ from climatemachine_tpu_torch.experiments.baroclinic_wave import \
 from climatemachine_tpu_torch.experiments.ocean_box import (PROBLEMS,
                                                              ocean_box_config)
 from climatemachine_tpu_torch.experiments import ocean_split_explicit
+from climatemachine_tpu_torch.experiments.forced_les import CASES
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config)
 from climatemachine_tpu_torch.experiments.risingbubble import \
@@ -104,7 +113,7 @@ SPANS = ("thermo", "saturation", "chain", "volume", "surface", "extract",
          "lift", "sources", "filter", "solve", "apply", "to_blocks",
          "from_blocks", "gradient", "gradient_flux", "second_order_faces",
          "pre_stage", "stack_integrals", "slow_rhs", "transfer", "fast",
-         "reconcile", "ivdc", "gmres")
+         "reconcile", "ivdc", "gmres", "tmar")
 
 
 def _span(name, fn):
@@ -163,7 +172,8 @@ def _instrument(args, cfg, dg, q, aux, dt, solver, sc):
     """(solver, rhs) of the Held-Suarez, moist, LES or ocean-box step with
     its spans."""
     layout = "grid" if args.grid else "auto"
-    if args.moist:
+    les = args.les or args.forcing
+    if args.moist or args.forcing:
         td.saturation_adjustment = _span("saturation",
                                          td.saturation_adjustment)
     if args.dense:
@@ -179,20 +189,24 @@ def _instrument(args, cfg, dg, q, aux, dt, solver, sc):
         sv.apply_op_blocks = _span("apply", sv.apply_op_blocks)
         sv.layout.to_blocks = _span("to_blocks", sv.layout.to_blocks)
         sv.layout.from_blocks = _span("from_blocks", sv.layout.from_blocks)
-    elif args.les:
+    elif les:
         solver = sc.solver
         solver.dt = dt
         rhs = solver.rhs
+        rad = rhs.balance_law.physics.radiation
+        if rad is not None:
+            rad.update_aux_integrals = _span("stack_integrals",
+                                             rad.update_aux_integrals)
     elif args.ocean:
         rhs = solver.rhs
         solver.pre_stage = _span("pre_stage", solver.pre_stage)
     else:
         solver = ExplicitSolverType(state_layout=layout).make(dg, q, aux, dt)
         rhs = solver.rhs
-    if not (args.moist or args.les or args.ocean):
+    if not (args.moist or les or args.ocean):
         solver.post_step = _span("filter", HeldSuarezStepFilter(
             cfg.grid, cfg.model).apply_vm)
-    if args.les or args.ocean:
+    if les or args.ocean:
         rhs.spatial_gradient = _span("gradient", rhs.spatial_gradient)
         bl = rhs.balance_law
         if args.ocean:
@@ -235,6 +249,7 @@ def main(argv=None):
     ap.add_argument("--moist", action="store_true")
     ap.add_argument("--dt", type=float, default=None)
     ap.add_argument("--les", action="store_true")
+    ap.add_argument("--forcing", default=None, choices=tuple(CASES))
     ap.add_argument("--ocean", action="store_true")
     ap.add_argument("--problem", choices=PROBLEMS, default="homogeneous")
     ap.add_argument("--split-explicit", action="store_true")
@@ -259,10 +274,14 @@ def main(argv=None):
         dg, q, aux, solver = ocean_box_config(args.problem, device="cuda")
         dt = solver.dt = args.dt or solver.dt
         tau = None
-    elif args.les:
+    elif args.les or args.forcing:
         driver_init(show_updates="never")
-        cfg = risingbubble_config(device="cuda")
-        sc = make_solver_configuration(0.0, -1.0, cfg, Courant_number=0.4)
+        case = CASES[args.forcing] if args.forcing else None
+        cfg = (case.config(device="cuda") if case
+               else risingbubble_config(device="cuda"))
+        sc = make_solver_configuration(
+            0.0, -1.0, cfg, ode_solver_type=case.solver_type if case else None,
+            Courant_number=case.courant if case else 0.4)
         dg, q, aux, dt = sc.dg, sc.q, sc.aux, args.dt or sc.dt
         tau = None
     else:
@@ -278,9 +297,17 @@ def main(argv=None):
     if not args.split_explicit:
         solver, rhs = _instrument(args, cfg, dg, q, aux, dt, solver, sc)
 
+    # a forced case's per-step callbacks (BOMEX's one: TMAR)
+    step_fns = ([_span("tmar", cb.fn) for cb in case.callbacks(cfg)]
+                if args.forcing else [])
+
     def run(n, q, aux):
         for i in range(n):
             q, aux = solver.step(q, aux, i * dt)
+            for fn in step_fns:
+                state = SimpleNamespace(q=q)
+                fn(state)
+                q = state.q
         torch.cuda.synchronize()
         return q, aux
 
@@ -338,6 +365,7 @@ def main(argv=None):
         "model": (f"split-explicit ocean gyre ({args.variant})"
                   if args.split_explicit
                   else f"ocean box GCM ({args.problem})" if args.ocean
+                  else f"forced LES ({args.forcing})" if args.forcing
                   else "rising bubble LES (SmagorinskyLilly)" if args.les
                   else "moist baroclinic wave" if args.moist
                   else "Held-Suarez"),

@@ -88,6 +88,25 @@ def test_scan_reaches_split_explicit_modules():
             for m in SPLIT_EXPLICIT_MODULES} <= set(PORT_FILES)
 
 
+#: the forced LES slice's modules, which test_port_imports_no_jax must
+#: scan
+FORCED_LES_MODULES = ("atmos/radiation.py", "atmos/sgstke.py",
+                      "atmos/canopy.py", "atmos/lsforcing.py",
+                      "atmos/sources.py", "atmos/moisture.py",
+                      "atmos/model.py", "common/surface_fluxes.py",
+                      "common/orientations.py", "mesh/filters.py",
+                      "physics/thermodynamics.py",
+                      "experiments/bomex_les.py", "experiments/dycoms.py",
+                      "experiments/boundary_layer_les.py",
+                      "experiments/canopy_sgstke.py",
+                      "experiments/forced_les.py")
+
+
+def test_scan_reaches_forced_les_modules():
+    assert {ROOT / "climatemachine_tpu_torch" / m
+            for m in FORCED_LES_MODULES} <= set(PORT_FILES)
+
+
 @pytest.mark.parametrize("name", ["ShallowWaterModel", "ConstantViscosity",
                                   "CoupledHBModel", "BarotropicModel",
                                   "SplitExplicitSolver", "IVDCModel",
@@ -131,11 +150,30 @@ def test_coupled_ocean_refused():
 @pytest.mark.parametrize("name", ["sgstke", "lsforcing", "turbconv",
                                   "radiation"])
 def test_unported_physics_refused(name):
-    """The AtmosPhysics fields of models not ported raise "next slice"."""
+    """Of these AtmosPhysics fields only ``turbconv`` (EDMF) is not
+    ported: it raises "next slice".  The SGS TKE model and the
+    large-scale forcing build with a turbulence closure (the gradient
+    pass) and raise ValueError without one; radiation builds."""
+    from climatemachine_tpu_torch.atmos.lsforcing import HadGEMVertical
     from climatemachine_tpu_torch.atmos.model import (AtmosPhysics,
                                                       AtmosProblem)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        AtmosModel(AtmosPhysics(**{name: object()}), AtmosProblem())
+    from climatemachine_tpu_torch.atmos.radiation import \
+        DYCOMSRadiationModel
+    from climatemachine_tpu_torch.atmos.sgstke import SGStkeModel
+    from climatemachine_tpu_torch.common.turbulence import Deardorff
+    if name == "turbconv":
+        with pytest.raises(NotImplementedError, match="next slice"):
+            AtmosModel(AtmosPhysics(turbconv=object()), AtmosProblem())
+        return
+    part = {"sgstke": SGStkeModel(), "radiation": DYCOMSRadiationModel(),
+            "lsforcing": HadGEMVertical(lambda z: {})}[name]
+    model = AtmosModel(AtmosPhysics(turbulence=Deardorff(),
+                                    **{name: part}), AtmosProblem())
+    assert f"{name}." in " ".join(model.prog_spec.flattened_names()
+                                  + model.aux_spec.flattened_names())
+    if name != "radiation":
+        with pytest.raises(ValueError, match="turbulence closure"):
+            AtmosModel(AtmosPhysics(**{name: part}), AtmosProblem())
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -12,7 +12,8 @@ the JAX gradient flux, each within 1e-12 of the largest magnitude of the
 JAX result; the same with an UpperAtmosSponge; the model's gradient
 hooks with EquilMoist and NTracers; the aux lane ``turbulence.delta``
 (2 J^(1/3)/N from the grid) within 1e-13; the profiles within 1e-13 of
-each output's largest magnitude; ``Deardorff`` refused.
+each output's largest magnitude; ``Deardorff`` refused without the SGS
+TKE model.
 """
 
 import jax.numpy as jnp
@@ -216,5 +217,11 @@ def test_temperature_profiles(name):
 
 
 def test_deardorff_refused():
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cm.Deardorff()
+    """Deardorff builds (with the SGS TKE model it is a closure of
+    tests/test_torch_sgstke.py); a model without ``sgstke`` is refused
+    where the closure reads it."""
+    closure = cm.Deardorff()
+    assert closure.needs_delta and closure.viscosity_needs_gradient_flux
+    model = port_model(turbulence=closure)
+    with pytest.raises(ValueError, match="sgstke"):
+        closure.viscosity(model, None, None, None, 0.0)
