@@ -231,6 +231,34 @@ filter:
   surface option and the Deardorff canopy, 1 + 2 steps each; each with
   ms per step, simulated s per wall s, set-up s and peak memory; then
   BOMEX, DYCOMS and the canopy on 2 × 2 × 2 elements, card against CPU;
+- diagnostics and output (phase ``diagnostics``), each built through
+  the driver's entry and ``invoke(..., diagnostics_config=
+  DiagnosticsConfiguration(...))``: DYCOMS-II RF01 (684 elements, 1 + 2
+  steps, AtmosLESDefault and AtmosLESCore every step) and BOMEX at its
+  published width (4,864 elements, 3 + 10 steps with TMAR,
+  AtmosLESDefault every 5 steps), written by ``NpzWriter``; each group
+  at the final state against the same group computed on the CPU from
+  the card's state (DIAG_PROFILE_TOL of each profile's largest |value|,
+  plus DIAG_ROUNDOFF_FACTOR times the profile's change under a 2⁻⁵⁰
+  relative perturbation of that state: the cases are horizontally
+  uniform, so their second moments are round-off), DYCOMS's liquid
+  water path > 0, cloud fraction in [0, 1], cloud top above its base,
+  BOMEX's q_tot ≥ 0, no launch; Held-Suarez at bench width through
+  ``held_suarez_driver(imex=True)`` under "pallas", DIAG_GCM_STEPS
+  steps with AtmosGCMDefault (with vorticity) on
+  ``InterpolationConfiguration``'s 91 × 180 × 32 grid,
+  AtmosMassEnergyLoss, AtmosGCMSpectra and a StateCheck every step,
+  against the same run without them: the final states equal bit for
+  bit, both runs' launches the IMEX path's a step, the interpolated
+  nodal radius equal to the target radii within INTERP_RADIUS_TOL; the
+  StateCheck case of tests/test_statecheck_refvals.py (Held-Suarez p3
+  at 2 × 2, 30 LSRK54 steps on the generic operator, float32: the dry
+  volume and chain kernels) against the port's CPU float32 run within
+  STATECHECK_TOL, each statistic's distance to
+  tests/refvals/held_suarez.py reported; ``debug_init`` at bench width:
+  the VTK dump parses, its fields equal the state, no lane of the state
+  or aux is non-finite.  Each group's ms a write apart from ms a step,
+  the dump's bytes and seconds, peak memory;
 - the staged kernels (K1-K4, the volume kernel with and without F₂,
   both dry branches; the moist branches of K1-K4 and the volume kernel)
   and every remainder branch above at the other orders the kernels are
@@ -428,6 +456,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from types import SimpleNamespace
@@ -454,7 +483,16 @@ from climatemachine_tpu_torch.dg.spatial import (DGModel, init_ode_state,
                                                  init_state_auxiliary,
                                                  remainder_DGModel)
 from climatemachine_tpu_torch.common.turbulence import SmagorinskyLilly
+from climatemachine_tpu_torch.diagnostics.atmos_les import (
+    AtmosLESCoreGroup, AtmosLESDefaultGroup)
+from climatemachine_tpu_torch.diagnostics.fields import AtmosGCMDefaultGroup
+from climatemachine_tpu_torch.diagnostics.groups_extra import (
+    AtmosGCMSpectraGroup, AtmosMassEnergyLossGroup)
+from climatemachine_tpu_torch.diagnostics.state_check import StateCheck
 from climatemachine_tpu_torch.driver import callbacks as cbs
+from climatemachine_tpu_torch.driver import solver_configs
+from climatemachine_tpu_torch.driver.diagnostics_configs import (
+    DiagnosticsConfiguration, InterpolationConfiguration)
 from climatemachine_tpu_torch.driver.driver import init as driver_init
 from climatemachine_tpu_torch.driver.driver import invoke
 from climatemachine_tpu_torch.driver.solver_configs import \
@@ -472,6 +510,8 @@ from climatemachine_tpu_torch.experiments.ocean_box import ocean_box_config
 from climatemachine_tpu_torch.experiments.risingbubble import \
     risingbubble_config
 from climatemachine_tpu_torch.interop import grid_from_numpy, grid_to_numpy
+from climatemachine_tpu_torch.io.vtk import readvtk
+from climatemachine_tpu_torch.io.writers import NpzWriter
 from climatemachine_tpu_torch.mesh.filters import tmar
 from climatemachine_tpu_torch.mesh.grid import make_grid, min_node_distance
 from climatemachine_tpu_torch.mesh.topology import (brick_topology,
@@ -788,6 +828,26 @@ GCM_LSRK_STEPS = 3
 #: solid-body rotation: the example's end time and the dt its Courant
 #: number gives at its defaults (the JAX example's, 7200 s / 41 steps)
 SBR_TIMEEND, SBR_DT = 7200.0, 7200.0 / 41
+#: diagnostics: the LES cases' (warm, timed steps, write interval,
+#: groups); a profile's bound against the CPU, relative to its largest
+#: |value|, and the factor on its change under a 2⁻⁵⁰ relative
+#: perturbation of the state that is added to it (its round-off)
+DIAG_LES = {"dycoms": (1, 2, 1, ("default", "core")),
+            "bomex": (FORCING_WARM, FORCING_STEPS, 5, ("default",))}
+DIAG_LES_GROUPS = {"default": AtmosLESDefaultGroup, "core": AtmosLESCoreGroup}
+DIAG_PROFILE_TOL = 1e-12
+DIAG_ROUNDOFF_EPS, DIAG_ROUNDOFF_FACTOR = 2.0 ** -50, 64.0
+DIAG_SEED = 19
+#: Held-Suarez steps with and without the GCM groups; the interpolated
+#: nodal radius against the target radii (relative)
+DIAG_GCM_STEPS = 5
+DIAG_GCM_GRID = (91, 180, 4 * N_VERT)
+INTERP_RADIUS_TOL = 1e-5
+#: the StateCheck case (tests/test_statecheck_refvals.py): steps, and the
+#: card's float32 statistics against the CPU's float32 ones (relative;
+#: the momentum's over its largest magnitude)
+STATECHECK_STEPS = 30
+STATECHECK_TOL = 1e-5
 
 KERNELS = {
     "fused_volume_tendency_vm": (
@@ -4821,6 +4881,336 @@ def phase_gcm_driver() -> dict:
     return out
 
 
+# --- diagnostics and output ---------------------------------------------------
+
+class CallClock:
+    """Wraps ``obj.<method>``: each call's start and host seconds, the
+    card synchronised before and after; ``last`` holds its last result."""
+
+    def __init__(self, obj, method: str = "write"):
+        self.calls, self.last = [], None
+        inner = getattr(obj, method)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.last = inner(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append((t0, time.perf_counter() - t0))
+            return self.last
+
+        setattr(obj, method, timed)
+
+    def ms(self) -> float:
+        """The mean ms a call."""
+        return 1e3 * statistics.fmean(d for _, d in self.calls)
+
+    def seconds_after(self, t0: float) -> float:
+        return sum(d for t, d in self.calls if t >= t0)
+
+
+def profiles_vs_cpu(card: dict, cpu: dict, cpu_eps: dict) -> dict:
+    """Each value of ``card`` against ``cpu`` (the same group on the CPU)
+    within DIAG_PROFILE_TOL of its largest |value| plus DIAG_ROUNDOFF_FACTOR
+    times its change ``cpu_eps`` − ``cpu`` under a 2⁻⁵⁰ relative
+    perturbation of the state, NaN where the CPU has NaN: the largest
+    error over that bound, the worst value, and the values whose
+    round-off term exceeds their relative bound (round-off profiles)."""
+    worst, worst_key, roundoff = 0.0, None, []
+    for k, ref in cpu.items():
+        got, ref, eps = (np.asarray(a, dtype=np.float64)
+                         for a in (card[k], ref, cpu_eps[k]))
+        nan = np.isnan(ref)
+        check(np.array_equal(np.isnan(got), nan), ("NaN pattern", k))
+        if nan.all():
+            continue
+        scale = np.max(np.abs(ref[~nan]))
+        noise = DIAG_ROUNDOFF_FACTOR * np.max(np.abs(eps - ref)[~nan])
+        if noise > DIAG_PROFILE_TOL * scale:
+            roundoff.append(k)
+        bound = DIAG_PROFILE_TOL * scale + noise
+        err = np.max(np.abs(got - ref)[~nan])
+        ratio = err / bound if bound > 0 else (0.0 if err == 0 else math.inf)
+        if ratio > worst or worst_key is None:
+            worst, worst_key = ratio, k
+    return dict(err_over_bound=worst, worst=worst_key, roundoff=roundoff,
+                n_values=len(cpu))
+
+
+def diagnostics_les(name: str) -> dict:
+    """Case ``name`` of DIAG_LES through the driver's entry and ``invoke``
+    with its groups (``NpzWriter``) in a ``DiagnosticsConfiguration``;
+    checks and reports as the module docstring says."""
+    warm, steps, every, kinds = DIAG_LES[name]
+    case = FORCED_LES_CASES[name]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dc = case.config(device="cuda")
+    sc = make_solver_configuration(0.0, -1.0, dc,
+                                   ode_solver_type=case.solver_type,
+                                   Courant_number=case.courant)
+    g, model = dc.grid, dc.model
+    check(g.nelem == FORCING_ELEMENTS[name], (name, "elements", g.nelem))
+    sc.timeend = (warm + steps) * sc.dt
+    with tempfile.TemporaryDirectory() as tmp:
+        groups = {k: DIAG_LES_GROUPS[k](sc.dg, writer=NpzWriter(),
+                                        out_path=f"{tmp}/{name}_{k}.npz")
+                  for k in kinds}
+        clocks = {k: CallClock(grp) for k, grp in groups.items()}
+        timer = StepTimer(warm)
+        reset_launch_counts()
+        invoke(sc, user_callbacks=(*case.callbacks(dc), timer),
+               diagnostics_config=DiagnosticsConfiguration(
+                   tuple(groups.values()), every_steps=every))
+        counts = launch_counts()
+        files = len(list(pathlib.Path(tmp).iterdir()))
+    check_launches(counts, expected_launches({}, 0))
+    check(files == len(kinds) * (1 + (warm + steps) // every),
+          (name, "files written", files))
+    wall = timer.end - timer.start
+    writes = sum(c.seconds_after(timer.start) for c in clocks.values())
+    g64 = grid_from_numpy(grid_to_numpy(g), device="cpu", dtype=torch.float64)
+    dg64 = DGModel(model, g64,
+                   numerical_flux_first_order=dc.numerical_flux_first_order,
+                   numerical_flux_gradient=dc.numerical_flux_gradient,
+                   numerical_flux_second_order=dc.numerical_flux_second_order)
+    q, aux, t = sc.q.cpu(), sc.aux.cpu(), sc.timeend
+    gen = torch.Generator().manual_seed(DIAG_SEED)
+    q_eps = q * (1 + DIAG_ROUNDOFF_EPS * torch.randn(q.shape, generator=gen,
+                                                     dtype=q.dtype))
+    res = dict(card=nvidia_smi(), case=name, elements=g.nelem, poly=POLY,
+               dtype="float64", dt_s=sc.dt, warm_steps=warm, steps=steps,
+               every_steps=every, ms_per_step=1e3 * (wall - writes) / steps,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               launches=counts, groups={})
+    for k, grp in groups.items():
+        card = grp.collect(sc.q, sc.aux, t)
+        cpu_grp = DIAG_LES_GROUPS[k](dg64)
+        cmp = profiles_vs_cpu(card, cpu_grp.collect(q, aux, t),
+                              cpu_grp.collect(q_eps, aux, t))
+        res["groups"][k] = dict(ms_per_write=clocks[k].ms(),
+                                writes=len(clocks[k].calls), **cmp)
+        check(cmp["err_over_bound"] <= 1.0,
+              (name, k, "profiles against the CPU", cmp))
+        if k == "default":
+            res.update(lwp=float(card["lwp"]), cld_top=float(card["cld_top"]),
+                       cld_base=float(card["cld_base"]),
+                       cld_frac_max=float(card["cld_frac"].max()),
+                       qt_min=float(card["qt"].min()))
+            check(res["qt_min"] >= 0.0, (name, "q_tot profile", res["qt_min"]))
+            if name == "dycoms":
+                check(res["lwp"] > 0.0, ("DYCOMS lwp", res["lwp"]))
+                check(card["cld_frac"].min() >= 0.0
+                      and res["cld_frac_max"] <= 1.0, "DYCOMS cld_frac")
+                check(res["cld_top"] > res["cld_base"],
+                      ("DYCOMS cloud top and base", res["cld_top"],
+                       res["cld_base"]))
+        else:
+            res["core_frac_max"] = float(card["core_frac"].max())
+    emit("diagnostics_les", **res)
+    return res
+
+
+def gcm_diagnostics_run(with_diagnostics: bool) -> dict:
+    """Held-Suarez at bench width through ``held_suarez_driver`` (IMEX,
+    "pallas"), DIAG_GCM_STEPS steps through ``invoke``, with or without
+    the GCM groups and a StateCheck every step; the steps after the first
+    timed."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sc = held_suarez_driver(N_HORZ, N_VERT, POLY, timeend=0.0, imex=True,
+                            device="cuda")
+    sc.timeend = DIAG_GCM_STEPS * sc.dt
+    sc.solver.vm.surface_kernel = "pallas"
+    out, config, clocks = {}, None, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        if with_diagnostics:
+            itp = InterpolationConfiguration(sc.driver_config)
+            check(itp.out_shape == DIAG_GCM_GRID, ("grid", itp.out_shape))
+            r = torch.linalg.vector_norm(sc.dg.grid.coords, dim=-1)
+            rads = torch.as_tensor(itp.latlon[2], device=r.device)
+            out["radius_rel_err"] = ((itp(r) - rads) / rads).abs().max().item()
+            check(out["radius_rel_err"] <= INTERP_RADIUS_TOL,
+                  ("interpolated radius", out["radius_rel_err"]))
+            w = NpzWriter
+            groups = {
+                "gcm_default": AtmosGCMDefaultGroup(
+                    sc.dg, itp, writer=w(), out_path=f"{tmp}/default.npz"),
+                "mass_energy_loss": AtmosMassEnergyLossGroup(
+                    sc.dg, writer=w(), out_path=f"{tmp}/mel.npz"),
+                "gcm_spectra": AtmosGCMSpectraGroup(
+                    sc.dg, itp, writer=w(), out_path=f"{tmp}/spec.npz")}
+            clocks = {k: CallClock(grp) for k, grp in groups.items()}
+            state_check = StateCheck(tracked=(
+                (lambda st: st.q, sc.dg.balance_law.prog_spec, "Q"),))
+            clocks["state_check"] = CallClock(state_check, "snapshot")
+            config = DiagnosticsConfiguration(
+                (*groups.values(), state_check), every_steps=1)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        timer = StepTimer(1)
+        reset_launch_counts()
+        invoke(sc, user_callbacks=(timer,), diagnostics_config=config)
+        counts = launch_counts()
+        out["bytes_written"] = sum(f.stat().st_size
+                                   for f in pathlib.Path(tmp).iterdir())
+    writes = sum(c.seconds_after(timer.start) for c in clocks.values())
+    out.update(q=sc.q, launches=counts, setup_s=setup_s,
+               ms_per_step=1e3 * (timer.end - timer.start - writes)
+               / timer.steps, steps=timer.steps,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               ms_per_write={k: c.ms() for k, c in clocks.items()},
+               writes={k: len(c.calls) for k, c in clocks.items()})
+    if with_diagnostics:
+        last = clocks["gcm_default"].last
+        out.update(finite=all(np.isfinite(v).all() for v in last.values()),
+                   max_abs_vort=float(np.abs(last["vort"]).max()),
+                   delta_mass=float(clocks["mass_energy_loss"].last[
+                       "delta_mass"]),
+                   spectrum_1d_shape=list(clocks["gcm_spectra"].last[
+                       "spectrum_1d"].shape))
+        check(out["finite"], "AtmosGCMDefault not finite")
+        check(len(state_check.history) == DIAG_GCM_STEPS,
+              ("StateCheck snapshots", len(state_check.history)))
+    return out
+
+
+def diagnostics_gcm() -> dict:
+    """The GCM groups' run against the same run without them."""
+    driver_init(show_updates="never")
+    runs = {d: gcm_diagnostics_run(d) for d in (True, False)}
+    per_step = {"fused_volume_tendency_vm": 3, **{k: 3 for k in CHAIN},
+                "to_blocks_vm": 3, "from_blocks_vm": 2,
+                **{k: 3 for k in SURFACE_LAUNCHES["pallas"]}}
+    for run in runs.values():
+        check_launches(run["launches"],
+                       expected_launches(per_step, DIAG_GCM_STEPS))
+    on = runs[True]
+    res = dict(card=nvidia_smi(), n_horz=N_HORZ, n_vert=N_VERT, poly=POLY,
+               dtype="float32", surface_kernel="pallas",
+               grid=list(DIAG_GCM_GRID),
+               exact=bool(torch.equal(on.pop("q"), runs[False].pop("q"))),
+               with_diagnostics=on, without=runs[False])
+    emit("diagnostics_gcm", **res)
+    check(res["exact"], "the GCM state with diagnostics against without")
+    return res
+
+
+def diagnostics_state_check() -> dict:
+    """tests/test_statecheck_refvals.py's case on the card (float32, the
+    generic operator: the dry volume and chain kernels) against the port's
+    CPU float32 run from the same initial state and dt."""
+    cfg = held_suarez_config(n_horz=2, n_vert=2, poly_order=3,
+                             device="cuda")
+    dt = 0.3 * min_node_distance(cfg.grid) / 350.0
+    g_cpu = grid_from_numpy(grid_to_numpy(cfg.grid), device="cpu",
+                            dtype=torch.float32)
+    spec = cfg.model.prog_spec
+    q0, aux0 = init_ode_state(DGModel(cfg.model, cfg.grid))
+    snaps, counts = {}, None
+    for run, grid in (("card", cfg.grid), ("cpu", g_cpu)):
+        dg = DGModel(cfg.model, grid)
+        sc = StateCheck(tracked=((lambda st: st.q, spec, "Q"),))
+        reset_launch_counts()
+        solve(q0.to(grid.device), aux0.to(grid.device),
+              LSRK54CarpenterKennedy(dg, dt), STATECHECK_STEPS * dt,
+              callbacks=(sc.make_callback(STATECHECK_STEPS),))
+        if run == "card":
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        snaps[run] = sc.history[-1]
+    mom = max(max(abs(snaps["cpu"][("Q", f"rhou[{i}]")][s])
+                  for s in ("min", "max")) for i in range(3))
+    err, to_ref = {}, {}
+    refvals = load_refvals("held_suarez").refvals
+    for key, cpu in snaps["cpu"].items():
+        card = snaps["card"][key]
+        scale = lambda s: mom if key[1].startswith("rhou") else abs(cpu[s])
+        err[key[1]] = max(abs(card[s] - cpu[s]) / scale(s)
+                          for s in ("min", "max", "mean", "std"))
+        to_ref[key[1]] = {s: abs(card[s] - refvals[key][s])
+                          / abs(refvals[key][s])
+                          for s in ("min", "max", "mean", "std")}
+    res = dict(card=nvidia_smi(), elements=cfg.grid.nelem, poly=3,
+               dtype="float32", steps=STATECHECK_STEPS, dt_s=dt,
+               rel_err_vs_cpu=err, tol=STATECHECK_TOL,
+               rel_dist_to_refvals=to_ref, launches=counts)
+    emit("diagnostics_state_check", **res)
+    check(max(err.values()) <= STATECHECK_TOL, ("StateCheck card vs CPU", err))
+    check_launches(counts, expected_launches(
+        {DRY: 5, **{k: 5 for k in CHAIN}}, STATECHECK_STEPS))
+    return res
+
+
+def diagnostics_debug_init() -> dict:
+    """``debug_init`` on the Held-Suarez driver entry at bench width: the
+    dump's bytes and seconds, parsed back, its fields equal to the state
+    within the ascii's 10 digits, no lane of state or aux non-finite."""
+    dump = solver_configs.vtk_dump_state
+    clock = SimpleNamespace(vtk_dump_state=dump)
+    timed = CallClock(clock, "vtk_dump_state")
+    try:
+        solver_configs.vtk_dump_state = clock.vtk_dump_state
+        with tempfile.TemporaryDirectory() as tmp:
+            driver_init(show_updates="never", debug_init=True,
+                        output_dir=tmp)
+            sc = held_suarez_driver(N_HORZ, N_VERT, POLY, timeend=0.0,
+                                    imex=True, device="cuda")
+            path = pathlib.Path(timed.last)
+            size = path.stat().st_size
+            t0 = time.perf_counter()
+            parsed = readvtk(str(path))
+            parse_s = time.perf_counter() - t0
+    finally:
+        solver_configs.vtk_dump_state = dump
+        driver_init(show_updates="never")
+    model, g = sc.dg.balance_law, sc.dg.grid
+    q = sc.q.cpu().double().numpy()
+    field_err = max(
+        np.max(np.abs(parsed[n.replace(".", "_").replace("[", "_")
+                             .rstrip("]")] - q[:, i].reshape(-1)))
+        / np.max(np.abs(q[:, i])) for i, n in
+        enumerate(model.prog_spec.flattened_names()))
+    res = dict(card=nvidia_smi(), elements=g.nelem, points=g.nelem * g.Np,
+               bytes=size, dump_s=timed.calls[0][1], parse_s=parse_s,
+               field_rel_err=field_err,
+               not_finite=cbs.show_not_finite_fields(model.prog_spec, sc.q)
+               + cbs.show_not_finite_fields(model.aux_spec, sc.aux))
+    emit("diagnostics_debug_init", **res)
+    check(parsed["points"].shape == (g.nelem * g.Np, 3), "dump points")
+    check(all(np.isfinite(v).all() for v in parsed.values()), "dump finite")
+    check(field_err <= 1e-9, ("dump fields", field_err))
+    check(not res["not_finite"], ("non-finite lanes", res["not_finite"]))
+    return res
+
+
+def phase_diagnostics() -> dict:
+    """Diagnostics and output (module docstring).  Returns the ms per
+    step and per write of each run."""
+    t_phase = time.perf_counter()
+    driver_init(show_updates="never")
+    out = {}
+    for name in DIAG_LES:
+        les = diagnostics_les(name)
+        out[name] = dict(ms_per_step=les["ms_per_step"],
+                         ms_per_write={k: v["ms_per_write"]
+                                       for k, v in les["groups"].items()})
+    gcm = diagnostics_gcm()
+    out["gcm"] = dict(
+        ms_per_step=gcm["with_diagnostics"]["ms_per_step"],
+        ms_per_step_without=gcm["without"]["ms_per_step"],
+        ms_per_write=gcm["with_diagnostics"]["ms_per_write"],
+        peak_memory_bytes=gcm["with_diagnostics"]["peak_memory_bytes"])
+    diagnostics_state_check()
+    dump = diagnostics_debug_init()
+    out["debug_init"] = {k: dump[k] for k in ("bytes", "dump_s", "parse_s")}
+    torch.cuda.empty_cache()
+    emit("diagnostics_phase", card=nvidia_smi(),
+         seconds=time.perf_counter() - t_phase, **out)
+    return out
+
+
 def hold(name, args, kw) -> dict:
     """The kernel on ``args`` and on their first TAIL_E elements against
     two references, its plain version on the card (float32) and in
@@ -4951,6 +5341,7 @@ def main(argv=None) -> int:
     if args.julia_gates:
         timed("julia_gates", phase_julia_gates)
     gcm = timed("gcm_driver", phase_gcm_driver)
+    diagnostics = timed("diagnostics", phase_diagnostics)
     timed("kernel_orders", phase_kernel_orders, args.seed)
     if moist:
         timed("moist_kernel_orders", phase_moist_kernel_orders, args.seed)
@@ -4964,7 +5355,7 @@ def main(argv=None) -> int:
          les_inviscid_ms_per_step=les_inviscid["ms_per_step"],
          les_forcing=les_forcing,
          ocean=ocean, split_explicit=split_explicit, split01=split01,
-         gcm_driver=gcm,
+         gcm_driver=gcm, diagnostics=diagnostics,
          explicit_ms_per_step=explicit["ms_per_step"],
          imex_ms_per_step=imex["ms_per_step"],
          generic_ms_per_step=generic["ms_per_step"],

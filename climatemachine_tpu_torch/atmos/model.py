@@ -59,6 +59,8 @@ from climatemachine_tpu_torch.atmos.ref_state import (NoReferenceState,
 from climatemachine_tpu_torch.atmos.sources import VMContext
 from climatemachine_tpu_torch.atmos.tracers import NoTracers
 from climatemachine_tpu_torch.balance_laws.interface import BalanceLaw
+from climatemachine_tpu_torch.balance_laws.show_tendencies import \
+    show_tendencies
 from climatemachine_tpu_torch.common.orientations import (FlatOrientation,
                                                           Orientation)
 from climatemachine_tpu_torch.dg.columns import ColumnOpsCache
@@ -256,6 +258,11 @@ class AtmosModel(BalanceLaw):
         if rad is not None and hasattr(rad, "update_aux_integrals"):
             aux = rad.update_aux_integrals(self, grid, q, aux)
         return aux
+
+    def show_tendencies(self) -> str:
+        """The equation table: each prognostic variable's fluxes and
+        sources (balance_laws/show_tendencies.py)."""
+        return show_tendencies(self)
 
     def vertical_unit(self, aux):
         """k̂ ``[E, 3, L]`` from the aux lane ∇Φ."""

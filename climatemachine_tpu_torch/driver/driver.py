@@ -16,8 +16,10 @@ read by the experiment scripts, which pass it to
 ``make_solver_configuration(restart_from=...)``.  A step interval fires
 every N steps; a simulated-time or wall-time interval fires as the
 summary log's does (the JAX package runs its monitors every 100 steps
-whatever the interval says; the port takes the interval).  Not ported,
-and refused when a setting asks for them: diagnostics and VTK output.
+whatever the interval says; the port takes the interval).  Diagnostics
+come from ``invoke``'s ``diagnostics_config``; the ``diagnostics`` and
+``vtk`` interval settings, which the JAX package's ``invoke`` reads
+nowhere, are refused with a message that says so.
 The run's device is the configuration's (the card unless its
 ``device`` or ``disable_gpu`` asks for the CPU, see driver/configs.py).
 """
@@ -40,7 +42,8 @@ _ENV_PREFIX = "CLIMATEMACHINE_SETTINGS_"
 @dataclass
 class Settings:
     """The JAX package's settings that the port reads or refuses (the
-    intervals of the callbacks that are not ported, ``debug_init``)."""
+    ``diagnostics`` and ``vtk`` intervals); ``debug_init`` writes the
+    initial state's VTK dump into ``output_dir``."""
     disable_gpu: bool = False
     show_updates: str = "60secs"
     diagnostics: str = "never"
@@ -56,12 +59,17 @@ class Settings:
     restart_from_num: int = -1
     debug_init: bool = False
     log_level: str = "INFO"
+    output_dir: str = "output"
 
 
 SETTINGS = Settings()
 
-#: interval settings that ask for a callback that is not ported
-_NOT_PORTED_INTERVALS = {"diagnostics": "diagnostics", "vtk": "VTK output"}
+#: interval settings that no callback reads (nor does the JAX package's
+#: ``invoke``), with what to use instead
+_REFUSED_INTERVALS = {
+    "diagnostics": "pass invoke(..., diagnostics_config="
+                   "DiagnosticsConfiguration(groups, every_steps))",
+    "vtk": "pass a user callback that calls io.vtk.vtk_dump_state"}
 
 #: the number of the checkpoints written at the end and on a crash
 FINAL_CHECKPOINT = 9999
@@ -151,13 +159,13 @@ def init(parse_clargs: bool = False, argv=None, custom_clargs=None,
     return SETTINGS
 
 
-def _refuse_unported(diagnostics_config):
-    if diagnostics_config is not None:
-        raise NotImplementedError("next slice: diagnostics")
-    for name, what in _NOT_PORTED_INTERVALS.items():
+def _refuse_intervals():
+    for name, instead in _REFUSED_INTERVALS.items():
         if parse_interval(getattr(SETTINGS, name), 1.0) is not None:
-            raise NotImplementedError(f"next slice: {what} ({name}="
-                                      f"{getattr(SETTINGS, name)!r})")
+            raise NotImplementedError(
+                f"the {name}={getattr(SETTINGS, name)!r} setting is read "
+                f"by no callback (nor by the JAX package's invoke): "
+                f"{instead}")
 
 
 def _every(spec: str, dt: float, make):
@@ -210,8 +218,10 @@ class _StateTracker:
 def invoke(solver_config, user_callbacks: Sequence = (),
            diagnostics_config=None, check_cons: Sequence = ()) -> float:
     """Run ``solver_config`` from t0 to its ``timeend`` with the user's
-    callbacks, those the settings ask for (:func:`standard_callbacks`)
-    and the conservation checks ``check_cons``; leave the final state in
+    callbacks, those the settings ask for (:func:`standard_callbacks`),
+    the conservation checks ``check_cons`` and the callbacks of
+    ``diagnostics_config`` (a ``DiagnosticsConfiguration``, its groups
+    fired on its step interval); leave the final state in
     ``solver_config.q`` and ``.aux``.  With ``checkpoint_on_crash`` an
     exception from the run first writes checkpoint 9999 of the last
     completed step (of the initial state before the first), then
@@ -220,11 +230,13 @@ def invoke(solver_config, user_callbacks: Sequence = (),
     from climatemachine_tpu_torch.driver import checkpoint as cp
     from climatemachine_tpu_torch.ode.solve import solve
 
-    _refuse_unported(diagnostics_config)
+    _refuse_intervals()
     sc = solver_config
     tracker = _StateTracker()
     callbacks = [tracker, *user_callbacks, *standard_callbacks(sc)]
     callbacks.extend(check.make() for check in check_cons)
+    if diagnostics_config is not None:
+        callbacks.extend(diagnostics_config.make_callbacks(sc, sc.dt))
 
     eng0 = float(norm(sc.dg.grid, sc.q))
     logger.info("starting: norm(Q) = %.16e", eng0)

@@ -12,13 +12,16 @@ one that the var-major RHS takes on that RHS).  ``restart_from=
 (directory, num)`` takes q, aux and t0 from that checkpoint
 (driver/checkpoint.py; a file the JAX package wrote too), on the
 configuration's device in its grid's dtype, in place of the initial
-state; dt then comes from the restored state.  The initial-state dump
-(``debug_init``) is not ported.
+state; dt then comes from the restored state.  With the driver's
+``debug_init`` setting it writes the initial state's VTK dump
+``<output_dir>/<name>_init.vtu`` and logs the state's and the aux's
+non-finite lanes.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -26,10 +29,12 @@ from climatemachine_tpu_torch.dg.courant import (calculate_dt,
                                                  nondiffusive_courant)
 from climatemachine_tpu_torch.dg.spatial import DGModel, init_ode_state
 from climatemachine_tpu_torch.driver.configs import DriverConfiguration
+from climatemachine_tpu_torch.driver.callbacks import show_not_finite_fields
 from climatemachine_tpu_torch.driver.checkpoint import read_checkpoint
 from climatemachine_tpu_torch.driver.driver import SETTINGS
 from climatemachine_tpu_torch.driver.solver_types import ExplicitSolverType
 from climatemachine_tpu_torch.interop import state_from_numpy
+from climatemachine_tpu_torch.io.vtk import vtk_dump_state
 
 
 @dataclass
@@ -56,8 +61,6 @@ def make_solver_configuration(
     """The runnable configuration of ``driver_config`` from t0 (the
     checkpoint's with ``restart_from``) to ``timeend`` (a ``timeend``
     not after t0 leaves dt as computed)."""
-    if SETTINGS.debug_init:
-        raise NotImplementedError("next slice: debug_init (VTK output)")
     dc = driver_config
     dg = DGModel(dc.model, dc.grid,
                  numerical_flux_first_order=dc.numerical_flux_first_order,
@@ -83,6 +86,12 @@ def make_solver_configuration(
         dt = (timeend - t0) / nsteps
     solver_type = ode_solver_type or ExplicitSolverType()
     solver = solver_type.make(dg, q, aux, dt)
+    if SETTINGS.debug_init:
+        os.makedirs(SETTINGS.output_dir, exist_ok=True)
+        vtk_dump_state(os.path.join(SETTINGS.output_dir, f"{dc.name}_init"),
+                       dg, q)
+        show_not_finite_fields(dc.model.prog_spec, q, "init_prognostic")
+        show_not_finite_fields(dc.model.aux_spec, aux, "init_auxiliary")
     return SolverConfiguration(name=dc.name, dg=dg, q=q, aux=aux, dt=dt,
                                t0=t0, timeend=timeend, solver=solver,
                                driver_config=dc, cfl=cn,

@@ -24,6 +24,13 @@ H), c_h=...)`` on ``cm.ocean_box_grid(problem, nx, ny, nz, p)``, or the
 one-call ``cm.HydrostaticBoussinesqSuperModel(cm.RectangularDomain(...),
 time_step)``.
 
+Diagnostics: ``cm.invoke(sc, diagnostics_config=
+cm.DiagnosticsConfiguration(groups, every_steps))`` with groups of
+``climatemachine_tpu_torch.diagnostics`` (``AtmosLESDefaultGroup``,
+``AtmosGCMDefaultGroup`` on ``cm.InterpolationConfiguration(dc)``'s
+lat-lon grid, ...), written by an ``io.writers`` writer; ``init(
+debug_init=True)`` writes the initial state's VTK dump.
+
 Grids and state live on the card unless the configuration is given
 ``device="cpu"`` (or ``init(disable_gpu=True)``).
 """
@@ -84,6 +91,8 @@ from climatemachine_tpu_torch.driver.callbacks import (
     MonitorTimestepDuration, show_not_finite_fields)
 from climatemachine_tpu_torch.driver.checkpoint import (read_checkpoint,
                                                         write_checkpoint)
+from climatemachine_tpu_torch.driver.diagnostics_configs import (
+    DiagnosticsConfiguration, InterpolationConfiguration)
 from climatemachine_tpu_torch.driver.configs import (AtmosGCMConfiguration,
                                                      AtmosLESConfiguration,
                                                      DriverConfiguration)
@@ -106,3 +115,9 @@ from climatemachine_tpu_torch.ocean.split_explicit import (
     BarotropicModel, CoupledHBModel, SplitExplicitSolver)
 from climatemachine_tpu_torch.ocean.super_model import (
     HydrostaticBoussinesqSuperModel, InitialConditions, RectangularDomain)
+
+from climatemachine_tpu_torch.diagnostics.machine import (DiagnosticsGroup,
+                                                          HorizontalAverage,
+                                                          PointwiseDiagnostic,
+                                                          atmos_default_vars,
+                                                          atmos_les_profiles)

@@ -12,7 +12,13 @@ Built through the driver's entry: :func:`dycoms_config` gives the
 ``AtmosLESConfiguration``.  CLI::
 
     python -m climatemachine_tpu_torch.experiments.dycoms \\
-        --resolution 105 105 187.5 --timeend 0.2 --device cpu
+        --resolution 105 105 187.5 --timeend 0.2 --device cpu \\
+        [--diagnostics-every N --out PREFIX --writer netcdf|npz]
+
+With ``--diagnostics-every N`` the AtmosLESDefault profiles are written
+every N steps to ``PREFIX_profiles.nc`` (NetCDF-4, which needs h5py) or,
+with ``--writer npz``, to ``PREFIX_profiles.npz`` and one
+``PREFIX_profiles_t<time>.npz`` a write.
 """
 
 from __future__ import annotations
@@ -33,7 +39,10 @@ from climatemachine_tpu_torch.atmos.sources import (GeostrophicForcing,
                                                     Gravity, RayleighSponge,
                                                     Subsidence)
 from climatemachine_tpu_torch.common.turbulence import SmagorinskyLilly
+from climatemachine_tpu_torch.diagnostics.atmos_les import \
+    AtmosLESDefaultGroup
 from climatemachine_tpu_torch.driver.configs import AtmosLESConfiguration
+from climatemachine_tpu_torch.io.writers import NetCDFWriter, NpzWriter
 from climatemachine_tpu_torch.physics import thermodynamics as td
 from climatemachine_tpu_torch.physics.parameters import EARTH
 from climatemachine_tpu_torch.physics.temperature_profiles import \
@@ -119,13 +128,26 @@ def main(argv=None):
     ap.add_argument("--resolution", type=float, nargs=3, default=RESOLUTION)
     ap.add_argument("--timeend", type=float, default=60.0)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--diagnostics-every", type=int, default=0,
+                    help="write the AtmosLESDefault profiles every N steps")
+    ap.add_argument("--out", default="dycoms",
+                    help="the profiles' path prefix")
+    ap.add_argument("--writer", choices=("netcdf", "npz"), default="netcdf")
     args = ap.parse_args(argv)
     driver.init(show_updates="never")
     dc = dycoms_config(args.resolution, device=args.device)
     sc = make_solver_configuration(0.0, args.timeend, dc,
                                    Courant_number=COURANT)
     print(f"dt = {sc.dt:.3f} s, elements = {dc.grid.nelem}", flush=True)
-    driver.invoke(sc)
+    cbs = []
+    if args.diagnostics_every:
+        writer, ext = ((NetCDFWriter(), "nc") if args.writer == "netcdf"
+                       else (NpzWriter(), "npz"))
+        path = f"{args.out}_profiles.{ext}"
+        grp = AtmosLESDefaultGroup(sc.dg, writer=writer, out_path=path)
+        cbs.append(grp.make_callback(args.diagnostics_every))
+        print(f"AtmosLESDefault profiles -> {path}", flush=True)
+    driver.invoke(sc, user_callbacks=cbs)
     model = dc.model
     qliq = model.aux_spec.get(sc.aux, "moisture.q_liq")
     w = model.prog_spec.get(sc.q, "rhou")[:, 2] / model.prog_spec.get(

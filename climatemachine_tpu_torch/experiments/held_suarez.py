@@ -176,7 +176,8 @@ def held_suarez_driver(n_horz: int = 4, n_vert: int = 3, poly_order: int = 4,
                        hyperdiffusion_tau: float = 8 * 3600.0,
                        restart_from=None, ode_dt=None):
     """The solver configuration of examples/heldsuarez.py: a
-    ``DriverConfiguration`` of :func:`held_suarez_config`,
+    ``DriverConfiguration`` of :func:`held_suarez_config` (with the GCM
+    shell's ``config_info``, as ``AtmosGCMConfiguration`` gives it),
     ``make_solver_configuration(0, timeend, ..., IMEXSolverType() or
     ExplicitSolverType(), Courant_number=0.3)`` (dt as given by
     ``ode_dt``, or from the checkpoint ``restart_from`` = (directory,
@@ -191,7 +192,9 @@ def held_suarez_driver(n_horz: int = 4, n_vert: int = 3, poly_order: int = 4,
                              poly_order=poly_order, dtype=dtype,
                              hyperdiffusion_tau=hyperdiffusion_tau,
                              device=device)
-    dc = DriverConfiguration("heldsuarez", poly_order, cfg.grid, cfg.model)
+    dc = DriverConfiguration("heldsuarez", poly_order, cfg.grid, cfg.model,
+                             config_info=dict(n_horz=n_horz, n_vert=n_vert,
+                                              domain_height=30e3))
     sc = make_solver_configuration(
         0.0, timeend, dc,
         ode_solver_type=IMEXSolverType() if imex else ExplicitSolverType(),

@@ -71,6 +71,10 @@ class VarSpec:
         off, shape = self._resolve(name)
         return slice(off, off + (int(math.prod(shape)) if shape else 1))
 
+    def names(self) -> Sequence[str]:
+        """The top-level field names, in packed order."""
+        return list(self._fields)
+
     def flattened_names(self, prefix: str = "") -> Sequence[str]:
         """Dotted names of all scalar slots, in packed order."""
         out = []

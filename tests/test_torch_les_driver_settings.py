@@ -9,9 +9,10 @@ in tests/test_torch_les_driver.py and its inviscid twin):
 - ``ConservationCheck`` and ``solve`` stop, fire and shorten the last
   step as the JAX package's do, on a solver that drifts the mass;
 - ``grid_stretching_1d``, the interval grammar, the settings'
-  precedence, the summary log, and
-  the refusals of what is not ported (checkpoints, VTK, monitors,
-  adaptive steps, diagnostics, restarts, debug_init).
+  precedence, the summary log, the refusal of the ``vtk`` and
+  ``diagnostics`` interval settings (which the JAX package's ``invoke``
+  reads nowhere), ``debug_init``'s dump and ``invoke``'s
+  ``diagnostics_config``.
 """
 
 import logging
@@ -27,8 +28,11 @@ from climatemachine_tpu.driver import driver as jax_driver
 from climatemachine_tpu.ode.solve import solve as jax_solve
 from climatemachine_tpu_torch import driver_api as cm
 from climatemachine_tpu_torch.dg.courant import diffusive_courant
+from climatemachine_tpu_torch.diagnostics.atmos_les import \
+    AtmosLESDefaultGroup
 from climatemachine_tpu_torch.driver import callbacks as cbs
 from climatemachine_tpu_torch.driver import driver
+from climatemachine_tpu_torch.io.vtk import readvtk
 from les_parity import jax_model, nm, port_model
 
 
@@ -169,11 +173,15 @@ def test_settings_precedence(monkeypatch):
 
 
 def test_summary_log_and_refusals(caplog, tmp_path):
-    """``show_updates`` logs norm(Q) every N steps; a setting that asks
-    for a callback the port has not got (VTK output, diagnostics, the
-    initial dump) refuses to run; the monitors, adaptive time steps,
+    """``show_updates`` logs norm(Q) every N steps; the ``vtk`` and
+    ``diagnostics`` interval settings, which no callback reads, refuse to
+    run and name what to use; the monitors, adaptive time steps,
     checkpoints and restarts run (tests/test_torch_driver_checkpoint.py
-    holds them against the JAX package)."""
+    holds them against the JAX package); ``debug_init`` writes the
+    initial state's VTK dump (as the JAX package's does,
+    tests/test_driver_extras.py); ``invoke``'s ``diagnostics_config``
+    fires its groups every N steps and leaves the state bit for bit as a
+    run without it."""
     cm.init(show_updates="2steps")
     dc = cm.AtmosLESConfiguration("bubble", 2, (250.0, 250.0, 250.0),
                                   1000.0, 1000.0, 1000.0, port_model(),
@@ -185,9 +193,10 @@ def test_summary_log_and_refusals(caplog, tmp_path):
     steps = [r.getMessage().split()[1] for r in caplog.records
              if r.getMessage().startswith("step ")]
     assert steps == ["2", "4"]
-    for kw in (dict(vtk="5steps"), dict(diagnostics="1ssecs")):
+    for kw, name in ((dict(vtk="5steps"), "vtk_dump_state"),
+                     (dict(diagnostics="1ssecs"), "diagnostics_config")):
         cm.init(show_updates="never", **kw)
-        with pytest.raises(NotImplementedError, match="next slice"):
+        with pytest.raises(NotImplementedError, match=name):
             cm.invoke(sc)
     for kw in (dict(checkpoint="10steps"),
                dict(monitor_courant_numbers="1steps"),
@@ -198,12 +207,28 @@ def test_summary_log_and_refusals(caplog, tmp_path):
         sc.timeend = 2 * sc.dt
         assert np.isfinite(cm.invoke(sc))
     end_q, end_t = sc.q, sc.timeend
-    cm.init(show_updates="never", debug_init=True)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cm.make_solver_configuration(0.0, 1.0, dc)
+    cm.init(show_updates="never", debug_init=True,
+            output_dir=str(tmp_path / "out"))
+    sc = cm.make_solver_configuration(0.0, 1.0, dc)
+    dump = readvtk(str(tmp_path / "out" / "bubble_init.vtu"))
+    assert np.allclose(dump["rhoe"], sc.q[:, 4].reshape(-1).numpy(),
+                       rtol=1e-9, atol=0.0)
+    assert dump["points"].shape == (sc.dg.grid.nelem * sc.dg.grid.Np, 3)
     cm.init(show_updates="never")
     sc = cm.make_solver_configuration(0.0, 1.0, dc,
                                       restart_from=(str(tmp_path), 9999))
     assert sc.t0 == end_t and torch.equal(sc.q, end_q)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cm.invoke(sc, diagnostics_config=object())
+    runs = {}
+    for diag in (False, True):
+        sc = cm.make_solver_configuration(0.0, -1.0, dc, Courant_number=0.4)
+        sc.timeend = 4 * sc.dt
+        grp = AtmosLESDefaultGroup(sc.dg)
+        writes = []
+        grp.write = lambda q, aux, t, w=grp.write: writes.append(
+            (t, w(q, aux, t)))
+        cm.invoke(sc, diagnostics_config=cm.DiagnosticsConfiguration(
+            (grp,), every_steps=2) if diag else None)
+        runs[diag] = sc.q
+    assert [t for t, _ in writes] == [2 * sc.dt, 4 * sc.dt]
+    assert all(np.isfinite(v["rho"]).all() for _, v in writes)
+    assert torch.equal(runs[True], runs[False])

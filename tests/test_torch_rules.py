@@ -107,6 +107,25 @@ def test_scan_reaches_forced_les_modules():
             for m in FORCED_LES_MODULES} <= set(PORT_FILES)
 
 
+#: the diagnostics and output slice's modules, which
+#: test_port_imports_no_jax must scan (common/spectra.py and io/vtk.py
+#: import no JAX in the JAX package either: the port keeps its own copy)
+DIAGNOSTICS_MODULES = ("common/spectra.py", "mesh/interpolation.py",
+                       "io/__init__.py", "io/writers.py", "io/vtk.py",
+                       "diagnostics/__init__.py", "diagnostics/machine.py",
+                       "diagnostics/atmos_les.py", "diagnostics/fields.py",
+                       "diagnostics/groups_extra.py",
+                       "diagnostics/state_check.py",
+                       "driver/diagnostics_configs.py",
+                       "balance_laws/show_tendencies.py",
+                       "utils/tictoc.py", "utils/single_stack.py")
+
+
+def test_scan_reaches_diagnostics_modules():
+    assert {ROOT / "climatemachine_tpu_torch" / m
+            for m in DIAGNOSTICS_MODULES} <= set(PORT_FILES)
+
+
 @pytest.mark.parametrize("name", ["ShallowWaterModel", "ConstantViscosity",
                                   "CoupledHBModel", "BarotropicModel",
                                   "SplitExplicitSolver", "IVDCModel",
