@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--skip-moist] [--julia-gates]
+                          [--edmf-gate]
 
 Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch version on its path's own
@@ -35,7 +36,7 @@ filter:
   stage's plain version, the all-plain RHS (the contraction and the
   per-pass chain) and the var-major RHS, the remainder against dg −
   dg_lin; then three paths on it, each with exact launch counts:
-  ``ExplicitSolverType(state_layout="grid")`` (23 LSRK54 steps),
+  ``ExplicitSolverType(state_layout="grid")`` (13 LSRK54 steps),
   ``IMEXSolverType(state_layout="grid")`` (the table's 35 ARK2GKC steps,
   banded solver, the generic operator as ``rhs_full``) and
   ``IMEXSolverType(columnwise_solver="dense")`` (35 steps, the dense
@@ -49,7 +50,7 @@ filter:
   state (the volume kernel at nq = 6 with F₂ of ngl = 5, K1-K4 at n = 5
   rows, both surface kernels at nq = 6 with hyperdiffusion on and off),
   the whole chain, one step with "xla" and "pallas" against the
-  all-plain step, the small references of both steps, 23 steps under
+  all-plain step, the small references of both steps, 13 steps under
   each surface pass; then the IMEX path (``IMEXSolverType().make``, 30 ×
   30 column blocks) at the largest of the dry dt and its halvings that
   takes 35 steps without blowing up (moist_imex_dt_scan; the explicit
@@ -71,7 +72,7 @@ filter:
   plain versions bit for bit on its chain input (the hook's (u_h, h_tot,
   q_tot)), the RHS against its plain-stage twin; LSRK54 through
   ``ExplicitSolverType().make`` (one step against the plain-stage step,
-  23 steps), 5 steps each with the Roe, moist Roe, HLLC and LMARS fluxes
+  13 steps), 3 steps each with the Roe, moist Roe, HLLC and LMARS fluxes
   and with RainSnowModel + RainSnow1M; ``IMEXSolverType().make`` (the
   banded solver, 45 × 45 blocks) at the moist IMEX dt, halved until 35
   steps stay stable, with both layout kernels at (1536, 8, 9, 5, 25),
@@ -137,7 +138,7 @@ filter:
   1000) m) at Δ = 25 m, p4, float32 (25 × 25 × 25 = 15,625 elements),
   built only through the driver's entry: ``AtmosLESConfiguration`` →
   ``make_solver_configuration`` (dt from ``calculate_dt`` at Courant
-  0.4) → ``invoke`` (3 + 23 LSRK54 steps, the last 23 timed).  With
+  0.4) → ``invoke`` (3 + 10 LSRK54 steps, the last 10 timed).  With
   SmagorinskyLilly(0.21) "auto" takes the generic DG operator's
   gradient path, which launches no kernel (les_path: set-up seconds, ms
   per step, peak memory, mass drift <= 1e-5, max w > 0, invoke's norm
@@ -259,6 +260,35 @@ filter:
   the VTK dump parses, its fields equal the state, no lane of the state
   or aux is non-finite.  Each group's ms a write apart from ms a step,
   the dump's bytes and seconds, peak memory;
+- the remaining atmosphere formulations (phase ``atmos_formulations``),
+  float64 on the generic operator's gradient path, every launch count 0
+  (none of the kernels is on these paths, as in the JAX package, whose
+  fast paths refuse θ, anelastic and EDMF): the EDMF single stack of
+  experiments/bomex_edmf.py at its example's width (15 elements to 400
+  m, p4), decoupled and coupled (one updraft over the neutral dry
+  surface: the first RHS and 10 LSRK144 steps with TMAR on the EDMF
+  lanes) and moist (two updrafts over the BOMEX surface, EquilMoist: 3
+  steps), each against the port's float64 CPU run of the same RHS and
+  steps from the card's state within FORMULATION_TOL per lane (the
+  momentum lanes over the largest of theirs; EDMF_LANE_TOL for the
+  θ_liq variance); BOMEX on ``SingleStackConfiguration`` (20 elements
+  to 3 km, experiments/bomex_single_stack.py), 3 + 10 steps through
+  ``invoke`` with TMAR, q_tot ≥ 0; the ρθ rising bubble
+  (``ThetaModel``, experiments/rising_bubble_theta.py, 12 × 12 × 12
+  elements), 3 + 10 steps through ``invoke``, ∫ρ and ∫ρθ within
+  THETA_DRIFT_TOL, max w growing, and its 2 × 2 × 2 box card against
+  CPU within FORMULATION_TOL; the Anelastic1D box
+  (experiments/anelastic1d.py, the configuration of
+  tests/test_atmos_extras.py's ``test_anelastic1d``), 10 LSRK54 steps
+  at its advective dt, ρ = ρ_ref and p = p_ref within ANELASTIC_TOL,
+  against the CPU within FORMULATION_TOL; the cfsite AMIP LES
+  (experiments/cfsite_amip.py, 6 × 6 × 50 elements), 3 + 10 steps
+  through ``invoke`` with TMAR, q_tot ≥ 0.  Each case's ms a step
+  (untraced, ending in a synchronize), kernels a step (one traced step)
+  and peak device memory.  ``--edmf-gate`` adds the stored-profile gate
+  of tests/test_edmf.py (400 coupled steps against
+  tests/refvals/edmf_sbl_profiles.py, each variable's MSE beside its
+  budget);
 - the staged kernels (K1-K4, the volume kernel with and without F₂,
   both dry branches; the moist branches of K1-K4 and the volume kernel)
   and every remainder branch above at the other orders the kernels are
@@ -463,6 +493,8 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from climatemachine_tpu_torch import cuda_build, resolve_device
 from climatemachine_tpu_torch.atmos.boundaryconditions import AtmosBC
@@ -501,8 +533,10 @@ from climatemachine_tpu_torch.driver.solver_types import (
     ExplicitSolverType, IMEXSolverType, MultirateSolverType)
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config, held_suarez_driver)
-from climatemachine_tpu_torch.experiments import (ocean_split_explicit,
-                                                  solid_body_rotation)
+from climatemachine_tpu_torch.dg.reductions import weightedsum
+from climatemachine_tpu_torch.experiments import (
+    anelastic1d, bomex_edmf, bomex_les, bomex_single_stack, cfsite_amip,
+    ocean_split_explicit, rising_bubble_theta, solid_body_rotation)
 from climatemachine_tpu_torch.experiments.forced_les import \
     CASES as FORCED_LES_CASES
 from climatemachine_tpu_torch.experiments.gcm_driver import gcm_driver_config
@@ -536,7 +570,7 @@ from climatemachine_tpu_torch.timing import (PEAK_BYTES, PEAK_FP32_FLOPS,
                                              paired_rounds)
 
 N_HORZ, N_VERT, POLY = 16, 8, 4
-N_WARM, N_STEPS = 3, 20            # the explicit path, hyperdiffusion on
+N_WARM, N_STEPS = 3, 10            # the explicit path, hyperdiffusion on
 N_WARM_OFF, N_STEPS_OFF = 1, 4     # hyperdiffusion off
 N_WARM_IMEX, N_STEPS_IMEX = 10, 25  # the IMEX path: the table's 35 steps
 KERNEL_TOL = 1e-5
@@ -666,7 +700,7 @@ TRACER_IMEX_HALVINGS = 2
 #: wave's own state makes no rain in these steps)
 RAIN_START, RAIN_TOP = 1e-4, 5e3
 TRACERS = "_tracers"
-N_STEPS_TR_FLUX = 5
+N_STEPS_TR_FLUX = 3
 TRACER_FLUXES = {"roe": RoeNumericalFlux, "roe_moist": RoeNumericalFluxMoist,
                  "hllc": HLLCNumericalFlux, "lmars": LMARSNumericalFlux}
 #: kernel name -> (wrapper, plain version, source, TPU kernel it replaces)
@@ -676,7 +710,7 @@ LES = "[les]"
 LES_RESOLUTION = 25.0
 LES_ELEMENTS = 15625
 LES_COURANT = 0.4
-LES_WARM, LES_STEPS = 3, 23
+LES_WARM, LES_STEPS = 3, 10
 LES_SMALL_RESOLUTION = 2500.0 / 12      # 3 × 3 × 3 elements at p4
 LES_SMALL_STEPS = 3
 # float32 on the card against float64 on the CPU after LES_SMALL_STEPS
@@ -848,6 +882,31 @@ INTERP_RADIUS_TOL = 1e-5
 #: the momentum's over its largest magnitude)
 STATECHECK_STEPS = 30
 STATECHECK_TOL = 1e-5
+# the remaining atmosphere formulations, float64 at their examples'
+# widths: the EDMF single stack (experiments/bomex_edmf.py, 15 elements),
+# the BOMEX single stack (20), the ρθ bubble (12 × 12 × 12), the cfsite
+# AMIP LES (6 × 6 × 50); the EDMF cases' steps after the first RHS
+EDMF_ELEMENTS, SINGLE_STACK_ELEMENTS = 15, 20
+THETA_ELEMENTS, CFSITE_ELEMENTS = 1728, 1800
+EDMF_STEPS = {"decoupled": 10, "coupled": 10, "moist": 3}
+EDMF_SEED = 20
+# the card against the port's float64 CPU run of the same steps, per
+# variable over its largest value: both float64, summed in other orders
+FORMULATION_TOL = 1e-10
+# the θ_liq variance lane, which the JAX package does not reproduce to
+# 1e-10 itself under another XLA optimization level
+# (tests/edmf_parity.py, TOL_STEPS_LANES)
+EDMF_LANE_TOL = {"turbconv.en_rhoatheta_liq_cv": 5e-10}
+# invoke's warm and timed steps; the ρθ bubble's relative drift of ∫ρ
+# and ∫ρθ (pure advection: round-off); its 2 × 2 × 2 box against the CPU
+FORMULATION_WARM, FORMULATION_STEPS = 3, 10
+THETA_DRIFT_TOL = 1e-12
+THETA_SMALL_RESOLUTION = (312.5, 312.5, 312.5)
+# Anelastic1D: ρ = ρ_ref and p = p_ref within ANELASTIC_TOL relative, ρw
+# (0 at the start, no vertical momentum tendency) within ANELASTIC_RHOW
+ANELASTIC_STEPS = 10
+ANELASTIC_TOL = 1e-14
+ANELASTIC_RHOW = 1e-10
 
 KERNELS = {
     "fused_volume_tendency_vm": (
@@ -2142,7 +2201,7 @@ def phase_moist(seed: int) -> dict:
     volume kernel at nq = 6 with F₂, K1-K4 at n = 5, both surface kernels
     at nq = 6 with hyperdiffusion on and off), the whole chain, one
     LSRK54 step with "xla" and "pallas" against the all-plain step, the
-    small reference, 23 steps under each surface pass; then the IMEX path
+    small reference, 13 steps under each surface pass; then the IMEX path
     at the largest stable dt (moist_imex_stable_path): both layout
     kernels at six variables against their plain versions and the library
     call, the round trip, one IMEX step with "xla" and "pallas" against
@@ -2481,7 +2540,7 @@ def phase_moist_tracers(seed: int) -> dict:
     plain-stage RHS (:func:`tracer_kernels`); LSRK54 through
     ``ExplicitSolverType().make`` ("auto": the generic operator) at the
     moist explicit dt, one step against the plain-stage step, then
-    N_WARM + N_STEPS steps; 5 steps each with the Roe, moist Roe, HLLC
+    N_WARM + N_STEPS steps; 3 steps each with the Roe, moist Roe, HLLC
     and LMARS fluxes, and, from a state with rain below RAIN_TOP
     (:func:`with_rain`), 5 with warm rain and 5 with RainSnowModel +
     RainSnow1M (nq = 10, snow as well); the banded IMEX path
@@ -3645,33 +3704,45 @@ def forcing_path(name: str, warm: int, steps: int) -> dict:
           (name, "the closure takes the generic operator's gradient path"))
     q0, aux0 = sc.q, sc.aux
     mass = lambda x: torch.sum(g.M * x[:, 0]).item()
-    sc.timeend = (warm + steps) * sc.dt
-    timer = StepTimer(warm)
-    reset_launch_counts()
-    ratio = invoke(sc, user_callbacks=(*case.callbacks(dc), timer))
-    counts = launch_counts()
+    run = invoke_timed(name, sc, case.callbacks(dc), warm, steps)
     q = sc.q
-    wall = timer.end - timer.start
     sp = model.prog_spec
     rho = sp.get(q, "rho")
     res = dict(card=nvidia_smi(), case=name, elements=g.nelem, poly=POLY,
                gridpoints=g.nelem * g.Np, dtype="float64", dt_s=sc.dt,
-               courant=case.courant, warm_steps=warm, steps=timer.steps,
-               setup_s=setup_s, ms_per_step=1e3 * wall / timer.steps,
-               sim_s_per_wall_s=sc.dt * timer.steps / wall,
+               courant=case.courant, setup_s=setup_s,
                peak_memory_bytes=torch.cuda.max_memory_allocated(),
-               norm_ratio=ratio, mass_change_rel=(mass(q) - mass(q0))
-               / mass(q0), rho_change_max_rel=((rho - q0[:, 0]).abs()
-                                               / q0[:, 0]).max().item(),
-               max_abs_w=(sp.get(q, "rhou")[:, 2] / rho)
-               .abs().max().item(), finite=bool(torch.isfinite(q).all()),
+               mass_change_rel=(mass(q) - mass(q0)) / mass(q0),
+               rho_change_max_rel=((rho - q0[:, 0]).abs()
+                                   / q0[:, 0]).max().item(),
+               max_abs_w=(sp.get(q, "rhou")[:, 2] / rho).abs().max().item(),
+               **run)
+    return res, sc, q0, aux0
+
+
+def invoke_timed(name: str, sc, callbacks, warm: int, steps: int) -> dict:
+    """``invoke`` of solver configuration ``sc`` over warm + steps steps
+    with ``callbacks``, every launch count set to 0 just before and read
+    just after (all must stay 0: the gradient path runs no kernel), the
+    last ``steps`` timed; checks the steps timed, the state (finite),
+    invoke's norm ratio and the launches.  Returns the run's fields."""
+    sc.timeend = (warm + steps) * sc.dt
+    timer = StepTimer(warm)
+    reset_launch_counts()
+    ratio = invoke(sc, user_callbacks=(*callbacks, timer))
+    counts = launch_counts()
+    wall = timer.end - timer.start
+    res = dict(warm_steps=warm, steps=timer.steps,
+               ms_per_step=1e3 * wall / timer.steps,
+               sim_s_per_wall_s=sc.dt * timer.steps / wall,
+               norm_ratio=ratio, finite=bool(torch.isfinite(sc.q).all()),
                launches=counts)
     check(timer.steps == steps, (name, "steps timed", timer.steps))
     check(res["finite"], (name, "state not finite"))
     check(math.isfinite(ratio) and abs(ratio - 1.0) <= LES_RATIO_TOL,
           (name, "invoke's norm ratio", ratio))
     check_launches(counts, expected_launches({}, 0))
-    return res, sc, q0, aux0
+    return res
 
 
 def bomex_tmar_check(sc) -> dict:
@@ -3734,29 +3805,35 @@ def radiation_paths_check(sc) -> float:
     return err
 
 
-def forcing_small_reference(name: str) -> list:
-    """FORCING_SMALL_STEPS steps of ``invoke`` of case ``name`` on its 2 ×
-    2 × 2-element box in float64 on the card against the port's float64
-    run on the CPU from the same geometry, state and dt: the per-variable
-    error (:func:`vortex_err`)."""
-    case = FORCED_LES_CASES[name]
-    dc = case.config(*FORCING_SMALL_BOXES[name], device="cuda")
+def small_reference(name: str, dc, courant: float, solver_type=None,
+                    callbacks=lambda dc: ()) -> list:
+    """FORCING_SMALL_STEPS steps of ``invoke`` of the 2 × 2 × 2-element
+    driver configuration ``dc`` of case ``name`` in float64 on the card
+    against the port's float64 run on the CPU from the same geometry,
+    state and dt: the per-variable error (:func:`vortex_err`)."""
     check(dc.grid.nelem == 8, (name, "small box", dc.grid.nelem))
-    sc = make_solver_configuration(0.0, -1.0, dc,
-                                   ode_solver_type=case.solver_type,
-                                   Courant_number=case.courant)
+    sc = make_solver_configuration(0.0, -1.0, dc, ode_solver_type=solver_type,
+                                   Courant_number=courant)
     dc64 = replace(dc, grid=grid_from_numpy(grid_to_numpy(dc.grid),
                                             device="cpu",
                                             dtype=torch.float64))
     sc64 = make_solver_configuration(0.0, -1.0, dc64, ode_dt=sc.dt,
-                                     ode_solver_type=case.solver_type)
+                                     ode_solver_type=solver_type)
     q0, aux0, final = sc.q, sc.aux, {}
     for run, d, s in (("card", dc, sc), ("cpu", dc64, sc64)):
         s.q, s.aux = q0.to(d.grid.device), aux0.to(d.grid.device)
         s.timeend = FORCING_SMALL_STEPS * sc.dt
-        invoke(s, user_callbacks=case.callbacks(d))
+        invoke(s, user_callbacks=callbacks(d))
         final[run] = s.q.cpu()
     return vortex_err(final["card"], final["cpu"])
+
+
+def forcing_small_reference(name: str) -> list:
+    """:func:`small_reference` of forced LES case ``name`` on its box."""
+    case = FORCED_LES_CASES[name]
+    return small_reference(name, case.config(*FORCING_SMALL_BOXES[name],
+                                             device="cuda"),
+                           case.courant, case.solver_type, case.callbacks)
 
 
 def phase_les_forcing() -> dict:
@@ -5211,6 +5288,326 @@ def phase_diagnostics() -> dict:
     return out
 
 
+# --- the remaining atmosphere formulations ------------------------------------
+
+def lane_errs(got, ref, names) -> list:
+    """max|got − ref| per lane over the lane's largest |ref|: the
+    momentum lanes (ρu's and the updrafts' ρaw) share the largest of
+    theirs, a lane that is 0 throughout is scaled by 1."""
+    scale = ref.abs().amax(dim=(0, 2))
+    mom = [i for i, n in enumerate(names)
+           if n.startswith(("rhou[", "turbconv.up_rhoaw"))]
+    scale[mom] = scale[mom].max()
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    return ((got - ref).abs().amax(dim=(0, 2)) / scale).tolist()
+
+
+def worst_lane(errs, names, tols) -> dict:
+    """The lane whose error is the largest share of its tolerance."""
+    i = max(range(len(errs)), key=lambda j: errs[j] / tols[j])
+    return dict(lane=names[i], err=errs[i], tol=tols[i])
+
+
+def launches_per_call(fn) -> int:
+    """The CUDA kernels one call of ``fn`` launches (traced once; counted
+    on the profiler's raw events, without building its event list)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA)
+
+
+def edmf_formulation(case: str) -> dict:
+    """The EDMF single stack ``case`` of experiments/bomex_edmf.py at its
+    example's width (15 elements to 400 m, p4, float64): the first RHS
+    (at the initial state times 1 + 1e-3 · N(0, 1) from EDMF_SEED) and
+    EDMF_STEPS[case] LSRK144 steps with TMAR on the card, every launch
+    count 0, against the port's float64 run of the same RHS and steps on
+    the CPU from the card's initial state and dt, per lane
+    (:func:`lane_errs`) within FORMULATION_TOL (EDMF_LANE_TOL where it
+    names the lane); ms a step, kernels a step (one traced step), peak
+    device memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, dg, grid, q0, aux0 = bomex_edmf.sbl_stack(case, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(grid.nelem == EDMF_ELEMENTS and grid.dtype == torch.float64,
+          (case, "elements", grid.nelem))
+    check(dg.n_gradient > 0 and not dg.dry_volume and not dg.fast_surface,
+          (case, "the generic operator's gradient path"))
+    names = model.prog_spec.flattened_names()
+    tols = [EDMF_LANE_TOL.get(n, FORMULATION_TOL) for n in names]
+    step, dt = bomex_edmf.stepper(model, dg, grid)
+    cmodel, cdg, cgrid, _, _ = bomex_edmf.sbl_stack(case, device="cpu")
+    cstep, _ = bomex_edmf.stepper(cmodel, cdg, cgrid, dt)
+    steps = EDMF_STEPS[case]
+    reset_launch_counts()
+    # the first RHS at the initial state times 1 + 1e-3 · N(0, 1): at the
+    # hydrostatic, horizontally uniform state itself ρ's tendency is
+    # round-off
+    qp = perturbed(q0, EDMF_SEED)
+    rhs = dg(qp, aux0, 0.0)[0]
+    q, aux = q0, aux0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(steps):
+        q, aux = step(q, aux, i * dt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    t2 = time.perf_counter()
+    launches = launches_per_call(lambda: step(q, aux, steps * dt))
+    t3 = time.perf_counter()
+    qc, auxc = q0.cpu(), aux0.cpu()
+    rhs_err = lane_errs(rhs.cpu(), cdg(qp.cpu(), auxc, 0.0)[0], names)
+    for i in range(steps):
+        qc, auxc = cstep(qc, auxc, i * dt)
+    err = lane_errs(q.cpu(), qc, names)
+    sp = model.prog_spec
+    up = sp.get(q, "turbconv.up_rhoa")
+    seconds = dict(total=time.perf_counter() - t0, trace=t3 - t2,
+                   cpu=time.perf_counter() - t3)
+    res = dict(card=nvidia_smi(), case=case, elements=grid.nelem,
+               poly=POLY, dtype="float64", n_up=up.shape[1], dt_s=dt,
+               steps=steps, setup_s=setup_s, ms_per_step=1e3 * wall / steps,
+               kernels_per_step=launches, peak_memory_bytes=peak,
+               rhs_rel_err=worst_lane(rhs_err, names, tols),
+               rel_err=worst_lane(err, names, tols),
+               rel_err_per_lane=dict(zip(names, err)),
+               max_updraft_area=(up / sp.get(q, "rho")[:, None]).max().item(),
+               min_tmar_lane=q[:, bomex_edmf.tmar_slots(model)].min().item(),
+               finite=bool(torch.isfinite(q).all()), seconds=seconds,
+               launches=counts)
+    emit("formulation_edmf", **res)
+    check(res["finite"], (case, "state not finite"))
+    check(all(e <= t for e, t in zip(rhs_err, tols)),
+          (case, "first RHS against the CPU", res["rhs_rel_err"]))
+    check(all(e <= t for e, t in zip(err, tols)),
+          (case, "steps against the CPU", res["rel_err"]))
+    check(res["min_tmar_lane"] >= 0.0, (case, "TMAR lanes"))
+    check(res["max_updraft_area"] > 0.0, (case, "no updraft area"))
+    check_launches(counts, expected_launches({}, 0))
+    return res
+
+
+def invoke_formulation(name: str, dc, courant: float, callbacks=(),
+                       warm: int = FORMULATION_WARM,
+                       steps: int = FORMULATION_STEPS):
+    """``make_solver_configuration`` (Courant ``courant``) and
+    :func:`invoke_timed` of the driver configuration ``dc``, then one
+    traced step's kernels and the peak device memory: (result, solver
+    configuration, initial state)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sc = make_solver_configuration(0.0, -1.0, dc, Courant_number=courant)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    g, dg = dc.grid, sc.dg
+    check(g.dtype == torch.float64 and sc.solver.vm is None
+          and not dg.dry_volume and not dg.fast_surface,
+          (name, "float64 on the generic operator"))
+    q0 = sc.q
+    run = invoke_timed(name, sc, callbacks, warm, steps)
+    peak = torch.cuda.max_memory_allocated()
+    q = sc.q
+    t1 = time.perf_counter()
+    launches = launches_per_call(lambda: sc.solver.step(q, sc.aux, 0.0))
+    t2 = time.perf_counter()
+    res = dict(card=nvidia_smi(), case=name, elements=g.nelem, poly=POLY,
+               dtype="float64", dt_s=sc.dt, courant=courant,
+               setup_s=setup_s, kernels_per_step=launches,
+               peak_memory_bytes=peak,
+               seconds=dict(total=t2 - t0, trace=t2 - t1), **run)
+    return res, sc, q0
+
+
+def q_tot_range(sc) -> dict:
+    sp = sc.dg.balance_law.prog_spec
+    qt = sp.get(sc.q, "moisture.rhoq_tot") / sp.get(sc.q, "rho")
+    return dict(q_tot_min=qt.min().item(), q_tot_max=qt.max().item())
+
+
+def anelastic_formulation() -> dict:
+    """The Anelastic1D box of experiments/anelastic1d.py (the
+    configuration of tests/test_atmos_extras.py's ``test_anelastic1d``):
+    ANELASTIC_STEPS LSRK54 steps at its advective dt on the card, ρ = ρ_ref
+    and the thermodynamic pressure = the reference pressure within
+    ANELASTIC_TOL relative at the start and after the steps, ρw within
+    ANELASTIC_RHOW, finite, and the same steps on the CPU within
+    FORMULATION_TOL per variable; dt over the acoustic limit
+    min_node_distance / c(300 K)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, dg, grid, q0, aux0 = anelastic1d.anelastic_box("cuda")
+    step, dt = anelastic1d.stepper(dg, grid)
+    sp, ap = model.prog_spec, model.aux_spec
+    rho_ref, p_ref = ap.get(aux0, "ref_state.rho"), ap.get(aux0,
+                                                           "ref_state.p")
+
+    def constraint(q, aux):
+        aux = model.update_auxiliary_state(q, aux, grid)
+        _, p = model.thermo(q, aux)
+        return (((sp.get(q, "rho") - rho_ref).abs() / rho_ref).max().item(),
+                ((p - p_ref).abs() / p_ref).max().item())
+
+    rho0_err, p0_err = constraint(q0, aux0)
+    reset_launch_counts()
+    q, aux = q0, aux0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(ANELASTIC_STEPS):
+        q, aux = step(q, aux, i * dt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    launches = launches_per_call(lambda: step(q, aux, 0.0))
+    rho_err, p_err = constraint(q, aux)
+    cstep, _ = anelastic1d.stepper(*anelastic1d.anelastic_box("cpu")[1:3])
+    qc, auxc = q0.cpu(), aux0.cpu()
+    for i in range(ANELASTIC_STEPS):
+        qc, auxc = cstep(qc, auxc, i * dt)
+    err = vortex_err(q.cpu(), qc)
+    c = td.soundspeed_air(model.param_set, torch.tensor(300.0)).item()
+    res = dict(card=nvidia_smi(), case="anelastic1d", elements=grid.nelem,
+               poly=POLY, dtype="float64", dt_s=dt,
+               dt_over_acoustic=dt * c / min_node_distance(grid),
+               steps=ANELASTIC_STEPS, ms_per_step=1e3 * wall / ANELASTIC_STEPS,
+               kernels_per_step=launches, peak_memory_bytes=peak,
+               rho_rel_err=[rho0_err, rho_err], p_rel_err=[p0_err, p_err],
+               max_abs_rhow=sp.get(q, "rhou")[:, 2].abs().max().item(),
+               cpu_rel_err_per_var=err,
+               finite=bool(torch.isfinite(q).all()), launches=counts)
+    emit("formulation_anelastic", **res)
+    check(res["finite"], ("anelastic", "state not finite"))
+    check(max(rho0_err, rho_err) <= ANELASTIC_TOL, ("anelastic ρ = ρ_ref",
+                                                    rho0_err, rho_err))
+    check(max(p0_err, p_err) <= ANELASTIC_TOL, ("anelastic p = p_ref",
+                                                p0_err, p_err))
+    check(res["max_abs_rhow"] <= ANELASTIC_RHOW, ("anelastic ρw",
+                                                  res["max_abs_rhow"]))
+    check(max(err) <= FORMULATION_TOL, ("anelastic against the CPU", err))
+    check_launches(counts, expected_launches({}, 0))
+    return res
+
+
+def phase_atmos_formulations() -> dict:
+    """The remaining atmosphere formulations (module docstring), each
+    through its entry point, float64 on the generic operator, whose
+    gradient path runs no kernel (every launch count 0): the EDMF single
+    stack decoupled, coupled and moist; the BOMEX single stack; the ρθ
+    bubble and its small box against the CPU; the Anelastic1D box; the
+    cfsite AMIP LES.  Returns each case's ms a step, kernels a step and
+    peak device memory."""
+    t_phase = time.perf_counter()
+    driver_init(show_updates="never")
+    out = {}
+
+    def keep(res):
+        out[res["case"]] = {k: res[k] for k in (
+            "ms_per_step", "kernels_per_step", "peak_memory_bytes")}
+
+    for case in EDMF_STEPS:
+        keep(edmf_formulation(case))
+    dc = bomex_single_stack.bomex_single_stack_config(device="cuda")
+    check(dc.grid.nelem == SINGLE_STACK_ELEMENTS and dc.grid.n_vert
+          == SINGLE_STACK_ELEMENTS, ("single stack", dc.grid.nelem))
+    res, sc, _ = invoke_formulation("bomex_single_stack", dc,
+                                    bomex_single_stack.COURANT,
+                                    (bomex_les.tmar_callback(dc),))
+    res.update(q_tot_range(sc))
+    emit("formulation_invoke", **res)
+    check(res["q_tot_min"] >= 0.0, ("single stack q_tot", res["q_tot_min"]))
+    keep(res)
+    dc = rising_bubble_theta.theta_bubble_config(device="cuda")
+    check(dc.grid.nelem == THETA_ELEMENTS, ("theta bubble", dc.grid.nelem))
+    res, sc, q0 = invoke_formulation("rising_bubble_theta", dc,
+                                     rising_bubble_theta.COURANT)
+    g, sp = dc.grid, dc.model.prog_spec
+    drift = [abs(weightedsum(g, sc.q, i).item() / weightedsum(g, q0, i).item()
+                 - 1.0) for i in (0, 4)]
+    w = lambda x: (sp.get(x, "rhou")[:, 2] / sp.get(x, "rho")).max().item()
+    res.update(mass_drift_rel=drift[0], rhotheta_drift_rel=drift[1],
+               max_w_initial=w(q0), max_w=w(sc.q),
+               small_box_rel_err_per_var=small_reference(
+                   "rising_bubble_theta",
+                   rising_bubble_theta.theta_bubble_config(
+                       THETA_SMALL_RESOLUTION, device="cuda"),
+                   rising_bubble_theta.COURANT))
+    emit("formulation_invoke", **res)
+    check(max(drift) <= THETA_DRIFT_TOL, ("theta drift", drift))
+    check(res["max_w"] > res["max_w_initial"], ("theta bubble w", res))
+    check(max(res["small_box_rel_err_per_var"]) <= FORMULATION_TOL,
+          ("theta small box", res["small_box_rel_err_per_var"]))
+    keep(res)
+    keep(anelastic_formulation())
+    dc = cfsite_amip.cfsite_config(device="cuda")
+    check(dc.grid.nelem == CFSITE_ELEMENTS, ("cfsite", dc.grid.nelem))
+    res, sc, _ = invoke_formulation("cfsite_amip", dc, cfsite_amip.COURANT,
+                                    (bomex_les.tmar_callback(dc),))
+    res.update(q_tot_range(sc))
+    emit("formulation_invoke", **res)
+    check(res["q_tot_min"] >= 0.0, ("cfsite q_tot", res["q_tot_min"]))
+    keep(res)
+    torch.cuda.empty_cache()
+    emit("atmos_formulations_phase", card=nvidia_smi(),
+         seconds=time.perf_counter() - t_phase, **out)
+    return out
+
+
+def phase_edmf_gate() -> dict:
+    """``--edmf-gate``: the stored-profile gate of tests/test_edmf.py's
+    ``test_sbl_edmf_mse_gate`` on the card: the coupled EDMF single stack
+    at the example's width, the refvals' NSTEPS LSRK144 steps with TMAR,
+    then each budgeted variable's profile (nodes ordered by height,
+    stably) against tests/refvals/edmf_sbl_profiles.py: MSE =
+    mean((got − ref)²) / (mean(ref²) + 1e-30) beside its budget; every
+    failure reported before the run exits non-zero."""
+    t_phase = time.perf_counter()
+    rv = load_refvals("edmf_sbl_profiles")
+    model, dg, grid, q, aux = bomex_edmf.sbl_stack("coupled", device="cuda")
+    step, dt = bomex_edmf.stepper(model, dg, grid)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(rv.NSTEPS):
+        q, aux = step(q, aux, i * dt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    z = grid.coords[..., 2].reshape(-1).cpu().numpy()
+    order = np.argsort(z, kind="stable")
+    names = model.prog_spec.flattened_names()
+    qn = q.cpu().numpy()
+    mse, failures = {}, []
+    for v, budget in rv.budgets.items():
+        got = qn[:, names.index(v)].reshape(-1)[order]
+        ref = rv.profiles[v]
+        mse[v] = float(np.mean((got - ref) ** 2)
+                       / (np.mean(ref ** 2) + 1e-30))
+        if mse[v] > budget:
+            failures.append((v, mse[v], budget))
+    res = dict(card=nvidia_smi(), case="coupled", elements=grid.nelem,
+               steps=rv.NSTEPS, dt_s=dt, seconds=wall,
+               ms_per_step=1e3 * wall / rv.NSTEPS,
+               mse={v: [mse[v], b] for v, b in rv.budgets.items()},
+               failures=failures, finite=bool(torch.isfinite(q).all()),
+               launches=counts)
+    emit("edmf_gate", **res)
+    emit("edmf_gate_phase", card=nvidia_smi(),
+         seconds=time.perf_counter() - t_phase)
+    check(res["finite"], ("EDMF gate", "state not finite"))
+    check(not failures, ("EDMF gate", failures))
+    check_launches(counts, expected_launches({}, 0))
+    return res
+
+
 def hold(name, args, kw) -> dict:
     """The kernel on ``args`` and on their first TAIL_E elements against
     two references, its plain version on the card (float32) and in
@@ -5296,6 +5693,10 @@ def main(argv=None) -> int:
     ap.add_argument("--skip-moist", action="store_true",
                     help="leave out the moist baroclinic wave (to run this "
                     "script in a checkout of a commit without it)")
+    ap.add_argument("--edmf-gate", action="store_true",
+                    help="also run the EDMF stored-profile gate (400 "
+                    "coupled LSRK144 steps of the single stack): minutes "
+                    "more")
     ap.add_argument("--julia-gates", action="store_true",
                     help="also run the four 5-day Julia split01 gates "
                     "(simple_box_ivd, simple_box_2dt, simple_box_rk3, the "
@@ -5305,7 +5706,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     emit("options", seed=args.seed, skip_moist=args.skip_moist,
-         julia_gates=args.julia_gates)
+         julia_gates=args.julia_gates, edmf_gate=args.edmf_gate)
     start, seconds = time.perf_counter(), {}
 
     def timed(name, phase, *a, **kw):
@@ -5342,6 +5743,9 @@ def main(argv=None) -> int:
         timed("julia_gates", phase_julia_gates)
     gcm = timed("gcm_driver", phase_gcm_driver)
     diagnostics = timed("diagnostics", phase_diagnostics)
+    formulations = timed("atmos_formulations", phase_atmos_formulations)
+    if args.edmf_gate:
+        timed("edmf_gate", phase_edmf_gate)
     timed("kernel_orders", phase_kernel_orders, args.seed)
     if moist:
         timed("moist_kernel_orders", phase_moist_kernel_orders, args.seed)
@@ -5356,6 +5760,7 @@ def main(argv=None) -> int:
          les_forcing=les_forcing,
          ocean=ocean, split_explicit=split_explicit, split01=split01,
          gcm_driver=gcm, diagnostics=diagnostics,
+         atmos_formulations=formulations,
          explicit_ms_per_step=explicit["ms_per_step"],
          imex_ms_per_step=imex["ms_per_step"],
          generic_ms_per_step=generic["ms_per_step"],

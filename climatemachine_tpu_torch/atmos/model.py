@@ -1,43 +1,46 @@
-"""The atmosphere balance law (port of ``climatemachine_tpu/atmos/model.py``
-for the Held-Suarez step, the moist baroclinic wave with its tracers and
-warm rain, and the LES boxes with their forcings: ``AtmosPhysics`` :76
-with ``turbulence`` :82, ``tracers`` :84, ``precipitation`` :86,
-``viscoussponge`` :87, ``sgstke`` :88, ``lsforcing`` :94 and
-``radiation`` :96 (the SGS TKE lane :155-158, gradient lanes :216-223,
-fluxes :437-438, :441-446, :564-565, source :585-588; the large-scale
-forcing's aux :184-189 and ``init_aux`` :350-351; radiation's aux
-:192-194 and its stack integrals after the nodal update :482-490),
-the prognostic/aux/gradient schemas :143-233, ``thermo_full`` :274,
-``nodal_init_state_auxiliary`` :334 (the closure's lengthscale
-:346-347), the thermo refresh of the aux lanes through the moisture
-model (``nodal_update_auxiliary_state`` :493), and the hooks of the
-generic DG operator for the total-energy, compressible model:
-``flux_first_order`` :372-447 (the advected moisture, precipitation and
-tracer scalars :419-437), ``wavespeed`` :449, the gradient hooks
-``compute_gradient_argument`` / ``compute_gradient_flux`` :502-537, the
+"""The atmosphere balance law (port of ``climatemachine_tpu/atmos/model.py``):
+``AtmosPhysics`` :76 with every field the JAX package has (``turbulence``
+:82, ``tracers`` :84, ``precipitation`` :86, ``viscoussponge`` :87,
+``sgstke`` :88, ``energy`` :89 and ``compressibility`` :92 with their
+checks :118-138, ``lsforcing`` :94, ``turbconv`` :95 and ``radiation``
+:96), the prognostic/aux/gradient schemas :143-233 (the SGS TKE lane
+:155-158, EDMF's lanes :159-167, :190-191, :224-228, the gradient lanes
+:216-228), ``thermo_full`` :274, ``nodal_init_state_auxiliary`` :334,
+``init_state_prognostic`` :354 (EDMF's initial lanes, ρ = ρ_ref under
+``Anelastic1D``), the aux refresh through the moisture model and EDMF
+(``nodal_update_auxiliary_state`` :493) with radiation's stack
+integrals after it :482-490, and the hooks of the generic DG operator:
+``flux_first_order`` :372-447 (ρθ advected with no pressure work under
+``ThetaModel``; no mass flux and no vertical momentum flux under
+``Anelastic1D``; the advected moisture, precipitation, tracer, SGS TKE
+and EDMF lanes; radiation's energy flux), ``wavespeed`` :449 (no sound
+speed under ``Anelastic1D``), the gradient hooks :502-537, the
 gradient-Laplacian hooks :539-550, ``flux_second_order`` :552-580 (the
-closure's viscous flux with the moisture's and tracers' diffusion, and
-hyperdiffusion), ``source`` :583-605, the wall ghost ``boundary_state``
-:608-618, the wall fluxes ``boundary_flux_second_order`` :620-694, and
-the balance law's defaults ``boundary_state_gradient_flux`` and
-``update_auxiliary_state_gradient``
-(``climatemachine_tpu/balance_laws/interface.py`` :112-115, :133-139)).
+closure's viscous flux with the moisture's and tracers' diffusion, the
+SGS TKE's, hyperdiffusion, EDMF's, then the anelastic projection),
+``source`` :583-605, the wall ghost ``boundary_state`` :608-618 (with
+EDMF's wall values), the wall fluxes ``boundary_flux_second_order``
+:620-694, and the balance law's defaults
+``boundary_state_gradient_flux`` and ``update_auxiliary_state_gradient``
+(``climatemachine_tpu/balance_laws/interface.py`` :112-115, :133-139).
 
-Prognostic, in the JAX package's order: ρ, ρu(3), ρe, then with
-``EquilMoist`` ρq_tot (``NonEquilMoist``: ρq_tot, ρq_liq, ρq_ice), with
-a precipitation model ρq_rai (and ρq_sno), with ``NTracers`` ρχ (N),
-with ``sgstke`` ρe_SGS.  Auxiliary: coord(3), orientation (Φ, ∇Φ),
+Prognostic, in the JAX package's order: ρ, ρu(3), ρe (ρθ under
+``ThetaModel``), then with ``EquilMoist`` ρq_tot (``NonEquilMoist``:
+ρq_tot, ρq_liq, ρq_ice), with a precipitation model ρq_rai (and ρq_sno),
+with ``NTracers`` ρχ (N), with ``sgstke`` ρe_SGS, with ``turbconv`` the
+EDMF lanes (atmos/edmf.py).  Auxiliary: coord(3), orientation (Φ, ∇Φ),
 with a ``HydrostaticState`` the reference state (ρ, p, T, ρe), with a
 turbulence closure that needs it ``turbulence.delta``, moisture (θ_v, T
 dry; T, θ_v, q_liq, q_ice with ``EquilMoist``; T, θ_v with
 ``NonEquilMoist``), then, with hyperdiffusion, ``hyperdiffusion.delta``,
-with a large-scale forcing its profile, with radiation its attenuation
-paths.  With a turbulence closure the model has gradient lanes (the
-closure's u, h_tot[, θ_v], then ``moisture.q_tot``, ``tracers.chi``,
-``sgstke.e_SGS``, ``sgstke.theta_li``, ``lsforcing.ta``,
-``lsforcing.hus``) and gradient-flux lanes (the closure's, then
-``moisture.d_q_tot``, ``tracers.d_chi``, ``sgstke.d_e_SGS``,
-``sgstke.d_theta_li``, ``lsforcing.dz_ta``, ``lsforcing.dz_hus``).
+with a large-scale forcing its profile, with EDMF the subdomain
+temperatures, with radiation its attenuation paths.  With a turbulence
+closure the model has gradient lanes (the closure's u, h_tot[, θ_v],
+then ``moisture.q_tot``, ``tracers.chi``, ``sgstke.e_SGS``,
+``sgstke.theta_li``, ``lsforcing.ta``, ``lsforcing.hus``, EDMF's) and
+gradient-flux lanes (the closure's, then ``moisture.d_q_tot``,
+``tracers.d_chi``, ``sgstke.d_e_SGS``, ``sgstke.d_theta_li``,
+``lsforcing.dz_ta``, ``lsforcing.dz_hus``, EDMF's vertical derivatives).
 State and aux are var-major ``[E, n, L]`` over L nodes (volume or face
 lanes); fluxes ``[E, 3, n, L]`` (direction i, then variable); gradients
 ``[E, 3, ng, L]``; gradient fluxes ``[E, ngf, L]``.
@@ -53,8 +56,11 @@ import torch
 from climatemachine_tpu_torch.atmos import boundaryconditions as abc
 from climatemachine_tpu_torch.atmos.boundaryconditions import (AtmosBC,
                                                                _bc_value)
+from climatemachine_tpu_torch.atmos.compressibility import Compressible
+from climatemachine_tpu_torch.atmos.energy import TotalEnergyModel
 from climatemachine_tpu_torch.atmos.moisture import DryModel, EquilMoist
-from climatemachine_tpu_torch.atmos.ref_state import (NoReferenceState,
+from climatemachine_tpu_torch.atmos.ref_state import (HydrostaticState,
+                                                     NoReferenceState,
                                                      ReferenceState)
 from climatemachine_tpu_torch.atmos.sources import VMContext
 from climatemachine_tpu_torch.atmos.tracers import NoTracers
@@ -91,8 +97,12 @@ class AtmosPhysics:
     closure, ``Deardorff`` for its viscosity); ``lsforcing`` None or a
     model of :mod:`climatemachine_tpu_torch.atmos.lsforcing` (with a
     closure); ``radiation`` None or a model of
-    :mod:`climatemachine_tpu_torch.atmos.radiation`.  ``turbconv`` (EDMF)
-    is not ported: the model refuses it."""
+    :mod:`climatemachine_tpu_torch.atmos.radiation`; ``energy`` a
+    ``TotalEnergyModel`` (the default) or a ``ThetaModel`` (dry only);
+    ``compressibility`` ``Compressible`` (the default) or ``Anelastic1D``
+    (with ``TotalEnergyModel`` and a ``HydrostaticState``); ``turbconv``
+    None or an :class:`~climatemachine_tpu_torch.atmos.edmf.EDMF` (with a
+    closure)."""
     param_set: PlanetParameterSet = EARTH
     orientation: Orientation = field(default_factory=FlatOrientation)
     ref_state: ReferenceState = field(default_factory=NoReferenceState)
@@ -103,13 +113,11 @@ class AtmosPhysics:
     precipitation: Optional[object] = None
     viscoussponge: Optional[object] = None
     sgstke: Optional[object] = None
+    energy: object = field(default_factory=TotalEnergyModel)
+    compressibility: object = field(default_factory=Compressible)
     lsforcing: Optional[object] = None
     turbconv: Optional[object] = None
     radiation: Optional[object] = None
-
-
-#: the AtmosPhysics fields not ported, with the slice each waits for
-_NOT_PORTED = {"turbconv": "EDMF (atmos/edmf.py)"}
 
 
 @dataclass(frozen=True)
@@ -127,16 +135,29 @@ def _set(arr, sl: slice, val):
     return out
 
 
+def _remove_vertical(Fm, k):
+    """Fm ``[E, 3, 3, L]`` (direction i, momentum component j) less its
+    k̂ component in j: Fm_ij − (Σ_j Fm_ij k_j) k_j."""
+    return Fm - torch.sum(Fm * k[:, None], dim=2, keepdim=True) * k[:, None]
+
+
 class AtmosModel(BalanceLaw):
-    """Compressible atmosphere with total energy, dry or moist, with
-    passive tracers, precipitation, SGS TKE, large-scale forcing and
-    radiation (a :class:`BalanceLaw` whose hooks override the base's)."""
+    """Compressible or anelastic atmosphere with total energy or ρθ, dry
+    or moist, with passive tracers, precipitation, SGS TKE, EDMF,
+    large-scale forcing and radiation (a :class:`BalanceLaw` whose hooks
+    override the base's)."""
 
     def __init__(self, physics: AtmosPhysics, problem: AtmosProblem,
                  sources: Sequence = ()):
-        for name, what in _NOT_PORTED.items():
-            if getattr(physics, name) is not None:
-                raise NotImplementedError(f"next slice: {what}")
+        if physics.energy.is_theta and not isinstance(physics.moisture,
+                                                      DryModel):
+            raise ValueError("ThetaModel energy is dry only")
+        if physics.compressibility.is_anelastic:
+            if physics.energy.is_theta:
+                raise ValueError("Anelastic1D needs TotalEnergyModel")
+            if not isinstance(physics.ref_state, HydrostaticState):
+                raise ValueError("Anelastic1D needs a hydrostatic reference "
+                                 "state")
         self.physics = physics
         self.problem = problem
         self.sources = tuple(sources)
@@ -155,12 +176,15 @@ class AtmosModel(BalanceLaw):
         if self.tracers.N:
             prog_fields["tracers"] = self.tracers.vars_prognostic()
         turb = physics.turbulence
-        for name in ("sgstke", "lsforcing"):
+        for name in ("sgstke", "lsforcing", "turbconv"):
             if getattr(physics, name) is not None and turb is None:
                 raise ValueError(f"{name} needs a turbulence closure (the "
                                  "gradient pass)")
         if physics.sgstke is not None:
             prog_fields["sgstke"] = physics.sgstke.vars_prognostic()
+        tc = physics.turbconv
+        if tc is not None:
+            prog_fields["turbconv"] = tc.vars_prognostic(self.moist)
         self.prog_spec = VarSpec(**prog_fields)
         aux_fields = dict(coord=3,
                           orientation=physics.orientation.vars_aux())
@@ -174,7 +198,7 @@ class AtmosModel(BalanceLaw):
         hyper = physics.hyperdiffusion
         if hyper is not None:
             aux_fields["hyperdiffusion"] = hyper.vars_aux()
-        for name in ("lsforcing", "radiation"):
+        for name in ("lsforcing", "turbconv", "radiation"):
             part = getattr(physics, name)
             if part is not None and part.vars_aux().num:
                 aux_fields[name] = part.vars_aux()
@@ -197,6 +221,9 @@ class AtmosModel(BalanceLaw):
                 if part is not None and part.vars_gradient().num:
                     gfields[name] = part.vars_gradient()
                     gffields[name] = part.vars_gradient_flux()
+            if tc is not None:
+                gfields["turbconv"] = tc.vars_gradient(self.moist)
+                gffields["turbconv"] = tc.vars_gradient_flux(self.moist)
         self.grad_spec = VarSpec(**gfields)
         self.gf_spec = VarSpec(**gffields)
 
@@ -231,7 +258,15 @@ class AtmosModel(BalanceLaw):
         return aux
 
     def init_state_prognostic(self, coords, aux, t):
-        return self.problem.init_state(self, coords, aux, t)
+        """The problem's initial state, then EDMF's initial lanes, then,
+        under ``Anelastic1D``, ρ = ρ_ref."""
+        q = self.problem.init_state(self, coords, aux, t)
+        if self.physics.turbconv is not None:
+            q = self.physics.turbconv.init_state(self, q, aux)
+        if self.physics.compressibility.is_anelastic:
+            q = _set(q, self.prog_spec.index("rho"),
+                     self.aux_spec.get(aux, "ref_state.rho"))
+        return q
 
     @property
     def moist(self) -> bool:
@@ -252,8 +287,11 @@ class AtmosModel(BalanceLaw):
     def update_auxiliary_state(self, q, aux, grid):
         """Refresh the moisture model's thermo lanes from the state (θ_v
         and T dry; T by saturation adjustment, θ_v, q_liq and q_ice with
-        ``EquilMoist``), then radiation's stack integrals."""
+        ``EquilMoist``) and EDMF's subdomain temperatures, then
+        radiation's stack integrals."""
         aux = self.physics.moisture.update_aux(self, q, aux)
+        if self.physics.turbconv is not None:
+            aux = self.physics.turbconv.update_aux(self, q, aux)
         rad = self.physics.radiation
         if rad is not None and hasattr(rad, "update_aux_integrals"):
             aux = rad.update_aux_integrals(self, grid, q, aux)
@@ -280,8 +318,12 @@ class AtmosModel(BalanceLaw):
         and the pressure work: F_i[ρ] = ρu_i, F_i[ρu_j] = ρu_i u_j +
         (p − p_ref) δ_ij, F_i[ρe] = (ρe + p) u_i, each advected scalar
         (ρq_tot, ρq_rai, ρχ, ρe_SGS) F_i[ρχ] = ρχ u_i, the
-        precipitation's sedimentation on its lanes, and radiation's
-        energy flux on ρe."""
+        precipitation's sedimentation on its lanes, EDMF's vertical
+        advection on its lanes, and radiation's energy flux on ρe.
+        ``ThetaModel``: F_i[ρθ] = ρθ u_i (no pressure work), the tracers
+        advected, nothing else.  ``Anelastic1D``: F[ρ] = 0 and F_i[ρu_j]
+        = ρu_i u_j with its k̂ component in j removed (no pressure
+        term)."""
         rho, rhou, rhoe = q[:, 0], q[:, 1:4], q[:, 4]
         _, p = self.thermo(q, aux)
         u = rhou / rho[:, None]
@@ -289,27 +331,45 @@ class AtmosModel(BalanceLaw):
         if self.ref_state.subtract_off:
             p_eff = p - self.aux_spec.get(aux, "ref_state.p")
         E, n, L = q.shape
+        ph = self.physics
         F = torch.empty((E, 3, n, L), dtype=q.dtype, device=q.device)
         F[:, :, 0] = rhou
         F[:, :, 1:4] = rhou[:, :, None] * u[:, None, :]
-        for i in range(3):
-            F[:, i, 1 + i] += p_eff
+        if ph.compressibility.is_anelastic:
+            F[:, :, 0] = 0.0
+            F[:, :, 1:4] = _remove_vertical(F[:, :, 1:4],
+                                            self.vertical_unit(aux))
+        else:
+            for i in range(3):
+                F[:, i, 1 + i] += p_eff
+        if ph.energy.is_theta:
+            F[:, :, 4] = rhoe[:, None] * u
+            F[:, :, 5:] = 0.0
+            if self.tracers.N:
+                sl = self.prog_spec.index("tracers.rhochi")
+                F[:, :, sl] = q[:, None, sl] * u[:, :, None]
+            return F
         F[:, :, 4] = (rhoe + p)[:, None] * u
         for v in range(5, n):
             F[:, :, v] = q[:, v, None] * u
         if self.precipitation is not None:
             F = self.precipitation.flux_first_order(self, q, aux, F, u)
+        if ph.turbconv is not None:
+            F = ph.turbconv.flux_first_order(self, q, aux, F)
         rad = self.physics.radiation
         if rad is not None and hasattr(rad, "energy_flux"):
             F[:, :, 4] += rad.energy_flux(self, q, aux)
         return F
 
     def wavespeed(self, nrm, q, aux, t):
-        """|u·n| + the sound speed, ``[E, L]``."""
+        """|u·n| + the sound speed (none under ``Anelastic1D``), ``[E,
+        L]``."""
         T, _, pp = self.physics.moisture.thermo(self, q, aux)
         u = q[:, 1:4] / q[:, :1]
-        return torch.abs(torch.sum(u * nrm, dim=1)) + td.soundspeed_air(
-            self.param_set, T, pp)
+        un = torch.abs(torch.sum(u * nrm, dim=1))
+        if self.physics.compressibility.is_anelastic:
+            return un
+        return un + td.soundspeed_air(self.param_set, T, pp)
 
     def nondiffusive_courant(self, q, aux, dt, delta_x, direction="every"):
         """(|u| + c) dt / Δx per node, |u| the speed along the direction
@@ -336,12 +396,13 @@ class AtmosModel(BalanceLaw):
     def _gradient_parts(self):
         ph = self.physics
         return [part for part in (ph.moisture, self.tracers, ph.sgstke,
-                                  ph.lsforcing) if part is not None]
+                                  ph.lsforcing, ph.turbconv)
+                if part is not None]
 
     def compute_gradient_argument(self, q, aux, t):
         """The gradient arguments ``[E, ng, L]``: the closure's (u, h_tot[,
         θ_v]), the moisture's q_tot, the tracers' χ, the SGS TKE's e_SGS
-        and θ_li, the large-scale forcing's ta and hus."""
+        and θ_li, the large-scale forcing's ta and hus, EDMF's."""
         out = self.physics.turbulence.gradient_argument(self, q, aux, t)
         for part in self._gradient_parts():
             out = part.gradient_argument(self, q, aux, t, out)
@@ -360,7 +421,9 @@ class AtmosModel(BalanceLaw):
         viscous flux and, with its diffusivity D_t, the moisture's and
         the tracers' diffusive fluxes, and the SGS TKE's −2ρν∇e_SGS
         (ν without the sponge's amplification, as in the JAX package);
-        with a hyper state the hyperdiffusive flux."""
+        with a hyper state the hyperdiffusive flux; with a gradient flux,
+        EDMF's diffusive (and, coupled, its grid-mean) fluxes; under
+        ``Anelastic1D`` the k̂ component of F[ρu] removed."""
         F = torch.zeros((q.shape[0], 3) + q.shape[1:], dtype=q.dtype,
                         device=q.device)
         turb = self.physics.turbulence
@@ -376,6 +439,11 @@ class AtmosModel(BalanceLaw):
                                                           nu, F)
         if hyper is not None:
             F = self.physics.hyperdiffusion.flux(self, q, hyper, aux, F)
+        if self.physics.turbconv is not None and gf is not None:
+            F = self.physics.turbconv.flux_second_order(self, q, gf, aux, F)
+        if self.physics.compressibility.is_anelastic:
+            F[:, :, 1:4] = _remove_vertical(F[:, :, 1:4],
+                                            self.vertical_unit(aux))
         return F
 
     def update_auxiliary_state_gradient(self, dg, gf, q, aux, t):
@@ -415,19 +483,33 @@ class AtmosModel(BalanceLaw):
 
     def source(self, q, aux, t, gf=None):
         """The SGS TKE's production and dissipation on ρe_SGS (with a
-        gradient flux), then Σ of the sources at (q, aux, ``gf``)."""
+        gradient flux), EDMF's sources (with one), then Σ of the sources
+        at (q, aux, ``gf``); under ``Anelastic1D`` the k̂ component of
+        the momentum source and any mass source removed."""
         out = torch.zeros_like(q)
-        sg = self.physics.sgstke
-        if sg is not None:
+        ph = self.physics
+        if ph.sgstke is not None:
             out[:, self.prog_spec.index("sgstke.rhoe_SGS").start] += \
-                sg.source(self, q, gf, aux, t)
-        return self.sum_sources(self.source_context(q, aux, gf=gf), t, out)
+                ph.sgstke.source(self, q, gf, aux, t)
+        if ph.turbconv is not None and gf is not None:
+            out += ph.turbconv.source(self, q, gf, aux, t)
+        out = self.sum_sources(self.source_context(q, aux, gf=gf), t, out)
+        if ph.compressibility.is_anelastic:
+            k = self.vertical_unit(aux)
+            Sm = out[:, 1:4]
+            out[:, 1:4] = Sm - torch.sum(Sm * k, dim=1, keepdim=True) * k
+            out[:, 0] = 0.0
+        return out
 
     def boundary_state(self, tag: int, nrm, q_minus, aux_minus, t):
         """Ghost (q⁺, aux⁺) on wall face lanes of boundary ``tag``:
         q ``[E, n, X]``, normals ``[E, 3, X]``."""
         bc = self.problem.boundary_conditions[tag - 1]
-        return bc.ghost_state(self, nrm, q_minus, aux_minus, t)
+        qP, auxP = bc.ghost_state(self, nrm, q_minus, aux_minus, t)
+        if self.physics.turbconv is not None:
+            qP = self.physics.turbconv.boundary_state(self, tag, q_minus,
+                                                      aux_minus, qP)
+        return qP, auxP
 
     def boundary_state_gradient_flux(self, tag: int, nrm, gf_minus, q_minus,
                                      aux_minus, t):

@@ -72,15 +72,23 @@ class MoistureModel:
 
 
 class DryModel(MoistureModel):
-    """Dry air; aux caches θ_v and T."""
+    """Dry air; aux caches θ_v and T.  T and p in closed form from (ρ,
+    ρθ) under ``ThetaModel``; p the reference pressure under
+    ``Anelastic1D``."""
 
     def vars_aux(self) -> VarSpec:
         return VarSpec(theta_v=1, air_T=1)
 
     def thermo(self, model, q, aux):
-        ps = model.param_set
+        ps, sp, ph = model.param_set, model.prog_spec, model.physics
+        rho = sp.get(q, "rho")
+        if ph.energy.is_theta:
+            T, p = ph.energy.thermo_dry(ps, rho, sp.get(q, "rhoe"))
+            return T, p, None
         T = td.air_temperature(ps, _internal_energy(model, q, aux))
-        return T, td.air_pressure(ps, T, model.prog_spec.get(q, "rho")), None
+        if ph.compressibility.is_anelastic:
+            return T, model.aux_spec.get(aux, "ref_state.p"), None
+        return T, td.air_pressure(ps, T, rho), None
 
     def update_aux(self, model, q, aux):
         ps = model.param_set
@@ -142,12 +150,20 @@ class EquilMoist(MoistureModel):
         T = td.saturation_adjustment(ps, _internal_energy(model, q, aux),
                                      rho, q_tot, n_iter=self.maxiter)
         pp = td.phase_partition_equil(ps, T, rho, q_tot)
-        p = td.air_pressure(ps, T, rho, pp)
+        p = self._pressure(model, T, rho, pp, aux)
         theta_v = td.virtual_temperature(ps, T, pp) * \
             (ps.MSLP / p) ** ps.kappa_d
         return _set(aux, model.aux_spec, {
             "moisture.temperature": T, "moisture.theta_v": theta_v,
             "moisture.q_liq": pp.liq, "moisture.q_ice": pp.ice})
+
+    @staticmethod
+    def _pressure(model, T, rho, pp, aux):
+        """p of the equation of state; the reference pressure under
+        ``Anelastic1D`` (whose saturation adjustment runs at ρ = ρ_ref)."""
+        if model.physics.compressibility.is_anelastic:
+            return model.aux_spec.get(aux, "ref_state.p")
+        return td.air_pressure(model.param_set, T, rho, pp)
 
     def thermo(self, model, q, aux):
         """T from the aux lane the last ``update_aux`` wrote."""
@@ -156,7 +172,7 @@ class EquilMoist(MoistureModel):
         q_tot = sp.get(q, "moisture.rhoq_tot") / rho
         T = model.aux_spec.get(aux, "moisture.temperature")
         pp = td.phase_partition_equil(ps, T, rho, q_tot)
-        return T, td.air_pressure(ps, T, rho, pp), pp
+        return T, self._pressure(model, T, rho, pp, aux), pp
 
 
 class NonEquilMoist(MoistureModel):

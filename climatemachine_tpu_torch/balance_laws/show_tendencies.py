@@ -36,9 +36,12 @@ def show_tendencies(model) -> str:
     F2 = {k: [] for k in names}
     S = {k: [] for k in names}
 
-    F1["rho"].append("Advect")
+    if not ph.compressibility.is_anelastic:
+        F1["rho"].append("Advect")
     F1["rhou"] += ["Advect", "PressureGradient"]
-    F1["rhoe"] += ["Advect", "Pressure"]
+    F1["rhoe"].append("Advect")
+    if not ph.energy.is_theta:
+        F1["rhoe"].append("Pressure")
     if ph.radiation is not None and hasattr(ph.radiation, "energy_flux"):
         F1["rhoe"].append("Radiation")
     for grp in ("moisture", "tracers", "precipitation", "sgstke",

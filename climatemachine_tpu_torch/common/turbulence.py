@@ -118,13 +118,16 @@ class TurbulenceClosure:
 
     def gradient_argument(self, model, q, aux, t):
         """(u, h_tot = (ρe + p)/ρ[, θ_v]) on the model's gradient lanes
-        ``[E, ng, L]`` (the moisture and tracer lanes left 0)."""
+        ``[E, ng, L]`` (the moisture and tracer lanes left 0); under
+        ``ThetaModel`` the h_tot lane holds θ = ρθ/ρ."""
         sp, gs = model.prog_spec, model.grad_spec
         rho, rhoe = sp.get(q, "rho"), sp.get(q, "rhoe")
         _, p, u, _ = model.thermo_full(q, aux)
         out = q.new_zeros((q.shape[0], gs.num, q.shape[2]))
         out[:, gs.index("u")] = u
-        out[:, gs.index("h_tot")] = ((rhoe + p) / rho)[:, None]
+        h_tot = rhoe / rho if model.physics.energy.is_theta \
+            else (rhoe + p) / rho
+        out[:, gs.index("h_tot")] = h_tot[:, None]
         if self.needs_theta_v:
             out[:, gs.index("theta_v")] = self._theta_v(model, q, aux)[:, None]
         return out
@@ -160,7 +163,8 @@ class TurbulenceClosure:
     def flux(self, model, q, gf, aux, t):
         """F[ρu] = ρτ, F[ρe] = τ·ρu − ρ D_t ∇h_tot ``[E, 3, n, L]``, with
         the sponge's amplification of ν and D_t where the physics has
-        one."""
+        one; under ``ThetaModel`` F[ρθ] = −ρ D_t ∇θ (no viscous
+        heating)."""
         sp = model.prog_spec
         rho, rhou = sp.get(q, "rho"), sp.get(q, "rhou")
         nu, D_t = self.viscosity(model, q, gf, aux, t)
@@ -171,9 +175,10 @@ class TurbulenceClosure:
         d_h_tot = model.gf_spec.get(gf, "d_h_tot")
         F = q.new_zeros((q.shape[0], 3, sp.num, q.shape[2]))
         F[:, :, sp.index("rhou")] = rho[:, None, None] * tau
-        F[:, :, sp.index("rhoe").start] = (
-            torch.sum(tau * rhou[:, None], dim=2)
-            - rho[:, None] * D_t * d_h_tot)
+        F[:, :, sp.index("rhoe").start] = -rho[:, None] * D_t * d_h_tot
+        if not model.physics.energy.is_theta:
+            F[:, :, sp.index("rhoe").start] += torch.sum(
+                tau * rhou[:, None], dim=2)
         return F
 
 

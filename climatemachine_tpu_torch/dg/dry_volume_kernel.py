@@ -114,8 +114,8 @@ dry_volume_tendency.launches = 0
 
 
 def supports(balance_law, grid, direction, remainder=None) -> bool:
-    """True when the kernel covers this configuration: the (dry,
-    total-energy, compressible) AtmosModel without radiation in every
+    """True when the kernel covers this configuration: the dry,
+    total-energy, compressible AtmosModel without radiation in every
     direction, and a
     remainder, if any, of an acoustic(-gravity) linear model."""
     if not isinstance(balance_law, AtmosModel):
@@ -131,6 +131,8 @@ def supports(balance_law, grid, direction, remainder=None) -> bool:
     return (grid.dim == 3 and direction == "every"
             and balance_law.prog_spec.num == 5
             and isinstance(ph.moisture, DryModel) and ph.radiation is None
+            and not ph.energy.is_theta
+            and not ph.compressibility.is_anelastic
             and grid.Wdiv is not None)
 
 

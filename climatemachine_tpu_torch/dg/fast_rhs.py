@@ -82,6 +82,14 @@ def _unsupported(dg):
     if type(getattr(dg, "nf1", None)) is not RusanovNumericalFlux:
         return ValueError, ("VarMajorRHS computes the Rusanov flux, got "
                             f"{getattr(dg, 'nf1', None)!r}")
+    ph = bl.physics
+    for what, refused in (("ThetaModel energy", ph.energy.is_theta),
+                          ("Anelastic1D", ph.compressibility.is_anelastic),
+                          ("turbconv (EDMF)", ph.turbconv is not None)):
+        if refused:
+            # the JAX package's supports refuses these too (fast_rhs.py:78)
+            return ValueError, (f"VarMajorRHS takes no {what}: the generic "
+                                "DG operator does")
     if bl.physics.turbulence is not None:
         # the JAX package's supports refuses a closure too (fast_rhs.py:78):
         # this RHS has no gradient pass, so taking the model here would
@@ -89,7 +97,6 @@ def _unsupported(dg):
         return ValueError, ("VarMajorRHS has no gradient pass: a "
                             "turbulence closure takes the generic DG "
                             "operator")
-    ph = bl.physics
     if not isinstance(ph.moisture, (DryModel, EquilMoist)):
         return ValueError, ("VarMajorRHS takes a dry or an EquilMoist "
                             f"model, got {ph.moisture!r}")

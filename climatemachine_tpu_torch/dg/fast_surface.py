@@ -37,8 +37,9 @@ from climatemachine_tpu_torch.physics import thermodynamics as td
 
 def supports(dg) -> bool:
     """True when the generic DG operator ``dg`` takes this pass: the dry
-    AtmosModel (five prognostic lanes, DryModel, no tracers, no
-    radiation: the JAX package's conditions) with the Rusanov flux in
+    AtmosModel (five prognostic lanes, DryModel, total energy,
+    compressible, no EDMF, no tracers, no radiation: the JAX package's
+    conditions) with the Rusanov flux in
     every direction on a grid of identity face orientations, with
     impenetrable free-slip,
     insulating walls.  Any other configuration, a moist one among them,
@@ -47,6 +48,9 @@ def supports(dg) -> bool:
     return (isinstance(bl, AtmosModel) and dg.direction == "every"
             and g.face_perm_identity and bl.prog_spec.num == 5
             and isinstance(bl.physics.moisture, DryModel)
+            and not bl.physics.energy.is_theta
+            and not bl.physics.compressibility.is_anelastic
+            and bl.physics.turbconv is None
             and bl.physics.radiation is None
             and bl.tracers.N == 0
             and type(dg.nf1) is RusanovNumericalFlux
@@ -158,7 +162,8 @@ def surface_tendency(dg, q, aux, t):
         raise ValueError(
             "the var-major surface pass takes the dry AtmosModel with the "
             "Rusanov flux (fast_surface.supports); this configuration's "
-            "surface term is the node-gather pass, DGModel._generic_surface")
+            "surface term is the generic DG operator's node-gather pass, "
+            "DGModel._generic_surface")
     ps, sp = bl.param_set, bl.aux_spec
     ops = dg.operators()
     E, Np, Nfp = g.nelem, g.Np, g.Nfp_max

@@ -280,22 +280,30 @@ class DGModel:
         (``pre_stage=dg.pre_stage`` of the time integrators)."""
         return self.balance_law.preprocess_state(self, q, aux, t)
 
-    def spatial_gradient(self, q, aux, t):
+    def face_state(self, ops, q, aux, t):
+        """(qM, auxM, qP, auxP) ``[E, n, X]`` on the faces of ``ops``: the
+        own side, and the neighbour's or, on wall lanes, the balance
+        law's ghost state."""
+        n = q.shape[1]
+        BM, BP = self._face_sides(ops, torch.cat([q, aux], dim=1))
+        qM, auxM = BM[:, :n], BM[:, n:]
+        return (qM, auxM) + self._wall_ghost(ops, qM, auxM, BP[:, :n],
+                                             BP[:, n:], t)
+
+    def spatial_gradient(self, q, aux, t, faces=None):
         """The DG gradient ``[E, d, ng, Np]`` of the balance law's gradient
         arguments along ``diffusion_direction``: the strong gradient
         within each element plus the lift of sM · n ⊗ (g* − g⁻) on the
         direction's faces, the central g* from the neighbour side or, on
         wall lanes, from the ghost state ``boundary_state`` of the wall's
-        tag."""
+        tag; ``faces`` is that direction's :meth:`face_state` where the
+        caller has it."""
         bl, g = self.balance_law, self.grid
         ops = self.face_operators(self.diffusion_direction)
         grad = strong_gradient(g, bl.compute_gradient_argument(q, aux, t),
                                direction_dims(self.diffusion_direction,
                                               g.dim))
-        n = q.shape[1]
-        BM, BP = self._face_sides(ops, torch.cat([q, aux], dim=1))
-        qM, auxM = BM[:, :n], BM[:, n:]
-        qP, auxP = self._wall_ghost(ops, qM, auxM, BP[:, :n], BP[:, n:], t)
+        qM, auxM, qP, auxP = faces or self.face_state(ops, q, aux, t)
         corr = self.nfg(bl, ops["nrm"], bl.compute_gradient_argument(
             qM, auxM, t), bl.compute_gradient_argument(qP, auxP, t))
         return grad + self._lift_jump(ops, corr)
@@ -334,11 +342,20 @@ class DGModel:
         if self.update_aux:
             aux = bl.update_auxiliary_state(q, aux, self.grid)
 
-        gf = None
+        gf = faces = None
         if self.n_gradient:
-            gf = bl.compute_gradient_flux(self.spatial_gradient(q, aux, t),
-                                          q, aux, t)
-            aux, q = bl.update_auxiliary_state_gradient(self, gf, q, aux, t)
+            faces = self.face_state(self.face_operators(
+                self.diffusion_direction), q, aux, t)
+            gf = bl.compute_gradient_flux(
+                self.spatial_gradient(q, aux, t, faces), q, aux, t)
+            aux_g, q_g = bl.update_auxiliary_state_gradient(self, gf, q, aux,
+                                                            t)
+            # the face state serves the surface pass too where it has the
+            # same faces and the state and aux are unchanged
+            if (aux_g is not aux or q_g is not q
+                    or self.diffusion_direction != self.direction):
+                faces = None
+            aux, q = aux_g, q_g
         hyper = (self.hyperdiffusive_state(q, aux, t)
                  if bl.gradlap_spec.num else None)
 
@@ -351,7 +368,7 @@ class DGModel:
             bl, "has_boundary_flux_second_order",
             hasattr(bl, "boundary_flux_second_order")))
         tend = tend + self.surface(q, aux, t, gf,
-                                   None if scalar_hyper else hyper)
+                                   None if scalar_hyper else hyper, faces)
         if scalar_hyper:
             tend = tend + ldg_varmajor.scalar_hyper_correction(
                 self, F2, self.direction)
@@ -397,15 +414,16 @@ class DGModel:
             tend = wd if tend is None else tend + wd
         return tend, F2
 
-    def surface(self, q, aux, t, gf=None, hyper=None):
+    def surface(self, q, aux, t, gf=None, hyper=None, faces=None):
         """The interface term − M⁻¹ L (sM · f*) over the direction's
         faces: the var-major surface pass (``fast_surface``; first order
         only) or the node-gather pass, which adds the second-order flux
         F₂* of the gradient flux ``gf`` and the hyper state ``hyper``
-        where given."""
+        where given (``faces``: the direction's :meth:`face_state`, where
+        the caller has it)."""
         if self.fast_surface and gf is None and hyper is None:
             return fast_surface.surface_tendency(self, q, aux, t)
-        return self._generic_surface(q, aux, t, gf, hyper)
+        return self._generic_surface(q, aux, t, gf, hyper, faces)
 
     def _face_sides(self, ops, B):
         """(minus, neighbour) sides ``[E, nv, X]`` of the volume bundle B
@@ -426,7 +444,7 @@ class DGModel:
             auxP = torch.where(mask, auxB, auxP)
         return qP, auxP
 
-    def _generic_surface(self, q, aux, t, gf=None, hyper=None):
+    def _generic_surface(self, q, aux, t, gf=None, hyper=None, faces=None):
         """− M⁻¹ L (sM · f*) by node gathers: the face bundle (q, aux, and
         gf and the hyper state where given) at the direction's face
         nodes, its neighbour side, the balance law's wall ghost and
@@ -435,17 +453,24 @@ class DGModel:
         flux's wall ghost, no hyperdiffusive transport through walls, and
         the walls' prescribed diffusive fluxes in place of F₂* there."""
         bl, g, ops = self.balance_law, self.grid, self.operators()
-        n, naux, Nfp = q.shape[1], aux.shape[1], g.Nfp_max
-        parts = [q, aux]
+        Nfp = g.Nfp_max
+        parts = [] if faces is not None else [q, aux]
         if gf is not None:
             parts.append(gf)
         if hyper is not None:
             parts.append(hyper.reshape(g.nelem, -1, g.Np))
-        BM, BP = self._face_sides(ops, torch.cat(parts, dim=1))
-        qM, auxM = BM[:, :n], BM[:, n:n + naux]
+        if parts:
+            BM, BP = self._face_sides(ops, torch.cat(parts, dim=1))
+        if faces is None:
+            n, naux = q.shape[1], aux.shape[1]
+            qM, auxM = BM[:, :n], BM[:, n:n + naux]
+            qP, auxP = self._wall_ghost(ops, qM, auxM, BP[:, :n],
+                                        BP[:, n:n + naux], t)
+            off = n + naux
+        else:
+            qM, auxM, qP, auxP = faces
+            off = 0
         nrm = ops["nrm"]
-        qP, auxP = self._wall_ghost(ops, qM, auxM, BP[:, :n],
-                                    BP[:, n:n + naux], t)
         fstar = self.nf1(bl, nrm, qM, auxM, qP, auxP, t)
         if self.remainder is not None:
             lin, ldir = self.remainder
@@ -459,7 +484,6 @@ class DGModel:
                                         auxM[:, :, sl], qP[:, :, sl],
                                         auxP[:, :, sl], t)
         if gf is not None or hyper is not None:
-            off = n + naux
             walls = [(tag, (ops["bctag"] == tag)[:, None, :])
                      for tag in ops["tags"]]
             gfM = gfP = hyM = hyP = None

@@ -84,7 +84,11 @@ class _ProfileGroup(OutputGroup):
         u = sp.get(q, "rhou") / rho[:, None]
         T, p, _, pp = bl.thermo_full(q, aux)
         e_int = td.internal_energy(ps, T, pp)
-        e_tot = sp.get(q, "rhoe") / rho
+        if bl.physics.energy.is_theta:
+            e_tot = e_int + 0.5 * torch.sum(u * u, dim=1) + bl.aux_spec.get(
+                aux, "orientation.Phi")
+        else:
+            e_tot = sp.get(q, "rhoe") / rho
         R_m = td.gas_constant_air(ps, pp)
         out = {
             "rho": rho, "u": u[:, 0], "v": u[:, 1], "w": u[:, 2],

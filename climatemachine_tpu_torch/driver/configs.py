@@ -1,13 +1,15 @@
 """Driver configurations (port of ``climatemachine_tpu/driver/configs.py``
-:30-105: ``DriverConfiguration``, ``grid_stretching_1d``,
-``AtmosLESConfiguration`` and ``AtmosGCMConfiguration``).
+:30-121: ``DriverConfiguration``, ``grid_stretching_1d``,
+``AtmosLESConfiguration``, ``AtmosGCMConfiguration`` and
+``SingleStackConfiguration``).
 
 ``AtmosLESConfiguration`` builds the LES box: a stacked brick (lateral
 sides periodic, the bottom wall tag 1, the top tag 2) whose elements are
 ``polyorder`` nodes of the resolution Δ across, and its grid;
 ``AtmosGCMConfiguration`` the stacked cubed sphere of (n_horz, n_vert)
-elements from the planet's radius up to ``domain_height``.  Both put
-the grid on the card unless ``device`` (or the driver's ``disable_gpu``
+elements from the planet's radius up to ``domain_height``;
+``SingleStackConfiguration`` one column of ``nelem_vert`` elements.  All
+put the grid on the card unless ``device`` (or the driver's ``disable_gpu``
 setting) asks for the CPU.
 """
 
@@ -27,7 +29,7 @@ from climatemachine_tpu_torch.driver.driver import SETTINGS
 from climatemachine_tpu_torch.mesh.grid import Grid, make_grid
 from climatemachine_tpu_torch.mesh.topology import (
     equiangular_cubed_sphere_warp, stacked_brick_topology,
-    stacked_cubed_sphere_topology)
+    single_stack_topology, stacked_cubed_sphere_topology)
 
 #: the cubed sphere's warps by name
 _WARPS = {"equiangular": equiangular_cubed_sphere_warp}
@@ -130,3 +132,19 @@ def AtmosGCMConfiguration(name: str, polyorder: int,
     return DriverConfiguration(name, polyorder, grid, model,
                                config_info=dict(n_horz=n_horz, n_vert=n_vert,
                                                 domain_height=domain_height))
+
+
+def SingleStackConfiguration(name: str, polyorder: int, nelem_vert: int,
+                             zmax: float, model, hmax: float = 1.0,
+                             dtype=None, device=None) -> DriverConfiguration:
+    """One column: a single hmax × hmax element, periodic laterally, over
+    ``nelem_vert`` even layers from 0 to ``zmax`` (bottom wall tag 1, top
+    tag 2), its grid of order ``polyorder`` in ``dtype`` on ``device`` as
+    :func:`AtmosLESConfiguration` takes them."""
+    topology = single_stack_topology(hmax, hmax,
+                                     np.linspace(0.0, zmax, nelem_vert + 1))
+    grid = make_grid(topology, polyorder, dtype=_torch_dtype(dtype),
+                     device=device if device is not None
+                     else default_device())
+    return DriverConfiguration(name, polyorder, grid, model,
+                               config_info=dict(zmax=zmax))

@@ -13,6 +13,12 @@ The forced LES cases: ``climatemachine_tpu_torch.experiments``
 ``boundary_layer_les.convective_bl_config`` /
 ``stable_bl_config`` and ``canopy_sgstke.canopy_config`` give their
 ``AtmosLESConfiguration``; the forcings they use are exported here.
+One column: ``cm.SingleStackConfiguration(name, p, nelem_vert, zmax,
+model)`` (``experiments.bomex_single_stack``; EDMF,
+``cm.EDMF(...)`` as ``AtmosPhysics(turbconv=...)``, in
+``experiments.bomex_edmf``).  The formulations: ``AtmosPhysics(energy=
+cm.ThetaModel())`` (ρθ, dry; ``experiments.rising_bubble_theta``) and
+``AtmosPhysics(compressibility=cm.Anelastic1D())``.
 
 The GCM: ``cm.AtmosGCMConfiguration(name, p, (n_horz, n_vert), height,
 model)`` for a cubed sphere, or ``cm.gcm_driver_config(...)`` for the
@@ -53,6 +59,11 @@ from climatemachine_tpu_torch.atmos.boundaryconditions import (
     AtmosBC, BulkFormulaEnergy, BulkFormulaMoisture, DragLaw, FreeSlip,
     Impenetrable, Impermeable, InitStateBC, Insulating, NoSlip,
     PrescribedEnergyFlux, PrescribedMoistureFlux, PrescribedTemperature)
+from climatemachine_tpu_torch.atmos.compressibility import (Anelastic1D,
+                                                            Compressible)
+from climatemachine_tpu_torch.atmos.edmf import EDMF
+from climatemachine_tpu_torch.atmos.energy import (ThetaModel,
+                                                   TotalEnergyModel)
 from climatemachine_tpu_torch.atmos.hyperdiffusion import (
     DryBiharmonic, EquilMoistBiharmonic)
 from climatemachine_tpu_torch.atmos.lsforcing import HadGEMVertical
@@ -93,9 +104,9 @@ from climatemachine_tpu_torch.driver.checkpoint import (read_checkpoint,
                                                         write_checkpoint)
 from climatemachine_tpu_torch.driver.diagnostics_configs import (
     DiagnosticsConfiguration, InterpolationConfiguration)
-from climatemachine_tpu_torch.driver.configs import (AtmosGCMConfiguration,
-                                                     AtmosLESConfiguration,
-                                                     DriverConfiguration)
+from climatemachine_tpu_torch.driver.configs import (
+    AtmosGCMConfiguration, AtmosLESConfiguration, DriverConfiguration,
+    SingleStackConfiguration)
 from climatemachine_tpu_torch.driver.driver import SETTINGS, init, invoke
 from climatemachine_tpu_torch.driver.solver_configs import (
     SolverConfiguration, make_solver_configuration)

@@ -3,7 +3,7 @@
 brick_topology :164-224 in 2 and 3 dimensions with its ``boundary``
 tags and ``meshwarp``,
 stacked_brick_topology :227-251, _permute_topology :254,
-stacked_cubed_sphere_topology :508, cubed_shell_vertices :290, the
+stacked_cubed_sphere_topology :508, single_stack_topology :568, cubed_shell_vertices :290, the
 equiangular warp :327 and the numpy face matcher of
 connect_from_vertices :110-161).
 
@@ -281,6 +281,17 @@ def stacked_brick_topology(ranges: Sequence[np.ndarray],
     topo = _permute_topology(base, perm, inv)
     topo.n_horz, topo.n_vert = E // n_vert, n_vert
     return topo
+
+
+def single_stack_topology(x_extent: float, y_extent: float,
+                          z_range) -> Topology:
+    """One vertical column: a single horizontal element of x_extent ×
+    y_extent, periodic laterally, over the element interfaces
+    ``z_range``, its bottom wall tag 1 and its top tag 2."""
+    ranges = [np.array([0.0, x_extent]), np.array([0.0, y_extent]),
+              np.asarray(z_range, dtype=np.float64)]
+    return stacked_brick_topology(ranges, periodicity=(True, True, False),
+                                  boundary=np.array([[0, 0], [0, 0], [1, 2]]))
 
 
 def _permute_topology(t: Topology, perm: np.ndarray,

@@ -267,11 +267,17 @@ def temperature_from_theta_liq(ps: PlanetParameterSet, p, theta_liq,
     last bracket."""
     if q_tot is None:
         return theta_liq * exner(ps, p)
+    # liquid_ice_pottemp's arithmetic, with what does not depend on T
+    # taken out of the loop and c_pm computed once an evaluation
+    R_vap = gas_constant_air(ps, PhasePartition.vapor(q_tot))
+    p_rel = p / ps.MSLP
 
     def theta_liq_of(T):
-        rho = p / (gas_constant_air(ps, PhasePartition.vapor(q_tot)) * T)
-        return liquid_ice_pottemp(ps, T, p,
-                                  phase_partition_equil(ps, T, rho, q_tot))
+        pp = phase_partition_equil(ps, T, p / (R_vap * T), q_tot)
+        cpm = cp_m(ps, pp)
+        theta = T / p_rel ** (gas_constant_air(ps, pp) / cpm)
+        return theta * (1.0 - (ps.LH_v0 * pp.liq + ps.LH_s0 * pp.ice)
+                        / (cpm * T))
 
     lo = torch.full_like(theta_liq, ps.T_min)
     hi = torch.full_like(theta_liq, ps.T_max)

@@ -169,10 +169,12 @@ def test_coupled_ocean_refused():
 @pytest.mark.parametrize("name", ["sgstke", "lsforcing", "turbconv",
                                   "radiation"])
 def test_unported_physics_refused(name):
-    """Of these AtmosPhysics fields only ``turbconv`` (EDMF) is not
-    ported: it raises "next slice".  The SGS TKE model and the
-    large-scale forcing build with a turbulence closure (the gradient
-    pass) and raise ValueError without one; radiation builds."""
+    """Every one of these AtmosPhysics fields is ported now: the SGS TKE
+    model, the large-scale forcing and EDMF (``turbconv``) build with a
+    turbulence closure (the gradient pass) and raise ValueError without
+    one; radiation builds.  EDMF's ``turbconv.`` lanes are in the state,
+    aux, gradient and gradient-flux specs."""
+    from climatemachine_tpu_torch.atmos.edmf import EDMF
     from climatemachine_tpu_torch.atmos.lsforcing import HadGEMVertical
     from climatemachine_tpu_torch.atmos.model import (AtmosPhysics,
                                                       AtmosProblem)
@@ -180,19 +182,62 @@ def test_unported_physics_refused(name):
         DYCOMSRadiationModel
     from climatemachine_tpu_torch.atmos.sgstke import SGStkeModel
     from climatemachine_tpu_torch.common.turbulence import Deardorff
-    if name == "turbconv":
-        with pytest.raises(NotImplementedError, match="next slice"):
-            AtmosModel(AtmosPhysics(turbconv=object()), AtmosProblem())
-        return
     part = {"sgstke": SGStkeModel(), "radiation": DYCOMSRadiationModel(),
-            "lsforcing": HadGEMVertical(lambda z: {})}[name]
+            "lsforcing": HadGEMVertical(lambda z: {}),
+            "turbconv": EDMF()}[name]
     model = AtmosModel(AtmosPhysics(turbulence=Deardorff(),
                                     **{name: part}), AtmosProblem())
     assert f"{name}." in " ".join(model.prog_spec.flattened_names()
                                   + model.aux_spec.flattened_names())
+    if name == "turbconv":
+        for spec in (model.prog_spec, model.aux_spec, model.grad_spec,
+                     model.gf_spec):
+            assert any(n.startswith("turbconv.")
+                       for n in spec.flattened_names())
+        assert "turbconv.up_rhoa" in model.prog_spec.flattened_names()
     if name != "radiation":
         with pytest.raises(ValueError, match="turbulence closure"):
             AtmosModel(AtmosPhysics(**{name: part}), AtmosProblem())
+
+
+@pytest.mark.parametrize("formulation", ["theta", "anelastic", "turbconv"])
+def test_var_major_rhs_refuses_formulations(formulation):
+    """VarMajorRHS refuses ThetaModel, Anelastic1D and EDMF with a
+    message naming the generic DG operator (the JAX package's
+    ``fast_rhs.supports`` refuses them too), and neither the dry volume
+    kernel nor the fast surface pass takes them."""
+    from climatemachine_tpu_torch.atmos.compressibility import Anelastic1D
+    from climatemachine_tpu_torch.atmos.edmf import EDMF
+    from climatemachine_tpu_torch.atmos.energy import ThetaModel
+    from climatemachine_tpu_torch.atmos.model import (AtmosPhysics,
+                                                      AtmosProblem)
+    from climatemachine_tpu_torch.atmos.ref_state import HydrostaticState
+    from climatemachine_tpu_torch.common.turbulence import \
+        ConstantKinematicViscosity
+    from climatemachine_tpu_torch.dg import (dry_volume_kernel, fast_rhs,
+                                             fast_surface)
+    from climatemachine_tpu_torch.dg.spatial import DGModel
+    from climatemachine_tpu_torch.mesh.grid import make_grid
+    from climatemachine_tpu_torch.mesh.topology import single_stack_topology
+    from climatemachine_tpu_torch.physics.temperature_profiles import \
+        DryAdiabaticProfile
+    ref = HydrostaticState(DryAdiabaticProfile(300.0, 110.0))
+    physics = {
+        "theta": AtmosPhysics(ref_state=ref, energy=ThetaModel()),
+        "anelastic": AtmosPhysics(ref_state=ref,
+                                  compressibility=Anelastic1D()),
+        "turbconv": AtmosPhysics(
+            ref_state=ref, turbulence=ConstantKinematicViscosity(0.0),
+            turbconv=EDMF())}[formulation]
+    grid = make_grid(single_stack_topology(10.0, 10.0, [0.0, 10.0, 20.0]),
+                     2, dtype=torch.float64, device="cpu")
+    dg = DGModel(AtmosModel(physics, AtmosProblem()), grid)
+    with pytest.raises(ValueError, match="generic DG operator"):
+        fast_rhs.VarMajorRHS(dg)
+    assert not fast_rhs.supports(dg)
+    assert not fast_surface.supports(dg)
+    assert not dry_volume_kernel.supports(dg.balance_law, grid, "every")
+    assert not dg.dry_volume and not dg.fast_surface
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
