@@ -530,13 +530,15 @@ from climatemachine_tpu_torch.driver.driver import invoke
 from climatemachine_tpu_torch.driver.solver_configs import \
     make_solver_configuration
 from climatemachine_tpu_torch.driver.solver_types import (
-    ExplicitSolverType, IMEXSolverType, MultirateSolverType)
+    ExplicitSolverType, HEVISolverType, IMEXSolverType, ImplicitSolverType,
+    MISSolverType, MultirateSolverType)
 from climatemachine_tpu_torch.experiments.held_suarez import (
     HeldSuarezStepFilter, held_suarez_config, held_suarez_driver)
 from climatemachine_tpu_torch.dg.reductions import weightedsum
 from climatemachine_tpu_torch.experiments import (
     anelastic1d, bomex_edmf, bomex_les, bomex_single_stack, cfsite_amip,
-    ocean_split_explicit, rising_bubble_theta, solid_body_rotation)
+    ocean_split_explicit, rising_bubble_bryan, rising_bubble_theta,
+    solid_body_rotation, timestepping_compare)
 from climatemachine_tpu_torch.experiments.forced_les import \
     CASES as FORCED_LES_CASES
 from climatemachine_tpu_torch.experiments.gcm_driver import gcm_driver_config
@@ -558,6 +560,7 @@ from climatemachine_tpu_torch.ocean.shallow_water import (ConstantViscosity,
                                                           ShallowWaterModel)
 from climatemachine_tpu_torch.ocean.split_explicit import (
     BarotropicModel, CoupledHBModel, SplitExplicitSolver)
+from climatemachine_tpu_torch.ode import ark, mis, mrigark, ssprk
 from climatemachine_tpu_torch.ode.ark import ARK2GiraldoKellyConstantinescu
 from climatemachine_tpu_torch.ode.lsrk import LSRK54CarpenterKennedy
 from climatemachine_tpu_torch.ode.solve import solve
@@ -907,6 +910,60 @@ THETA_SMALL_RESOLUTION = (312.5, 312.5, 312.5)
 ANELASTIC_STEPS = 10
 ANELASTIC_TOL = 1e-14
 ANELASTIC_RHOW = 1e-10
+
+#: the remaining time integrators (phase_time_integrators): each ARK
+#: tableau but ARK2GKC, each SSPRK method, MIS and MRI-GARK method, with
+#: its stages; MIS's fast methods and substeps a unit stage (the
+#: multirate path's split, dt and ratio: tests/test_imex.py:206-229)
+ARK_TABLEAUS = {"ARK1ForwardBackwardEuler": 2,
+                "ARK2ImplicitExplicitMidpoint": 2,
+                "ARK548L2SA2KennedyCarpenter": 8,
+                "ARK437L2SA1KennedyCarpenter": 7, "DBM453VoglEtAl": 5}
+SSPRK_METHODS = {"SSPRK22Heuns": 2, "SSPRK22Ralstons": 2,
+                 "SSPRK33ShuOsher": 3, "SSPRK34SpiteriRuuth": 4}
+MIS_METHODS = {"MIS2": 4, "MIS3C": 4, "MISRK3": 4}
+MIS_FAST = {"LSRK54": LSRK54CarpenterKennedy,
+            "SSPRK33": ssprk.SSPRK33ShuOsher}
+MRI_METHODS = {"MRIGARKERK33aSandu": 3, "MRIGARKERK45aSandu": 5}
+MIS_NSUBSTEPS = 4
+N_WARM_SSP, N_STEPS_SSP = 3, 10
+N_WARM_MIS, N_STEPS_MIS = 1, 2
+N_WARM_JFNK, N_STEPS_JFNK = 1, 1
+#: a path's halvings of its dt tried until its steps stay stable
+INTEGRATOR_DT_HALVINGS = 4
+#: the float64 HEVI and Implicit runs' Newton and Krylov counts (those
+#: of tests/test_solver_types.py)
+JFNK_F64 = (3, 12)
+#: the small grid's steps, card (float32) against the CPU (float64) from
+#: a state with a solid-body wind, and the tolerance per solver family of
+#: the error relative to each variable's max (ρu's over its components;
+#: on a CPU float32 against float64 gave ≤ 1.7e-3 ARK, 2.5e-6
+#: SSPRK, 2.7e-5 MIS and MRI-GARK); besides, each variable's error must
+#: stay below INTEGRATOR_SMALL_CHANGE_FRACTION of what the steps change it
+#: by on the CPU (the least change, ρ's, 2.8e-3 to 5.1e-3 of max ρ; the
+#: largest ratio on a CPU 0.14, ARK's ρw), so a card step that leaves a
+#: variable unmoved fails; the float64 HEVI and
+#: Implicit card runs against the CPU's, by their Newton-Krylov
+#: difference steps: a Jacobian product's round-off is ~1e-16/ε of it,
+#: 1e-6 at HEVI's ε = 1e-10 (measured 6.0e-8 on an H100),
+#: 1e-9 at Implicit's 1e-7 (measured 1.5e-11)
+INTEGRATOR_SMALL_STEPS = 2
+#: the small grid's IMEX, HEVI and Implicit dt over its horizontal
+#: acoustic limit (0.1 there blows ARK1 up: its forward-Euler part)
+SMALL_IMEX_CFL = 0.02
+#: the card's device (the phase's CPU rehearsal sets "cpu")
+CARD = "cuda"
+INTEGRATOR_SMALL_TOL = {"ark": 5e-3, "ssprk": 3e-5, "mis": 3e-4,
+                        "mri": 3e-4}
+INTEGRATOR_SMALL_CHANGE_FRACTION = 0.5
+JFNK_SMALL_TOL = {"hevi": 1e-6, "implicit": 1e-9}
+#: the examples' (resolution, end time): the Bryan bubble's smoke (its
+#: docstring's) and its defaults; the time-stepping comparison at 500 m
+#: to its docstring's 10 s, and its defaults (float64 on the plain
+#: operator on the card, 125 m to 50 s: minutes); the defaults with
+#: --numerics-examples
+BRYAN_SMOKE, BRYAN_DEFAULTS = (500.0, 20.0), (250.0, 100.0)
+COMPARE_SMOKE, COMPARE_DEFAULTS = (500.0, 10.0), (125.0, 50.0)
 
 KERNELS = {
     "fused_volume_tendency_vm": (
@@ -5608,6 +5665,421 @@ def phase_edmf_gate() -> dict:
     return res
 
 
+# --- the remaining time integrators and solvers ----------------------------
+
+def with_winds(q0, coords, seed: int):
+    """The state times 1 + 1e-3 · N(0, 1) (from ``seed``) with a 10 m/s
+    solid-body wind about the polar axis (the initial state is at rest);
+    ``coords`` ``[E, Np, 3]``."""
+    q = perturbed(q0, seed)
+    x, y = coords[..., 0], coords[..., 1]
+    r = torch.sqrt(x * x + y * y).clamp_min(1.0)
+    u = torch.stack([-10.0 * y / r, 10.0 * x / r, torch.zeros_like(x)],
+                    dim=1).to(q.dtype)
+    return torch.cat([q[:, :1], q[:, :1] * u, q[:, 4:]], dim=1)
+
+
+def rel_err_momentum_grouped(got, ref) -> list:
+    """max |got − ref| per variable over the max |ref| of ρ, of ρu over
+    its three components (the vertical one alone is the small growth of
+    a state in balance) and of ρe."""
+    peak = ref.abs().amax(dim=(0, 2))
+    peak[1:4] = peak[1:4].max()
+    return ((got - ref).abs().amax(dim=(0, 2)) / peak).tolist()
+
+
+def integrator_run(solver, g, q0, aux0, dt: float, n_warm: int,
+                   n_steps: int, umax_bound: float):
+    """With every launch count set to 0, ``n_warm`` + ``n_steps`` steps of
+    ``solver`` from (q0, aux0), the last ``n_steps`` timed; then the
+    counts, and whether the state is finite, its max|u| below
+    ``umax_bound`` and its ρ mass drift within MASS_TOL (no check here).
+    Returns (summary, counts, final state)."""
+    mass = lambda q: torch.sum(g.M.double() * q[:, 0].double()).item()
+    reset_launch_counts()
+    q, aux, t = q0, aux0, 0.0
+    for _ in range(n_warm):
+        q, aux = solver.step(q, aux, t)
+        t += dt
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n_steps):
+        q, aux = solver.step(q, aux, t)
+        t += dt
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = launch_counts()
+    finite = bool(torch.isfinite(q).all())
+    umax = (q[:, 1:4] / q[:, :1]).abs().max().item()
+    drift = abs(mass(q) / mass(q0) - 1.0)
+    return dict(dt_s=dt, warm_steps=n_warm, steps=n_steps,
+                ms_per_step=1e3 * wall / n_steps, finite=finite,
+                max_abs_u=umax, max_abs_u_bound=umax_bound,
+                mass_drift_rel=drift, mass_tol=MASS_TOL,
+                stable=finite and umax < umax_bound and drift <= MASS_TOL,
+                shape=list(q.shape)), counts, q
+
+
+def stable_integrator_path(label: str, make, base, dt0: float, n_warm: int,
+                           n_steps: int, umax_bound: float,
+                           per_step: dict) -> dict:
+    """``make(dt)`` at dt0 and its halvings (up to INTEGRATOR_DT_HALVINGS)
+    until its n_warm + n_steps steps stay stable (each trial reported);
+    then the launch counts of that run against ``per_step`` · steps,
+    exactly.  Returns the run's summary with its counts."""
+    g = base["cfg"].grid
+    for k in range(INTEGRATOR_DT_HALVINGS + 1):
+        dt = dt0 / 2 ** k
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver = make(dt)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        res, counts, q = integrator_run(solver, g, base["q0"], base["aux0"],
+                                        dt, n_warm, n_steps, umax_bound)
+        res.update(path=label, halvings=k, setup_s=setup_s)
+        emit("integrator_dt_scan", card=nvidia_smi(),
+             **{key: res[key] for key in ("path", "dt_s", "halvings",
+                                          "stable", "finite", "max_abs_u",
+                                          "mass_drift_rel")})
+        del solver, q
+        if res["stable"]:
+            expected = expected_launches(per_step, n_warm + n_steps)
+            res.update(card=nvidia_smi(), launches=counts,
+                       expected_launches=expected,
+                       launches_per_step={k: v // (n_warm + n_steps)
+                                          for k, v in counts.items() if v})
+            emit("integrator_path", **res)
+            check_launches(counts, expected)
+            torch.cuda.empty_cache()
+            return res
+        torch.cuda.empty_cache()
+    raise RuntimeError(f"chip_smoke check failed: no stable dt for {label}")
+
+
+def jfnk_run(label: str, solver, base, dt: float, per_step: dict) -> dict:
+    """N_WARM_JFNK + N_STEPS_JFNK steps of a Newton-Krylov solver type's
+    solver with exact launch counts and the stability checks of
+    :func:`integrator_run` (finite, max|u|, mass drift), reporting every
+    solve's final ‖F‖ and its GMRES least-squares residual a Newton step
+    (not gated: in float32 the solves stop unconverged, in the JAX
+    package too)."""
+    res, counts, q = integrator_run(solver, base["cfg"].grid, base["q0"],
+                                    base["aux0"], dt, N_WARM_JFNK,
+                                    N_STEPS_JFNK, MAX_ABS_U)
+    log = getattr(solver, "residuals", None)
+    if log is None:
+        log = solver.solver.residuals
+    n = N_WARM_JFNK + N_STEPS_JFNK
+    expected = expected_launches(per_step, n)
+    res.update(card=nvidia_smi(), path=label, dtype=str(q.dtype),
+               solves=[dict(newton_residual=float(r), gmres_residuals=gm)
+                       for r, gm in log],
+               launches=counts, expected_launches=expected)
+    emit("jfnk_path", **res)
+    check_launches(counts, expected)
+    check(res["stable"], (label, "not stable", res["finite"],
+                          res["max_abs_u"], res["mass_drift_rel"]))
+    return res
+
+
+def small_integrators(device: str, dtype, seed: int) -> dict:
+    """On the small grid (n_horz=2, n_vert=3, p4, DryBiharmonic(8 h)),
+    built on the card in float32 and its twin on the CPU in float64 from
+    the same geometry: each case's solver, dt and initial state (with
+    winds).  The ARK tableaus take the pieces one
+    ``IMEXSolverType(solver_method=DBM453VoglEtAl).make`` builds, as make
+    hands them to any tableau."""
+    cfg = held_suarez_config(n_horz=2, n_vert=3, poly_order=POLY,
+                             dtype=torch.float32,
+                             hyperdiffusion_tau=8 * 3600.0, device=CARD)
+    g = cfg.grid
+    if device == "cpu":
+        g = grid_from_numpy(grid_to_numpy(cfg.grid), device="cpu",
+                            dtype=dtype)
+    dg = DGModel(cfg.model, g)
+    q0, aux0 = init_ode_state(DGModel(cfg.model, cfg.grid))
+    q = with_winds(q0, cfg.grid.coords, seed).to(device=device, dtype=dtype)
+    aux0 = aux0.to(device=device, dtype=dtype)
+    filt = HeldSuarezStepFilter(g, cfg.model).apply_vm
+    dt_imex = SMALL_IMEX_CFL * min_node_distance(cfg.grid,
+                                                 "horizontal") / 350.0
+    dt_exp = 0.3 * min_node_distance(cfg.grid) / 350.0
+    dt_mis = MULTIRATE_DT_RATIO * dt_exp
+    cases = {}
+    m = IMEXSolverType(solver_method=ark.DBM453VoglEtAl).make(dg, q, aux0,
+                                                              dt_imex)
+    if m.vm is not None:
+        m.vm.surface_kernel = "pallas"
+    for name in ARK_TABLEAUS:
+        cases[("ark", name)] = (getattr(ark, name)(
+            m.rhs_ex, m.rhs_im, m.solver, dt_imex, rhs_full=m.rhs_full,
+            post_step=filt), dt_imex)
+    for name in SSPRK_METHODS:
+        sol = ExplicitSolverType(solver_method=getattr(ssprk, name)).make(
+            dg, q, aux0, dt_exp)
+        sol.post_step = filt
+        if sol.vm is not None:
+            sol.vm.surface_kernel = "pallas"
+        cases[("ssprk", name)] = (sol, dt_exp)
+    for name in MIS_METHODS:
+        for fast, method in MIS_FAST.items():
+            cases[("mis", f"{name}+{fast}")] = (MISSolverType(
+                mis_method=getattr(mis, name), fast_method=method,
+                nsubsteps=MIS_NSUBSTEPS).make(dg, q, aux0, dt_mis), dt_mis)
+    split = cases[("mis", "MIS2+LSRK54")][0]
+    for name in MRI_METHODS:
+        cases[("mri", name)] = (getattr(mrigark, name)(
+            split.slow_rhs, split.fast_rhs,
+            lambda rhs, d: LSRK54CarpenterKennedy(rhs, d), MIS_NSUBSTEPS,
+            dt_mis), dt_mis)
+    return dict(cases=cases, q=q, aux0=aux0)
+
+
+def integrator_small_reference(seed: int) -> dict:
+    """INTEGRATOR_SMALL_STEPS steps of every case of
+    :func:`small_integrators` on the card (float32, kernels) against the
+    CPU (float64): the error relative to each variable's max, within its
+    family's INTEGRATOR_SMALL_TOL and within
+    INTEGRATOR_SMALL_CHANGE_FRACTION of the CPU steps' change of that
+    variable, relative to the same max."""
+    runs = {"card": small_integrators(CARD, torch.float32, seed),
+            "cpu": small_integrators("cpu", torch.float64, seed)}
+    out, change = {}, {}
+    for key in runs["card"]["cases"]:
+        final = []
+        for side in ("card", "cpu"):
+            r = runs[side]
+            sol, dt = r["cases"][key]
+            q, aux = r["q"], r["aux0"]
+            for i in range(INTEGRATOR_SMALL_STEPS):
+                q, aux = sol.step(q, aux, i * dt)
+            final.append(q.double().cpu())
+        label = "/".join(key)
+        out[label] = err = rel_err_momentum_grouped(final[0], final[1])
+        change[label] = chg = rel_err_momentum_grouped(
+            runs["cpu"]["q"].double().cpu(), final[1])
+        check(max(err) <= INTEGRATOR_SMALL_TOL[key[0]]
+              and all(e <= INTEGRATOR_SMALL_CHANGE_FRACTION * c
+                      for e, c in zip(err, chg)),
+              ("small reference", key, err, chg))
+    emit("integrator_small_reference", card=nvidia_smi(), n_horz=2,
+         n_vert=3, poly=POLY, steps=INTEGRATOR_SMALL_STEPS,
+         tol=INTEGRATOR_SMALL_TOL,
+         change_fraction=INTEGRATOR_SMALL_CHANGE_FRACTION,
+         rel_err_per_var=out, rel_change_per_var=change)
+    return out
+
+
+def jfnk_float64(base, dt: float, seed: int) -> dict:
+    """HEVI and Implicit in float64 at full width on the generic operator
+    with its plain stages (the kernels take float32), JFNK_F64 Newton and
+    Krylov counts, N_WARM_JFNK + N_STEPS_JFNK steps each, stable, no
+    launch; and one step of each on the small grid against the CPU within
+    JFNK_SMALL_TOL."""
+    g32, model = base["cfg"].grid, base["cfg"].model
+    n_newton, n_krylov = JFNK_F64
+    types = {"hevi": HEVISolverType(nonlinear_max_iterations=n_newton,
+                                    linear_max_subspace_size=n_krylov),
+             "implicit": ImplicitSolverType(n_newton=n_newton,
+                                            n_krylov=n_krylov)}
+    g = grid_from_numpy(grid_to_numpy(g32), device=CARD,
+                        dtype=torch.float64)
+    dg = DGModel(model, g, volume_kernel="xla", ldg_kernel="varmajor")
+    b64 = dict(base, cfg=SimpleNamespace(grid=g, model=model),
+               q0=base["q0"].double(), aux0=base["aux0"].double())
+    out = {}
+    for kind, st in types.items():
+        out[kind] = jfnk_run(f"{kind}_float64", st.make(
+            dg, b64["q0"], b64["aux0"], dt), b64, dt, {})
+    del b64, dg
+    torch.cuda.empty_cache()
+    # the small grid, card against CPU, both float64
+    cfg = held_suarez_config(n_horz=2, n_vert=3, poly_order=POLY,
+                             dtype=torch.float64,
+                             hyperdiffusion_tau=8 * 3600.0, device=CARD)
+    q0, aux0 = init_ode_state(DGModel(cfg.model, cfg.grid))
+    q0 = with_winds(q0, cfg.grid.coords, seed)
+    dt_small = SMALL_IMEX_CFL * min_node_distance(cfg.grid,
+                                                  "horizontal") / 350.0
+    errs = {}
+    for kind, st in types.items():
+        final = []
+        for dev in (CARD, "cpu"):
+            grid = cfg.grid if dev == CARD else grid_from_numpy(
+                grid_to_numpy(cfg.grid), device="cpu", dtype=torch.float64)
+            d = DGModel(cfg.model, grid, volume_kernel="xla",
+                        ldg_kernel="varmajor")
+            sol = st.make(d, q0.to(dev), aux0.to(dev), dt_small)
+            final.append(sol.step(q0.to(dev), aux0.to(dev), 0.0)[0].cpu())
+        errs[kind] = rel_err_momentum_grouped(final[0], final[1])
+    emit("jfnk_small_reference", card=nvidia_smi(), n_horz=2, n_vert=3,
+         poly=POLY, dtype="float64", steps=1, newton=JFNK_F64,
+         tol=JFNK_SMALL_TOL, rel_err_per_var=errs)
+    for kind, err in errs.items():
+        check(max(err) <= JFNK_SMALL_TOL[kind], ("JFNK small reference",
+                                                 kind, err))
+    return out
+
+
+def numerics_examples(full: bool) -> dict:
+    """The two examples: the Bryan bubble with "lsrk" and "ssprk" at its
+    smoke settings (or its defaults with ``full``) through
+    ``AtmosLESConfiguration`` → ``invoke``, finite, its max updraft
+    reported; the time-stepping comparison at COMPARE_SMOKE (its defaults
+    with ``full``) in float64, each solver's error against the control
+    below 0.5.  Neither launches a kernel (the bubble's closure takes the
+    generic gradient path; the comparison in float64 the plain operator,
+    timestepping_compare.run_menu)."""
+    driver_init(show_updates="never")
+    out = {}
+    resolution, timeend = BRYAN_DEFAULTS if full else BRYAN_SMOKE
+    for fm in ("lsrk", "ssprk"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        sc, w = rising_bubble_bryan.run(fm, resolution, timeend,
+                                        device=CARD)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        steps = round(timeend / sc.dt)
+        res = dict(card=nvidia_smi(), fast_method=fm, resolution=resolution,
+                   timeend=timeend, elements=sc.dg.grid.nelem, dt_s=sc.dt,
+                   steps=steps, seconds=wall,
+                   ms_per_step=1e3 * wall / steps, max_updraft_m_s=w,
+                   finite=True, launches=counts)
+        emit("example_rising_bubble_bryan", **res)
+        check_launches(counts, expected_launches({}, 0))
+        check(math.isfinite(w) and w > 0.0, ("bubble updraft", w))
+        out[f"bryan_{fm}"] = res
+    resolution, timeend = COMPARE_DEFAULTS if full else COMPARE_SMOKE
+    reset_launch_counts()
+    rows, dt_ac = timestepping_compare.run_menu(timeend, resolution,
+                                                device=CARD)
+    counts = launch_counts()
+    emit("example_timestepping_compare", card=nvidia_smi(),
+         timeend=timeend, resolution=resolution, dtype="float64",
+         dt_acoustic_s=dt_ac, rows=rows, launches=counts)
+    check_launches(counts, expected_launches({}, 0))
+    timestepping_compare.check(rows[1:])
+    check(rows[0]["finite"], "the comparison's control is not finite")
+    out["timestepping_compare"] = {r["name"]: r["seconds"] for r in rows}
+    return out
+
+
+def phase_time_integrators(seed: int, full_examples: bool = False) -> dict:
+    """The remaining time integrators and solvers at full width on dry
+    Held-Suarez (module docstring), each through its solver type's
+    ``make`` with exact launch counts: IMEX with each other ARK tableau
+    (var-major, "pallas"), LSRK54 replaced by each SSPRK (var-major,
+    "pallas"; SSPRK33 on the generic operator too), MIS2, MIS3C and
+    MISRK3 with LSRK54 and SSPRK33 fast steps, MRI-GARK ERK33a and ERK45a
+    on the MIS split, each at its path's dt or the largest stable
+    halving; HEVI and Implicit in float32 with the kernels (the JAX
+    defaults; their unconverged ‖F‖ a reference caveat, reported) and in
+    float64 on the plain operator, each stable; the small grid against
+    the CPU; the examples.
+    Returns each path's ms a step."""
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmul on")
+    t_phase = time.perf_counter()
+    table = load_refstats()
+    base = build_generic_base()
+    g, dg = base["cfg"].grid, base["dg"]
+    q0, aux0, hsf = base["q0"], base["aux0"], base["hsf"]
+    dt_imex = 0.1 * min_node_distance(g, "horizontal") / 350.0
+    if abs(table.dt - dt_imex) < 1e-5 * dt_imex:
+        dt_imex = table.dt
+    dt_exp = 0.3 * min_node_distance(g) / 350.0
+    ms = {}
+
+    def imex(name):
+        def make(dt):
+            sol = IMEXSolverType(solver_method=getattr(ark, name)).make(
+                dg, q0, aux0, dt)
+            sol.post_step = hsf.apply_vm
+            sol.rhs_full.surface_kernel = "pallas"
+            return sol
+        return make
+
+    for name, s in ARK_TABLEAUS.items():
+        per_step = {**{k: s for k in EXPLICIT + SURFACE},
+                    "to_blocks_vm": s, "from_blocks_vm": s - 1}
+        ms[name] = stable_integrator_path(
+            f"imex/{name}", imex(name), base, dt_imex, N_WARM_IMEX,
+            N_STEPS_IMEX, MAX_ABS_U, per_step)["ms_per_step"]
+
+    def explicit(name, layout):
+        def make(dt):
+            sol = ExplicitSolverType(solver_method=getattr(ssprk, name),
+                                     state_layout=layout).make(dg, q0, aux0,
+                                                               dt)
+            sol.post_step = hsf.apply_vm
+            if sol.vm is not None:
+                sol.vm.surface_kernel = "pallas"
+            return sol
+        return make
+
+    for name, s in SSPRK_METHODS.items():
+        ms[name] = stable_integrator_path(
+            f"explicit/{name}", explicit(name, "vm"), base, dt_exp,
+            N_WARM_SSP, N_STEPS_SSP, MAX_ABS_U,
+            {k: s for k in EXPLICIT + SURFACE})["ms_per_step"]
+    ms["SSPRK33ShuOsher/grid"] = stable_integrator_path(
+        "explicit_grid/SSPRK33ShuOsher", explicit("SSPRK33ShuOsher", "grid"),
+        base, dt_exp, N_WARM_SSP, N_STEPS_SSP, MAX_ABS_U,
+        {k: 3 for k in (DRY,) + CHAIN})["ms_per_step"]
+
+    dt_mis = MULTIRATE_DT_RATIO * dt_exp
+    for name, s in MIS_METHODS.items():
+        for fast, method in MIS_FAST.items():
+            make = (lambda dt, name=name, method=method: MISSolverType(
+                mis_method=getattr(mis, name), fast_method=method,
+                nsubsteps=MIS_NSUBSTEPS).make(dg, q0, aux0, dt))
+            ms[f"{name}+{fast}"] = stable_integrator_path(
+                f"mis/{name}+{fast}", make, base, dt_mis, N_WARM_MIS,
+                N_STEPS_MIS, MULTIRATE_MAX_ABS_U,
+                {k: s - 1 for k in (DRY,) + CHAIN})["ms_per_step"]
+    for name, s in MRI_METHODS.items():
+        def make(dt, name=name):
+            split = MISSolverType(nsubsteps=MIS_NSUBSTEPS).make(dg, q0, aux0,
+                                                                dt)
+            return getattr(mrigark, name)(
+                split.slow_rhs, split.fast_rhs,
+                lambda rhs, d: LSRK54CarpenterKennedy(rhs, d), MIS_NSUBSTEPS,
+                dt)
+        ms[name] = stable_integrator_path(
+            f"mrigark/{name}", make, base, dt_mis, N_WARM_MIS, N_STEPS_MIS,
+            MULTIRATE_MAX_ABS_U,
+            {k: s for k in (DRY,) + CHAIN})["ms_per_step"]
+
+    # HEVI and Implicit in float32 through the kernels, the JAX defaults:
+    # per step the full operator 2 (HEVI) or n(1 + k) + 2 (Implicit)
+    # times, HEVI's vertical one 4 + n(1 + k) + 1 times (its chain too)
+    hevi, implicit = HEVISolverType(), ImplicitSolverType()
+    nk = hevi.nonlinear_max_iterations * (
+        1 + hevi.linear_max_subspace_size)
+    ms["HEVI/float32"] = jfnk_run(
+        "hevi_float32", hevi.make(dg, q0, aux0, dt_imex), base, dt_imex,
+        {DRY: 2, **{k: 2 + 4 + nk + 1 for k in CHAIN}})["ms_per_step"]
+    nk = implicit.n_newton * (1 + implicit.n_krylov)
+    ms["Implicit/float32"] = jfnk_run(
+        "implicit_float32", implicit.make(dg, q0, aux0, dt_imex), base,
+        dt_imex, {k: nk + 2 for k in (DRY,) + CHAIN})["ms_per_step"]
+    torch.cuda.empty_cache()
+    f64 = jfnk_float64(base, dt_imex, seed)
+    ms["HEVI/float64"] = f64["hevi"]["ms_per_step"]
+    ms["Implicit/float64"] = f64["implicit"]["ms_per_step"]
+    del base
+    torch.cuda.empty_cache()
+
+    integrator_small_reference(seed)
+    examples = numerics_examples(full_examples)
+    emit("time_integrators_phase", card=nvidia_smi(),
+         seconds=time.perf_counter() - t_phase, ms_per_step=ms,
+         examples=examples)
+    return dict(ms_per_step=ms, examples=examples)
+
+
 def hold(name, args, kw) -> dict:
     """The kernel on ``args`` and on their first TAIL_E elements against
     two references, its plain version on the card (float32) and in
@@ -5697,6 +6169,10 @@ def main(argv=None) -> int:
                     help="also run the EDMF stored-profile gate (400 "
                     "coupled LSRK144 steps of the single stack): minutes "
                     "more")
+    ap.add_argument("--numerics-examples", action="store_true",
+                    help="run the numerics examples at their defaults: "
+                    "the Bryan bubble at 250 m to 100 s, the time-stepping "
+                    "comparison to 50 s (minutes more)")
     ap.add_argument("--julia-gates", action="store_true",
                     help="also run the four 5-day Julia split01 gates "
                     "(simple_box_ivd, simple_box_2dt, simple_box_rk3, the "
@@ -5706,7 +6182,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     emit("options", seed=args.seed, skip_moist=args.skip_moist,
-         julia_gates=args.julia_gates, edmf_gate=args.edmf_gate)
+         julia_gates=args.julia_gates, edmf_gate=args.edmf_gate,
+         numerics_examples=args.numerics_examples)
     start, seconds = time.perf_counter(), {}
 
     def timed(name, phase, *a, **kw):
@@ -5746,6 +6223,8 @@ def main(argv=None) -> int:
     formulations = timed("atmos_formulations", phase_atmos_formulations)
     if args.edmf_gate:
         timed("edmf_gate", phase_edmf_gate)
+    integrators = timed("time_integrators", phase_time_integrators,
+                        args.seed, args.numerics_examples)
     timed("kernel_orders", phase_kernel_orders, args.seed)
     if moist:
         timed("moist_kernel_orders", phase_moist_kernel_orders, args.seed)
@@ -5761,6 +6240,7 @@ def main(argv=None) -> int:
          ocean=ocean, split_explicit=split_explicit, split01=split01,
          gcm_driver=gcm, diagnostics=diagnostics,
          atmos_formulations=formulations,
+         time_integrators=integrators,
          explicit_ms_per_step=explicit["ms_per_step"],
          imex_ms_per_step=imex["ms_per_step"],
          generic_ms_per_step=generic["ms_per_step"],

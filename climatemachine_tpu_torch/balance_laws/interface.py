@@ -112,6 +112,10 @@ class BalanceLaw:
         the identity."""
         return q
 
+    #: whether :meth:`preprocess_state` is the identity: an explicit
+    #: method that takes no ``pre_stage`` (SSPRK) runs only such a law
+    preprocess_is_identity = True
+
     def update_auxiliary_state_gradient(self, dg, gf, q, aux, t):
         """The aux update that reads the gradient flux, after the
         gradient pass.  Returns (aux, q)."""

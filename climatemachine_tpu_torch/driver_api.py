@@ -37,6 +37,13 @@ cm.DiagnosticsConfiguration(groups, every_steps))`` with groups of
 lat-lon grid, ...), written by an ``io.writers`` writer; ``init(
 debug_init=True)`` writes the initial state's VTK dump.
 
+Time integrators: ``cm.ExplicitSolverType(solver_method=...)`` takes
+LSRK54, LSRK144 or an SSPRK (``cm.SSPRK33ShuOsher``; ode/ssprk.py),
+``cm.IMEXSolverType(solver_method=...)`` any ARK tableau of ode/ark.py,
+``cm.MISSolverType(mis_method=, fast_method=, nsubsteps=)`` an MIS
+method of ode/mis.py; driver/solver_types.py also has HEVISolverType and
+ImplicitSolverType.
+
 Grids and state live on the card unless the configuration is given
 ``device="cpu"`` (or ``init(disable_gpu=True)``).
 """
@@ -95,6 +102,7 @@ from climatemachine_tpu_torch.mesh import topology
 
 from climatemachine_tpu_torch.ode.lsrk import (LSRK54CarpenterKennedy,
                                                LSRK144NiegemannDiehlBusch)
+from climatemachine_tpu_torch.ode.ssprk import SSPRK33ShuOsher
 from climatemachine_tpu_torch.ode.solve import solve
 
 from climatemachine_tpu_torch.driver.callbacks import (
@@ -111,7 +119,7 @@ from climatemachine_tpu_torch.driver.driver import SETTINGS, init, invoke
 from climatemachine_tpu_torch.driver.solver_configs import (
     SolverConfiguration, make_solver_configuration)
 from climatemachine_tpu_torch.driver.solver_types import (
-    ExplicitSolverType, IMEXSolverType, MultirateSolverType,
+    ExplicitSolverType, IMEXSolverType, MISSolverType, MultirateSolverType,
     SplitExplicitSolverType)
 
 from climatemachine_tpu_torch.experiments.gcm_driver import (

@@ -119,6 +119,10 @@ class HydrostaticBoussinesqModel(BalanceLaw):
         return self.problem.init_state(self, coords, aux, t)
 
     # --- the stage's filters -------------------------------------------------
+    @property
+    def preprocess_is_identity(self) -> bool:
+        return not self.apply_vert_filters
+
     def preprocess_state(self, dg, q, aux, t):
         """u through the vertical cut-off, θ through the vertical
         exponential filter, η as it is."""

@@ -240,6 +240,19 @@ def test_var_major_rhs_refuses_formulations(formulation):
     assert not dg.dry_volume and not dg.fast_surface
 
 
+#: the numerics slice's modules, which test_port_imports_no_jax must scan
+NUMERICS_MODULES = ("ode/ark.py", "ode/ssprk.py", "ode/mis.py",
+                    "ode/mrigark.py", "ode/external.py", "mesh/dss.py",
+                    "solvers/iterative.py", "driver/solver_types.py",
+                    "driver_api.py", "experiments/rising_bubble_bryan.py",
+                    "experiments/timestepping_compare.py")
+
+
+def test_scan_reaches_numerics_modules():
+    assert {ROOT / "climatemachine_tpu_torch" / m
+            for m in NUMERICS_MODULES} <= set(PORT_FILES)
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_port_imports_no_jax(path):
